@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of the coded-FFT system, for NVIDIA Hopper (sm_90a).
+
+A second package beside the JAX one (``repro``), with the same layout:
+``core`` (plans and the MDS code), ``kernels`` (hand-written CUDA kernels
+and their plain PyTorch twins), ``serving`` (the batched FFT service) and
+``distributed`` (the straggler model).  It imports ``torch`` and
+``numpy`` only.  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
+
+This slice serves c2c requests through ``FFTService`` on four kernels:
+the whole masked bucket, the fused encode + four-step, the batched
+decode apply and the batched recombine.
+"""
+
+from repro_torch.core import CodedFFT
+from repro_torch.distributed import StragglerModel
+from repro_torch.serving import FFTService, FFTServiceConfig, ServiceStats
+
+__all__ = ["CodedFFT", "FFTService", "FFTServiceConfig", "ServiceStats",
+           "StragglerModel"]

@@ -1,0 +1,90 @@
+"""Carry state across from the JAX package, as plain numpy and dicts.
+
+The coded FFT has no weights: its state is the (N, m) generator G and the
+seeded straggler masks.  These helpers take what the JAX package exposes
+(numpy arrays, dataclass fields) without importing it, so a port service
+can compute with exactly the reference's G and configuration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.straggler import StragglerModel
+from repro_torch.serving.fft_service import FFTServiceConfig
+
+__all__ = ["generator_from_reference", "config_from_reference"]
+
+_DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
+
+# Reference fields the port's config does not carry: the tuning knobs
+# (any value; they change no result) and the fault-runtime / strategy
+# parameters, which are inert at their reference defaults.
+_TUNING = ("autotune", "autotune_reps", "decode_cache_size")
+_INERT_DEFAULTS = {
+    "worker_fn": None,
+    "decode_method": "auto",
+    "deadline_slack": 0.5,
+    "max_retries": 2,
+    "retry_backoff": 2.0,
+    "verify_quorum": 2,
+    "on_failure": "raise",
+    "require_all": False,
+    "strategy_param": None,
+}
+
+
+def generator_from_reference(g: np.ndarray, device) -> tuple[torch.Tensor,
+                                                             torch.Tensor]:
+    """A reference plan's complex ``(N, m)`` generator (as numpy) -> the
+    port's float32 ``(gr, gi)`` planes on ``device``."""
+    g = np.asarray(g)
+    if g.ndim != 2 or not np.iscomplexobj(g):
+        raise ValueError(f"expected a complex (N, m) generator, got "
+                         f"{g.dtype} {g.shape}")
+    return (torch.as_tensor(np.ascontiguousarray(g.real, np.float32),
+                            device=device),
+            torch.as_tensor(np.ascontiguousarray(g.imag, np.float32),
+                            device=device))
+
+
+def _straggler(value) -> StragglerModel:
+    if isinstance(value, StragglerModel):
+        return value
+    if isinstance(value, dict):
+        return StragglerModel(**value)
+    return StragglerModel(t0=value.t0, mu=value.mu, wire_frac=value.wire_frac)
+
+
+def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
+    """Map the reference ``FFTServiceConfig``'s fields (a dict, e.g. from
+    ``dataclasses.asdict`` or ``vars``) onto the port's config.
+
+    The dtype maps by name, the straggler model by its three parameters.
+    Fields the port does not carry must hold the reference default (or
+    be a tuning knob); any other value raises ``NotImplementedError``.
+    Fields the port carries but does not serve yet raise when the service
+    is built.
+    """
+    own = {f.name for f in dataclasses.fields(FFTServiceConfig)}
+    kwargs = {}
+    for name, value in cfg_fields.items():
+        if name in own:
+            if name == "dtype":
+                value = _DTYPES[np.dtype(value).name]
+            elif name == "straggler":
+                value = _straggler(value)
+            kwargs[name] = value
+        elif name in _TUNING:
+            continue
+        elif name in _INERT_DEFAULTS:
+            if value != _INERT_DEFAULTS[name]:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not served by the PyTorch port "
+                    f"yet -- see ROADMAP.md (fault runtime, strategy zoo)")
+        else:
+            raise ValueError(f"unknown reference config field {name!r}")
+    return FFTServiceConfig(**kwargs)

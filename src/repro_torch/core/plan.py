@@ -1,0 +1,160 @@
+"""The MDS plan machinery: batched encode / worker / decode / run.
+
+Canonical shapes (``B* = any leading batch axes``):
+
+* ``encode``         : ``(*B, *input_shape) -> (*B, N, *worker_shard_shape)``
+* ``worker_compute`` : ``(*B, N, *shard)    -> (*B, N, *shard)``
+* ``decode``         : ``(*B, N, *shard)    -> (*B, *output_shape)`` with a
+  per-request straggler ``mask`` ``(*B, N)`` or ``subset`` ``(*B, m)``.
+
+Backend rule (as in the reference): plans default to ``backend="kernel"``,
+which applies only to complex64 plans; ``complex128`` plans and
+``backend="reference"`` resolve to the plain PyTorch path.  The kernel
+backend of a plan (the ``fourstep_fused`` worker and the ``cmatmul``
+encode/decode apply) is the next slice of the port: until then its
+stages raise ``NotImplementedError``.  The batched service does not use
+plan stages on its kernel path -- it runs the bucket kernels directly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import mds
+from repro_torch.kernels import ops
+
+__all__ = ["MDSPlanBase", "batch_shape", "resolve_device"]
+
+_KERNEL_BACKEND_TODO = (
+    "the plan's kernel backend (fourstep_fused worker, cmatmul encode and "
+    "decode apply) is not ported yet -- ROADMAP.md Queue 2, 'plan kernel "
+    "backend'; construct the plan with backend='reference'")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  With no GPU, ``device=None`` raises instead of silently
+    running the plain versions on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def batch_shape(arr: torch.Tensor, core_ndim: int,
+                what: str) -> tuple[int, ...]:
+    """Leading batch dims of ``arr`` given its core (unbatched) rank."""
+    extra = arr.ndim - core_ndim
+    if extra < 0:
+        raise ValueError(
+            f"{what} must have rank >= {core_ndim}, got shape "
+            f"{tuple(arr.shape)}")
+    return tuple(arr.shape[:extra])
+
+
+class MDSPlanBase:
+    """Shared batched encode/decode/run for the MDS-coded plans.
+
+    Subclasses provide ``n_workers``, ``m``, ``dtype``, ``backend``,
+    ``device``, ``generator``, the shape properties, and the batched
+    stage cores ``_message``, ``_reference_worker`` and ``_postdecode``.
+    """
+
+    def _message(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _postdecode(self, c_hat: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _reference_worker(self, a: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def resolved_backend(self) -> str:
+        """``"kernel"`` only when requested AND the dtype is complex64."""
+        if self.backend == "kernel" and ops.kernel_backend_supported(
+                self.dtype):
+            return "kernel"
+        return "reference"
+
+    def _require_reference(self) -> None:
+        if self.resolved_backend == "kernel":
+            raise NotImplementedError(_KERNEL_BACKEND_TODO)
+
+    def _as_tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    # -- public pipeline -----------------------------------------------------
+    def message(self, x: torch.Tensor) -> torch.Tensor:
+        """Input -> uncoded message shards ``(*B, m, *worker_shard_shape)``."""
+        x = self._as_tensor(x).to(self.dtype)
+        batch_shape(x, len(self.input_shape), "plan input")
+        return self._message(x)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Input -> coded worker shards: the O(N log N) zero-padded DFT
+        encode over the shard axis."""
+        self._require_reference()
+        c = self.message(x)
+        shard_axis = -1 - len(self.worker_shard_shape)
+        return torch.fft.fft(c, n=self.n_workers, dim=shard_axis).to(
+            self.dtype)
+
+    def worker_compute(self, a: torch.Tensor) -> torch.Tensor:
+        """Each worker transforms its own coded shard (trailing axes)."""
+        self._require_reference()
+        return self._reference_worker(a)
+
+    def decode(self, b: torch.Tensor, subset: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None, *,
+               method: str = "auto") -> torch.Tensor:
+        """Worker results -> output, per-request straggler handling.
+
+        At most one of ``subset`` (responder indices, ``(*B, m)`` or shared
+        ``(m,)``) or ``mask`` (availability, ``(*B, N)`` or shared
+        ``(N,)``).  Rows outside each request's subset are never read.
+        ``method``: ``"auto"`` and ``"solve"`` both run the backward-stable
+        dense solve; the reference's O(s log N) transform decode
+        (``decode_ifft``/``decode_auto``) is a later slice.
+        """
+        if subset is not None and mask is not None:
+            raise ValueError("pass at most one of subset / mask")
+        if method not in ("auto", "solve"):
+            raise NotImplementedError(
+                f"decode method {method!r}: the transform decode "
+                f"(decode_ifft / decode_auto) is not ported yet -- "
+                f"ROADMAP.md Queue 1, core/mds.py")
+        self._require_reference()
+        m, n = self.m, self.n_workers
+        shard = tuple(self.worker_shard_shape)
+        b = self._as_tensor(b)
+        batch = batch_shape(b, 1 + len(shard), "worker results")
+        flat = b.reshape((-1, n) + shard)
+        nb = flat.shape[0]
+        if subset is not None:
+            subsets = self._as_tensor(subset).long()
+            subsets = subsets.broadcast_to(batch + (m,)).reshape(nb, m)
+        elif mask is not None:
+            masks = self._as_tensor(mask).bool()
+            masks = masks.broadcast_to(batch + (n,)).reshape(nb, n)
+            subsets = mds.first_available(masks, m)
+        else:
+            subsets = torch.arange(m, device=self.device).expand(nb, m)
+        rows = flat[torch.arange(nb, device=self.device)[:, None], subsets]
+        gsub = self.generator[subsets].to(flat.dtype)        # (nb, m, m)
+        c_hat = torch.linalg.solve(gsub, rows.reshape(nb, m, -1))
+        out = self._postdecode(c_hat.reshape((nb, m) + shard))
+        return out.reshape(batch + tuple(out.shape[1:]))
+
+    def run(self, x: torch.Tensor, subset: Optional[torch.Tensor] = None,
+            mask: Optional[torch.Tensor] = None, *,
+            method: str = "auto") -> torch.Tensor:
+        """``decode(worker_compute(encode(x)))`` -- the single-process
+        end-to-end path."""
+        b = self.worker_compute(self.encode(x))
+        return self.decode(b, subset=subset, mask=mask, method=method)

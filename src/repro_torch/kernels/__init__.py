@@ -1,0 +1,38 @@
+"""Hand-written Hopper kernels of the port, with their plain twins.
+
+Kernels of this slice (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
+
+* ``coded_fft_bucket_masked`` -- the whole masked c2c bucket in one
+  launch (``coded_pipeline.py``);
+* ``encode_fourstep_fused``   -- fused MDS encode + four-step worker DFT
+  (``fourstep_fft.py``);
+* ``bcmatmul``                -- per-request decode apply (``cmatmul.py``);
+* ``recombine_twiddle_dft_batched`` -- twiddle + length-m DFT
+  (``recombine.py``).
+
+``ops`` is the dispatch layer; ``ref`` holds the planar helpers and the
+test oracles; ``_build`` compiles the libraries and counts launches.
+"""
+
+from repro_torch.kernels._build import launch_counts, reset_launch_counts
+from repro_torch.kernels.ops import (
+    coded_bucket_fusable,
+    coded_bucket_masked,
+    decode_apply,
+    encode_worker,
+    kernel_backend_supported,
+    recombine_planar,
+    split_factor,
+)
+
+__all__ = [
+    "coded_bucket_fusable",
+    "coded_bucket_masked",
+    "decode_apply",
+    "encode_worker",
+    "kernel_backend_supported",
+    "launch_counts",
+    "recombine_planar",
+    "reset_launch_counts",
+    "split_factor",
+]

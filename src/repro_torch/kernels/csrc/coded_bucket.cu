@@ -1,0 +1,313 @@
+// The whole masked c2c coded-FFT bucket in one launch.
+//
+// Replaces the TPU kernel kernels/coded_pipeline.py::coded_fft_bucket_masked
+// in the JAX package.  Per request q of the bucket, from the raw request
+// x (length s = m*L) and its (N,) responder mask:
+//
+//   1. subset  = the first m responders in index order, short rows filled
+//                with the first non-responders (ops.mask_subsets' stable
+//                argsort); inv = inv(G[subset]) in closed form (Lagrange:
+//                locator product in the reference's shuffled order `perm`,
+//                suffix-form deflation, 1/A'(x_j)), node angles reduced as
+//                integers (subset_j * d mod N) before the float multiply;
+//   2. the m interleaved message shards c_i[j] = x[i + j*m], each an A x B
+//      matrix, through the four-step DFT ((F_A @ M_i) * W) @ F_B;
+//   3. at every payload position l: worker results b_r = G[subset_r] . t,
+//      decode c^ = inv . b, recombine twiddle, length-m DFT;
+//   4. natural-order output X[j*L + l].
+//
+// Everything after the four-step mixes only the shard axis at a fixed l,
+// so it runs in registers, one thread per l.  The recombine twiddle plane
+// arrives pre-permuted to the four-step order (the reference's contract),
+// so it is read at the scrambled index c*B + d of natural l = c + d*A.
+//
+// What bounds it on the H100: bytes.  Counted as FFTs (5*L*log2(L) flops
+// per shard) plus the O(m^2) coding work per payload position, the
+// service's default bucket (64 requests, s = 4096, m = 4, N = 8) needs
+// about 0.5 us of FP32 work against about 1.25 us to read x and write the
+// output once.  This first port does more work than that: its four-step
+// is two dense DFT contractions (8*L*(A + B) flops per shard), one block
+// per request with every working array in shared memory -- the planes
+// F_A, F_B, W, F_m, one message shard, the column-pass result, the m
+// shard spectra (padded pitch B+1 so the l-walk reads conflict-free) and
+// the O(m^2) decode state -- and plain shared-memory DFT loops; the launch
+// is only as wide as the bucket, so it leaves SMs idle at small q.  The
+// working set is laid out by coded_pipeline.bucket_layout on the Python
+// side, which passes the word offsets in at launch: that one reckoning is
+// also the fused gate (ops.coded_bucket_fusable, against 232,448 bytes).
+
+#include <cstring>
+
+#include "common.cuh"
+
+namespace {
+
+// Word offsets of every shared array, then the total, in this order; the
+// caller computes them (coded_pipeline.bucket_layout).
+struct Layout {
+  long long fa, fb, w, msg, t1, z, gs, fm, pw, qm, loc, nodes, sub, total;
+};
+
+struct BucketArgs {
+  const float* xr;
+  const float* xi;
+  const float* masks;
+  const int* perm;
+  const float* gr;
+  const float* gi;
+  const float* far;
+  const float* fai;
+  const float* wr;
+  const float* wi;
+  const float* fbr;
+  const float* fbi;
+  const float* twr;
+  const float* twi;
+  const float* fmr;
+  const float* fmi;
+  float* outr;
+  float* outi;
+  int n, m, a, b;
+  float ntau;  // -2*pi/n rounded to float
+  Layout o;    // shared-memory word offsets
+};
+
+constexpr int kThreads = 256;
+
+template <int MM>
+__global__ void __launch_bounds__(kThreads)
+coded_bucket_masked_kernel(BucketArgs p) {
+  extern __shared__ float smem[];
+  const int m = p.m, n = p.n, A = p.a, B = p.b;
+  const int L = A * B;
+  const long long s = (long long)m * L;
+  const long long q = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Layout& o = p.o;
+  float* fa_r = smem + o.fa;   float* fa_i = fa_r + A * A;
+  float* fb_r = smem + o.fb;   float* fb_i = fb_r + B * B;
+  float* w_r = smem + o.w;     float* w_i = w_r + L;
+  float* msg_r = smem + o.msg; float* msg_i = msg_r + L;
+  float* t1_r = smem + o.t1;   float* t1_i = t1_r + L;
+  const int zp = B + 1;
+  float* z_r = smem + o.z;     float* z_i = z_r + (size_t)m * A * zp;
+  float* gs_r = smem + o.gs;   float* gs_i = gs_r + m * m;
+  float* fm_r = smem + o.fm;   float* fm_i = fm_r + m * m;
+  float* pw_r = smem + o.pw;   float* pw_i = pw_r + m * m;
+  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * m;
+  float* loc_r = smem + o.loc; float* loc_i = loc_r + (m + 1);
+  float* nd_r = smem + o.nodes; float* nd_i = nd_r + m;
+  int* sub = reinterpret_cast<int*>(smem + o.sub);
+
+  // -- shared planes ------------------------------------------------------
+  for (int t = tid; t < A * A; t += nt) { fa_r[t] = p.far[t]; fa_i[t] = p.fai[t]; }
+  for (int t = tid; t < B * B; t += nt) { fb_r[t] = p.fbr[t]; fb_i[t] = p.fbi[t]; }
+  for (int t = tid; t < L; t += nt) { w_r[t] = p.wr[t]; w_i[t] = p.wi[t]; }
+  for (int t = tid; t < m * m; t += nt) { fm_r[t] = p.fmr[t]; fm_i[t] = p.fmi[t]; }
+
+  // -- 1. subset: first m responders, short rows filled by non-responders -
+  if (tid == 0) {
+    const float* mk = p.masks + q * n;
+    int cnt = 0;
+    for (int k = 0; k < n; ++k) {
+      if (mk[k] > 0.5f) {
+        if (cnt < m) sub[cnt] = k;
+        ++cnt;
+      }
+    }
+    for (int k = 0; k < n && cnt < m; ++k) {
+      if (!(mk[k] > 0.5f)) sub[cnt++] = k;
+    }
+  }
+  __syncthreads();
+
+  // node powers P[j][d] = omega_n^(sub_j*d mod n), subset generator rows
+  for (int e = tid; e < m * m; e += nt) {
+    const int j = e / m, d = e % m;
+    const int k = sub[j];
+    float sn, cs;
+    sincosf(p.ntau * (float)((k * d) % n), &sn, &cs);
+    pw_r[e] = cs;
+    pw_i[e] = sn;
+    gs_r[e] = p.gr[k * m + d];
+    gs_i[e] = p.gi[k * m + d];
+  }
+  for (int j = tid; j < m; j += nt) {
+    float sn, cs;
+    sincosf(p.ntau * (float)(sub[j] % n), &sn, &cs);
+    nd_r[j] = cs;
+    nd_i[j] = sn;
+  }
+  __syncthreads();
+
+  // locator A(z) = prod (z - x_j), factors taken in the order `perm`
+  if (tid == 0) {
+    loc_r[0] = 1.f;
+    loc_i[0] = 0.f;
+    for (int u = 1; u <= m; ++u) loc_r[u] = loc_i[u] = 0.f;
+    for (int t = 0; t < m; ++t) {
+      const int i = p.perm[t];
+      const float xr = nd_r[i], xi = nd_i[i];
+      for (int u = m; u >= 0; --u) {  // a[u] <- a[u-1] - x * a[u]
+        const float sr = u > 0 ? loc_r[u - 1] : 0.f;
+        const float si = u > 0 ? loc_i[u - 1] : 0.f;
+        const float ar = loc_r[u], ai = loc_i[u];
+        loc_r[u] = sr - (xr * ar - xi * ai);
+        loc_i[u] = si - (xr * ai + xi * ar);
+      }
+    }
+  }
+  __syncthreads();
+
+  // deflation, suffix form: Q[i][j] = sum_d a[i+d+1] x_j^d
+  for (int e = tid; e < m * m; e += nt) {
+    const int i = e / m, j = e % m;
+    float accr = 0.f, acci = 0.f;
+    for (int d = 0; i + d + 1 <= m; ++d)
+      cmac(accr, acci, loc_r[i + d + 1], loc_i[i + d + 1], pw_r[j * m + d],
+           pw_i[j * m + d]);
+    qm_r[e] = accr;
+    qm_i[e] = acci;
+  }
+  __syncthreads();
+
+  // 1 / A'(x_j), A'(x_j) = sum_i Q[i][j] x_j^i (overwrites the nodes)
+  for (int j = tid; j < m; j += nt) {
+    float apr = 0.f, api = 0.f;
+    for (int i = 0; i < m; ++i)
+      cmac(apr, api, qm_r[i * m + j], qm_i[i * m + j], pw_r[j * m + i],
+           pw_i[j * m + i]);
+    const float den = apr * apr + api * api;
+    nd_r[j] = apr / den;
+    nd_i[j] = -api / den;
+  }
+  __syncthreads();
+  // inv[i][j] = Q[i][j] / A'(x_j), in place
+  for (int e = tid; e < m * m; e += nt) {
+    const int j = e % m;
+    const float qr = qm_r[e], qi = qm_i[e];
+    qm_r[e] = qr * nd_r[j] - qi * nd_i[j];
+    qm_i[e] = qr * nd_i[j] + qi * nd_r[j];
+  }
+  // (the next shard-loop barrier orders these writes before step 3)
+
+  // -- 2. four-step DFT of every message shard ----------------------------
+  for (int i = 0; i < m; ++i) {
+    for (int t = tid; t < L; t += nt) {  // M_i[a][b] = x[i + (a*B + b)*m]
+      msg_r[t] = p.xr[q * s + (long long)t * m + i];
+      msg_i[t] = p.xi[q * s + (long long)t * m + i];
+    }
+    __syncthreads();
+    for (int t = tid; t < L; t += nt) {  // T1 = (F_A @ M_i) * W
+      const int c = t / B, bb = t % B;
+      float accr = 0.f, acci = 0.f;
+      for (int a = 0; a < A; ++a)
+        cmac(accr, acci, fa_r[c * A + a], fa_i[c * A + a], msg_r[a * B + bb],
+             msg_i[a * B + bb]);
+      t1_r[t] = accr * w_r[t] - acci * w_i[t];
+      t1_i[t] = accr * w_i[t] + acci * w_r[t];
+    }
+    __syncthreads();
+    float* zr_i = z_r + (size_t)i * A * zp;
+    float* zi_i = z_i + (size_t)i * A * zp;
+    for (int t = tid; t < L; t += nt) {  // Z_i = T1 @ F_B
+      const int c = t / B, d = t % B;
+      float accr = 0.f, acci = 0.f;
+      for (int bb = 0; bb < B; ++bb)
+        cmac(accr, acci, t1_r[c * B + bb], t1_i[c * B + bb], fb_r[bb * B + d],
+             fb_i[bb * B + d]);
+      zr_i[c * zp + d] = accr;
+      zi_i[c * zp + d] = acci;
+    }
+    __syncthreads();
+  }
+
+  // -- 3./4. encode, decode, recombine at each natural payload index l ----
+  for (int l = tid; l < L; l += nt) {
+    const int c = l % A, d = l / A;
+    const int zo = c * zp + d;  // spectrum slot of X_i[l]
+    const int lp = c * B + d;   // the same slot in the scrambled order
+    float tr[MM], ti[MM], hr[MM], hi[MM];
+#pragma unroll
+    for (int i = 0; i < MM; ++i) {
+      hr[i] = hi[i] = 0.f;
+      if (i < m) {
+        tr[i] = z_r[(size_t)i * A * zp + zo];
+        ti[i] = z_i[(size_t)i * A * zp + zo];
+      }
+    }
+#pragma unroll 1
+    for (int r = 0; r < m; ++r) {
+      float br = 0.f, bi = 0.f;  // worker sub_r's result b = G[sub_r] . t
+#pragma unroll
+      for (int i = 0; i < MM; ++i)
+        if (i < m) cmac(br, bi, gs_r[r * m + i], gs_i[r * m + i], tr[i], ti[i]);
+#pragma unroll
+      for (int j = 0; j < MM; ++j)  // decode: c^ += inv[:, r] * b
+        if (j < m) cmac(hr[j], hi[j], qm_r[j * m + r], qm_i[j * m + r], br, bi);
+    }
+#pragma unroll
+    for (int j = 0; j < MM; ++j) {
+      if (j < m) {
+        const float w_re = p.twr[(long long)j * L + lp];
+        const float w_im = p.twi[(long long)j * L + lp];
+        const float u = hr[j] * w_re - hi[j] * w_im;
+        hi[j] = hr[j] * w_im + hi[j] * w_re;
+        hr[j] = u;
+      }
+    }
+#pragma unroll 1
+    for (int jp = 0; jp < m; ++jp) {
+      float accr = 0.f, acci = 0.f;
+#pragma unroll
+      for (int j = 0; j < MM; ++j)
+        if (j < m) cmac(accr, acci, fm_r[jp * m + j], fm_i[jp * m + j], hr[j], hi[j]);
+      p.outr[q * s + (long long)jp * L + l] = accr;
+      p.outi[q * s + (long long)jp * L + l] = acci;
+    }
+  }
+}
+
+template <int MM>
+int launch(const BucketArgs& p, int q, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      coded_bucket_masked_kernel<MM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  coded_bucket_masked_kernel<MM><<<q, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The device's opt-in shared memory per block (the gate's limit), or -1.
+extern "C" int device_smem_per_block_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return v;
+}
+
+// x: (q, s) planes; masks: (q, n) float; perm: (m,) int32; g: (n, m);
+// fa: (a, a); w: (a, b); fb: (b, b); tw: (m, a*b) pre-scrambled; fm: (m, m);
+// out: (q, s); layout: the 14 words of Layout, in host memory.  m must be
+// in [1, 32]; the wrapper checks.
+extern "C" int coded_bucket_masked_f32(
+    const float* xr, const float* xi, const float* masks, const int* perm,
+    const float* gr, const float* gi, const float* far, const float* fai,
+    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* twr, const float* twi, const float* fmr, const float* fmi,
+    float* outr, float* outi, int q, int n, int m, int a, int b, float ntau,
+    const long long* layout, void* stream) {
+  BucketArgs p{xr, xi, masks, perm, gr, gi, far, fai, wr, wi, fbr, fbi,
+               twr, twi, fmr, fmi, outr, outi, n, m, a, b, ntau, {}};
+  memcpy(&p.o, layout, sizeof(Layout));
+  const size_t smem = (size_t)p.o.total * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m <= 4) return launch<4>(p, q, smem, st);
+  if (m <= 8) return launch<8>(p, q, smem, st);
+  if (m <= 16) return launch<16>(p, q, smem, st);
+  if (m <= 32) return launch<32>(p, q, smem, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,93 @@
+// Shared device helpers for the coded-FFT kernels.
+//
+// Every kernel works on PLANAR complex data: separate float32 real and
+// imaginary planes, the layout the JAX package's Pallas kernels use, so
+// the ports take the same arrays.  Arithmetic is FP32 on CUDA cores with
+// FP32 accumulation (no TF32: the reference tolerances rule it out).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// acc += a * b on planar complex scalars.
+__device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
+                                     float ai, float br, float bi) {
+  accr = fmaf(ar, br, accr);
+  accr = fmaf(-ai, bi, accr);
+  acci = fmaf(ar, bi, acci);
+  acci = fmaf(ai, br, acci);
+}
+
+// C[q] = A[q] @ B[q] for a batch of planar complex matrices:
+// A (M, K) at batch stride `sa` floats (0 = one A shared by the batch),
+// B (K, L) and C (M, L) contiguous per request.  M and K are small (a
+// code or decode matrix), L is the wide payload.  Grid: (ceil(L/blockDim),
+// q); each thread owns one payload column l and walks the output rows in
+// register blocks of RB, re-reading its column of B (L1/L2-resident) once
+// per block.  A[q] sits in shared memory (2*M*K floats, dynamic).
+template <int RB>
+__global__ void bcmatmul_kernel(const float* __restrict__ ar,
+                                const float* __restrict__ ai, long long sa,
+                                const float* __restrict__ br,
+                                const float* __restrict__ bi,
+                                float* __restrict__ cr, float* __restrict__ ci,
+                                int M, int K, long long L) {
+  extern __shared__ float sm_a[];
+  float* sar = sm_a;
+  float* sai = sm_a + M * K;
+  const long long q = blockIdx.y;
+  const float* aqr = ar + q * sa;
+  const float* aqi = ai + q * sa;
+  for (int t = threadIdx.x; t < M * K; t += blockDim.x) {
+    sar[t] = aqr[t];
+    sai[t] = aqi[t];
+  }
+  __syncthreads();
+  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  const float* bqr = br + q * K * L + l;
+  const float* bqi = bi + q * K * L + l;
+  float* cqr = cr + q * M * L + l;
+  float* cqi = ci + q * M * L + l;
+  for (int r0 = 0; r0 < M; r0 += RB) {
+    float accr[RB], acci[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) accr[r] = acci[r] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float xr = bqr[(long long)k * L];
+      const float xi = bqi[(long long)k * L];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (r0 + r < M) {
+          cmac(accr[r], acci[r], sar[(r0 + r) * K + k], sai[(r0 + r) * K + k],
+               xr, xi);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r0 + r < M) {
+        cqr[(long long)(r0 + r) * L] = accr[r];
+        cqi[(long long)(r0 + r) * L] = acci[r];
+      }
+    }
+  }
+}
+
+constexpr int kBcmatmulThreads = 256;
+constexpr int kBcmatmulRows = 8;
+
+// Launch bcmatmul_kernel on `stream`; returns cudaGetLastError().
+static inline int launch_bcmatmul(const float* ar, const float* ai,
+                                  long long sa, const float* br,
+                                  const float* bi, float* cr, float* ci, int q,
+                                  int M, int K, long long L,
+                                  cudaStream_t stream) {
+  const dim3 grid((unsigned)((L + kBcmatmulThreads - 1) / kBcmatmulThreads),
+                  (unsigned)q);
+  const size_t smem = 2 * (size_t)M * K * sizeof(float);
+  bcmatmul_kernel<kBcmatmulRows><<<grid, kBcmatmulThreads, smem, stream>>>(
+      ar, ai, sa, br, bi, cr, ci, M, K, L);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,411 @@
+"""The four kernels of the port's c2c slice against the JAX package.
+
+CPU tests: each kernel wrapper, given CPU tensors, runs its plain PyTorch
+twin; it must agree with the JAX Pallas kernel run through the real
+Pallas machinery (``interpret=True``) and with the JAX direct body, on
+the same numpy inputs -- adversarial responder masks included.  Stated
+tolerances, relative to the largest output magnitude: 1e-5 between two
+f32 implementations of the same sums (only the summation order differs),
+3e-4 against the complex128 ``numpy.fft`` truth for the whole bucket
+(the reference's own masked-bucket bound).
+
+GPU tests (marker ``gpu``, skipped without a CUDA device): each CUDA
+kernel against its plain twin on the card, odd shapes included, and its
+launch counter.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import mds as tmds
+from repro_torch.kernels import _build
+from repro_torch.kernels import coded_pipeline as tcp
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body
+from repro_torch.kernels.fourstep_fft import (
+    encode_fourstep_body,
+    encode_fourstep_fused,
+)
+from repro_torch.kernels.recombine import (
+    recombine_batched_body,
+    recombine_twiddle_dft_batched,
+)
+
+# (s, m, N): a 3-shard code with odd N, a non-power-of-two shard length
+# (L = 192 = 12 x 16) and the service default
+SHAPES = [(96, 3, 7), (768, 4, 6), (2048, 4, 8)]
+PAIR_TOL = 1e-5
+TRUTH_TOL = 3e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs files in parallel
+    workers, beside tests that measure wall-clock deadlines."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import cmatmul, coded_pipeline, fourstep_fft, recombine
+    from repro.kernels import ops as jops
+
+    return jnp, cmatmul, coded_pipeline, fourstep_fft, recombine, jops
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def adversarial_masks(n: int, m: int) -> np.ndarray:
+    """Byte-pattern mask set: everyone, exactly the first m, the same
+    subset with a different tail, head block straggling, alternating and
+    rotated spreads, random draws with >= m alive -- plus two SHORT rows
+    (fewer than m responders), which fill with the first non-responders."""
+    rng = np.random.default_rng(0)
+    masks = [np.ones(n, bool)]
+    first = np.zeros(n, bool)
+    first[:m] = True
+    masks.append(first)
+    tail = first.copy()
+    tail[-1] = True
+    masks.append(tail)
+    masks.append(~first if (~first).sum() >= m else np.ones(n, bool))
+    alt = np.arange(n) % 2 == 0
+    masks.append(alt)
+    masks.append(np.roll(alt, 1))
+    for _ in range(2):
+        r = rng.random(n) < 0.75
+        while r.sum() < m:
+            r[rng.integers(n)] = True
+        masks.append(r)
+    short = np.zeros(n, bool)
+    short[n - 1] = True
+    masks.append(short)                   # one responder, at the end
+    masks.append(np.zeros(n, bool))       # nobody
+    return np.stack(masks)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _rel(got, want):
+    got = [np.asarray(g, np.float64) for g in got]
+    want = [np.asarray(w, np.float64) for w in want]
+    scale = max(np.abs(w).max() for w in want)
+    return max(np.abs(g - w).max() for g, w in zip(got, want)) / scale
+
+
+def _t(*arrays, device=torch.device("cpu")):
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
+def _gen_planes(n, m):
+    g = tmds.rs_generator(n, m, torch.complex64, torch.device("cpu"))
+    return g.real.contiguous().numpy(), g.imag.contiguous().numpy()
+
+
+def _bucket_planes(s, m):
+    a, b = tops.split_factor(s // m)
+    return (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
+            *tops._dft_planes(b), *tops._recombine_planes_scrambled(s, m, a, b))
+
+
+# ------------------------------------------------------------ CPU parity
+def test_subsets_from_masks_matches_stable_argsort_exhaustively(jref):
+    """The port's subset selection (the stable argsort the plain bucket
+    uses) == the reference's argsort and its in-kernel selection from f32
+    masks, over ALL 2^N masks (short rows included)."""
+    jnp, _, jcp, _, _, jops = jref
+    for n, m in [(8, 4), (7, 3), (6, 4)]:
+        masks = np.array([[(k >> i) & 1 for i in range(n)]
+                          for k in range(2 ** n)], bool)
+        got = tops.mask_subsets(torch.as_tensor(masks), m)
+        assert got.dtype == torch.int32 and got.shape == (2 ** n, m)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jops.mask_subsets(jnp.asarray(masks), m)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jcp.subsets_from_masks_body(jnp.asarray(masks, np.float32), m)))
+        assert torch.equal(tcp.mask_subsets(
+            torch.as_tensor(masks.astype(np.float32)), m), got)
+
+
+@pytest.mark.parametrize("s,m,n", SHAPES)
+def test_bcmatmul_plain_matches_reference(jref, s, m, n):
+    jnp, jcm, _, _, _, _ = jref
+    rng = np.random.default_rng(s)
+    q, ell = 3, s // m
+    ar, ai = _rand(rng, q, m, n), _rand(rng, q, m, n)
+    br, bi = _rand(rng, q, n, ell), _rand(rng, q, n, ell)
+    got = bcmatmul(*_t(ar, ai, br, bi))
+    args = [jnp.asarray(x) for x in (ar, ai, br, bi)]
+    assert _rel(got, jcm.bcmatmul(*args, block_q=q, block_l=ell,
+                                  interpret=True)) < PAIR_TOL
+    assert _rel(got, jcm.bcmatmul_body(*args)) < PAIR_TOL
+
+
+@pytest.mark.parametrize("s,m,n", SHAPES)
+def test_recombine_plain_matches_reference(jref, s, m, n):
+    jnp, _, _, _, jrc, _ = jref
+    rng = np.random.default_rng(s + 1)
+    q, ell = 3, s // m
+    cr, ci = _rand(rng, q, m, ell), _rand(rng, q, m, ell)
+    planes = tops._recombine_planes(s, m)
+    got = recombine_twiddle_dft_batched(*_t(cr, ci, *planes))
+    args = [jnp.asarray(x) for x in (cr, ci, *planes)]
+    assert _rel(got, jrc.recombine_twiddle_dft_batched(
+        *args, block_q=q, block_l=ell, interpret=True)) < PAIR_TOL
+    assert _rel(got, jrc.recombine_batched_body(*args)) < PAIR_TOL
+
+
+@pytest.mark.parametrize("s,m,n", SHAPES)
+def test_encode_fourstep_plain_matches_reference(jref, s, m, n):
+    jnp, _, _, jfs, _, _ = jref
+    rng = np.random.default_rng(s + 2)
+    q = 2
+    a, b = tops.split_factor(s // m)
+    cr, ci = _rand(rng, q, m, a, b), _rand(rng, q, m, a, b)
+    gr, gi = _gen_planes(n, m)
+    planes = (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
+              *tops._dft_planes(b))
+    got = encode_fourstep_fused(*_t(cr, ci, gr, gi, *planes))
+    assert got[0].shape == (q, n, a, b)
+    args = [jnp.asarray(x) for x in (cr, ci, gr, gi, *planes)]
+    assert _rel(got, jfs.encode_fourstep_fused(
+        *args, block_q=q, interpret=True)) < PAIR_TOL
+    assert _rel(got, jfs.encode_fourstep_body(*args)) < PAIR_TOL
+
+
+@pytest.mark.parametrize("s,m,n", SHAPES)
+def test_coded_bucket_masked_plain_matches_reference(jref, s, m, n):
+    """Whole masked bucket over the adversarial masks: the plain twin ==
+    the JAX kernel (interpret) == the JAX direct body, and all == fft."""
+    jnp, _, jcp, _, _, _ = jref
+    import jax
+
+    masks = adversarial_masks(n, m)
+    rng = np.random.default_rng(s + m)
+    xr, xi = _rand(rng, len(masks), s), _rand(rng, len(masks), s)
+    gr, gi = _gen_planes(n, m)
+    planes = _bucket_planes(s, m)
+    got = tcp.coded_fft_bucket_masked(*_t(xr, xi, masks, gr, gi, *planes))
+    want = np.fft.fft(xr.astype(np.float64) + 1j * xi, axis=-1)
+    assert _rel(got, (want.real, want.imag)) < TRUTH_TOL
+    args = [jnp.asarray(x) for x in (xr, xi, masks, gr, gi, *planes)]
+    kernel = functools.partial(jcp.coded_fft_bucket_masked,
+                               block_q=len(masks), interpret=True)
+    assert _rel(got, jax.jit(kernel)(*args)) < PAIR_TOL
+    assert _rel(got, jax.jit(jcp.bucket_body_masked)(*args)) < PAIR_TOL
+
+
+@pytest.mark.parametrize("s,m,n", SHAPES)
+def test_stage_route_matches_fft(s, m, n):
+    """The stage route (mask subsets, Lagrange planes, encode + four-step,
+    decode apply, recombine) == numpy.fft on the adversarial masks."""
+    masks = torch.as_tensor(adversarial_masks(n, m))
+    q = masks.shape[0]
+    rng = np.random.default_rng(s + 3)
+    xr, xi = _t(_rand(rng, q, s), _rand(rng, q, s))
+    gr, gi = _t(*_gen_planes(n, m))
+    subsets = tops.mask_subsets(masks, m)
+    dr, di = tops.lagrange_scatter_planes(subsets, n)
+    ell = s // m
+    cr = xr.reshape(q, ell, m).transpose(1, 2)
+    ci = xi.reshape(q, ell, m).transpose(1, 2)
+    br, bi = tops.encode_worker(cr, ci, gr, gi)
+    hr, hi = tops.decode_apply(dr, di, br, bi)
+    yr, yi = tops.recombine_planar(hr, hi, s)
+    want = np.fft.fft(xr.double().numpy() + 1j * xi.double().numpy(), axis=-1)
+    assert _rel((yr, yi), (want.real, want.imag)) < TRUTH_TOL
+
+
+def test_fused_gate_is_the_kernel_reckoning():
+    """The gate is the kernel's shared-memory working set against the
+    card's opt-in limit: the default config fuses, a 2^20 point transform
+    does not, and m past the kernel's unroll bound never does."""
+    assert tops.coded_bucket_fusable(4096, 4, 8)
+    assert tops.coded_bucket_fusable(8192, 4, 8)
+    assert not tops.coded_bucket_fusable(16384, 4, 8)
+    assert not tops.coded_bucket_fusable(1 << 20, 4, 8)
+    assert not tops.coded_bucket_fusable(64 * 33, 33, 66)
+    # (m=4, A=B=32): every array of the block, counted by hand
+    words = (2 * 32 * 32 * 2 + 3 * 2 * 1024 + 2 * 4 * 32 * 33
+             + 8 * 16 + 2 * 5 + 2 * 4 + 4)
+    assert tcp.bucket_smem_bytes(4, 32, 32) == 4 * words
+    # the offsets the kernel receives: 13 arrays in order, then the total
+    layout = tcp.bucket_layout(4, 32, 32)
+    assert len(layout) == 14 and layout[0] == 0 and layout[-1] == words
+    assert layout[5] == 2 * 32 * 32 * 2 + 3 * 2 * 1024      # shard spectra
+    assert tops.SMEM_PER_BLOCK_OPTIN == 227 * 1024
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A wrapper takes the plain twin only for CPU tensors; anything that
+    is neither CPU nor CUDA is refused, never copied to the host."""
+    meta = torch.empty((2, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        bcmatmul(meta, meta, torch.empty((2, 8, 16), device="meta"),
+                 torch.empty((2, 8, 16), device="meta"))
+
+
+def test_oracles_agree_with_plain_twins():
+    """``kernels/ref.py``'s natural-complex oracles (torch.fft included)
+    against the plain twins the wrappers run on the CPU."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(4)
+    q, m, n, a, b = 2, 4, 8, 12, 16
+    ell, s = a * b, m * a * b
+    cr, ci = _t(_rand(rng, q, m, ell), _rand(rng, q, m, ell))
+    gr, gi = _t(*_gen_planes(n, m))
+    br_, bi_ = tops.encode_worker(cr, ci, gr, gi)
+    want = ref.encode_worker_ref(cr, ci, torch.complex(gr, gi))
+    assert _rel((br_, bi_), want) < PAIR_TOL
+    dr, di = _t(_rand(rng, q, m, n), _rand(rng, q, m, n))
+    assert _rel(tops.decode_apply(dr, di, br_, bi_),
+                ref.bcmatmul_ref(dr, di, br_, bi_)) < PAIR_TOL
+    planes = _t(*tops._recombine_planes(s, m))
+    assert _rel(recombine_twiddle_dft_batched(cr, ci, *planes),
+                ref.recombine_batched_ref(cr, ci, *planes)) < PAIR_TOL
+    assert _rel(ref.recombine_ref(cr[0], ci[0], *planes),
+                [p[0] for p in ref.recombine_batched_ref(cr, ci, *planes)]) \
+        < PAIR_TOL
+    assert _rel(ref.cmatmul_ref(gr, gi, cr[0], ci[0]),
+                (gr @ cr[0] - gi @ ci[0], gr @ ci[0] + gi @ cr[0])) < PAIR_TOL
+    z = ref.unplanar(cr[0, 0], ci[0, 0])
+    assert z.dtype == torch.complex64
+    np.testing.assert_array_equal(ref.planar(z)[0].numpy(), cr[0, 0].numpy())
+    assert _rel(ref.planar(ref.fft_ref_complex(z)),
+                ref.fourstep_fft_ref(cr[0, :1], ci[0, :1], a, b)) < PAIR_TOL
+
+
+@pytest.mark.parametrize("a,b", [(12, 16), (1, 31), (16, 32)])
+def test_fourstep_body_matches_reference(jref, a, b):
+    """The plain four-step (scrambled order) == the reference body, and
+    unscrambled == the FFT."""
+    jnp, _, _, jfs, _, _ = jref
+    rng = np.random.default_rng(a + b)
+    xr, xi = _rand(rng, 3, a, b), _rand(rng, 3, a, b)
+    planes = (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
+              *tops._dft_planes(b))
+    from repro_torch.kernels.fourstep_fft import fourstep_body
+
+    got = fourstep_body(*_t(xr, xi, *planes))
+    want = jfs.fourstep_body(*[jnp.asarray(x) for x in (xr, xi, *planes)])
+    assert _rel(got, want) < PAIR_TOL
+    nat = [g.transpose(-1, -2).reshape(3, a * b) for g in got]
+    truth = np.fft.fft((xr + 1j * xi.astype(np.float64)).reshape(3, -1),
+                       axis=-1)
+    assert _rel(nat, (truth.real, truth.imag)) < PAIR_TOL
+
+
+
+# ------------------------------------------------------- GPU: kernel vs plain
+def _cuda_planes(device, *arrays):
+    return _t(*arrays, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,m,k,ell", [(3, 4, 8, 1000), (2, 9, 11, 37),
+                                       (1, 32, 64, 300)])
+def test_gpu_bcmatmul_matches_plain(cuda, q, m, k, ell):
+    rng = np.random.default_rng(q * m)
+    args = _cuda_planes(cuda, _rand(rng, q, m, k), _rand(rng, q, m, k),
+                        _rand(rng, q, k, ell), _rand(rng, q, k, ell))
+    before = _build.launch_counts().get("bcmatmul", 0)
+    got = bcmatmul(*args)
+    assert _build.launch_counts()["bcmatmul"] == before + 1
+    want = bcmatmul_body(*args)
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < PAIR_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m", [(96, 3), (2048, 4), (16 * 100, 16),
+                                 (32 * 33, 32)])
+def test_gpu_recombine_matches_plain(cuda, s, m):
+    rng = np.random.default_rng(s)
+    q, ell = 3, s // m
+    args = _cuda_planes(cuda, _rand(rng, q, m, ell), _rand(rng, q, m, ell),
+                        *tops._recombine_planes(s, m))
+    got = recombine_twiddle_dft_batched(*args)
+    want = recombine_batched_body(*args)
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < PAIR_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,m,n,a,b", [(2, 3, 7, 4, 8), (3, 4, 6, 12, 16),
+                                       (2, 4, 8, 1, 31), (2, 4, 8, 100, 70),
+                                       (2, 2, 5, 64, 128)])
+def test_gpu_encode_fourstep_matches_plain(cuda, q, m, n, a, b):
+    rng = np.random.default_rng(a * b)
+    planes = (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
+              *tops._dft_planes(b))
+    args = _cuda_planes(cuda, _rand(rng, q, m, a, b), _rand(rng, q, m, a, b),
+                        *_gen_planes(n, m), *planes)
+    before = _build.launch_counts().get("encode_fourstep_fused", 0)
+    got = encode_fourstep_fused(*args)
+    assert _build.launch_counts()["encode_fourstep_fused"] == before + 3
+    want = encode_fourstep_body(*args)
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,n", SHAPES + [(4 * 127, 4, 8), (4096, 4, 8),
+                                            (16 * 64, 16, 32),
+                                            (32 * 16, 32, 64)])
+def test_gpu_coded_bucket_matches_plain(cuda, s, m, n):
+    if m <= 4:
+        masks = adversarial_masks(n, m)
+    else:
+        # wide codes: evenly spread responders (n = 2m), the conditioning
+        # regime LAGRANGE_MAX_M is set for -- a contiguous arc of m >= 16
+        # nodes (e.g. the first m of an all-responder row) amplifies f32
+        # rounding past any fixed tolerance, in both implementations
+        alt = np.arange(n) % 2 == 0
+        masks = np.stack([alt, np.roll(alt, 1), np.roll(alt, 3)])
+    rng = np.random.default_rng(s)
+    xr, xi = _rand(rng, len(masks), s), _rand(rng, len(masks), s)
+    args = _cuda_planes(cuda, xr, xi, masks, *_gen_planes(n, m),
+                        *_bucket_planes(s, m))
+    assert tops.coded_bucket_fusable(s, m, n)
+    before = _build.launch_counts().get("coded_fft_bucket_masked", 0)
+    got = tcp.coded_fft_bucket_masked(*args)
+    assert _build.launch_counts()["coded_fft_bucket_masked"] == before + 1
+    want = tcp.bucket_body_masked(*args[:2], args[2].float(), *args[3:])
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
+    if m <= 4 or n == 2 * m:
+        truth = np.fft.fft(xr.astype(np.float64) + 1j * xi, axis=-1)
+        assert _rel([g.cpu() for g in got], (truth.real, truth.imag)) \
+            < TRUTH_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,n", [(8192, 4, 8), (32 * 512, 32, 64)])
+def test_gpu_bucket_at_the_smem_gate(cuda, s, m, n):
+    """The gate's limit is the card's opt-in shared memory, and the widest
+    fusable buckets -- working sets near that limit -- launch and match
+    their plain twin."""
+    assert tcp.device_smem_optin(cuda.index or 0) == tcp.SMEM_PER_BLOCK_OPTIN
+    a, b = tops.split_factor(s // m)
+    assert tops.coded_bucket_fusable(s, m, n)
+    assert tcp.bucket_smem_bytes(m, a, b) > tcp.SMEM_PER_BLOCK_OPTIN // 2
+    alt = np.arange(n) % 2 == 0
+    masks = np.stack([alt, np.roll(alt, 1)])
+    rng = np.random.default_rng(s)
+    args = _cuda_planes(cuda, _rand(rng, 2, s), _rand(rng, 2, s), masks,
+                        *_gen_planes(n, m), *_bucket_planes(s, m))
+    got = tcp.coded_fft_bucket_masked(*args)
+    want = tcp.bucket_body_masked(*args[:2], args[2].float(), *args[3:])
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4

@@ -1,0 +1,277 @@
+"""The port's c2c service and plan against the JAX package's, same seed.
+
+* ``FFTService(device="cpu")`` vs the JAX ``FFTService``: identical
+  straggler draws (equal ``coded_latency``), outputs within 3e-4 of each
+  other and of ``numpy.fft`` (the reference's masked-bucket bound), at one
+  length under the port's whole-bucket gate and one over it, so both
+  routes run.
+* ``CodedFFT.run`` on the reference backend vs ``repro.core.CodedFFT``
+  with NaN-poisoned straggler rows (1e-4 at complex64, 1e-9 at
+  complex128, relative to the largest output).
+* ``import repro_torch`` loads neither JAX nor the JAX package; entry
+  points refuse to run without a GPU unless asked for the CPU; every
+  configuration this slice does not serve raises NotImplementedError.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import CodedFFT, FFTService, FFTServiceConfig
+from repro_torch.convert import config_from_reference, generator_from_reference
+from repro_torch.kernels import ops as tops
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs files in parallel
+    workers, beside tests that measure wall-clock deadlines."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import CodedFFT as JCodedFFT
+    from repro.serving import FFTService as JService
+    from repro.serving import FFTServiceConfig as JConfig
+
+    return jnp, JCodedFFT, JService, JConfig
+
+
+def _requests(lengths, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) + 1j * rng.standard_normal(s))
+            .astype(np.complex64) for s in lengths]
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _port_twin(jsvc):
+    """A port service with the reference's config and generator."""
+    jcfg = jsvc.cfg
+    cfg = config_from_reference(
+        {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    svc = FFTService(cfg, device="cpu")
+    svc.load_generator(*generator_from_reference(
+        np.asarray(jsvc.plan.generator), CPU))
+    return svc
+
+
+def test_service_matches_reference_on_both_routes(jref):
+    _, _, JService, JConfig = jref
+    small, large = 2048, 16384
+    assert tops.coded_bucket_fusable(small, 4, 8)
+    assert not tops.coded_bucket_fusable(large, 4, 8)
+    jsvc = JService(JConfig(s=small, m=4, n_workers=8, seed=7))
+    tsvc = _port_twin(jsvc)
+    lengths = [small, large, small, small, large, small]
+    for call in range(2):      # the second call continues the same draws
+        xs = _requests(lengths, seed=call)
+        want = [np.fft.fft(x.astype(np.complex128)) for x in xs]
+        jout = jsvc.submit_batch(xs)
+        tout = tsvc.submit_batch(xs)
+        for j, t, w in zip(jout, tout, want):
+            assert t.shape == w.shape and t.dtype == np.complex64
+            assert _rel(t, w) < 3e-4
+            assert _rel(np.asarray(j), w) < 3e-4
+            assert _rel(t, np.asarray(j)) < 3e-4
+        assert tsvc.stats.coded_latency == jsvc.stats.coded_latency
+        assert tsvc.stats.uncoded_latency == jsvc.stats.uncoded_latency
+        assert (tsvc.stats.stragglers_tolerated
+                == jsvc.stats.stragglers_tolerated)
+    assert tsvc.stats.requests == jsvc.stats.requests == 2 * len(lengths)
+    assert tsvc.stats.batches == jsvc.stats.batches == 4
+    assert tsvc.stats.host_transfers == 2
+
+
+def test_service_masks_match_reference_draws(jref):
+    _, _, JService, JConfig = jref
+    jsvc = JService(JConfig(s=256, m=4, n_workers=8, seed=3))
+    tsvc = _port_twin(jsvc)
+    for n in (1, 5, 64):
+        jl, jm = jsvc._simulate_arrivals(n)
+        tl, tm = tsvc._simulate_arrivals(n)
+        np.testing.assert_array_equal(tl, jl)
+        np.testing.assert_array_equal(tm, jm)
+
+
+def test_reference_escape_hatch(jref):
+    _, _, JService, JConfig = jref
+    jsvc = JService(JConfig(s=512, m=4, n_workers=8, seed=1,
+                            use_reference=True))
+    tsvc = _port_twin(jsvc)
+    assert tsvc.plan.resolved_backend == "reference"
+    xs = _requests([512] * 3, seed=5)
+    for t, j, x in zip(tsvc.submit_batch(xs), jsvc.submit_batch(xs), xs):
+        want = np.fft.fft(x.astype(np.complex128))
+        assert _rel(t, want) < 1e-4 and _rel(t, np.asarray(j)) < 1e-4
+    assert tsvc.stats.coded_latency == jsvc.stats.coded_latency
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-4),
+                                       (torch.complex128, 1e-9)])
+def test_coded_fft_run_nan_poisoned_stragglers(jref, dtype, tol):
+    jnp, JCodedFFT, _, _ = jref
+    s, m, n, q = 240, 4, 7, 3
+    jdt = jnp.complex64 if dtype == torch.complex64 else jnp.complex128
+    tplan = CodedFFT(s=s, m=m, n_workers=n, dtype=dtype, backend="reference",
+                     device="cpu")
+    jplan = JCodedFFT(s=s, m=m, n_workers=n, dtype=jdt, backend="reference")
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((q, s)) + 1j * rng.standard_normal((q, s))
+    masks = np.zeros((q, n), bool)
+    for row in masks:
+        row[rng.choice(n, size=m + int(rng.integers(0, n - m + 1)),
+                       replace=False)] = True
+    b = tplan.worker_compute(tplan.encode(torch.as_tensor(x)))
+    jb = np.asarray(jplan.worker_compute(jplan.encode(jnp.asarray(x))))
+    assert _rel(b.numpy(), jb) < tol
+    # stragglers outside each request's first-m responders hold NaN
+    poisoned = b.clone()
+    for i, row in enumerate(masks):
+        keep = np.flatnonzero(row)[:m]
+        drop = np.setdiff1d(np.arange(n), keep)
+        poisoned[i, torch.as_tensor(drop)] = float("nan")
+    got = tplan.decode(poisoned, mask=torch.as_tensor(masks)).numpy()
+    jgot = np.asarray(jplan.decode(jnp.asarray(poisoned.numpy()),
+                                   mask=jnp.asarray(masks)))
+    want = np.fft.fft(x, axis=-1)
+    assert np.isfinite(got).all()
+    assert _rel(got, want) < tol and _rel(got, jgot) < tol
+    # shared subset and the one-call run agree too
+    subset = torch.as_tensor(np.flatnonzero(masks[0])[:m])
+    assert _rel(tplan.run(torch.as_tensor(x), subset=subset).numpy(),
+                want) < tol
+    assert _rel(tplan.decode(b[0], mask=torch.as_tensor(masks[0])).numpy(),
+                want[0]) < tol
+
+
+def test_kernel_backend_plan_raises_until_ported():
+    plan = CodedFFT(s=64, m=4, n_workers=8, device="cpu")
+    assert plan.resolved_backend == "kernel"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        plan.run(torch.zeros(64, dtype=torch.complex64))
+    assert CodedFFT(s=64, m=4, n_workers=8, dtype=torch.complex128,
+                    device="cpu").resolved_backend == "reference"
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.serving, repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "'jax.') or m == 'repro' or m.startswith('repro.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_refuse_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FFTService(FFTServiceConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CodedFFT(s=64, m=4, n_workers=8)
+    assert FFTService(FFTServiceConfig(), device="cpu").device == CPU
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"device_decode": False},
+    {"m": 33, "n_workers": 66, "s": 33 * 64},
+    {"precision": "bf16"},
+    {"strategy": "partial"},
+    {"verify": "detect"},
+    {"health": True},
+    {"measured": True},
+    {"faults": object()},
+])
+def test_unserved_configs_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FFTService(FFTServiceConfig(**kwargs), device="cpu")
+
+
+def test_unserved_kinds_and_runtimes_raise():
+    svc = FFTService(FFTServiceConfig(s=64), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        svc.submit_batch([np.zeros(64, np.float32)], kind="r2c")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FFTService(FFTServiceConfig(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FFTService(FFTServiceConfig(), device="cpu", pool=object())
+
+
+def test_config_from_reference(jref):
+    _, _, _, JConfig = jref
+    jcfg = JConfig(s=512, m=2, n_workers=5, seed=9, max_batch=16,
+                   autotune=False)
+    cfg = config_from_reference(dataclasses.asdict(jcfg))
+    assert (cfg.s, cfg.m, cfg.n_workers, cfg.seed, cfg.max_batch) == \
+        (512, 2, 5, 9, 16)
+    assert cfg.dtype == torch.complex64
+    assert cfg.straggler.wire_frac == jcfg.straggler.wire_frac
+    with pytest.raises(NotImplementedError):
+        config_from_reference(dataclasses.asdict(JConfig(max_retries=5)))
+
+
+def test_warmup_and_submit_one():
+    svc = FFTService(FFTServiceConfig(s=128, m=4, n_workers=8, max_batch=4),
+                     device="cpu")
+    assert svc.warmup() == 3                 # buckets 1, 2, 4
+    x = _requests([128], seed=2)[0]
+    assert _rel(svc.submit(x), np.fft.fft(x.astype(np.complex128))) < 3e-4
+
+
+def test_batching_helpers_match_reference(jref):
+    from repro.serving import batching as jb
+    from repro_torch.serving import batching as tb
+
+    for n, cap in [(1, 64), (3, 64), (64, 64), (65, 64), (17, 16)]:
+        assert tb.bucket_size(n, cap) == jb.bucket_size(n, cap)
+    assert tb.pad_requests([1, 2], 4, lambda: 0) == \
+        jb.pad_requests([1, 2], 4, lambda: 0)
+    with pytest.raises(ValueError):
+        tb.pad_requests([1, 2, 3], 2, lambda: 0)
+    rng = np.random.default_rng(0)
+    th, jh = tb.LatencyHistogram(), jb.LatencyHistogram()
+    for v in np.concatenate([rng.exponential(1e-3, 500), [0.0, 5e3]]):
+        th.record(v)
+        jh.record(v)
+    assert th.summary() == jh.summary()
+    for q in (1.0, 50.0, 99.0, 100.0):
+        assert th.percentile(q) == jh.percentile(q)
+
+
+def test_straggler_model_matches_reference(jref):
+    from repro.distributed import straggler as js
+    from repro_torch.distributed import straggler as ts
+
+    tm = ts.StragglerModel(t0=0.5, mu=2.0, wire_frac=0.4)
+    jm = js.StragglerModel(t0=0.5, mu=2.0, wire_frac=0.4)
+    for scale in (1.0, 0.5):
+        draw_t = tm.sample((4, 8), 0.25, np.random.default_rng(3),
+                           payload_scale=scale)
+        draw_j = jm.sample((4, 8), 0.25, np.random.default_rng(3),
+                           payload_scale=scale)
+        np.testing.assert_array_equal(draw_t, draw_j)
+        assert tm.expected_kth(8, 4, 0.25, scale) == \
+            jm.expected_kth(8, 4, 0.25, scale)
+    assert ts.harmonic(7) == js.harmonic(7)
+    assert ts.empirical_completion(draw_t[0], 3) == \
+        js.empirical_completion(draw_j[0], 3)
+    assert ts.expected_kth_completion(1.0, 1.0, 4, 5, 1.0) == float("inf")
