@@ -5,11 +5,15 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, in parallel), holds each kernel against its
-plain PyTorch version on the card at the shapes the service uses, then
-drives the service's c2c main path twice -- the default config (whole-
-bucket kernel) and a 2^20-point transform (stage kernels) -- checking the
-spectra against ``torch.fft.fft`` in complex128 and that each path
-launched its kernels.  Prints one JSON object per phase, the kernels
+plain PyTorch version on the card at the shapes its main path gives it,
+then drives the two main paths at two sizes each: the service's c2c
+``submit_batch`` (the whole-bucket kernel at s=4096, the stage kernels at
+s=2^20) and ``CodedFFT.run`` on its default kernel backend (the cmatmul
+encode and decode, and the fused four-step worker at s=4096 or the
+two-pass one at s=2^20).  Each run's spectra are checked against
+``torch.fft.fft`` in complex128, and its launch counters show which
+kernels it ran; one more call of each is traced with ``torch.profiler``
+for the device's busy time and idle share.  Prints one JSON object per phase, the kernels
 table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when there is no CUDA device or any check fails.
@@ -101,6 +105,31 @@ def time_ms(torch, fn, reps: int, spin_rate: float) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def profile_call(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its host wall time,
+    the summed device time of the kernels it ran (one stream, so the sum
+    is the busy time), the idle share, and the kernels that took most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        ((e.self_device_time_total / 1e3, e.key, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "top": [{"kernel": name[:60], "device_ms": ms, "count": n}
+                    for ms, name, n in kernels[:6]]}
+
+
 def compare(torch, got, want) -> tuple[float, float]:
     """(max abs err, max abs err / max |want|) over planar pairs."""
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -116,12 +145,23 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch import FFTService, FFTServiceConfig
+    from repro_torch import CodedFFT, FFTService, FFTServiceConfig
     from repro_torch.kernels import _build, coded_pipeline, ops
-    from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body
+    from repro_torch.kernels.cmatmul import (
+        bcmatmul,
+        bcmatmul_body,
+        cmatmul,
+        cmatmul_body,
+    )
     from repro_torch.kernels.fourstep_fft import (
         encode_fourstep_body,
         encode_fourstep_fused,
+        fourstep_body,
+        fourstep_fused,
+        fourstep_stage1,
+        fourstep_stage2,
+        stage1_body,
+        stage2_body,
     )
     from repro_torch.kernels.recombine import (
         recombine_batched_body,
@@ -172,27 +212,32 @@ def main() -> int:
 
     table = []
 
-    def kernel_row(name, source, replaces, run, plain, library, tol, nbytes,
-                   flops, reps, shape, yardsticks=(), **info):
-        """Check ``run`` against ``plain``, time both, the library call
-        and each named yardstick, and add the kernel's row.  ``info``
-        adds plain values to the row."""
+    def measure(name, run, plain, library, tol, nbytes, flops, reps):
+        """Check ``run`` against ``plain`` on the card and time both and
+        the library call (None where no one PyTorch call computes the
+        same function)."""
         got = run()
         want = plain()
         torch.cuda.synchronize()
         abs_err, rel_err = compare(torch, got, want)
         if not rel_err < tol:
             fail(f"{name}: kernel vs plain rel err {rel_err} >= {tol}")
-        ms = time_ms(torch, run, reps, spin_rate)
-        plain_ms = time_ms(torch, plain, reps, spin_rate)
-        library_ms = (time_ms(torch, library, reps, spin_rate) if library
-                      else None)
         bound_ms, bound_by = bound(nbytes, flops)
+        return {"max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
+                "ms": time_ms(torch, run, reps, spin_rate),
+                "plain_ms": time_ms(torch, plain, reps, spin_rate),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": (time_ms(torch, library, reps, spin_rate)
+                               if library else None)}
+
+    def kernel_row(name, source, replaces, run, plain, library, tol, nbytes,
+                   flops, reps, shape, yardsticks=(), **info):
+        """Measure one kernel and add its row.  ``info`` adds plain values
+        to the row, ``yardsticks`` timed calls."""
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": 0, "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "tol": tol, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms,
+               "replaces": replaces, "launches": 0,
+               **measure(name, run, plain, library, tol, nbytes, flops,
+                         reps),
                "shape": shape, **info,
                **{k: time_ms(torch, f, reps, spin_rate)
                   for k, f in yardsticks}}
@@ -278,7 +323,100 @@ def main() -> int:
         F32 * 2 * (2 * q * m * ell + m * ell + m * m),
         q * ell * (6 * m + fft_flops(m)), 20, [q, m, ell])
     del hr, hi
+
+    # (e)-(h) the plan's kernels at the shapes CodedFFT.run gives them.
+    # fourstep_fused: the s=4096 plan's worker, 64 requests x 8 workers
+    rows, a, b = 64 * 8, *ops.split_factor(4096 // 4)
+    ell = a * b
+    assert ops.fourstep_fusable(a, b)
+    xr, xi = randn(rows, a, b), randn(rows, a, b)
+    fplanes = ops._fourstep_planes(a, b, dev)
+    xc = torch.complex(xr, xi).reshape(rows, ell)
+    kernel_row(
+        "fourstep_fused", csrc + "fourstep.cu",
+        "src/repro/kernels/fourstep_fft.py:117",
+        lambda: fourstep_fused(xr, xi, *fplanes),
+        lambda: fourstep_body(xr, xi, *fplanes),
+        lambda: torch.fft.fft(xc, dim=-1), 1e-4,
+        F32 * (4 * rows * ell + 2 * (a * a + a * b + b * b)),
+        rows * fft_flops(ell), 50, [rows, a, b])
+    del xr, xi, xc
+
+    # the two-pass pair: the s=2^20 plan's worker, 16 requests x 8 workers
+    rows, a, b = 16 * 8, *ops.split_factor((1 << 20) // 4)
+    ell = a * b
+    assert not ops.fourstep_fusable(a, b)
+    xr, xi = randn(rows, a, b), randn(rows, a, b)
+    far, fai, wr, wi, fbr, fbi = ops._fourstep_planes(a, b, dev)
+    t1r, t1i = fourstep_stage1(xr, xi, far, fai, wr, wi)
+    xc = torch.complex(xr, xi).reshape(rows, ell)
+    # the pair as one function: in, out, all three planes, the FFT's work
+    pair = measure(
+        "fourstep_stage1+2",
+        lambda: fourstep_stage2(*fourstep_stage1(xr, xi, far, fai, wr, wi),
+                                fbr, fbi),
+        lambda: stage2_body(*stage1_body(xr, xi, far, fai, wr, wi),
+                            fbr, fbi),
+        lambda: torch.fft.fft(xc, dim=-1), 1e-4,
+        F32 * (4 * rows * ell + 2 * (a * a + a * b + b * b)),
+        rows * fft_flops(ell), 3)
+    emit({"phase": "kernel_pair", "names": ["fourstep_stage1",
+                                            "fourstep_stage2"],
+          "shape": [rows, a, b], **pair})
+    pair_info = {f"pair_{k}": v for k, v in pair.items()
+                 if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_rel_err")}
+    # stage 1: B column DFTs of A points and the twiddle, per row
+    kernel_row(
+        "fourstep_stage1", csrc + "fourstep.cu",
+        "src/repro/kernels/fourstep_fft.py:243",
+        lambda: fourstep_stage1(xr, xi, far, fai, wr, wi),
+        lambda: stage1_body(xr, xi, far, fai, wr, wi), None, 1e-4,
+        F32 * (4 * rows * ell + 2 * (a * a + a * b)),
+        rows * (b * fft_flops(a) + 6 * ell), 3, [rows, a, b], **pair_info)
+    del xc
+    # stage 2: A row DFTs of B points per row -- exactly torch.fft.fft
+    # over the last axis of the (rows, A, B) column-pass result
+    t1c = torch.complex(t1r, t1i)
+    kernel_row(
+        "fourstep_stage2", csrc + "fourstep.cu",
+        "src/repro/kernels/fourstep_fft.py:281",
+        lambda: fourstep_stage2(t1r, t1i, fbr, fbi),
+        lambda: stage2_body(t1r, t1i, fbr, fbi),
+        lambda: torch.fft.fft(t1c, dim=-1), 1e-4,
+        F32 * (4 * rows * ell + 2 * b * b),
+        rows * a * fft_flops(b), 3, [rows, a, b], **pair_info)
+    del xr, xi, t1r, t1i, t1c
+
+    # cmatmul: the s=2^20 plan's encode, G (8, 4) against the 16 requests'
+    # message shards folded into 16 * 2^18 payload columns
+    n, m, cols = 8, 4, 16 * ell
+    br, bi = randn(m, cols), randn(m, cols)
+    gc, bc = torch.complex(gr, gi), torch.complex(br, bi)
+    kernel_row(
+        "cmatmul", csrc + "cmatmul.cu", "src/repro/kernels/cmatmul.py:37",
+        lambda: cmatmul(gr, gi, br, bi),
+        lambda: cmatmul_body(gr, gi, br, bi),
+        lambda: torch.matmul(gc, bc), 1e-5,
+        F32 * 2 * (n * m + m * cols + n * cols), 8 * n * m * cols, 20,
+        [n, m, cols])
+    del br, bi, bc
     torch.cuda.empty_cache()
+
+    # every main-path run adds its counts here; each kernel's row gets the
+    # total of the runs that launched it
+    launches: dict[str, int] = {}
+
+    def counted(run):
+        """Run ``run()`` with the counts set to 0 just before it, and
+        return its result and the counts read just after."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = run()
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
 
     # -- 4./5. the service main path --------------------------------------
     def drive(s, n_req, expect, rel_tol):
@@ -286,12 +424,9 @@ def main() -> int:
         svc.warmup(buckets=[n_req])
         xs = [(rng.standard_normal(s) + 1j * rng.standard_normal(s))
               .astype(np.complex64) for _ in range(n_req)]
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
         t0 = time.perf_counter()
-        out = svc.submit_batch(xs)
+        out, counts = counted(lambda: svc.submit_batch(xs))
         dt = time.perf_counter() - t0
-        counts = _build.launch_counts()
         for name in expect:
             if counts.get(name, 0) < 1:
                 fail(f"s={s}: kernel {name} was not launched ({counts})")
@@ -316,30 +451,89 @@ def main() -> int:
         steady = (time.perf_counter() - t1) / 3
         dispatch = (svc.stats.dispatch_s - d0) / 3
         sync = (svc.stats.sync_s - s0) / 3
+        trace = profile_call(torch, lambda: svc.submit_batch(xs))
         emit({"phase": "service", "s": s, "m": 4, "n_workers": 8,
               "requests": n_req, "route": ("whole_bucket"
                                            if s <= 4096 else "stage"),
               "launches": counts, "rel_err": rel, "rel_tol": rel_tol,
               "first_call_s": dt, "steady_call_s": steady,
               "steady_dispatch_s": dispatch, "steady_sync_s": sync,
-              "req_per_s": n_req / steady, "stats": svc.stats.summary()})
-        return counts
+              "req_per_s": n_req / steady, "profiled_call": trace,
+              "stats": svc.stats.summary()})
 
     # default config: the whole-bucket kernel; bound from the reference's
     # masked-bucket tolerance (tests/test_lagrange_decode.py:153)
-    counts = drive(4096, 64, ["coded_fft_bucket_masked"], 3e-4)
-    table[0]["launches"] = counts["coded_fft_bucket_masked"]
+    drive(4096, 64, ["coded_fft_bucket_masked"], 3e-4)
     # a 2^20-point transform: 128 MiB in and 256 MiB of coded spectra per
     # bucket, past the whole-bucket gate, so the stage kernels run (bound
     # from tests/test_kernel_pipeline.py:113).  The JAX package would
     # stream this bucket through one launch; the port's streaming kernel is
     # a later slice.
     torch.cuda.empty_cache()
-    counts = drive(1 << 20, 16, ["encode_fourstep_fused", "bcmatmul",
-                                 "recombine_twiddle_dft_batched"], 1e-3)
-    for row in table[1:]:
-        row["launches"] = counts[row["name"]]
+    drive(1 << 20, 16, ["encode_fourstep_fused", "bcmatmul",
+                        "recombine_twiddle_dft_batched"], 1e-3)
+    torch.cuda.empty_cache()
 
+    # -- 6./7. CodedFFT.run on its default kernel backend -----------------
+    def drive_plan(s, n_req, worker, rel_tol):
+        """A batched call with per-request masks (encode on cmatmul, the
+        four-step worker, the per-request solve), then one unbatched
+        request (its decode on cmatmul too).  ``worker`` maps each
+        four-step kernel to its launches per call."""
+        plan = CodedFFT(s=s, m=4, n_workers=8)
+        if plan.device.type != "cuda" or plan.resolved_backend != "kernel":
+            fail(f"plan s={s}: runs on {plan.device}, backend "
+                 f"{plan.resolved_backend}")
+        x = torch.complex(randn(n_req, s), randn(n_req, s))
+        masks = service_masks(n_req, 8, 4)
+        want = torch.fft.fft(x.to(torch.complex128), dim=-1)
+        plan.run(x, mask=masks)                      # warm-up: plane tables
+        out = {}
+        for label, xin, mk, ref, n_cmatmul in [
+                ("batched", x, masks, want, 1),
+                ("unbatched", x[0], masks[0], want[0], 2)]:
+            t0 = time.perf_counter()
+            got, counts = counted(lambda: plan.run(xin, mask=mk))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            expect = {"cmatmul": n_cmatmul, **worker}
+            if counts != expect:
+                fail(f"plan s={s} {label}: launches {counts}, expected "
+                     f"{expect}")
+            rel = float((got.to(torch.complex128) - ref).abs().max()
+                        / ref.abs().max())
+            if not (got.shape == ref.shape and math.isfinite(rel)
+                    and rel < rel_tol):
+                fail(f"plan s={s} {label}: rel err {rel} >= {rel_tol}")
+            out[label] = {"launches": counts, "rel_err": rel,
+                          "first_call_s": dt}
+        # steady-state rate of the batched call: three more, wall clock
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            plan.run(x, mask=masks)
+        torch.cuda.synchronize()
+        steady = (time.perf_counter() - t1) / 3
+        trace = profile_call(torch, lambda: plan.run(x, mask=masks))
+        emit({"phase": "plan", "s": s, "m": 4, "n_workers": 8,
+              "requests": n_req, "rel_tol": rel_tol, **out,
+              "steady_call_s": steady, "req_per_s": n_req / steady,
+              "profiled_call": trace})
+
+    # default plan (the README quickstart's), 64 requests: fused worker;
+    # bound from tests/test_kernels.py:146
+    drive_plan(4096, 64, {"fourstep_fused": 1}, 5e-4)
+    torch.cuda.empty_cache()
+    # a 2^20-point plan, 16 requests: 128 MiB in, 256 MiB of coded shards,
+    # each shard past the fused gate, so the two-pass worker runs
+    drive_plan(1 << 20, 16, {"fourstep_stage1": 1, "fourstep_stage2": 1},
+               1e-3)
+
+    for row in table:
+        row["launches"] = launches.get(row["name"], 0)
+        if row["launches"] < 1:
+            fail(f"kernel {row['name']} was launched by no main path "
+                 f"({launches})")
     emit({"kernels": table})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)

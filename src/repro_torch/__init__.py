@@ -7,9 +7,11 @@ and their plain PyTorch twins), ``serving`` (the batched FFT service) and
 ``numpy`` only.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 
-This slice serves c2c requests through ``FFTService`` on four kernels:
-the whole masked bucket, the fused encode + four-step, the batched
-decode apply and the batched recombine.
+``FFTService`` serves c2c requests on four kernels: the whole masked
+bucket, the fused encode + four-step, the batched decode apply and the
+batched recombine.  ``CodedFFT`` runs its default kernel backend on
+three more: the ``cmatmul`` encode and decode apply, and the four-step
+worker, fused or two-pass.
 """
 
 from repro_torch.core import CodedFFT

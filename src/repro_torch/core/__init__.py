@@ -1,7 +1,7 @@
 """Coded FFT core library (Yu, Maddah-Ali, Avestimehr 2017) in PyTorch.
 
-This slice of the port: the 1-D complex plan (``CodedFFT``) with its
-reference backend, the (N, m) Reed-Solomon code with the closed-form
+Ported so far: the 1-D complex plan (``CodedFFT``) on its kernel and
+reference backends, the (N, m) Reed-Solomon code with the closed-form
 Lagrange decode, interleave and recombine.
 """
 
@@ -19,6 +19,7 @@ from repro_torch.core.mds import (
     lagrange_inverse,
     rs_generator,
     rs_nodes,
+    subset_decode_matrix,
 )
 from repro_torch.core.plan import MDSPlanBase, resolve_device
 from repro_torch.core.recombine import dft_matrix, recombine, twiddle
@@ -42,5 +43,6 @@ __all__ = [
     "resolve_device",
     "rs_generator",
     "rs_nodes",
+    "subset_decode_matrix",
     "twiddle",
 ]

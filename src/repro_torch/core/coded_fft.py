@@ -8,21 +8,24 @@ Pipeline (paper §III-B):
   4. ``decode``         : any m of the b_k -> all C_i = DFT(c_i)
   5. ``recombine``      : twiddle + length-m DFTs -> X
 
-The recovery threshold is exactly ``m``.  ``CodedFFTND`` and
-``plan_factors`` are a later slice of the port.
+The recovery threshold is exactly ``m``.  On the default kernel backend
+(complex64) the encode and the unbatched decode run the ``cmatmul``
+kernel and the worker the four-step kernels (``kernels/ops.py``).
+``CodedFFTND`` and ``plan_factors`` are a later slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import mds
 from repro_torch.core.plan import MDSPlanBase, resolve_device
 from repro_torch.core.recombine import recombine
+from repro_torch.kernels import ops
 
 __all__ = ["CodedFFT"]
 
@@ -41,6 +44,10 @@ class CodedFFT(MDSPlanBase):
       m: storage fraction parameter -- each worker stores/processes s/m.
       n_workers: N >= m workers.
       dtype: complex dtype of the computation.
+      worker_fn: explicit per-worker DFT plug-in; must transform the LAST
+        axis and map over any leading axes.  ``None`` (default)
+        dispatches on ``backend``: the four-step kernels for complex64
+        plans, ``torch.fft.fft`` otherwise.
       backend: ``"kernel"`` (default; complex64 only) or ``"reference"``.
       device: where the plan computes; ``None`` means CUDA, and raises when
         there is none (pass ``"cpu"`` to run the plain versions).
@@ -50,6 +57,7 @@ class CodedFFT(MDSPlanBase):
     m: int
     n_workers: int
     dtype: torch.dtype = torch.complex64
+    worker_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     backend: str = "kernel"
     device: Optional[torch.device] = None
 
@@ -98,5 +106,21 @@ class CodedFFT(MDSPlanBase):
     def _postdecode(self, c_hat: torch.Tensor) -> torch.Tensor:
         return recombine(c_hat, self.s)
 
-    def _reference_worker(self, a: torch.Tensor) -> torch.Tensor:
-        return _default_fft(a)
+    # back-compat alias: `encode` IS the fast path
+    def encode_fast(self, x: torch.Tensor) -> torch.Tensor:
+        """O(N log N)-per-column encode (alias of :meth:`encode`)."""
+        return self.encode(x)
+
+    # -- stage 3: worker computation -----------------------------------------
+    @property
+    def resolved_worker_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The active worker: explicit plug-in > kernel backend > torch."""
+        if self.worker_fn is not None:
+            return self.worker_fn
+        if self.resolved_backend == "kernel":
+            return ops.make_kernel_worker_fn()
+        return _default_fft
+
+    def worker_compute(self, a: torch.Tensor) -> torch.Tensor:
+        """Each worker FFTs its own coded shard; any leading axes allowed."""
+        return self.resolved_worker_fn(self._as_tensor(a))

@@ -29,6 +29,7 @@ __all__ = [
     "rs_generator",
     "encode",
     "encode_dft",
+    "subset_decode_matrix",
     "decode_from_subset",
     "first_available",
     "decode_masked",
@@ -89,6 +90,12 @@ def encode_dft(c: torch.Tensor, n: int) -> torch.Tensor:
     if n < m:
         raise ValueError(f"need n >= m, got n={n} m={m}")
     return torch.fft.fft(c, n=n, dim=0)
+
+
+def subset_decode_matrix(generator: torch.Tensor,
+                         subset: torch.Tensor) -> torch.Tensor:
+    """Inverse of the ``m x m`` generator submatrix picked by ``subset``."""
+    return torch.linalg.inv(generator[subset.long()])
 
 
 def decode_from_subset(generator: torch.Tensor, b: torch.Tensor,

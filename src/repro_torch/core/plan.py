@@ -10,14 +10,18 @@ Canonical shapes (``B* = any leading batch axes``):
 Backend rule (as in the reference): plans default to ``backend="kernel"``,
 which applies only to complex64 plans; ``complex128`` plans and
 ``backend="reference"`` resolve to the plain PyTorch path.  The kernel
-backend of a plan (the ``fourstep_fused`` worker and the ``cmatmul``
-encode/decode apply) is the next slice of the port: until then its
-stages raise ``NotImplementedError``.  The batched service does not use
+backend runs the encode as ONE ``mds_apply`` (``cmatmul``) with the batch
+folded into the payload columns, the worker on the four-step kernels
+(the plan's ``worker_compute``), and the decode of an unbatched request
+(or a batch of one) as ``inv(G[subset])`` through ``mds_apply``.  A
+batch of more than one decodes per request through the dense solve, as
+the reference's vmapped decode does.  The batched service does not use
 plan stages on its kernel path -- it runs the bucket kernels directly.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -26,12 +30,6 @@ from repro_torch.core import mds
 from repro_torch.kernels import ops
 
 __all__ = ["MDSPlanBase", "batch_shape", "resolve_device"]
-
-_KERNEL_BACKEND_TODO = (
-    "the plan's kernel backend (fourstep_fused worker, cmatmul encode and "
-    "decode apply) is not ported yet -- ROADMAP.md Queue 2, 'plan kernel "
-    "backend'; construct the plan with backend='reference'")
-
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
@@ -61,8 +59,9 @@ class MDSPlanBase:
     """Shared batched encode/decode/run for the MDS-coded plans.
 
     Subclasses provide ``n_workers``, ``m``, ``dtype``, ``backend``,
-    ``device``, ``generator``, the shape properties, and the batched
-    stage cores ``_message``, ``_reference_worker`` and ``_postdecode``.
+    ``device``, ``generator``, the shape properties, the batched stage
+    cores ``_message`` and ``_postdecode``, and a trailing-axes
+    ``worker_compute``.
     """
 
     def _message(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +70,8 @@ class MDSPlanBase:
     def _postdecode(self, c_hat: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def _reference_worker(self, a: torch.Tensor) -> torch.Tensor:
+    def worker_compute(self, a: torch.Tensor) -> torch.Tensor:
+        """Each worker transforms its own coded shard (trailing axes)."""
         raise NotImplementedError
 
     @property
@@ -81,10 +81,6 @@ class MDSPlanBase:
                 self.dtype):
             return "kernel"
         return "reference"
-
-    def _require_reference(self) -> None:
-        if self.resolved_backend == "kernel":
-            raise NotImplementedError(_KERNEL_BACKEND_TODO)
 
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -97,18 +93,35 @@ class MDSPlanBase:
         return self._message(x)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Input -> coded worker shards: the O(N log N) zero-padded DFT
-        encode over the shard axis."""
-        self._require_reference()
-        c = self.message(x)
-        shard_axis = -1 - len(self.worker_shard_shape)
-        return torch.fft.fft(c, n=self.n_workers, dim=shard_axis).to(
-            self.dtype)
+        """Input -> coded worker shards.
 
-    def worker_compute(self, a: torch.Tensor) -> torch.Tensor:
-        """Each worker transforms its own coded shard (trailing axes)."""
-        self._require_reference()
-        return self._reference_worker(a)
+        Reference backend: the O(N log N) zero-padded DFT encode over the
+        shard axis.  Kernel backend: ONE ``mds_apply`` (``G @ c``) with
+        the whole batch folded into the payload columns.
+        """
+        c = self.message(x)
+        shard = tuple(self.worker_shard_shape)
+        if self.resolved_backend == "kernel":
+            batch = tuple(c.shape[:c.ndim - 1 - len(shard)])
+            payload = math.prod(shard)
+            flat = c.reshape(-1, self.m, payload)
+            # (nb, m, P) -> (m, nb*P): a copy, so the kernel reads
+            # contiguous planes
+            folded = flat.transpose(0, 1).reshape(self.m, -1)
+            coded = ops.mds_apply(self.generator, folded)
+            out = coded.reshape(self.n_workers, flat.shape[0],
+                                payload).transpose(0, 1)
+            return out.reshape(batch + (self.n_workers,) + shard)
+        return torch.fft.fft(c, n=self.n_workers,
+                             dim=-1 - len(shard)).to(self.dtype)
+
+    def encode_dense(self, x: torch.Tensor) -> torch.Tensor:
+        """Reference O(N*m) matrix encode ``G @ c`` (kept for tests)."""
+        c = self.message(x)
+        shard = tuple(self.worker_shard_shape)
+        lead = tuple(c.shape[:c.ndim - 1 - len(shard)])
+        coded = self.generator.to(c.dtype) @ c.reshape(lead + (self.m, -1))
+        return coded.reshape(lead + (self.n_workers,) + shard)
 
     def decode(self, b: torch.Tensor, subset: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None, *,
@@ -118,9 +131,14 @@ class MDSPlanBase:
         At most one of ``subset`` (responder indices, ``(*B, m)`` or shared
         ``(m,)``) or ``mask`` (availability, ``(*B, N)`` or shared
         ``(N,)``).  Rows outside each request's subset are never read.
-        ``method``: ``"auto"`` and ``"solve"`` both run the backward-stable
-        dense solve; the reference's O(s log N) transform decode
-        (``decode_ifft``/``decode_auto``) is a later slice.
+
+        The reference's dispatch: on the kernel backend with
+        ``method="auto"``, an unbatched request or a batch of one decodes
+        through ``inv(G[subset])`` and ``mds_apply``; any other call,
+        every batch of more than one included, runs the per-request
+        backward-stable dense solve.  ``"solve"`` forces the solve; the
+        reference's O(s log N) transform decode (``decode_ifft``, and
+        ``decode_auto``'s choice of it) is a later slice.
         """
         if subset is not None and mask is not None:
             raise ValueError("pass at most one of subset / mask")
@@ -129,13 +147,23 @@ class MDSPlanBase:
                 f"decode method {method!r}: the transform decode "
                 f"(decode_ifft / decode_auto) is not ported yet -- "
                 f"ROADMAP.md Queue 1, core/mds.py")
-        self._require_reference()
         m, n = self.m, self.n_workers
         shard = tuple(self.worker_shard_shape)
         b = self._as_tensor(b)
         batch = batch_shape(b, 1 + len(shard), "worker results")
         flat = b.reshape((-1, n) + shard)
         nb = flat.shape[0]
+        if (self.resolved_backend == "kernel" and method == "auto"
+                and (not batch or nb == 1)):
+            if subset is not None:
+                subset1 = self._as_tensor(subset).long().reshape(m)
+            elif mask is not None:
+                subset1 = mds.first_available(
+                    self._as_tensor(mask).bool().reshape(-1)[-n:], m)
+            else:
+                subset1 = torch.arange(m, device=self.device)
+            out = self._decode_kernel(flat[0], subset1)
+            return out.reshape(batch + tuple(out.shape))
         if subset is not None:
             subsets = self._as_tensor(subset).long()
             subsets = subsets.broadcast_to(batch + (m,)).reshape(nb, m)
@@ -150,6 +178,18 @@ class MDSPlanBase:
         c_hat = torch.linalg.solve(gsub, rows.reshape(nb, m, -1))
         out = self._postdecode(c_hat.reshape((nb, m) + shard))
         return out.reshape(batch + tuple(out.shape[1:]))
+
+    def _decode_kernel(self, b: torch.Tensor,
+                       subset: torch.Tensor) -> torch.Tensor:
+        """One request's decode on the kernel backend: invert the subset
+        generator once (payload-independent) and stream the responder
+        rows through ``mds_apply``.  Rows outside the subset are never
+        read, so straggler garbage stays out."""
+        rows = b[subset]
+        dmat = mds.subset_decode_matrix(self.generator, subset).to(
+            self.dtype)
+        c_hat = ops.mds_apply(dmat, rows)
+        return self._postdecode(c_hat)
 
     def run(self, x: torch.Tensor, subset: Optional[torch.Tensor] = None,
             mask: Optional[torch.Tensor] = None, *,

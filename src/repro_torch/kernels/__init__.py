@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, with their plain twins.
 
-Kernels of this slice (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
+Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 
 * ``coded_fft_bucket_masked`` -- the whole masked c2c bucket in one
   launch (``coded_pipeline.py``);
@@ -8,7 +8,10 @@ Kernels of this slice (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
   (``fourstep_fft.py``);
 * ``bcmatmul``                -- per-request decode apply (``cmatmul.py``);
 * ``recombine_twiddle_dft_batched`` -- twiddle + length-m DFT
-  (``recombine.py``).
+  (``recombine.py``);
+* ``fourstep_fused``, ``fourstep_stage1`` / ``fourstep_stage2`` -- the
+  plan's four-step worker, fused or two-pass (``fourstep_fft.py``);
+* ``cmatmul``                 -- the plan's ``mds_apply`` (``cmatmul.py``).
 
 ``ops`` is the dispatch layer; ``ref`` holds the planar helpers and the
 test oracles; ``_build`` compiles the libraries and counts launches.
@@ -20,7 +23,12 @@ from repro_torch.kernels.ops import (
     coded_bucket_masked,
     decode_apply,
     encode_worker,
+    fft_fourstep,
+    fourstep_fusable,
+    fourstep_planar,
     kernel_backend_supported,
+    make_kernel_worker_fn,
+    mds_apply,
     recombine_planar,
     split_factor,
 )
@@ -30,8 +38,13 @@ __all__ = [
     "coded_bucket_masked",
     "decode_apply",
     "encode_worker",
+    "fft_fourstep",
+    "fourstep_fusable",
+    "fourstep_planar",
     "kernel_backend_supported",
     "launch_counts",
+    "make_kernel_worker_fn",
+    "mds_apply",
     "recombine_planar",
     "reset_launch_counts",
     "split_factor",

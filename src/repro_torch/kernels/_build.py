@@ -29,17 +29,27 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "build", "build_dir", "check", "check_planes",
+__all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "build", "build_dir", "check", "check_planes",
            "count_launch", "launch_counts", "load", "log_path", "ptr",
            "reset_launch_counts", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-HEADERS = ("common.cuh",)
-SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine")
+HEADERS = ("common.cuh", "cgemm.cuh")
+SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
+           "fourstep", "cmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# Shared memory one block may use on the H100 (227 KB of the SM's 256 KB,
+# after cudaFuncAttributeMaxDynamicSharedMemorySize): the limit of every
+# fused kernel's working set, hence of the fused gates.  A constant, so
+# CPU runs take the card's route decisions; the chip smoke run checks it
+# against the device attribute.
+SMEM_PER_BLOCK_OPTIN = 232_448
+# CUDA's limit on grid y and z: a batch laid on either is chunked
+MAX_GRID_YZ = 65_535
 
 
 def _nvcc() -> str:

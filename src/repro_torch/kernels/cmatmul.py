@@ -1,12 +1,14 @@
-"""Planar complex matmul: the plain bodies and the ``bcmatmul`` kernel.
+"""Planar complex matmul: the ``cmatmul`` and ``bcmatmul`` kernels.
 
-``bcmatmul`` is the per-request decode apply of the service's stage
-route: every request in a bucket carries its OWN (m, N) scatter decode
-matrix, so the contraction is a batched ``(q, m, N) @ (q, N, L)``.  The
-CUDA kernel is ``csrc/bcmatmul.cu``; its plain twin is
-:func:`bcmatmul_body`.  ``cmatmul`` (the plan-level ``mds_apply``) is a
-later slice; :func:`cmatmul_body` is here because the other plain bodies
-use it.
+``cmatmul`` is the plan's ``mds_apply``: a small ``(M, K)`` code matrix
+against a wide ``(K, L)`` payload -- the encode ``G @ c`` with the batch
+folded into the payload columns, and the unbatched decode
+``inv(G[subset]) @ b``.  ``bcmatmul`` is the per-request decode apply of
+the service's stage route: every request in a bucket carries its OWN
+(m, N) scatter decode matrix, so the contraction is a batched
+``(q, m, N) @ (q, N, L)``.  CUDA sources ``csrc/cmatmul.cu`` and
+``csrc/bcmatmul.cu`` (one device kernel, in ``csrc/common.cuh``); plain
+twins :func:`cmatmul_body` and :func:`bcmatmul_body`.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["cmatmul_body", "bcmatmul_body", "bcmatmul"]
+__all__ = ["cmatmul_body", "cmatmul", "bcmatmul_body", "bcmatmul"]
 
 # the left matrix lives in shared memory: cap it at the static 48 KB
 _MAX_LEFT_BYTES = 48 * 1024
@@ -33,6 +35,46 @@ def bcmatmul_body(ar, ai, br, bi):
     """Batched planar complex matmul ``(q, M, K) @ (q, K, L)``."""
     return (torch.matmul(ar, br) - torch.matmul(ai, bi),
             torch.matmul(ar, bi) + torch.matmul(ai, br))
+
+
+def _check_left(what, m, k):
+    if 2 * m * k * 4 > _MAX_LEFT_BYTES:
+        raise ValueError(f"{what}: left matrix ({m}, {k}) exceeds the "
+                         f"kernel's shared-memory tile")
+
+
+@functools.lru_cache(maxsize=None)
+def _cmatmul_lib():
+    fn = _build.load("cmatmul").cmatmul_f32
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 6 + [i32, i32, ctypes.c_longlong, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cmatmul(ar, ai, br, bi):
+    """Planar complex matmul ``(M, K) @ (K, L) -> (M, L)``.
+
+    CPU tensors run :func:`cmatmul_body`; CUDA tensors launch the kernel
+    (one launch) or raise.
+    """
+    m, k = ar.shape
+    if br.ndim != 2 or br.shape[0] != k or ai.shape != ar.shape \
+            or bi.shape != br.shape:
+        raise ValueError(f"cmatmul: shapes {tuple(ar.shape)} @ "
+                         f"{tuple(br.shape)} do not contract")
+    if ar.device.type == "cpu":
+        return cmatmul_body(ar, ai, br, bi)
+    dev = _build.check_planes("cmatmul", ar=ar, ai=ai, br=br, bi=bi)
+    _check_left("cmatmul", m, k)
+    ell = br.shape[1]
+    cr = torch.empty((m, ell), dtype=torch.float32, device=dev)
+    ci = torch.empty_like(cr)
+    p = _build.ptr
+    _build.check(_cmatmul_lib()(p(ar), p(ai), p(br), p(bi), p(cr), p(ci),
+                                m, k, ell, _build.stream_of(dev)), "cmatmul")
+    _build.count_launch("cmatmul")
+    return cr, ci
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,9 +100,7 @@ def bcmatmul(ar, ai, br, bi):
     if ar.device.type == "cpu":
         return bcmatmul_body(ar, ai, br, bi)
     dev = _build.check_planes("bcmatmul", ar=ar, ai=ai, br=br, bi=bi)
-    if 2 * m * k * 4 > _MAX_LEFT_BYTES:
-        raise ValueError(f"bcmatmul: left matrix ({m}, {k}) exceeds the "
-                         f"kernel's shared-memory tile")
+    _check_left("bcmatmul", m, k)
     ell = br.shape[2]
     cr = torch.empty((q, m, ell), dtype=torch.float32, device=dev)
     ci = torch.empty_like(cr)

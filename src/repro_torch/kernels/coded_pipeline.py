@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMEM_PER_BLOCK_OPTIN
 from repro_torch.kernels.cmatmul import bcmatmul_body, cmatmul_body
 from repro_torch.kernels.fourstep_fft import encode_fourstep_body
 
@@ -47,12 +48,6 @@ __all__ = [
 # the kernel unrolls the shard axis to a compile-time bound
 MAX_M = 32
 
-# Shared memory one block may use on the H100 (227 KB of the SM's 256 KB,
-# after cudaFuncAttributeMaxDynamicSharedMemorySize): the limit of the
-# bucket kernel's working set, hence the whole-bucket gate.  A constant,
-# so CPU runs take the card's route decisions; the chip smoke run checks
-# it against the device attribute.
-SMEM_PER_BLOCK_OPTIN = 232_448
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,141 @@
+// Batched four-step DFT of a length-L shard, L = A * B, on planar float32.
+//
+// Replaces three TPU kernels of the JAX package's kernels/fourstep_fft.py:
+// fourstep_fused (one launch, the whole A x B matrix of a row on chip),
+// and the two-pass pair fourstep_stage1 (column DFT + twiddle) and
+// fourstep_stage2 (row DFT).  For every batch row, with M[a, b] = x[a*B + b]:
+//
+//   T1 = (F_A @ M) * W        column pass: A-point DFTs + twiddle
+//   out = T1 @ F_B            row pass:    B-point DFTs
+//
+// and out[c, d] holds X[c + d*A], the reference's scrambled order (the
+// dispatch layer unscrambles with one transpose).
+//
+// What bounds it on the H100: bytes.  Counted as an FFT (5*L*log2(L)
+// flops per row), the work is far below the traffic of reading the input
+// and writing the output once: for the 2^20-point plan (128 rows of
+// L = 2^18) that is about 0.05 ms of FP32 work against 0.16 ms of
+// traffic, and for the 4096-point plan (512 rows of L = 1024) about
+// 0.0004 ms against 0.0025 ms.  This first port does more work than that:
+// both passes are dense DFTs, 8*L*(A + B) flops per row (about 10x an
+// FFT's at L = 1024, about 90x at L = 2^18).
+//
+// Design.  fourstep_fused runs one block per batch row: it stages the
+// row's A x B matrix in shared memory, writes the column pass into a
+// second shared buffer, and streams the row pass straight to the output.
+// F_A, W and F_B are read from global memory, where they are small and
+// stay in L2.  The shared working set (two A x B complex planes, 16*A*B
+// bytes) is laid out by fourstep_fft.fourstep_layout on the Python side,
+// which passes the word offsets in at launch; the same reckoning is the
+// fused gate (ops.fourstep_fusable, against 232,448 bytes), so shards up
+// to L = 8192 fuse and longer ones take the two-pass route.  The two
+// passes there are the register-tiled complex GEMM of cgemm.cuh, one
+// launch each, with T1 in device memory: the twiddle rides in the column
+// pass's epilogue.  A radix FFT over the tile is the way to the bound.
+
+#include <cstring>
+
+#include "cgemm.cuh"
+
+namespace {
+
+// Word offsets of the fused kernel's shared arrays, then the total, in
+// this order; the caller computes them (fourstep_fft.fourstep_layout).
+struct FusedLayout {
+  long long x, t1, total;
+};
+
+constexpr int kFusedThreads = 256;
+
+__global__ void __launch_bounds__(kFusedThreads)
+fourstep_fused_kernel(const float* __restrict__ xr,
+                      const float* __restrict__ xi,
+                      const float* __restrict__ far,
+                      const float* __restrict__ fai,
+                      const float* __restrict__ wr,
+                      const float* __restrict__ wi,
+                      const float* __restrict__ fbr,
+                      const float* __restrict__ fbi, float* __restrict__ outr,
+                      float* __restrict__ outi, int A, int B, FusedLayout o) {
+  extern __shared__ float smem[];
+  const int L = A * B;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* x_r = smem + o.x;
+  float* x_i = x_r + L;
+  float* t_r = smem + o.t1;
+  float* t_i = t_r + L;
+  const long long base = (long long)blockIdx.x * L;
+
+  for (int t = tid; t < L; t += nt) {
+    x_r[t] = xr[base + t];
+    x_i[t] = xi[base + t];
+  }
+  __syncthreads();
+  for (int t = tid; t < L; t += nt) {  // T1 = (F_A @ M) * W
+    const int c = t / B, bb = t % B;
+    float accr = 0.f, acci = 0.f;
+    for (int a = 0; a < A; ++a)
+      cmac(accr, acci, far[c * A + a], fai[c * A + a], x_r[a * B + bb],
+           x_i[a * B + bb]);
+    const float w_r = wr[t], w_i = wi[t];
+    t_r[t] = accr * w_r - acci * w_i;
+    t_i[t] = accr * w_i + acci * w_r;
+  }
+  __syncthreads();
+  for (int t = tid; t < L; t += nt) {  // out = T1 @ F_B
+    const int c = t / B, d = t % B;
+    float accr = 0.f, acci = 0.f;
+    for (int bb = 0; bb < B; ++bb)
+      cmac(accr, acci, t_r[c * B + bb], t_i[c * B + bb], fbr[bb * B + d],
+           fbi[bb * B + d]);
+    outr[base + t] = accr;
+    outi[base + t] = acci;
+  }
+}
+
+}  // namespace
+
+// x, out: (batch, a, b) planes; fa: (a, a); w: (a, b); fb: (b, b);
+// layout: the 3 words of FusedLayout, in host memory.  One launch.
+extern "C" int fourstep_fused_f32(const float* xr, const float* xi,
+                                  const float* far, const float* fai,
+                                  const float* wr, const float* wi,
+                                  const float* fbr, const float* fbi,
+                                  float* outr, float* outi, int batch, int a,
+                                  int b, const long long* layout,
+                                  void* stream) {
+  FusedLayout o;
+  memcpy(&o, layout, sizeof(FusedLayout));
+  const size_t smem = (size_t)o.total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fourstep_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fourstep_fused_kernel<<<batch, kFusedThreads, smem,
+                          (cudaStream_t)stream>>>(xr, xi, far, fai, wr, wi,
+                                                  fbr, fbi, outr, outi, a, b,
+                                                  o);
+  return (int)cudaGetLastError();
+}
+
+// Column pass: out[z] = (F_A @ x[z]) * W for z < batch (<= 65,535, the
+// grid's z limit; the wrapper chunks).  x, out: (batch, a, b).  One launch.
+extern "C" int fourstep_stage1_f32(const float* xr, const float* xi,
+                                   const float* far, const float* fai,
+                                   const float* wr, const float* wi,
+                                   float* outr, float* outi, int batch, int a,
+                                   int b, void* stream) {
+  return launch_cgemm(far, fai, 0, xr, xi, (long long)a * b, wr, wi, outr,
+                      outi, batch, a, b, a, (cudaStream_t)stream);
+}
+
+// Row pass: out[z] = t[z] @ F_B for z < batch (<= 65,535).  t, out:
+// (batch, a, b).  One launch.
+extern "C" int fourstep_stage2_f32(const float* tr, const float* ti,
+                                   const float* fbr, const float* fbi,
+                                   float* outr, float* outi, int batch, int a,
+                                   int b, void* stream) {
+  return launch_cgemm(tr, ti, (long long)a * b, fbr, fbi, 0, nullptr,
+                      nullptr, outr, outi, batch, a, b, b,
+                      (cudaStream_t)stream);
+}

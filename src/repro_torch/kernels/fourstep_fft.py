@@ -1,4 +1,4 @@
-"""Four-step DFT bodies and the fused encode + worker kernel.
+"""Four-step DFT kernels: the plan's worker and the fused encode + worker.
 
 The per-worker hot loop of coded FFT is a length-L DFT of a coded shard.
 Factor ``L = A * B`` and compute
@@ -7,24 +7,44 @@ Factor ``L = A * B`` and compute
     X[c + d*A] = out[c, d]
 
 two dense DFT matmuls and one elementwise twiddle on planar f32 data.
-``encode_fourstep_fused`` folds the MDS encode in: the generator
-contraction acts across shards and the DFT within each, so the kernel
-transforms the m MESSAGE shards and encodes after (an N/m saving).  Its
-CUDA kernel is ``csrc/encode_fourstep.cu``; its plain twin
-:func:`encode_fourstep_body`.  ``fourstep_fused`` and the two-pass and
-streaming four-step kernels are later slices.
+
+* ``fourstep_fused`` -- one launch, each batch row's A x B matrix in one
+  block's shared memory (its working set: :func:`fourstep_layout`);
+* ``fourstep_stage1`` / ``fourstep_stage2`` -- the two-pass route for
+  shards too long for one block: the column pass with the twiddle, then
+  the row pass, the intermediate in device memory;
+* ``encode_fourstep_fused`` -- the MDS encode folded in: the generator
+  contraction acts across shards and the DFT within each, so the kernel
+  transforms the m MESSAGE shards and encodes after (an N/m saving).
+
+CUDA sources: ``csrc/fourstep.cu`` (the first three) and
+``csrc/encode_fourstep.cu``; the plain twins are :func:`fourstep_body`,
+:func:`stage1_body`, :func:`stage2_body` and
+:func:`encode_fourstep_body`.  The mixed-radix and streaming four-step
+kernels are later slices.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["fourstep_body", "encode_fourstep_body", "encode_fourstep_fused"]
+__all__ = [
+    "fourstep_body",
+    "fourstep_fused",
+    "fourstep_layout",
+    "stage1_body",
+    "stage2_body",
+    "fourstep_stage1",
+    "fourstep_stage2",
+    "encode_fourstep_body",
+    "encode_fourstep_fused",
+]
 
 
 def _cmul_mm(ar, ai, br, bi):
@@ -48,6 +68,28 @@ def fourstep_body(xr, xi, far, fai, wr, wi, fbr, fbi):
     rr = t2r.transpose(0, 1).reshape(bq * a, b)
     ri = t2i.transpose(0, 1).reshape(bq * a, b)
     t3r, t3i = _cmul_mm(rr, ri, fbr, fbi)
+    return t3r.reshape(bq, a, b), t3i.reshape(bq, a, b)
+
+
+def stage1_body(xr, xi, far, fai, wr, wi):
+    """Column pass on a (bq, A, B) block: ``(F_A @ M) * W`` per row."""
+    bq, a, b = xr.shape
+    mr = xr.transpose(0, 1).reshape(a, bq * b)
+    mi = xi.transpose(0, 1).reshape(a, bq * b)
+    t1r, t1i = _cmul_mm(far, fai, mr, mi)
+    t1r = t1r.reshape(a, bq, b)
+    t1i = t1i.reshape(a, bq, b)
+    wr = wr[:, None, :]
+    wi = wi[:, None, :]
+    return ((t1r * wr - t1i * wi).transpose(0, 1),
+            (t1r * wi + t1i * wr).transpose(0, 1))
+
+
+def stage2_body(tr, ti, fbr, fbi):
+    """Row pass on a (bq, A, B) block: ``T @ F_B`` per row."""
+    bq, a, b = tr.shape
+    t3r, t3i = _cmul_mm(tr.reshape(bq * a, b), ti.reshape(bq * a, b),
+                        fbr, fbi)
     return t3r.reshape(bq, a, b), t3i.reshape(bq, a, b)
 
 
@@ -89,10 +131,6 @@ def _lib():
     return fn
 
 
-# CUDA grid limit on the batch axis of the GEMM passes
-_MAX_GRID_Z = 65535
-
-
 def encode_fourstep_fused(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
     """Fused encode + worker DFT: message planes -> coded worker spectra.
 
@@ -118,9 +156,9 @@ def encode_fourstep_fused(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
     dev = _build.check_planes(
         "encode_fourstep_fused", cr=cr, ci=ci, gr=gr, gi=gi, far=far,
         fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi)
-    if q * m > _MAX_GRID_Z:
+    if q * m > _build.MAX_GRID_YZ:
         raise ValueError(f"encode_fourstep_fused: batch q*m={q * m} exceeds "
-                         f"the grid's {_MAX_GRID_Z}")
+                         f"the grid's {_build.MAX_GRID_YZ}")
     t1r = torch.empty_like(cr)
     t1i = torch.empty_like(cr)
     zr = torch.empty_like(cr)
@@ -134,3 +172,126 @@ def encode_fourstep_fused(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
         q, m, n, a, b, _build.stream_of(dev)), "encode_fourstep_fused")
     _build.count_launch("encode_fourstep_fused", 3)
     return outr, outi
+
+
+# -- the plan's worker: fused and two-pass four-step ----------------------
+def fourstep_layout(a: int, b: int) -> tuple[int, ...]:
+    """Word offsets of the fused four-step kernel's shared arrays, then
+    the total.
+
+    The kernel takes these offsets at launch (``FusedLayout`` in
+    ``csrc/fourstep.cu``, same order), so this is the one reckoning of
+    its working set, and the fused gate (``ops.fourstep_fusable``).
+    """
+    sizes = (
+        2 * a * b,               # x: the row's A x B matrix
+        2 * a * b,               # t1: column-pass result
+    )
+    return tuple(itertools.accumulate(sizes, initial=0))
+
+
+def _check_fourstep(what, xr, xi, **planes):
+    """Shape check of a four-step wrapper: (batch, A, B) planes and the
+    (A, A), (A, B), (B, B) constant planes it names."""
+    _, a, b = xr.shape
+    want = {"far": (a, a), "fai": (a, a), "wr": (a, b), "wi": (a, b),
+            "fbr": (b, b), "fbi": (b, b)}
+    if xi.shape != xr.shape or any(t.shape != want[k]
+                                   for k, t in planes.items()):
+        raise ValueError(f"{what}: inconsistent shapes")
+
+
+@functools.lru_cache(maxsize=None)
+def _fourstep_lib(entry: str, n_ptr: int, with_layout: bool = False):
+    fn = getattr(_build.load("fourstep"), entry)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([vp] * n_ptr + [i32] * 3
+                   + ([ctypes.POINTER(ctypes.c_longlong)] if with_layout
+                      else []) + [vp])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
+    """Batched fused four-step FFT: one launch.
+
+    ``xr, xi``: (batch, A, B) planes of ``M[a, b] = x[a*B + b]``.  Returns
+    (batch, A, B) planes of ``out[c, d]`` with ``X[c + d*A] = out[c, d]``.
+    CPU tensors run :func:`fourstep_body`; CUDA tensors launch the kernel
+    or raise -- also when the row's working set
+    (:func:`fourstep_layout`) exceeds one block's shared memory.
+    """
+    batch, a, b = xr.shape
+    _check_fourstep("fourstep_fused", xr, xi, far=far, fai=fai, wr=wr,
+                    wi=wi, fbr=fbr, fbi=fbi)
+    if xr.device.type == "cpu":
+        return fourstep_body(xr, xi, far, fai, wr, wi, fbr, fbi)
+    dev = _build.check_planes(
+        "fourstep_fused", xr=xr, xi=xi, far=far, fai=fai, wr=wr, wi=wi,
+        fbr=fbr, fbi=fbi)
+    layout = fourstep_layout(a, b)
+    if 4 * layout[-1] > _build.SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"fourstep_fused: ({a}, {b}) needs {4 * layout[-1]} bytes of "
+            f"shared memory per block, over {_build.SMEM_PER_BLOCK_OPTIN}; "
+            f"route it to the two-pass kernels")
+    outr = torch.empty_like(xr)
+    outi = torch.empty_like(xr)
+    p = _build.ptr
+    _build.check(_fourstep_lib("fourstep_fused_f32", 10, True)(
+        p(xr), p(xi), p(far), p(fai), p(wr), p(wi), p(fbr), p(fbi), p(outr),
+        p(outi), batch, a, b, (ctypes.c_longlong * len(layout))(*layout),
+        _build.stream_of(dev)), "fourstep_fused")
+    _build.count_launch("fourstep_fused")
+    return outr, outi
+
+
+def _two_pass(name, entry, inputs, planes):
+    """Launch one pass of the two-pass four-step over (batch, A, B) planes,
+    in chunks of at most the grid's z limit (one launch each)."""
+    xr, xi = inputs
+    batch, a, b = xr.shape
+    dev = _build.check_planes(name, xr=xr, xi=xi, **planes)
+    outr = torch.empty_like(xr)
+    outi = torch.empty_like(xr)
+    fn = _fourstep_lib(entry, 4 + len(planes))
+    p = _build.ptr
+    for z0 in range(0, batch, _build.MAX_GRID_YZ):
+        z1 = min(batch, z0 + _build.MAX_GRID_YZ)
+        _build.check(fn(
+            p(xr[z0:z1]), p(xi[z0:z1]), *(p(t) for t in planes.values()),
+            p(outr[z0:z1]), p(outi[z0:z1]), z1 - z0, a, b,
+            _build.stream_of(dev)), name)
+        _build.count_launch(name)
+    return outr, outi
+
+
+def fourstep_stage1(xr, xi, far, fai, wr, wi):
+    """Column pass of the two-pass four-step: ``(F_A @ M) * W`` per row.
+
+    ``xr, xi``: (batch, A, B) planes of ``M[a, b] = x[a*B + b]``.  Returns
+    the twiddled column DFT as (batch, A, B) planes.  CPU tensors run
+    :func:`stage1_body`; CUDA tensors launch the kernel (one launch per
+    65,535 rows) or raise.
+    """
+    _check_fourstep("fourstep_stage1", xr, xi, far=far, fai=fai, wr=wr,
+                    wi=wi)
+    if xr.device.type == "cpu":
+        return stage1_body(xr, xi, far, fai, wr, wi)
+    return _two_pass("fourstep_stage1", "fourstep_stage1_f32", (xr, xi),
+                     {"far": far, "fai": fai, "wr": wr, "wi": wi})
+
+
+def fourstep_stage2(tr, ti, fbr, fbi):
+    """Row pass of the two-pass four-step: ``T @ F_B`` per row.
+
+    ``tr, ti``: (batch, A, B) planes from :func:`fourstep_stage1`.
+    Returns (batch, A, B) planes of ``out[c, d] = X[c + d*A]``.  CPU
+    tensors run :func:`stage2_body`; CUDA tensors launch the kernel (one
+    launch per 65,535 rows) or raise.
+    """
+    _check_fourstep("fourstep_stage2", tr, ti, fbr=fbr, fbi=fbi)
+    if tr.device.type == "cpu":
+        return stage2_body(tr, ti, fbr, fbi)
+    return _two_pass("fourstep_stage2", "fourstep_stage2_f32", (tr, ti),
+                     {"fbr": fbr, "fbi": fbi})

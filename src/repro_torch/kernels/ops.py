@@ -1,13 +1,16 @@
 """Dispatch layer: the entry points the plans and the service call.
 
-They take and return planar f32 planes, pick factorizations, build the
-constant DFT/twiddle planes and route to the kernel wrappers.
+Most take and return planar f32 planes, pick factorizations, build the
+constant DFT/twiddle planes and route to the kernel wrappers; the plan
+entry points (``fft_fourstep``, ``mds_apply``, ``make_kernel_worker_fn``)
+take and return complex tensors.
 
 Mode rule: the tensor's device.  A wrapper given CPU tensors runs its
 kernel's plain PyTorch twin (the tests' path); given CUDA tensors it
 launches the hand-written kernel or raises -- no fallback, no copy to the
-host.  The route decisions (``coded_bucket_fusable``) depend on shapes
-only, so the CPU tests take the same routes as the card.
+host.  The route decisions (``coded_bucket_fusable``,
+``fourstep_fusable``) depend on shapes only, so the CPU tests take the
+same routes as the card.
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import coded_pipeline
-from repro_torch.kernels.cmatmul import bcmatmul
+from repro_torch.kernels import coded_pipeline, ref
+from repro_torch.kernels.cmatmul import bcmatmul, cmatmul
 from repro_torch.kernels.coded_pipeline import (
     SMEM_PER_BLOCK_OPTIN,
     bucket_smem_bytes,
@@ -27,7 +30,13 @@ from repro_torch.kernels.coded_pipeline import (
     lagrange_planes_body,
     mask_subsets,
 )
-from repro_torch.kernels.fourstep_fft import encode_fourstep_fused
+from repro_torch.kernels.fourstep_fft import (
+    encode_fourstep_fused,
+    fourstep_fused,
+    fourstep_layout,
+    fourstep_stage1,
+    fourstep_stage2,
+)
 from repro_torch.kernels.recombine import recombine_twiddle_dft_batched
 
 __all__ = [
@@ -35,6 +44,12 @@ __all__ = [
     "MAX_PLANE_ELEMS",
     "kernel_backend_supported",
     "split_factor",
+    "fourstep_layout",
+    "fourstep_fusable",
+    "fourstep_planar",
+    "fft_fourstep",
+    "mds_apply",
+    "make_kernel_worker_fn",
     "encode_worker",
     "decode_apply",
     "recombine_planar",
@@ -117,6 +132,141 @@ def _fourstep_planes(a: int, b: int, device):
     return (*_on_device(_dft_planes, (a,), device),
             *_on_device(_twiddle_planes, (a, b), device),
             *_on_device(_dft_planes, (b,), device))
+
+
+# -- the plan's kernels: four-step worker and mds_apply ----------------
+def fourstep_fusable(a: int, b: int) -> bool:
+    """Does an (A, B) four-step row fit one block of the fused kernel?
+
+    The kernel's shared-memory working set (:func:`fourstep_layout`, the
+    offsets the wrapper passes to ``csrc/fourstep.cu``) against
+    :data:`SMEM_PER_BLOCK_OPTIN`: shards up to L = 8192 fuse.
+    """
+    return 4 * fourstep_layout(a, b)[-1] <= SMEM_PER_BLOCK_OPTIN
+
+
+_VARIANTS = ("fused", "two_pass", "xla")
+
+
+def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
+                    variant: str | None = None, fused: bool | None = None,
+                    factors=None):
+    """Batched planar FFT along the last axis via the four-step kernels.
+
+    ``xr, xi``: (batch, L) f32 planes.  Returns natural-order (batch, L)
+    planes of ``fft(x)``.  ``variant``: ``"fused"`` (one launch of
+    ``fourstep_fused``), ``"two_pass"`` (``fourstep_stage1`` then
+    ``fourstep_stage2``) or ``"xla"`` (the platform FFT, as in the JAX
+    package, no kernel); the legacy ``fused`` bool maps onto the first
+    two.  ``factors``: an explicit ``(A, B)`` split.
+
+    ``variant=None`` routes by the port's own limits: fused when the row
+    fits one block (:func:`fourstep_fusable`), else two-pass.  A split
+    whose dense DFT plane exceeds :data:`MAX_PLANE_ELEMS` (a near-prime L,
+    which factors as (1, L)) takes the platform FFT whatever the variant.
+    The JAX package gates on a TPU's VMEM instead (fused up to A*B = 512^2,
+    the platform FFT past B^2 = 512^2), so at some lengths the port runs a
+    kernel where the reference on a TPU would not, and the reverse: both
+    compute the same transform.  The one unscramble is a transpose of the
+    last two axes.
+    """
+    batch, ell = xr.shape
+    a, b = split_factor(ell)
+    if factors is not None:
+        if len(factors) > 2:
+            raise NotImplementedError(
+                "multistep factors: the mixed-radix kernel is not ported "
+                "yet -- ROADMAP.md Queue 2, multistep_fused")
+        if len(factors) == 2:
+            a, b = int(factors[0]), int(factors[1])
+            if a * b != ell:
+                raise ValueError(f"factors {tuple(factors)} do not multiply "
+                                 f"to L={ell}")
+    if variant is None and fused is not None:
+        variant = "fused" if fused else "two_pass"
+    if variant == "streaming":
+        raise NotImplementedError(
+            "variant='streaming': the streaming four-step kernel is not "
+            "ported yet -- ROADMAP.md Queue 2, fourstep_streaming")
+    if variant is not None and variant not in _VARIANTS:
+        raise ValueError(f"unknown four-step variant {variant!r}")
+    if max(a, b) ** 2 > MAX_PLANE_ELEMS:
+        variant = "xla"
+    elif variant is None:
+        variant = "fused" if fourstep_fusable(a, b) else "two_pass"
+    if variant == "xla":
+        z = torch.fft.fft(torch.complex(xr, xi), dim=-1)
+        return z.real.contiguous(), z.imag.contiguous()
+    far, fai, wr, wi, fbr, fbi = _fourstep_planes(a, b, xr.device)
+    x3r = xr.contiguous().reshape(batch, a, b)
+    x3i = xi.contiguous().reshape(batch, a, b)
+    if variant == "fused":
+        if not fourstep_fusable(a, b):
+            raise ValueError(
+                f"fourstep_planar: ({a}, {b}) does not fit the fused "
+                f"kernel's block; use variant='two_pass'")
+        outr, outi = fourstep_fused(x3r, x3i, far, fai, wr, wi, fbr, fbi)
+    else:
+        t1r, t1i = fourstep_stage1(x3r, x3i, far, fai, wr, wi)
+        outr, outi = fourstep_stage2(t1r.contiguous(), t1i.contiguous(),
+                                     fbr, fbi)
+    # out[c, d] holds X[c + d*A] -> transpose to (d, c) and flatten
+    return (outr.transpose(-1, -2).reshape(batch, ell),
+            outi.transpose(-1, -2).reshape(batch, ell))
+
+
+def fft_fourstep(x: torch.Tensor, *, fused: bool | None = None
+                 ) -> torch.Tensor:
+    """Batched FFT along the last axis via the four-step kernels.
+
+    ``x``: (..., L) complex; a 1-D input is promoted to a batch of one.
+    Returns complex64 matching ``torch.fft.fft(x, dim=-1)`` up to f32
+    planar precision.
+    """
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[None]
+    lead, ell = tuple(x.shape[:-1]), x.shape[-1]
+    xr, xi = ref.planar(x.reshape(-1, ell))
+    outr, outi = fourstep_planar(xr, xi, fused=fused)
+    out = ref.unplanar(outr, outi).reshape(lead + (ell,))
+    return out[0] if squeeze else out
+
+
+def mds_apply(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed ``G @ c`` for the MDS encode and decode apply.
+
+    ``g``: (n, m) complex code matrix; ``c``: (m, *payload).  Returns
+    complex64 (n, *payload): one ``cmatmul`` launch.
+    """
+    gr, gi = ref.planar(g)
+    payload = tuple(c.shape[1:])
+    cr, ci = ref.planar(c.reshape(c.shape[0], -1))
+    outr, outi = cmatmul(gr, gi, cr, ci)
+    return ref.unplanar(outr, outi).reshape((g.shape[0],) + payload)
+
+
+def make_kernel_worker_fn(inverse: bool = False):
+    """A ``CodedFFT.worker_fn`` on the four-step kernels.
+
+    Transforms the LAST axis and maps over any leading axes, which are
+    collapsed into the kernels' batch: a batch of requests costs one
+    launch per pass, not one per request.  ``inverse=True`` gives the
+    inverse transform through ``ifft(a) = conj(fft(conj(a))) / L`` --
+    sign flips on the imaginary plane, same kernels.
+    """
+
+    def worker_fn(a: torch.Tensor) -> torch.Tensor:
+        lead, ell = tuple(a.shape[:-1]), a.shape[-1]
+        flat = a.reshape(-1, ell)
+        if inverse:
+            out = torch.conj_physical(
+                fft_fourstep(torch.conj_physical(flat))) / ell
+        else:
+            out = fft_fourstep(flat)
+        return out.reshape(lead + (ell,))
+
+    return worker_fn
 
 
 # -- stage route ---------------------------------------------------------

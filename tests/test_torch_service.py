@@ -162,10 +162,20 @@ def test_coded_fft_run_nan_poisoned_stragglers(jref, dtype, tol):
 
 
 def test_kernel_backend_plan_raises_until_ported():
+    """The plan's kernel backend runs (encode, four-step worker, decode
+    apply); what it still lacks -- the transform decode and the streaming
+    four-step -- raises naming the ROADMAP item."""
     plan = CodedFFT(s=64, m=4, n_workers=8, device="cpu")
     assert plan.resolved_backend == "kernel"
+    x = _requests([64], seed=4)[0]
+    got = plan.run(torch.as_tensor(x)).numpy()
+    assert _rel(got, np.fft.fft(x.astype(np.complex128))) < 5e-4
+    b = plan.worker_compute(plan.encode(torch.as_tensor(x)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.run(torch.zeros(64, dtype=torch.complex64))
+        plan.decode(b, method="ifft")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.fourstep_planar(torch.zeros(2, 64), torch.zeros(2, 64),
+                             variant="streaming")
     assert CodedFFT(s=64, m=4, n_workers=8, dtype=torch.complex128,
                     device="cpu").resolved_backend == "reference"
 
