@@ -6,14 +6,16 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, in parallel), holds each kernel against its
 plain PyTorch version on the card at the shapes its main path gives it,
-then drives the two main paths at two sizes each: the service's c2c
-``submit_batch`` (the whole-bucket kernel at s=4096, the stage kernels at
-s=2^20) and ``CodedFFT.run`` on its default kernel backend (the cmatmul
-encode and decode, and the fused four-step worker at s=4096 or the
-two-pass one at s=2^20).  Each run's spectra are checked against
-``torch.fft.fft`` in complex128, and its launch counters show which
-kernels it ran; one more call of each is traced with ``torch.profiler``
-for the device's busy time and idle share.  Prints one JSON object per phase, the kernels
+then drives the main paths at two sizes each, for each 1-D kind: the
+service's ``submit_batch`` with kind c2c, r2c and c2r (the kind's
+whole-bucket kernel at s=4096, the stage kernels at s=2^20), and
+``run`` of ``CodedFFT``, ``CodedRFFT`` and ``CodedIRFFT`` on their
+default kernel backend (the cmatmul encode and decode, and the fused
+four-step worker at s=4096 or the two-pass one at s=2^20).  Each run's
+output is checked against ``torch.fft`` in float64/complex128, and its
+launch counters show which kernels it ran; one more call of each is
+traced with ``torch.profiler`` for the device's busy time and idle
+share.  Prints one JSON object per phase, the kernels
 table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when there is no CUDA device or any check fails.
@@ -145,7 +147,13 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch import CodedFFT, FFTService, FFTServiceConfig
+    from repro_torch import (
+        CodedFFT,
+        CodedIRFFT,
+        CodedRFFT,
+        FFTService,
+        FFTServiceConfig,
+    )
     from repro_torch.kernels import _build, coded_pipeline, ops
     from repro_torch.kernels.cmatmul import (
         bcmatmul,
@@ -274,6 +282,49 @@ def main() -> int:
             xr, xi, masks.to(torch.float32), gr, gi, *planes),
         lambda: torch.fft.fft(xc, dim=-1), 3e-4, nbytes, flops, 50,
         [q, s, m, n])
+
+    # (a') the real kinds' whole buckets at the same config: packed shards
+    # of L/2 = A*B, half spectra of s//2+1 bins
+    n2 = s // m // 2
+    a, b = ops.split_factor(n2)
+    sh = s // 2 + 1
+    hplanes = ops._fourstep_planes(a, b, dev)
+    # least work of both: the m packed-shard FFTs, the coded results and
+    # the decode at each packed position, the Hermitian split or pack of
+    # each (shard, position), the recombine twiddle and the m//2+1-row
+    # (or m-point) butterfly at each of the L positions of every shard
+    flops = q * (m * fft_flops(n2) + n2 * 2 * 8 * m * m + m * n2 * 16
+                 + 2 * n2 * m * (6 + 8 * (m // 2 + 1)))
+    fplanes_bytes = 2 * (a * a + b * b + a * b + (n2 + 1) + m * 2 * n2)
+    xreal = randn(q, s)
+    rplanes = (*hplanes, *ops._on_device(ops._r2c_postdecode_planes,
+                                         (s, m), dev))
+    kernel_row(
+        "coded_rfft_bucket_masked", csrc + "coded_rbucket.cu",
+        "src/repro/kernels/coded_pipeline.py:510",
+        lambda: coded_pipeline.coded_rfft_bucket_masked(
+            xreal, masks, gr, gi, *rplanes, s),
+        lambda: coded_pipeline.rbucket_body_masked(
+            xreal, masks.to(torch.float32), gr, gi, *rplanes, s),
+        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4,
+        F32 * (q * s + q * n + 2 * n * m + fplanes_bytes
+               + 2 * (m // 2 + 1) * m + 2 * q * sh), flops, 50,
+        [q, s, m, n])
+    yhalf = torch.fft.rfft(randn(q, s), dim=-1)
+    yr, yi = yhalf.real.contiguous(), yhalf.imag.contiguous()
+    iplanes = (*hplanes, *ops._on_device(ops._c2r_message_planes,
+                                         (s, m), dev))
+    kernel_row(
+        "coded_irfft_bucket_masked", csrc + "coded_irbucket.cu",
+        "src/repro/kernels/coded_pipeline.py:768",
+        lambda: coded_pipeline.coded_irfft_bucket_masked(
+            yr, yi, masks, gr, gi, *iplanes, s),
+        lambda: coded_pipeline.irbucket_body_masked(
+            yr, yi, masks.to(torch.float32), gr, gi, *iplanes, s),
+        lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4,
+        F32 * (2 * q * sh + q * n + 2 * n * m + fplanes_bytes
+               + 2 * m * m + q * s), flops, 50, [q, s, m, n])
+    del xreal, yhalf, yr, yi
 
     # (b)-(d) the stage route of the 2^20-point service phase: 16 requests
     q, s, m, n = 16, 1 << 20, 4, 8
@@ -418,75 +469,109 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
         return out, counts
 
-    # -- 4./5. the service main path --------------------------------------
-    def drive(s, n_req, expect, rel_tol):
-        svc = FFTService(FFTServiceConfig(s=s, m=4, n_workers=8))
-        svc.warmup(buckets=[n_req])
-        xs = [(rng.standard_normal(s) + 1j * rng.standard_normal(s))
-              .astype(np.complex64) for _ in range(n_req)]
-        t0 = time.perf_counter()
-        out, counts = counted(lambda: svc.submit_batch(xs))
-        dt = time.perf_counter() - t0
-        for name in expect:
-            if counts.get(name, 0) < 1:
-                fail(f"s={s}: kernel {name} was not launched ({counts})")
-        stage = {"encode_fourstep_fused", "bcmatmul",
-                 "recombine_twiddle_dft_batched"}
-        others = (stage if "coded_fft_bucket_masked" in expect
-                  else {"coded_fft_bucket_masked"})
-        if any(counts.get(k, 0) for k in others):
-            fail(f"s={s}: took the wrong route ({counts})")
-        x64 = torch.as_tensor(np.stack(xs), device=dev).to(torch.complex128)
-        want = torch.fft.fft(x64, dim=-1)
-        got = torch.as_tensor(np.stack(out), device=dev).to(torch.complex128)
+    def make_input(kind, shape):
+        """A request batch of ``kind`` and its truth in float64/complex128:
+        complex signals (c2c), real signals (r2c), half spectra of real
+        signals (c2r)."""
+        xt = randn(*shape)
+        if kind == "r2c":
+            return xt, torch.fft.rfft(xt.double(), dim=-1)
+        if kind == "c2r":
+            y = torch.fft.rfft(xt, dim=-1)
+            return y, torch.fft.irfft(y.to(torch.complex128), n=shape[-1],
+                                      dim=-1)
+        x = torch.complex(xt, randn(*shape))
+        return x, torch.fft.fft(x.to(torch.complex128), dim=-1)
+
+    def rel_err(got, want) -> float:
+        got = torch.as_tensor(got, device=dev).to(want.dtype)
+        if got.shape != want.shape:
+            return math.inf
         rel = float((got - want).abs().max() / want.abs().max())
-        if not (np.isfinite(rel) and rel < rel_tol):
-            fail(f"s={s}: service rel err {rel} >= {rel_tol}")
+        return rel if math.isfinite(rel) else math.inf
+
+    # -- 4./5. the service main path, per kind ----------------------------
+    whole_kernel = {"c2c": "coded_fft_bucket_masked",
+                    "r2c": "coded_rfft_bucket_masked",
+                    "c2r": "coded_irfft_bucket_masked"}
+    stage_kernels = {"c2c": {"encode_fourstep_fused", "bcmatmul",
+                             "recombine_twiddle_dft_batched"},
+                     "r2c": {"encode_fourstep_fused", "bcmatmul"},
+                     "c2r": {"encode_fourstep_fused", "bcmatmul"}}
+
+    def drive(kind, s, n_req, rel_tol):
+        """One ``submit_batch`` of ``n_req`` requests of ``kind`` (one
+        bucket): exactly one launch of the kind's whole-bucket kernel and
+        nothing else where the gate admits the bucket, else exactly the
+        stage kernels."""
+        svc = FFTService(FFTServiceConfig(s=s, m=4, n_workers=8))
+        whole = {"c2c": ops.coded_bucket_fusable,
+                 "r2c": ops.coded_rbucket_fusable,
+                 "c2r": ops.coded_irbucket_fusable}[kind](s, 4, 8)
+        svc.warmup(lengths=[s], kinds=[kind], buckets=[n_req])
+        xb, want = make_input(kind, (n_req, s))
+        xs = list(xb.cpu().numpy())
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: svc.submit_batch(xs, kind=kind))
+        dt = time.perf_counter() - t0
+        if whole and counts != {whole_kernel[kind]: 1}:
+            fail(f"{kind} s={s}: expected one {whole_kernel[kind]} launch "
+                 f"for the one bucket, got {counts}")
+        if not whole and set(counts) != stage_kernels[kind]:
+            fail(f"{kind} s={s}: expected the stage kernels "
+                 f"{sorted(stage_kernels[kind])}, got {counts}")
+        rel = rel_err(np.stack(out), want)
+        if not rel < rel_tol:
+            fail(f"{kind} s={s}: service rel err {rel} >= {rel_tol}")
         # steady-state rate: three more identical calls, wall clock, split
         # into staging + launch (dispatch) and wait + fetch (sync)
         d0, s0 = svc.stats.dispatch_s, svc.stats.sync_s
         t1 = time.perf_counter()
         for _ in range(3):
-            svc.submit_batch(xs)
+            svc.submit_batch(xs, kind=kind)
         steady = (time.perf_counter() - t1) / 3
         dispatch = (svc.stats.dispatch_s - d0) / 3
         sync = (svc.stats.sync_s - s0) / 3
-        trace = profile_call(torch, lambda: svc.submit_batch(xs))
-        emit({"phase": "service", "s": s, "m": 4, "n_workers": 8,
-              "requests": n_req, "route": ("whole_bucket"
-                                           if s <= 4096 else "stage"),
+        trace = profile_call(torch, lambda: svc.submit_batch(xs, kind=kind))
+        emit({"phase": "service", "kind": kind, "s": s, "m": 4,
+              "n_workers": 8, "requests": n_req,
+              "route": "whole_bucket" if whole else "stage",
               "launches": counts, "rel_err": rel, "rel_tol": rel_tol,
               "first_call_s": dt, "steady_call_s": steady,
               "steady_dispatch_s": dispatch, "steady_sync_s": sync,
               "req_per_s": n_req / steady, "profiled_call": trace,
               "stats": svc.stats.summary()})
+        torch.cuda.empty_cache()
 
-    # default config: the whole-bucket kernel; bound from the reference's
+    # default config: the whole-bucket kernels; bound from the reference's
     # masked-bucket tolerance (tests/test_lagrange_decode.py:153)
-    drive(4096, 64, ["coded_fft_bucket_masked"], 3e-4)
+    for kind in ("c2c", "r2c", "c2r"):
+        drive(kind, 4096, 64, 3e-4)
     # a 2^20-point transform: 128 MiB in and 256 MiB of coded spectra per
-    # bucket, past the whole-bucket gate, so the stage kernels run (bound
-    # from tests/test_kernel_pipeline.py:113).  The JAX package would
-    # stream this bucket through one launch; the port's streaming kernel is
-    # a later slice.
-    torch.cuda.empty_cache()
-    drive(1 << 20, 16, ["encode_fourstep_fused", "bcmatmul",
-                        "recombine_twiddle_dft_batched"], 1e-3)
-    torch.cuda.empty_cache()
+    # c2c bucket (half that for the real kinds), past the whole-bucket
+    # gates, so the stage kernels run (bound from
+    # tests/test_kernel_pipeline.py:113).  The JAX package would stream a
+    # c2c bucket through one launch; the port's streaming kernel is a
+    # later slice.
+    for kind in ("c2c", "r2c", "c2r"):
+        drive(kind, 1 << 20, 16, 1e-3)
 
-    # -- 6./7. CodedFFT.run on its default kernel backend -----------------
-    def drive_plan(s, n_req, worker, rel_tol):
+    # -- 6./7. the plans' run on their default kernel backend -------------
+    plan_kind = {CodedFFT: "c2c", CodedRFFT: "r2c", CodedIRFFT: "c2r"}
+
+    def drive_plan(cls, s, n_req, worker, rel_tol):
         """A batched call with per-request masks (encode on cmatmul, the
         four-step worker, the per-request solve), then one unbatched
         request (its decode on cmatmul too).  ``worker`` maps each
         four-step kernel to its launches per call."""
-        plan = CodedFFT(s=s, m=4, n_workers=8)
+        kind = plan_kind[cls]
+        plan = cls(s=s, m=4, n_workers=8)
         if plan.device.type != "cuda" or plan.resolved_backend != "kernel":
-            fail(f"plan s={s}: runs on {plan.device}, backend "
-                 f"{plan.resolved_backend}")
-        x = torch.complex(randn(n_req, s), randn(n_req, s))
+            fail(f"plan {cls.__name__} s={s}: runs on {plan.device}, "
+                 f"backend {plan.resolved_backend}")
+        shape = (n_req, s)
+        x, want = make_input(kind, shape)
         masks = service_masks(n_req, 8, 4)
-        want = torch.fft.fft(x.to(torch.complex128), dim=-1)
         plan.run(x, mask=masks)                      # warm-up: plane tables
         out = {}
         for label, xin, mk, ref, n_cmatmul in [
@@ -498,13 +583,12 @@ def main() -> int:
             dt = time.perf_counter() - t0
             expect = {"cmatmul": n_cmatmul, **worker}
             if counts != expect:
-                fail(f"plan s={s} {label}: launches {counts}, expected "
-                     f"{expect}")
-            rel = float((got.to(torch.complex128) - ref).abs().max()
-                        / ref.abs().max())
-            if not (got.shape == ref.shape and math.isfinite(rel)
-                    and rel < rel_tol):
-                fail(f"plan s={s} {label}: rel err {rel} >= {rel_tol}")
+                fail(f"plan {cls.__name__} s={s} {label}: launches "
+                     f"{counts}, expected {expect}")
+            rel = rel_err(got, ref)
+            if not rel < rel_tol:
+                fail(f"plan {cls.__name__} s={s} {label}: rel err {rel} "
+                     f">= {rel_tol}")
             out[label] = {"launches": counts, "rel_err": rel,
                           "first_call_s": dt}
         # steady-state rate of the batched call: three more, wall clock
@@ -515,19 +599,22 @@ def main() -> int:
         torch.cuda.synchronize()
         steady = (time.perf_counter() - t1) / 3
         trace = profile_call(torch, lambda: plan.run(x, mask=masks))
-        emit({"phase": "plan", "s": s, "m": 4, "n_workers": 8,
-              "requests": n_req, "rel_tol": rel_tol, **out,
+        emit({"phase": "plan", "plan": cls.__name__, "s": s, "m": 4,
+              "n_workers": 8, "requests": n_req, "rel_tol": rel_tol, **out,
               "steady_call_s": steady, "req_per_s": n_req / steady,
               "profiled_call": trace})
+        torch.cuda.empty_cache()
 
-    # default plan (the README quickstart's), 64 requests: fused worker;
-    # bound from tests/test_kernels.py:146
-    drive_plan(4096, 64, {"fourstep_fused": 1}, 5e-4)
-    torch.cuda.empty_cache()
-    # a 2^20-point plan, 16 requests: 128 MiB in, 256 MiB of coded shards,
-    # each shard past the fused gate, so the two-pass worker runs
-    drive_plan(1 << 20, 16, {"fourstep_stage1": 1, "fourstep_stage2": 1},
-               1e-3)
+    # default plans (the README quickstart's size), 64 requests: fused
+    # worker (L = 1024, or L/2 = 512 for the real plans); bound from
+    # tests/test_kernels.py:146
+    for cls in (CodedFFT, CodedRFFT, CodedIRFFT):
+        drive_plan(cls, 4096, 64, {"fourstep_fused": 1}, 5e-4)
+    # 2^20-point plans, 16 requests: each shard past the fused gate, so the
+    # two-pass worker runs
+    for cls in (CodedFFT, CodedRFFT, CodedIRFFT):
+        drive_plan(cls, 1 << 20, 16,
+                   {"fourstep_stage1": 1, "fourstep_stage2": 1}, 1e-3)
 
     for row in table:
         row["launches"] = launches.get(row["name"], 0)

@@ -9,14 +9,17 @@ and their plain PyTorch twins), ``serving`` (the batched FFT service) and
 
 ``FFTService`` serves c2c requests on four kernels: the whole masked
 bucket, the fused encode + four-step, the batched decode apply and the
-batched recombine.  ``CodedFFT`` runs its default kernel backend on
+batched recombine.  Its real kinds (r2c, c2r) run two more whole-bucket
+kernels, or the same encode and decode kernels on their stage route.
+``CodedFFT`` and the real and inverse plans (``CodedRFFT``,
+``CodedIFFT``, ``CodedIRFFT``) run their default kernel backend on
 three more: the ``cmatmul`` encode and decode apply, and the four-step
 worker, fused or two-pass.
 """
 
-from repro_torch.core import CodedFFT
+from repro_torch.core import CodedFFT, CodedIFFT, CodedIRFFT, CodedRFFT
 from repro_torch.distributed import StragglerModel
 from repro_torch.serving import FFTService, FFTServiceConfig, ServiceStats
 
-__all__ = ["CodedFFT", "FFTService", "FFTServiceConfig", "ServiceStats",
-           "StragglerModel"]
+__all__ = ["CodedFFT", "CodedIFFT", "CodedIRFFT", "CodedRFFT", "FFTService",
+           "FFTServiceConfig", "ServiceStats", "StragglerModel"]

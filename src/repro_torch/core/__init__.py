@@ -1,8 +1,10 @@
 """Coded FFT core library (Yu, Maddah-Ali, Avestimehr 2017) in PyTorch.
 
-Ported so far: the 1-D complex plan (``CodedFFT``) on its kernel and
-reference backends, the (N, m) Reed-Solomon code with the closed-form
-Lagrange decode, interleave and recombine.
+Ported so far: the 1-D plans -- complex (``CodedFFT``), real-input
+(``CodedRFFT``), inverse (``CodedIFFT``) and real-output
+(``CodedIRFFT``) -- on their kernel and reference backends, the (N, m)
+Reed-Solomon code with the closed-form Lagrange decode, interleave and
+recombine (full and half spectrum).
 """
 
 from repro_torch.core.coded_fft import CodedFFT
@@ -22,10 +24,29 @@ from repro_torch.core.mds import (
     subset_decode_matrix,
 )
 from repro_torch.core.plan import MDSPlanBase, resolve_device
-from repro_torch.core.recombine import dft_matrix, recombine, twiddle
+from repro_torch.core.recombine import (
+    dft_matrix,
+    recombine,
+    recombine_half,
+    twiddle,
+)
+from repro_torch.core.rfft import (
+    CodedIFFT,
+    CodedIRFFT,
+    CodedRFFT,
+    hermitian_extend,
+    pack_half,
+    pack_pairs,
+    require_even_shards,
+    split_packed,
+    unpack_pairs,
+)
 
 __all__ = [
     "CodedFFT",
+    "CodedIFFT",
+    "CodedIRFFT",
+    "CodedRFFT",
     "LAGRANGE_MAX_M",
     "MDSPlanBase",
     "decode_from_subset",
@@ -35,14 +56,21 @@ __all__ = [
     "encode",
     "encode_dft",
     "first_available",
+    "hermitian_extend",
     "interleave",
     "lagrange_decode_matrices",
     "lagrange_decode_matrix",
     "lagrange_inverse",
+    "pack_half",
+    "pack_pairs",
     "recombine",
+    "recombine_half",
+    "require_even_shards",
     "resolve_device",
     "rs_generator",
     "rs_nodes",
+    "split_packed",
     "subset_decode_matrix",
     "twiddle",
+    "unpack_pairs",
 ]

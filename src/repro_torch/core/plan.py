@@ -85,10 +85,25 @@ class MDSPlanBase:
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
+    def _fft1_worker(self, a: torch.Tensor,
+                     inverse: bool = False) -> torch.Tensor:
+        """Backend-dispatched 1-D (i)FFT along the last axis: the worker
+        of the real and inverse plans.  Kernel backend: the four-step
+        kernels (``ops.make_kernel_worker_fn``); else ``torch.fft``."""
+        a = self._as_tensor(a)
+        if self.resolved_backend == "kernel":
+            return ops.make_kernel_worker_fn(inverse=inverse)(a)
+        fn = torch.fft.ifft if inverse else torch.fft.fft
+        return fn(a, dim=-1)
+
     # -- public pipeline -----------------------------------------------------
+    def _cast_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The plan's input dtype; a real-input plan overrides this."""
+        return x.to(self.dtype)
+
     def message(self, x: torch.Tensor) -> torch.Tensor:
         """Input -> uncoded message shards ``(*B, m, *worker_shard_shape)``."""
-        x = self._as_tensor(x).to(self.dtype)
+        x = self._cast_input(self._as_tensor(x))
         batch_shape(x, len(self.input_shape), "plan input")
         return self._message(x)
 

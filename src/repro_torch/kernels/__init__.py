@@ -4,6 +4,9 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 
 * ``coded_fft_bucket_masked`` -- the whole masked c2c bucket in one
   launch (``coded_pipeline.py``);
+* ``coded_rfft_bucket_masked``, ``coded_irfft_bucket_masked`` -- the
+  whole masked r2c and c2r buckets, one launch each
+  (``coded_pipeline.py``);
 * ``encode_fourstep_fused``   -- fused MDS encode + four-step worker DFT
   (``fourstep_fft.py``);
 * ``bcmatmul``                -- per-request decode apply (``cmatmul.py``);
@@ -21,6 +24,10 @@ from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.ops import (
     coded_bucket_fusable,
     coded_bucket_masked,
+    coded_irbucket_fusable,
+    coded_irbucket_masked,
+    coded_rbucket_fusable,
+    coded_rbucket_masked,
     decode_apply,
     encode_worker,
     fft_fourstep,
@@ -36,6 +43,10 @@ from repro_torch.kernels.ops import (
 __all__ = [
     "coded_bucket_fusable",
     "coded_bucket_masked",
+    "coded_irbucket_fusable",
+    "coded_irbucket_masked",
+    "coded_rbucket_fusable",
+    "coded_rbucket_masked",
     "decode_apply",
     "encode_worker",
     "fft_fourstep",

@@ -36,9 +36,9 @@ __all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "build", "build_dir
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-HEADERS = ("common.cuh", "cgemm.cuh")
+HEADERS = ("common.cuh", "cgemm.cuh", "bucket.cuh")
 SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
-           "fourstep", "cmatmul")
+           "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

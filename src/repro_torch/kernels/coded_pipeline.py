@@ -14,8 +14,24 @@ Per request the service's hot path is
 The decode matrices come from :func:`mask_subsets` (first-m responders,
 short rows filled with the first non-responders) and
 :func:`lagrange_planes_body` (the closed-form Lagrange inverse on f32
-planes).  The unmasked ``coded_fft_bucket`` kernel and the real-kind
-buckets are later slices.
+planes).
+
+The real kinds carry HALF-length payloads through the same stages:
+
+* r2c (``coded_rfft_bucket_masked``, ``csrc/coded_rbucket.cu``; twin
+  :func:`rbucket_body_masked`): the real request relabels into
+  pair-packed shards (:func:`pack_real_planes`), four-step over L/2,
+  encode, decode, then the symmetry postdecode
+  (:func:`half_postdecode_body`: split, Hermitian extension, the
+  m//2+1 recombine rows that feed the bins X[0..s/2]);
+* c2r (``coded_irfft_bucket_masked``, ``csrc/coded_irbucket.cu``; twin
+  :func:`irbucket_body_masked`): the adjoint message stage
+  (:func:`ir_message_body`), the ifft worker through the forward
+  four-step by conjugation, decode, and the pair unpack
+  (:func:`ir_unpack_body`) into one real plane.
+
+The unmasked bucket kernels (host-built decode planes) are a later
+slice.
 """
 
 from __future__ import annotations
@@ -41,13 +57,24 @@ __all__ = [
     "bucket_layout",
     "bucket_smem_bytes",
     "coded_fft_bucket_masked",
+    "pack_real_planes",
+    "half_postdecode_body",
+    "rbucket_body",
+    "rbucket_body_masked",
+    "rbucket_layout",
+    "coded_rfft_bucket_masked",
+    "ir_message_body",
+    "ir_unpack_body",
+    "irbucket_body",
+    "irbucket_body_masked",
+    "irbucket_layout",
+    "coded_irfft_bucket_masked",
     "MAX_M",
     "SMEM_PER_BLOCK_OPTIN",
 ]
 
 # the kernel unrolls the shard axis to a compile-time bound
 MAX_M = 32
-
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,14 +229,34 @@ def _perm_on(m: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_locator_perm(m).astype(np.int32), device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("coded_bucket")
-    fn = lib.coded_bucket_masked_f32
+# -- shared by the three masked bucket wrappers ----------------------------
+def _check_launch(what: str, m: int, layout: tuple[int, ...], s: int):
+    if m > MAX_M:
+        raise NotImplementedError(
+            f"{what}: m={m} > {MAX_M} (the in-kernel Lagrange decode serves "
+            f"m <= LAGRANGE_MAX_M)")
+    if 4 * layout[-1] > SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"{what}: (s={s}, m={m}) needs {4 * layout[-1]} bytes of shared "
+            f"memory per block, over {SMEM_PER_BLOCK_OPTIN}; route it to the "
+            f"stage kernels")
+
+
+def _ntau(n: int) -> float:
+    return float(np.float32(-2.0 * math.pi / n))
+
+
+def _bind(name: str, symbol: str, n_ptrs: int):
+    fn = getattr(_build.load(name), symbol)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 18 + [i32] * 5 + [ctypes.c_float, vp, vp]
+    fn.argtypes = [vp] * n_ptrs + [i32] * 5 + [ctypes.c_float, vp, vp]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return _bind("coded_bucket", "coded_bucket_masked_f32", 18)
 
 
 def device_smem_optin(device_index: int = 0) -> int:
@@ -252,26 +299,340 @@ def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
         "coded_fft_bucket_masked", xr=xr, xi=xi, masks=mk, gr=gr, gi=gi,
         far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr, twi=twi,
         fmr=fmr, fmi=fmi)
-    if m > MAX_M:
-        raise NotImplementedError(
-            f"coded_fft_bucket_masked: m={m} > {MAX_M} (the in-kernel "
-            f"Lagrange decode serves m <= LAGRANGE_MAX_M)")
     layout = bucket_layout(m, a, b)
-    if 4 * layout[-1] > SMEM_PER_BLOCK_OPTIN:
-        raise ValueError(
-            f"coded_fft_bucket_masked: (s={s}, m={m}) needs {4 * layout[-1]} "
-            f"bytes of shared memory per block, over {SMEM_PER_BLOCK_OPTIN}; "
-            f"route it to the stage kernels")
-    perm = _perm_on(m, dev)
+    _check_launch("coded_fft_bucket_masked", m, layout, s)
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
-    ntau = float(np.float32(-2.0 * math.pi / n))
     p = _build.ptr
     _build.check(_lib()(
-        p(xr), p(xi), p(mk), p(perm), p(gr), p(gi), p(far), p(fai), p(wr),
-        p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr), p(fmi), p(outr),
-        p(outi), q, n, m, a, b, ntau,
+        p(xr), p(xi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far),
+        p(fai), p(wr), p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr),
+        p(fmi), p(outr), p(outi), q, n, m, a, b, _ntau(n),
         (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
         "coded_fft_bucket_masked")
     _build.count_launch("coded_fft_bucket_masked")
     return outr, outi
+
+
+# -- the r2c bucket ---------------------------------------------------------
+def pack_real_planes(xr, m):
+    """Real request plane -> packed message planes, a pure relabeling.
+
+    ``(bq, s)`` real -> ``(bq, m, L/2)`` planes of
+    ``z_i[j] = x[i + 2jm] + 1j*x[i + (2j+1)m]``.
+    """
+    bq, s = xr.shape
+    if s < 2 * m or s % (2 * m) != 0:
+        # the contract of core.rfft.require_even_shards (the kernel layer
+        # never imports upward into core)
+        raise ValueError(
+            f"real packing needs 2m | s (an even shard length s/m): "
+            f"got s={s}, m={m}")
+    n2 = s // m // 2
+    x3 = xr.reshape(bq, n2, 2, m)
+    return x3[:, :, 0, :].transpose(1, 2), x3[:, :, 1, :].transpose(1, 2)
+
+
+def half_postdecode_body(hr, hi, swr, swi, twr, twi, fhr, fhi, s):
+    """Decoded packed spectra -> half-spectrum output planes.
+
+    ``hr, hi``: ``(bq, m, L/2)`` NATURAL-order planes of ``fft(z_i)``;
+    ``swr, swi``: ``(1, L/2+1)`` split twiddle ``omega_L^p``; ``twr,
+    twi``: ``(m, L)`` recombine twiddle; ``fhr, fhi``: ``(m//2+1, m)`` DFT
+    rows.  Returns ``(bq, s//2+1)`` planes of ``rfft(x)``.  Conjugation is
+    a sign flip on the imaginary plane.
+    """
+    bq, m, n2 = hr.shape
+    ell = 2 * n2
+    # split: Zext[p] = Z[p mod n2], Zrev[p] = conj(Zext[n2-p])
+    hre = torch.cat([hr, hr[..., :1]], dim=-1)
+    hie = torch.cat([hi, hi[..., :1]], dim=-1)
+    rre = torch.flip(hre, dims=(-1,))
+    rie = -torch.flip(hie, dims=(-1,))
+    er = 0.5 * (hre + rre)
+    ei = 0.5 * (hie + rie)
+    our = 0.5 * (hie - rie)
+    oui = -0.5 * (hre - rre)
+    sw_r = swr[0][None, None, :]
+    sw_i = swi[0][None, None, :]
+    cr = er + our * sw_r - oui * sw_i            # C = E + O * omega_L^p
+    ci = ei + our * sw_i + oui * sw_r            # (bq, m, n2+1)
+    # Hermitian extension: C[L-p] = conj(C[p])
+    cfr = torch.cat([cr, torch.flip(cr[..., 1:n2], dims=(-1,))], dim=-1)
+    cfi = torch.cat([ci, -torch.flip(ci[..., 1:n2], dims=(-1,))], dim=-1)
+    # recombine twiddle + the m//2+1 non-redundant DFT rows
+    ur = cfr * twr[None] - cfi * twi[None]
+    ui = cfr * twi[None] + cfi * twr[None]
+    ur = ur.transpose(0, 1).reshape(m, bq * ell)
+    ui = ui.transpose(0, 1).reshape(m, bq * ell)
+    outr, outi = cmatmul_body(fhr, fhi, ur, ui)  # (m//2+1, bq*L)
+    rows = m // 2 + 1
+    sh = s // 2 + 1
+    outr = outr.reshape(rows, bq, ell).transpose(0, 1).reshape(bq, -1)
+    outi = outi.reshape(rows, bq, ell).transpose(0, 1).reshape(bq, -1)
+    return outr[:, :sh], outi[:, :sh]
+
+
+def _unscramble(hr, a, b):
+    # the four-step's scrambled slot c*B + d holds natural index d*A + c
+    bq, m, _ = hr.shape
+    return hr.reshape(bq, m, a, b).transpose(2, 3).reshape(bq, m, a * b)
+
+
+def rbucket_body(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                 swr, swi, twr, twi, fhr, fhi, s):
+    """The r2c pipeline on a (bq, s) block of REAL requests with given
+    scatter decode planes ``(bq, m, n)``: :func:`bucket_body`'s stages on
+    half-length payloads (L/2 = A*B), then the symmetry postdecode.  The
+    scrambled four-step order is undone BEFORE the butterfly, which needs
+    natural reversed indexing."""
+    bq = xr.shape[0]
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    n2 = a * b
+    zr, zi = pack_real_planes(xr, m)
+    er, ei = encode_fourstep_body(
+        zr.reshape(bq, m, a, b), zi.reshape(bq, m, a, b),
+        gr, gi, far, fai, wr, wi, fbr, fbi)      # (bq, n, a, b) scrambled
+    hr, hi = bcmatmul_body(dr, di, er.reshape(bq, n, n2),
+                           ei.reshape(bq, n, n2))
+    return half_postdecode_body(_unscramble(hr, a, b), _unscramble(hi, a, b),
+                                swr, swi, twr, twi, fhr, fhi, s)
+
+
+def rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
+                        swr, swi, twr, twi, fhr, fhi, s):
+    """:func:`rbucket_body` with the decode matrices built from the raw
+    ``(bq, n)`` responder masks."""
+    n, m = gr.shape
+    _, _, dr, di = lagrange_planes_body(mask_subsets(masks, m), n)
+    return rbucket_body(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                        swr, swi, twr, twi, fhr, fhi, s)
+
+
+def rbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
+    """Word offsets of the r2c bucket kernel's shared arrays, then the
+    total (``Layout`` in ``csrc/coded_rbucket.cu``, same order), for
+    packed shards of ``L/2 = a*b``: the one reckoning of its working set,
+    and its gate."""
+    sizes = (
+        2 * a * a,                 # fa: F_A planes
+        2 * b * b,                 # fb: F_B planes
+        2 * a * b,                 # w: four-step twiddle
+        2 * a * b,                 # msg: one packed shard
+        2 * a * b,                 # t1: column-pass result
+        2 * m * a * (b + 1),       # z: m shard spectra, then decoded
+        2 * m * m,                 # gs: G rows of the subset
+        2 * (m // 2 + 1) * m,      # fh: the m//2+1 DFT rows
+        2 * m * m,                 # pw: node powers x_j^d
+        2 * m * m,                 # qm: deflation, then the inverse
+        2 * (m + 1),               # loc: locator coefficients
+        2 * m,                     # nodes, then 1/A'(x_j)
+        m,                         # sub: the subset (int)
+    )
+    return tuple(itertools.accumulate(sizes, initial=0))
+
+
+@functools.lru_cache(maxsize=None)
+def _rlib():
+    return _bind("coded_rbucket", "coded_rbucket_masked_f32", 19)
+
+
+def coded_rfft_bucket_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
+                             swr, swi, twr, twi, fhr, fhi, s):
+    """The whole masked r2c bucket: (q, s) REAL request plane + (q, N) raw
+    responder masks -> (q, s//2+1) planes of ``rfft(x)``.
+
+    ``far/wr/fbr``: four-step planes for the HALF length ``L/2 = A*B``;
+    ``swr, swi``: (1, L/2+1) split twiddle; ``twr, twi``: (m, L)
+    recombine twiddle, natural order; ``fhr, fhi``: (m//2+1, m) DFT rows.
+    CPU tensors run :func:`rbucket_body_masked`; CUDA tensors launch the
+    kernel (one launch) or raise.  The caller checks the gate
+    (``ops.coded_rbucket_fusable``).
+    """
+    q, s_ = xr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    n2 = a * b
+    if (s_ != s or 2 * m * n2 != s or masks.shape != (q, n)
+            or swr.shape != (1, n2 + 1) or twr.shape != (m, 2 * n2)
+            or fhr.shape != (m // 2 + 1, m)):
+        raise ValueError("coded_rfft_bucket_masked: inconsistent shapes")
+    if xr.device.type == "cpu":
+        return rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr,
+                                   fbi, swr, swi, twr, twi, fhr, fhi, s)
+    mk = masks.to(torch.float32).contiguous()
+    dev = _build.check_planes(
+        "coded_rfft_bucket_masked", xr=xr, masks=mk, gr=gr, gi=gi, far=far,
+        fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr,
+        twi=twi, fhr=fhr, fhi=fhi)
+    layout = rbucket_layout(m, a, b)
+    _check_launch("coded_rfft_bucket_masked", m, layout, s)
+    sh = s // 2 + 1
+    outr = torch.empty((q, sh), dtype=torch.float32, device=dev)
+    outi = torch.empty((q, sh), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_rlib()(
+        p(xr), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far), p(fai),
+        p(wr), p(wi), p(fbr), p(fbi), p(swr), p(swi), p(twr), p(twi),
+        p(fhr), p(fhi), p(outr), p(outi), q, n, m, a, b, _ntau(n),
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        "coded_rfft_bucket_masked")
+    _build.count_launch("coded_rfft_bucket_masked")
+    return outr, outi
+
+
+# -- the c2r bucket ---------------------------------------------------------
+def ir_message_body(yr, yi, fpr, fpi, ctwr, ctwi, pwr, pwi, s, m):
+    """c2r message stage on planes, the adjoint of the r2c postdecode.
+
+    ``yr, yi``: (bq, s//2+1) half-spectrum request planes.  Hermitian-
+    extends them (endpoint imaginary parts dropped, as numpy.fft.irfft
+    does), applies the adjoint recombine butterfly (``fpr``: (m, m) +sign
+    DFT planes, ``ctwr``: (m, L) conjugate twiddle), and packs each
+    shard's Hermitian half spectrum (``pwr``: (1, L/2+1) pack twiddle
+    ``omega_L^{+p}``) into the (bq, m, L/2) packed message planes.
+    """
+    bq, h = yr.shape
+    ell = s // m
+    n2 = ell // 2
+    zeros = torch.zeros((bq, 1), dtype=yr.dtype, device=yr.device)
+    midr, midi = yr[:, 1:h - 1], yi[:, 1:h - 1]
+    fullr = torch.cat([yr[:, :1], midr, yr[:, h - 1:],
+                       torch.flip(midr, dims=(-1,))], dim=-1)
+    fulli = torch.cat([zeros, midi, zeros,
+                       -torch.flip(midi, dims=(-1,))], dim=-1)  # (bq, s)
+    xr3 = fullr.reshape(bq, m, ell).transpose(0, 1).reshape(m, -1)
+    xi3 = fulli.reshape(bq, m, ell).transpose(0, 1).reshape(m, -1)
+    fr_, fi_ = cmatmul_body(fpr, fpi, xr3, xi3)            # +sign m-DFT
+    foldr = fr_.reshape(m, bq, ell).transpose(0, 1)
+    foldi = fi_.reshape(m, bq, ell).transpose(0, 1)
+    tr = foldr * ctwr[None] - foldi * ctwi[None]
+    ti = foldr * ctwi[None] + foldi * ctwr[None]           # (bq, m, L)
+    # pack_half on planes: E + 1j * (0.5*(M - conj(M_rev)) * omega_L^{+p})
+    mr, mi = tr[..., :n2 + 1], ti[..., :n2 + 1]
+    rvr = torch.flip(mr, dims=(-1,))
+    rvi = -torch.flip(mi, dims=(-1,))
+    er = 0.5 * (mr + rvr)
+    ei = 0.5 * (mi + rvi)
+    dr_ = 0.5 * (mr - rvr)
+    di_ = 0.5 * (mi - rvi)
+    pw_r = pwr[0][None, None, :]
+    pw_i = pwi[0][None, None, :]
+    our = dr_ * pw_r - di_ * pw_i
+    oui = dr_ * pw_i + di_ * pw_r
+    return (er - oui)[..., :n2], (ei + our)[..., :n2]       # (bq, m, L/2)
+
+
+def ir_unpack_body(hr, hi):
+    """Decoded packed interleave planes ``(bq, m, L/2)`` (``m`` times
+    ``ifft(z_i)`` with ``z_i[j] = o_i[2j] + 1j*o_i[2j+1]``) -> the real
+    output plane ``(bq, s)``."""
+    bq, m, n2 = hr.shape
+    op = torch.stack([hr, hi], dim=-1).reshape(bq, m, 2 * n2) / m
+    return op.transpose(1, 2).reshape(bq, 2 * m * n2)
+
+
+def irbucket_body(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                  fpr, fpi, ctwr, ctwi, pwr, pwi, s):
+    """The c2r pipeline on a (bq, s//2+1) block of half-spectrum requests
+    with given scatter decode planes ``(bq, m, n)``: the adjoint message
+    stage, the fused encode + half-length ifft worker -- the forward
+    four-step by the conj trick, ``ifft(G @ z) = conj(fft(conj(G) @
+    conj(z))) / (L/2)`` -- decode, unscramble and the pair unpack.
+    Returns ONE real (bq, s) plane."""
+    bq = yr.shape[0]
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    n2 = a * b
+    zr, zi = ir_message_body(yr, yi, fpr, fpi, ctwr, ctwi, pwr, pwi, s, m)
+    er, ei = encode_fourstep_body(
+        zr.reshape(bq, m, a, b), (-zi).reshape(bq, m, a, b), gr, -gi,
+        far, fai, wr, wi, fbr, fbi)              # (bq, n, a, b) scrambled
+    er = er.reshape(bq, n, n2) / n2
+    ei = ei.reshape(bq, n, n2) / (-n2)           # conj + 1/(L/2): the ifft
+    hr, hi = bcmatmul_body(dr, di, er, ei)
+    return ir_unpack_body(_unscramble(hr, a, b), _unscramble(hi, a, b))
+
+
+def irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
+                         fpr, fpi, ctwr, ctwi, pwr, pwi, s):
+    """:func:`irbucket_body` with the decode matrices built from the raw
+    ``(bq, n)`` responder masks."""
+    n, m = gr.shape
+    _, _, dr, di = lagrange_planes_body(mask_subsets(masks, m), n)
+    return irbucket_body(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                         fpr, fpi, ctwr, ctwi, pwr, pwi, s)
+
+
+def irbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
+    """Word offsets of the c2r bucket kernel's shared arrays, then the
+    total (``Layout`` in ``csrc/coded_irbucket.cu``, same order), for
+    packed shards of ``L/2 = a*b``: the one reckoning of its working set,
+    and its gate."""
+    sizes = (
+        2 * a * a,                 # fa: F_A planes
+        2 * b * b,                 # fb: F_B planes
+        2 * a * b,                 # w: four-step twiddle
+        2 * a * b,                 # msg: one packed shard
+        2 * a * b,                 # t1: column-pass result
+        2 * m * a * (b + 1),       # z: m shard spectra
+        2 * m * (a * b + 1),       # tt: folded half spectra, t <= L/2
+        2 * m * m,                 # gs: G rows of the subset
+        2 * m * m,                 # fp: +sign m-point DFT
+        2 * m * m,                 # pw: node powers x_j^d
+        2 * m * m,                 # qm: deflation, then the inverse
+        2 * (m + 1),               # loc: locator coefficients
+        2 * m,                     # nodes, then 1/A'(x_j)
+        m,                         # sub: the subset (int)
+    )
+    return tuple(itertools.accumulate(sizes, initial=0))
+
+
+@functools.lru_cache(maxsize=None)
+def _irlib():
+    return _bind("coded_irbucket", "coded_irbucket_masked_f32", 19)
+
+
+def coded_irfft_bucket_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
+                              fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi, s):
+    """The whole masked c2r bucket: (q, s//2+1) half-spectrum planes +
+    (q, N) raw responder masks -> the (q, s) real plane of
+    ``irfft(y, n=s)``.
+
+    ``far/wr/fbr``: four-step planes for the HALF length ``L/2 = A*B``;
+    ``fpr, fpi``: (m, m) +sign DFT; ``ctwr, ctwi``: (m, L) conjugate
+    recombine twiddle; ``pwr, pwi``: (1, L/2+1) pack twiddle.  CPU
+    tensors run :func:`irbucket_body_masked`; CUDA tensors launch the
+    kernel (one launch) or raise.  The caller checks the gate
+    (``ops.coded_irbucket_fusable``).
+    """
+    q, h = yr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    n2 = a * b
+    if (yi.shape != yr.shape or h != s // 2 + 1 or 2 * m * n2 != s
+            or masks.shape != (q, n) or fpr.shape != (m, m)
+            or ctwr.shape != (m, 2 * n2) or pwr.shape != (1, n2 + 1)):
+        raise ValueError("coded_irfft_bucket_masked: inconsistent shapes")
+    if yr.device.type == "cpu":
+        return irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
+                                    fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi,
+                                    s)
+    mk = masks.to(torch.float32).contiguous()
+    dev = _build.check_planes(
+        "coded_irfft_bucket_masked", yr=yr, yi=yi, masks=mk, gr=gr, gi=gi,
+        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
+        ctwr=ctwr, ctwi=ctwi, pwr=pwr, pwi=pwi)
+    layout = irbucket_layout(m, a, b)
+    _check_launch("coded_irfft_bucket_masked", m, layout, s)
+    out = torch.empty((q, s), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_irlib()(
+        p(yr), p(yi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far),
+        p(fai), p(wr), p(wi), p(fbr), p(fbi), p(fpr), p(fpi), p(ctwr),
+        p(ctwi), p(pwr), p(pwi), p(out), q, n, m, a, b, _ntau(n),
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        "coded_irfft_bucket_masked")
+    _build.count_launch("coded_irfft_bucket_masked")
+    return out

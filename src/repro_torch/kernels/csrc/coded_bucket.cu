@@ -9,7 +9,9 @@
 //                argsort); inv = inv(G[subset]) in closed form (Lagrange:
 //                locator product in the reference's shuffled order `perm`,
 //                suffix-form deflation, 1/A'(x_j)), node angles reduced as
-//                integers (subset_j * d mod N) before the float multiply;
+//                integers (subset_j * d mod N) before the float multiply --
+//                block_subset_decode of bucket.cuh, shared with the
+//                real-kind bucket kernels;
 //   2. the m interleaved message shards c_i[j] = x[i + j*m], each an A x B
 //      matrix, through the four-step DFT ((F_A @ M_i) * W) @ F_B;
 //   3. at every payload position l: worker results b_r = G[subset_r] . t,
@@ -38,7 +40,7 @@
 
 #include <cstring>
 
-#include "common.cuh"
+#include "bucket.cuh"
 
 namespace {
 
@@ -100,96 +102,15 @@ coded_bucket_masked_kernel(BucketArgs p) {
   int* sub = reinterpret_cast<int*>(smem + o.sub);
 
   // -- shared planes ------------------------------------------------------
-  for (int t = tid; t < A * A; t += nt) { fa_r[t] = p.far[t]; fa_i[t] = p.fai[t]; }
-  for (int t = tid; t < B * B; t += nt) { fb_r[t] = p.fbr[t]; fb_i[t] = p.fbi[t]; }
-  for (int t = tid; t < L; t += nt) { w_r[t] = p.wr[t]; w_i[t] = p.wi[t]; }
-  for (int t = tid; t < m * m; t += nt) { fm_r[t] = p.fmr[t]; fm_i[t] = p.fmi[t]; }
+  block_copy(fa_r, p.far, A * A); block_copy(fa_i, p.fai, A * A);
+  block_copy(fb_r, p.fbr, B * B); block_copy(fb_i, p.fbi, B * B);
+  block_copy(w_r, p.wr, L);       block_copy(w_i, p.wi, L);
+  block_copy(fm_r, p.fmr, m * m); block_copy(fm_i, p.fmi, m * m);
 
-  // -- 1. subset: first m responders, short rows filled by non-responders -
-  if (tid == 0) {
-    const float* mk = p.masks + q * n;
-    int cnt = 0;
-    for (int k = 0; k < n; ++k) {
-      if (mk[k] > 0.5f) {
-        if (cnt < m) sub[cnt] = k;
-        ++cnt;
-      }
-    }
-    for (int k = 0; k < n && cnt < m; ++k) {
-      if (!(mk[k] > 0.5f)) sub[cnt++] = k;
-    }
-  }
-  __syncthreads();
-
-  // node powers P[j][d] = omega_n^(sub_j*d mod n), subset generator rows
-  for (int e = tid; e < m * m; e += nt) {
-    const int j = e / m, d = e % m;
-    const int k = sub[j];
-    float sn, cs;
-    sincosf(p.ntau * (float)((k * d) % n), &sn, &cs);
-    pw_r[e] = cs;
-    pw_i[e] = sn;
-    gs_r[e] = p.gr[k * m + d];
-    gs_i[e] = p.gi[k * m + d];
-  }
-  for (int j = tid; j < m; j += nt) {
-    float sn, cs;
-    sincosf(p.ntau * (float)(sub[j] % n), &sn, &cs);
-    nd_r[j] = cs;
-    nd_i[j] = sn;
-  }
-  __syncthreads();
-
-  // locator A(z) = prod (z - x_j), factors taken in the order `perm`
-  if (tid == 0) {
-    loc_r[0] = 1.f;
-    loc_i[0] = 0.f;
-    for (int u = 1; u <= m; ++u) loc_r[u] = loc_i[u] = 0.f;
-    for (int t = 0; t < m; ++t) {
-      const int i = p.perm[t];
-      const float xr = nd_r[i], xi = nd_i[i];
-      for (int u = m; u >= 0; --u) {  // a[u] <- a[u-1] - x * a[u]
-        const float sr = u > 0 ? loc_r[u - 1] : 0.f;
-        const float si = u > 0 ? loc_i[u - 1] : 0.f;
-        const float ar = loc_r[u], ai = loc_i[u];
-        loc_r[u] = sr - (xr * ar - xi * ai);
-        loc_i[u] = si - (xr * ai + xi * ar);
-      }
-    }
-  }
-  __syncthreads();
-
-  // deflation, suffix form: Q[i][j] = sum_d a[i+d+1] x_j^d
-  for (int e = tid; e < m * m; e += nt) {
-    const int i = e / m, j = e % m;
-    float accr = 0.f, acci = 0.f;
-    for (int d = 0; i + d + 1 <= m; ++d)
-      cmac(accr, acci, loc_r[i + d + 1], loc_i[i + d + 1], pw_r[j * m + d],
-           pw_i[j * m + d]);
-    qm_r[e] = accr;
-    qm_i[e] = acci;
-  }
-  __syncthreads();
-
-  // 1 / A'(x_j), A'(x_j) = sum_i Q[i][j] x_j^i (overwrites the nodes)
-  for (int j = tid; j < m; j += nt) {
-    float apr = 0.f, api = 0.f;
-    for (int i = 0; i < m; ++i)
-      cmac(apr, api, qm_r[i * m + j], qm_i[i * m + j], pw_r[j * m + i],
-           pw_i[j * m + i]);
-    const float den = apr * apr + api * api;
-    nd_r[j] = apr / den;
-    nd_i[j] = -api / den;
-  }
-  __syncthreads();
-  // inv[i][j] = Q[i][j] / A'(x_j), in place
-  for (int e = tid; e < m * m; e += nt) {
-    const int j = e % m;
-    const float qr = qm_r[e], qi = qm_i[e];
-    qm_r[e] = qr * nd_r[j] - qi * nd_i[j];
-    qm_i[e] = qr * nd_i[j] + qi * nd_r[j];
-  }
-  // (the next shard-loop barrier orders these writes before step 3)
+  // -- 1. subset and inv(G[subset]) ----------------------------------------
+  const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
+                       loc_r, loc_i, nd_r, nd_i, sub};
+  block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau, dsm);
 
   // -- 2. four-step DFT of every message shard ----------------------------
   for (int i = 0; i < m; ++i) {
@@ -198,28 +119,9 @@ coded_bucket_masked_kernel(BucketArgs p) {
       msg_i[t] = p.xi[q * s + (long long)t * m + i];
     }
     __syncthreads();
-    for (int t = tid; t < L; t += nt) {  // T1 = (F_A @ M_i) * W
-      const int c = t / B, bb = t % B;
-      float accr = 0.f, acci = 0.f;
-      for (int a = 0; a < A; ++a)
-        cmac(accr, acci, fa_r[c * A + a], fa_i[c * A + a], msg_r[a * B + bb],
-             msg_i[a * B + bb]);
-      t1_r[t] = accr * w_r[t] - acci * w_i[t];
-      t1_i[t] = accr * w_i[t] + acci * w_r[t];
-    }
-    __syncthreads();
-    float* zr_i = z_r + (size_t)i * A * zp;
-    float* zi_i = z_i + (size_t)i * A * zp;
-    for (int t = tid; t < L; t += nt) {  // Z_i = T1 @ F_B
-      const int c = t / B, d = t % B;
-      float accr = 0.f, acci = 0.f;
-      for (int bb = 0; bb < B; ++bb)
-        cmac(accr, acci, t1_r[c * B + bb], t1_i[c * B + bb], fb_r[bb * B + d],
-             fb_i[bb * B + d]);
-      zr_i[c * zp + d] = accr;
-      zi_i[c * zp + d] = acci;
-    }
-    __syncthreads();
+    block_fourstep_tile(msg_r, msg_i, t1_r, t1_i, fa_r, fa_i, w_r, w_i, fb_r,
+                        fb_i, z_r + (size_t)i * A * zp,
+                        z_i + (size_t)i * A * zp, A, B, zp);
   }
 
   // -- 3./4. encode, decode, recombine at each natural payload index l ----

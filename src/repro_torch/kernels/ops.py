@@ -5,6 +5,10 @@ constant DFT/twiddle planes and route to the kernel wrappers; the plan
 entry points (``fft_fourstep``, ``mds_apply``, ``make_kernel_worker_fn``)
 take and return complex tensors.
 
+The real kinds (r2c, c2r) have their own whole-bucket kernels and
+gates, and stage helpers whose glue is plain PyTorch around the same
+``encode_worker`` and ``decode_apply`` kernels.
+
 Mode rule: the tensor's device.  A wrapper given CPU tensors runs its
 kernel's plain PyTorch twin (the tests' path); given CUDA tensors it
 launches the hand-written kernel or raises -- no fallback, no copy to the
@@ -27,8 +31,14 @@ from repro_torch.kernels.coded_pipeline import (
     SMEM_PER_BLOCK_OPTIN,
     bucket_smem_bytes,
     coded_fft_bucket_masked,
+    coded_irfft_bucket_masked,
+    coded_rfft_bucket_masked,
+    half_postdecode_body,
+    ir_message_body,
+    ir_unpack_body,
     lagrange_planes_body,
     mask_subsets,
+    pack_real_planes,
 )
 from repro_torch.kernels.fourstep_fft import (
     encode_fourstep_fused,
@@ -57,6 +67,14 @@ __all__ = [
     "lagrange_scatter_planes",
     "coded_bucket_fusable",
     "coded_bucket_masked",
+    "pack_real_planes",
+    "coded_rbucket_fusable",
+    "coded_rbucket_masked",
+    "rfft_postdecode_planar",
+    "coded_irbucket_fusable",
+    "coded_irbucket_masked",
+    "irfft_message_planar",
+    "irfft_unpack_planar",
 ]
 
 # Largest dense DFT plane (elements) the four-step kernels take.  A
@@ -105,6 +123,38 @@ def _recombine_planes(s: int, m: int, dtype=np.float32, sign: float = -1.0):
     ang = sign * 2.0 * np.pi * (ki % s) / s
     return (np.cos(ang).astype(dtype), np.sin(ang).astype(dtype),
             *_dft_planes(m, dtype, sign))
+
+
+@functools.lru_cache(maxsize=None)
+def _half_dft_planes(m: int, dtype=np.float32):
+    # the m//2 + 1 non-redundant butterfly rows of the length-m DFT
+    jk = np.outer(np.arange(m // 2 + 1), np.arange(m))
+    ang = -2.0 * np.pi * (jk % m) / m
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_planes(ell: int, dtype=np.float32, sign: float = -1.0):
+    # r2c split twiddle exp(sign*2j*pi*p/L), p <= L/2, as (1, L/2+1);
+    # sign=+1 is the c2r pack twiddle
+    ang = sign * 2.0 * np.pi * np.arange(ell // 2 + 1) / ell
+    return (np.cos(ang)[None, :].astype(dtype),
+            np.sin(ang)[None, :].astype(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _r2c_postdecode_planes(s: int, m: int, dtype=np.float32):
+    # split twiddle, natural-order recombine twiddle, half DFT rows
+    return (*_split_planes(s // m, dtype), *_recombine_planes(s, m, dtype)[:2],
+            *_half_dft_planes(m, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _c2r_message_planes(s: int, m: int, dtype=np.float32):
+    # +sign m-DFT, conjugate recombine twiddle, pack twiddle
+    ctwr, ctwi, fpr, fpi = _recombine_planes(s, m, dtype, sign=1.0)
+    pwr, pwi = _split_planes(s // m, dtype, sign=1.0)
+    return fpr, fpi, ctwr, ctwi, pwr, pwi
 
 
 @functools.lru_cache(maxsize=None)
@@ -344,3 +394,83 @@ def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
     planes = (*_fourstep_planes(a, b, dev),
               *_on_device(_recombine_planes_scrambled, (s, m, a, b), dev))
     return coded_fft_bucket_masked(xr, xi, masks, gr, gi, *planes)
+
+
+# -- real kinds: r2c and c2r buckets ---------------------------------------
+def _real_fusable(layout, s: int, m: int) -> bool:
+    if s < 2 * m or s % (2 * m) != 0 or m > coded_pipeline.MAX_M:
+        return False
+    a, b = split_factor(s // m // 2)
+    return 4 * layout(m, a, b)[-1] <= SMEM_PER_BLOCK_OPTIN
+
+
+def coded_rbucket_fusable(s: int, m: int, n: int) -> bool:
+    """Does the whole masked r2c bucket fit one block of its kernel?
+
+    The kernel's shared working set (``coded_pipeline.rbucket_layout``,
+    for packed shards of L/2) against :data:`SMEM_PER_BLOCK_OPTIN`, m
+    within the unrolled bound, and ``2m | s``.  ``n`` does not enter.
+    """
+    return _real_fusable(coded_pipeline.rbucket_layout, s, m)
+
+
+def coded_irbucket_fusable(s: int, m: int, n: int) -> bool:
+    """Does the whole masked c2r bucket fit one block of its kernel?
+    (``coded_pipeline.irbucket_layout`` against
+    :data:`SMEM_PER_BLOCK_OPTIN`, as :func:`coded_rbucket_fusable`.)"""
+    return _real_fusable(coded_pipeline.irbucket_layout, s, m)
+
+
+def _half_fourstep_planes(s: int, m: int, device):
+    return _fourstep_planes(*split_factor(s // m // 2), device)
+
+
+def coded_rbucket_masked(xr: torch.Tensor, masks: torch.Tensor,
+                         gr: torch.Tensor, gi: torch.Tensor, s: int):
+    """The r2c whole-bucket path: the (q, s) REAL request plane + raw
+    (q, N) masks -> (q, s//2+1) half-spectrum planes, one kernel launch.
+    Caller checks :func:`coded_rbucket_fusable`."""
+    m = gr.shape[1]
+    dev = xr.device
+    planes = (*_half_fourstep_planes(s, m, dev),
+              *_on_device(_r2c_postdecode_planes, (s, m), dev))
+    return coded_rfft_bucket_masked(xr.contiguous(), masks, gr, gi, *planes,
+                                    s)
+
+
+def coded_irbucket_masked(yr: torch.Tensor, yi: torch.Tensor,
+                          masks: torch.Tensor, gr: torch.Tensor,
+                          gi: torch.Tensor, s: int):
+    """The c2r whole-bucket path: (q, s//2+1) half-spectrum planes + raw
+    (q, N) masks -> the (q, s) real plane, one kernel launch.  Caller
+    checks :func:`coded_irbucket_fusable`."""
+    m = gr.shape[1]
+    dev = yr.device
+    planes = (*_half_fourstep_planes(s, m, dev),
+              *_on_device(_c2r_message_planes, (s, m), dev))
+    return coded_irfft_bucket_masked(yr, yi, masks, gr, gi, *planes, s)
+
+
+def rfft_postdecode_planar(hr: torch.Tensor, hi: torch.Tensor, s: int):
+    """Stage-route r2c postdecode: decoded packed-spectrum planes
+    ``(q, m, L/2)``, natural order -> half-spectrum planes
+    ``(q, s//2+1)``.  Plain PyTorch, as in the reference in every mode:
+    an elementwise butterfly and one (m//2+1, m) contraction."""
+    m = hr.shape[1]
+    return half_postdecode_body(
+        hr, hi, *_on_device(_r2c_postdecode_planes, (s, m), hr.device), s)
+
+
+def irfft_message_planar(yr: torch.Tensor, yi: torch.Tensor, s: int,
+                         m: int):
+    """Stage-route c2r message stage: half-spectrum request planes
+    ``(q, s//2+1)`` -> packed message planes ``(q, m, L/2)`` (adjoint
+    butterfly and Hermitian pack, plain PyTorch)."""
+    return ir_message_body(
+        yr, yi, *_on_device(_c2r_message_planes, (s, m), yr.device), s, m)
+
+
+def irfft_unpack_planar(hr: torch.Tensor, hi: torch.Tensor):
+    """Stage-route c2r postdecode: decoded packed interleave planes
+    ``(q, m, L/2)`` -> the real output plane ``(q, s)``."""
+    return ir_unpack_body(hr, hi)

@@ -1,4 +1,5 @@
-"""The batched straggler-tolerant FFT service (c2c slice of the port)."""
+"""The batched straggler-tolerant FFT service (the 1-D kinds c2c, r2c
+and c2r)."""
 
 from repro_torch.serving.batching import (
     LatencyHistogram,

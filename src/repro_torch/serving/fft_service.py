@@ -1,14 +1,17 @@
-"""The straggler-tolerant FFT service, c2c slice, on the hand-written kernels.
+"""The straggler-tolerant FFT service (1-D kinds) on the hand-written kernels.
 
 Clients submit transform requests; the service runs them under the
 (N, m) coded plan and answers as soon as the fastest ``m`` of ``N``
 simulated workers respond.  Each worker's latency is a shifted-exponential
 draw; the reported coded latency is the m-th order statistic.
 
-Requests are bucketed by length ``s``, stacked, padded to a power-of-two
+Requests are bucketed by ``(s, kind)``, stacked, padded to a power-of-two
 bucket and pushed through ONE bucket executor with a per-request
-responder mask.  The executor (the device-decode path) takes the requests
-and the RAW masks; on a c2c bucket it runs
+responder mask.  ``kind`` is ``"c2c"`` (complex forward), ``"r2c"`` (real
+input -> half spectrum) or ``"c2r"`` (half spectrum -> real output); ``s``
+is the time-domain length, so a c2r request of ``h`` bins lands in
+``s = 2*(h-1)``.  The executor (the device-decode path) takes the
+requests and the RAW masks; on a c2c bucket it runs
 
 * the whole-bucket kernel (``ops.coded_bucket_masked``: subset selection,
   Lagrange decode, four-step, encode, decode and recombine in one launch)
@@ -18,6 +21,12 @@ and the RAW masks; on a c2c bucket it runs
   PyTorch), then the ``encode_fourstep_fused``, ``bcmatmul`` and
   ``recombine_twiddle_dft_batched`` kernels.
 
+The real kinds carry half-length packed payloads and run their own
+whole-bucket kernel (``ops.coded_rbucket_masked``,
+``ops.coded_irbucket_masked``) under its gate, else the stage route:
+plain-PyTorch pack/split or message/unpack glue around the same
+``encode_fourstep_fused`` and ``bcmatmul`` kernels.
+
 ``use_reference=True`` (or a complex128 dtype) runs ``CodedFFT.run`` on
 the reference backend instead.  ``submit_batch`` launches every bucket
 before it waits, then makes ONE device-to-host transfer for the call.
@@ -25,7 +34,8 @@ before it waits, then makes ONE device-to-host transfer for the call.
 The numpy straggler draws happen in the reference service's order
 (one ``default_rng(cfg.seed)``, one vectorized draw per bucket), so a
 same-seed reference service sees the same masks and the same
-``coded_latency``.
+``coded_latency``; real-kind shards ship half the c2c payload, so their
+draws charge the wire share at ``payload_scale=0.5``.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch
 from repro_torch.core import mds
 from repro_torch.core.coded_fft import CodedFFT
 from repro_torch.core.plan import resolve_device
+from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.kernels import ops, ref
 from repro_torch.serving.batching import bucket_size
@@ -47,6 +58,7 @@ from repro_torch.serving.batching import bucket_size
 __all__ = ["FFTService", "FFTServiceConfig", "ServiceStats"]
 
 _NUMPY_DTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
+_PLAN_CLASS = {"c2c": CodedFFT, "r2c": CodedRFFT, "c2r": CodedIRFFT}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +85,9 @@ class FFTServiceConfig:
 
 # config values this slice does not serve -> the ROADMAP item serving them
 _LATER = {
-    "device_decode": (True, "the host decode-matrix path "
-                      "(coded_fft_bucket + serving/decode_cache.py)"),
+    "device_decode": (True, "the host decode-matrix path (coded_fft_bucket, "
+                      "coded_rfft_bucket, coded_irfft_bucket + "
+                      "serving/decode_cache.py)"),
     "precision": ("f32", "bf16 planes (kernels/autotune.py + the bf16 probe)"),
     "faults": (None, "the fault runtime"),
     "health": (False, "the fault runtime"),
@@ -118,15 +131,19 @@ class ServiceStats:
 
 
 class FFTService:
-    """Batched straggler-tolerant FFT front end (c2c kind).
+    """Batched straggler-tolerant FFT front end (c2c, r2c and c2r kinds).
 
-    Requests of any length with ``m | s`` are accepted; each length gets
-    its own plan and bucket executors.  ``device=None`` runs on CUDA and
+    Requests of any length with ``m | s`` (``2m | s`` for the real kinds)
+    are accepted; each ``(s, kind)`` gets its own plan and bucket
+    executors.  ``device=None`` runs on CUDA and
     raises without a GPU; ``device="cpu"`` runs the kernels' plain
     PyTorch versions (the tests' mode) with the same route decisions.
     """
 
-    KINDS = ("c2c",)
+    KINDS = ("c2c", "r2c", "c2r")
+    REAL_KINDS = ("r2c", "c2r")
+    # kinds of the JAX service this port does not serve yet
+    _LATER_KINDS = ("rfftn", "irfftn")
 
     def __init__(self, cfg: FFTServiceConfig, device=None, *, mesh=None,
                  pool=None):
@@ -136,8 +153,7 @@ class FFTService:
         if cfg.m > mds.LAGRANGE_MAX_M:
             raise _not_ported(
                 f"m={cfg.m} > LAGRANGE_MAX_M={mds.LAGRANGE_MAX_M}",
-                "the host decode-matrix path (coded_fft_bucket + "
-                "serving/decode_cache.py)")
+                _LATER["device_decode"][1])
         if mesh is not None:
             raise _not_ported("a mesh", "the multi-device runtime")
         if pool is not None:
@@ -149,20 +165,24 @@ class FFTService:
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
         self.stats = ServiceStats()
-        self._plans: dict[int, CodedFFT] = {}
+        self._plans: dict[tuple[int, str], object] = {}
         self._runners: dict[tuple, object] = {}
         self._gplanes: Optional[tuple[torch.Tensor, torch.Tensor]] = None
         self.plan = self._plan_for(cfg.s)
 
     # -- plans, generator state and executors ----------------------------
-    def _plan_for(self, s: int) -> CodedFFT:
-        if s not in self._plans:
+    def _plan_for(self, s: int, kind: str = "c2c"):
+        """The plan serving ``(s, kind)`` buckets: ``CodedFFT``,
+        ``CodedRFFT`` or ``CodedIRFFT`` on the same (N, m) code.  A real
+        kind's plan raises its ``2m | s`` error here."""
+        key = (s, kind)
+        if key not in self._plans:
             cfg = self.cfg
-            self._plans[s] = CodedFFT(
+            self._plans[key] = _PLAN_CLASS[kind](
                 s=s, m=cfg.m, n_workers=cfg.n_workers, dtype=cfg.dtype,
                 backend="reference" if cfg.use_reference else "kernel",
                 device=self.device)
-        return self._plans[s]
+        return self._plans[key]
 
     def generator_planes(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The (N, m) generator as f32 planes on the service's device --
@@ -183,27 +203,32 @@ class FFTService:
                          gi.to(self.device, torch.float32).contiguous())
         self._runners.clear()
 
-    def _kernel_path(self, s: int) -> bool:
-        """Does this length run the bucket kernels (else ``plan.run``)?"""
-        return self._plan_for(s).resolved_backend == "kernel"
+    def _kernel_path(self, s: int, kind: str = "c2c") -> bool:
+        """Does this bucket run the bucket kernels (else ``plan.run``)?"""
+        return self._plan_for(s, kind).resolved_backend == "kernel"
 
-    def _runner_for(self, s: int, bucket: int):
-        key = (s, bucket, self._kernel_path(s))
+    def _runner_for(self, s: int, bucket: int, kind: str = "c2c"):
+        key = (s, kind, bucket, self._kernel_path(s, kind))
         if key not in self._runners:
-            if key[2]:
-                self._runners[key] = self._make_masked_runner(s, bucket)
+            if key[3]:
+                self._runners[key] = self._make_masked_runner(s, bucket,
+                                                              kind)
             else:
-                plan = self._plan_for(s)
+                plan = self._plan_for(s, kind)
                 self._runners[key] = lambda xb, masks: plan.run(
                     xb, mask=masks)
         return self._runners[key]
 
-    def _make_masked_runner(self, s: int, bucket: int):
+    def _make_masked_runner(self, s: int, bucket: int, kind: str = "c2c"):
         """The device-decode bucket executor: ``(requests, raw masks) ->
-        spectra``, on the whole-bucket kernel when the bucket fits one
-        block's shared memory, else on the stage kernels."""
+        outputs``, on the kind's whole-bucket kernel when the bucket fits
+        one block's shared memory, else on the stage kernels."""
         m, n = self.cfg.m, self.cfg.n_workers
         gr, gi = self.generator_planes()
+        if kind == "r2c":
+            return self._make_r2c_runner(s, m, n, gr, gi)
+        if kind == "c2r":
+            return self._make_c2r_runner(s, m, n, gr, gi)
         whole = ops.coded_bucket_fusable(s, m, n)
         ell = s // m
 
@@ -224,16 +249,62 @@ class FFTService:
 
         return fn
 
+    @staticmethod
+    def _make_r2c_runner(s, m, n, gr, gi):
+        whole = ops.coded_rbucket_fusable(s, m, n)
+
+        def fn(xb: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+            if whole:
+                yr, yi = ops.coded_rbucket_masked(xb, masks, gr, gi, s)
+            else:
+                subsets = ops.mask_subsets(masks, m)
+                dr, di = ops.lagrange_scatter_planes(subsets, n)
+                zr, zi = ops.pack_real_planes(xb, m)
+                br, bi = ops.encode_worker(zr, zi, gr, gi)
+                hr, hi = ops.decode_apply(dr, di, br, bi)
+                yr, yi = ops.rfft_postdecode_planar(hr, hi, s)
+            return ref.unplanar(yr, yi)
+
+        return fn
+
+    @staticmethod
+    def _make_c2r_runner(s, m, n, gr, gi):
+        whole = ops.coded_irbucket_fusable(s, m, n)
+        n2 = s // m // 2
+        gi_conj = -gi
+
+        def fn(yb: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+            yr, yi = ref.planar(yb)
+            if whole:
+                return ops.coded_irbucket_masked(yr, yi, masks, gr, gi, s)
+            subsets = ops.mask_subsets(masks, m)
+            dr, di = ops.lagrange_scatter_planes(subsets, n)
+            zr, zi = ops.irfft_message_planar(yr, yi, s, m)
+            # the ifft worker through the forward kernel: conj in and out
+            br, bi = ops.encode_worker(zr, -zi, gr, gi_conj)
+            br, bi = br / n2, -bi / n2
+            hr, hi = ops.decode_apply(dr, di, br, bi)
+            return ops.irfft_unpack_planar(hr, hi)
+
+        return fn
+
     # -- straggler simulation --------------------------------------------
-    def _simulate_arrivals(self, n_requests: int
+    def _wire_scale(self, kind: str) -> float:
+        """Per-shard wire payload relative to the c2c shard: the real
+        kinds ship half of it (pair packing)."""
+        return 0.5 if kind in self.REAL_KINDS else 1.0
+
+    def _simulate_arrivals(self, n_requests: int, kind: str = "c2c"
                            ) -> tuple[np.ndarray, np.ndarray]:
         """Per-request worker latencies + availability masks at decode
         time: ONE vectorized draw per bucket, the mask admitting the
         fastest ``m`` (the m-th order statistic and everything before).
-        c2c shards ship the full payload (``payload_scale=1``)."""
+        The wire share is charged at the kind's payload
+        (:meth:`_wire_scale`)."""
         cfg = self.cfg
         lat = cfg.straggler.sample(
-            (n_requests, cfg.n_workers), 1.0 / cfg.m, self.rng)
+            (n_requests, cfg.n_workers), 1.0 / cfg.m, self.rng,
+            payload_scale=self._wire_scale(kind))
         t_done = np.sort(lat, axis=-1)[:, cfg.m - 1]
         return lat, lat <= t_done[:, None]
 
@@ -246,28 +317,50 @@ class FFTService:
 
     # -- staging seam ----------------------------------------------------
     def bucket_key(self, x, kind: str) -> int:
-        """The bucket length one request lands in."""
-        if kind not in self.KINDS:
+        """The time-domain length ``s`` one request lands in (a c2r
+        request of ``h`` bins maps to ``s = 2*(h-1)``).  Validates the
+        kind, the half-spectrum width and, for the real kinds, ``2m | s``
+        (by building the bucket's plan) before any straggler draw."""
+        if kind in self._LATER_KINDS:
             raise _not_ported(f"request kind {kind!r}",
-                              "the real kinds (r2c/c2r) and n-D")
-        return int(x.shape[-1])
+                              "Queue 1, n-D (core/rfftn.py)")
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown bucket kind {kind!r}")
+        n_last = int(x.shape[-1])
+        if kind == "c2r" and n_last < 2:
+            raise ValueError(
+                f"c2r requests need >= 2 half-spectrum bins "
+                f"(s = 2*(bins-1) > 0), got {n_last}")
+        s = 2 * (n_last - 1) if kind == "c2r" else n_last
+        if kind in self.REAL_KINDS:
+            self._plan_for(s, kind)
+        return s
 
-    def _bucket_buffer(self, s: int, bucket: int) -> np.ndarray:
-        return np.zeros((bucket, s), dtype=_NUMPY_DTYPE[self.cfg.dtype])
+    def _bucket_buffer(self, s: int, bucket: int,
+                       kind: str = "c2c") -> np.ndarray:
+        """The staging buffer of one bucket in the kind's ingress dtype:
+        a real plane for r2c, ``s//2 + 1`` complex bins for c2r."""
+        cdt = _NUMPY_DTYPE[self.cfg.dtype]
+        if kind == "r2c":
+            return np.zeros((bucket, s), dtype=np.finfo(cdt).dtype)
+        if kind == "c2r":
+            return np.zeros((bucket, s // 2 + 1), dtype=cdt)
+        return np.zeros((bucket, s), dtype=cdt)
 
     def stage_bucket(self, s: int, kind: str, reqs: Sequence) -> tuple:
-        """Host-side staging for one bucket of same-length requests: the
-        straggler draw, the pack into the padded bucket buffer and the
-        host->device copy.  Returns ``(bucket, args)``."""
+        """Host-side staging for one bucket of same-``(s, kind)``
+        requests: the straggler draw, the pack into the padded bucket
+        buffer and the host->device copy.  Returns ``(bucket, args)``."""
         cfg = self.cfg
         n_live = len(reqs)
         bucket = bucket_size(n_live, cfg.max_batch)
         self.stats.batches += 1
-        xb = self._bucket_buffer(s, bucket)
+        xb = self._bucket_buffer(s, bucket, kind)
         for row, x in enumerate(reqs):
-            xb[row] = (x.cpu().numpy() if isinstance(x, torch.Tensor)
-                       else np.asarray(x))
-        lat, mask = self._simulate_arrivals(n_live)
+            x = (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                 else np.asarray(x))
+            xb[row] = x.real if kind == "r2c" and np.iscomplexobj(x) else x
+        lat, mask = self._simulate_arrivals(n_live, kind)
         self._account(lat, mask)
         # padded rows: every worker "responds" so decode stays well-posed
         masks = np.ones((bucket, cfg.n_workers), bool)
@@ -278,59 +371,82 @@ class FFTService:
     def launch_bucket(self, s: int, bucket: int, kind: str,
                       args: tuple) -> torch.Tensor:
         """Launch one staged bucket; returns the UNSYNCED device result."""
-        return self._runner_for(s, bucket)(*args)
+        return self._runner_for(s, bucket, kind)(*args)
 
     # -- public API ------------------------------------------------------
     def submit(self, x) -> np.ndarray:
         """One request: returns F{x}, never waiting for stragglers."""
         return self.submit_batch([x])[0]
 
+    def submit_rfft(self, x) -> np.ndarray:
+        """One REAL request: returns the half spectrum ``rfft(x)``
+        (``s//2 + 1`` bins) from half-payload worker shards."""
+        return self.submit_batch([x], kind="r2c")[0]
+
+    def submit_irfft(self, y) -> np.ndarray:
+        """One half-spectrum request: returns the real ``irfft(y)`` of
+        length ``2*(len(y) - 1)``."""
+        return self.submit_batch([y], kind="c2r")[0]
+
     def submit_batch(self, xs: Sequence,
                      kind: Union[str, Sequence[str]] = "c2c"
                      ) -> list[np.ndarray]:
-        """Serve a batch of requests, bucketed by length.
+        """Serve a batch of requests, bucketed by ``(s, kind)``.
 
-        Every bucket is staged and launched before any wait; then ONE
-        device->host transfer fetches all results, returned in submission
-        order as host arrays.
+        ``kind`` is one kind for the whole call or one per request
+        (mixed traffic).  Every bucket is staged and launched before any
+        wait; then ONE device->host transfer fetches all results --
+        complex and real alike, packed into one real buffer -- returned
+        in submission order as host arrays.
         """
         kinds = [kind] * len(xs) if isinstance(kind, str) else list(kind)
         if len(kinds) != len(xs):
             raise ValueError(f"per-request kinds: got {len(kinds)} kinds "
                              f"for {len(xs)} requests")
-        by_bucket: dict[int, list[int]] = {}
+        by_bucket: dict[tuple[int, str], list[int]] = {}
         for i, (x, k) in enumerate(zip(xs, kinds)):
-            by_bucket.setdefault(self.bucket_key(x, k), []).append(i)
+            by_bucket.setdefault((self.bucket_key(x, k), k), []).append(i)
 
         t0 = time.perf_counter()
         pending: list[tuple[list[int], torch.Tensor]] = []
-        for s, idxs in by_bucket.items():
+        for (s, k), idxs in by_bucket.items():
             for start in range(0, len(idxs), self.cfg.max_batch):
                 chunk = idxs[start:start + self.cfg.max_batch]
-                bucket, args = self.stage_bucket(s, "c2c",
+                bucket, args = self.stage_bucket(s, k,
                                                  [xs[i] for i in chunk])
-                pending.append((chunk, self.launch_bucket(s, bucket, "c2c",
+                pending.append((chunk, self.launch_bucket(s, bucket, k,
                                                           args)))
         self.stats.dispatch_s += time.perf_counter() - t0
 
+        # ONE transfer for outputs of two dtypes: complex buckets travel
+        # as their real (re, im) pairs beside the real c2r rows
         t0 = time.perf_counter()
-        flat = torch.cat([out.reshape(-1) for _, out in pending]).cpu()
+        rdt = self.cfg.dtype.to_real()
+        flat = torch.cat([
+            (torch.view_as_real(out) if out.is_complex() else out)
+            .reshape(-1).to(rdt) for _, out in pending]).cpu().numpy()
         self.stats.host_transfers += 1
         self.stats.sync_s += time.perf_counter() - t0
+        cdt = _NUMPY_DTYPE[self.cfg.dtype]
         results: list[Optional[np.ndarray]] = [None] * len(xs)
         offset = 0
         for chunk, out in pending:
-            rows = flat[offset:offset + out.numel()].reshape(out.shape)
-            offset += out.numel()
+            width = 2 if out.is_complex() else 1
+            seg = flat[offset:offset + width * out.numel()]
+            offset += width * out.numel()
+            rows = (seg.view(cdt) if out.is_complex() else seg).reshape(
+                tuple(out.shape))
             for row, i in enumerate(chunk):
-                results[i] = rows[row].numpy()
+                results[i] = rows[row]
         return results  # type: ignore[return-value]
 
     def warmup(self, lengths: Optional[Sequence[int]] = None,
+               kinds: Sequence[str] = ("c2c",),
                buckets: Optional[Sequence[int]] = None) -> int:
-        """Run every bucket executor once (default: the config length at
-        every power-of-two bucket up to ``max_batch``) so kernel libraries
-        and plane tables are built before traffic arrives.  Returns the
+        """Run every bucket executor once (default: the config length, the
+        c2c kind, every power-of-two bucket up to ``max_batch``) so kernel
+        libraries and plane tables are built before traffic arrives.
+        ``lengths`` are time-domain lengths for every kind.  Returns the
         number of executors run."""
         cfg = self.cfg
         lengths = [cfg.s] if lengths is None else list(lengths)
@@ -342,13 +458,14 @@ class FFTService:
             buckets.append(cfg.max_batch)
         count = 0
         for s in lengths:
-            for b in sorted(set(buckets)):
-                xb = torch.from_numpy(self._bucket_buffer(s, b)).to(
-                    self.device)
-                masks = torch.ones((b, cfg.n_workers), dtype=torch.bool,
-                                   device=self.device)
-                self._runner_for(s, b)(xb, masks)
-                count += 1
+            for k in kinds:
+                for b in sorted(set(buckets)):
+                    xb = torch.from_numpy(self._bucket_buffer(s, b, k)).to(
+                        self.device)
+                    masks = torch.ones((b, cfg.n_workers), dtype=torch.bool,
+                                       device=self.device)
+                    self._runner_for(s, b, k)(xb, masks)
+                    count += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return count
