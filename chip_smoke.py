@@ -8,7 +8,11 @@ Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 plain PyTorch version on the card at the shapes its main path gives it,
 then drives the main paths at two sizes each, for each 1-D kind: the
 service's ``submit_batch`` with kind c2c, r2c and c2r (the kind's
-whole-bucket kernel at s=4096, the stage kernels at s=2^20), and
+whole-bucket kernel at s=4096, the stage kernels at s=2^20), on the
+device-decode path and on the host decode-matrix path
+(``device_decode=False``: the planes bucket kernels at s=4096, the
+streaming c2c bucket kernel at s=2^20, and the stage kernels past
+``LAGRANGE_MAX_M`` at m=64, N=128), and
 ``run`` of ``CodedFFT``, ``CodedRFFT`` and ``CodedIRFFT`` on their
 default kernel backend (the cmatmul encode and decode, and the fused
 four-step worker at s=4096 or the two-pass one at s=2^20).  Each run's
@@ -54,6 +58,24 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: Path) -> list[str]:
+    """Per entry function of one ``-Xptxas=-v`` log: its mangled name,
+    its spill line and its register line, joined."""
+    if not log.exists():
+        return []
+    out, name, spill = [], None, ""
+    for ln in log.read_text().splitlines():
+        if "Function properties for" in ln:
+            name, spill = ln.split("for", 1)[1].strip(), ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            used = ln.split(":", 1)[1].strip()
+            out.append(f"{name} | {spill} | {used}")
+            name = None
+    return out
 
 
 def fft_flops(n: int) -> float:
@@ -175,6 +197,7 @@ def main() -> int:
         recombine_batched_body,
         recombine_twiddle_dft_batched,
     )
+    from repro_torch.serving import DecodeMatrixCache
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -194,12 +217,8 @@ def main() -> int:
     if optin != ops.SMEM_PER_BLOCK_OPTIN:
         fail(f"cudaDevAttrMaxSharedMemoryPerBlockOptin {optin} != the "
              f"gate's SMEM_PER_BLOCK_OPTIN {ops.SMEM_PER_BLOCK_OPTIN}")
-    ptxas = {}
-    for name in _build.SOURCES:
-        log = _build.log_path(name)
-        if log.exists():
-            ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln][:8]
+    ptxas = {name: ptxas_report(_build.log_path(name))
+             for name in _build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(built), "dir": str(_build.build_dir().name),
           "smem_per_block_optin": optin, "ptxas": ptxas})
@@ -239,9 +258,9 @@ def main() -> int:
                                if library else None)}
 
     def kernel_row(name, source, replaces, run, plain, library, tol, nbytes,
-                   flops, reps, shape, yardsticks=(), **info):
-        """Measure one kernel and add its row.  ``info`` adds plain values
-        to the row, ``yardsticks`` timed calls."""
+                   flops, reps, shape, yardsticks=(), into=table, **info):
+        """Measure one kernel and add its row to ``into``.  ``info`` adds
+        plain values to the row, ``yardsticks`` timed calls."""
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0,
                **measure(name, run, plain, library, tol, nbytes, flops,
@@ -250,7 +269,7 @@ def main() -> int:
                **{k: time_ms(torch, f, reps, spin_rate)
                   for k, f in yardsticks}}
         emit({"phase": "kernel", **row})
-        table.append(row)
+        into.append(row)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # -- 3. each kernel against its plain version, at the service shapes --
@@ -269,10 +288,12 @@ def main() -> int:
     xc = torch.complex(xr, xi)
     # least work: the m shard FFTs, then per payload position the m
     # responders' coded results, the decode, the twiddle and an m-point FFT
-    flops = q * (m * fft_flops(ell)
-                 + ell * (2 * 8 * m * m + 6 * m + fft_flops(m)))
-    nbytes = F32 * (4 * q * s + q * n + 2 * n * m
-                    + 2 * (a * a + b * b + a * b + m * ell + m * m))
+    # (the planes kernel's least work is the same: only the m live columns
+    # of each request's scatter decode matrix are needed)
+    flops_c2c = q * (m * fft_flops(ell)
+                     + ell * (2 * 8 * m * m + 6 * m + fft_flops(m)))
+    nbytes_c2c = F32 * (4 * q * s + q * n + 2 * n * m
+                        + 2 * (a * a + b * b + a * b + m * ell + m * m))
     kernel_row(
         "coded_fft_bucket_masked", csrc + "coded_bucket.cu",
         "src/repro/kernels/coded_pipeline.py:857",
@@ -280,7 +301,7 @@ def main() -> int:
             xr, xi, masks, gr, gi, *planes),
         lambda: coded_pipeline.bucket_body_masked(
             xr, xi, masks.to(torch.float32), gr, gi, *planes),
-        lambda: torch.fft.fft(xc, dim=-1), 3e-4, nbytes, flops, 50,
+        lambda: torch.fft.fft(xc, dim=-1), 3e-4, nbytes_c2c, flops_c2c, 50,
         [q, s, m, n])
 
     # (a') the real kinds' whole buckets at the same config: packed shards
@@ -293,9 +314,13 @@ def main() -> int:
     # the decode at each packed position, the Hermitian split or pack of
     # each (shard, position), the recombine twiddle and the m//2+1-row
     # (or m-point) butterfly at each of the L positions of every shard
-    flops = q * (m * fft_flops(n2) + n2 * 2 * 8 * m * m + m * n2 * 16
-                 + 2 * n2 * m * (6 + 8 * (m // 2 + 1)))
+    flops_real = q * (m * fft_flops(n2) + n2 * 2 * 8 * m * m + m * n2 * 16
+                      + 2 * n2 * m * (6 + 8 * (m // 2 + 1)))
     fplanes_bytes = 2 * (a * a + b * b + a * b + (n2 + 1) + m * 2 * n2)
+    nbytes_r2c = F32 * (q * s + q * n + 2 * n * m + fplanes_bytes
+                        + 2 * (m // 2 + 1) * m + 2 * q * sh)
+    nbytes_c2r = F32 * (2 * q * sh + q * n + 2 * n * m + fplanes_bytes
+                        + 2 * m * m + q * s)
     xreal = randn(q, s)
     rplanes = (*hplanes, *ops._on_device(ops._r2c_postdecode_planes,
                                          (s, m), dev))
@@ -306,10 +331,8 @@ def main() -> int:
             xreal, masks, gr, gi, *rplanes, s),
         lambda: coded_pipeline.rbucket_body_masked(
             xreal, masks.to(torch.float32), gr, gi, *rplanes, s),
-        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4,
-        F32 * (q * s + q * n + 2 * n * m + fplanes_bytes
-               + 2 * (m // 2 + 1) * m + 2 * q * sh), flops, 50,
-        [q, s, m, n])
+        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4, nbytes_r2c, flops_real,
+        50, [q, s, m, n])
     yhalf = torch.fft.rfft(randn(q, s), dim=-1)
     yr, yi = yhalf.real.contiguous(), yhalf.imag.contiguous()
     iplanes = (*hplanes, *ops._on_device(ops._c2r_message_planes,
@@ -321,59 +344,152 @@ def main() -> int:
             yr, yi, masks, gr, gi, *iplanes, s),
         lambda: coded_pipeline.irbucket_body_masked(
             yr, yi, masks.to(torch.float32), gr, gi, *iplanes, s),
-        lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4,
-        F32 * (2 * q * sh + q * n + 2 * n * m + fplanes_bytes
-               + 2 * m * m + q * s), flops, 50, [q, s, m, n])
-    del xreal, yhalf, yr, yi
+        lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4, nbytes_c2r,
+        flops_real, 50, [q, s, m, n])
 
-    # (b)-(d) the stage route of the 2^20-point service phase: 16 requests
+    # (a'') the host decode-matrix path's planes buckets, same config and
+    # masks: each request's (m, N) scatter decode planes from the port's
+    # LRU take the masks' place in the bytes
+    g_host = (gr.cpu().numpy() + 1j * gi.cpu().numpy()).astype(np.complex64)
+    dmats = DecodeMatrixCache(g_host).matrices(masks.cpu().numpy())
+    dr, di = (torch.as_tensor(np.ascontiguousarray(p), device=dev)
+              for p in (dmats.real, dmats.imag))
+    dbytes = F32 * (2 * q * m * n - q * n)
+    kernel_row(
+        "coded_fft_bucket", csrc + "coded_bucket.cu",
+        "src/repro/kernels/coded_pipeline.py:804",
+        lambda: coded_pipeline.coded_fft_bucket(
+            xr, xi, dr, di, gr, gi, *planes),
+        lambda: coded_pipeline.bucket_body(xr, xi, dr, di, gr, gi, *planes),
+        lambda: torch.fft.fft(xc, dim=-1), 3e-4, nbytes_c2c + dbytes,
+        flops_c2c, 50, [q, s, m, n])
+    kernel_row(
+        "coded_rfft_bucket", csrc + "coded_rbucket.cu",
+        "src/repro/kernels/coded_pipeline.py:447",
+        lambda: coded_pipeline.coded_rfft_bucket(
+            xreal, dr, di, gr, gi, *rplanes, s),
+        lambda: coded_pipeline.rbucket_body(
+            xreal, dr, di, gr, gi, *rplanes, s),
+        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4, nbytes_r2c + dbytes,
+        flops_real, 50, [q, s, m, n])
+    kernel_row(
+        "coded_irfft_bucket", csrc + "coded_irbucket.cu",
+        "src/repro/kernels/coded_pipeline.py:721",
+        lambda: coded_pipeline.coded_irfft_bucket(
+            yr, yi, dr, di, gr, gi, *iplanes, s),
+        lambda: coded_pipeline.irbucket_body(
+            yr, yi, dr, di, gr, gi, *iplanes, s),
+        lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4,
+        nbytes_c2r + dbytes, flops_real, 50, [q, s, m, n])
+    del xreal, yhalf, yr, yi, dr, di, xr, xi, xc
+
+    # (a''') the streaming c2c bucket: the host path's 2^20-point bucket
+    # of 16 requests, past the planes gate, with its LRU decode planes
     q, s, m, n = 16, 1 << 20, 4, 8
+    assert (not ops.coded_bucket_fusable(s, m, n, masked=False)
+            and ops.coded_bucket_streamable(s, m, n))
     a, b = ops.split_factor(s // m)
     ell = a * b
-    cr, ci = randn(q, m, a, b), randn(q, m, a, b)
-    fplanes = ops._fourstep_planes(a, b, dev)
-    # least work: an FFT of each message shard, then the (N, m) encode
-    flops = q * m * fft_flops(ell) + q * 8 * n * m * ell
-    msg = torch.complex(cr, ci).reshape(q, m, ell)
-    nbytes = F32 * (2 * q * m * ell + 2 * n * m + 2 * (a * a + b * b + a * b)
-                    + 2 * q * n * ell)
+    xr, xi = randn(q, s), randn(q, s)
+    xc = torch.complex(xr, xi)
+    dmats = DecodeMatrixCache(g_host).matrices(
+        service_masks(q, n, m).cpu().numpy())
+    dr, di = (torch.as_tensor(np.ascontiguousarray(p), device=dev)
+              for p in (dmats.real, dmats.imag))
+    splanes = ops._bucket_planes(s, m, dev)
     kernel_row(
-        "encode_fourstep_fused", csrc + "encode_fourstep.cu",
-        "src/repro/kernels/fourstep_fft.py:187",
-        lambda: encode_fourstep_fused(cr, ci, gr, gi, *fplanes),
-        lambda: encode_fourstep_body(cr, ci, gr, gi, *fplanes),
-        None, 1e-4, nbytes, flops, 5, [q, m, a, b, n],
-        # the FFT work the two dense DFT passes stand in for (no encode)
-        yardsticks=[("fft_ms", lambda: torch.fft.fft(msg, dim=-1))])
-    del cr, ci, msg
+        "coded_fft_bucket_streaming", csrc + "coded_bucket_streaming.cu",
+        "src/repro/kernels/coded_pipeline.py:1086",
+        lambda: coded_pipeline.coded_fft_bucket_streaming(
+            xr, xi, dr, di, gr, gi, *splanes),
+        lambda: coded_pipeline.bucket_body(xr, xi, dr, di, gr, gi,
+                                           *splanes),
+        lambda: torch.fft.fft(xc, dim=-1), 3e-4,
+        F32 * (4 * q * s + 2 * q * m * n - q * n + 2 * n * m
+               + 2 * (a * a + b * b + a * b + m * ell + m * m)),
+        q * (m * fft_flops(ell)
+             + ell * (2 * 8 * m * m + 6 * m + fft_flops(m))),
+        5, [q, s, m, n])
+    del xr, xi, xc, dr, di, splanes
+    torch.cuda.empty_cache()
 
-    subsets = ops.mask_subsets(service_masks(q, n, m), m)
-    dr, di = ops.lagrange_scatter_planes(subsets, n)
-    br, bi = randn(q, n, ell), randn(q, n, ell)
-    dc, bc = torch.complex(dr, di), torch.complex(br, bi)
-    # a sparse product: each request's decode matrix is zero in its
-    # straggler columns, so only the responders' spectra are needed
-    live = int(((dr != 0) | (di != 0)).any(dim=1).sum())
-    kernel_row(
-        "bcmatmul", csrc + "bcmatmul.cu", "src/repro/kernels/cmatmul.py:81",
-        lambda: bcmatmul(dr, di, br, bi),
-        lambda: bcmatmul_body(dr, di, br, bi),
-        lambda: torch.bmm(dc, bc), 1e-5,
-        F32 * 2 * (q * m * n + live * ell + q * m * ell),
-        8 * m * live * ell, 20, [q, m, n, ell], live_columns=live)
-    del br, bi, bc
+    def stage_rows(q, s, m, n, dr, di, reps, into):
+        """The three stage kernels at the shapes one stage-route bucket of
+        ``q`` requests gives them, with that bucket's (q, m, N) scatter
+        decode planes ``dr, di``."""
+        a, b = ops.split_factor(s // m)
+        ell = a * b
+        cr, ci = randn(q, m, a, b), randn(q, m, a, b)
+        fplanes = ops._fourstep_planes(a, b, dev)
+        gr, gi = ref.planar(mds.rs_generator(n, m, device=dev))
+        # least work: an FFT of each message shard, then the (N, m) encode
+        flops = q * m * fft_flops(ell) + q * 8 * n * m * ell
+        msg = torch.complex(cr, ci).reshape(q, m, ell)
+        nbytes = F32 * (2 * q * m * ell + 2 * n * m
+                        + 2 * (a * a + b * b + a * b) + 2 * q * n * ell)
+        kernel_row(
+            "encode_fourstep_fused", csrc + "encode_fourstep.cu",
+            "src/repro/kernels/fourstep_fft.py:187",
+            lambda: encode_fourstep_fused(cr, ci, gr, gi, *fplanes),
+            lambda: encode_fourstep_body(cr, ci, gr, gi, *fplanes),
+            None, 1e-4, nbytes, flops, reps[0], [q, m, a, b, n],
+            # the FFT work the two dense DFT passes stand in for (no encode)
+            yardsticks=[("fft_ms", lambda: torch.fft.fft(msg, dim=-1))],
+            into=into)
+        del cr, ci, msg
 
-    hr, hi = randn(q, m, ell), randn(q, m, ell)
-    rplanes = ops._on_device(ops._recombine_planes, (s, m), dev)
-    kernel_row(
-        "recombine_twiddle_dft_batched", csrc + "recombine.cu",
-        "src/repro/kernels/recombine.py:91",
-        lambda: recombine_twiddle_dft_batched(hr, hi, *rplanes),
-        lambda: recombine_batched_body(hr, hi, *rplanes),
-        None, 1e-5,
-        F32 * 2 * (2 * q * m * ell + m * ell + m * m),
-        q * ell * (6 * m + fft_flops(m)), 20, [q, m, ell])
-    del hr, hi
+        br, bi = randn(q, n, ell), randn(q, n, ell)
+        dc, bc = torch.complex(dr, di), torch.complex(br, bi)
+        # a sparse product: each request's decode matrix is zero in its
+        # straggler columns, so only the responders' spectra are needed
+        live = int(((dr != 0) | (di != 0)).any(dim=1).sum())
+        kernel_row(
+            "bcmatmul", csrc + "bcmatmul.cu",
+            "src/repro/kernels/cmatmul.py:81",
+            lambda: bcmatmul(dr, di, br, bi),
+            lambda: bcmatmul_body(dr, di, br, bi),
+            lambda: torch.bmm(dc, bc), 1e-5,
+            F32 * 2 * (q * m * n + live * ell + q * m * ell),
+            8 * m * live * ell, reps[1], [q, m, n, ell], live_columns=live,
+            into=into)
+        del br, bi, bc
+
+        hr, hi = randn(q, m, ell), randn(q, m, ell)
+        rplanes = ops._on_device(ops._recombine_planes, (s, m), dev)
+        kernel_row(
+            "recombine_twiddle_dft_batched", csrc + "recombine.cu",
+            "src/repro/kernels/recombine.py:91",
+            lambda: recombine_twiddle_dft_batched(hr, hi, *rplanes),
+            lambda: recombine_batched_body(hr, hi, *rplanes),
+            None, 1e-5,
+            F32 * 2 * (2 * q * m * ell + m * ell + m * m),
+            q * ell * (6 * m + fft_flops(m)), reps[1], [q, m, ell],
+            into=into)
+        del hr, hi
+
+    # (b)-(d) the stage route of the 2^20-point service phase: 16 requests,
+    # decode planes from the service's mask law
+    q, s, m, n = 16, 1 << 20, 4, 8
+    dr, di = ops.lagrange_scatter_planes(
+        ops.mask_subsets(service_masks(q, n, m), m), n)
+    stage_rows(q, s, m, n, dr, di, (5, 20), table)
+    # (b')-(d') the same three at the widest code the host decode-matrix
+    # path serves, m = 64, N = 128: one default bucket of 64 requests at
+    # s = 4096 past the planes gate, its (128, 64) G and (64, 128) D planes
+    # over the 48 KB a launch gets without opting in.  The decode planes
+    # come from the port's LRU on evenly spread responders (the 64th roots
+    # of unity): a random draw's f32 decode is too ill-conditioned to
+    # compare two implementations at a fixed tolerance.
+    m64_rows: list[dict] = []
+    q, s, m, n = 64, 4096, 64, 128
+    g64 = mds.rs_generator(n, m, device=dev).cpu().numpy()
+    alt = np.arange(n) % 2 == 0
+    dm64 = DecodeMatrixCache(g64).matrices(
+        np.stack([np.roll(alt, i) for i in range(q)]))
+    dr, di = (torch.as_tensor(np.ascontiguousarray(p), device=dev)
+              for p in (dm64.real, dm64.imag))
+    stage_rows(q, s, m, n, dr, di, (20, 20), m64_rows)
+    del dr, di
 
     # (e)-(h) the plan's kernels at the shapes CodedFFT.run gives them.
     # fourstep_fused: the s=4096 plan's worker, 64 requests x 8 workers
@@ -491,38 +607,88 @@ def main() -> int:
         return rel if math.isfinite(rel) else math.inf
 
     # -- 4./5. the service main path, per kind ----------------------------
-    whole_kernel = {"c2c": "coded_fft_bucket_masked",
-                    "r2c": "coded_rfft_bucket_masked",
-                    "c2r": "coded_irfft_bucket_masked"}
+    # the kind's whole-bucket kernel, by decode path (masked = device)
+    whole_kernel = {
+        True: {"c2c": "coded_fft_bucket_masked",
+               "r2c": "coded_rfft_bucket_masked",
+               "c2r": "coded_irfft_bucket_masked"},
+        False: {"c2c": "coded_fft_bucket", "r2c": "coded_rfft_bucket",
+                "c2r": "coded_irfft_bucket"}}
+    whole_gate = {"c2c": ops.coded_bucket_fusable,
+                  "r2c": ops.coded_rbucket_fusable,
+                  "c2r": ops.coded_irbucket_fusable}
     stage_kernels = {"c2c": {"encode_fourstep_fused", "bcmatmul",
                              "recombine_twiddle_dft_batched"},
                      "r2c": {"encode_fourstep_fused", "bcmatmul"},
                      "c2r": {"encode_fourstep_fused", "bcmatmul"}}
+    m64_launches: dict[str, int] = {}
+    ungated = ("ungated: f32 decode of ill-conditioned subsets, as in the "
+               "reference")
 
-    def drive(kind, s, n_req, rel_tol):
+    def drive(kind, s, n_req, rel_tol, m=4, n=8, device_decode=True):
         """One ``submit_batch`` of ``n_req`` requests of ``kind`` (one
-        bucket): exactly one launch of the kind's whole-bucket kernel and
-        nothing else where the gate admits the bucket, else exactly the
-        stage kernels."""
-        svc = FFTService(FFTServiceConfig(s=s, m=4, n_workers=8))
-        whole = {"c2c": ops.coded_bucket_fusable,
-                 "r2c": ops.coded_rbucket_fusable,
-                 "c2r": ops.coded_irbucket_fusable}[kind](s, 4, 8)
+        bucket): exactly one launch of the kind's whole-bucket kernel for
+        the decode path and nothing else where the gate admits the bucket,
+        else (a c2c bucket on the host path that can stream) exactly the
+        streaming kernel's three launches, else exactly the stage
+        kernels.  ``rel_tol=None`` (a code past
+        ``LAGRANGE_MAX_M``): the service's own draws are checked for
+        launches, shapes and LRU misses and their error is printed, and
+        one bucket of evenly spread responders through the service's own
+        staging (``stage_bucket`` with those masks) and executor is held
+        to 1e-3 (tests/test_kernel_pipeline.py:113)."""
+        svc = FFTService(FFTServiceConfig(s=s, m=m, n_workers=n,
+                                          device_decode=device_decode))
+        masked = svc._device_decode()
+        whole = whole_gate[kind](s, m, n, masked=masked)
+        stream = (not whole and not masked and kind == "c2c"
+                  and ops.coded_bucket_streamable(s, m, n))
+        exact = whole or stream
+        expect = ({whole_kernel[masked][kind]: 1} if whole
+                  else {"coded_fft_bucket_streaming": 3} if stream
+                  else stage_kernels[kind])
         svc.warmup(lengths=[s], kinds=[kind], buckets=[n_req])
         xb, want = make_input(kind, (n_req, s))
         xs = list(xb.cpu().numpy())
         t0 = time.perf_counter()
         out, counts = counted(lambda: svc.submit_batch(xs, kind=kind))
         dt = time.perf_counter() - t0
-        if whole and counts != {whole_kernel[kind]: 1}:
-            fail(f"{kind} s={s}: expected one {whole_kernel[kind]} launch "
-                 f"for the one bucket, got {counts}")
-        if not whole and set(counts) != stage_kernels[kind]:
-            fail(f"{kind} s={s}: expected the stage kernels "
-                 f"{sorted(stage_kernels[kind])}, got {counts}")
-        rel = rel_err(np.stack(out), want)
-        if not rel < rel_tol:
-            fail(f"{kind} s={s}: service rel err {rel} >= {rel_tol}")
+        if (exact and counts != expect) or (not exact
+                                            and set(counts) != expect):
+            fail(f"{kind} s={s} m={m}: expected {expect} for the one "
+                 f"bucket, got {counts}")
+        if m > mds.LAGRANGE_MAX_M:
+            for k, v in counts.items():
+                m64_launches[k] = m64_launches.get(k, 0) + v
+        got = np.stack(out)
+        if got.shape != tuple(want.shape) or not np.isfinite(got).all():
+            fail(f"{kind} s={s} m={m}: output {got.shape}, finite "
+                 f"{bool(np.isfinite(got).all())}, want {tuple(want.shape)}")
+        rel = rel_err(got, want)
+        if rel_tol is not None and not rel < rel_tol:
+            fail(f"{kind} s={s} m={m}: service rel err {rel} >= {rel_tol}")
+        if not masked and svc.stats.decode_cache_misses < 1:
+            fail(f"{kind} s={s} m={m}: host path paid no LRU miss")
+        checks = {"rel_err": rel, "rel_tol": rel_tol}
+        if rel_tol is None:
+            checks = {"rel_err_ungated": rel, "note": ungated}
+            alt = np.arange(n) % 2 == 0
+            spread = np.stack([np.roll(alt, i) for i in range(n_req)])
+            def serve_spread():
+                bucket, args = svc.stage_bucket(
+                    s, kind, list(xb.cpu().numpy()), masks=spread)
+                return svc.launch_bucket(s, bucket, kind, args)
+
+            yb, scounts = counted(serve_spread)
+            if set(scounts) != expect:
+                fail(f"{kind} s={s} m={m} spread: launches {scounts}")
+            for k, v in scounts.items():
+                m64_launches[k] = m64_launches.get(k, 0) + v
+            srel = rel_err(yb, want)
+            if not srel < 1e-3:
+                fail(f"{kind} s={s} m={m}: evenly spread responders rel "
+                     f"err {srel} >= 1e-3")
+            checks.update({"spread_rel_err": srel, "spread_rel_tol": 1e-3})
         # steady-state rate: three more identical calls, wall clock, split
         # into staging + launch (dispatch) and wait + fetch (sync)
         d0, s0 = svc.stats.dispatch_s, svc.stats.sync_s
@@ -533,10 +699,12 @@ def main() -> int:
         dispatch = (svc.stats.dispatch_s - d0) / 3
         sync = (svc.stats.sync_s - s0) / 3
         trace = profile_call(torch, lambda: svc.submit_batch(xs, kind=kind))
-        emit({"phase": "service", "kind": kind, "s": s, "m": 4,
-              "n_workers": 8, "requests": n_req,
-              "route": "whole_bucket" if whole else "stage",
-              "launches": counts, "rel_err": rel, "rel_tol": rel_tol,
+        emit({"phase": "service", "kind": kind, "s": s, "m": m,
+              "n_workers": n, "requests": n_req,
+              "decode": "device" if masked else "host",
+              "route": ("whole_bucket" if whole else "streaming" if stream
+                        else "stage"),
+              "launches": counts, **checks,
               "first_call_s": dt, "steady_call_s": steady,
               "steady_dispatch_s": dispatch, "steady_sync_s": sync,
               "req_per_s": n_req / steady, "profiled_call": trace,
@@ -551,10 +719,21 @@ def main() -> int:
     # c2c bucket (half that for the real kinds), past the whole-bucket
     # gates, so the stage kernels run (bound from
     # tests/test_kernel_pipeline.py:113).  The JAX package would stream a
-    # c2c bucket through one launch; the port's streaming kernel is a
-    # later slice.
+    # c2c bucket here too; the port's streaming kernel serves the host
+    # path's planes mode only, its masked mode is a later slice.
     for kind in ("c2c", "r2c", "c2r"):
         drive(kind, 1 << 20, 16, 1e-3)
+    # the host decode-matrix path: the default config pinned to it (the
+    # planes bucket kernels), and a 2^20-point c2c bucket, which streams
+    # (the streaming bucket kernel on host decode planes, as the JAX
+    # package routes it)
+    for kind in ("c2c", "r2c", "c2r"):
+        drive(kind, 4096, 64, 3e-4, device_decode=False)
+    drive("c2c", 1 << 20, 16, 1e-3, device_decode=False)
+    # past LAGRANGE_MAX_M: m = 64 of N = 128, which the host path serves on
+    # the stage kernels (the planes kernels unroll m up to 32)
+    for kind in ("c2c", "r2c", "c2r"):
+        drive(kind, 4096, 64, None, m=64, n=128)
 
     # -- 6./7. the plans' run on their default kernel backend -------------
     plan_kind = {CodedFFT: "c2c", CodedRFFT: "r2c", CodedIRFFT: "c2r"}
@@ -621,6 +800,13 @@ def main() -> int:
         if row["launches"] < 1:
             fail(f"kernel {row['name']} was launched by no main path "
                  f"({launches})")
+    # the repaired stage kernels at m = 64: launches of the m = 64 runs
+    for row in m64_rows:
+        row["launches"] = m64_launches.get(row["name"], 0)
+        if row["launches"] < 1:
+            fail(f"kernel {row['name']} at m=64 was launched by no main "
+                 f"path ({m64_launches})")
+    emit({"phase": "kernels_m64", "rows": m64_rows})
     emit({"kernels": table})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)

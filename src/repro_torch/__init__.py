@@ -10,7 +10,9 @@ and their plain PyTorch twins), ``serving`` (the batched FFT service) and
 ``FFTService`` serves c2c requests on four kernels: the whole masked
 bucket, the fused encode + four-step, the batched decode apply and the
 batched recombine.  Its real kinds (r2c, c2r) run two more whole-bucket
-kernels, or the same encode and decode kernels on their stage route.
+kernels, or the same encode and decode kernels on their stage route.  On
+the host decode-matrix path (``device_decode=False``, or ``m > 32``) each
+kind's bucket runs a planes whole-bucket kernel, or the stage kernels.
 ``CodedFFT`` and the real and inverse plans (``CodedRFFT``,
 ``CodedIFFT``, ``CodedIRFFT``) run their default kernel backend on
 three more: the ``cmatmul`` encode and decode apply, and the four-step

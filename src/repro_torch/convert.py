@@ -20,10 +20,10 @@ __all__ = ["generator_from_reference", "config_from_reference"]
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
-# Reference fields the port's config does not carry: the tuning knobs
+# Reference fields the port's config does not carry: the autotune knobs
 # (any value; they change no result) and the fault-runtime / strategy
 # parameters, which are inert at their reference defaults.
-_TUNING = ("autotune", "autotune_reps", "decode_cache_size")
+_TUNING = ("autotune", "autotune_reps")
 _INERT_DEFAULTS = {
     "worker_fn": None,
     "decode_method": "auto",

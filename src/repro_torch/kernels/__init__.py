@@ -7,6 +7,12 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 * ``coded_rfft_bucket_masked``, ``coded_irfft_bucket_masked`` -- the
   whole masked r2c and c2r buckets, one launch each
   (``coded_pipeline.py``);
+* ``coded_fft_bucket``, ``coded_rfft_bucket``, ``coded_irfft_bucket`` --
+  the same three buckets on host-built decode planes (the service's host
+  decode-matrix path), one launch each (``coded_pipeline.py``);
+* ``coded_fft_bucket_streaming`` -- the c2c bucket on host-built decode
+  planes past the whole-bucket kernel's shared memory, three launches
+  (``coded_pipeline.py``);
 * ``encode_fourstep_fused``   -- fused MDS encode + four-step worker DFT
   (``fourstep_fft.py``);
 * ``bcmatmul``                -- per-request decode apply (``cmatmul.py``);
@@ -22,10 +28,14 @@ test oracles; ``_build`` compiles the libraries and counts launches.
 
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.ops import (
+    coded_bucket,
     coded_bucket_fusable,
     coded_bucket_masked,
+    coded_bucket_streamable,
+    coded_irbucket,
     coded_irbucket_fusable,
     coded_irbucket_masked,
+    coded_rbucket,
     coded_rbucket_fusable,
     coded_rbucket_masked,
     decode_apply,
@@ -41,10 +51,14 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = [
+    "coded_bucket",
     "coded_bucket_fusable",
     "coded_bucket_masked",
+    "coded_bucket_streamable",
+    "coded_irbucket",
     "coded_irbucket_fusable",
     "coded_irbucket_masked",
+    "coded_rbucket",
     "coded_rbucket_fusable",
     "coded_rbucket_masked",
     "decode_apply",

@@ -38,7 +38,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 HEADERS = ("common.cuh", "cgemm.cuh", "bucket.cuh")
 SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
-           "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket")
+           "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket",
+           "coded_bucket_streaming")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

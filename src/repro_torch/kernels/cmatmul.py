@@ -20,10 +20,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["cmatmul_body", "cmatmul", "bcmatmul_body", "bcmatmul"]
-
-# the left matrix lives in shared memory: cap it at the static 48 KB
-_MAX_LEFT_BYTES = 48 * 1024
+__all__ = ["cmatmul_body", "cmatmul", "bcmatmul_body", "bcmatmul",
+           "check_left_fits"]
 
 
 def cmatmul_body(ar, ai, br, bi):
@@ -37,10 +35,14 @@ def bcmatmul_body(ar, ai, br, bi):
             torch.matmul(ar, bi) + torch.matmul(ai, br))
 
 
-def _check_left(what, m, k):
-    if 2 * m * k * 4 > _MAX_LEFT_BYTES:
-        raise ValueError(f"{what}: left matrix ({m}, {k}) exceeds the "
-                         f"kernel's shared-memory tile")
+def check_left_fits(what: str, m: int, k: int) -> None:
+    """Raise unless an ``(m, k)`` left matrix fits the bcmatmul kernel's
+    shared memory: its planes (2*m*k floats) against the card's opt-in
+    per-block limit, which the launch opts in to past 48 KB."""
+    if 2 * m * k * 4 > _build.SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(f"{what}: left matrix ({m}, {k}) needs "
+                         f"{2 * m * k * 4} bytes of shared memory, over "
+                         f"{_build.SMEM_PER_BLOCK_OPTIN}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,7 +68,7 @@ def cmatmul(ar, ai, br, bi):
     if ar.device.type == "cpu":
         return cmatmul_body(ar, ai, br, bi)
     dev = _build.check_planes("cmatmul", ar=ar, ai=ai, br=br, bi=bi)
-    _check_left("cmatmul", m, k)
+    check_left_fits("cmatmul", m, k)
     ell = br.shape[1]
     cr = torch.empty((m, ell), dtype=torch.float32, device=dev)
     ci = torch.empty_like(cr)
@@ -100,7 +102,7 @@ def bcmatmul(ar, ai, br, bi):
     if ar.device.type == "cpu":
         return bcmatmul_body(ar, ai, br, bi)
     dev = _build.check_planes("bcmatmul", ar=ar, ai=ai, br=br, bi=bi)
-    _check_left("bcmatmul", m, k)
+    check_left_fits("bcmatmul", m, k)
     ell = br.shape[2]
     cr = torch.empty((q, m, ell), dtype=torch.float32, device=dev)
     ci = torch.empty_like(cr)

@@ -30,8 +30,19 @@ The real kinds carry HALF-length payloads through the same stages:
   four-step by conjugation, decode, and the pair unpack
   (:func:`ir_unpack_body`) into one real plane.
 
-The unmasked bucket kernels (host-built decode planes) are a later
-slice.
+Each kind also has a *planes* kernel (``coded_fft_bucket``,
+``coded_rfft_bucket``, ``coded_irfft_bucket``; twins :func:`bucket_body`,
+:func:`rbucket_body`, :func:`irbucket_body`): the service's host
+decode-matrix path, where every request brings its own ``(m, N)``
+scatter decode planes ``D`` built on the host (``serving.decode_cache``).
+It runs the same pipeline with ``D`` in place of the in-kernel Lagrange
+decode, in the same CUDA source as the kind's masked kernel.
+
+A c2c planes bucket past the whole-bucket kernel's shared memory runs
+``coded_fft_bucket_streaming`` (``csrc/coded_bucket_streaming.cu``; twin
+:func:`bucket_body`): the same function as three launches -- column
+pass, row pass, and the code and recombine -- with device-memory
+intermediates no wider than the request.
 """
 
 from __future__ import annotations
@@ -56,18 +67,23 @@ __all__ = [
     "bucket_body_masked",
     "bucket_layout",
     "bucket_smem_bytes",
+    "coded_fft_bucket",
     "coded_fft_bucket_masked",
+    "streaming_smem_bytes",
+    "coded_fft_bucket_streaming",
     "pack_real_planes",
     "half_postdecode_body",
     "rbucket_body",
     "rbucket_body_masked",
     "rbucket_layout",
+    "coded_rfft_bucket",
     "coded_rfft_bucket_masked",
     "ir_message_body",
     "ir_unpack_body",
     "irbucket_body",
     "irbucket_body_masked",
     "irbucket_layout",
+    "coded_irfft_bucket",
     "coded_irfft_bucket_masked",
     "MAX_M",
     "SMEM_PER_BLOCK_OPTIN",
@@ -194,13 +210,33 @@ def bucket_body_masked(xr, xi, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
                        twr, twi, fmr, fmi)
 
 
-def bucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
-    """Word offsets of the bucket kernel's shared arrays, then the total.
+def _code_words(m: int, n: int, masked: bool):
+    """Words of a bucket block's code and decode state: ``(gs, (pw, qm,
+    loc, nodes, sub))``, the layouts' shared part.
+
+    Masked: the subset's m generator rows and the Lagrange scratch (node
+    powers x_j^d, the deflation then the inverse, the locator, the nodes
+    then 1/A'(x_j), the subset).  Planes: all N generator rows in ``gs``
+    and the request's (m, N) decode matrix D in ``qm``; the Lagrange
+    arrays take no room.
+    """
+    if masked:
+        return 2 * m * m, (2 * m * m, 2 * m * m, 2 * (m + 1), 2 * m, m)
+    if n < 1:
+        raise ValueError("a planes layout needs the code's N workers")
+    return 2 * n * m, (0, 2 * m * n, 0, 0, 0)
+
+
+def bucket_layout(m: int, a: int, b: int, *, n: int = 0,
+                  masked: bool = True) -> tuple[int, ...]:
+    """Word offsets of the c2c bucket kernel's shared arrays, then the
+    total; ``masked=False`` is the planes kernel's (it needs ``n``).
 
     The kernel takes these offsets at launch (``Layout`` in
     ``csrc/coded_bucket.cu``, same order), so this is the one reckoning of
     its working set, and the fused gate.
     """
+    gs, decode = _code_words(m, n, masked)
     sizes = (
         2 * a * a,               # fa: F_A planes
         2 * b * b,               # fb: F_B planes
@@ -208,20 +244,17 @@ def bucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
         2 * a * b,               # msg: one message shard
         2 * a * b,               # t1: column-pass result
         2 * m * a * (b + 1),     # z: m shard spectra, pitch B+1
-        2 * m * m,               # gs: G rows of the subset
+        gs,                      # gs: G rows (the subset's, or all N)
         2 * m * m,               # fm: F_m planes
-        2 * m * m,               # pw: node powers x_j^d
-        2 * m * m,               # qm: deflation, then the inverse
-        2 * (m + 1),             # loc: locator coefficients
-        2 * m,                   # nodes, then 1/A'(x_j)
-        m,                       # sub: the subset (int)
+        *decode,                 # pw, qm (inverse or D), loc, nodes, sub
     )
     return tuple(itertools.accumulate(sizes, initial=0))
 
 
-def bucket_smem_bytes(m: int, a: int, b: int) -> int:
-    """Shared memory one block of the bucket kernel needs, in bytes."""
-    return 4 * bucket_layout(m, a, b)[-1]
+def bucket_smem_bytes(m: int, a: int, b: int, *, n: int = 0,
+                      masked: bool = True) -> int:
+    """Shared memory one block of the c2c bucket kernel needs, in bytes."""
+    return 4 * bucket_layout(m, a, b, n=n, masked=masked)[-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,12 +262,12 @@ def _perm_on(m: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_locator_perm(m).astype(np.int32), device=device)
 
 
-# -- shared by the three masked bucket wrappers ----------------------------
+# -- shared by the six bucket wrappers ---------------------------------------
 def _check_launch(what: str, m: int, layout: tuple[int, ...], s: int):
     if m > MAX_M:
         raise NotImplementedError(
-            f"{what}: m={m} > {MAX_M} (the in-kernel Lagrange decode serves "
-            f"m <= LAGRANGE_MAX_M)")
+            f"{what}: m={m} > {MAX_M}, the kernel's unrolled shard bound; "
+            f"route it to the stage kernels")
     if 4 * layout[-1] > SMEM_PER_BLOCK_OPTIN:
         raise ValueError(
             f"{what}: (s={s}, m={m}) needs {4 * layout[-1]} bytes of shared "
@@ -246,10 +279,12 @@ def _ntau(n: int) -> float:
     return float(np.float32(-2.0 * math.pi / n))
 
 
-def _bind(name: str, symbol: str, n_ptrs: int):
+def _bind(name: str, symbol: str, n_ptrs: int, masked: bool = True):
+    # pointers, (q, n, m, a, b), the masked entries' ntau, layout, stream
     fn = getattr(_build.load(name), symbol)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * n_ptrs + [i32] * 5 + [ctypes.c_float, vp, vp]
+    fn.argtypes = ([vp] * n_ptrs + [i32] * 5
+                   + ([ctypes.c_float] if masked else []) + [vp, vp])
     fn.restype = ctypes.c_int
     return fn
 
@@ -257,6 +292,17 @@ def _bind(name: str, symbol: str, n_ptrs: int):
 @functools.lru_cache(maxsize=None)
 def _lib():
     return _bind("coded_bucket", "coded_bucket_masked_f32", 18)
+
+
+@functools.lru_cache(maxsize=None)
+def _planes_lib():
+    return _bind("coded_bucket", "coded_bucket_f32", 18, masked=False)
+
+
+def _check_decode_planes(what, dr, di, q, m, n):
+    if dr.shape != (q, m, n) or di.shape != (q, m, n):
+        raise ValueError(f"{what}: decode planes {tuple(dr.shape)} / "
+                         f"{tuple(di.shape)}, expected {(q, m, n)}")
 
 
 def device_smem_optin(device_index: int = 0) -> int:
@@ -270,6 +316,46 @@ def device_smem_optin(device_index: int = 0) -> int:
         raise RuntimeError(f"cudaDeviceGetAttribute failed on device "
                            f"{device_index}")
     return value
+
+
+def coded_fft_bucket(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                     twr, twi, fmr, fmi):
+    """The whole c2c bucket on host-built decode planes: (q, s) request
+    planes + (q, m, N) scatter decode planes -> (q, s) output planes of
+    ``fft(x)``.
+
+    The other planes as :func:`coded_fft_bucket_masked` takes them.  CPU
+    tensors run :func:`bucket_body`; CUDA tensors launch the kernel (one
+    launch) or raise.  The caller checks the gate
+    (``ops.coded_bucket_fusable(..., masked=False)``).
+    """
+    q, s = xr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    ell = a * b
+    if (xi.shape != xr.shape or m * ell != s or twr.shape != (m, ell)
+            or fmr.shape != (m, m)):
+        raise ValueError("coded_fft_bucket: inconsistent shapes")
+    _check_decode_planes("coded_fft_bucket", dr, di, q, m, n)
+    if xr.device.type == "cpu":
+        return bucket_body(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr,
+                           fbi, twr, twi, fmr, fmi)
+    dev = _build.check_planes(
+        "coded_fft_bucket", xr=xr, xi=xi, dr=dr, di=di, gr=gr, gi=gi,
+        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr, twi=twi,
+        fmr=fmr, fmi=fmi)
+    layout = bucket_layout(m, a, b, n=n, masked=False)
+    _check_launch("coded_fft_bucket", m, layout, s)
+    outr = torch.empty_like(xr)
+    outi = torch.empty_like(xr)
+    p = _build.ptr
+    _build.check(_planes_lib()(
+        p(xr), p(xi), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr),
+        p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr), p(fmi), p(outr),
+        p(outi), q, n, m, a, b, (ctypes.c_longlong * len(layout))(*layout),
+        _build.stream_of(dev)), "coded_fft_bucket")
+    _build.count_launch("coded_fft_bucket")
+    return outr, outi
 
 
 def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
@@ -311,6 +397,71 @@ def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
         (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
         "coded_fft_bucket_masked")
     _build.count_launch("coded_fft_bucket_masked")
+    return outr, outi
+
+
+def streaming_smem_bytes(m: int, n: int) -> int:
+    """Shared memory one block of the streaming bucket's code launch
+    needs, in bytes: G (N, m), one request's D (m, N) and F_m (m, m),
+    planar (``launch_code`` in ``csrc/coded_bucket_streaming.cu``)."""
+    return 4 * (4 * n * m + 2 * m * m)
+
+
+@functools.lru_cache(maxsize=None)
+def _streaming_lib():
+    fn = _build.load("coded_bucket_streaming").coded_bucket_streaming_f32
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 22 + [i32] * 5 + [vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
+                               fbr, fbi, twr, twi, fmr, fmi):
+    """The c2c bucket on host-built decode planes past the whole-bucket
+    kernel's shared memory: the arguments, result and plain twin
+    (:func:`bucket_body`) of :func:`coded_fft_bucket`.
+
+    CUDA tensors run three launches (column pass, row pass, code and
+    recombine), each counted, with two (q, s) plane pairs of device
+    scratch; or raise.  The caller checks the gate
+    (``ops.coded_bucket_streamable``).
+    """
+    q, s = xr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    ell = a * b
+    if (xi.shape != xr.shape or m * ell != s or twr.shape != (m, ell)
+            or fmr.shape != (m, m)):
+        raise ValueError("coded_fft_bucket_streaming: inconsistent shapes")
+    _check_decode_planes("coded_fft_bucket_streaming", dr, di, q, m, n)
+    if xr.device.type == "cpu":
+        return bucket_body(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr,
+                           fbi, twr, twi, fmr, fmi)
+    dev = _build.check_planes(
+        "coded_fft_bucket_streaming", xr=xr, xi=xi, dr=dr, di=di, gr=gr,
+        gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
+        twi=twi, fmr=fmr, fmi=fmi)
+    if m > MAX_M:
+        raise NotImplementedError(
+            f"coded_fft_bucket_streaming: m={m} > {MAX_M}, the kernel's "
+            f"unrolled shard bound; route it to the stage kernels")
+    if streaming_smem_bytes(m, n) > SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"coded_fft_bucket_streaming: (m={m}, N={n}) needs "
+            f"{streaming_smem_bytes(m, n)} bytes of shared memory per "
+            f"block, over {SMEM_PER_BLOCK_OPTIN}")
+    if q > _build.MAX_GRID_YZ:
+        raise ValueError(f"coded_fft_bucket_streaming: batch q={q} exceeds "
+                         f"the grid's {_build.MAX_GRID_YZ}")
+    t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
+    p = _build.ptr
+    _build.check(_streaming_lib()(
+        p(xr), p(xi), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr),
+        p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr), p(fmi), p(t1r),
+        p(t1i), p(zr), p(zi), p(outr), p(outi), q, n, m, a, b,
+        _build.stream_of(dev)), "coded_fft_bucket_streaming")
+    _build.count_launch("coded_fft_bucket_streaming", 3)
     return outr, outi
 
 
@@ -410,11 +561,13 @@ def rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
                         swr, swi, twr, twi, fhr, fhi, s)
 
 
-def rbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
+def rbucket_layout(m: int, a: int, b: int, *, n: int = 0,
+                   masked: bool = True) -> tuple[int, ...]:
     """Word offsets of the r2c bucket kernel's shared arrays, then the
     total (``Layout`` in ``csrc/coded_rbucket.cu``, same order), for
     packed shards of ``L/2 = a*b``: the one reckoning of its working set,
-    and its gate."""
+    and its gate.  ``masked=False`` is the planes kernel's (needs ``n``)."""
+    gs, decode = _code_words(m, n, masked)
     sizes = (
         2 * a * a,                 # fa: F_A planes
         2 * b * b,                 # fb: F_B planes
@@ -422,13 +575,9 @@ def rbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
         2 * a * b,                 # msg: one packed shard
         2 * a * b,                 # t1: column-pass result
         2 * m * a * (b + 1),       # z: m shard spectra, then decoded
-        2 * m * m,                 # gs: G rows of the subset
+        gs,                        # gs: G rows (the subset's, or all N)
         2 * (m // 2 + 1) * m,      # fh: the m//2+1 DFT rows
-        2 * m * m,                 # pw: node powers x_j^d
-        2 * m * m,                 # qm: deflation, then the inverse
-        2 * (m + 1),               # loc: locator coefficients
-        2 * m,                     # nodes, then 1/A'(x_j)
-        m,                         # sub: the subset (int)
+        *decode,                   # pw, qm (inverse or D), loc, nodes, sub
     )
     return tuple(itertools.accumulate(sizes, initial=0))
 
@@ -436,6 +585,53 @@ def rbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
 @functools.lru_cache(maxsize=None)
 def _rlib():
     return _bind("coded_rbucket", "coded_rbucket_masked_f32", 19)
+
+
+@functools.lru_cache(maxsize=None)
+def _rplanes_lib():
+    return _bind("coded_rbucket", "coded_rbucket_f32", 19, masked=False)
+
+
+def coded_rfft_bucket(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                      swr, swi, twr, twi, fhr, fhi, s):
+    """The whole r2c bucket on host-built decode planes: (q, s) REAL
+    request plane + (q, m, N) scatter decode planes -> (q, s//2+1) planes
+    of ``rfft(x)``.
+
+    The other planes as :func:`coded_rfft_bucket_masked` takes them.  CPU
+    tensors run :func:`rbucket_body`; CUDA tensors launch the kernel (one
+    launch) or raise.  The caller checks the gate
+    (``ops.coded_rbucket_fusable(..., masked=False)``).
+    """
+    q, s_ = xr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    n2 = a * b
+    if (s_ != s or 2 * m * n2 != s or swr.shape != (1, n2 + 1)
+            or twr.shape != (m, 2 * n2) or fhr.shape != (m // 2 + 1, m)):
+        raise ValueError("coded_rfft_bucket: inconsistent shapes")
+    _check_decode_planes("coded_rfft_bucket", dr, di, q, m, n)
+    if xr.device.type == "cpu":
+        return rbucket_body(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                            swr, swi, twr, twi, fhr, fhi, s)
+    dev = _build.check_planes(
+        "coded_rfft_bucket", xr=xr, dr=dr, di=di, gr=gr, gi=gi, far=far,
+        fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr,
+        twi=twi, fhr=fhr, fhi=fhi)
+    layout = rbucket_layout(m, a, b, n=n, masked=False)
+    _check_launch("coded_rfft_bucket", m, layout, s)
+    sh = s // 2 + 1
+    outr = torch.empty((q, sh), dtype=torch.float32, device=dev)
+    outi = torch.empty((q, sh), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_rplanes_lib()(
+        p(xr), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr), p(wi),
+        p(fbr), p(fbi), p(swr), p(swi), p(twr), p(twi), p(fhr), p(fhi),
+        p(outr), p(outi), q, n, m, a, b,
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        "coded_rfft_bucket")
+    _build.count_launch("coded_rfft_bucket")
+    return outr, outi
 
 
 def coded_rfft_bucket_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
@@ -565,11 +761,13 @@ def irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
                          fpr, fpi, ctwr, ctwi, pwr, pwi, s)
 
 
-def irbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
+def irbucket_layout(m: int, a: int, b: int, *, n: int = 0,
+                    masked: bool = True) -> tuple[int, ...]:
     """Word offsets of the c2r bucket kernel's shared arrays, then the
     total (``Layout`` in ``csrc/coded_irbucket.cu``, same order), for
     packed shards of ``L/2 = a*b``: the one reckoning of its working set,
-    and its gate."""
+    and its gate.  ``masked=False`` is the planes kernel's (needs ``n``)."""
+    gs, decode = _code_words(m, n, masked)
     sizes = (
         2 * a * a,                 # fa: F_A planes
         2 * b * b,                 # fb: F_B planes
@@ -578,13 +776,9 @@ def irbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
         2 * a * b,                 # t1: column-pass result
         2 * m * a * (b + 1),       # z: m shard spectra
         2 * m * (a * b + 1),       # tt: folded half spectra, t <= L/2
-        2 * m * m,                 # gs: G rows of the subset
+        gs,                        # gs: G rows (the subset's, or all N)
         2 * m * m,                 # fp: +sign m-point DFT
-        2 * m * m,                 # pw: node powers x_j^d
-        2 * m * m,                 # qm: deflation, then the inverse
-        2 * (m + 1),               # loc: locator coefficients
-        2 * m,                     # nodes, then 1/A'(x_j)
-        m,                         # sub: the subset (int)
+        *decode,                   # pw, qm (inverse or D), loc, nodes, sub
     )
     return tuple(itertools.accumulate(sizes, initial=0))
 
@@ -592,6 +786,52 @@ def irbucket_layout(m: int, a: int, b: int) -> tuple[int, ...]:
 @functools.lru_cache(maxsize=None)
 def _irlib():
     return _bind("coded_irbucket", "coded_irbucket_masked_f32", 19)
+
+
+@functools.lru_cache(maxsize=None)
+def _irplanes_lib():
+    return _bind("coded_irbucket", "coded_irbucket_f32", 19, masked=False)
+
+
+def coded_irfft_bucket(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                       fpr, fpi, ctwr, ctwi, pwr, pwi, s):
+    """The whole c2r bucket on host-built decode planes: (q, s//2+1)
+    half-spectrum planes + (q, m, N) scatter decode planes -> the (q, s)
+    real plane of ``irfft(y, n=s)``.
+
+    The other planes as :func:`coded_irfft_bucket_masked` takes them.
+    CPU tensors run :func:`irbucket_body`; CUDA tensors launch the kernel
+    (one launch) or raise.  The caller checks the gate
+    (``ops.coded_irbucket_fusable(..., masked=False)``).
+    """
+    q, h = yr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    n2 = a * b
+    if (yi.shape != yr.shape or h != s // 2 + 1 or 2 * m * n2 != s
+            or fpr.shape != (m, m) or ctwr.shape != (m, 2 * n2)
+            or pwr.shape != (1, n2 + 1)):
+        raise ValueError("coded_irfft_bucket: inconsistent shapes")
+    _check_decode_planes("coded_irfft_bucket", dr, di, q, m, n)
+    if yr.device.type == "cpu":
+        return irbucket_body(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr,
+                             fbi, fpr, fpi, ctwr, ctwi, pwr, pwi, s)
+    dev = _build.check_planes(
+        "coded_irfft_bucket", yr=yr, yi=yi, dr=dr, di=di, gr=gr, gi=gi,
+        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
+        ctwr=ctwr, ctwi=ctwi, pwr=pwr, pwi=pwi)
+    layout = irbucket_layout(m, a, b, n=n, masked=False)
+    _check_launch("coded_irfft_bucket", m, layout, s)
+    out = torch.empty((q, s), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_irplanes_lib()(
+        p(yr), p(yi), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr),
+        p(wi), p(fbr), p(fbi), p(fpr), p(fpi), p(ctwr), p(ctwi), p(pwr),
+        p(pwi), p(out), q, n, m, a, b,
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        "coded_irfft_bucket")
+    _build.count_launch("coded_irfft_bucket")
+    return out
 
 
 def coded_irfft_bucket_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,

@@ -1,14 +1,21 @@
-// Block-level pieces shared by the three masked bucket kernels
-// (coded_bucket.cu, coded_rbucket.cu, coded_irbucket.cu): one block
-// serves one request, with every working array in shared memory.
+// Block-level pieces shared by the bucket kernels (coded_bucket.cu,
+// coded_rbucket.cu, coded_irbucket.cu, each with a masked and a planes
+// variant): one block serves one request, with every working array in
+// shared memory.
 //
-//   block_subset_decode  -- the request's first m responders and the
-//                           closed-form Lagrange inverse of G[subset];
+//   block_subset_decode  -- masked: the request's first m responders and
+//                           the closed-form Lagrange inverse of G[subset];
+//   block_stage_planes   -- planes: all N rows of G and the request's
+//                           host-built (m, N) scatter decode matrix D;
 //   block_fourstep_tile  -- the four-step DFT ((F_A @ M) * W) @ F_B of
 //                           one message shard.
 //
-// Both end with a barrier, so their results are visible to the whole
-// block when they return.
+// All three end with a barrier, so their results are visible to the
+// whole block when they return.  Either decode leaves R worker rows of G
+// in gs (row r at gs[r*m]) and the matrix that decodes them in qm
+// (column r at qm[j*R + r]): R = m for the masked kernels (the subset
+// and its inverse), R = N for the planes kernels (G and D), so the
+// kernels' per-position encode/decode loop is one loop over R.
 
 #pragma once
 
@@ -124,6 +131,21 @@ __device__ inline void block_subset_decode(const float* mk, const int* perm,
     const float qr = d.qm_r[e], qi = d.qm_i[e];
     d.qm_r[e] = qr * d.nd_r[j] - qi * d.nd_i[j];
     d.qm_i[e] = qr * d.nd_i[j] + qi * d.nd_r[j];
+  }
+  __syncthreads();
+}
+
+// Planes decode: G (n, m) and this request's D (m, n) into shared memory.
+__device__ inline void block_stage_planes(const float* gr, const float* gi,
+                                          const float* dr, const float* di,
+                                          int n, int m, float* gs_r,
+                                          float* gs_i, float* d_r,
+                                          float* d_i) {
+  for (int t = threadIdx.x; t < n * m; t += blockDim.x) {
+    gs_r[t] = gr[t];
+    gs_i[t] = gi[t];
+    d_r[t] = dr[t];
+    d_i[t] = di[t];
   }
   __syncthreads();
 }

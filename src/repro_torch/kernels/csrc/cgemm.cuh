@@ -8,6 +8,13 @@
 // A batch stride of 0 shares one matrix across the batch.  The batch is
 // grid z, at most 65,535: callers chunk larger batches.
 //
+// An interleave factor g > 1 reads C's columns as g interleaved groups
+// (column n = j*g + i is group i's column j): the twiddle is W[row][j]
+// (W has N/g columns) and the result lands at column i*(N/g) + j, so the
+// groups come out as contiguous (N/g)-column blocks.  The streaming c2c
+// bucket's column pass takes the m interleaved message shards of a
+// request this way, straight from its natural layout.
+//
 // The dense-DFT passes of the four-step kernels run on it: the column pass
 // (F_A @ M, twiddle in the epilogue) and the row pass (T1 @ F_B) of
 // encode_fourstep.cu and fourstep.cu.
@@ -27,14 +34,16 @@ constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 
 // C[z] = A[z] @ B[z] (* W when wr != nullptr), planar complex,
 // A (M, K) at batch stride sa, B (K, N) at batch stride sb, C (M, N)
-// contiguous per batch entry.  Grid: (ceil(N/BN), ceil(M/BM), batch).
+// contiguous per batch entry, its columns in g interleaved groups (g
+// divides N; g = 1 is the plain product).  Grid: (ceil(N/BN),
+// ceil(M/BM), batch).
 __global__ void __launch_bounds__(kThreads)
 cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
              long long sa, const float* __restrict__ br,
              const float* __restrict__ bi, long long sb,
              const float* __restrict__ wr, const float* __restrict__ wi,
              float* __restrict__ cr, float* __restrict__ ci, int M, int N,
-             int K) {
+             int K, int g) {
   __shared__ float asr[BK][BM];
   __shared__ float asi[BK][BM];
   __shared__ float bsr[BK][BN];
@@ -106,13 +115,15 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
       const int gn = n0 + tx + j * (BN / TN);
       if (gm < M && gn < N) {
         float r = accr[i][j], im = acci[i][j];
-        const long long off = (long long)gm * N + gn;
+        const int ng = N / g, col = gn / g, grp = gn % g;
         if (wr != nullptr) {
-          const float w_r = wr[off], w_i = wi[off];
+          const long long woff = (long long)gm * ng + col;
+          const float w_r = wr[woff], w_i = wi[woff];
           const float t = r * w_r - im * w_i;
           im = r * w_i + im * w_r;
           r = t;
         }
+        const long long off = (long long)gm * N + (long long)grp * ng + col;
         Cr[off] = r;
         Ci[off] = im;
       }
@@ -123,11 +134,12 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
 int launch_cgemm(const float* ar, const float* ai, long long sa,
                  const float* br, const float* bi, long long sb,
                  const float* wr, const float* wi, float* cr, float* ci,
-                 int batch, int M, int N, int K, cudaStream_t stream) {
+                 int batch, int M, int N, int K, cudaStream_t stream,
+                 int g = 1) {
   const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM),
                   (unsigned)batch);
   cgemm_kernel<<<grid, kThreads, 0, stream>>>(ar, ai, sa, br, bi, sb, wr, wi,
-                                              cr, ci, M, N, K);
+                                              cr, ci, M, N, K, g);
   return (int)cudaGetLastError();
 }
 

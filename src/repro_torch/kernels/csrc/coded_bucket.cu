@@ -1,8 +1,10 @@
-// The whole masked c2c coded-FFT bucket in one launch.
+// The whole c2c coded-FFT bucket in one launch, masked or planes.
 //
-// Replaces the TPU kernel kernels/coded_pipeline.py::coded_fft_bucket_masked
-// in the JAX package.  Per request q of the bucket, from the raw request
-// x (length s = m*L) and its (N,) responder mask:
+// Replaces two TPU kernels of the JAX package's
+// kernels/coded_pipeline.py: coded_fft_bucket_masked (entry
+// coded_bucket_masked_f32) and coded_fft_bucket (entry coded_bucket_f32).
+// Per request q of the bucket, from the raw request x (length s = m*L)
+// and its (N,) responder mask:
 //
 //   1. subset  = the first m responders in index order, short rows filled
 //                with the first non-responders (ops.mask_subsets' stable
@@ -17,6 +19,14 @@
 //   3. at every payload position l: worker results b_r = G[subset_r] . t,
 //      decode c^ = inv . b, recombine twiddle, length-m DFT;
 //   4. natural-order output X[j*L + l].
+//
+// The planes kernel (kPlanes) takes the request's host-built (m, N)
+// scatter decode matrix D in place of the mask: step 1 stages D and all
+// N rows of G (block_stage_planes), and step 3 computes every worker's
+// result b_r = G[r] . t over r < N, then c^ = D . b -- the TPU kernel's
+// two contractions, kept apart (D . G is the identity for a scatter D:
+// folded, the coded computation would vanish), the zero straggler
+// columns of D included.
 //
 // Everything after the four-step mixes only the shard axis at a fixed l,
 // so it runs in registers, one thread per l.  The recombine twiddle plane
@@ -37,6 +47,8 @@
 // working set is laid out by coded_pipeline.bucket_layout on the Python
 // side, which passes the word offsets in at launch: that one reckoning is
 // also the fused gate (ops.coded_bucket_fusable, against 232,448 bytes).
+// The planes kernel does 2*N*m complex MACs per position where the
+// masked one does 2*m*m, and stages 4*N*m words of G and D.
 
 #include <cstring>
 
@@ -53,8 +65,10 @@ struct Layout {
 struct BucketArgs {
   const float* xr;
   const float* xi;
-  const float* masks;
+  const float* masks;  // masked kernel: (q, n) responder masks
   const int* perm;
+  const float* dr;     // planes kernel: (q, m, n) scatter decode planes
+  const float* di;
   const float* gr;
   const float* gi;
   const float* far;
@@ -76,9 +90,9 @@ struct BucketArgs {
 
 constexpr int kThreads = 256;
 
-template <int MM>
+template <int MM, bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
-coded_bucket_masked_kernel(BucketArgs p) {
+coded_bucket_kernel(BucketArgs p) {
   extern __shared__ float smem[];
   const int m = p.m, n = p.n, A = p.a, B = p.b;
   const int L = A * B;
@@ -86,6 +100,7 @@ coded_bucket_masked_kernel(BucketArgs p) {
   const long long q = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Layout& o = p.o;
+  const int R = kPlanes ? n : m;  // worker rows the decode contracts
   float* fa_r = smem + o.fa;   float* fa_i = fa_r + A * A;
   float* fb_r = smem + o.fb;   float* fb_i = fb_r + B * B;
   float* w_r = smem + o.w;     float* w_i = w_r + L;
@@ -93,10 +108,10 @@ coded_bucket_masked_kernel(BucketArgs p) {
   float* t1_r = smem + o.t1;   float* t1_i = t1_r + L;
   const int zp = B + 1;
   float* z_r = smem + o.z;     float* z_i = z_r + (size_t)m * A * zp;
-  float* gs_r = smem + o.gs;   float* gs_i = gs_r + m * m;
+  float* gs_r = smem + o.gs;   float* gs_i = gs_r + R * m;
   float* fm_r = smem + o.fm;   float* fm_i = fm_r + m * m;
   float* pw_r = smem + o.pw;   float* pw_i = pw_r + m * m;
-  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * m;
+  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * R;
   float* loc_r = smem + o.loc; float* loc_i = loc_r + (m + 1);
   float* nd_r = smem + o.nodes; float* nd_i = nd_r + m;
   int* sub = reinterpret_cast<int*>(smem + o.sub);
@@ -107,10 +122,16 @@ coded_bucket_masked_kernel(BucketArgs p) {
   block_copy(w_r, p.wr, L);       block_copy(w_i, p.wi, L);
   block_copy(fm_r, p.fmr, m * m); block_copy(fm_i, p.fmi, m * m);
 
-  // -- 1. subset and inv(G[subset]) ----------------------------------------
-  const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
-                       loc_r, loc_i, nd_r, nd_i, sub};
-  block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau, dsm);
+  // -- 1. subset and inv(G[subset]), or G and the request's D ------------
+  if (kPlanes) {
+    block_stage_planes(p.gr, p.gi, p.dr + q * m * n, p.di + q * m * n, n, m,
+                       gs_r, gs_i, qm_r, qm_i);
+  } else {
+    const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
+                         loc_r, loc_i, nd_r, nd_i, sub};
+    block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau,
+                        dsm);
+  }
 
   // -- 2. four-step DFT of every message shard ----------------------------
   for (int i = 0; i < m; ++i) {
@@ -139,14 +160,14 @@ coded_bucket_masked_kernel(BucketArgs p) {
       }
     }
 #pragma unroll 1
-    for (int r = 0; r < m; ++r) {
-      float br = 0.f, bi = 0.f;  // worker sub_r's result b = G[sub_r] . t
+    for (int r = 0; r < R; ++r) {
+      float br = 0.f, bi = 0.f;  // worker row r's result b = G[r] . t
 #pragma unroll
       for (int i = 0; i < MM; ++i)
         if (i < m) cmac(br, bi, gs_r[r * m + i], gs_i[r * m + i], tr[i], ti[i]);
 #pragma unroll
-      for (int j = 0; j < MM; ++j)  // decode: c^ += inv[:, r] * b
-        if (j < m) cmac(hr[j], hi[j], qm_r[j * m + r], qm_i[j * m + r], br, bi);
+      for (int j = 0; j < MM; ++j)  // decode: c^ += inv[:, r] * b (or D)
+        if (j < m) cmac(hr[j], hi[j], qm_r[j * R + r], qm_i[j * R + r], br, bi);
     }
 #pragma unroll
     for (int j = 0; j < MM; ++j) {
@@ -170,14 +191,28 @@ coded_bucket_masked_kernel(BucketArgs p) {
   }
 }
 
-template <int MM>
+template <int MM, bool kPlanes>
 int launch(const BucketArgs& p, int q, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      coded_bucket_masked_kernel<MM>,
+      coded_bucket_kernel<MM, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  coded_bucket_masked_kernel<MM><<<q, kThreads, smem, stream>>>(p);
+  coded_bucket_kernel<MM, kPlanes><<<q, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Both entries: the layout words into p, then the instance for m.
+template <bool kPlanes>
+int dispatch(BucketArgs& p, int q, int m, const long long* layout,
+             void* stream) {
+  memcpy(&p.o, layout, sizeof(Layout));
+  const size_t smem = (size_t)p.o.total * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m <= 4) return launch<4, kPlanes>(p, q, smem, st);
+  if (m <= 8) return launch<8, kPlanes>(p, q, smem, st);
+  if (m <= 16) return launch<16, kPlanes>(p, q, smem, st);
+  if (m <= 32) return launch<32, kPlanes>(p, q, smem, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -202,14 +237,22 @@ extern "C" int coded_bucket_masked_f32(
     const float* twr, const float* twi, const float* fmr, const float* fmi,
     float* outr, float* outi, int q, int n, int m, int a, int b, float ntau,
     const long long* layout, void* stream) {
-  BucketArgs p{xr, xi, masks, perm, gr, gi, far, fai, wr, wi, fbr, fbi,
-               twr, twi, fmr, fmi, outr, outi, n, m, a, b, ntau, {}};
-  memcpy(&p.o, layout, sizeof(Layout));
-  const size_t smem = (size_t)p.o.total * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 4) return launch<4>(p, q, smem, st);
-  if (m <= 8) return launch<8>(p, q, smem, st);
-  if (m <= 16) return launch<16>(p, q, smem, st);
-  if (m <= 32) return launch<32>(p, q, smem, st);
-  return (int)cudaErrorInvalidValue;
+  BucketArgs p{xr, xi, masks, perm, nullptr, nullptr, gr, gi, far, fai,
+               wr, wi, fbr, fbi, twr, twi, fmr, fmi, outr, outi,
+               n, m, a, b, ntau, {}};
+  return dispatch<false>(p, q, m, layout, stream);
+}
+
+// As coded_bucket_masked_f32, with d: (q, m, n) scatter decode planes in
+// place of the masks (layout: coded_pipeline.bucket_layout(masked=False)).
+extern "C" int coded_bucket_f32(
+    const float* xr, const float* xi, const float* dr, const float* di,
+    const float* gr, const float* gi, const float* far, const float* fai,
+    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* twr, const float* twi, const float* fmr, const float* fmi,
+    float* outr, float* outi, int q, int n, int m, int a, int b,
+    const long long* layout, void* stream) {
+  BucketArgs p{xr, xi, nullptr, nullptr, dr, di, gr, gi, far, fai, wr, wi,
+               fbr, fbi, twr, twi, fmr, fmi, outr, outi, n, m, a, b, 0.f, {}};
+  return dispatch<true>(p, q, m, layout, stream);
 }

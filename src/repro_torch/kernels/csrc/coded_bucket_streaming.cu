@@ -1,0 +1,194 @@
+// The c2c coded-FFT bucket past the whole-bucket kernel's shared memory,
+// on host-built decode planes.
+//
+// Replaces the TPU kernel kernels/coded_pipeline.py::_streaming_bucket_call
+// of the JAX package in its planes mode (coded_fft_bucket_streaming: the
+// service's host decode-matrix path).  Per request q, from the raw request
+// x (length s = m*L, L = A*B) and its host-built (m, N) scatter decode
+// matrix D, the same function as coded_bucket.cu's planes kernel:
+//
+//   1. column pass   T1_i = (F_A @ M_i) * W for every message shard
+//                    M_i[a][b] = x[i + (a*B + b)*m], read in place: the
+//                    request viewed as an (A, B*m) matrix IS the m shards
+//                    interleaved column by column, so one GEMM over it
+//                    transforms them all; the epilogue de-interleaves,
+//                    writing t1 as (A, m, B);
+//   2. row pass      Z_i = T1_i @ F_B: t1 as an (A*m, B) matrix, so z is
+//                    (A, m, B) with Z_i[c][d] the spectrum at the natural
+//                    index c + d*A;
+//   3. code          at each payload position (c, d): every worker's
+//                    result b_r = G[r] . t over all N rows, then
+//                    c^ = D . b (the TPU kernel's two contractions, kept
+//                    apart: D . G is the identity for a scatter D), the
+//                    recombine twiddle (pre-permuted: read at c*B + d),
+//                    the length-m DFT, and the natural-order output
+//                    X[j*L + c + d*A].
+//
+// The TPU kernel streams phases 1 and 2+3 through VMEM tiles with
+// hand-rolled double-buffered DMA inside one launch, because a grid step
+// there is sequential and VMEM is large.  Here blocks run in parallel
+// and a phase boundary needs every block of the previous phase done, so
+// the three phases are three launches on one stream.  Their
+// intermediates t1 and z live in device memory (scratch the wrapper
+// allocates), each (q, s) like the request: nothing N/m times wider
+// than the request is written, which the stage route's coded spectra are.
+//
+// What bounds it on the H100: bytes.  For the service's 2^20-point
+// bucket (q = 16, m = 4, N = 8: A = B = 512) the function needs an FFT
+// of each shard and O(N*m) coding work per position, about 0.04 ms of
+// FP32 work, against about 0.08 ms to read x, D and the planes and write
+// the output once.  This first port does far more work: phases 1 and 2
+// are dense DFTs (8*A*B*(A + B) flops per shard, about 90x an FFT's) on
+// the register-tiled complex GEMM of cgemm.cuh, so it is bound by FP32
+// operations.  Phase 3 is bytes: one thread per position, G, D and F_m
+// in shared memory, a warp over 4 c x 8 d positions so z and the twiddle
+// are read in whole 32-byte sectors and the output in half sectors.  A
+// radix FFT over the A x B tile is the way to its bound.
+
+#include "cgemm.cuh"
+
+namespace {
+
+constexpr int kCodeThreads = 256;
+constexpr int kTileD = 8;                        // d positions per row
+constexpr int kTileC = kCodeThreads / kTileD;    // c positions per block
+
+// Phase 3.  Grid: (ceil(B/kTileD), ceil(A/kTileC), q).  Shared memory:
+// G (n, m), this request's D (m, n) and F_m (m, m), planar.
+template <int MM>
+__global__ void __launch_bounds__(kCodeThreads)
+stream_code_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+                   const float* __restrict__ dr, const float* __restrict__ di,
+                   const float* __restrict__ gr, const float* __restrict__ gi,
+                   const float* __restrict__ twr,
+                   const float* __restrict__ twi,
+                   const float* __restrict__ fmr,
+                   const float* __restrict__ fmi, float* __restrict__ outr,
+                   float* __restrict__ outi, int n, int m, int A, int B) {
+  extern __shared__ float smem[];
+  float* gs_r = smem;          float* gs_i = gs_r + n * m;
+  float* d_r = gs_i + n * m;   float* d_i = d_r + m * n;
+  float* fm_r = d_i + m * n;   float* fm_i = fm_r + m * m;
+  const long long q = blockIdx.z;
+  const int L = A * B;
+  const long long s = (long long)m * L;
+  for (int t = threadIdx.x; t < n * m; t += blockDim.x) {
+    gs_r[t] = gr[t];
+    gs_i[t] = gi[t];
+    d_r[t] = dr[q * m * n + t];
+    d_i[t] = di[q * m * n + t];
+  }
+  for (int t = threadIdx.x; t < m * m; t += blockDim.x) {
+    fm_r[t] = fmr[t];
+    fm_i[t] = fmi[t];
+  }
+  __syncthreads();
+  const int d = blockIdx.x * kTileD + threadIdx.x % kTileD;
+  const int c = blockIdx.y * kTileC + threadIdx.x / kTileD;
+  if (c >= A || d >= B) return;
+  const float* zq_r = zr + q * s;
+  const float* zq_i = zi + q * s;
+  float tr[MM], ti[MM], hr[MM], hi[MM];
+#pragma unroll
+  for (int i = 0; i < MM; ++i) {
+    hr[i] = hi[i] = 0.f;
+    if (i < m) {
+      const long long off = ((long long)c * m + i) * B + d;  // Z_i[c][d]
+      tr[i] = zq_r[off];
+      ti[i] = zq_i[off];
+    }
+  }
+#pragma unroll 1
+  for (int r = 0; r < n; ++r) {
+    float br = 0.f, bi = 0.f;  // worker r's result b = G[r] . t
+#pragma unroll
+    for (int i = 0; i < MM; ++i)
+      if (i < m) cmac(br, bi, gs_r[r * m + i], gs_i[r * m + i], tr[i], ti[i]);
+#pragma unroll
+    for (int j = 0; j < MM; ++j)  // decode: c^ += D[:, r] * b
+      if (j < m) cmac(hr[j], hi[j], d_r[j * n + r], d_i[j * n + r], br, bi);
+  }
+  const int lp = c * B + d;  // the position in the scrambled order
+#pragma unroll
+  for (int j = 0; j < MM; ++j) {
+    if (j < m) {
+      const float w_re = twr[(long long)j * L + lp];
+      const float w_im = twi[(long long)j * L + lp];
+      const float u = hr[j] * w_re - hi[j] * w_im;
+      hi[j] = hr[j] * w_im + hi[j] * w_re;
+      hr[j] = u;
+    }
+  }
+  const long long l = c + (long long)d * A;  // natural payload index
+#pragma unroll 1
+  for (int jp = 0; jp < m; ++jp) {
+    float accr = 0.f, acci = 0.f;
+#pragma unroll
+    for (int j = 0; j < MM; ++j)
+      if (j < m) cmac(accr, acci, fm_r[jp * m + j], fm_i[jp * m + j], hr[j], hi[j]);
+    outr[q * s + (long long)jp * L + l] = accr;
+    outi[q * s + (long long)jp * L + l] = acci;
+  }
+}
+
+template <int MM>
+int launch_code(const float* zr, const float* zi, const float* dr,
+                const float* di, const float* gr, const float* gi,
+                const float* twr, const float* twi, const float* fmr,
+                const float* fmi, float* outr, float* outi, int q, int n,
+                int m, int a, int b, cudaStream_t st) {
+  const size_t smem = (size_t)(4 * n * m + 2 * m * m) * sizeof(float);
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stream_code_kernel<MM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)((b + kTileD - 1) / kTileD),
+                  (unsigned)((a + kTileC - 1) / kTileC), (unsigned)q);
+  stream_code_kernel<MM><<<grid, kCodeThreads, smem, st>>>(
+      zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr, outi, n, m, a, b);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (q, s) planes; d: (q, m, n) scatter decode planes; g: (n, m);
+// fa: (a, a); w: (a, b); fb: (b, b); tw: (m, a*b) pre-scrambled;
+// fm: (m, m); t1, z: (q, s) scratch; out: (q, s).  m in [1, 32], q at
+// most 65,535 and 4*(4*n*m + 2*m*m) bytes within the opt-in shared
+// memory: the wrapper checks.  Returns the first nonzero
+// cudaGetLastError() of the three launches.
+extern "C" int coded_bucket_streaming_f32(
+    const float* xr, const float* xi, const float* dr, const float* di,
+    const float* gr, const float* gi, const float* far, const float* fai,
+    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* twr, const float* twi, const float* fmr, const float* fmi,
+    float* t1r, float* t1i, float* zr, float* zi, float* outr, float* outi,
+    int q, int n, int m, int a, int b, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long s = (long long)m * a * b;
+  // 1. column pass over the interleaved (a, b*m) view, shards out as
+  //    (a, m, b), twiddle W[c][bb] on every shard
+  int err = launch_cgemm(far, fai, 0, xr, xi, s, wr, wi, t1r, t1i, q, a,
+                         b * m, a, st, m);
+  if (err != 0) return err;
+  // 2. row pass: (a*m, b) @ F_B
+  err = launch_cgemm(t1r, t1i, s, fbr, fbi, 0, nullptr, nullptr, zr, zi, q,
+                     a * m, b, b, st);
+  if (err != 0) return err;
+  // 3. encode, decode, recombine, natural order
+  if (m <= 4)
+    return launch_code<4>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+                          outi, q, n, m, a, b, st);
+  if (m <= 8)
+    return launch_code<8>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+                          outi, q, n, m, a, b, st);
+  if (m <= 16)
+    return launch_code<16>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+                           outi, q, n, m, a, b, st);
+  if (m <= 32)
+    return launch_code<32>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+                           outi, q, n, m, a, b, st);
+  return (int)cudaErrorInvalidValue;
+}

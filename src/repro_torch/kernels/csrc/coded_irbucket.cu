@@ -1,9 +1,12 @@
-// The whole masked c2r coded-FFT bucket in one launch.
+// The whole c2r coded-FFT bucket in one launch, masked or planes.
 //
-// Replaces the TPU kernel kernels/coded_pipeline.py::coded_irfft_bucket_masked
-// in the JAX package (plain twin: coded_pipeline.irbucket_body_masked).
-// Per request q of the bucket, from the half spectrum y (h = s/2 + 1
-// bins, s = m*L = 2*m*n2) and its (N,) responder mask:
+// Replaces two TPU kernels of the JAX package's
+// kernels/coded_pipeline.py: coded_irfft_bucket_masked (entry
+// coded_irbucket_masked_f32, plain twin
+// coded_pipeline.irbucket_body_masked) and coded_irfft_bucket (entry
+// coded_irbucket_f32, twin irbucket_body).  Per request q of the
+// bucket, from the half spectrum y (h = s/2 + 1 bins, s = m*L = 2*m*n2)
+// and its (N,) responder mask:
 //
 //   1. subset and inv(G[subset]) -- block_subset_decode of bucket.cuh;
 //   2. the Hermitian extension X of y, the endpoint bins' imaginary parts
@@ -19,6 +22,11 @@
 //   5. at every packed position: decode h = inv . b, and unpack the pair
 //      into the real output o_i[2p] = Re h_i / m, o_i[2p+1] = Im h_i / m,
 //      out[t*m + i] = o_i[t].
+//
+// The planes kernel (kPlanes) takes the request's host-built (m, N)
+// scatter decode matrix D in place of the mask: step 1 stages D and all
+// N rows of G, and step 5 computes every worker's result over r < N,
+// then h = D . b (see coded_bucket.cu for why the two stay apart).
 //
 // What bounds it on the H100: bytes, as for the r2c kernel (1 MiB of
 // half spectra in, 1 MiB of real rows out at the default bucket).  This
@@ -42,8 +50,10 @@ struct Layout {
 struct IRBucketArgs {
   const float* yr;     // (q, s//2+1)
   const float* yi;
-  const float* masks;
+  const float* masks;  // masked kernel: (q, n) responder masks
   const int* perm;
+  const float* dr;     // planes kernel: (q, m, n) scatter decode planes
+  const float* di;
   const float* gr;
   const float* gi;
   const float* far;
@@ -66,9 +76,9 @@ struct IRBucketArgs {
 
 constexpr int kThreads = 256;
 
-template <int MM>
+template <int MM, bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
-coded_irbucket_masked_kernel(IRBucketArgs p) {
+coded_irbucket_kernel(IRBucketArgs p) {
   extern __shared__ float smem[];
   const int m = p.m, n = p.n, A = p.a, B = p.b;
   const int n2 = A * B;  // packed shard length L/2
@@ -79,6 +89,7 @@ coded_irbucket_masked_kernel(IRBucketArgs p) {
   const long long q = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Layout& o = p.o;
+  const int R = kPlanes ? n : m;  // worker rows the decode contracts
   float* fa_r = smem + o.fa;   float* fa_i = fa_r + A * A;
   float* fb_r = smem + o.fb;   float* fb_i = fb_r + B * B;
   float* w_r = smem + o.w;     float* w_i = w_r + n2;
@@ -88,10 +99,10 @@ coded_irbucket_masked_kernel(IRBucketArgs p) {
   float* z_r = smem + o.z;     float* z_i = z_r + (size_t)m * A * zp;
   const int tp = n2 + 1;       // pitch of the folded spectra
   float* tt_r = smem + o.tt;   float* tt_i = tt_r + (size_t)m * tp;
-  float* gs_r = smem + o.gs;   float* gs_i = gs_r + m * m;
+  float* gs_r = smem + o.gs;   float* gs_i = gs_r + R * m;
   float* fp_r = smem + o.fp;   float* fp_i = fp_r + m * m;
   float* pw_r = smem + o.pw;   float* pw_i = pw_r + m * m;
-  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * m;
+  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * R;
   float* loc_r = smem + o.loc; float* loc_i = loc_r + (m + 1);
   float* nd_r = smem + o.nodes; float* nd_i = nd_r + m;
   int* sub = reinterpret_cast<int*>(smem + o.sub);
@@ -102,10 +113,16 @@ coded_irbucket_masked_kernel(IRBucketArgs p) {
   block_copy(w_r, p.wr, n2);      block_copy(w_i, p.wi, n2);
   block_copy(fp_r, p.fpr, m * m); block_copy(fp_i, p.fpi, m * m);
 
-  // -- 1. subset and inv(G[subset]) ----------------------------------------
-  const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
-                       loc_r, loc_i, nd_r, nd_i, sub};
-  block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau, dsm);
+  // -- 1. subset and inv(G[subset]), or G and the request's D ------------
+  if (kPlanes) {
+    block_stage_planes(p.gr, p.gi, p.dr + q * m * n, p.di + q * m * n, n, m,
+                       gs_r, gs_i, qm_r, qm_i);
+  } else {
+    const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
+                         loc_r, loc_i, nd_r, nd_i, sub};
+    block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau,
+                        dsm);
+  }
 
   // -- 2. Hermitian extension + adjoint butterfly, t in [0, n2] -----------
   const float* y_r = p.yr + q * h;
@@ -174,16 +191,16 @@ coded_irbucket_masked_kernel(IRBucketArgs p) {
       }
     }
 #pragma unroll 1
-    for (int r = 0; r < m; ++r) {
-      float br = 0.f, bi = 0.f;  // conj(G[sub_r]) . fft(conj z)
+    for (int r = 0; r < R; ++r) {
+      float br = 0.f, bi = 0.f;  // conj(G[r]) . fft(conj z)
 #pragma unroll
       for (int i = 0; i < MM; ++i)
         if (i < m) cmac(br, bi, gs_r[r * m + i], -gs_i[r * m + i], tr[i], ti[i]);
-      br = br / fn2;  // conj and 1/n2: worker sub_r's ifft(G z)
+      br = br / fn2;  // conj and 1/n2: worker row r's ifft(G z)
       bi = bi / -fn2;
 #pragma unroll
-      for (int j = 0; j < MM; ++j)  // decode: h += inv[:, r] * b
-        if (j < m) cmac(hr[j], hi[j], qm_r[j * m + r], qm_i[j * m + r], br, bi);
+      for (int j = 0; j < MM; ++j)  // decode: h += inv[:, r] * b (or D)
+        if (j < m) cmac(hr[j], hi[j], qm_r[j * R + r], qm_i[j * R + r], br, bi);
     }
 #pragma unroll
     for (int j = 0; j < MM; ++j) {
@@ -195,14 +212,28 @@ coded_irbucket_masked_kernel(IRBucketArgs p) {
   }
 }
 
-template <int MM>
+template <int MM, bool kPlanes>
 int launch(const IRBucketArgs& p, int q, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      coded_irbucket_masked_kernel<MM>,
+      coded_irbucket_kernel<MM, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  coded_irbucket_masked_kernel<MM><<<q, kThreads, smem, stream>>>(p);
+  coded_irbucket_kernel<MM, kPlanes><<<q, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Both entries: the layout words into p, then the instance for m.
+template <bool kPlanes>
+int dispatch(IRBucketArgs& p, int q, int m, const long long* layout,
+             void* stream) {
+  memcpy(&p.o, layout, sizeof(Layout));
+  const size_t smem = (size_t)p.o.total * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m <= 4) return launch<4, kPlanes>(p, q, smem, st);
+  if (m <= 8) return launch<8, kPlanes>(p, q, smem, st);
+  if (m <= 16) return launch<16, kPlanes>(p, q, smem, st);
+  if (m <= 32) return launch<32, kPlanes>(p, q, smem, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -218,14 +249,24 @@ extern "C" int coded_irbucket_masked_f32(
     const float* fpr, const float* fpi, const float* ctwr, const float* ctwi,
     const float* pwr, const float* pwi, float* out, int q, int n, int m, int a,
     int b, float ntau, const long long* layout, void* stream) {
-  IRBucketArgs p{yr, yi, masks, perm, gr, gi, far, fai, wr, wi, fbr, fbi,
-                 fpr, fpi, ctwr, ctwi, pwr, pwi, out, n, m, a, b, ntau, {}};
-  memcpy(&p.o, layout, sizeof(Layout));
-  const size_t smem = (size_t)p.o.total * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 4) return launch<4>(p, q, smem, st);
-  if (m <= 8) return launch<8>(p, q, smem, st);
-  if (m <= 16) return launch<16>(p, q, smem, st);
-  if (m <= 32) return launch<32>(p, q, smem, st);
-  return (int)cudaErrorInvalidValue;
+  IRBucketArgs p{yr, yi, masks, perm, nullptr, nullptr, gr, gi, far, fai,
+                 wr, wi, fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi, out,
+                 n, m, a, b, ntau, {}};
+  return dispatch<false>(p, q, m, layout, stream);
+}
+
+// As coded_irbucket_masked_f32, with d: (q, m, n) scatter decode planes
+// in place of the masks (layout: coded_pipeline.irbucket_layout(
+// masked=False)).
+extern "C" int coded_irbucket_f32(
+    const float* yr, const float* yi, const float* dr, const float* di,
+    const float* gr, const float* gi, const float* far, const float* fai,
+    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* fpr, const float* fpi, const float* ctwr, const float* ctwi,
+    const float* pwr, const float* pwi, float* out, int q, int n, int m,
+    int a, int b, const long long* layout, void* stream) {
+  IRBucketArgs p{yr, yi, nullptr, nullptr, dr, di, gr, gi, far, fai, wr, wi,
+                 fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi, out,
+                 n, m, a, b, 0.f, {}};
+  return dispatch<true>(p, q, m, layout, stream);
 }

@@ -1,7 +1,9 @@
-// The whole masked r2c coded-FFT bucket in one launch.
+// The whole r2c coded-FFT bucket in one launch, masked or planes.
 //
-// Replaces the TPU kernel kernels/coded_pipeline.py::coded_rfft_bucket_masked
-// in the JAX package (plain twin: coded_pipeline.rbucket_body_masked).
+// Replaces two TPU kernels of the JAX package's
+// kernels/coded_pipeline.py: coded_rfft_bucket_masked (entry
+// coded_rbucket_masked_f32, plain twin coded_pipeline.rbucket_body_masked)
+// and coded_rfft_bucket (entry coded_rbucket_f32, twin rbucket_body).
 // Per request q of the bucket, from the REAL request x (length
 // s = m*L = 2*m*n2) and its (N,) responder mask:
 //
@@ -18,6 +20,11 @@
 //      O = -j(Z_p - conj Z_{n2-p})/2; then C_i[L-p] = conj(C_i[p]), the
 //      recombine twiddle omega_s^{iu}, and only the m//2+1 DFT rows that
 //      feed the s//2+1 non-redundant bins X[j*L + u].
+//
+// The planes kernel (kPlanes) takes the request's host-built (m, N)
+// scatter decode matrix D in place of the mask: step 1 stages D and all
+// N rows of G, and step 3 computes every worker's result over r < N,
+// then h = D . b (see coded_bucket.cu for why the two stay apart).
 //
 // Unlike the c2c kernel the twiddle plane arrives in NATURAL order: the
 // split needs natural reversed indexing, so step 3 reads the four-step's
@@ -47,8 +54,10 @@ struct Layout {
 
 struct RBucketArgs {
   const float* xr;
-  const float* masks;
+  const float* masks;  // masked kernel: (q, n) responder masks
   const int* perm;
+  const float* dr;     // planes kernel: (q, m, n) scatter decode planes
+  const float* di;
   const float* gr;
   const float* gi;
   const float* far;
@@ -72,9 +81,9 @@ struct RBucketArgs {
 
 constexpr int kThreads = 256;
 
-template <int MM>
+template <int MM, bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
-coded_rbucket_masked_kernel(RBucketArgs p) {
+coded_rbucket_kernel(RBucketArgs p) {
   extern __shared__ float smem[];
   const int m = p.m, n = p.n, A = p.a, B = p.b;
   const int n2 = A * B;  // packed shard length L/2
@@ -85,6 +94,7 @@ coded_rbucket_masked_kernel(RBucketArgs p) {
   const long long q = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Layout& o = p.o;
+  const int R = kPlanes ? n : m;  // worker rows the decode contracts
   float* fa_r = smem + o.fa;   float* fa_i = fa_r + A * A;
   float* fb_r = smem + o.fb;   float* fb_i = fb_r + B * B;
   float* w_r = smem + o.w;     float* w_i = w_r + n2;
@@ -92,10 +102,10 @@ coded_rbucket_masked_kernel(RBucketArgs p) {
   float* t1_r = smem + o.t1;   float* t1_i = t1_r + n2;
   const int zp = B + 1;
   float* z_r = smem + o.z;     float* z_i = z_r + (size_t)m * A * zp;
-  float* gs_r = smem + o.gs;   float* gs_i = gs_r + m * m;
+  float* gs_r = smem + o.gs;   float* gs_i = gs_r + R * m;
   float* fh_r = smem + o.fh;   float* fh_i = fh_r + rows * m;
   float* pw_r = smem + o.pw;   float* pw_i = pw_r + m * m;
-  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * m;
+  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * R;
   float* loc_r = smem + o.loc; float* loc_i = loc_r + (m + 1);
   float* nd_r = smem + o.nodes; float* nd_i = nd_r + m;
   int* sub = reinterpret_cast<int*>(smem + o.sub);
@@ -106,10 +116,16 @@ coded_rbucket_masked_kernel(RBucketArgs p) {
   block_copy(w_r, p.wr, n2);      block_copy(w_i, p.wi, n2);
   block_copy(fh_r, p.fhr, rows * m); block_copy(fh_i, p.fhi, rows * m);
 
-  // -- 1. subset and inv(G[subset]) ----------------------------------------
-  const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
-                       loc_r, loc_i, nd_r, nd_i, sub};
-  block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau, dsm);
+  // -- 1. subset and inv(G[subset]), or G and the request's D ------------
+  if (kPlanes) {
+    block_stage_planes(p.gr, p.gi, p.dr + q * m * n, p.di + q * m * n, n, m,
+                       gs_r, gs_i, qm_r, qm_i);
+  } else {
+    const DecodeSmem dsm{gs_r, gs_i, pw_r, pw_i, qm_r, qm_i,
+                         loc_r, loc_i, nd_r, nd_i, sub};
+    block_subset_decode(p.masks + q * n, p.perm, p.gr, p.gi, n, m, p.ntau,
+                        dsm);
+  }
 
   // -- 2. four-step DFT of every pair-packed message shard ----------------
   const float* x = p.xr + q * s;
@@ -137,14 +153,14 @@ coded_rbucket_masked_kernel(RBucketArgs p) {
       }
     }
 #pragma unroll 1
-    for (int r = 0; r < m; ++r) {
-      float br = 0.f, bi = 0.f;  // worker sub_r's result b = G[sub_r] . t
+    for (int r = 0; r < R; ++r) {
+      float br = 0.f, bi = 0.f;  // worker row r's result b = G[r] . t
 #pragma unroll
       for (int i = 0; i < MM; ++i)
         if (i < m) cmac(br, bi, gs_r[r * m + i], gs_i[r * m + i], tr[i], ti[i]);
 #pragma unroll
-      for (int j = 0; j < MM; ++j)  // decode: h += inv[:, r] * b
-        if (j < m) cmac(hr[j], hi[j], qm_r[j * m + r], qm_i[j * m + r], br, bi);
+      for (int j = 0; j < MM; ++j)  // decode: h += inv[:, r] * b (or D)
+        if (j < m) cmac(hr[j], hi[j], qm_r[j * R + r], qm_i[j * R + r], br, bi);
     }
 #pragma unroll
     for (int j = 0; j < MM; ++j) {
@@ -198,14 +214,28 @@ coded_rbucket_masked_kernel(RBucketArgs p) {
   }
 }
 
-template <int MM>
+template <int MM, bool kPlanes>
 int launch(const RBucketArgs& p, int q, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      coded_rbucket_masked_kernel<MM>,
+      coded_rbucket_kernel<MM, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  coded_rbucket_masked_kernel<MM><<<q, kThreads, smem, stream>>>(p);
+  coded_rbucket_kernel<MM, kPlanes><<<q, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Both entries: the layout words into p, then the instance for m.
+template <bool kPlanes>
+int dispatch(RBucketArgs& p, int q, int m, const long long* layout,
+             void* stream) {
+  memcpy(&p.o, layout, sizeof(Layout));
+  const size_t smem = (size_t)p.o.total * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m <= 4) return launch<4, kPlanes>(p, q, smem, st);
+  if (m <= 8) return launch<8, kPlanes>(p, q, smem, st);
+  if (m <= 16) return launch<16, kPlanes>(p, q, smem, st);
+  if (m <= 32) return launch<32, kPlanes>(p, q, smem, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -222,14 +252,23 @@ extern "C" int coded_rbucket_masked_f32(
     const float* swi, const float* twr, const float* twi, const float* fhr,
     const float* fhi, float* outr, float* outi, int q, int n, int m, int a,
     int b, float ntau, const long long* layout, void* stream) {
-  RBucketArgs p{xr, masks, perm, gr, gi, far, fai, wr, wi, fbr, fbi, swr,
-                swi, twr, twi, fhr, fhi, outr, outi, n, m, a, b, ntau, {}};
-  memcpy(&p.o, layout, sizeof(Layout));
-  const size_t smem = (size_t)p.o.total * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 4) return launch<4>(p, q, smem, st);
-  if (m <= 8) return launch<8>(p, q, smem, st);
-  if (m <= 16) return launch<16>(p, q, smem, st);
-  if (m <= 32) return launch<32>(p, q, smem, st);
-  return (int)cudaErrorInvalidValue;
+  RBucketArgs p{xr, masks, perm, nullptr, nullptr, gr, gi, far, fai, wr, wi,
+                fbr, fbi, swr, swi, twr, twi, fhr, fhi, outr, outi,
+                n, m, a, b, ntau, {}};
+  return dispatch<false>(p, q, m, layout, stream);
+}
+
+// As coded_rbucket_masked_f32, with d: (q, m, n) scatter decode planes in
+// place of the masks (layout: coded_pipeline.rbucket_layout(masked=False)).
+extern "C" int coded_rbucket_f32(
+    const float* xr, const float* dr, const float* di, const float* gr,
+    const float* gi, const float* far, const float* fai, const float* wr,
+    const float* wi, const float* fbr, const float* fbi, const float* swr,
+    const float* swi, const float* twr, const float* twi, const float* fhr,
+    const float* fhi, float* outr, float* outi, int q, int n, int m, int a,
+    int b, const long long* layout, void* stream) {
+  RBucketArgs p{xr, nullptr, nullptr, dr, di, gr, gi, far, fai, wr, wi, fbr,
+                fbi, swr, swi, twr, twi, fhr, fhi, outr, outi,
+                n, m, a, b, 0.f, {}};
+  return dispatch<true>(p, q, m, layout, stream);
 }

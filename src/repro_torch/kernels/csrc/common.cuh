@@ -77,8 +77,13 @@ __global__ void bcmatmul_kernel(const float* __restrict__ ar,
 
 constexpr int kBcmatmulThreads = 256;
 constexpr int kBcmatmulRows = 8;
+// Dynamic shared memory a launch gets without opting in.
+constexpr size_t kSmemDefault = 48 * 1024;
 
-// Launch bcmatmul_kernel on `stream`; returns cudaGetLastError().
+// Launch bcmatmul_kernel on `stream`; returns the first CUDA error.  A
+// left matrix over 48 KB (a (64, 128) decode or a (128, 64) generator)
+// opts in to the card's larger per-block limit first; the wrappers keep
+// it under that limit (cmatmul.check_left_fits).
 static inline int launch_bcmatmul(const float* ar, const float* ai,
                                   long long sa, const float* br,
                                   const float* bi, float* cr, float* ci, int q,
@@ -87,6 +92,12 @@ static inline int launch_bcmatmul(const float* ar, const float* ai,
   const dim3 grid((unsigned)((L + kBcmatmulThreads - 1) / kBcmatmulThreads),
                   (unsigned)q);
   const size_t smem = 2 * (size_t)M * K * sizeof(float);
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bcmatmul_kernel<kBcmatmulRows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   bcmatmul_kernel<kBcmatmulRows><<<grid, kBcmatmulThreads, smem, stream>>>(
       ar, ai, sa, br, bi, cr, ci, M, K, L);
   return (int)cudaGetLastError();

@@ -7,10 +7,11 @@
 //
 // What bounds it on the H100: bytes.  Per column it reads m complex inputs
 // and m twiddles and writes m outputs for m*m + m complex MACs -- about
-// m/3 flops per byte, under the FP32 balance point for every m this
-// slice serves (m <= 32).  Design: one thread per (request, l) column,
+// m/3 flops per byte, under the FP32 balance point for every m it
+// serves (m <= 64).  Design: one thread per (request, l) column,
 // coalesced over l; the m shard values sit in registers (the shard loop
-// is unrolled to a compile-time bound MM >= m), F_m in shared memory.
+// is unrolled to a compile-time bound MM >= m: at MM = 64 that is 128
+// registers of shard values a thread), F_m in shared memory.
 
 #include "common.cuh"
 
@@ -69,7 +70,7 @@ static int launch(const float* cr, const float* ci, const float* wr,
   return (int)cudaGetLastError();
 }
 
-// m must be in [1, 32]; the wrapper checks.
+// m must be in [1, 64]; the wrapper checks.
 extern "C" int recombine_batched_f32(const float* cr, const float* ci,
                                      const float* wr, const float* wi,
                                      const float* fr, const float* fi,
@@ -82,5 +83,7 @@ extern "C" int recombine_batched_f32(const float* cr, const float* ci,
     return launch<16>(cr, ci, wr, wi, fr, fi, outr, outi, q, m, L, st);
   if (m <= 32)
     return launch<32>(cr, ci, wr, wi, fr, fi, outr, outi, q, m, L, st);
+  if (m <= 64)
+    return launch<64>(cr, ci, wr, wi, fr, fi, outr, outi, q, m, L, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,6 +33,7 @@ import itertools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cmatmul import check_left_fits
 
 __all__ = [
     "fourstep_body",
@@ -159,6 +160,7 @@ def encode_fourstep_fused(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
     if q * m > _build.MAX_GRID_YZ:
         raise ValueError(f"encode_fourstep_fused: batch q*m={q * m} exceeds "
                          f"the grid's {_build.MAX_GRID_YZ}")
+    check_left_fits("encode_fourstep_fused", n, m)     # the G encode
     t1r = torch.empty_like(cr)
     t1i = torch.empty_like(cr)
     zr = torch.empty_like(cr)

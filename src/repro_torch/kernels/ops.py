@@ -7,7 +7,12 @@ take and return complex tensors.
 
 The real kinds (r2c, c2r) have their own whole-bucket kernels and
 gates, and stage helpers whose glue is plain PyTorch around the same
-``encode_worker`` and ``decode_apply`` kernels.
+``encode_worker`` and ``decode_apply`` kernels.  Each kind's whole
+bucket comes in two variants: *masked* (raw responder masks, the decode
+built in the kernel) and *planes* (host-built (q, m, N) scatter decode
+planes, the service's host decode-matrix path), each with its gate.  A
+c2c planes bucket past its gate streams (``coded_bucket_streamable``),
+as the reference routes it.
 
 Mode rule: the tensor's device.  A wrapper given CPU tensors runs its
 kernel's plain PyTorch twin (the tests' path); given CUDA tensors it
@@ -30,8 +35,12 @@ from repro_torch.kernels.cmatmul import bcmatmul, cmatmul
 from repro_torch.kernels.coded_pipeline import (
     SMEM_PER_BLOCK_OPTIN,
     bucket_smem_bytes,
+    coded_fft_bucket,
     coded_fft_bucket_masked,
+    coded_fft_bucket_streaming,
+    coded_irfft_bucket,
     coded_irfft_bucket_masked,
+    coded_rfft_bucket,
     coded_rfft_bucket_masked,
     half_postdecode_body,
     ir_message_body,
@@ -39,6 +48,7 @@ from repro_torch.kernels.coded_pipeline import (
     lagrange_planes_body,
     mask_subsets,
     pack_real_planes,
+    streaming_smem_bytes,
 )
 from repro_torch.kernels.fourstep_fft import (
     encode_fourstep_fused,
@@ -66,12 +76,16 @@ __all__ = [
     "mask_subsets",
     "lagrange_scatter_planes",
     "coded_bucket_fusable",
+    "coded_bucket_streamable",
+    "coded_bucket",
     "coded_bucket_masked",
     "pack_real_planes",
     "coded_rbucket_fusable",
+    "coded_rbucket",
     "coded_rbucket_masked",
     "rfft_postdecode_planar",
     "coded_irbucket_fusable",
+    "coded_irbucket",
     "coded_irbucket_masked",
     "irfft_message_planar",
     "irfft_unpack_planar",
@@ -81,6 +95,9 @@ __all__ = [
 # near-prime shard length factors as (1, L) and would need an (L, L)
 # plane; the mixed-radix kernel that serves those is a later slice.
 MAX_PLANE_ELEMS = 1 << 24
+# The reference's VMEM budget of one plane (ops._FUSED_MAX_ELEMS), which
+# its streaming gate applies to the DFT planes and the recombine twiddle
+_STREAM_MAX_ELEMS = 512 * 512
 
 
 def kernel_backend_supported(dtype) -> bool:
@@ -366,19 +383,65 @@ def recombine_planar(cr: torch.Tensor, ci: torch.Tensor, s: int):
 
 
 # -- whole-bucket route --------------------------------------------------
-def coded_bucket_fusable(s: int, m: int, n: int) -> bool:
-    """Does the whole masked bucket fit one block of the bucket kernel?
+def coded_bucket_fusable(s: int, m: int, n: int, *,
+                         masked: bool = True) -> bool:
+    """Does the whole c2c bucket fit one block of its kernel?
 
     The kernel's shared-memory working set (``bucket_smem_bytes``, the
     exact reckoning of ``csrc/coded_bucket.cu``) against
     :data:`SMEM_PER_BLOCK_OPTIN`, and m within the kernel's unrolled
-    shard bound.  ``n`` does not enter: only the m subset rows of G are
-    staged.
+    shard bound.  Masked (the default): ``n`` does not enter, only the m
+    subset rows of G are staged.  Planes (``masked=False``): all N rows
+    of G and the request's (m, N) decode planes are, so ``n`` counts.
     """
     if s % m != 0 or m > coded_pipeline.MAX_M:
         return False
     a, b = split_factor(s // m)
-    return bucket_smem_bytes(m, a, b) <= SMEM_PER_BLOCK_OPTIN
+    return (bucket_smem_bytes(m, a, b, n=n, masked=masked)
+            <= SMEM_PER_BLOCK_OPTIN)
+
+
+def coded_bucket_streamable(s: int, m: int, n: int) -> bool:
+    """Can a c2c planes bucket past :func:`coded_bucket_fusable` run the
+    streaming bucket kernel?
+
+    The reference's gate (its DFT planes and the (m, L) recombine
+    twiddle within its VMEM budget, and a split with A > 1 to tile
+    over), then the kernel's own bounds: m within its unrolled shard
+    bound and one block's G, D and F_m within the shared memory.
+    """
+    if s % m != 0 or m > coded_pipeline.MAX_M:
+        return False
+    ell = s // m
+    a, b = split_factor(ell)
+    return (a > 1 and a * a <= _STREAM_MAX_ELEMS
+            and b * b <= _STREAM_MAX_ELEMS
+            and m * ell <= 4 * _STREAM_MAX_ELEMS
+            and streaming_smem_bytes(m, n) <= SMEM_PER_BLOCK_OPTIN)
+
+
+def _bucket_planes(s: int, m: int, device):
+    a, b = split_factor(s // m)
+    return (*_fourstep_planes(a, b, device),
+            *_on_device(_recombine_planes_scrambled, (s, m, a, b), device))
+
+
+def coded_bucket(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor,
+                 di: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
+                 s: int):
+    """The host decode-matrix path's whole c2c bucket: (q, s) request
+    planes + (q, m, N) scatter decode planes -> (q, s) output planes.
+    One launch of the planes bucket kernel when
+    :func:`coded_bucket_fusable` (``masked=False``) admits the bucket,
+    else the streaming bucket kernel, as the reference routes it; the
+    caller checks that one of :func:`coded_bucket_fusable` and
+    :func:`coded_bucket_streamable` does."""
+    n, m = gr.shape
+    planes = _bucket_planes(s, m, xr.device)
+    if (not coded_bucket_fusable(s, m, n, masked=False)
+            and coded_bucket_streamable(s, m, n)):
+        return coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, *planes)
+    return coded_fft_bucket(xr, xi, dr, di, gr, gi, *planes)
 
 
 def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
@@ -388,41 +451,52 @@ def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
     (q, N) responder masks -> (q, s) output planes, one kernel launch
     (subset selection and Lagrange decode inside).  Caller checks
     :func:`coded_bucket_fusable`."""
-    n, m = gr.shape
-    a, b = split_factor(s // m)
-    dev = xr.device
-    planes = (*_fourstep_planes(a, b, dev),
-              *_on_device(_recombine_planes_scrambled, (s, m, a, b), dev))
-    return coded_fft_bucket_masked(xr, xi, masks, gr, gi, *planes)
+    return coded_fft_bucket_masked(xr, xi, masks, gr, gi,
+                                   *_bucket_planes(s, gr.shape[1], xr.device))
 
 
 # -- real kinds: r2c and c2r buckets ---------------------------------------
-def _real_fusable(layout, s: int, m: int) -> bool:
+def _real_fusable(layout, s: int, m: int, n: int, masked: bool) -> bool:
     if s < 2 * m or s % (2 * m) != 0 or m > coded_pipeline.MAX_M:
         return False
     a, b = split_factor(s // m // 2)
-    return 4 * layout(m, a, b)[-1] <= SMEM_PER_BLOCK_OPTIN
+    return (4 * layout(m, a, b, n=n, masked=masked)[-1]
+            <= SMEM_PER_BLOCK_OPTIN)
 
 
-def coded_rbucket_fusable(s: int, m: int, n: int) -> bool:
-    """Does the whole masked r2c bucket fit one block of its kernel?
+def coded_rbucket_fusable(s: int, m: int, n: int, *,
+                          masked: bool = True) -> bool:
+    """Does the whole r2c bucket fit one block of its kernel?
 
     The kernel's shared working set (``coded_pipeline.rbucket_layout``,
     for packed shards of L/2) against :data:`SMEM_PER_BLOCK_OPTIN`, m
-    within the unrolled bound, and ``2m | s``.  ``n`` does not enter.
+    within the unrolled bound, and ``2m | s``.  ``n`` enters only the
+    planes variant (``masked=False``), which stages all N rows of G and
+    the (m, N) decode planes.
     """
-    return _real_fusable(coded_pipeline.rbucket_layout, s, m)
+    return _real_fusable(coded_pipeline.rbucket_layout, s, m, n, masked)
 
 
-def coded_irbucket_fusable(s: int, m: int, n: int) -> bool:
-    """Does the whole masked c2r bucket fit one block of its kernel?
+def coded_irbucket_fusable(s: int, m: int, n: int, *,
+                           masked: bool = True) -> bool:
+    """Does the whole c2r bucket fit one block of its kernel?
     (``coded_pipeline.irbucket_layout`` against
     :data:`SMEM_PER_BLOCK_OPTIN`, as :func:`coded_rbucket_fusable`.)"""
-    return _real_fusable(coded_pipeline.irbucket_layout, s, m)
+    return _real_fusable(coded_pipeline.irbucket_layout, s, m, n, masked)
 
 
 def _half_fourstep_planes(s: int, m: int, device):
     return _fourstep_planes(*split_factor(s // m // 2), device)
+
+
+def _rbucket_planes(s: int, m: int, device):
+    return (*_half_fourstep_planes(s, m, device),
+            *_on_device(_r2c_postdecode_planes, (s, m), device))
+
+
+def _irbucket_planes(s: int, m: int, device):
+    return (*_half_fourstep_planes(s, m, device),
+            *_on_device(_c2r_message_planes, (s, m), device))
 
 
 def coded_rbucket_masked(xr: torch.Tensor, masks: torch.Tensor,
@@ -430,12 +504,20 @@ def coded_rbucket_masked(xr: torch.Tensor, masks: torch.Tensor,
     """The r2c whole-bucket path: the (q, s) REAL request plane + raw
     (q, N) masks -> (q, s//2+1) half-spectrum planes, one kernel launch.
     Caller checks :func:`coded_rbucket_fusable`."""
-    m = gr.shape[1]
-    dev = xr.device
-    planes = (*_half_fourstep_planes(s, m, dev),
-              *_on_device(_r2c_postdecode_planes, (s, m), dev))
-    return coded_rfft_bucket_masked(xr.contiguous(), masks, gr, gi, *planes,
-                                    s)
+    return coded_rfft_bucket_masked(
+        xr.contiguous(), masks, gr, gi,
+        *_rbucket_planes(s, gr.shape[1], xr.device), s)
+
+
+def coded_rbucket(xr: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
+                  gr: torch.Tensor, gi: torch.Tensor, s: int):
+    """The host decode-matrix path's whole r2c bucket: the (q, s) REAL
+    request plane + (q, m, N) scatter decode planes -> (q, s//2+1)
+    half-spectrum planes, one kernel launch.  Caller checks
+    :func:`coded_rbucket_fusable` with ``masked=False``."""
+    return coded_rfft_bucket(
+        xr.contiguous(), dr, di, gr, gi,
+        *_rbucket_planes(s, gr.shape[1], xr.device), s)
 
 
 def coded_irbucket_masked(yr: torch.Tensor, yi: torch.Tensor,
@@ -444,11 +526,21 @@ def coded_irbucket_masked(yr: torch.Tensor, yi: torch.Tensor,
     """The c2r whole-bucket path: (q, s//2+1) half-spectrum planes + raw
     (q, N) masks -> the (q, s) real plane, one kernel launch.  Caller
     checks :func:`coded_irbucket_fusable`."""
-    m = gr.shape[1]
-    dev = yr.device
-    planes = (*_half_fourstep_planes(s, m, dev),
-              *_on_device(_c2r_message_planes, (s, m), dev))
-    return coded_irfft_bucket_masked(yr, yi, masks, gr, gi, *planes, s)
+    return coded_irfft_bucket_masked(
+        yr, yi, masks, gr, gi, *_irbucket_planes(s, gr.shape[1], yr.device),
+        s)
+
+
+def coded_irbucket(yr: torch.Tensor, yi: torch.Tensor, dr: torch.Tensor,
+                   di: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
+                   s: int):
+    """The host decode-matrix path's whole c2r bucket: (q, s//2+1)
+    half-spectrum planes + (q, m, N) scatter decode planes -> the (q, s)
+    real plane, one kernel launch.  Caller checks
+    :func:`coded_irbucket_fusable` with ``masked=False``."""
+    return coded_irfft_bucket(
+        yr, yi, dr, di, gr, gi, *_irbucket_planes(s, gr.shape[1], yr.device),
+        s)
 
 
 def rfft_postdecode_planar(hr: torch.Tensor, hi: torch.Tensor, s: int):

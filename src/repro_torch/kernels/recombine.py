@@ -23,8 +23,9 @@ from repro_torch.kernels import _build
 __all__ = ["recombine_batched_body", "recombine_twiddle_dft_batched",
            "MAX_M"]
 
-# the kernel unrolls the shard axis to a compile-time bound
-MAX_M = 32
+# the kernel unrolls the shard axis to a compile-time bound: the host
+# decode path's widest code (m = 64, N = 128) included
+MAX_M = 64
 
 
 def recombine_batched_body(cr, ci, wr, wi, fr, fi):
@@ -67,8 +68,8 @@ def recombine_twiddle_dft_batched(cr, ci, wr, wi, fr, fi):
                               wr=wr, wi=wi, fr=fr, fi=fi)
     if m > MAX_M:
         raise NotImplementedError(
-            f"recombine_twiddle_dft_batched: m={m} > {MAX_M} (the kernel "
-            f"serves the device-decode range m <= LAGRANGE_MAX_M)")
+            f"recombine_twiddle_dft_batched: m={m} > {MAX_M}, the kernel's "
+            f"unrolled shard bound")
     outr = torch.empty_like(cr)
     outi = torch.empty_like(cr)
     p = _build.ptr

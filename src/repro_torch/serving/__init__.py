@@ -6,6 +6,7 @@ from repro_torch.serving.batching import (
     bucket_size,
     pad_requests,
 )
+from repro_torch.serving.decode_cache import DecodeMatrixCache
 from repro_torch.serving.fft_service import (
     FFTService,
     FFTServiceConfig,
@@ -13,6 +14,7 @@ from repro_torch.serving.fft_service import (
 )
 
 __all__ = [
+    "DecodeMatrixCache",
     "FFTService",
     "FFTServiceConfig",
     "LatencyHistogram",

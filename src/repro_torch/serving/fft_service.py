@@ -10,8 +10,9 @@ bucket and pushed through ONE bucket executor with a per-request
 responder mask.  ``kind`` is ``"c2c"`` (complex forward), ``"r2c"`` (real
 input -> half spectrum) or ``"c2r"`` (half spectrum -> real output); ``s``
 is the time-domain length, so a c2r request of ``h`` bins lands in
-``s = 2*(h-1)``.  The executor (the device-decode path) takes the
-requests and the RAW masks; on a c2c bucket it runs
+``s = 2*(h-1)``.  On the device-decode path (the default, for
+``m <= mds.LAGRANGE_MAX_M``) the executor takes the requests and the RAW
+masks; on a c2c bucket it runs
 
 * the whole-bucket kernel (``ops.coded_bucket_masked``: subset selection,
   Lagrange decode, four-step, encode, decode and recombine in one launch)
@@ -26,6 +27,19 @@ whole-bucket kernel (``ops.coded_rbucket_masked``,
 ``ops.coded_irbucket_masked``) under its gate, else the stage route:
 plain-PyTorch pack/split or message/unpack glue around the same
 ``encode_fourstep_fused`` and ``bcmatmul`` kernels.
+
+The host decode-matrix path serves ``device_decode=False`` and codes
+wider than the closed-form Lagrange decode serves (``m >
+LAGRANGE_MAX_M``, up to the stage kernels' bounds): each request's (m,
+N) scatter decode matrix comes from a complex128 host LRU
+(``serving.decode_cache``, one per service, shared by every ``(s,
+kind)``), and the bucket ships as the requests plus ONE (2, q, m, N) f32
+plane stack.  The executor runs the kind's planes whole-bucket kernel
+(``ops.coded_bucket``, ``ops.coded_rbucket``, ``ops.coded_irbucket``)
+under its gate; a c2c bucket past it that ``ops.coded_bucket_streamable``
+admits runs the streaming bucket kernel, as the reference routes it;
+anything else takes the same stage route with the host planes as its
+decode.
 
 ``use_reference=True`` (or a complex128 dtype) runs ``CodedFFT.run`` on
 the reference backend instead.  ``submit_batch`` launches every bucket
@@ -53,12 +67,24 @@ from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.cmatmul import check_left_fits
+from repro_torch.kernels.recombine import MAX_M as RECOMBINE_MAX_M
 from repro_torch.serving.batching import bucket_size
+from repro_torch.serving.decode_cache import DecodeMatrixCache
 
 __all__ = ["FFTService", "FFTServiceConfig", "ServiceStats"]
 
 _NUMPY_DTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 _PLAN_CLASS = {"c2c": CodedFFT, "r2c": CodedRFFT, "c2r": CodedIRFFT}
+# per kind: the whole-bucket gate, its masked and its planes entry point
+_WHOLE = {
+    "c2c": (ops.coded_bucket_fusable, ops.coded_bucket_masked,
+            ops.coded_bucket),
+    "r2c": (ops.coded_rbucket_fusable, ops.coded_rbucket_masked,
+            ops.coded_rbucket),
+    "c2r": (ops.coded_irbucket_fusable, ops.coded_irbucket_masked,
+            ops.coded_irbucket),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +98,13 @@ class FFTServiceConfig:
     use_reference: bool = False   # escape hatch: CodedFFT.run, reference
     #                               backend
     max_batch: int = 64           # bucket cap per length
+    device_decode: bool = True    # decode matrices from the raw masks on
+    #                               the device; False, or m >
+    #                               LAGRANGE_MAX_M, takes the host LRU
+    decode_cache_size: int = 512  # LRU size of per-mask decode matrices
+    #                               (the host decode-matrix path)
     # -- the options below are served by later slices of the port; a
     #    non-default value raises NotImplementedError at construction
-    device_decode: bool = True    # False = host decode-matrix cache
     precision: str = "f32"        # "bf16" plane precision
     faults: Optional[object] = None
     health: bool = False
@@ -85,9 +115,6 @@ class FFTServiceConfig:
 
 # config values this slice does not serve -> the ROADMAP item serving them
 _LATER = {
-    "device_decode": (True, "the host decode-matrix path (coded_fft_bucket, "
-                      "coded_rfft_bucket, coded_irfft_bucket + "
-                      "serving/decode_cache.py)"),
     "precision": ("f32", "bf16 planes (kernels/autotune.py + the bf16 probe)"),
     "faults": (None, "the fault runtime"),
     "health": (False, "the fault runtime"),
@@ -113,6 +140,8 @@ class ServiceStats:
     dispatch_s: float = 0.0        # wall time staging + launching buckets
     sync_s: float = 0.0            # wall time blocked on device results
     host_transfers: int = 0        # device->host fetches (1 per submit_batch)
+    decode_cache_hits: int = 0     # host decode-matrix LRU hits
+    decode_cache_misses: int = 0   # ... and misses (host inversions paid)
 
     def summary(self) -> dict:
         n = max(self.requests, 1)
@@ -127,6 +156,8 @@ class ServiceStats:
             "dispatch_s": self.dispatch_s,
             "sync_s": self.sync_s,
             "host_transfers": self.host_transfers,
+            "decode_cache_hits": self.decode_cache_hits,
+            "decode_cache_misses": self.decode_cache_misses,
         }
 
 
@@ -150,10 +181,6 @@ class FFTService:
         for name, (default, item) in _LATER.items():
             if getattr(cfg, name) != default:
                 raise _not_ported(f"{name}={getattr(cfg, name)!r}", item)
-        if cfg.m > mds.LAGRANGE_MAX_M:
-            raise _not_ported(
-                f"m={cfg.m} > LAGRANGE_MAX_M={mds.LAGRANGE_MAX_M}",
-                _LATER["device_decode"][1])
         if mesh is not None:
             raise _not_ported("a mesh", "the multi-device runtime")
         if pool is not None:
@@ -168,7 +195,28 @@ class FFTService:
         self._plans: dict[tuple[int, str], object] = {}
         self._runners: dict[tuple, object] = {}
         self._gplanes: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+        self._decode_cache: Optional[DecodeMatrixCache] = None
         self.plan = self._plan_for(cfg.s)
+        if self._kernel_path(cfg.s) and not self._device_decode():
+            self._check_stage_route()
+
+    def _check_stage_route(self) -> None:
+        """Refuse, before any draw or staging, a host-path code the stage
+        kernels cannot serve: every host-path bucket past its planes
+        kernels' gates (which count N) takes them.  The recombine unrolls
+        m up to its ``MAX_M``; the encode's (N, m) G and the decode's
+        (m, N) D must each fit one block's shared memory."""
+        m, n = self.cfg.m, self.cfg.n_workers
+        item = "Queue 2, stage kernels past m=64"
+        if m > RECOMBINE_MAX_M:
+            raise _not_ported(f"m={m} (the stage recombine serves m <= "
+                              f"{RECOMBINE_MAX_M})", item)
+        try:
+            check_left_fits("the encode", n, m)
+            check_left_fits("the decode", m, n)
+        except ValueError as err:
+            raise _not_ported(f"the (N={n}, m={m}) code ({err})",
+                              item) from None
 
     # -- plans, generator state and executors ----------------------------
     def _plan_for(self, s: int, kind: str = "c2c"):
@@ -194,7 +242,8 @@ class FFTService:
     def load_generator(self, gr: torch.Tensor, gi: torch.Tensor) -> None:
         """Replace the kernel path's generator planes (e.g. with another
         implementation's, via ``repro_torch.convert``).  Drops the built
-        executors, which captured the old planes."""
+        executors, which captured the old planes, and the decode-matrix
+        LRU, which inverted them."""
         want = (self.cfg.n_workers, self.cfg.m)
         if tuple(gr.shape) != want or tuple(gi.shape) != want:
             raise ValueError(f"generator planes must be {want}, got "
@@ -202,43 +251,119 @@ class FFTService:
         self._gplanes = (gr.to(self.device, torch.float32).contiguous(),
                          gi.to(self.device, torch.float32).contiguous())
         self._runners.clear()
+        self._decode_cache = None
+
+    def _decode_cache_for(self) -> DecodeMatrixCache:
+        """The host decode-matrix LRU over the generator planes: one for
+        the service's (N, m) code, shared by every ``(s, kind)``."""
+        if self._decode_cache is None:
+            gr, gi = self.generator_planes()
+            g = gr.cpu().numpy() + 1j * gi.cpu().numpy()
+            self._decode_cache = DecodeMatrixCache(
+                g.astype(np.complex64), maxsize=self.cfg.decode_cache_size)
+        return self._decode_cache
 
     def _kernel_path(self, s: int, kind: str = "c2c") -> bool:
         """Does this bucket run the bucket kernels (else ``plan.run``)?"""
         return self._plan_for(s, kind).resolved_backend == "kernel"
 
+    def _device_decode(self) -> bool:
+        """Are decode matrices built on the device from the raw masks?
+        True for ``m <= mds.LAGRANGE_MAX_M`` unless the config pins
+        ``device_decode=False``; past that bound f32 planes cannot carry
+        the subset inverse's conditioning, and the host LRU decodes."""
+        return self.cfg.device_decode and self.cfg.m <= mds.LAGRANGE_MAX_M
+
     def _runner_for(self, s: int, bucket: int, kind: str = "c2c"):
-        key = (s, kind, bucket, self._kernel_path(s, kind))
+        kernel = self._kernel_path(s, kind)
+        masked = kernel and self._device_decode()
+        key = (s, kind, bucket, kernel, masked)
         if key not in self._runners:
-            if key[3]:
-                self._runners[key] = self._make_masked_runner(s, bucket,
-                                                              kind)
+            if kernel:
+                self._runners[key] = self._make_kernel_runner(
+                    s, bucket, kind, masked=masked)
             else:
                 plan = self._plan_for(s, kind)
                 self._runners[key] = lambda xb, masks: plan.run(
                     xb, mask=masks)
         return self._runners[key]
 
-    def _make_masked_runner(self, s: int, bucket: int, kind: str = "c2c"):
-        """The device-decode bucket executor: ``(requests, raw masks) ->
-        outputs``, on the kind's whole-bucket kernel when the bucket fits
-        one block's shared memory, else on the stage kernels."""
+    def _make_kernel_runner(self, s: int, bucket: int, kind: str, *,
+                            masked: bool):
+        """A kernel-path bucket executor: ``(requests, decode) ->
+        outputs``.
+
+        ``masked=True`` (the device-decode path): ``decode`` is the raw
+        (q, N) responder masks, decoded inside the whole-bucket kernel or,
+        on the stage route, by ``mask_subsets`` and
+        ``lagrange_scatter_planes``.  ``masked=False`` (the host
+        decode-matrix path): ``decode`` is the (2, q, m, N) f32 stack of
+        host-built scatter decode planes.  Either runs the kind's
+        whole-bucket kernel when the bucket fits its gate, else the stage
+        kernels.
+        """
         m, n = self.cfg.m, self.cfg.n_workers
         gr, gi = self.generator_planes()
+        gate, whole_masked, whole_planes = _WHOLE[kind]
+        # a c2c planes bucket past the gate streams (ops.coded_bucket
+        # routes it); the masked streaming mode is not ported yet
+        whole = gate(s, m, n, masked=masked) or (
+            kind == "c2c" and not masked
+            and ops.coded_bucket_streamable(s, m, n))
+        whole_fn = whole_masked if masked else whole_planes
+
+        def decode_args(dec):
+            # the whole-bucket kernel's decode arguments
+            return (dec,) if masked else (dec[0], dec[1])
+
+        def scatter_planes(dec):
+            # the stage route's (q, m, N) scatter decode planes
+            if masked:
+                return ops.lagrange_scatter_planes(
+                    ops.mask_subsets(dec, m), n)
+            return dec[0], dec[1]
+
         if kind == "r2c":
-            return self._make_r2c_runner(s, m, n, gr, gi)
+            def fn(xb: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
+                if whole:
+                    yr, yi = whole_fn(xb, *decode_args(dec), gr, gi, s)
+                else:
+                    dr, di = scatter_planes(dec)
+                    zr, zi = ops.pack_real_planes(xb, m)
+                    br, bi = ops.encode_worker(zr, zi, gr, gi)
+                    hr, hi = ops.decode_apply(dr, di, br, bi)
+                    yr, yi = ops.rfft_postdecode_planar(hr, hi, s)
+                return ref.unplanar(yr, yi)
+
+            return fn
+
         if kind == "c2r":
-            return self._make_c2r_runner(s, m, n, gr, gi)
-        whole = ops.coded_bucket_fusable(s, m, n)
+            n2 = s // m // 2
+            gi_conj = -gi
+
+            def fn(yb: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
+                yr, yi = ref.planar(yb)
+                if whole:
+                    return whole_fn(yr, yi, *decode_args(dec), gr, gi, s)
+                dr, di = scatter_planes(dec)
+                zr, zi = ops.irfft_message_planar(yr, yi, s, m)
+                # the ifft worker through the forward kernel: conj in and
+                # out
+                br, bi = ops.encode_worker(zr, -zi, gr, gi_conj)
+                br, bi = br / n2, -bi / n2
+                hr, hi = ops.decode_apply(dr, di, br, bi)
+                return ops.irfft_unpack_planar(hr, hi)
+
+            return fn
+
         ell = s // m
 
-        def fn(xb: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        def fn(xb: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
             xr, xi = ref.planar(xb)
             if whole:
-                yr, yi = ops.coded_bucket_masked(xr, xi, masks, gr, gi, s)
+                yr, yi = whole_fn(xr, xi, *decode_args(dec), gr, gi, s)
             else:
-                subsets = ops.mask_subsets(masks, m)
-                dr, di = ops.lagrange_scatter_planes(subsets, n)
+                dr, di = scatter_planes(dec)
                 # interleave on planes: c_i[j] = x[i + j*m]
                 cr = xr.reshape(bucket, ell, m).transpose(1, 2)
                 ci = xi.reshape(bucket, ell, m).transpose(1, 2)
@@ -246,45 +371,6 @@ class FFTService:
                 hr, hi = ops.decode_apply(dr, di, br, bi)
                 yr, yi = ops.recombine_planar(hr, hi, s)
             return ref.unplanar(yr, yi)
-
-        return fn
-
-    @staticmethod
-    def _make_r2c_runner(s, m, n, gr, gi):
-        whole = ops.coded_rbucket_fusable(s, m, n)
-
-        def fn(xb: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-            if whole:
-                yr, yi = ops.coded_rbucket_masked(xb, masks, gr, gi, s)
-            else:
-                subsets = ops.mask_subsets(masks, m)
-                dr, di = ops.lagrange_scatter_planes(subsets, n)
-                zr, zi = ops.pack_real_planes(xb, m)
-                br, bi = ops.encode_worker(zr, zi, gr, gi)
-                hr, hi = ops.decode_apply(dr, di, br, bi)
-                yr, yi = ops.rfft_postdecode_planar(hr, hi, s)
-            return ref.unplanar(yr, yi)
-
-        return fn
-
-    @staticmethod
-    def _make_c2r_runner(s, m, n, gr, gi):
-        whole = ops.coded_irbucket_fusable(s, m, n)
-        n2 = s // m // 2
-        gi_conj = -gi
-
-        def fn(yb: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-            yr, yi = ref.planar(yb)
-            if whole:
-                return ops.coded_irbucket_masked(yr, yi, masks, gr, gi, s)
-            subsets = ops.mask_subsets(masks, m)
-            dr, di = ops.lagrange_scatter_planes(subsets, n)
-            zr, zi = ops.irfft_message_planar(yr, yi, s, m)
-            # the ifft worker through the forward kernel: conj in and out
-            br, bi = ops.encode_worker(zr, -zi, gr, gi_conj)
-            br, bi = br / n2, -bi / n2
-            hr, hi = ops.decode_apply(dr, di, br, bi)
-            return ops.irfft_unpack_planar(hr, hi)
 
         return fn
 
@@ -347,26 +433,55 @@ class FFTService:
             return np.zeros((bucket, s // 2 + 1), dtype=cdt)
         return np.zeros((bucket, s), dtype=cdt)
 
-    def stage_bucket(self, s: int, kind: str, reqs: Sequence) -> tuple:
+    def _bucket_args(self, s: int, kind: str, xb: np.ndarray,
+                     masks: np.ndarray) -> tuple:
+        """Device arguments of one bucket: the requests, then the raw
+        (q, N) masks -- or, on the host decode-matrix path, the (2, q, m,
+        N) f32 scatter decode planes from the host LRU.  One host->device
+        copy each.  Adds the LRU's hit and miss deltas to the stats."""
+        xt = torch.from_numpy(xb).to(self.device)
+        if self._kernel_path(s, kind) and not self._device_decode():
+            cache = self._decode_cache_for()
+            h0, m0 = cache.hits, cache.misses
+            dmats = cache.matrices(masks)
+            dplanes = np.stack([dmats.real, dmats.imag])
+            self.stats.decode_cache_hits += cache.hits - h0
+            self.stats.decode_cache_misses += cache.misses - m0
+            return xt, torch.from_numpy(dplanes).to(self.device)
+        return xt, torch.from_numpy(masks).to(self.device)
+
+    def stage_bucket(self, s: int, kind: str, reqs: Sequence,
+                     masks: Optional[np.ndarray] = None) -> tuple:
         """Host-side staging for one bucket of same-``(s, kind)``
         requests: the straggler draw, the pack into the padded bucket
-        buffer and the host->device copy.  Returns ``(bucket, args)``."""
+        buffer, the decode planes on the host decode-matrix path, and the
+        host->device copies.  Returns ``(bucket, args)``.
+
+        ``masks`` (``(len(reqs), N)`` bool) stages the bucket with those
+        responders instead of a straggler draw, and accounts no latency:
+        the seam a check uses to serve a bucket with chosen responders.
+        """
         cfg = self.cfg
         n_live = len(reqs)
         bucket = bucket_size(n_live, cfg.max_batch)
+        if masks is not None:
+            masks = np.asarray(masks, bool)
+            if masks.shape != (n_live, cfg.n_workers):
+                raise ValueError(f"masks must be {(n_live, cfg.n_workers)},"
+                                 f" got {masks.shape}")
         self.stats.batches += 1
         xb = self._bucket_buffer(s, bucket, kind)
         for row, x in enumerate(reqs):
             x = (x.cpu().numpy() if isinstance(x, torch.Tensor)
                  else np.asarray(x))
             xb[row] = x.real if kind == "r2c" and np.iscomplexobj(x) else x
-        lat, mask = self._simulate_arrivals(n_live, kind)
-        self._account(lat, mask)
+        if masks is None:
+            lat, masks = self._simulate_arrivals(n_live, kind)
+            self._account(lat, masks)
         # padded rows: every worker "responds" so decode stays well-posed
-        masks = np.ones((bucket, cfg.n_workers), bool)
-        masks[:n_live] = mask
-        return bucket, (torch.from_numpy(xb).to(self.device),
-                        torch.from_numpy(masks).to(self.device))
+        full = np.ones((bucket, cfg.n_workers), bool)
+        full[:n_live] = masks
+        return bucket, self._bucket_args(s, kind, xb, full)
 
     def launch_bucket(self, s: int, bucket: int, kind: str,
                       args: tuple) -> torch.Tensor:
@@ -446,8 +561,10 @@ class FFTService:
         """Run every bucket executor once (default: the config length, the
         c2c kind, every power-of-two bucket up to ``max_batch``) so kernel
         libraries and plane tables are built before traffic arrives.
-        ``lengths`` are time-domain lengths for every kind.  Returns the
-        number of executors run."""
+        ``lengths`` are time-domain lengths for every kind.  On the host
+        decode-matrix path this also primes the all-alive mask's LRU entry
+        (and counts it, as a same-seed reference service does).  Returns
+        the number of executors run."""
         cfg = self.cfg
         lengths = [cfg.s] if lengths is None else list(lengths)
         if buckets is None:
@@ -460,11 +577,10 @@ class FFTService:
         for s in lengths:
             for k in kinds:
                 for b in sorted(set(buckets)):
-                    xb = torch.from_numpy(self._bucket_buffer(s, b, k)).to(
-                        self.device)
-                    masks = torch.ones((b, cfg.n_workers), dtype=torch.bool,
-                                       device=self.device)
-                    self._runner_for(s, b, k)(xb, masks)
+                    args = self._bucket_args(
+                        s, k, self._bucket_buffer(s, b, k),
+                        np.ones((b, cfg.n_workers), bool))
+                    self._runner_for(s, b, k)(*args)
                     count += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -11,7 +11,8 @@
 * ``import repro_torch`` loads neither JAX nor the JAX package; entry
   points refuse to run without a GPU unless asked for the CPU; every
   configuration and kind the port does not serve yet raises
-  NotImplementedError.
+  NotImplementedError (``device_decode=False`` and ``m >
+  LAGRANGE_MAX_M`` are served: ``tests/test_torch_host_decode.py``).
 """
 
 import dataclasses
@@ -204,8 +205,6 @@ def test_entry_points_refuse_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"device_decode": False},
-    {"m": 33, "n_workers": 66, "s": 33 * 64},
     {"precision": "bf16"},
     {"strategy": "partial"},
     {"verify": "detect"},
@@ -231,10 +230,13 @@ def test_unserved_kinds_and_runtimes_raise():
 def test_config_from_reference(jref):
     _, _, _, JConfig = jref
     jcfg = JConfig(s=512, m=2, n_workers=5, seed=9, max_batch=16,
-                   autotune=False)
+                   autotune=False, device_decode=False, decode_cache_size=7)
     cfg = config_from_reference(dataclasses.asdict(jcfg))
     assert (cfg.s, cfg.m, cfg.n_workers, cfg.seed, cfg.max_batch) == \
         (512, 2, 5, 9, 16)
+    assert (cfg.device_decode, cfg.decode_cache_size) == (False, 7)
+    assert config_from_reference(dataclasses.asdict(
+        JConfig())).decode_cache_size == JConfig().decode_cache_size == 512
     assert cfg.dtype == torch.complex64
     assert cfg.straggler.wire_frac == jcfg.straggler.wire_frac
     with pytest.raises(NotImplementedError):
