@@ -8,14 +8,18 @@ Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 plain PyTorch version on the card at the shapes its main path gives it,
 then drives the main paths at two sizes each, for each 1-D kind: the
 service's ``submit_batch`` with kind c2c, r2c and c2r (the kind's
-whole-bucket kernel at s=4096, the stage kernels at s=2^20), on the
-device-decode path and on the host decode-matrix path
-(``device_decode=False``: the planes bucket kernels at s=4096, the
-streaming c2c bucket kernel at s=2^20, and the stage kernels past
-``LAGRANGE_MAX_M`` at m=64, N=128), and
-``run`` of ``CodedFFT``, ``CodedRFFT`` and ``CodedIRFFT`` on their
-default kernel backend (the cmatmul encode and decode, and the fused
-four-step worker at s=4096 or the two-pass one at s=2^20).  Each run's
+whole-bucket kernel at s=4096; at s=2^20 the masked streaming c2c
+bucket kernel and the stage kernels for the real kinds; the c2c stage
+kernels at s=2^21), on the device-decode path and on the host
+decode-matrix path (``device_decode=False``: the planes bucket kernels
+at s=4096, the streaming c2c bucket kernel at s=2^20, and the stage
+kernels past ``LAGRANGE_MAX_M`` at m=64, N=128), the service's
+``plan.run`` executor (``decode_method="ifft"``), ``run`` of
+``CodedFFT``, ``CodedRFFT`` and ``CodedIRFFT`` on their default kernel
+backend (the cmatmul encode and decode, and the fused four-step worker
+at s=4096 or the two-pass one at s=2^20), ``CodedFFT`` at s=2^20 with a
+``worker_fn`` on the streaming four-step, and the single-request
+recombine (``ops.recombine_fused``).  Each run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
 traced with ``torch.profiler`` for the device's busy time and idle
@@ -190,11 +194,15 @@ def main() -> int:
         fourstep_fused,
         fourstep_stage1,
         fourstep_stage2,
+        fourstep_streaming,
+        fourstep_streaming_body,
         stage1_body,
         stage2_body,
     )
     from repro_torch.kernels.recombine import (
         recombine_batched_body,
+        recombine_body,
+        recombine_twiddle_dft,
         recombine_twiddle_dft_batched,
     )
     from repro_torch.serving import DecodeMatrixCache
@@ -237,12 +245,21 @@ def main() -> int:
         kth = np.sort(lat, axis=1)[:, m - 1:m]
         return torch.as_tensor(lat <= kth, device=dev)
 
+    def recombine_library_planes(planes):
+        """The recombine's (m, L) twiddle and (m, m) DFT as complex
+        tensors, for the library call (an einsum)."""
+        wr, wi, fr, fi = planes
+        return torch.complex(wr, wi), torch.complex(fr, fi)
+
     table = []
 
-    def measure(name, run, plain, library, tol, nbytes, flops, reps):
+    def measure(name, run, plain, library, tol, nbytes, flops, reps,
+                flush=None):
         """Check ``run`` against ``plain`` on the card and time both and
         the library call (None where no one PyTorch call computes the
-        same function)."""
+        same function).  ``flush`` (a tensor): each time is taken L2-cold,
+        every call after a write of ``flush`` (the write's own time
+        subtracted), and the warm kernel time is kept as ``l2_warm_ms``."""
         got = run()
         want = plain()
         torch.cuda.synchronize()
@@ -250,21 +267,30 @@ def main() -> int:
         if not rel_err < tol:
             fail(f"{name}: kernel vs plain rel err {rel_err} >= {tol}")
         bound_ms, bound_by = bound(nbytes, flops)
+
+        def timed(f):
+            if flush is None:
+                return time_ms(torch, f, reps, spin_rate)
+            return (time_ms(torch, lambda: (flush.zero_(), f()), reps,
+                            spin_rate)
+                    - time_ms(torch, flush.zero_, reps, spin_rate))
+
+        warm = ({} if flush is None
+                else {"l2_warm_ms": time_ms(torch, run, reps, spin_rate)})
         return {"max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-                "ms": time_ms(torch, run, reps, spin_rate),
-                "plain_ms": time_ms(torch, plain, reps, spin_rate),
+                "ms": timed(run), "plain_ms": timed(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": (time_ms(torch, library, reps, spin_rate)
-                               if library else None)}
+                "library_ms": timed(library) if library else None, **warm}
 
     def kernel_row(name, source, replaces, run, plain, library, tol, nbytes,
-                   flops, reps, shape, yardsticks=(), into=table, **info):
+                   flops, reps, shape, yardsticks=(), into=table, flush=None,
+                   **info):
         """Measure one kernel and add its row to ``into``.  ``info`` adds
         plain values to the row, ``yardsticks`` timed calls."""
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0,
                **measure(name, run, plain, library, tol, nbytes, flops,
-                         reps),
+                         reps, flush),
                "shape": shape, **info,
                **{k: time_ms(torch, f, reps, spin_rate)
                   for k, f in yardsticks}}
@@ -386,8 +412,7 @@ def main() -> int:
     # (a''') the streaming c2c bucket: the host path's 2^20-point bucket
     # of 16 requests, past the planes gate, with its LRU decode planes
     q, s, m, n = 16, 1 << 20, 4, 8
-    assert (not ops.coded_bucket_fusable(s, m, n, masked=False)
-            and ops.coded_bucket_streamable(s, m, n))
+    assert ops.bucket_route(s, m, n, "c2c", masked=False) == "streaming"
     a, b = ops.split_factor(s // m)
     ell = a * b
     xr, xi = randn(q, s), randn(q, s)
@@ -410,7 +435,26 @@ def main() -> int:
         q * (m * fft_flops(ell)
              + ell * (2 * 8 * m * m + 6 * m + fft_flops(m))),
         5, [q, s, m, n])
-    del xr, xi, xc, dr, di, splanes
+    # (a4) its masked mode: the device-decode path's 2^20-point bucket of
+    # 16 requests, raw masks from the service's mask law (the decode
+    # launch builds each request's planes from its mask row)
+    assert ops.bucket_route(s, m, n, "c2c") == "streaming"
+    smasks = service_masks(q, n, m)
+    kernel_row(
+        "coded_fft_bucket_streaming_masked",
+        csrc + "coded_bucket_streaming.cu",
+        "src/repro/kernels/coded_pipeline.py:1086",
+        lambda: coded_pipeline.coded_fft_bucket_streaming_masked(
+            xr, xi, smasks, gr, gi, *splanes),
+        lambda: coded_pipeline.bucket_body_masked(
+            xr, xi, smasks.to(torch.float32), gr, gi, *splanes),
+        lambda: torch.fft.fft(xc, dim=-1), 1e-4,
+        F32 * (4 * q * s + q * n + 2 * n * m
+               + 2 * (a * a + b * b + a * b + m * ell + m * m)),
+        q * (m * fft_flops(ell)
+             + ell * (2 * 8 * m * m + 6 * m + fft_flops(m))),
+        5, [q, s, m, n])
+    del xr, xi, xc, dr, di, splanes, smasks
     torch.cuda.empty_cache()
 
     def stage_rows(q, s, m, n, dr, di, reps, into):
@@ -456,16 +500,19 @@ def main() -> int:
 
         hr, hi = randn(q, m, ell), randn(q, m, ell)
         rplanes = ops._on_device(ops._recombine_planes, (s, m), dev)
+        # the library call: out[q, j, l] = sum_k F[j, k] C[q, k, l] W[k, l]
+        hc, wc, fc = (torch.complex(hr, hi),
+                      *recombine_library_planes(rplanes))
         kernel_row(
             "recombine_twiddle_dft_batched", csrc + "recombine.cu",
             "src/repro/kernels/recombine.py:91",
             lambda: recombine_twiddle_dft_batched(hr, hi, *rplanes),
             lambda: recombine_batched_body(hr, hi, *rplanes),
-            None, 1e-5,
+            lambda: torch.einsum("qkl,kl,jk->qjl", hc, wc, fc), 1e-5,
             F32 * 2 * (2 * q * m * ell + m * ell + m * m),
             q * ell * (6 * m + fft_flops(m)), reps[1], [q, m, ell],
             into=into)
-        del hr, hi
+        del hr, hi, hc
 
     # (b)-(d) the stage route of the 2^20-point service phase: 16 requests,
     # decode planes from the service's mask law
@@ -530,6 +577,16 @@ def main() -> int:
     emit({"phase": "kernel_pair", "names": ["fourstep_stage1",
                                             "fourstep_stage2"],
           "shape": [rows, a, b], **pair})
+    # the streaming four-step on the same rows: the pair's two passes, the
+    # row pass writing natural order (rows, B, A) -- exactly torch.fft.fft
+    kernel_row(
+        "fourstep_streaming", csrc + "fourstep.cu",
+        "src/repro/kernels/fourstep_fft.py:533",
+        lambda: fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi),
+        lambda: fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi),
+        lambda: torch.fft.fft(xc, dim=-1), 1e-4,
+        F32 * (4 * rows * ell + 2 * (a * a + a * b + b * b)),
+        rows * fft_flops(ell), 3, [rows, a, b])
     pair_info = {f"pair_{k}": v for k, v in pair.items()
                  if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_rel_err")}
@@ -568,6 +625,27 @@ def main() -> int:
         F32 * 2 * (n * m + m * cols + n * cols), 8 * n * m * cols, 20,
         [n, m, cols])
     del br, bi, bc
+
+    # recombine_twiddle_dft: one 2^20-point request's recombine (m = 4,
+    # L = 2^18), as ops.recombine_fused gives it.  Its 24 MiB would stay
+    # in the 50 MB L2 cache across back-to-back calls, where a request
+    # finds them cold: each call is timed after a 128 MiB write ("ms",
+    # "plain_ms", "library_ms"; back to back: "l2_warm_ms")
+    s, m = 1 << 20, 4
+    ell = s // m
+    hr, hi = randn(m, ell), randn(m, ell)
+    rplanes = ops._on_device(ops._recombine_planes, (s, m), dev)
+    hc, wc, fc = torch.complex(hr, hi), *recombine_library_planes(rplanes)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    kernel_row(
+        "recombine_twiddle_dft", csrc + "recombine.cu",
+        "src/repro/kernels/recombine.py:43",
+        lambda: recombine_twiddle_dft(hr, hi, *rplanes),
+        lambda: recombine_body(hr, hi, *rplanes),
+        lambda: torch.einsum("kl,kl,jk->jl", hc, wc, fc), 1e-5,
+        F32 * 2 * (3 * m * ell + m * m), ell * (6 * m + fft_flops(m)), 20,
+        [m, ell], flush=flush)
+    del hr, hi, hc, flush
     torch.cuda.empty_cache()
 
     # every main-path run adds its counts here; each kernel's row gets the
@@ -614,9 +692,6 @@ def main() -> int:
                "c2r": "coded_irfft_bucket_masked"},
         False: {"c2c": "coded_fft_bucket", "r2c": "coded_rfft_bucket",
                 "c2r": "coded_irfft_bucket"}}
-    whole_gate = {"c2c": ops.coded_bucket_fusable,
-                  "r2c": ops.coded_rbucket_fusable,
-                  "c2r": ops.coded_irbucket_fusable}
     stage_kernels = {"c2c": {"encode_fourstep_fused", "bcmatmul",
                              "recombine_twiddle_dft_batched"},
                      "r2c": {"encode_fourstep_fused", "bcmatmul"},
@@ -625,27 +700,34 @@ def main() -> int:
     ungated = ("ungated: f32 decode of ill-conditioned subsets, as in the "
                "reference")
 
-    def drive(kind, s, n_req, rel_tol, m=4, n=8, device_decode=True):
+    def drive(kind, s, n_req, rel_tol, m=4, n=8, device_decode=True,
+              plan_launches=None, **cfg_kw):
         """One ``submit_batch`` of ``n_req`` requests of ``kind`` (one
         bucket): exactly one launch of the kind's whole-bucket kernel for
         the decode path and nothing else where the gate admits the bucket,
-        else (a c2c bucket on the host path that can stream) exactly the
-        streaming kernel's three launches, else exactly the stage
-        kernels.  ``rel_tol=None`` (a code past
+        else (a c2c bucket that can stream) exactly the streaming kernel's
+        launches for the decode path (four masked, three on host planes),
+        else exactly the stage kernels.  A config that runs the
+        ``plan.run`` executor (``cfg_kw``) launches exactly
+        ``plan_launches``.  ``rel_tol=None`` (a code past
         ``LAGRANGE_MAX_M``): the service's own draws are checked for
         launches, shapes and LRU misses and their error is printed, and
         one bucket of evenly spread responders through the service's own
         staging (``stage_bucket`` with those masks) and executor is held
         to 1e-3 (tests/test_kernel_pipeline.py:113)."""
         svc = FFTService(FFTServiceConfig(s=s, m=m, n_workers=n,
-                                          device_decode=device_decode))
+                                          device_decode=device_decode,
+                                          **cfg_kw))
         masked = svc._device_decode()
-        whole = whole_gate[kind](s, m, n, masked=masked)
-        stream = (not whole and not masked and kind == "c2c"
-                  and ops.coded_bucket_streamable(s, m, n))
-        exact = whole or stream
-        expect = ({whole_kernel[masked][kind]: 1} if whole
-                  else {"coded_fft_bucket_streaming": 3} if stream
+        kernel = svc._kernel_path(s, kind)
+        route = ops.bucket_route(s, m, n, kind, masked=masked)
+        whole = kernel and route == "fused"
+        stream = kernel and route == "streaming"
+        exact = whole or stream or not kernel
+        expect = (plan_launches if not kernel
+                  else {whole_kernel[masked][kind]: 1} if whole
+                  else ({"coded_fft_bucket_streaming_masked": 4} if masked
+                        else {"coded_fft_bucket_streaming": 3}) if stream
                   else stage_kernels[kind])
         svc.warmup(lengths=[s], kinds=[kind], buckets=[n_req])
         xb, want = make_input(kind, (n_req, s))
@@ -667,7 +749,7 @@ def main() -> int:
         rel = rel_err(got, want)
         if rel_tol is not None and not rel < rel_tol:
             fail(f"{kind} s={s} m={m}: service rel err {rel} >= {rel_tol}")
-        if not masked and svc.stats.decode_cache_misses < 1:
+        if kernel and not masked and svc.stats.decode_cache_misses < 1:
             fail(f"{kind} s={s} m={m}: host path paid no LRU miss")
         checks = {"rel_err": rel, "rel_tol": rel_tol}
         if rel_tol is None:
@@ -701,9 +783,10 @@ def main() -> int:
         trace = profile_call(torch, lambda: svc.submit_batch(xs, kind=kind))
         emit({"phase": "service", "kind": kind, "s": s, "m": m,
               "n_workers": n, "requests": n_req,
-              "decode": "device" if masked else "host",
+              "decode": ("plan " + svc.cfg.decode_method if not kernel
+                         else "device" if masked else "host"),
               "route": ("whole_bucket" if whole else "streaming" if stream
-                        else "stage"),
+                        else "stage" if kernel else "plan_run"),
               "launches": counts, **checks,
               "first_call_s": dt, "steady_call_s": steady,
               "steady_dispatch_s": dispatch, "steady_sync_s": sync,
@@ -715,14 +798,22 @@ def main() -> int:
     # masked-bucket tolerance (tests/test_lagrange_decode.py:153)
     for kind in ("c2c", "r2c", "c2r"):
         drive(kind, 4096, 64, 3e-4)
-    # a 2^20-point transform: 128 MiB in and 256 MiB of coded spectra per
-    # c2c bucket (half that for the real kinds), past the whole-bucket
-    # gates, so the stage kernels run (bound from
-    # tests/test_kernel_pipeline.py:113).  The JAX package would stream a
-    # c2c bucket here too; the port's streaming kernel serves the host
-    # path's planes mode only, its masked mode is a later slice.
+    # a 2^20-point transform: 128 MiB in per c2c bucket (half that for the
+    # real kinds), past the whole-bucket gates (bound from
+    # tests/test_kernel_pipeline.py:113): the c2c bucket streams (the
+    # masked streaming kernel, as the JAX package routes it), the real
+    # kinds take the stage kernels (no streaming real kind, in the JAX
+    # package either)
     for kind in ("c2c", "r2c", "c2r"):
         drive(kind, 1 << 20, 16, 1e-3)
+    # past the streaming gate too (split (512, 1024): the (B, B) DFT plane
+    # is over the reference's plane budget): the c2c stage kernels at m=4
+    drive("c2c", 1 << 21, 4, 1e-3)
+    # the plan.run executor: a pinned transform decode (decode_ifft, plain
+    # torch.fft, as jnp.fft in the JAX package) behind the plan's cmatmul
+    # encode and fused four-step worker; the whole-bucket tolerance
+    drive("c2c", 4096, 64, 3e-4, decode_method="ifft",
+          plan_launches={"cmatmul": 1, "fourstep_fused": 1})
     # the host decode-matrix path: the default config pinned to it (the
     # planes bucket kernels), and a 2^20-point c2c bucket, which streams
     # (the streaming bucket kernel on host decode planes, as the JAX
@@ -738,13 +829,13 @@ def main() -> int:
     # -- 6./7. the plans' run on their default kernel backend -------------
     plan_kind = {CodedFFT: "c2c", CodedRFFT: "r2c", CodedIRFFT: "c2r"}
 
-    def drive_plan(cls, s, n_req, worker, rel_tol):
+    def drive_plan(cls, s, n_req, worker, rel_tol, **plan_kw):
         """A batched call with per-request masks (encode on cmatmul, the
         four-step worker, the per-request solve), then one unbatched
         request (its decode on cmatmul too).  ``worker`` maps each
         four-step kernel to its launches per call."""
         kind = plan_kind[cls]
-        plan = cls(s=s, m=4, n_workers=8)
+        plan = cls(s=s, m=4, n_workers=8, **plan_kw)
         if plan.device.type != "cuda" or plan.resolved_backend != "kernel":
             fail(f"plan {cls.__name__} s={s}: runs on {plan.device}, "
                  f"backend {plan.resolved_backend}")
@@ -779,7 +870,8 @@ def main() -> int:
         steady = (time.perf_counter() - t1) / 3
         trace = profile_call(torch, lambda: plan.run(x, mask=masks))
         emit({"phase": "plan", "plan": cls.__name__, "s": s, "m": 4,
-              "n_workers": 8, "requests": n_req, "rel_tol": rel_tol, **out,
+              "n_workers": 8, "requests": n_req, "rel_tol": rel_tol,
+              "worker": sorted(worker), **out,
               "steady_call_s": steady, "req_per_s": n_req / steady,
               "profiled_call": trace})
         torch.cuda.empty_cache()
@@ -794,6 +886,38 @@ def main() -> int:
     for cls in (CodedFFT, CodedRFFT, CodedIRFFT):
         drive_plan(cls, 1 << 20, 16,
                    {"fourstep_stage1": 1, "fourstep_stage2": 1}, 1e-3)
+
+    def streaming_worker(a):
+        # the plug-in contract (fft along the last axis, any leading axes
+        # collapsed into the kernel's batch, as make_kernel_worker_fn
+        # does) on the streaming four-step
+        lead, ell = tuple(a.shape[:-1]), a.shape[-1]
+        xr, xi = ref.planar(a.reshape(-1, ell))
+        outr, outi = ops.fourstep_planar(xr, xi, variant="streaming")
+        return ref.unplanar(outr, outi).reshape(lead + (ell,))
+
+    # the same 2^20-point CodedFFT with that worker_fn: the streaming
+    # four-step in place of the two-pass pair
+    drive_plan(CodedFFT, 1 << 20, 16, {"fourstep_streaming": 2}, 1e-3,
+               worker_fn=streaming_worker)
+
+    # -- 8. the single-request recombine ----------------------------------
+    # one 2^20-point request's decoded sub-transforms (torch.fft of its m
+    # interleaved shards) recombined by ops.recombine_fused
+    from repro_torch.core.interleave import interleave
+    s, m = 1 << 20, 4
+    x, want = make_input("c2c", (1, s))
+    c_hat = torch.fft.fft(interleave(x[0], m), dim=-1)
+    got, counts = counted(lambda: ops.recombine_fused(c_hat, s))
+    torch.cuda.synchronize()
+    if counts != {"recombine_twiddle_dft": 1}:
+        fail(f"recombine_fused: launches {counts}")
+    rel = rel_err(got, want[0])
+    if not rel < 1e-3:
+        fail(f"recombine_fused s={s}: rel err {rel} >= 1e-3")
+    emit({"phase": "recombine_fused", "s": s, "m": m, "launches": counts,
+          "rel_err": rel, "rel_tol": 1e-3})
+    del x, want, c_hat, got
 
     for row in table:
         row["launches"] = launches.get(row["name"], 0)

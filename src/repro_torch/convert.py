@@ -25,8 +25,6 @@ _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 # parameters, which are inert at their reference defaults.
 _TUNING = ("autotune", "autotune_reps")
 _INERT_DEFAULTS = {
-    "worker_fn": None,
-    "decode_method": "auto",
     "deadline_slack": 0.5,
     "max_retries": 2,
     "retry_backoff": 2.0,
@@ -63,11 +61,13 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
     """Map the reference ``FFTServiceConfig``'s fields (a dict, e.g. from
     ``dataclasses.asdict`` or ``vars``) onto the port's config.
 
-    The dtype maps by name, the straggler model by its three parameters.
-    Fields the port does not carry must hold the reference default (or
-    be a tuning knob); any other value raises ``NotImplementedError``.
-    Fields the port carries but does not serve yet raise when the service
-    is built.
+    The dtype maps by name, the straggler model by its three parameters;
+    ``decode_method`` and ``worker_fn`` map as they are (a ``worker_fn``
+    must take and return torch tensors on the port's side).  Fields the
+    port does not carry must hold the reference default (or be a tuning
+    knob); any other value raises ``NotImplementedError`` naming the
+    ROADMAP item that ports them.  Fields the port carries but does not
+    serve yet raise when the service is built.
     """
     own = {f.name for f in dataclasses.fields(FFTServiceConfig)}
     kwargs = {}
@@ -82,9 +82,12 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
             continue
         elif name in _INERT_DEFAULTS:
             if value != _INERT_DEFAULTS[name]:
+                item = ("Queue 1, the strategy zoo"
+                        if name == "strategy_param"
+                        else "Queue 1, the fault runtime")
                 raise NotImplementedError(
                     f"{name}={value!r} is not served by the PyTorch port "
-                    f"yet -- see ROADMAP.md (fault runtime, strategy zoo)")
+                    f"yet -- see ROADMAP.md, {item}")
         else:
             raise ValueError(f"unknown reference config field {name!r}")
     return FFTServiceConfig(**kwargs)

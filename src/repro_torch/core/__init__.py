@@ -3,19 +3,24 @@
 Ported so far: the 1-D plans -- complex (``CodedFFT``), real-input
 (``CodedRFFT``), inverse (``CodedIFFT``) and real-output
 (``CodedIRFFT``) -- on their kernel and reference backends, the (N, m)
-Reed-Solomon code with the closed-form Lagrange decode, interleave and
-recombine (full and half spectrum).
+Reed-Solomon code with the closed-form Lagrange decode and the
+transform decode's dispatch (``decode_auto``), interleave and recombine
+(full and half spectrum).
 """
 
 from repro_torch.core.coded_fft import CodedFFT
 from repro_torch.core.interleave import deinterleave, interleave
 from repro_torch.core.mds import (
+    IFFT_AUTO_MAX_M,
     LAGRANGE_MAX_M,
+    decode_auto,
     decode_from_subset,
+    decode_ifft,
     decode_masked,
     encode,
     encode_dft,
     first_available,
+    is_contiguous_subset,
     lagrange_decode_matrices,
     lagrange_decode_matrix,
     lagrange_inverse,
@@ -47,9 +52,12 @@ __all__ = [
     "CodedIFFT",
     "CodedIRFFT",
     "CodedRFFT",
+    "IFFT_AUTO_MAX_M",
     "LAGRANGE_MAX_M",
     "MDSPlanBase",
+    "decode_auto",
     "decode_from_subset",
+    "decode_ifft",
     "decode_masked",
     "deinterleave",
     "dft_matrix",
@@ -58,6 +66,7 @@ __all__ = [
     "first_available",
     "hermitian_extend",
     "interleave",
+    "is_contiguous_subset",
     "lagrange_decode_matrices",
     "lagrange_decode_matrix",
     "lagrange_inverse",

@@ -70,6 +70,7 @@ class CodedFFT(MDSPlanBase):
         if self.backend not in ("kernel", "reference"):
             raise ValueError(f"unknown backend {self.backend!r}")
         object.__setattr__(self, "device", resolve_device(self.device))
+        self._check_kernel_code()
 
     @property
     def shard_len(self) -> int:

@@ -16,10 +16,14 @@ creates tensors; the others follow their inputs.
 ``inv(G[subset])`` has a closed form (the Lagrange basis coefficients at
 the subset's nodes): :func:`lagrange_inverse` builds it in O(m^2) with
 no ``linalg.inv``, which is what lets the service's bucket kernel form
-per-request decode matrices on the device.
+per-request decode matrices on the device.  The same coefficients give
+the O(s log N) transform decode (:func:`decode_ifft`); :func:`decode_auto`
+picks it or the dense solve.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,6 +42,12 @@ __all__ = [
     "lagrange_decode_matrix",
     "lagrange_decode_matrices",
     "LAGRANGE_MAX_M",
+    "decode_ifft",
+    "decode_ifft_batched",
+    "is_contiguous_subset",
+    "contiguous_flag",
+    "IFFT_AUTO_MAX_M",
+    "decode_auto",
 ]
 
 # Largest m served by the device-resident Lagrange decode; past ~32 the
@@ -145,11 +155,12 @@ def lagrange_decode_coeffs(subset: torch.Tensor, n: int, m: int,
                            dtype=torch.complex128):
     """Payload-independent decode precompute for the nodes in ``subset``:
     ``(a, dinv)`` with ``a`` the (m+1,) locator coefficients and ``dinv``
-    (m,) = ``1 / A'(omega^{subset_j})``."""
+    (m,) = ``1 / A'(omega^{subset_j})``.  Leading axes of ``subset (...,
+    m)`` batch both."""
     nodes = rs_nodes(n, dtype, subset.device)[subset.long()]
-    diff = nodes[:, None] - nodes[None, :]
+    diff = nodes[..., :, None] - nodes[..., None, :]
     diff = diff + torch.eye(m, dtype=dtype, device=subset.device)
-    dinv = 1.0 / torch.prod(diff, dim=1)
+    dinv = 1.0 / torch.prod(diff, dim=-1)
     return _locator(nodes, m), dinv
 
 
@@ -197,3 +208,109 @@ def lagrange_decode_matrices(masks: torch.Tensor, m: int,
     onehot = (subsets[..., :, None]
               == torch.arange(n, device=masks.device)).to(inv.dtype)
     return inv @ onehot
+
+
+def decode_ifft_batched(b: torch.Tensor, subsets: torch.Tensor,
+                        n: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_ifft` of ``nb`` requests at once: ``b (nb, n,
+    *payload)`` with per-request responder indices ``subsets (nb, m)``
+    -> ``(nb, m, *payload)``.  Each request's arithmetic is exactly the
+    single-request decode's."""
+    nb = b.shape[0]
+    n = b.shape[1] if n is None else n
+    m = subsets.shape[-1]
+    payload = tuple(b.shape[2:])
+    flat = b.reshape(nb, b.shape[1], -1)
+    dtype = flat.dtype
+    if m == n:
+        # full response set (any subset is a permutation of it): the
+        # literal inverse of the zero-padded DFT encode -- exact, stable at
+        # any m, one FFT
+        c = torch.fft.ifft(flat.transpose(1, 2), dim=-1)[..., :m]
+        return c.transpose(1, 2).reshape((nb, m) + payload).to(dtype)
+    subsets = subsets.long()
+    a, dinv = lagrange_decode_coeffs(subsets, n, m, dtype)
+    # work in (P, n) layout so both FFTs run along the contiguous last axis
+    rows = flat[torch.arange(nb, device=flat.device)[:, None], subsets]
+    g = rows.transpose(1, 2) * dinv[:, None, :]                 # (nb, P, m)
+    g_grid = torch.zeros((nb, flat.shape[2], n), dtype=dtype,
+                         device=flat.device)
+    g_grid.scatter_(2, subsets[:, None, :].expand(g.shape), g)
+    big = torch.fft.fft(g_grid, dim=-1)[..., :m]                # G_d, d < m
+    # c_u = sum_t a_t G_{t-1-u} == linear_conv(a, reverse(G))[u + m]
+    two_m = 2 * m
+    a_hat = torch.fft.fft(a, n=two_m, dim=-1)
+    conv = torch.fft.ifft(
+        a_hat[:, None, :] * torch.fft.fft(torch.flip(big, dims=(-1,)),
+                                          n=two_m, dim=-1), dim=-1)
+    c = conv[..., m:two_m].transpose(1, 2)
+    return c.reshape((nb, m) + payload).to(dtype)
+
+
+def decode_ifft(b: torch.Tensor, subset: torch.Tensor,
+                n: Optional[int] = None) -> torch.Tensor:
+    """O(s log N) subset decode via the inverse zero-padded DFT mapping.
+
+    ``b``: ``(n, *payload)`` worker results (rows outside ``subset`` are
+    never read, so stragglers may hold garbage/NaN); ``subset``: ``(m,)``
+    responder indices.  Exact in exact arithmetic for ANY subset (the
+    Lagrange erasure formula); in floats its error tracks the subset's
+    interpolation conditioning, which for contiguous arcs grows
+    exponentially in ``m`` -- hence :func:`decode_auto` routes here only
+    for small ``m`` or the exactly-stable full set.  The platform FFTs
+    here are the reference's too: this is no kernel site.
+    """
+    return decode_ifft_batched(b[None], subset[None], n)[0]
+
+
+def is_contiguous_subset(subset, n: int) -> bool:
+    """Does ``subset`` form one contiguous run mod ``n``?"""
+    got = np.zeros(n, bool)
+    got[np.asarray(subset) % n] = True
+    boundaries = int(np.sum(got & ~np.roll(got, -1)))
+    return boundaries <= 1
+
+
+def contiguous_flag(subset: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`is_contiguous_subset` as a tensor function: a 0-d bool
+    tensor on ``subset``'s device."""
+    got = torch.zeros(n, dtype=torch.bool, device=subset.device)
+    got[subset.long() % n] = True
+    return torch.sum(got & ~torch.roll(got, -1)) <= 1
+
+
+# Largest m for which the transform decode is routed to automatically on a
+# contiguous (non-full) arc: up to here its float error stays within a
+# small factor of the dense solve's on the same (intrinsically worsening)
+# arcs.
+IFFT_AUTO_MAX_M = 8
+
+
+def decode_auto(generator: torch.Tensor, b: torch.Tensor,
+                subset: torch.Tensor, *, method: str = "auto"
+                ) -> torch.Tensor:
+    """Subset decode with fast-path dispatch.
+
+    ``method``: ``"solve"`` forces the dense Vandermonde solve, ``"ifft"``
+    forces the O(s log N) transform decode, ``"auto"`` picks ``ifft`` when
+    it is numerically safe -- the full set (m == N, exact at any size) or
+    a contiguous-mod-N subset with ``m <= IFFT_AUTO_MAX_M`` -- and the
+    backward-stable ``solve`` otherwise.  A batch with per-request subsets
+    resolves ``auto`` to ``solve`` in the plans, as the reference does.
+    """
+    n, m = generator.shape
+    if subset.shape[0] != m:
+        raise ValueError(f"subset must have exactly m={m} entries")
+    if method == "solve":
+        return decode_from_subset(generator, b, subset)
+    if method == "ifft":
+        return decode_ifft(b, subset, n)
+    if method != "auto":
+        raise ValueError(f"unknown decode method {method!r}")
+    if m == n:
+        return decode_ifft(b, subset, n)
+    if m > IFFT_AUTO_MAX_M:
+        return decode_from_subset(generator, b, subset)
+    if bool(contiguous_flag(subset, n)):
+        return decode_ifft(b, subset, n)
+    return decode_from_subset(generator, b, subset)

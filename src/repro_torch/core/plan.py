@@ -13,10 +13,12 @@ which applies only to complex64 plans; ``complex128`` plans and
 backend runs the encode as ONE ``mds_apply`` (``cmatmul``) with the batch
 folded into the payload columns, the worker on the four-step kernels
 (the plan's ``worker_compute``), and the decode of an unbatched request
-(or a batch of one) as ``inv(G[subset])`` through ``mds_apply``.  A
-batch of more than one decodes per request through the dense solve, as
-the reference's vmapped decode does.  The batched service does not use
-plan stages on its kernel path -- it runs the bucket kernels directly.
+(or a batch of one) as ``inv(G[subset])`` through ``mds_apply``.  Any
+other decode follows the reference's ``decode_auto`` dispatch (see
+:meth:`MDSPlanBase.decode`).  A kernel-backend plan refuses at
+construction a code whose (N, m) generator ``mds_apply`` cannot hold.
+The batched service does not use plan stages on its bucket-kernel path
+-- it runs the bucket kernels directly.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from repro_torch.core import mds
 from repro_torch.kernels import ops
 
 __all__ = ["MDSPlanBase", "batch_shape", "resolve_device"]
+
+_METHODS = ("auto", "solve", "ifft")
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
@@ -66,6 +71,13 @@ class MDSPlanBase:
 
     def _message(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def _check_kernel_code(self) -> None:
+        """Refuse, on the kernel backend, a code whose (N, m) generator the
+        ``mds_apply`` kernel cannot hold (called at construction)."""
+        if self.resolved_backend == "kernel":
+            ops.check_stage_code(self.n_workers, self.m,
+                                 f"{type(self).__name__}'s mds_apply")
 
     def _postdecode(self, c_hat: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -146,30 +158,29 @@ class MDSPlanBase:
         At most one of ``subset`` (responder indices, ``(*B, m)`` or shared
         ``(m,)``) or ``mask`` (availability, ``(*B, N)`` or shared
         ``(N,)``).  Rows outside each request's subset are never read.
+        ``method`` (``"auto"``, ``"solve"`` or ``"ifft"``) picks the MDS
+        decode, with the reference's dispatch:
 
-        The reference's dispatch: on the kernel backend with
-        ``method="auto"``, an unbatched request or a batch of one decodes
-        through ``inv(G[subset])`` and ``mds_apply``; any other call,
-        every batch of more than one included, runs the per-request
-        backward-stable dense solve.  ``"solve"`` forces the solve; the
-        reference's O(s log N) transform decode (``decode_ifft``, and
-        ``decode_auto``'s choice of it) is a later slice.
+        * an unbatched request, or a batch of one, goes through
+          ``mds.decode_auto`` -- on the kernel backend with ``"auto"``,
+          through ``inv(G[subset])`` and ``mds_apply`` instead;
+        * a shared ``(m,)`` subset, or the default ``arange(m)``, keeps
+          ``method`` for every request of a batch;
+        * per-request subsets (a batched subset or any mask) resolve
+          ``"auto"`` to the backward-stable ``"solve"``; ``"ifft"`` runs
+          per request.
         """
         if subset is not None and mask is not None:
             raise ValueError("pass at most one of subset / mask")
-        if method not in ("auto", "solve"):
-            raise NotImplementedError(
-                f"decode method {method!r}: the transform decode "
-                f"(decode_ifft / decode_auto) is not ported yet -- "
-                f"ROADMAP.md Queue 1, core/mds.py")
+        if method not in _METHODS:
+            raise ValueError(f"unknown decode method {method!r}")
         m, n = self.m, self.n_workers
         shard = tuple(self.worker_shard_shape)
         b = self._as_tensor(b)
         batch = batch_shape(b, 1 + len(shard), "worker results")
         flat = b.reshape((-1, n) + shard)
         nb = flat.shape[0]
-        if (self.resolved_backend == "kernel" and method == "auto"
-                and (not batch or nb == 1)):
+        if not batch or nb == 1:
             if subset is not None:
                 subset1 = self._as_tensor(subset).long().reshape(m)
             elif mask is not None:
@@ -177,22 +188,48 @@ class MDSPlanBase:
                     self._as_tensor(mask).bool().reshape(-1)[-n:], m)
             else:
                 subset1 = torch.arange(m, device=self.device)
-            out = self._decode_kernel(flat[0], subset1)
+            if self.resolved_backend == "kernel" and method == "auto":
+                out = self._decode_kernel(flat[0], subset1)
+            else:
+                out = self._postdecode(mds.decode_auto(
+                    self.generator, flat[0], subset1, method=method))
             return out.reshape(batch + tuple(out.shape))
-        if subset is not None:
-            subsets = self._as_tensor(subset).long()
-            subsets = subsets.broadcast_to(batch + (m,)).reshape(nb, m)
-        elif mask is not None:
-            masks = self._as_tensor(mask).bool()
-            masks = masks.broadcast_to(batch + (n,)).reshape(nb, n)
-            subsets = mds.first_available(masks, m)
+        if subset is None and mask is None:
+            shared = torch.arange(m, device=self.device)
+        elif subset is not None and self._as_tensor(subset).ndim == 1:
+            shared = self._as_tensor(subset).long()
         else:
-            subsets = torch.arange(m, device=self.device).expand(nb, m)
-        rows = flat[torch.arange(nb, device=self.device)[:, None], subsets]
+            shared = None
+        if shared is not None:
+            # one subset for the whole batch: the batch folds into the
+            # payload, each column decoded exactly as alone
+            c_hat = mds.decode_auto(self.generator, flat.transpose(0, 1),
+                                    shared, method=method).transpose(0, 1)
+        else:
+            if subset is not None:
+                subsets = self._as_tensor(subset).long()
+                subsets = subsets.broadcast_to(batch + (m,)).reshape(nb, m)
+            else:
+                masks = self._as_tensor(mask).bool()
+                masks = masks.broadcast_to(batch + (n,)).reshape(nb, n)
+                subsets = mds.first_available(masks, m)
+            c_hat = self._decode_per_request(
+                flat, subsets, "solve" if method == "auto" else method)
+        out = self._postdecode(c_hat)
+        return out.reshape(batch + tuple(out.shape[1:]))
+
+    def _decode_per_request(self, flat: torch.Tensor, subsets: torch.Tensor,
+                            method: str) -> torch.Tensor:
+        """``(nb, N, *shard)`` worker results with per-request subsets
+        ``(nb, m)`` -> decoded shards ``(nb, m, *shard)``: the dense solve
+        or the transform decode of every request at once."""
+        nb, m = subsets.shape
+        if method == "ifft":
+            return mds.decode_ifft_batched(flat, subsets, self.n_workers)
+        rows = flat[torch.arange(nb, device=flat.device)[:, None], subsets]
         gsub = self.generator[subsets].to(flat.dtype)        # (nb, m, m)
         c_hat = torch.linalg.solve(gsub, rows.reshape(nb, m, -1))
-        out = self._postdecode(c_hat.reshape((nb, m) + shard))
-        return out.reshape(batch + tuple(out.shape[1:]))
+        return c_hat.reshape(rows.shape)
 
     def _decode_kernel(self, b: torch.Tensor,
                        subset: torch.Tensor) -> torch.Tensor:

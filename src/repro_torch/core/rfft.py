@@ -160,6 +160,7 @@ class _RS1DPlanBase(MDSPlanBase):
             raise ValueError(f"dtype must be complex64 or complex128, got "
                              f"{self.dtype}")
         object.__setattr__(self, "device", resolve_device(self.device))
+        self._check_kernel_code()
 
     @property
     def shard_len(self) -> int:

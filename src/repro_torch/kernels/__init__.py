@@ -10,16 +10,19 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 * ``coded_fft_bucket``, ``coded_rfft_bucket``, ``coded_irfft_bucket`` --
   the same three buckets on host-built decode planes (the service's host
   decode-matrix path), one launch each (``coded_pipeline.py``);
-* ``coded_fft_bucket_streaming`` -- the c2c bucket on host-built decode
-  planes past the whole-bucket kernel's shared memory, three launches
-  (``coded_pipeline.py``);
+* ``coded_fft_bucket_streaming``, ``coded_fft_bucket_streaming_masked``
+  -- the c2c bucket past the whole-bucket kernel's shared memory, on
+  host-built decode planes (three launches) or raw masks (four: a decode
+  launch first) (``coded_pipeline.py``);
 * ``encode_fourstep_fused``   -- fused MDS encode + four-step worker DFT
   (``fourstep_fft.py``);
 * ``bcmatmul``                -- per-request decode apply (``cmatmul.py``);
-* ``recombine_twiddle_dft_batched`` -- twiddle + length-m DFT
-  (``recombine.py``);
-* ``fourstep_fused``, ``fourstep_stage1`` / ``fourstep_stage2`` -- the
-  plan's four-step worker, fused or two-pass (``fourstep_fft.py``);
+* ``recombine_twiddle_dft_batched``, ``recombine_twiddle_dft`` --
+  twiddle + length-m DFT of a bucket or of one request
+  (``recombine.py``; ``ops.recombine_fused`` runs the second);
+* ``fourstep_fused``, ``fourstep_stage1`` / ``fourstep_stage2``,
+  ``fourstep_streaming`` -- the plan's four-step worker, fused, two-pass
+  or streaming with natural-order output (``fourstep_fft.py``);
 * ``cmatmul``                 -- the plan's ``mds_apply`` (``cmatmul.py``).
 
 ``ops`` is the dispatch layer; ``ref`` holds the planar helpers and the
@@ -46,6 +49,7 @@ from repro_torch.kernels.ops import (
     kernel_backend_supported,
     make_kernel_worker_fn,
     mds_apply,
+    recombine_fused,
     recombine_planar,
     split_factor,
 )
@@ -70,6 +74,7 @@ __all__ = [
     "launch_counts",
     "make_kernel_worker_fn",
     "mds_apply",
+    "recombine_fused",
     "recombine_planar",
     "reset_launch_counts",
     "split_factor",

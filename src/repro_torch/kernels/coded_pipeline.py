@@ -38,11 +38,14 @@ scatter decode planes ``D`` built on the host (``serving.decode_cache``).
 It runs the same pipeline with ``D`` in place of the in-kernel Lagrange
 decode, in the same CUDA source as the kind's masked kernel.
 
-A c2c planes bucket past the whole-bucket kernel's shared memory runs
-``coded_fft_bucket_streaming`` (``csrc/coded_bucket_streaming.cu``; twin
-:func:`bucket_body`): the same function as three launches -- column
-pass, row pass, and the code and recombine -- with device-memory
-intermediates no wider than the request.
+A c2c bucket past the whole-bucket kernel's shared memory streams
+(``csrc/coded_bucket_streaming.cu``): ``coded_fft_bucket_streaming`` on
+host-built decode planes (twin :func:`bucket_body`) is the same function
+as three launches -- column pass, row pass, and the code and recombine
+-- with device-memory intermediates no wider than the request;
+``coded_fft_bucket_streaming_masked`` (twin :func:`bucket_body_masked`)
+runs one decode launch first that builds every request's (m, N) scatter
+decode planes from its raw mask, then the same three.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ __all__ = [
     "coded_fft_bucket_masked",
     "streaming_smem_bytes",
     "coded_fft_bucket_streaming",
+    "coded_fft_bucket_streaming_masked",
     "pack_real_planes",
     "half_postdecode_body",
     "rbucket_body",
@@ -416,6 +420,20 @@ def _streaming_lib():
     return fn
 
 
+def _check_streaming(what: str, m: int, n: int, q: int) -> None:
+    if m > MAX_M:
+        raise NotImplementedError(
+            f"{what}: m={m} > {MAX_M}, the kernel's unrolled shard bound; "
+            f"route it to the stage kernels")
+    if streaming_smem_bytes(m, n) > SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"{what}: (m={m}, N={n}) needs {streaming_smem_bytes(m, n)} "
+            f"bytes of shared memory per block, over {SMEM_PER_BLOCK_OPTIN}")
+    if q > _build.MAX_GRID_YZ:
+        raise ValueError(f"{what}: batch q={q} exceeds the grid's "
+                         f"{_build.MAX_GRID_YZ}")
+
+
 def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
                                fbr, fbi, twr, twi, fmr, fmi):
     """The c2c bucket on host-built decode planes past the whole-bucket
@@ -442,18 +460,7 @@ def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
         "coded_fft_bucket_streaming", xr=xr, xi=xi, dr=dr, di=di, gr=gr,
         gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
         twi=twi, fmr=fmr, fmi=fmi)
-    if m > MAX_M:
-        raise NotImplementedError(
-            f"coded_fft_bucket_streaming: m={m} > {MAX_M}, the kernel's "
-            f"unrolled shard bound; route it to the stage kernels")
-    if streaming_smem_bytes(m, n) > SMEM_PER_BLOCK_OPTIN:
-        raise ValueError(
-            f"coded_fft_bucket_streaming: (m={m}, N={n}) needs "
-            f"{streaming_smem_bytes(m, n)} bytes of shared memory per "
-            f"block, over {SMEM_PER_BLOCK_OPTIN}")
-    if q > _build.MAX_GRID_YZ:
-        raise ValueError(f"coded_fft_bucket_streaming: batch q={q} exceeds "
-                         f"the grid's {_build.MAX_GRID_YZ}")
+    _check_streaming("coded_fft_bucket_streaming", m, n, q)
     t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
     p = _build.ptr
     _build.check(_streaming_lib()(
@@ -462,6 +469,59 @@ def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
         p(t1i), p(zr), p(zi), p(outr), p(outi), q, n, m, a, b,
         _build.stream_of(dev)), "coded_fft_bucket_streaming")
     _build.count_launch("coded_fft_bucket_streaming", 3)
+    return outr, outi
+
+
+@functools.lru_cache(maxsize=None)
+def _streaming_masked_lib():
+    fn = (_build.load("coded_bucket_streaming")
+          .coded_bucket_streaming_masked_f32)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 24 + [i32] * 5 + [ctypes.c_float, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def coded_fft_bucket_streaming_masked(xr, xi, masks, gr, gi, far, fai, wr,
+                                      wi, fbr, fbi, twr, twi, fmr, fmi):
+    """The masked c2c bucket past the whole-bucket kernel's shared memory:
+    the arguments, result and plain twin (:func:`bucket_body_masked`) of
+    :func:`coded_fft_bucket_masked`.
+
+    CUDA tensors run four launches, each counted: the decode (one block
+    per request: its raw mask row -> its (m, N) scatter decode planes,
+    into a (q, m, N) device scratch), then the three of
+    :func:`coded_fft_bucket_streaming` on those planes; or raise.  The
+    caller checks the gate (``ops.coded_bucket_streamable``).
+    """
+    q, s = xr.shape
+    n, m = gr.shape
+    a, b = far.shape[0], fbr.shape[0]
+    ell = a * b
+    if (xi.shape != xr.shape or masks.shape != (q, n) or m * ell != s
+            or twr.shape != (m, ell) or fmr.shape != (m, m)):
+        raise ValueError(
+            "coded_fft_bucket_streaming_masked: inconsistent shapes")
+    if xr.device.type == "cpu":
+        return bucket_body_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
+                                  fbr, fbi, twr, twi, fmr, fmi)
+    mk = masks.to(torch.float32).contiguous()
+    dev = _build.check_planes(
+        "coded_fft_bucket_streaming_masked", xr=xr, xi=xi, masks=mk, gr=gr,
+        gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
+        twi=twi, fmr=fmr, fmi=fmi)
+    _check_streaming("coded_fft_bucket_streaming_masked", m, n, q)
+    dr = torch.empty((q, m, n), dtype=torch.float32, device=dev)
+    di = torch.empty_like(dr)
+    t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
+    p = _build.ptr
+    _build.check(_streaming_masked_lib()(
+        p(xr), p(xi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far),
+        p(fai), p(wr), p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr),
+        p(fmi), p(dr), p(di), p(t1r), p(t1i), p(zr), p(zi), p(outr),
+        p(outi), q, n, m, a, b, _ntau(n), _build.stream_of(dev)),
+        "coded_fft_bucket_streaming_masked")
+    _build.count_launch("coded_fft_bucket_streaming_masked", 4)
     return outr, outi
 
 

@@ -15,9 +15,15 @@
 // bucket's column pass takes the m interleaved message shards of a
 // request this way, straight from its natural layout.
 //
+// kTransOut writes C transposed, as (N, M) per batch entry: the streaming
+// four-step's row pass puts its output in natural order that way.  The
+// thread mapping swaps with it (a warp's threads then own 16 consecutive
+// rows), so the transposed stores stay coalesced and the shared-memory
+// reads stay free of conflicts.
+//
 // The dense-DFT passes of the four-step kernels run on it: the column pass
 // (F_A @ M, twiddle in the epilogue) and the row pass (T1 @ F_B) of
-// encode_fourstep.cu and fourstep.cu.
+// encode_fourstep.cu, fourstep.cu and coded_bucket_streaming.cu.
 
 #pragma once
 
@@ -35,8 +41,9 @@ constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 // C[z] = A[z] @ B[z] (* W when wr != nullptr), planar complex,
 // A (M, K) at batch stride sa, B (K, N) at batch stride sb, C (M, N)
 // contiguous per batch entry, its columns in g interleaved groups (g
-// divides N; g = 1 is the plain product).  Grid: (ceil(N/BN),
-// ceil(M/BM), batch).
+// divides N; g = 1 is the plain product), or C^T (N, M) when kTransOut
+// (with g = 1).  Grid: (ceil(N/BN), ceil(M/BM), batch).
+template <bool kTransOut>
 __global__ void __launch_bounds__(kThreads)
 cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
              long long sa, const float* __restrict__ br,
@@ -56,8 +63,8 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   const float* Br = br + z * sb;
   const float* Bi = bi + z * sb;
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
+  const int tx = kTransOut ? tid / (BM / TM) : tid % (BN / TN);
+  const int ty = kTransOut ? tid % (BM / TM) : tid / (BN / TN);
 
   float accr[TM][TN], acci[TM][TN];
 #pragma unroll
@@ -123,7 +130,9 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
           im = r * w_i + im * w_r;
           r = t;
         }
-        const long long off = (long long)gm * N + (long long)grp * ng + col;
+        const long long off =
+            kTransOut ? (long long)gn * M + gm
+                      : (long long)gm * N + (long long)grp * ng + col;
         Cr[off] = r;
         Ci[off] = im;
       }
@@ -135,11 +144,15 @@ int launch_cgemm(const float* ar, const float* ai, long long sa,
                  const float* br, const float* bi, long long sb,
                  const float* wr, const float* wi, float* cr, float* ci,
                  int batch, int M, int N, int K, cudaStream_t stream,
-                 int g = 1) {
+                 int g = 1, bool trans_out = false) {
   const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM),
                   (unsigned)batch);
-  cgemm_kernel<<<grid, kThreads, 0, stream>>>(ar, ai, sa, br, bi, sb, wr, wi,
-                                              cr, ci, M, N, K, g);
+  if (trans_out)
+    cgemm_kernel<true><<<grid, kThreads, 0, stream>>>(
+        ar, ai, sa, br, bi, sb, wr, wi, cr, ci, M, N, K, 1);
+  else
+    cgemm_kernel<false><<<grid, kThreads, 0, stream>>>(
+        ar, ai, sa, br, bi, sb, wr, wi, cr, ci, M, N, K, g);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,22 @@
-// The c2c coded-FFT bucket past the whole-bucket kernel's shared memory,
-// on host-built decode planes.
+// The c2c coded-FFT bucket past the whole-bucket kernel's shared memory.
 //
 // Replaces the TPU kernel kernels/coded_pipeline.py::_streaming_bucket_call
-// of the JAX package in its planes mode (coded_fft_bucket_streaming: the
-// service's host decode-matrix path).  Per request q, from the raw request
-// x (length s = m*L, L = A*B) and its host-built (m, N) scatter decode
-// matrix D, the same function as coded_bucket.cu's planes kernel:
+// of the JAX package in both its modes: planes (coded_fft_bucket_streaming,
+// the service's host decode-matrix path, with host-built decode planes)
+// and masked (coded_fft_bucket_streaming_masked, the default
+// device-decode path, from the raw responder masks).  Per request q, from
+// the raw request x (length s = m*L, L = A*B) and its (m, N) scatter
+// decode matrix D, the same function as coded_bucket.cu's kernels:
 //
+//   0. decode        masked mode only: one block per request turns its
+//                    raw (N,) mask row into D -- the first m responders
+//                    (short rows filled with the first non-responders),
+//                    the closed-form Lagrange inverse of G[subset] in the
+//                    reference's shuffled locator order with node angles
+//                    reduced as integers (block_subset_decode of
+//                    bucket.cuh, the masked bucket kernels' own), its
+//                    columns scattered to the responders' worker slots
+//                    and zeros elsewhere -- into a (q, m, N) scratch;
 //   1. column pass   T1_i = (F_A @ M_i) * W for every message shard
 //                    M_i[a][b] = x[i + (a*B + b)*m], read in place: the
 //                    request viewed as an (A, B*m) matrix IS the m shards
@@ -28,10 +38,15 @@
 // hand-rolled double-buffered DMA inside one launch, because a grid step
 // there is sequential and VMEM is large.  Here blocks run in parallel
 // and a phase boundary needs every block of the previous phase done, so
-// the three phases are three launches on one stream.  Their
+// the three phases are three launches on one stream, and the masked mode
+// is four: its decode launch runs once per request ahead of them, where
+// the TPU kernel forms the decode weights in VMEM at every tile.  Folding
+// that decode into the code launch would repeat it in each of its ~1,000
+// blocks per request, and its locator product runs on one thread.  The
 // intermediates t1 and z live in device memory (scratch the wrapper
-// allocates), each (q, s) like the request: nothing N/m times wider
-// than the request is written, which the stage route's coded spectra are.
+// allocates), each (q, s) like the request, and D (q, m, N): nothing N/m
+// times wider than the request is written, which the stage route's coded
+// spectra are.
 //
 // What bounds it on the H100: bytes.  For the service's 2^20-point
 // bucket (q = 16, m = 4, N = 8: A = B = 512) the function needs an FFT
@@ -43,8 +58,11 @@
 // operations.  Phase 3 is bytes: one thread per position, G, D and F_m
 // in shared memory, a warp over 4 c x 8 d positions so z and the twiddle
 // are read in whole 32-byte sectors and the output in half sectors.  A
-// radix FFT over the A x B tile is the way to its bound.
+// radix FFT over the A x B tile is the way to its bound.  The decode
+// launch is latency: q blocks of O(m^2) work (one thread walks the
+// locator product), then m*N stores per request.
 
+#include "bucket.cuh"
 #include "cgemm.cuh"
 
 namespace {
@@ -131,6 +149,46 @@ stream_code_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   }
 }
 
+constexpr int kDecodeThreads = 128;
+
+// Phase 0 (masked mode).  Grid: (q).  Shared memory: block_subset_decode's
+// DecodeSmem, 6*m*m + 4*m + 2 floats and m ints.  Writes this request's
+// (m, n) scatter decode planes D[i][k] = inv(G[subset])[i][j] where
+// subset_j = k, and 0 in the other n - m columns.
+__global__ void __launch_bounds__(kDecodeThreads)
+stream_decode_kernel(const float* __restrict__ mk,
+                     const int* __restrict__ perm,
+                     const float* __restrict__ gr,
+                     const float* __restrict__ gi, float* __restrict__ dr,
+                     float* __restrict__ di, int n, int m, float ntau) {
+  extern __shared__ float smem[];
+  const int mm = m * m;
+  DecodeSmem d;
+  d.gs_r = smem;           d.gs_i = d.gs_r + mm;
+  d.pw_r = d.gs_i + mm;    d.pw_i = d.pw_r + mm;
+  d.qm_r = d.pw_i + mm;    d.qm_i = d.qm_r + mm;
+  d.loc_r = d.qm_i + mm;   d.loc_i = d.loc_r + (m + 1);
+  d.nd_r = d.loc_i + (m + 1);
+  d.nd_i = d.nd_r + m;
+  d.sub = reinterpret_cast<int*>(d.nd_i + m);
+  const long long q = blockIdx.x;
+  block_subset_decode(mk + q * n, perm, gr, gi, n, m, ntau, d);
+  float* dq_r = dr + q * m * n;
+  float* dq_i = di + q * m * n;
+  for (int e = threadIdx.x; e < m * n; e += blockDim.x) {
+    const int i = e / n, k = e % n;
+    float vr = 0.f, vi = 0.f;
+    for (int j = 0; j < m; ++j) {
+      if (d.sub[j] == k) {
+        vr = d.qm_r[i * m + j];
+        vi = d.qm_i[i * m + j];
+      }
+    }
+    dq_r[e] = vr;
+    dq_i[e] = vi;
+  }
+}
+
 template <int MM>
 int launch_code(const float* zr, const float* zi, const float* dr,
                 const float* di, const float* gr, const float* gi,
@@ -151,22 +209,15 @@ int launch_code(const float* zr, const float* zi, const float* dr,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x: (q, s) planes; d: (q, m, n) scatter decode planes; g: (n, m);
-// fa: (a, a); w: (a, b); fb: (b, b); tw: (m, a*b) pre-scrambled;
-// fm: (m, m); t1, z: (q, s) scratch; out: (q, s).  m in [1, 32], q at
-// most 65,535 and 4*(4*n*m + 2*m*m) bytes within the opt-in shared
-// memory: the wrapper checks.  Returns the first nonzero
-// cudaGetLastError() of the three launches.
-extern "C" int coded_bucket_streaming_f32(
-    const float* xr, const float* xi, const float* dr, const float* di,
-    const float* gr, const float* gi, const float* far, const float* fai,
-    const float* wr, const float* wi, const float* fbr, const float* fbi,
-    const float* twr, const float* twi, const float* fmr, const float* fmi,
-    float* t1r, float* t1i, float* zr, float* zi, float* outr, float* outi,
-    int q, int n, int m, int a, int b, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// Phases 1-3 on the (q, m, n) decode planes d.
+int launch_phases(const float* xr, const float* xi, const float* dr,
+                  const float* di, const float* gr, const float* gi,
+                  const float* far, const float* fai, const float* wr,
+                  const float* wi, const float* fbr, const float* fbi,
+                  const float* twr, const float* twi, const float* fmr,
+                  const float* fmi, float* t1r, float* t1i, float* zr,
+                  float* zi, float* outr, float* outi, int q, int n, int m,
+                  int a, int b, cudaStream_t st) {
   const long long s = (long long)m * a * b;
   // 1. column pass over the interleaved (a, b*m) view, shards out as
   //    (a, m, b), twiddle W[c][bb] on every shard
@@ -191,4 +242,50 @@ extern "C" int coded_bucket_streaming_f32(
     return launch_code<32>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
                            outi, q, n, m, a, b, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x: (q, s) planes; d: (q, m, n) scatter decode planes; g: (n, m);
+// fa: (a, a); w: (a, b); fb: (b, b); tw: (m, a*b) pre-scrambled;
+// fm: (m, m); t1, z: (q, s) scratch; out: (q, s).  m in [1, 32], q at
+// most 65,535 and 4*(4*n*m + 2*m*m) bytes within the opt-in shared
+// memory: the wrapper checks.  Returns the first nonzero
+// cudaGetLastError() of the three launches.
+extern "C" int coded_bucket_streaming_f32(
+    const float* xr, const float* xi, const float* dr, const float* di,
+    const float* gr, const float* gi, const float* far, const float* fai,
+    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* twr, const float* twi, const float* fmr, const float* fmi,
+    float* t1r, float* t1i, float* zr, float* zi, float* outr, float* outi,
+    int q, int n, int m, int a, int b, void* stream) {
+  return launch_phases(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                       twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
+                       m, a, b, (cudaStream_t)stream);
+}
+
+// Masked mode: masks (q, n) float (nonzero = responded); perm (m,) int32,
+// the locator's factor order; ntau = -2*pi/n as float; dr, di: (q, m, n)
+// scratch for the decode planes; the rest as coded_bucket_streaming_f32.
+// Same checks by the wrapper.  Returns the first nonzero
+// cudaGetLastError() of the four launches.
+extern "C" int coded_bucket_streaming_masked_f32(
+    const float* xr, const float* xi, const float* masks, const int* perm,
+    const float* gr, const float* gi, const float* far, const float* fai,
+    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* twr, const float* twi, const float* fmr, const float* fmi,
+    float* dr, float* di, float* t1r, float* t1i, float* zr, float* zi,
+    float* outr, float* outi, int q, int n, int m, int a, int b, float ntau,
+    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(6 * m * m + 4 * m + 2) * sizeof(float) +
+                      (size_t)m * sizeof(int);
+  stream_decode_kernel<<<q, kDecodeThreads, smem, st>>>(masks, perm, gr, gi,
+                                                        dr, di, n, m, ntau);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_phases(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+                       twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
+                       m, a, b, st);
 }

@@ -1,15 +1,19 @@
 // Batched four-step DFT of a length-L shard, L = A * B, on planar float32.
 //
-// Replaces three TPU kernels of the JAX package's kernels/fourstep_fft.py:
+// Replaces four TPU kernels of the JAX package's kernels/fourstep_fft.py:
 // fourstep_fused (one launch, the whole A x B matrix of a row on chip),
-// and the two-pass pair fourstep_stage1 (column DFT + twiddle) and
-// fourstep_stage2 (row DFT).  For every batch row, with M[a, b] = x[a*B + b]:
+// the two-pass pair fourstep_stage1 (column DFT + twiddle) and
+// fourstep_stage2 (row DFT), and fourstep_streaming (rows past one
+// block, natural-order output).  For every batch row, with
+// M[a, b] = x[a*B + b]:
 //
 //   T1 = (F_A @ M) * W        column pass: A-point DFTs + twiddle
 //   out = T1 @ F_B            row pass:    B-point DFTs
 //
 // and out[c, d] holds X[c + d*A], the reference's scrambled order (the
-// dispatch layer unscrambles with one transpose).
+// dispatch layer unscrambles with one transpose).  fourstep_streaming
+// writes the row pass transposed instead, out[d][c] = X[d*A + c]: the
+// natural order, with no unscramble pass after it.
 //
 // What bounds it on the H100: bytes.  Counted as an FFT (5*L*log2(L)
 // flops per row), the work is far below the traffic of reading the input
@@ -31,7 +35,12 @@
 // to L = 8192 fuse and longer ones take the two-pass route.  The two
 // passes there are the register-tiled complex GEMM of cgemm.cuh, one
 // launch each, with T1 in device memory: the twiddle rides in the column
-// pass's epilogue.  A radix FFT over the tile is the way to the bound.
+// pass's epilogue.  fourstep_streaming is the same two launches behind
+// one entry, its row pass storing through the GEMM's transposed epilogue
+// (cgemm.cuh, kTransOut).  The TPU kernel streams both passes through
+// VMEM tiles inside one launch; here the pass boundary needs every block
+// of the column pass done, so it is a launch boundary.  A radix FFT over
+// the tile is the way to the bound.
 
 #include <cstring>
 
@@ -138,4 +147,24 @@ extern "C" int fourstep_stage2_f32(const float* tr, const float* ti,
   return launch_cgemm(tr, ti, (long long)a * b, fbr, fbi, 0, nullptr,
                       nullptr, outr, outi, batch, a, b, b,
                       (cudaStream_t)stream);
+}
+
+// Streaming four-step: out[z] = (((F_A @ x[z]) * W) @ F_B)^T for z < batch
+// (<= 65,535; the wrapper chunks), natural order: out (batch, b, a) with
+// out[z][d][c] = X[d*a + c].  x: (batch, a, b); t1: (batch, a, b)
+// scratch.  Two launches; returns the first nonzero cudaGetLastError().
+extern "C" int fourstep_streaming_f32(const float* xr, const float* xi,
+                                      const float* far, const float* fai,
+                                      const float* wr, const float* wi,
+                                      const float* fbr, const float* fbi,
+                                      float* t1r, float* t1i, float* outr,
+                                      float* outi, int batch, int a, int b,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long ab = (long long)a * b;
+  int err = launch_cgemm(far, fai, 0, xr, xi, ab, wr, wi, t1r, t1i, batch, a,
+                         b, a, st);
+  if (err != 0) return err;
+  return launch_cgemm(t1r, t1i, ab, fbr, fbi, 0, nullptr, nullptr, outr,
+                      outi, batch, a, b, b, st, 1, /*trans_out=*/true);
 }

@@ -1,9 +1,12 @@
-// Batched recombine: out[q, j, l] = sum_k F_m[j, k] * (C[q, k, l] * W[k, l]).
+// Recombine: out[q, j, l] = sum_k F_m[j, k] * (C[q, k, l] * W[k, l]).
 //
-// Replaces the TPU kernel kernels/recombine.py::recombine_twiddle_dft_batched
-// in the JAX package: the master's last stage (paper eq. 24), an
-// elementwise twiddle omega_s^{lk} followed by a length-m DFT across the
-// shard axis at every payload position l.
+// Replaces two TPU kernels of the JAX package's kernels/recombine.py:
+// recombine_twiddle_dft_batched (a bucket of q requests, the service's
+// stage route) and recombine_twiddle_dft (one request, the dispatch
+// layer's recombine_fused: the same entry with q = 1).  Both are the
+// master's last stage (paper eq. 24), an elementwise twiddle
+// omega_s^{lk} followed by a length-m DFT across the shard axis at every
+// payload position l.
 //
 // What bounds it on the H100: bytes.  Per column it reads m complex inputs
 // and m twiddles and writes m outputs for m*m + m complex MACs -- about

@@ -13,15 +13,18 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
 * ``fourstep_stage1`` / ``fourstep_stage2`` -- the two-pass route for
   shards too long for one block: the column pass with the twiddle, then
   the row pass, the intermediate in device memory;
+* ``fourstep_streaming`` -- the same two passes behind one entry, the
+  row pass storing its output transposed: natural order ``(batch, B,
+  A)``, no unscramble after it;
 * ``encode_fourstep_fused`` -- the MDS encode folded in: the generator
   contraction acts across shards and the DFT within each, so the kernel
   transforms the m MESSAGE shards and encodes after (an N/m saving).
 
-CUDA sources: ``csrc/fourstep.cu`` (the first three) and
+CUDA sources: ``csrc/fourstep.cu`` (the first four) and
 ``csrc/encode_fourstep.cu``; the plain twins are :func:`fourstep_body`,
-:func:`stage1_body`, :func:`stage2_body` and
-:func:`encode_fourstep_body`.  The mixed-radix and streaming four-step
-kernels are later slices.
+:func:`stage1_body`, :func:`stage2_body`,
+:func:`fourstep_streaming_body` and :func:`encode_fourstep_body`.  The
+mixed-radix four-step kernel is a later slice.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ __all__ = [
     "stage2_body",
     "fourstep_stage1",
     "fourstep_stage2",
+    "fourstep_streaming_body",
+    "fourstep_streaming",
     "encode_fourstep_body",
     "encode_fourstep_fused",
 ]
@@ -297,3 +302,48 @@ def fourstep_stage2(tr, ti, fbr, fbi):
         return stage2_body(tr, ti, fbr, fbi)
     return _two_pass("fourstep_stage2", "fourstep_stage2_f32", (tr, ti),
                      {"fbr": fbr, "fbi": fbi})
+
+
+def fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi):
+    """The streaming four-step on a (bq, A, B) block: the column pass, the
+    row pass, then the one transpose to natural order (bq, B, A),
+    ``out[d, c] = X[d*A + c]``."""
+    outr, outi = stage2_body(*stage1_body(xr, xi, far, fai, wr, wi),
+                             fbr, fbi)
+    return (outr.transpose(-1, -2).contiguous(),
+            outi.transpose(-1, -2).contiguous())
+
+
+def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
+    """Batched four-step FFT of rows past one block, natural order out.
+
+    ``xr, xi``: (batch, A, B) planes of ``M[a, b] = x[a*B + b]``.  Returns
+    (batch, B, A) planes with ``out[d, c] = X[d*A + c]``: flattened, the
+    spectrum in natural order.  CPU tensors run
+    :func:`fourstep_streaming_body`; CUDA tensors launch the kernel -- two
+    launches per 65,535 rows (column pass, transposing row pass), each
+    counted, with a (batch, A, B) plane pair of device scratch -- or raise.
+    """
+    batch, a, b = xr.shape
+    _check_fourstep("fourstep_streaming", xr, xi, far=far, fai=fai, wr=wr,
+                    wi=wi, fbr=fbr, fbi=fbi)
+    if xr.device.type == "cpu":
+        return fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi)
+    dev = _build.check_planes(
+        "fourstep_streaming", xr=xr, xi=xi, far=far, fai=fai, wr=wr, wi=wi,
+        fbr=fbr, fbi=fbi)
+    t1r = torch.empty_like(xr)
+    t1i = torch.empty_like(xr)
+    outr = torch.empty((batch, b, a), dtype=torch.float32, device=dev)
+    outi = torch.empty_like(outr)
+    fn = _fourstep_lib("fourstep_streaming_f32", 12)
+    p = _build.ptr
+    for z0 in range(0, batch, _build.MAX_GRID_YZ):
+        z1 = min(batch, z0 + _build.MAX_GRID_YZ)
+        _build.check(fn(
+            p(xr[z0:z1]), p(xi[z0:z1]), p(far), p(fai), p(wr), p(wi), p(fbr),
+            p(fbi), p(t1r[z0:z1]), p(t1i[z0:z1]), p(outr[z0:z1]),
+            p(outi[z0:z1]), z1 - z0, a, b, _build.stream_of(dev)),
+            "fourstep_streaming")
+        _build.count_launch("fourstep_streaming", 2)
+    return outr, outi

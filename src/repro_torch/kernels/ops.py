@@ -11,8 +11,11 @@ gates, and stage helpers whose glue is plain PyTorch around the same
 bucket comes in two variants: *masked* (raw responder masks, the decode
 built in the kernel) and *planes* (host-built (q, m, N) scatter decode
 planes, the service's host decode-matrix path), each with its gate.  A
-c2c planes bucket past its gate streams (``coded_bucket_streamable``),
-as the reference routes it.
+c2c bucket of either variant past its gate streams
+(``coded_bucket_streamable``), as the reference routes it; the real
+kinds have no streaming bucket, in the reference either.  A bucket past
+those takes the stage kernels, whose code bounds
+:func:`check_stage_code` states.  :func:`bucket_route` is that rule.
 
 Mode rule: the tensor's device.  A wrapper given CPU tensors runs its
 kernel's plain PyTorch twin (the tests' path); given CUDA tensors it
@@ -31,13 +34,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import coded_pipeline, ref
-from repro_torch.kernels.cmatmul import bcmatmul, cmatmul
+from repro_torch.kernels.cmatmul import bcmatmul, check_left_fits, cmatmul
 from repro_torch.kernels.coded_pipeline import (
     SMEM_PER_BLOCK_OPTIN,
     bucket_smem_bytes,
     coded_fft_bucket,
     coded_fft_bucket_masked,
     coded_fft_bucket_streaming,
+    coded_fft_bucket_streaming_masked,
     coded_irfft_bucket,
     coded_irfft_bucket_masked,
     coded_rfft_bucket,
@@ -56,8 +60,13 @@ from repro_torch.kernels.fourstep_fft import (
     fourstep_layout,
     fourstep_stage1,
     fourstep_stage2,
+    fourstep_streaming,
 )
-from repro_torch.kernels.recombine import recombine_twiddle_dft_batched
+from repro_torch.kernels.recombine import MAX_M as RECOMBINE_MAX_M
+from repro_torch.kernels.recombine import (
+    recombine_twiddle_dft,
+    recombine_twiddle_dft_batched,
+)
 
 __all__ = [
     "SMEM_PER_BLOCK_OPTIN",
@@ -73,10 +82,13 @@ __all__ = [
     "encode_worker",
     "decode_apply",
     "recombine_planar",
+    "recombine_fused",
+    "check_stage_code",
     "mask_subsets",
     "lagrange_scatter_planes",
     "coded_bucket_fusable",
     "coded_bucket_streamable",
+    "bucket_route",
     "coded_bucket",
     "coded_bucket_masked",
     "pack_real_planes",
@@ -212,7 +224,7 @@ def fourstep_fusable(a: int, b: int) -> bool:
     return 4 * fourstep_layout(a, b)[-1] <= SMEM_PER_BLOCK_OPTIN
 
 
-_VARIANTS = ("fused", "two_pass", "xla")
+_VARIANTS = ("fused", "two_pass", "streaming", "xla")
 
 
 def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
@@ -223,9 +235,10 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
     ``xr, xi``: (batch, L) f32 planes.  Returns natural-order (batch, L)
     planes of ``fft(x)``.  ``variant``: ``"fused"`` (one launch of
     ``fourstep_fused``), ``"two_pass"`` (``fourstep_stage1`` then
-    ``fourstep_stage2``) or ``"xla"`` (the platform FFT, as in the JAX
-    package, no kernel); the legacy ``fused`` bool maps onto the first
-    two.  ``factors``: an explicit ``(A, B)`` split.
+    ``fourstep_stage2``), ``"streaming"`` (``fourstep_streaming``, whose
+    output is already in natural order) or ``"xla"`` (the platform FFT,
+    as in the JAX package, no kernel); the legacy ``fused`` bool maps onto
+    the first two.  ``factors``: an explicit ``(A, B)`` split.
 
     ``variant=None`` routes by the port's own limits: fused when the row
     fits one block (:func:`fourstep_fusable`), else two-pass.  A split
@@ -251,10 +264,6 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
                                  f"to L={ell}")
     if variant is None and fused is not None:
         variant = "fused" if fused else "two_pass"
-    if variant == "streaming":
-        raise NotImplementedError(
-            "variant='streaming': the streaming four-step kernel is not "
-            "ported yet -- ROADMAP.md Queue 2, fourstep_streaming")
     if variant is not None and variant not in _VARIANTS:
         raise ValueError(f"unknown four-step variant {variant!r}")
     if max(a, b) ** 2 > MAX_PLANE_ELEMS:
@@ -267,6 +276,10 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
     far, fai, wr, wi, fbr, fbi = _fourstep_planes(a, b, xr.device)
     x3r = xr.contiguous().reshape(batch, a, b)
     x3i = xi.contiguous().reshape(batch, a, b)
+    if variant == "streaming":
+        # natural-order (batch, B, A) output: flat X, no unscramble
+        outr, outi = fourstep_streaming(x3r, x3i, far, fai, wr, wi, fbr, fbi)
+        return outr.reshape(batch, ell), outi.reshape(batch, ell)
     if variant == "fused":
         if not fourstep_fusable(a, b):
             raise ValueError(
@@ -373,6 +386,45 @@ def lagrange_scatter_planes(subsets: torch.Tensor, n: int):
     return dr, di
 
 
+def recombine_fused(c_hat: torch.Tensor, s: int) -> torch.Tensor:
+    """Kernel-backed master recombination of one request: decoded
+    ``(m, s/m)`` complex sub-transforms -> the ``(s,)`` spectrum, one
+    launch of ``recombine_twiddle_dft``."""
+    m = c_hat.shape[0]
+    cr, ci = ref.planar(c_hat)
+    wr, wi, fr, fi = _on_device(_recombine_planes, (s, m), cr.device)
+    outr, outi = recombine_twiddle_dft(cr, ci, wr, wi, fr, fi)
+    return ref.unplanar(outr, outi).reshape(s)
+
+
+def check_stage_code(n: int, m: int, what: str, *,
+                     recombine: bool = False) -> None:
+    """Refuse an (N, m) code the stage kernels cannot carry.
+
+    The stage route (``encode_fourstep_fused``, ``bcmatmul``,
+    ``recombine_twiddle_dft_batched``) and the plans' ``mds_apply``
+    (``cmatmul``) keep a whole (N, m) G or (m, N) D in one block's shared
+    memory -- the ``check_left_fits`` those wrappers make at launch,
+    N*m <= 29,056 -- and the recombine unrolls m up to its ``MAX_M``
+    (``recombine=True``).  Raises NotImplementedError naming ROADMAP.md
+    Queue 2 item 7, so a caller can refuse before any work; the plain
+    twins the CPU runs have no such bounds.
+    """
+    item = ("see ROADMAP.md, Queue 2 item 7 (the stage kernels past m=64 "
+            "or N*m > 29,056)")
+    if recombine and m > RECOMBINE_MAX_M:
+        raise NotImplementedError(
+            f"{what}: m={m} (the stage recombine serves m <= "
+            f"{RECOMBINE_MAX_M}) is not served by the PyTorch port yet -- "
+            f"{item}")
+    try:
+        check_left_fits(what, n, m)
+    except ValueError as err:
+        raise NotImplementedError(
+            f"the (N={n}, m={m}) code is not served by the PyTorch port yet "
+            f"({err}) -- {item}") from None
+
+
 def recombine_planar(cr: torch.Tensor, ci: torch.Tensor, s: int):
     """Batched master recombination on planes: (q, m, s/m) -> (q, s)."""
     q, m, ell = cr.shape
@@ -402,8 +454,8 @@ def coded_bucket_fusable(s: int, m: int, n: int, *,
 
 
 def coded_bucket_streamable(s: int, m: int, n: int) -> bool:
-    """Can a c2c planes bucket past :func:`coded_bucket_fusable` run the
-    streaming bucket kernel?
+    """Can a c2c bucket past :func:`coded_bucket_fusable` run the
+    streaming bucket kernel (either mode)?
 
     The reference's gate (its DFT planes and the (m, L) recombine
     twiddle within its VMEM budget, and a split with A > 1 to tile
@@ -420,6 +472,24 @@ def coded_bucket_streamable(s: int, m: int, n: int) -> bool:
             and streaming_smem_bytes(m, n) <= SMEM_PER_BLOCK_OPTIN)
 
 
+@functools.lru_cache(maxsize=None)
+def bucket_route(s: int, m: int, n: int, kind: str, *,
+                 masked: bool = True) -> str:
+    """How a kernel-path ``(s, kind)`` bucket of an (N, m) code runs:
+    ``"fused"`` (one launch of the kind's whole-bucket kernel, under its
+    gate for the decode variant), ``"streaming"`` (a c2c bucket past that
+    gate which :func:`coded_bucket_streamable` admits), else ``"stage"``
+    (the stage kernels, whose code bounds :func:`check_stage_code`
+    states).  The real kinds have no streaming bucket."""
+    gate = {"c2c": coded_bucket_fusable, "r2c": coded_rbucket_fusable,
+            "c2r": coded_irbucket_fusable}[kind]
+    if gate(s, m, n, masked=masked):
+        return "fused"
+    if kind == "c2c" and coded_bucket_streamable(s, m, n):
+        return "streaming"
+    return "stage"
+
+
 def _bucket_planes(s: int, m: int, device):
     a, b = split_factor(s // m)
     return (*_fourstep_planes(a, b, device),
@@ -431,15 +501,13 @@ def coded_bucket(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor,
                  s: int):
     """The host decode-matrix path's whole c2c bucket: (q, s) request
     planes + (q, m, N) scatter decode planes -> (q, s) output planes.
-    One launch of the planes bucket kernel when
-    :func:`coded_bucket_fusable` (``masked=False``) admits the bucket,
-    else the streaming bucket kernel, as the reference routes it; the
-    caller checks that one of :func:`coded_bucket_fusable` and
-    :func:`coded_bucket_streamable` does."""
+    One launch of the planes bucket kernel on the ``"fused"``
+    :func:`bucket_route` (``masked=False``), else the streaming bucket
+    kernel, as the reference routes it; the caller checks that the route
+    is not ``"stage"``."""
     n, m = gr.shape
     planes = _bucket_planes(s, m, xr.device)
-    if (not coded_bucket_fusable(s, m, n, masked=False)
-            and coded_bucket_streamable(s, m, n)):
+    if bucket_route(s, m, n, "c2c", masked=False) == "streaming":
         return coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, *planes)
     return coded_fft_bucket(xr, xi, dr, di, gr, gi, *planes)
 
@@ -448,11 +516,17 @@ def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
                         masks: torch.Tensor, gr: torch.Tensor,
                         gi: torch.Tensor, s: int):
     """The service's whole-bucket hot path: (q, s) request planes + raw
-    (q, N) responder masks -> (q, s) output planes, one kernel launch
-    (subset selection and Lagrange decode inside).  Caller checks
-    :func:`coded_bucket_fusable`."""
-    return coded_fft_bucket_masked(xr, xi, masks, gr, gi,
-                                   *_bucket_planes(s, gr.shape[1], xr.device))
+    (q, N) responder masks -> (q, s) output planes, subset selection and
+    Lagrange decode inside the kernel.  One launch of the masked bucket
+    kernel on the ``"fused"`` :func:`bucket_route`, else the masked
+    streaming bucket kernel, as the reference routes it; the caller
+    checks that the route is not ``"stage"``."""
+    n, m = gr.shape
+    planes = _bucket_planes(s, m, xr.device)
+    if bucket_route(s, m, n, "c2c") == "streaming":
+        return coded_fft_bucket_streaming_masked(xr, xi, masks, gr, gi,
+                                                 *planes)
+    return coded_fft_bucket_masked(xr, xi, masks, gr, gi, *planes)
 
 
 # -- real kinds: r2c and c2r buckets ---------------------------------------

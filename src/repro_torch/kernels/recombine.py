@@ -6,9 +6,10 @@ The master's second decode stage (paper eq. 24) is
 
 an elementwise twiddle ``T = C * W`` fused with a dense length-m DFT
 ``F_m @ T``.  ``recombine_twiddle_dft_batched`` runs it on a whole bucket
-``(q, m, L)``: the CUDA kernel is ``csrc/recombine.cu``, its plain twin
-:func:`recombine_batched_body`.  The single-request kernel
-(``recombine_twiddle_dft``) is a later slice.
+``(q, m, L)`` and ``recombine_twiddle_dft`` on one request ``(m, L)``,
+the same launch of ``csrc/recombine.cu`` on a bucket of one, counted
+under its own name.  Their plain twins are :func:`recombine_batched_body`
+and :func:`recombine_body`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["recombine_batched_body", "recombine_twiddle_dft_batched",
+__all__ = ["recombine_body", "recombine_twiddle_dft",
+           "recombine_batched_body", "recombine_twiddle_dft_batched",
            "MAX_M"]
 
 # the kernel unrolls the shard axis to a compile-time bound: the host
@@ -42,6 +44,13 @@ def recombine_batched_body(cr, ci, wr, wi, fr, fi):
             outi.reshape(m, bq, bl).transpose(0, 1))
 
 
+def recombine_body(cr, ci, wr, wi, fr, fi):
+    """One request's recombine on planar (m, L) data: ``F @ (C * W)``,
+    the batched body on a bucket of one."""
+    outr, outi = recombine_batched_body(cr[None], ci[None], wr, wi, fr, fi)
+    return outr[0], outi[0]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = _build.load("recombine").recombine_batched_f32
@@ -51,6 +60,52 @@ def _lib():
     return fn
 
 
+def _check_m(what: str, m: int) -> None:
+    if m > MAX_M:
+        raise NotImplementedError(
+            f"{what}: m={m} > {MAX_M}, the kernel's unrolled shard bound")
+
+
+def _check_shapes(name, cr, ci, wr, wi, fr, fi):
+    """(q, m, L) data, (m, L) twiddle and (m, m) DFT planes, or raise."""
+    if cr.dim() != 3 or ci.shape != cr.shape:
+        raise ValueError(f"{name}: inconsistent shapes")
+    q, m, ell = cr.shape
+    if (wr.shape != (m, ell) or wi.shape != (m, ell)
+            or fr.shape != (m, m) or fi.shape != (m, m)):
+        raise ValueError(f"{name}: inconsistent shapes")
+
+
+def _launch(name, cr, ci, wr, wi, fr, fi):
+    """Launch the kernel once on (q, m, L) planes, counted under
+    ``name``."""
+    q, m, ell = cr.shape
+    dev = _build.check_planes(name, cr=cr, ci=ci, wr=wr, wi=wi, fr=fr, fi=fi)
+    _check_m(name, m)
+    outr = torch.empty_like(cr)
+    outi = torch.empty_like(cr)
+    p = _build.ptr
+    _build.check(_lib()(p(cr), p(ci), p(wr), p(wi), p(fr), p(fi), p(outr),
+                        p(outi), q, m, ell, _build.stream_of(dev)), name)
+    _build.count_launch(name)
+    return outr, outi
+
+
+def recombine_twiddle_dft(cr, ci, wr, wi, fr, fi):
+    """One request's fused ``F @ (C * W)`` on planar (m, L) data.
+
+    ``wr/wi`` (m, L) twiddle, ``fr/fi`` (m, m) DFT.  Returns (m, L)
+    planes.  CPU tensors run :func:`recombine_body`; CUDA tensors launch
+    the kernel on a bucket of one (one launch, ``m <= MAX_M``) or raise.
+    """
+    _check_shapes("recombine_twiddle_dft", cr[None], ci[None], wr, wi, fr, fi)
+    if cr.device.type == "cpu":
+        return recombine_body(cr, ci, wr, wi, fr, fi)
+    outr, outi = _launch("recombine_twiddle_dft", cr[None], ci[None], wr, wi,
+                         fr, fi)
+    return outr[0], outi[0]
+
+
 def recombine_twiddle_dft_batched(cr, ci, wr, wi, fr, fi):
     """Batched fused ``F @ (C * W)`` on planar (q, m, L) data.
 
@@ -58,23 +113,7 @@ def recombine_twiddle_dft_batched(cr, ci, wr, wi, fr, fi):
     CPU tensors run :func:`recombine_batched_body`; CUDA tensors launch
     the kernel (one launch, ``m <= MAX_M``) or raise.
     """
-    q, m, ell = cr.shape
-    if (ci.shape != cr.shape or wr.shape != (m, ell) or wi.shape != (m, ell)
-            or fr.shape != (m, m) or fi.shape != (m, m)):
-        raise ValueError("recombine_twiddle_dft_batched: inconsistent shapes")
+    _check_shapes("recombine_twiddle_dft_batched", cr, ci, wr, wi, fr, fi)
     if cr.device.type == "cpu":
         return recombine_batched_body(cr, ci, wr, wi, fr, fi)
-    dev = _build.check_planes("recombine_twiddle_dft_batched", cr=cr, ci=ci,
-                              wr=wr, wi=wi, fr=fr, fi=fi)
-    if m > MAX_M:
-        raise NotImplementedError(
-            f"recombine_twiddle_dft_batched: m={m} > {MAX_M}, the kernel's "
-            f"unrolled shard bound")
-    outr = torch.empty_like(cr)
-    outi = torch.empty_like(cr)
-    p = _build.ptr
-    _build.check(_lib()(p(cr), p(ci), p(wr), p(wi), p(fr), p(fi), p(outr),
-                        p(outi), q, m, ell, _build.stream_of(dev)),
-                 "recombine_twiddle_dft_batched")
-    _build.count_launch("recombine_twiddle_dft_batched")
-    return outr, outi
+    return _launch("recombine_twiddle_dft_batched", cr, ci, wr, wi, fr, fi)

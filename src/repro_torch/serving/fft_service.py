@@ -18,6 +18,9 @@ masks; on a c2c bucket it runs
   Lagrange decode, four-step, encode, decode and recombine in one launch)
   when the bucket fits one block's shared memory
   (``ops.coded_bucket_fusable``), else
+* the masked streaming bucket kernel (the same function in four
+  launches, the decode first) where ``ops.coded_bucket_streamable``
+  admits the bucket, as the reference routes it, else
 * the stage route: ``mask_subsets`` + ``lagrange_scatter_planes`` (plain
   PyTorch), then the ``encode_fourstep_fused``, ``bcmatmul`` and
   ``recombine_twiddle_dft_batched`` kernels.
@@ -41,9 +44,20 @@ admits runs the streaming bucket kernel, as the reference routes it;
 anything else takes the same stage route with the host planes as its
 decode.
 
-``use_reference=True`` (or a complex128 dtype) runs ``CodedFFT.run`` on
-the reference backend instead.  ``submit_batch`` launches every bucket
-before it waits, then makes ONE device-to-host transfer for the call.
+The stage kernels hold the code's whole (N, m) G and (m, N) D in one
+block's shared memory, and the recombine unrolls m up to 64: a length
+whose bucket would take the stage route with a code past those bounds is
+refused (``ops.check_stage_code``) when the service is built (for
+``cfg.s``) or in ``bucket_key`` (any other length), before any straggler
+draw.  Lengths whose buckets fuse or stream still serve.
+
+``use_reference=True`` (or a complex128 dtype) runs ``plan.run`` on the
+reference backend instead; a ``worker_fn`` plug-in (c2c only) or a
+pinned ``decode_method`` runs ``plan.run(..., method=decode_method)`` on
+the plans' own kernel backend (the ``cmatmul`` encode, the four-step
+worker or the plug-in, the chosen decode), as the reference routes them.
+``submit_batch`` launches every bucket before it waits, then makes ONE
+device-to-host transfer for the call.
 
 The numpy straggler draws happen in the reference service's order
 (one ``default_rng(cfg.seed)``, one vectorized draw per bucket), so a
@@ -67,8 +81,6 @@ from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.cmatmul import check_left_fits
-from repro_torch.kernels.recombine import MAX_M as RECOMBINE_MAX_M
 from repro_torch.serving.batching import bucket_size
 from repro_torch.serving.decode_cache import DecodeMatrixCache
 
@@ -76,14 +88,11 @@ __all__ = ["FFTService", "FFTServiceConfig", "ServiceStats"]
 
 _NUMPY_DTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 _PLAN_CLASS = {"c2c": CodedFFT, "r2c": CodedRFFT, "c2r": CodedIRFFT}
-# per kind: the whole-bucket gate, its masked and its planes entry point
+# per kind: the whole-bucket masked and planes entry points
 _WHOLE = {
-    "c2c": (ops.coded_bucket_fusable, ops.coded_bucket_masked,
-            ops.coded_bucket),
-    "r2c": (ops.coded_rbucket_fusable, ops.coded_rbucket_masked,
-            ops.coded_rbucket),
-    "c2r": (ops.coded_irbucket_fusable, ops.coded_irbucket_masked,
-            ops.coded_irbucket),
+    "c2c": (ops.coded_bucket_masked, ops.coded_bucket),
+    "r2c": (ops.coded_rbucket_masked, ops.coded_rbucket),
+    "c2r": (ops.coded_irbucket_masked, ops.coded_irbucket),
 }
 
 
@@ -103,6 +112,11 @@ class FFTServiceConfig:
     #                               LAGRANGE_MAX_M, takes the host LRU
     decode_cache_size: int = 512  # LRU size of per-mask decode matrices
     #                               (the host decode-matrix path)
+    worker_fn: Optional[object] = None  # c2c worker plug-in (fft along
+    #                               the last axis, torch in and out):
+    #                               runs plan.run
+    decode_method: str = "auto"   # "solve" | "ifft" pins the plan's MDS
+    #                               decode: runs plan.run
     # -- the options below are served by later slices of the port; a
     #    non-default value raises NotImplementedError at construction
     precision: str = "f32"        # "bf16" plane precision
@@ -188,6 +202,8 @@ class FFTService:
         if cfg.dtype not in _NUMPY_DTYPE:
             raise ValueError(f"dtype must be complex64 or complex128, got "
                              f"{cfg.dtype}")
+        if cfg.decode_method not in ("auto", "solve", "ifft"):
+            raise ValueError(f"unknown decode_method {cfg.decode_method!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -197,39 +213,50 @@ class FFTService:
         self._gplanes: Optional[tuple[torch.Tensor, torch.Tensor]] = None
         self._decode_cache: Optional[DecodeMatrixCache] = None
         self.plan = self._plan_for(cfg.s)
-        if self._kernel_path(cfg.s) and not self._device_decode():
-            self._check_stage_route()
+        self._check_servable(cfg.s, "c2c")
 
-    def _check_stage_route(self) -> None:
-        """Refuse, before any draw or staging, a host-path code the stage
-        kernels cannot serve: every host-path bucket past its planes
-        kernels' gates (which count N) takes them.  The recombine unrolls
-        m up to its ``MAX_M``; the encode's (N, m) G and the decode's
-        (m, N) D must each fit one block's shared memory."""
-        m, n = self.cfg.m, self.cfg.n_workers
-        item = "Queue 2, stage kernels past m=64"
-        if m > RECOMBINE_MAX_M:
-            raise _not_ported(f"m={m} (the stage recombine serves m <= "
-                              f"{RECOMBINE_MAX_M})", item)
-        try:
-            check_left_fits("the encode", n, m)
-            check_left_fits("the decode", m, n)
-        except ValueError as err:
-            raise _not_ported(f"the (N={n}, m={m}) code ({err})",
-                              item) from None
+    def _route(self, s: int, kind: str) -> str:
+        """The kernel path's ``ops.bucket_route`` for ``(s, kind)``
+        buckets on this service's decode path."""
+        return ops.bucket_route(s, self.cfg.m, self.cfg.n_workers, kind,
+                                masked=self._device_decode())
+
+    def _check_servable(self, s: int, kind: str) -> None:
+        """Refuse, before any draw or staging, an ``(s, kind)`` bucket that
+        would take the stage route with a code the stage kernels cannot
+        carry (``ops.check_stage_code``); the recombine kernel serves the
+        c2c kind only."""
+        if self._kernel_path(s, kind) and self._route(s, kind) == "stage":
+            ops.check_stage_code(
+                self.cfg.n_workers, self.cfg.m,
+                f"the stage route of s={s} {kind} buckets",
+                recombine=kind == "c2c")
 
     # -- plans, generator state and executors ----------------------------
     def _plan_for(self, s: int, kind: str = "c2c"):
         """The plan serving ``(s, kind)`` buckets: ``CodedFFT``,
         ``CodedRFFT`` or ``CodedIRFFT`` on the same (N, m) code.  A real
-        kind's plan raises its ``2m | s`` error here."""
+        kind's plan raises its ``2m | s`` error here, and so does a
+        real-kind request on a ``worker_fn`` service.
+
+        On the bucket-kernel path the plan only holds the code and checks
+        the length -- the bucket kernels compute -- so it is built on the
+        reference backend, free of the plan kernels' bounds; the
+        ``plan.run`` executor's plan takes the kernel backend unless
+        ``use_reference``."""
         key = (s, kind)
         if key not in self._plans:
             cfg = self.cfg
+            if cfg.worker_fn is not None and kind != "c2c":
+                raise ValueError(
+                    f"worker_fn plug-ins only apply to c2c buckets; got a "
+                    f"{kind!r} request on a worker_fn service")
+            kwargs = {"worker_fn": cfg.worker_fn} if kind == "c2c" else {}
             self._plans[key] = _PLAN_CLASS[kind](
                 s=s, m=cfg.m, n_workers=cfg.n_workers, dtype=cfg.dtype,
-                backend="reference" if cfg.use_reference else "kernel",
-                device=self.device)
+                backend=("reference" if cfg.use_reference
+                         or self._kernel_path(s, kind) else "kernel"),
+                device=self.device, **kwargs)
         return self._plans[key]
 
     def generator_planes(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -264,8 +291,13 @@ class FFTService:
         return self._decode_cache
 
     def _kernel_path(self, s: int, kind: str = "c2c") -> bool:
-        """Does this bucket run the bucket kernels (else ``plan.run``)?"""
-        return self._plan_for(s, kind).resolved_backend == "kernel"
+        """Does this bucket run the bucket kernels (else ``plan.run``)?
+        Not for a reference or complex128 service, a ``worker_fn``
+        plug-in or a pinned ``decode_method`` (the reference's rule)."""
+        cfg = self.cfg
+        return (not cfg.use_reference and cfg.worker_fn is None
+                and cfg.decode_method == "auto"
+                and ops.kernel_backend_supported(cfg.dtype))
 
     def _device_decode(self) -> bool:
         """Are decode matrices built on the device from the raw masks?
@@ -284,8 +316,9 @@ class FFTService:
                     s, bucket, kind, masked=masked)
             else:
                 plan = self._plan_for(s, kind)
+                method = self.cfg.decode_method
                 self._runners[key] = lambda xb, masks: plan.run(
-                    xb, mask=masks)
+                    xb, mask=masks, method=method)
         return self._runners[key]
 
     def _make_kernel_runner(self, s: int, bucket: int, kind: str, *,
@@ -299,18 +332,14 @@ class FFTService:
         ``lagrange_scatter_planes``.  ``masked=False`` (the host
         decode-matrix path): ``decode`` is the (2, q, m, N) f32 stack of
         host-built scatter decode planes.  Either runs the kind's
-        whole-bucket kernel when the bucket fits its gate, else the stage
-        kernels.
+        whole-bucket kernel when the bucket fits its gate (a c2c bucket
+        past it streams, ``ops.coded_bucket`` and
+        ``ops.coded_bucket_masked`` routing it), else the stage kernels.
         """
         m, n = self.cfg.m, self.cfg.n_workers
         gr, gi = self.generator_planes()
-        gate, whole_masked, whole_planes = _WHOLE[kind]
-        # a c2c planes bucket past the gate streams (ops.coded_bucket
-        # routes it); the masked streaming mode is not ported yet
-        whole = gate(s, m, n, masked=masked) or (
-            kind == "c2c" and not masked
-            and ops.coded_bucket_streamable(s, m, n))
-        whole_fn = whole_masked if masked else whole_planes
+        whole = self._route(s, kind) != "stage"
+        whole_fn = _WHOLE[kind][0 if masked else 1]
 
         def decode_args(dec):
             # the whole-bucket kernel's decode arguments
@@ -405,8 +434,9 @@ class FFTService:
     def bucket_key(self, x, kind: str) -> int:
         """The time-domain length ``s`` one request lands in (a c2r
         request of ``h`` bins maps to ``s = 2*(h-1)``).  Validates the
-        kind, the half-spectrum width and, for the real kinds, ``2m | s``
-        (by building the bucket's plan) before any straggler draw."""
+        kind, the half-spectrum width, for the real kinds ``2m | s`` (by
+        building the bucket's plan), and that the code serves the
+        bucket's route, before any straggler draw."""
         if kind in self._LATER_KINDS:
             raise _not_ported(f"request kind {kind!r}",
                               "Queue 1, n-D (core/rfftn.py)")
@@ -420,6 +450,7 @@ class FFTService:
         s = 2 * (n_last - 1) if kind == "c2r" else n_last
         if kind in self.REAL_KINDS:
             self._plan_for(s, kind)
+        self._check_servable(s, kind)
         return s
 
     def _bucket_buffer(self, s: int, bucket: int,
@@ -462,6 +493,7 @@ class FFTService:
         the seam a check uses to serve a bucket with chosen responders.
         """
         cfg = self.cfg
+        self._check_servable(s, kind)
         n_live = len(reqs)
         bucket = bucket_size(n_live, cfg.max_batch)
         if masks is not None:

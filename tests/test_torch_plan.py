@@ -378,8 +378,11 @@ def test_plan_decode_dispatch(monkeypatch):
         assert calls == want, kw
         assert _rel(out, np.fft.fft(xin.numpy().astype(np.complex128))) \
             < PLAN_TOL
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.run(x, method="ifft")
+    # the transform decode: the encode's mds_apply only
+    calls.clear()
+    out = plan.run(x, method="ifft")
+    assert calls == [(8, 4)]
+    assert _rel(out, np.fft.fft(x.numpy().astype(np.complex128))) < PLAN_TOL
     calls.clear()
     ref_plan = CodedFFT(s=64, m=4, n_workers=8, device="cpu",
                         backend="reference")

@@ -165,19 +165,22 @@ def test_coded_fft_run_nan_poisoned_stragglers(jref, dtype, tol):
 
 def test_kernel_backend_plan_raises_until_ported():
     """The plan's kernel backend runs (encode, four-step worker, decode
-    apply); what it still lacks -- the transform decode and the streaming
-    four-step -- raises naming the ROADMAP item."""
+    apply), and what used to raise here -- the transform decode and the
+    streaming four-step -- now runs and matches numpy."""
     plan = CodedFFT(s=64, m=4, n_workers=8, device="cpu")
     assert plan.resolved_backend == "kernel"
     x = _requests([64], seed=4)[0]
+    want = np.fft.fft(x.astype(np.complex128))
     got = plan.run(torch.as_tensor(x)).numpy()
-    assert _rel(got, np.fft.fft(x.astype(np.complex128))) < 5e-4
+    assert _rel(got, want) < 5e-4
     b = plan.worker_compute(plan.encode(torch.as_tensor(x)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.decode(b, method="ifft")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.fourstep_planar(torch.zeros(2, 64), torch.zeros(2, 64),
-                             variant="streaming")
+    assert _rel(plan.decode(b, method="ifft").numpy(), want) < 5e-4
+    xs = np.stack(_requests([64, 64], seed=5))
+    outr, outi = tops.fourstep_planar(
+        torch.as_tensor(xs.real.copy()), torch.as_tensor(xs.imag.copy()),
+        variant="streaming")
+    assert _rel((outr + 1j * outi).numpy(),
+                np.fft.fft(xs.astype(np.complex128), axis=-1)) < 5e-4
     assert CodedFFT(s=64, m=4, n_workers=8, dtype=torch.complex128,
                     device="cpu").resolved_backend == "reference"
 
