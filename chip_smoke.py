@@ -19,7 +19,17 @@ kernels past ``LAGRANGE_MAX_M`` at m=64, N=128), the service's
 backend (the cmatmul encode and decode, and the fused four-step worker
 at s=4096 or the two-pass one at s=2^20), ``CodedFFT`` at s=2^20 with a
 ``worker_fn`` on the streaming four-step, and the single-request
-recombine (``ops.recombine_fused``).  Each run's
+recombine (``ops.recombine_fused``).  Those phases run with an empty
+four-step autotune table (services built with ``autotune=False``); then
+the tuned path: the default service's warmup search (which times the
+mixed-radix ``multistep_fused`` among its candidates) and a second
+warmup that reads the table, ``CodedFFT.run`` through recorded
+multistep plans at s=4096 (the block mode) and s=2^20 (per stage) and
+once under the measured table (then every search candidate timed on
+that run's 512 worker rows, beside the winner and the empty table's
+route), and a near-prime c2c service (s=16396,
+a 4099-point shard: the stage route's two-pass encode on ``cmatmul``).
+The autotune cache lives under ``build/``.  Each run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
 traced with ``torch.profiler`` for the device's busy time and idle
@@ -33,6 +43,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -180,7 +192,7 @@ def main() -> int:
         FFTService,
         FFTServiceConfig,
     )
-    from repro_torch.kernels import _build, coded_pipeline, ops
+    from repro_torch.kernels import _build, autotune, coded_pipeline, ops
     from repro_torch.kernels.cmatmul import (
         bcmatmul,
         bcmatmul_body,
@@ -196,9 +208,13 @@ def main() -> int:
         fourstep_stage2,
         fourstep_streaming,
         fourstep_streaming_body,
+        multistep_body,
+        multistep_fused,
+        multistep_mode,
         stage1_body,
         stage2_body,
     )
+    from repro_torch.kernels.fourstep_fft import _parse_stage_planes
     from repro_torch.kernels.recombine import (
         recombine_batched_body,
         recombine_body,
@@ -209,6 +225,17 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+
+    def fresh_autotune_cache(name):
+        """Point the autotune cache at an empty directory under build/
+        and drop the in-memory table (a new process's state)."""
+        path = ROOT / "build" / f"autotune-{name}-{os.getpid()}"
+        shutil.rmtree(path, ignore_errors=True)
+        os.environ["REPRO_AUTOTUNE_CACHE"] = str(path)
+        autotune.clear()
+        return path
+
+    fresh_autotune_cache("smoke")
     # -- 1. device --------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -612,6 +639,30 @@ def main() -> int:
         rows * a * fft_flops(b), 3, [rows, a, b], **pair_info)
     del xr, xi, t1r, t1i, t1c
 
+    # multistep_fused, both modes: the block mode at fourstep_fused's shape
+    # (512 rows of L = 1024 in the plan (16, 16, 4)), the per-stage mode at
+    # fourstep_streaming's (128 rows of L = 2^18, (64, 64, 64)).  Each row
+    # gets the launches of the main-path runs in its mode (``ms_mode``).
+    for rows, factors, reps in ((512, (16, 16, 4), 50),
+                                (128, (64, 64, 64), 3)):
+        ell = math.prod(factors)
+        mode = multistep_mode(factors)
+        xr, xi = randn(rows, ell), randn(rows, ell)
+        mplanes = ops._on_device(ops._multistep_planes, (factors,), dev)
+        stages = _parse_stage_planes(factors, mplanes)
+        xc = torch.complex(xr, xi)
+        kernel_row(
+            "multistep_fused", csrc + "multistep.cu",
+            "src/repro/kernels/fourstep_fft.py:374",
+            lambda: multistep_fused(xr, xi, mplanes, factors),
+            lambda: multistep_body(xr, xi, stages),
+            lambda: torch.fft.fft(xc, dim=-1), 1e-4,
+            F32 * (4 * rows * ell + sum(p.numel() for p in mplanes)),
+            rows * fft_flops(ell), reps, [rows, ell, *factors], mode=mode,
+            launches_per_call=1 if mode == "block" else len(factors))
+        del xr, xi, xc
+    torch.cuda.empty_cache()
+
     # cmatmul: the s=2^20 plan's encode, G (8, 4) against the 16 requests'
     # message shards folded into 16 * 2^18 payload columns
     n, m, cols = 8, 4, 16 * ell
@@ -651,16 +702,23 @@ def main() -> int:
     # every main-path run adds its counts here; each kernel's row gets the
     # total of the runs that launched it
     launches: dict[str, int] = {}
+    # multistep_fused's launches by mode, from the runs that name theirs
+    ms_launches = {"block": 0, "per_stage": 0}
 
-    def counted(run):
+    def counted(run, ms_mode=None):
         """Run ``run()`` with the counts set to 0 just before it, and
-        return its result and the counts read just after."""
+        return its result and the counts read just after.  ``ms_mode``:
+        the multistep mode this run's ``multistep_fused`` launches ran."""
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         out = run()
         counts = _build.launch_counts()
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+        if ms_mode is not None:
+            ms_launches[ms_mode] += counts.get("multistep_fused", 0)
+        elif counts.get("multistep_fused"):
+            fail(f"a run with no multistep mode launched it: {counts}")
         return out, counts
 
     def make_input(kind, shape):
@@ -701,7 +759,7 @@ def main() -> int:
                "reference")
 
     def drive(kind, s, n_req, rel_tol, m=4, n=8, device_decode=True,
-              plan_launches=None, **cfg_kw):
+              plan_launches=None, stage=None, autotune=False, **cfg_kw):
         """One ``submit_batch`` of ``n_req`` requests of ``kind`` (one
         bucket): exactly one launch of the kind's whole-bucket kernel for
         the decode path and nothing else where the gate admits the bucket,
@@ -714,10 +772,13 @@ def main() -> int:
         launches, shapes and LRU misses and their error is printed, and
         one bucket of evenly spread responders through the service's own
         staging (``stage_bucket`` with those masks) and executor is held
-        to 1e-3 (tests/test_kernel_pipeline.py:113)."""
+        to 1e-3 (tests/test_kernel_pipeline.py:113).  ``stage``: the
+        stage route's kernels where they differ from the kind's usual set;
+        ``autotune``: the config's warmup search (off: the phases before
+        the tuned path run with an empty table)."""
         svc = FFTService(FFTServiceConfig(s=s, m=m, n_workers=n,
                                           device_decode=device_decode,
-                                          **cfg_kw))
+                                          autotune=autotune, **cfg_kw))
         masked = svc._device_decode()
         kernel = svc._kernel_path(s, kind)
         route = ops.bucket_route(s, m, n, kind, masked=masked)
@@ -728,7 +789,7 @@ def main() -> int:
                   else {whole_kernel[masked][kind]: 1} if whole
                   else ({"coded_fft_bucket_streaming_masked": 4} if masked
                         else {"coded_fft_bucket_streaming": 3}) if stream
-                  else stage_kernels[kind])
+                  else stage or stage_kernels[kind])
         svc.warmup(lengths=[s], kinds=[kind], buckets=[n_req])
         xb, want = make_input(kind, (n_req, s))
         xs = list(xb.cpu().numpy())
@@ -782,7 +843,7 @@ def main() -> int:
         sync = (svc.stats.sync_s - s0) / 3
         trace = profile_call(torch, lambda: svc.submit_batch(xs, kind=kind))
         emit({"phase": "service", "kind": kind, "s": s, "m": m,
-              "n_workers": n, "requests": n_req,
+              "n_workers": n, "requests": n_req, "autotune": autotune,
               "decode": ("plan " + svc.cfg.decode_method if not kernel
                          else "device" if masked else "host"),
               "route": ("whole_bucket" if whole else "streaming" if stream
@@ -829,11 +890,14 @@ def main() -> int:
     # -- 6./7. the plans' run on their default kernel backend -------------
     plan_kind = {CodedFFT: "c2c", CodedRFFT: "r2c", CodedIRFFT: "c2r"}
 
-    def drive_plan(cls, s, n_req, worker, rel_tol, **plan_kw):
+    def drive_plan(cls, s, n_req, worker, rel_tol, ms_mode=None, info=None,
+                   **plan_kw):
         """A batched call with per-request masks (encode on cmatmul, the
         four-step worker, the per-request solve), then one unbatched
         request (its decode on cmatmul too).  ``worker`` maps each
-        four-step kernel to its launches per call."""
+        four-step kernel to its launches per call; ``ms_mode``: the
+        multistep mode of a worker on ``multistep_fused``; ``info``:
+        plain values for the phase's line."""
         kind = plan_kind[cls]
         plan = cls(s=s, m=4, n_workers=8, **plan_kw)
         if plan.device.type != "cuda" or plan.resolved_backend != "kernel":
@@ -848,7 +912,7 @@ def main() -> int:
                 ("batched", x, masks, want, 1),
                 ("unbatched", x[0], masks[0], want[0], 2)]:
             t0 = time.perf_counter()
-            got, counts = counted(lambda: plan.run(xin, mask=mk))
+            got, counts = counted(lambda: plan.run(xin, mask=mk), ms_mode)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             expect = {"cmatmul": n_cmatmul, **worker}
@@ -871,7 +935,7 @@ def main() -> int:
         trace = profile_call(torch, lambda: plan.run(x, mask=masks))
         emit({"phase": "plan", "plan": cls.__name__, "s": s, "m": 4,
               "n_workers": 8, "requests": n_req, "rel_tol": rel_tol,
-              "worker": sorted(worker), **out,
+              "worker": sorted(worker), **(info or {}), **out,
               "steady_call_s": steady, "req_per_s": n_req / steady,
               "profiled_call": trace})
         torch.cuda.empty_cache()
@@ -919,8 +983,117 @@ def main() -> int:
           "rel_err": rel, "rel_tol": 1e-3})
     del x, want, c_hat, got
 
+    # -- 9. the tuned four-step path --------------------------------------
+    # (a) the default service's warmup search, from an empty cache: the
+    # L = 1024 candidates (32, 32), (64, 16) and (16, 16, 4) fused, and the
+    # two-pass pair, each timed; then a new process's state (memory
+    # dropped, the file kept) warms a second service with no search
+    tune_dir = fresh_autotune_cache("warmup")
+    backend = autotune.backend_of(dev)
+    shape_route = ops.fourstep_route(1024, device=dev)   # the empty table
+    n0 = autotune.searches_run()
+    t0 = time.perf_counter()
+    _, wcounts = counted(lambda: FFTService(FFTServiceConfig(s=4096))
+                         .warmup(), ms_mode="block")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    searches = autotune.searches_run() - n0
+    if searches < 1 or wcounts.get("multistep_fused", 0) < 1:
+        fail(f"warmup ran {searches} searches, launches {wcounts}")
+    written = json.loads(autotune.cache_path(backend).read_text())
+    autotune.clear()
+    n1 = autotune.searches_run()
+    t0 = time.perf_counter()
+    _, wcounts2 = counted(lambda: FFTService(FFTServiceConfig(s=4096))
+                          .warmup(), ms_mode="block")
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t0
+    if autotune.searches_run() != n1 or wcounts2.get("multistep_fused"):
+        fail(f"the warm path searched: {autotune.searches_run() - n1}, "
+             f"launches {wcounts2}")
+    emit({"phase": "autotune_warmup", "s": 4096, "L": 1024,
+          "searches": searches, "launches": wcounts, "seconds": dt,
+          "table_file": str(autotune.cache_path(backend).relative_to(ROOT)),
+          "table": written, "warm_searches": 0,
+          "warm_launches": wcounts2, "warm_seconds": dt2})
+    measured = autotune.lookup("fourstep", backend=backend, L=1024,
+                               mode="kernel")
+
+    # (b) CodedFFT.run through recorded multistep plans: the L = 1024
+    # shard in (16, 16, 4) (block mode), the L = 2^18 shard in (64, 64, 64)
+    # (per stage, three launches); bounds as the plan phases above
+    autotune.clear()
+    for s, n_req, factors, rel_tol in ((4096, 64, (16, 16, 4), 5e-4),
+                                       (1 << 20, 16, (64, 64, 64), 1e-3)):
+        ell = s // 4
+        autotune.record("fourstep", {"variant": "fused",
+                                     "factors": list(factors),
+                                     "ms": float("nan")},
+                        persist=False, backend=backend, L=ell, mode="kernel")
+        mode = multistep_mode(factors)
+        drive_plan(CodedFFT, s, n_req,
+                   {"multistep_fused": 1 if mode == "block"
+                    else len(factors)}, rel_tol, ms_mode=mode,
+                   info={"table": "recorded", "factors": list(factors),
+                         "multistep_mode": mode})
+    # (c) once under the measured table (the file the warmup wrote)
+    autotune.clear()
+    variant, factors = ops.fourstep_route(1024, device=dev)
+    if variant != measured["variant"]:
+        fail(f"measured entry {measured} routes as {variant}")
+    multi = factors is not None and len(factors) > 2
+    worker = ({"multistep_fused": 1} if multi
+              else {"fourstep_fused": 1} if variant == "fused"
+              else {"fourstep_stage1": 1, "fourstep_stage2": 1})
+    drive_plan(CodedFFT, 4096, 64, worker, 5e-4,
+               ms_mode=multistep_mode(factors) if multi else None,
+               info={"table": "measured", "winner": measured})
+    # every search candidate, the winner and the empty table's route among
+    # them, timed back to back on the same rows as that run's worker (64
+    # requests times N = 8) the way the kernel rows are timed: is the
+    # recorded winner the fastest plan at the served batch?
+    rows = 64 * 8
+    xr, xi = randn(rows, 1024), randn(rows, 1024)
+    at_rows = []
+    for plan in [*autotune.candidate_factor_plans(1024), None]:
+        v = "two_pass" if plan is None else "fused"
+        at_rows.append({
+            "variant": v, "factors": plan,
+            "ms": time_ms(torch, lambda: ops.fourstep_planar(
+                xr, xi, variant=v, factors=plan), 50, spin_rate)})
+    fastest = min(at_rows, key=lambda r: r["ms"])
+
+    def timed_route(route):
+        v, f = route
+        return next(r["ms"] for r in at_rows if r["variant"] == v
+                    and (v == "two_pass" or tuple(r["factors"]) == f))
+
+    emit({"phase": "autotune_at_served_rows", "rows": rows, "L": 1024,
+          "candidates": at_rows, "winner": measured,
+          "winner_ms": timed_route((variant, factors)),
+          "shape_route": shape_route,
+          "shape_route_ms": timed_route(shape_route), "fastest": fastest,
+          "winner_is_fastest": (fastest["variant"], fastest["factors"])
+          == (measured["variant"], measured.get("factors"))})
+    del xr, xi
+
+    # (d) a near-prime shard: s = 4 * 4099, c2c (m = 4, N = 8), 16
+    # requests.  The bucket takes the stage route; its encode takes the
+    # two-pass branch (one cmatmul, then the four-step on the coded rows:
+    # the platform FFT for a prime 4099, where the warmup search has no
+    # kernel candidate to time and records that route), as the JAX
+    # package routes it; the whole-bucket bound
+    drive("c2c", 4 * 4099, 16, 3e-4, autotune=True,
+          stage={"cmatmul", "bcmatmul", "recombine_twiddle_dft_batched"})
+    prime = autotune.lookup("fourstep", backend=backend, L=4099,
+                            mode="kernel")
+    if prime != {"variant": "xla"}:
+        fail(f"the L=4099 search recorded {prime}, not the platform FFT")
+
     for row in table:
-        row["launches"] = launches.get(row["name"], 0)
+        row["launches"] = (ms_launches[row["mode"]]
+                           if row["name"] == "multistep_fused"
+                           else launches.get(row["name"], 0))
         if row["launches"] < 1:
             fail(f"kernel {row['name']} was launched by no main path "
                  f"({launches})")

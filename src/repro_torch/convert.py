@@ -20,10 +20,8 @@ __all__ = ["generator_from_reference", "config_from_reference"]
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
-# Reference fields the port's config does not carry: the autotune knobs
-# (any value; they change no result) and the fault-runtime / strategy
-# parameters, which are inert at their reference defaults.
-_TUNING = ("autotune", "autotune_reps")
+# Reference fields the port's config does not carry: the fault-runtime /
+# strategy parameters, which are inert at their reference defaults.
 _INERT_DEFAULTS = {
     "deadline_slack": 0.5,
     "max_retries": 2,
@@ -64,8 +62,8 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
     The dtype maps by name, the straggler model by its three parameters;
     ``decode_method`` and ``worker_fn`` map as they are (a ``worker_fn``
     must take and return torch tensors on the port's side).  Fields the
-    port does not carry must hold the reference default (or be a tuning
-    knob); any other value raises ``NotImplementedError`` naming the
+    port does not carry must hold the reference default; any other value
+    raises ``NotImplementedError`` naming the
     ROADMAP item that ports them.  Fields the port carries but does not
     serve yet raise when the service is built.
     """
@@ -78,8 +76,6 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
             elif name == "straggler":
                 value = _straggler(value)
             kwargs[name] = value
-        elif name in _TUNING:
-            continue
         elif name in _INERT_DEFAULTS:
             if value != _INERT_DEFAULTS[name]:
                 item = ("Queue 1, the strategy zoo"

@@ -23,13 +23,19 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 * ``fourstep_fused``, ``fourstep_stage1`` / ``fourstep_stage2``,
   ``fourstep_streaming`` -- the plan's four-step worker, fused, two-pass
   or streaming with natural-order output (``fourstep_fft.py``);
-* ``cmatmul``                 -- the plan's ``mds_apply`` (``cmatmul.py``).
+* ``cmatmul``                 -- the plan's ``mds_apply`` (``cmatmul.py``);
+* ``multistep_fused``         -- the mixed-radix four-step of a tuned or
+  explicit radix plan, one launch or one per stage
+  (``fourstep_fft.py``).
 
-``ops`` is the dispatch layer; ``ref`` holds the planar helpers and the
-test oracles; ``_build`` compiles the libraries and counts launches.
+``ops`` is the dispatch layer; ``autotune`` the four-step's measured
+table; ``ref`` holds the planar helpers and the test oracles; ``_build``
+compiles the libraries and counts launches.
 """
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
+from repro_torch.kernels.fourstep_fft import multistep_fused
 from repro_torch.kernels.ops import (
     coded_bucket,
     coded_bucket_fusable,
@@ -55,6 +61,7 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = [
+    "autotune",
     "coded_bucket",
     "coded_bucket_fusable",
     "coded_bucket_masked",
@@ -74,6 +81,7 @@ __all__ = [
     "launch_counts",
     "make_kernel_worker_fn",
     "mds_apply",
+    "multistep_fused",
     "recombine_fused",
     "recombine_planar",
     "reset_launch_counts",

@@ -18,13 +18,16 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
   A)``, no unscramble after it;
 * ``encode_fourstep_fused`` -- the MDS encode folded in: the generator
   contraction acts across shards and the DFT within each, so the kernel
-  transforms the m MESSAGE shards and encodes after (an N/m saving).
+  transforms the m MESSAGE shards and encodes after (an N/m saving);
+* ``multistep_fused`` -- the mixed-radix four-step, ``L = f1 * ... *
+  fk``: k dense stages, the row in one block's shared memory where it
+  fits (:func:`multistep_layout`), else one launch per stage.
 
-CUDA sources: ``csrc/fourstep.cu`` (the first four) and
-``csrc/encode_fourstep.cu``; the plain twins are :func:`fourstep_body`,
-:func:`stage1_body`, :func:`stage2_body`,
-:func:`fourstep_streaming_body` and :func:`encode_fourstep_body`.  The
-mixed-radix four-step kernel is a later slice.
+CUDA sources: ``csrc/fourstep.cu`` (the first four),
+``csrc/encode_fourstep.cu`` and ``csrc/multistep.cu``; the plain twins
+are :func:`fourstep_body`, :func:`stage1_body`, :func:`stage2_body`,
+:func:`fourstep_streaming_body`, :func:`encode_fourstep_body` and
+:func:`multistep_body`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 
 import torch
 
@@ -50,6 +54,10 @@ __all__ = [
     "fourstep_streaming",
     "encode_fourstep_body",
     "encode_fourstep_fused",
+    "multistep_body",
+    "multistep_fused",
+    "multistep_layout",
+    "multistep_mode",
 ]
 
 
@@ -346,4 +354,169 @@ def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
             p(outi[z0:z1]), z1 - z0, a, b, _build.stream_of(dev)),
             "fourstep_streaming")
         _build.count_launch("fourstep_streaming", 2)
+    return outr, outi
+
+
+# -- the mixed-radix (multistep) four-step -------------------------------
+# Stages the kernel's plan holds (csrc/multistep.cu, kMaxStages)
+MAX_STAGES = 32
+# Complex elements of one per-stage tile (csrc/multistep.cu, kTileElems)
+STAGE_TILE = 4096
+
+
+def _parse_stage_planes(factors, planes):
+    """Group the flat plane list into per-stage ``(fr, fi, twr, twi)``.
+
+    The flat order is per stage: the (f, f) DFT planes, then -- for every
+    stage but the last, whose ``rest`` is 1 and whose twiddle is
+    identically one -- the (f, rest) twiddle planes.
+    """
+    stages = []
+    idx = 0
+    for i, _ in enumerate(factors):
+        fr, fi = planes[idx], planes[idx + 1]
+        idx += 2
+        twr = twi = None
+        if i + 1 < len(factors):
+            twr, twi = planes[idx], planes[idx + 1]
+            idx += 2
+        stages.append((fr, fi, twr, twi))
+    return stages
+
+
+def multistep_body(xr, xi, stages):
+    """Mixed-radix four-step on (bq, L) planes.
+
+    ``stages``: per-factor ``(fr, fi, twr, twi)`` from
+    :func:`_parse_stage_planes`.  Each stage splits the remaining length
+    as ``f * rest``, contracts ``f`` with the dense (f, f) DFT (batch and
+    the digits already done folded into the columns), twiddles by the
+    (f, rest) plane and pushes the new digit onto the lead axis:
+    ``out[lead, c, r] = sum_j F[c, j] x[lead, j, r] tw[c, r]``.  Returns
+    the scrambled order ``X[c1 + f1*c2 + f1*f2*c3 + ...]`` at flat
+    position ``(c1, ..., ck)``; for two factors that is
+    :func:`fourstep_body`'s ``out[c, d] = X[c + d*A]``.
+    """
+    bq, total = xr.shape
+    lead = bq
+    tr, ti = xr, xi
+    for fr, fi, twr, twi in stages:
+        f = fr.shape[0]
+        rest = total // f
+        mr = tr.reshape(lead, f, rest).transpose(0, 1).reshape(f, lead * rest)
+        mi = ti.reshape(lead, f, rest).transpose(0, 1).reshape(f, lead * rest)
+        t1r, t1i = _cmul_mm(fr, fi, mr, mi)
+        t1r = t1r.reshape(f, lead, rest)
+        t1i = t1i.reshape(f, lead, rest)
+        if twr is not None:
+            wr_ = twr[:, None, :]
+            wi_ = twi[:, None, :]
+            t1r, t1i = t1r * wr_ - t1i * wi_, t1r * wi_ + t1i * wr_
+        tr = t1r.transpose(0, 1).reshape(lead * f, rest)
+        ti = t1i.transpose(0, 1).reshape(lead * f, rest)
+        lead *= f
+        total = rest
+    return tr.reshape(bq, -1), ti.reshape(bq, -1)
+
+
+def multistep_layout(factors) -> tuple[int, ...]:
+    """Word offsets of the block-mode kernel's shared arrays, then the
+    total: the row and its ping-pong buffer (two L-point complex planes
+    each), then each stage's (f, f) DFT planes.
+
+    The kernel takes these offsets at launch (``BlockLayout`` in
+    ``csrc/multistep.cu``, same order), so this is the one reckoning of
+    its working set, and the block-mode gate (:func:`multistep_mode`).
+    """
+    ell = math.prod(factors)
+    sizes = (2 * ell, 2 * ell, *(2 * f * f for f in factors))
+    return tuple(itertools.accumulate(sizes, initial=0))
+
+
+def multistep_mode(factors) -> str:
+    """How ``multistep_fused`` runs a plan on the card, from the plan
+    alone: ``"block"`` (one launch, each row in one block's shared
+    memory) when :func:`multistep_layout` fits
+    :data:`_build.SMEM_PER_BLOCK_OPTIN`, else ``"per_stage"`` (one launch
+    per stage through a device ping-pong).  Raises ValueError for a plan
+    the kernel cannot take: more than :data:`MAX_STAGES` stages, or a
+    factor whose per-stage tile exceeds one block's shared memory."""
+    factors = tuple(int(f) for f in factors)
+    if not 1 <= len(factors) <= MAX_STAGES or min(factors) < 1:
+        raise ValueError(f"multistep_fused: plan {factors} needs 1 to "
+                         f"{MAX_STAGES} positive factors")
+    if 4 * multistep_layout(factors)[-1] <= _build.SMEM_PER_BLOCK_OPTIN:
+        return "block"
+    big = max(factors)
+    if 8 * big * max(1, STAGE_TILE // big) > _build.SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(f"multistep_fused: factor {big} is past one "
+                         f"block's shared memory")
+    return "per_stage"
+
+
+@functools.lru_cache(maxsize=None)
+def _multistep_lib():
+    fn = _build.load("multistep").multistep_fused_f32
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([vp] * 6 + [ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
+                               i32, ctypes.POINTER(ctypes.c_longlong), vp])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def multistep_fused(xr, xi, planes, factors):
+    """Batched mixed-radix four-step FFT.
+
+    ``xr, xi``: (batch, L) planes of x in natural order; ``planes``: the
+    flat per-stage DFT and twiddle planes (:func:`_parse_stage_planes`,
+    ``ops._multistep_planes``); ``factors``: the radix plan, ``prod ==
+    L``.  Returns (batch, L) planes in the scrambled digit order
+    (:func:`multistep_body`).
+
+    CPU tensors run :func:`multistep_body`; CUDA tensors launch the
+    kernel or raise: one launch in block mode, one per stage in
+    per-stage mode (:func:`multistep_mode`), each counted.
+    """
+    factors = tuple(int(f) for f in factors)
+    batch, ell = xr.shape
+    if xi.shape != xr.shape or math.prod(factors) != ell:
+        raise ValueError(f"multistep_fused: planes {tuple(xr.shape)} / "
+                         f"{tuple(xi.shape)} do not fit plan {factors}")
+    if len(planes) != 4 * len(factors) - 2:
+        raise ValueError(f"multistep_fused: {len(planes)} planes for "
+                         f"{len(factors)} stages")
+    stages = _parse_stage_planes(factors, planes)
+    rest = ell
+    for f, (fr, fi, twr, twi) in zip(factors, stages):
+        rest //= f
+        if fr.shape != (f, f) or fi.shape != (f, f) or (
+                twr is not None and (twr.shape != (f, rest)
+                                     or twi.shape != (f, rest))):
+            raise ValueError(f"multistep_fused: stage planes do not fit "
+                             f"plan {factors}")
+    if xr.device.type == "cpu":
+        return multistep_body(xr, xi, stages)
+    dev = _build.check_planes(
+        "multistep_fused", xr=xr, xi=xi,
+        **{f"plane{i}": p for i, p in enumerate(planes)})
+    mode = multistep_mode(factors)
+    outr = torch.empty_like(xr)
+    outi = torch.empty_like(xr)
+    p = _build.ptr
+    if mode == "block":
+        layout = multistep_layout(factors)
+        lay = (ctypes.c_longlong * len(layout))(*layout)
+        scr = sci = None
+    else:
+        lay = None
+        scr = torch.empty_like(xr)
+        sci = torch.empty_like(xr)
+    _build.check(_multistep_lib()(
+        p(xr), p(xi), p(outr), p(outi),
+        None if scr is None else p(scr), None if sci is None else p(sci),
+        (ctypes.c_void_p * len(planes))(*(p(t) for t in planes)),
+        (ctypes.c_int * len(factors))(*factors), len(factors), batch, lay,
+        _build.stream_of(dev)), "multistep_fused")
+    _build.count_launch("multistep_fused",
+                        1 if mode == "block" else len(factors))
     return outr, outi

@@ -21,8 +21,11 @@ Mode rule: the tensor's device.  A wrapper given CPU tensors runs its
 kernel's plain PyTorch twin (the tests' path); given CUDA tensors it
 launches the hand-written kernel or raises -- no fallback, no copy to the
 host.  The route decisions (``coded_bucket_fusable``,
-``fourstep_fusable``) depend on shapes only, so the CPU tests take the
-same routes as the card.
+``fourstep_fusable``, ``fourstep_fft.multistep_mode``) depend on shapes
+only, so the CPU tests take the same routes as the card.  The one
+measured input is the four-step's autotune table (``kernels/autotune.py``,
+one per device): ``fourstep_planar(variant=None)`` reads its variant and
+radix plan there, and routes by shape on a miss.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import coded_pipeline, ref
+from repro_torch.kernels import autotune, coded_pipeline, ref
 from repro_torch.kernels.cmatmul import bcmatmul, check_left_fits, cmatmul
 from repro_torch.kernels.coded_pipeline import (
     SMEM_PER_BLOCK_OPTIN,
@@ -61,6 +64,8 @@ from repro_torch.kernels.fourstep_fft import (
     fourstep_stage1,
     fourstep_stage2,
     fourstep_streaming,
+    multistep_fused,
+    multistep_mode,
 )
 from repro_torch.kernels.recombine import MAX_M as RECOMBINE_MAX_M
 from repro_torch.kernels.recombine import (
@@ -75,6 +80,7 @@ __all__ = [
     "split_factor",
     "fourstep_layout",
     "fourstep_fusable",
+    "fourstep_route",
     "fourstep_planar",
     "fft_fourstep",
     "mds_apply",
@@ -103,9 +109,10 @@ __all__ = [
     "irfft_unpack_planar",
 ]
 
-# Largest dense DFT plane (elements) the four-step kernels take.  A
-# near-prime shard length factors as (1, L) and would need an (L, L)
-# plane; the mixed-radix kernel that serves those is a later slice.
+# Largest dense DFT plane (elements) the two-factor four-step kernels
+# take.  A near-prime shard length factors as (1, L) and would need an
+# (L, L) plane: fourstep_planar gives it the platform FFT (or a tuned
+# multistep plan), encode_worker its two-pass branch.
 MAX_PLANE_ELEMS = 1 << 24
 # The reference's VMEM budget of one plane (ops._FUSED_MAX_ELEMS), which
 # its streaming gate applies to the DFT planes and the recombine twiddle
@@ -198,6 +205,22 @@ def _recombine_planes_scrambled(s: int, m: int, a: int, b: int,
 
 
 @functools.lru_cache(maxsize=None)
+def _multistep_planes(factors: tuple, dtype=np.float32):
+    """Flat plane list of the mixed-radix multistep kernel: per stage the
+    (f, f) DFT planes, then (every stage but the last) the (f, rest)
+    inter-stage twiddle, ``rest`` the product of the later factors -- the
+    order ``fourstep_fft._parse_stage_planes`` regroups."""
+    rest = math.prod(factors)
+    planes: list = []
+    for idx, f in enumerate(factors):
+        rest //= f
+        planes.extend(_dft_planes(f, dtype))
+        if idx < len(factors) - 1:
+            planes.extend(_twiddle_planes(f, rest, dtype))
+    return tuple(planes)
+
+
+@functools.lru_cache(maxsize=None)
 def _on_device(table, args: tuple, device: torch.device):
     return tuple(torch.as_tensor(p, device=device) for p in table(*args))
 
@@ -206,8 +229,9 @@ def _fourstep_planes(a: int, b: int, device):
     if max(a, b) ** 2 > MAX_PLANE_ELEMS:
         raise NotImplementedError(
             f"four-step split ({a}, {b}) needs a dense {max(a, b)}-point DFT "
-            f"plane; near-prime shard lengths wait for the mixed-radix "
-            f"kernel (ROADMAP.md Queue 2, multistep_fused)")
+            f"plane, past MAX_PLANE_ELEMS: no two-factor kernel takes it "
+            f"(fourstep_planar and encode_worker route such lengths "
+            f"elsewhere)")
     return (*_on_device(_dft_planes, (a,), device),
             *_on_device(_twiddle_planes, (a, b), device),
             *_on_device(_dft_planes, (b,), device))
@@ -227,6 +251,63 @@ def fourstep_fusable(a: int, b: int) -> bool:
 _VARIANTS = ("fused", "two_pass", "streaming", "xla")
 
 
+def fourstep_route(ell: int, *, variant: str | None = None,
+                   fused: bool | None = None, factors=None,
+                   device="cpu") -> tuple[str, tuple[int, ...] | None]:
+    """The plan :func:`fourstep_planar` runs for length-``ell`` rows on
+    ``device``: ``(variant, factors)``, with ``factors`` the two-factor
+    split, a multistep plan (``variant="fused"`` with more than two
+    factors) or None for ``"xla"``.  Shapes and the autotune table only:
+    no launch.
+
+    ``variant=None`` (and ``fused=None``) reads ``variant`` and
+    ``factors`` from the device's autotune table
+    (``autotune.lookup("fourstep", L=ell, mode=...)``); on a miss it
+    routes by the port's own limits: fused when the balanced split's row
+    fits one block (:func:`fourstep_fusable`), else two-pass.  A
+    two-factor split whose dense DFT plane exceeds
+    :data:`MAX_PLANE_ELEMS` (a near-prime L, which factors as (1, L))
+    takes the platform FFT whatever the variant; a multistep plan is not
+    held to that limit.  Other factor counts than two outside a fused
+    multistep plan are ignored for the balanced split, as in the
+    reference.  Raises ValueError where the port refuses the request
+    before any launch: an unknown variant, factors whose product is not
+    ``ell``, a fused split past the fused kernel's block, or a multistep
+    plan past ``multistep_fused``'s bounds.
+    """
+    if variant is None and fused is not None:
+        variant = "fused" if fused else "two_pass"
+    if variant is None:
+        ent = autotune.lookup("fourstep", backend=autotune.backend_of(device),
+                              L=ell, mode=autotune.mode_of(device))
+        if ent:
+            variant = ent.get("variant")
+            if factors is None and ent.get("factors"):
+                factors = ent["factors"]
+    if variant is not None and variant not in _VARIANTS:
+        raise ValueError(f"unknown four-step variant {variant!r}")
+    if factors is not None:
+        factors = tuple(int(f) for f in factors)
+        if math.prod(factors) != ell:
+            raise ValueError(f"factors {factors} do not multiply to L={ell}")
+    a, b = split_factor(ell)
+    if variant is None:
+        variant = ("xla" if max(a, b) ** 2 > MAX_PLANE_ELEMS
+                   else "fused" if fourstep_fusable(a, b) else "two_pass")
+    if variant == "fused" and factors is not None and len(factors) > 2:
+        multistep_mode(factors)          # its ValueError: past the kernel
+        return variant, factors
+    if factors is not None and len(factors) == 2:
+        a, b = factors
+    if variant == "xla" or max(a, b) ** 2 > MAX_PLANE_ELEMS:
+        return "xla", None
+    if variant == "fused" and not fourstep_fusable(a, b):
+        raise ValueError(
+            f"fourstep_planar: ({a}, {b}) does not fit the fused kernel's "
+            f"block; use variant='two_pass'")
+    return variant, (a, b)
+
+
 def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
                     variant: str | None = None, fused: bool | None = None,
                     factors=None):
@@ -234,45 +315,40 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
 
     ``xr, xi``: (batch, L) f32 planes.  Returns natural-order (batch, L)
     planes of ``fft(x)``.  ``variant``: ``"fused"`` (one launch of
-    ``fourstep_fused``), ``"two_pass"`` (``fourstep_stage1`` then
+    ``fourstep_fused``, or of ``multistep_fused`` when ``factors`` has
+    more than two entries), ``"two_pass"`` (``fourstep_stage1`` then
     ``fourstep_stage2``), ``"streaming"`` (``fourstep_streaming``, whose
     output is already in natural order) or ``"xla"`` (the platform FFT,
     as in the JAX package, no kernel); the legacy ``fused`` bool maps onto
-    the first two.  ``factors``: an explicit ``(A, B)`` split.
+    the first two.  ``factors``: an explicit ``(A, B)`` split or radix
+    plan.  :func:`fourstep_route` resolves the plan (``variant=None``
+    reads the autotune table, and routes by shape on a miss).
 
-    ``variant=None`` routes by the port's own limits: fused when the row
-    fits one block (:func:`fourstep_fusable`), else two-pass.  A split
-    whose dense DFT plane exceeds :data:`MAX_PLANE_ELEMS` (a near-prime L,
-    which factors as (1, L)) takes the platform FFT whatever the variant.
-    The JAX package gates on a TPU's VMEM instead (fused up to A*B = 512^2,
-    the platform FFT past B^2 = 512^2), so at some lengths the port runs a
-    kernel where the reference on a TPU would not, and the reverse: both
-    compute the same transform.  The one unscramble is a transpose of the
-    last two axes.
+    The JAX package gates on a TPU's VMEM instead (fused up to A*B =
+    512^2, the platform FFT past B^2 = 512^2), so at some lengths the port
+    runs a kernel where the reference on a TPU would not, and the
+    reverse: both compute the same transform.  The one unscramble is a
+    transpose of the last two axes, or for a multistep plan of k factors
+    one reversed-axes permute.
     """
     batch, ell = xr.shape
-    a, b = split_factor(ell)
-    if factors is not None:
-        if len(factors) > 2:
-            raise NotImplementedError(
-                "multistep factors: the mixed-radix kernel is not ported "
-                "yet -- ROADMAP.md Queue 2, multistep_fused")
-        if len(factors) == 2:
-            a, b = int(factors[0]), int(factors[1])
-            if a * b != ell:
-                raise ValueError(f"factors {tuple(factors)} do not multiply "
-                                 f"to L={ell}")
-    if variant is None and fused is not None:
-        variant = "fused" if fused else "two_pass"
-    if variant is not None and variant not in _VARIANTS:
-        raise ValueError(f"unknown four-step variant {variant!r}")
-    if max(a, b) ** 2 > MAX_PLANE_ELEMS:
-        variant = "xla"
-    elif variant is None:
-        variant = "fused" if fourstep_fusable(a, b) else "two_pass"
+    variant, factors = fourstep_route(ell, variant=variant, fused=fused,
+                                      factors=factors, device=xr.device)
     if variant == "xla":
         z = torch.fft.fft(torch.complex(xr, xi), dim=-1)
         return z.real.contiguous(), z.imag.contiguous()
+    if len(factors) > 2:
+        planes = _on_device(_multistep_planes, (factors,), xr.device)
+        outr, outi = multistep_fused(xr.contiguous(), xi.contiguous(),
+                                     planes, factors)
+        # digit-reversed X[c1 + f1*c2 + ...] at (c1, ..., ck): reverse
+        k = len(factors)
+        perm = (0, *range(k, 0, -1))
+        return (outr.reshape(batch, *factors).permute(perm).reshape(batch,
+                                                                    ell),
+                outi.reshape(batch, *factors).permute(perm).reshape(batch,
+                                                                    ell))
+    a, b = factors
     far, fai, wr, wi, fbr, fbi = _fourstep_planes(a, b, xr.device)
     x3r = xr.contiguous().reshape(batch, a, b)
     x3i = xi.contiguous().reshape(batch, a, b)
@@ -281,10 +357,6 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
         outr, outi = fourstep_streaming(x3r, x3i, far, fai, wr, wi, fbr, fbi)
         return outr.reshape(batch, ell), outi.reshape(batch, ell)
     if variant == "fused":
-        if not fourstep_fusable(a, b):
-            raise ValueError(
-                f"fourstep_planar: ({a}, {b}) does not fit the fused "
-                f"kernel's block; use variant='two_pass'")
         outr, outi = fourstep_fused(x3r, x3i, far, fai, wr, wi, fbr, fbi)
     else:
         t1r, t1i = fourstep_stage1(x3r, x3i, far, fai, wr, wi)
@@ -357,11 +429,24 @@ def encode_worker(cr: torch.Tensor, ci: torch.Tensor,
     ``cr, ci``: (q, m, L) planes of the message shards; ``gr, gi``: (n, m)
     generator planes.  Returns natural-order (q, n, L) planes.  One call
     of the fused encode + four-step kernel (intermediates in device
-    memory, any L), then the unscramble.
+    memory), then the unscramble -- unless the balanced split's dense DFT
+    plane is past :data:`MAX_PLANE_ELEMS` (a near-prime L), where the
+    reference's two-pass branch runs: the encode as one ``cmatmul``
+    launch with the batch folded into the payload columns, then
+    :func:`fourstep_planar` on the (q*N, L) coded rows (the autotune
+    table's plan, else the platform FFT).
     """
     q, m, ell = cr.shape
     n = gr.shape[0]
     a, b = split_factor(ell)
+    if max(a, b) ** 2 > MAX_PLANE_ELEMS:
+        er, ei = cmatmul(
+            gr, gi, cr.transpose(0, 1).reshape(m, q * ell).contiguous(),
+            ci.transpose(0, 1).reshape(m, q * ell).contiguous())
+        br_, bi_ = fourstep_planar(
+            er.reshape(n, q, ell).transpose(0, 1).reshape(q * n, ell),
+            ei.reshape(n, q, ell).transpose(0, 1).reshape(q * n, ell))
+        return br_.reshape(q, n, ell), bi_.reshape(q, n, ell)
     planes = _fourstep_planes(a, b, cr.device)
     br_, bi_ = encode_fourstep_fused(
         cr.contiguous().reshape(q, m, a, b),

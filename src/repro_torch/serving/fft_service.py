@@ -80,7 +80,7 @@ from repro_torch.core.coded_fft import CodedFFT
 from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.distributed.straggler import StragglerModel
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from repro_torch.serving.batching import bucket_size
 from repro_torch.serving.decode_cache import DecodeMatrixCache
 
@@ -117,6 +117,12 @@ class FFTServiceConfig:
     #                               runs plan.run
     decode_method: str = "auto"   # "solve" | "ifft" pins the plan's MDS
     #                               decode: runs plan.run
+    autotune: bool = True         # time the four-step variants and radix
+    #                               plans at warmup() and persist the
+    #                               winners to the device's JSON table
+    #                               (kernels/autotune.py); dispatch routes
+    #                               by shape on a miss
+    autotune_reps: int = 3        # timing repetitions per candidate
     # -- the options below are served by later slices of the port; a
     #    non-default value raises NotImplementedError at construction
     precision: str = "f32"        # "bf16" plane precision
@@ -129,7 +135,7 @@ class FFTServiceConfig:
 
 # config values this slice does not serve -> the ROADMAP item serving them
 _LATER = {
-    "precision": ("f32", "bf16 planes (kernels/autotune.py + the bf16 probe)"),
+    "precision": ("f32", "Queue 1, bf16 planes (the bf16 probe)"),
     "faults": (None, "the fault runtime"),
     "health": (False, "the fault runtime"),
     "verify": ("off", "the fault runtime"),
@@ -596,7 +602,17 @@ class FFTService:
         ``lengths`` are time-domain lengths for every kind.  On the host
         decode-matrix path this also primes the all-alive mask's LRU entry
         (and counts it, as a same-seed reference service does).  Returns
-        the number of executors run."""
+        the number of executors run.
+
+        With ``cfg.autotune`` (the default) this is also when the
+        four-step search runs, before any executor: per warmed ``(s,
+        kind)`` on the kernel path, ``autotune.ensure_fourstep`` times the
+        variants and radix plans at the shard length (s/m for c2c, s/m/2
+        for the real kinds) on the service's device and persists the
+        winner; the plans' workers and the stage route's two-pass encode
+        read it, and the next process skips the search.  The search runs
+        on the rows the largest warmed bucket gives those workers
+        (bucket times n_workers), where the JAX package times 4 rows."""
         cfg = self.cfg
         lengths = [cfg.s] if lengths is None else list(lengths)
         if buckets is None:
@@ -605,6 +621,16 @@ class FFTService:
                 buckets.append(b)
                 b *= 2
             buckets.append(cfg.max_batch)
+        if cfg.autotune:
+            for s in lengths:
+                for k in kinds:
+                    if self._kernel_path(s, k):
+                        if k in self.REAL_KINDS:
+                            self._plan_for(s, k)    # its 2m | s check
+                        ell = s // cfg.m if k == "c2c" else s // cfg.m // 2
+                        autotune.ensure_fourstep(
+                            ell, max(buckets) * cfg.n_workers,
+                            device=self.device, reps=cfg.autotune_reps)
         count = 0
         for s in lengths:
             for k in kinds:

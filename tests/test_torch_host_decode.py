@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_kernels import adversarial_masks
+from test_torch_kernels import private_autotune_table  # noqa: F401
 from test_torch_real import _mixed_requests as _requests
 from test_torch_real import _port_twin, _rel, _t
 

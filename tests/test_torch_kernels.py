@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core import mds as tmds
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import coded_pipeline as tcp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body
@@ -49,6 +49,26 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def private_autotune_table(tmp_path, monkeypatch):
+    """Each test gets a private, empty four-step autotune table and cache
+    directory; the old table comes back afterwards.  With ``autotune=True``
+    the service default, one test's ``warmup()`` would otherwise record a
+    measured CPU winner that moves a later test's route in the same
+    worker.  Test files that build services or reach ``fourstep_planar``
+    import it."""
+    root = tmp_path / "autotune"
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(root))
+    tables, loaded = dict(autotune._TABLES), set(autotune._LOADED)
+    autotune._TABLES.clear()
+    autotune._LOADED.clear()
+    yield root
+    autotune._TABLES.clear()
+    autotune._TABLES.update(tables)
+    autotune._LOADED.clear()
+    autotune._LOADED.update(loaded)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import private_autotune_table  # noqa: F401
 
 from repro_torch import CodedFFT
 from repro_torch.core import mds as tmds
@@ -190,9 +191,11 @@ def test_fourstep_planar_variants_match_numpy(ell, variant):
 
 
 def test_fourstep_planar_routing(monkeypatch):
-    """variant=None picks fused, two-pass or the platform FFT by
-    ``fourstep_fusable`` (the kernel's shared-memory reckoning) and the
-    plane limit, and explicit factors and unported variants are checked."""
+    """variant=None (with an empty autotune table) picks fused, two-pass
+    or the platform FFT by ``fourstep_fusable`` (the kernel's
+    shared-memory reckoning) and the plane limit; a radix plan of more
+    than two factors runs the multistep kernel; explicit factors and
+    unknown variants are checked."""
     calls = []
 
     def spy(name, fn):
@@ -204,6 +207,7 @@ def test_fourstep_planar_routing(monkeypatch):
     spy("fourstep_fused", tops.fourstep_fused)
     spy("fourstep_stage1", tops.fourstep_stage1)
     spy("fourstep_stage2", tops.fourstep_stage2)
+    spy("multistep_fused", tops.multistep_fused)
     fft = torch.fft.fft
     monkeypatch.setattr(torch.fft, "fft", lambda *a, **k: (
         calls.append("xla"), fft(*a, **k))[1])
@@ -227,9 +231,10 @@ def test_fourstep_planar_routing(monkeypatch):
     tops.fourstep_planar(torch.zeros(1, 64), torch.zeros(1, 64),
                          factors=(4, 16), fused=False)
     assert calls == ["fourstep_stage1", "fourstep_stage2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.fourstep_planar(torch.zeros(1, 64), torch.zeros(1, 64),
-                             factors=(4, 4, 4))
+    calls.clear()
+    tops.fourstep_planar(torch.zeros(1, 64), torch.zeros(1, 64),
+                         factors=(4, 4, 4))
+    assert calls == ["multistep_fused"]
     with pytest.raises(ValueError):
         tops.fourstep_planar(torch.zeros(1, 64), torch.zeros(1, 64),
                              factors=(4, 8))

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_kernels import adversarial_masks
+from test_torch_kernels import private_autotune_table  # noqa: F401
 
 from repro_torch import (
     CodedIFFT,

@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import private_autotune_table  # noqa: F401
 
 from repro_torch import CodedFFT, FFTService, FFTServiceConfig
 from repro_torch.convert import config_from_reference, generator_from_reference
