@@ -29,7 +29,11 @@ once under the measured table (then every search candidate timed on
 that run's 512 worker rows, beside the winner and the empty table's
 route), and a near-prime c2c service (s=16396,
 a 4099-point shard: the stage route's two-pass encode on ``cmatmul``).
-The autotune cache lives under ``build/``.  Each run's
+The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
+``GenerationEngine`` on rwkv6-3b at full width and depth (bf16, seeded
+weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
+running the ``wkv`` kernel once a layer (checks in ``lm_rwkv6_3b``).
+Each FFT run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
 traced with ``torch.profiler`` for the device's busy time and idle
@@ -145,10 +149,11 @@ def time_ms(torch, fn, reps: int, spin_rate: float) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_call(torch, fn) -> dict:
+def profile_call(torch, fn, track=()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host wall time,
     the summed device time of the kernels it ran (one stream, so the sum
-    is the busy time), the idle share, and the kernels that took most."""
+    is the busy time), the idle share, and the kernels that took most;
+    ``track``: name fragments whose kernels' device ms are summed apart."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -164,10 +169,14 @@ def profile_call(torch, fn) -> dict:
          if e.device_type == torch.autograd.DeviceType.CUDA
          and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
+    tracked = {frag: sum(ms for ms, name, _ in kernels if frag in name)
+               for frag in track}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_kernels": sum(k[2] for k in kernels),
             "top": [{"kernel": name[:60], "device_ms": ms, "count": n}
-                    for ms, name, n in kernels[:6]]}
+                    for ms, name, n in kernels[:6]],
+            **({"tracked_ms": tracked} if track else {})}
 
 
 def compare(torch, got, want) -> tuple[float, float]:
@@ -175,6 +184,202 @@ def compare(torch, got, want) -> tuple[float, float]:
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want) or 1.0
     return err, err / scale
+
+
+def lm_rwkv6_3b(torch, rng, counted) -> None:
+    """The generation engine on rwkv6-3b (32 layers, d_model 2560, 40
+    heads of 64, vocab 65536; bf16 weights from a seeded init on the
+    card): 4 prompts of 512 tokens, 16 new tokens, greedy.  The run must
+    launch ``wkv`` once a layer in the prefill and nowhere else.
+
+    Random weights make the 32-layer stack chaotic: a rounding difference
+    at one layer grows about 1.6x a layer (f32 weights: 2e-8 at layer 0,
+    8e-2 at layer 31, with every layer's WKV equal to 2e-7 on the same
+    inputs).  So the kernel is held, at every layer, against ``wkv_body``
+    on the inputs the prefill gives it (1e-5 of the largest magnitude);
+    the whole prefill on the plain WKV must agree at layer 0 (1e-4), its
+    deeper layers and logits are printed with the growth per layer;
+    prefill(T) against prefill(T-1) and one decode step must agree in
+    layer 0's state (bf16: 1e-2, a few roundings of the last token's bf16
+    projections; f32: 1e-4), and on f32 weights also in the next token
+    and the logits (within 5%); and the head's bf16 product with f32
+    accumulation is held against the same product in f32 (1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv import wkv_body
+    from repro_torch.models import build_model, rwkv6
+    from repro_torch.models.layers import layer_norm
+
+    from repro_torch.serving import EngineConfig, GenerationEngine
+
+    cfg = get_config("rwkv6-3b")
+    dev = torch.device("cuda")
+    b, t, new = 4, 512, 16
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = GenerationEngine(model, params, EngineConfig(
+        batch_size=b, prompt_len=t, max_new_tokens=new))
+    prompts = [list(rng.integers(1, cfg.vocab_size, t)) for _ in range(b)]
+    t0 = time.perf_counter()
+    outs, counts = counted(lambda: engine.generate(prompts))
+    first_s = time.perf_counter() - t0
+    if counts != {"wkv": cfg.n_layers}:
+        fail(f"rwkv6-3b generate: launches {counts}, expected "
+             f"{{'wkv': {cfg.n_layers}}} (one a layer, in the prefill)")
+    if (len(outs) != b or any(len(o) != new for o in outs)
+            or not all(0 <= x < cfg.vocab_size for o in outs for x in o)):
+        fail(f"rwkv6-3b generate: outputs {[len(o) for o in outs]}")
+    tokens = torch.as_tensor(engine._pad_prompts(prompts), device=dev)
+    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+
+    def consistency(mdl, prm):
+        """(kernel prefill, plain-WKV prefill, every layer's kernel-vs-
+        twin errors on the kernel prefill's own WKV inputs, logits of
+        prefill(T-1) + one decode step).  No parameter requires a
+        gradient, so none of these calls records one."""
+        def prefill(toks):
+            return rwkv6.rwkv_prefill(prm, {"tokens": toks},
+                                      mdl.init_cache(b))
+
+        kernel_wkv, errs = rwkv6.wkv, []
+
+        def checked(*args):
+            got, want = kernel_wkv(*args), wkv_body(*args)
+            errs.append([rel(g, w) for g, w in zip(got, want)])
+            return got
+
+        try:
+            rwkv6.wkv = checked
+            kern = prefill(tokens)
+            rwkv6.wkv = wkv_body
+            plain = prefill(tokens)
+        finally:
+            rwkv6.wkv = kernel_wkv
+        _, st = prefill(tokens[:, :-1])
+        dec = rwkv6.rwkv_decode_step(prm, st, {"tokens": tokens[:, -1:]})
+        torch.cuda.synchronize()
+        return kern, plain, errs, dec
+
+    def summary(kern, plain, errs, decoded):
+        (lk, sk), (lp, sp), (dec, sd) = kern, plain, decoded
+        per_layer = [rel(sk["wkv"][i], sp["wkv"][i])
+                     for i in range(cfg.n_layers)]
+        return {
+            "finite": all(bool(torch.isfinite(x).all()) for x in (
+                lk, lp, dec, *sk.values(), *sp.values())),
+            "layer_wkv_kernel_vs_twin_max_rel": {
+                "o": max(e[0] for e in errs),
+                "state": max(e[1] for e in errs), "layers": len(errs)},
+            "plain_prefill_layer0_state_rel": per_layer[0],
+            "plain_prefill_state_rel_by_layer": per_layer,
+            "plain_prefill_growth_per_layer": (
+                (per_layer[-1] / per_layer[1]) ** (1 / (cfg.n_layers - 2))
+                if cfg.n_layers > 2 and per_layer[1] > 0 else None),
+            "plain_prefill_state_rel": rel(sk["wkv"], sp["wkv"]),
+            "plain_prefill_logits_rel": rel(lk, lp),
+            "plain_prefill_same_token": bool(torch.equal(lk.argmax(-1),
+                                                         lp.argmax(-1))),
+            "decode_layer0_state_rel": max(rel(sd[k][0], sk[k][0])
+                                           for k in sk),
+            "decode_logits_rel": rel(dec, lk),
+            "decode_same_token": bool(torch.equal(dec.argmax(-1),
+                                                  lk.argmax(-1))),
+        }
+
+    kern, plain, errs, dec = consistency(model, params)
+    bf16 = summary(kern, plain, errs, dec)
+    greedy = kern[0].argmax(-1)
+    bf16["engine_first_token_is_prefill_argmax"] = (
+        [o[0] for o in outs] == greedy.reshape(-1).tolist())
+    # the head on the card (bf16 product, f32 accumulation) against the
+    # same product in f32 (exact products of bf16 values; TF32 is off)
+    x = torch.randn((b, 1, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+    xn = layer_norm(x, params.final_norm.w, params.final_norm.b)
+    bf16["head_vs_f32_product_rel"] = rel(
+        rwkv6._head(params, x),
+        xn.to(torch.bfloat16).float() @ params.unembed.float())
+    lw = bf16["layer_wkv_kernel_vs_twin_max_rel"]
+    if not (bf16["finite"] and lw["layers"] == cfg.n_layers
+            and max(lw["o"], lw["state"]) < 1e-5
+            and bf16["plain_prefill_layer0_state_rel"] < 1e-4
+            and bf16["decode_layer0_state_rel"] < 1e-2
+            and bf16["head_vs_f32_product_rel"] < 1e-5
+            and bf16["engine_first_token_is_prefill_argmax"]):
+        fail(f"rwkv6-3b bf16 checks: {bf16}")
+
+    # rates: the prefill alone (3 calls) and the decode step alone (16
+    # steps from the prefill's state), host clock around a synchronize
+    def prefill(toks):
+        return rwkv6.rwkv_prefill(params, {"tokens": toks},
+                                  model.init_cache(b))
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        prefill(tokens)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t1) / 3
+    st, tok = kern[1], greedy.to(torch.int32)
+    t1 = time.perf_counter()
+    for _ in range(new):
+        lg, st = rwkv6.rwkv_decode_step(params, st, {"tokens": tok})
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t1) / new
+    t1 = time.perf_counter()
+    engine.generate(prompts)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t1
+    trace_prefill = profile_call(torch, lambda: prefill(tokens),
+                                 track=("wkv",))
+    trace_generate = profile_call(torch, lambda: engine.generate(prompts),
+                                  track=("wkv",))
+    trace_decode = profile_call(torch, lambda: rwkv6.rwkv_decode_step(
+        params, kern[1], {"tokens": greedy.to(torch.int32)}))
+    max_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, engine, kern, plain, dec, st, lg
+    torch.cuda.empty_cache()
+
+    # the same checks on f32 weights (the same seed), where prefill(T)
+    # against prefill(T-1) + decode is well posed at full depth
+    model32 = build_model(cfg, dtype=torch.float32)
+    params32 = model32.init(torch.Generator(device=dev).manual_seed(0))
+    f32 = summary(*consistency(model32, params32))
+    lw = f32["layer_wkv_kernel_vs_twin_max_rel"]
+    if not (f32["finite"] and max(lw["o"], lw["state"]) < 1e-5
+            and f32["plain_prefill_layer0_state_rel"] < 1e-4
+            and f32["decode_layer0_state_rel"] < 1e-4
+            and f32["decode_same_token"] and f32["decode_logits_rel"] < 0.05):
+        fail(f"rwkv6-3b f32 checks: {f32}")
+    del params32, model32
+    torch.cuda.empty_cache()
+
+    emit({"phase": "lm_rwkv6_3b", "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "vocab": cfg.vocab_size, "dtype": "bfloat16",
+          "n_params": model.n_params, "batch": b, "prompt_len": t,
+          "new_tokens": new, "launches": counts,
+          "tolerances": {"layer_wkv_kernel_vs_twin": 1e-5,
+                         "plain_prefill_layer0_state": 1e-4,
+                         "bf16_decode_layer0_state": 1e-2,
+                         "f32_decode_layer0_state": 1e-4,
+                         "head_vs_f32_product": 1e-5,
+                         "f32_decode_logits": 0.05},
+          "bf16": bf16, "f32": f32,
+          "init_s": init_s, "first_generate_s": first_s,
+          "generate_s": generate_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": b * t / prefill_s,
+          "decode_ms_per_step": decode_s * 1e3,
+          "decode_tokens_per_s": b / decode_s,
+          "max_memory_gb": max_gb,
+          "profiled_prefill": trace_prefill,
+          "profiled_generate": trace_generate,
+          "profiled_decode_step": trace_decode,
+          "nvidia_smi": nvidia_smi()})
 
 
 def main() -> int:
@@ -221,6 +426,7 @@ def main() -> int:
         recombine_twiddle_dft,
         recombine_twiddle_dft_batched,
     )
+    from repro_torch.kernels.wkv import wkv, wkv_body
     from repro_torch.serving import DecodeMatrixCache
 
     dev = torch.device("cuda")
@@ -699,6 +905,32 @@ def main() -> int:
     del hr, hi, hc, flush
     torch.cuda.empty_cache()
 
+    # wkv: the rwkv6-3b prefill's WKV of one layer, 4 prompts of 512
+    # tokens, 40 heads of 64: planar (160, 512, 64) rows, logw clamped at
+    # -8 as the model does.  Its least work is the per-token recurrence,
+    # about 5 K^2 + 4 K flops a step and row (o = r.S plus the bonus;
+    # S = S*w + k v^T), far below the bytes' time.  o and the state are
+    # each held to 1e-5 of their own largest magnitude.
+    bh, t, kd = 4 * 40, 512, 64
+    wr_, wk_, wv_ = randn(bh, t, kd), randn(bh, t, kd), randn(bh, t, kd)
+    wlw = torch.clamp(-randn(bh, t, kd).abs(), min=-8.0)
+    wu, ws0 = randn(bh, kd), randn(bh, kd, kd)
+    wargs = (wr_, wk_, wv_, wlw, wu, ws0)
+    got, want = wkv(*wargs), wkv_body(*wargs)
+    torch.cuda.synchronize()
+    wkv_rel = {name: compare(torch, [g], [w])[1]
+               for name, g, w in zip(("o", "state"), got, want)}
+    if not max(wkv_rel.values()) < 1e-5:
+        fail(f"wkv: kernel vs plain rel err {wkv_rel} >= 1e-5")
+    kernel_row(
+        "wkv", csrc + "wkv.cu", "src/repro/kernels/wkv.py:84",
+        lambda: wkv(*wargs), lambda: wkv_body(*wargs), None, 1e-5,
+        F32 * (5 * bh * t * kd + bh * kd + 2 * bh * kd * kd),
+        bh * t * (5 * kd * kd + 4 * kd), 20, [bh, t, kd],
+        rel_err_o=wkv_rel["o"], rel_err_state=wkv_rel["state"])
+    del wargs, got, want, wr_, wk_, wv_, wlw, wu, ws0
+    torch.cuda.empty_cache()
+
     # every main-path run adds its counts here; each kernel's row gets the
     # total of the runs that launched it
     launches: dict[str, int] = {}
@@ -1089,6 +1321,9 @@ def main() -> int:
                             mode="kernel")
     if prime != {"variant": "xla"}:
         fail(f"the L=4099 search recorded {prime}, not the platform FFT")
+
+    # -- 10. RWKV-6 generation: rwkv6-3b at full width and depth, bf16 --
+    lm_rwkv6_3b(torch, rng, counted)
 
     for row in table:
         row["launches"] = (ms_launches[row["mode"]]

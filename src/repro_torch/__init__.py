@@ -2,8 +2,11 @@
 
 A second package beside the JAX one (``repro``), with the same layout:
 ``core`` (plans and the MDS code), ``kernels`` (hand-written CUDA kernels
-and their plain PyTorch twins), ``serving`` (the batched FFT service) and
-``distributed`` (the straggler model).  It imports ``torch`` and
+and their plain PyTorch twins), ``serving`` (the batched FFT service and
+the LM generation engine), ``distributed`` (the straggler model),
+``configs`` and ``models`` (RWKV-6, whose prefill runs the ``wkv``
+kernel) and ``launch`` (``python -m repro_torch.launch.serve``).  It
+imports ``torch`` and
 ``numpy`` only.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 

@@ -1,9 +1,10 @@
 """Carry state across from the JAX package, as plain numpy and dicts.
 
 The coded FFT has no weights: its state is the (N, m) generator G and the
-seeded straggler masks.  These helpers take what the JAX package exposes
-(numpy arrays, dataclass fields) without importing it, so a port service
-can compute with exactly the reference's G and configuration.
+seeded straggler masks.  The RWKV-6 model's state is its parameter tree.
+These helpers take what the JAX package exposes (numpy arrays, dicts,
+dataclass fields) without importing it, so the port computes with exactly
+the reference's G, configuration and weights.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.serving.fft_service import FFTServiceConfig
 
-__all__ = ["generator_from_reference", "config_from_reference"]
+__all__ = ["generator_from_reference", "config_from_reference",
+           "rwkv_params_from_reference"]
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
@@ -87,3 +89,36 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
         else:
             raise ValueError(f"unknown reference config field {name!r}")
     return FFTServiceConfig(**kwargs)
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes: no numpy kernel
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def _flatten(tree: dict, prefix: str, out: dict) -> None:
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            _flatten(value, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = value
+
+
+def rwkv_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+    """A JAX RWKV-6 parameter tree (nested dicts of numpy arrays, the
+    ``layers`` subtree stacked on a leading layer axis) -> the port's
+    ``RWKV6`` state dict (CPU tensors, split per layer as
+    ``layers.<i>.<path>``), for ``load_state_dict``."""
+    flat: dict = {}
+    _flatten({k: v for k, v in tree.items() if k != "layers"}, "", flat)
+    stacked: dict = {}
+    _flatten(tree["layers"], "", stacked)
+    depth = {int(np.shape(a)[0]) for a in stacked.values()}
+    if len(depth) != 1:
+        raise ValueError(f"layer leaves disagree on the depth: {depth}")
+    for i in range(depth.pop()):
+        for path, a in stacked.items():
+            flat[f"layers.{i}.{path}"] = np.asarray(a)[i]
+    return {name: _tensor(a) for name, a in flat.items()}

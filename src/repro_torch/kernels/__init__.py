@@ -26,7 +26,9 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 * ``cmatmul``                 -- the plan's ``mds_apply`` (``cmatmul.py``);
 * ``multistep_fused``         -- the mixed-radix four-step of a tuned or
   explicit radix plan, one launch or one per stage
-  (``fourstep_fft.py``).
+  (``fourstep_fft.py``);
+* ``wkv``                     -- the RWKV-6 WKV recurrence of the model's
+  prefill, chunked and factorised (``wkv.py``).
 
 ``ops`` is the dispatch layer; ``autotune`` the four-step's measured
 table; ``ref`` holds the planar helpers and the test oracles; ``_build``
@@ -36,6 +38,7 @@ compiles the libraries and counts launches.
 from repro_torch.kernels import autotune
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.fourstep_fft import multistep_fused
+from repro_torch.kernels.wkv import wkv
 from repro_torch.kernels.ops import (
     coded_bucket,
     coded_bucket_fusable,
@@ -86,4 +89,5 @@ __all__ = [
     "recombine_planar",
     "reset_launch_counts",
     "split_factor",
+    "wkv",
 ]

@@ -39,7 +39,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 HEADERS = ("common.cuh", "cgemm.cuh", "bucket.cuh")
 SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
            "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket",
-           "coded_bucket_streaming", "multistep")
+           "coded_bucket_streaming", "multistep", "wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,0 +1,237 @@
+"""The port's WKV kernel wrapper and WKV forms against the JAX package.
+
+CPU tests: ``kernels.wkv.wkv``, given CPU tensors, runs its plain twin
+``wkv_body``; it must agree with the JAX Pallas kernel run through the
+real Pallas machinery (``interpret=True``) and with the per-token scan
+oracle, on the same numpy inputs, at the reference's own 2e-3
+(``tests/test_wkv_kernel.py``).  The port's ``wkv_chunked`` must agree
+with the JAX one at 1e-5 relative to the largest magnitude with an f32
+stream (two f32 implementations of the same sums), and within 5% of it
+with the bf16 stream (the reference's bf16 bound,
+``tests/test_data_spectral.py``).  The model's glue around the kernel
+(flattening, b-major u, zero padding to a multiple of 8) must match the
+scan oracle at 1e-5 relative for any T.
+
+GPU tests (marker ``gpu``, skipped without a CUDA device): the CUDA
+kernel against ``wkv_body`` on the card at 1e-5 relative, odd shapes
+included, its launch counter and its refusals.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.wkv import wkv, wkv_body
+from repro_torch.models import rwkv6 as trwkv
+
+PAIR_TOL = 1e-5      # two f32 implementations of the same sums
+REF_TOL = 2e-3       # the reference's kernel-vs-oracle tolerance
+BF16_TOL = 0.05      # the reference's bf16 bound, of the largest value
+# the reference's four kernel shapes (b, h, t, k)
+SHAPES = [(1, 1, 16, 8), (2, 3, 64, 16), (1, 2, 48, 32), (2, 1, 128, 64)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.wkv import wkv_pallas
+    from repro.models import rwkv6
+
+    return jnp, wkv_pallas, rwkv6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(b, h, t, kd, seed=0, decay=1.0):
+    """(B, T, H, K) r, k, v, logw (clamped at -8, as the model does), u
+    (H, K) and the state (B, H, K, K), float32 numpy."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    r, k, v = mk(b, t, h, kd), mk(b, t, h, kd), mk(b, t, h, kd)
+    logw = np.maximum(-np.abs(mk(b, t, h, kd)) * decay, -8.0)
+    return r, k, v, logw.astype(np.float32), mk(h, kd), mk(b, h, kd, kd)
+
+
+def _rows(x):
+    """(B, T, H, K) -> (B*H, T, K), b-major (tests/test_wkv_kernel.py)."""
+    b, t, h, kd = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * h, t, kd))
+
+
+def _planar(r, k, v, logw, u, s0):
+    b, h, kd = s0.shape[0], s0.shape[1], s0.shape[2]
+    return (*(_rows(x) for x in (r, k, v, logw)), np.tile(u, (b, 1)),
+            s0.reshape(b * h, kd, kd))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _port_wkv(planar):
+    return [x.numpy() for x in wkv(*(torch.from_numpy(a) for a in planar))]
+
+
+@pytest.mark.parametrize("oracle", ["pallas", "scan"])
+@pytest.mark.parametrize("b,h,t,kd", SHAPES)
+def test_wkv_twin_matches_reference(jref, b, h, t, kd, oracle):
+    jnp, wkv_pallas, jrwkv = jref
+    ins = _inputs(b, h, t, kd, seed=kd + t)
+    planar = _planar(*ins)
+    o, sf = _port_wkv(planar)
+    if oracle == "pallas":
+        o_ref, s_ref = wkv_pallas(*(jnp.asarray(a) for a in planar),
+                                  interpret=True)
+    else:
+        o_bt, s_bt = jrwkv.wkv_scan_reference(*(jnp.asarray(a) for a in ins))
+        o_ref, s_ref = _rows(np.asarray(o_bt)), np.asarray(s_bt).reshape(
+            sf.shape)
+    np.testing.assert_allclose(o, np.asarray(o_ref), rtol=REF_TOL,
+                               atol=REF_TOL)
+    np.testing.assert_allclose(sf, np.asarray(s_ref), rtol=REF_TOL,
+                               atol=REF_TOL)
+
+
+@pytest.mark.parametrize("oracle", ["pallas", "scan"])
+def test_wkv_twin_strong_decay_no_nan(jref, oracle):
+    """Decays far past the clamp: every factor stays finite and the
+    selected scores discard the overflowing pairs."""
+    jnp, wkv_pallas, jrwkv = jref
+    ins = _inputs(1, 2, 32, 16, seed=7, decay=12.0)
+    planar = _planar(*ins)
+    o, sf = _port_wkv(planar)
+    assert np.isfinite(o).all() and np.isfinite(sf).all()
+    if oracle == "pallas":
+        o_ref, _ = wkv_pallas(*(jnp.asarray(a) for a in planar),
+                              interpret=True)
+    else:
+        o_ref = _rows(np.asarray(jrwkv.wkv_scan_reference(
+            *(jnp.asarray(a) for a in ins))[0]))
+    np.testing.assert_allclose(o, np.asarray(o_ref), rtol=REF_TOL,
+                               atol=REF_TOL)
+
+
+@pytest.mark.parametrize("b,h,t,kd", SHAPES)
+def test_scan_reference_matches_jax(jref, b, h, t, kd):
+    jnp, _, jrwkv = jref
+    ins = _inputs(b, h, t, kd, seed=3 + t)
+    o, s = trwkv.wkv_scan_reference(*(torch.from_numpy(a) for a in ins))
+    o_ref, s_ref = jrwkv.wkv_scan_reference(*(jnp.asarray(a) for a in ins))
+    assert _rel(o, o_ref) < PAIR_TOL
+    assert _rel(s, s_ref) < PAIR_TOL
+
+
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,kd,chunk", [(2, 3, 40, 16, 16),
+                                            (1, 2, 24, 32, 8),
+                                            (2, 1, 64, 64, 16)])
+def test_wkv_chunked_matches_jax(jref, b, h, t, kd, chunk, stream):
+    jnp, _, jrwkv = jref
+    ins = _inputs(b, h, t, kd, seed=11 + t)
+    tdt, jdt, tol = ((torch.float32, jnp.float32, PAIR_TOL) if stream == "f32"
+                     else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
+    o, s = trwkv.wkv_chunked(*(torch.from_numpy(a) for a in ins),
+                             chunk=chunk, stream_dtype=tdt)
+    o_ref, s_ref = jrwkv.wkv_chunked(*(jnp.asarray(a) for a in ins),
+                                     chunk=chunk, stream_dtype=jdt)
+    assert o.dtype == torch.float32 and s.dtype == torch.float32
+    assert _rel(o, o_ref) < tol
+    assert _rel(s, s_ref) < tol
+
+
+@pytest.mark.parametrize("t", [1, 5, 8, 13, 21])
+def test_prefill_glue_pads_any_length(t):
+    """The prefill's WKV (kernel layout, zero padding to a multiple of 8)
+    against the scan oracle: padded steps change neither the kept
+    outputs nor the final state."""
+    ins = [torch.from_numpy(a) for a in _inputs(2, 3, t, 16, seed=t)]
+    o, s = trwkv._wkv_prefill(*ins)
+    o_ref, s_ref = trwkv.wkv_scan_reference(*ins)
+    assert o.shape == o_ref.shape and s.shape == s_ref.shape
+    assert _rel(o, o_ref) < PAIR_TOL
+    assert _rel(s, s_ref) < PAIR_TOL
+
+
+def _refusal_args(case):
+    planar = [torch.from_numpy(a) for a in _planar(*_inputs(1, 2, 16, 8))]
+    if case == "t_not_multiple_of_8":
+        planar[:4] = [x[:, :12] for x in planar[:4]]
+    elif case == "float64":
+        planar[3] = planar[3].double()
+    elif case == "u_shape":
+        planar[4] = planar[4][:1]
+    elif case == "mismatched_rows":
+        planar[1] = planar[1][:, :8]
+    return planar
+
+
+@pytest.mark.parametrize("case,exc", [("t_not_multiple_of_8", ValueError),
+                                      ("float64", TypeError),
+                                      ("u_shape", ValueError),
+                                      ("mismatched_rows", ValueError)])
+def test_wkv_refuses(case, exc):
+    with pytest.raises(exc):
+        wkv(*_refusal_args(case))
+
+
+# -- on the card -----------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,kd,decay", [(160, 512, 64, 1.0),
+                                           (3, 24, 16, 1.0),
+                                           (5, 8, 8, 1.0),
+                                           (7, 40, 48, 1.0),
+                                           (4, 64, 64, 12.0)])
+def test_wkv_kernel_matches_twin(cuda, bh, t, kd, decay):
+    rng = np.random.default_rng(bh + t)
+    mk = lambda *shape: torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32), device=cuda)
+    r, k, v = mk(bh, t, kd), mk(bh, t, kd), mk(bh, t, kd)
+    logw = torch.clamp(-mk(bh, t, kd).abs() * decay, min=-8.0)
+    u, s0 = mk(bh, kd), mk(bh, kd, kd)
+    o, sf = wkv(r, k, v, logw, u, s0)
+    o_ref, s_ref = wkv_body(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    assert _rel(o.cpu(), o_ref.cpu()) < PAIR_TOL
+    assert _rel(sf.cpu(), s_ref.cpu()) < PAIR_TOL
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_counts_launches(cuda):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _planar(*_inputs(2, 2, 16, 16))]
+    _build.reset_launch_counts()
+    wkv(*args)
+    wkv_body(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"wkv": 1}
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_refuses_on_card(cuda):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _planar(*_inputs(1, 1, 8, 72))]
+    with pytest.raises(NotImplementedError, match="head-size"):
+        wkv(*args)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _planar(*_inputs(1, 2, 16, 8))]
+    args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv(*args)
