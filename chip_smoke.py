@@ -5,8 +5,9 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, in parallel), holds each kernel against its
-plain PyTorch version on the card at the shapes its main path gives it,
-then drives the main paths at two sizes each, for each 1-D kind: the
+plain PyTorch version on the card at the shapes its main path gives it
+(``fourstep_stage2``'s row FFT also at B = 384 and at the prime B =
+4093), then drives the main paths at two sizes each, for each 1-D kind: the
 service's ``submit_batch`` with kind c2c, r2c and c2r (the kind's
 whole-bucket kernel at s=4096; at s=2^20 the masked streaming c2c
 bucket kernel and the stage kernels for the real kinds; the c2c stage
@@ -22,7 +23,8 @@ at s=4096 or the two-pass one at s=2^20), ``CodedFFT`` at s=2^20 with a
 recombine (``ops.recombine_fused``).  Those phases run with an empty
 four-step autotune table (services built with ``autotune=False``); then
 the tuned path: the default service's warmup search (which times the
-mixed-radix ``multistep_fused`` among its candidates) and a second
+mixed-radix ``multistep_fused`` among its candidates; its winners are
+printed) and a second
 warmup that reads the table, ``CodedFFT.run`` through recorded
 multistep plans at s=4096 (the block mode) and s=2^20 (per stage) and
 once under the measured table (then every search candidate timed on
@@ -407,6 +409,7 @@ def main() -> int:
     from repro_torch.kernels.fourstep_fft import (
         encode_fourstep_body,
         encode_fourstep_fused,
+        fft_rows_plan,
         fourstep_body,
         fourstep_fused,
         fourstep_stage1,
@@ -800,8 +803,7 @@ def main() -> int:
     # the pair as one function: in, out, all three planes, the FFT's work
     pair = measure(
         "fourstep_stage1+2",
-        lambda: fourstep_stage2(*fourstep_stage1(xr, xi, far, fai, wr, wi),
-                                fbr, fbi),
+        lambda: fourstep_stage2(*fourstep_stage1(xr, xi, far, fai, wr, wi)),
         lambda: stage2_body(*stage1_body(xr, xi, far, fai, wr, wi),
                             fbr, fbi),
         lambda: torch.fft.fft(xc, dim=-1), 1e-4,
@@ -833,17 +835,34 @@ def main() -> int:
         rows * (b * fft_flops(a) + 6 * ell), 3, [rows, a, b], **pair_info)
     del xc
     # stage 2: A row DFTs of B points per row -- exactly torch.fft.fft
-    # over the last axis of the (rows, A, B) column-pass result
+    # over the last axis of the (rows, A, B) column-pass result; the row
+    # FFT of fft_rows.cuh reads the rows and a B-entry twiddle table
     t1c = torch.complex(t1r, t1i)
     kernel_row(
         "fourstep_stage2", csrc + "fourstep.cu",
         "src/repro/kernels/fourstep_fft.py:281",
-        lambda: fourstep_stage2(t1r, t1i, fbr, fbi),
+        lambda: fourstep_stage2(t1r, t1i),
         lambda: stage2_body(t1r, t1i, fbr, fbi),
         lambda: torch.fft.fft(t1c, dim=-1), 1e-4,
-        F32 * (4 * rows * ell + 2 * b * b),
-        rows * a * fft_flops(b), 3, [rows, a, b], **pair_info)
+        F32 * (4 * rows * ell + 2 * b), rows * a * fft_flops(b), 3,
+        [rows, a, b], radix_plan=list(fft_rows_plan(b)), **pair_info)
     del xr, xi, t1r, t1i, t1c
+    # the row FFT at a mixed radix (B = 384: 8, 4, 4, 3; the two-pass
+    # split of L = 384^2) and at the largest prime B of the two-pass route
+    # (L = 8 * 4093: one dense 4093-point pass), against the dense product
+    for rows, a, b in ((16, 384, 384), (16, 8, 4093)):
+        tr_, ti_ = randn(rows, a, b), randn(rows, a, b)
+        fbr, fbi = ops._on_device(ops._dft_planes, (b,), dev)
+        tc_ = torch.complex(tr_, ti_)
+        emit({"phase": "kernel_check", "name": "fourstep_stage2",
+              "shape": [rows, a, b], "radix_plan": list(fft_rows_plan(b)),
+              **measure(
+                  "fourstep_stage2",
+                  lambda: fourstep_stage2(tr_, ti_),
+                  lambda: stage2_body(tr_, ti_, fbr, fbi),
+                  lambda: torch.fft.fft(tc_, dim=-1), 1e-4,
+                  F32 * 4 * rows * a * b, rows * a * fft_flops(b), 3)})
+        del tr_, ti_, tc_, fbr, fbi
 
     # multistep_fused, both modes: the block mode at fourstep_fused's shape
     # (512 rows of L = 1024 in the plan (16, 16, 4)), the per-stage mode at
@@ -1244,7 +1263,10 @@ def main() -> int:
         fail(f"the warm path searched: {autotune.searches_run() - n1}, "
              f"launches {wcounts2}")
     emit({"phase": "autotune_warmup", "s": 4096, "L": 1024,
-          "searches": searches, "launches": wcounts, "seconds": dt,
+          "searches": searches,
+          "winners": {key: [e.get("variant"), e.get("factors")]
+                      for key, e in written["entries"].items()},
+          "launches": wcounts, "seconds": dt,
           "table_file": str(autotune.cache_path(backend).relative_to(ROOT)),
           "table": written, "warm_searches": 0,
           "warm_launches": wcounts2, "warm_seconds": dt2})

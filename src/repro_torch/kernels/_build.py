@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 loaded with :mod:`ctypes`.  Libraries live in a content-hashed directory
 under ``build/`` at the repository root: the hash covers every source, the
-shared header and the compiler flags, so an edited kernel never loads a
+shared headers and the compiler flags, so an edited kernel never loads a
 stale binary.  Nothing is built at import time -- the first call of a
 kernel wrapper on a CUDA tensor builds its library, and
 :func:`build` compiles several libraries in parallel (one ``nvcc`` process
@@ -36,7 +36,7 @@ __all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "build", "build_dir
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-HEADERS = ("common.cuh", "cgemm.cuh", "bucket.cuh")
+HEADERS = ("common.cuh", "cgemm.cuh", "bucket.cuh", "fft_rows.cuh")
 SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
            "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket",
            "coded_bucket_streaming", "multistep", "wkv")

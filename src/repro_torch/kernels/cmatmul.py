@@ -6,9 +6,11 @@ folded into the payload columns, and the unbatched decode
 ``inv(G[subset]) @ b``.  ``bcmatmul`` is the per-request decode apply of
 the service's stage route: every request in a bucket carries its OWN
 (m, N) scatter decode matrix, so the contraction is a batched
-``(q, m, N) @ (q, N, L)``.  CUDA sources ``csrc/cmatmul.cu`` and
-``csrc/bcmatmul.cu`` (one device kernel, in ``csrc/common.cuh``); plain
-twins :func:`cmatmul_body` and :func:`bcmatmul_body`.
+``(q, m, N) @ (q, N, L)``.  CUDA sources ``csrc/cmatmul.cu`` (the
+kernel of ``csrc/common.cuh``) and ``csrc/bcmatmul.cu`` (its own kernel:
+the live columns of each decode matrix only, in the thread map
+:func:`bcmatmul_map` picks); plain twins :func:`cmatmul_body` and
+:func:`bcmatmul_body`.
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["cmatmul_body", "cmatmul", "bcmatmul_body", "bcmatmul",
-           "check_left_fits"]
+           "bcmatmul_map", "check_left_fits"]
+
+# csrc/bcmatmul.cu: a wide thread owns 4 payload columns of a 256-thread
+# block and keeps at most 16 output rows in registers
+WIDE_MIN_L = 4 * 256
+WIDE_MAX_M = 16
 
 
 def cmatmul_body(ar, ai, br, bi):
@@ -79,12 +86,20 @@ def cmatmul(ar, ai, br, bi):
     return cr, ci
 
 
+def bcmatmul_map(m: int, ell: int) -> str:
+    """The bcmatmul kernel's thread map for ``m`` output rows and ``ell``
+    payload columns: ``"wide"`` (a thread owns 4 columns and every row's
+    accumulators, B and C streamed once) where the payload fills at least
+    one block and ``m <= 16``, else ``"narrow"`` (16 x 64 output tiles)."""
+    return "wide" if ell >= WIDE_MIN_L and m <= WIDE_MAX_M else "narrow"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("bcmatmul")
     fn = lib.bcmatmul_f32
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, vp, i64, vp, vp, vp, vp, i32, i32, i32, i64, vp]
+    fn.argtypes = [vp] * 6 + [i32, i32, i32, i64, i32, i32, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,7 +108,11 @@ def bcmatmul(ar, ai, br, bi):
     """Batched planar complex matmul ``(q, M, K) @ (q, K, L) -> (q, M, L)``.
 
     CPU tensors run :func:`bcmatmul_body`; CUDA tensors launch the kernel
-    (one launch) or raise.
+    (one launch) or raise.  The kernel skips every column k of ``A[q]``
+    that is exactly zero in both planes (a scatter decode matrix's
+    straggler columns), so ``B[q][k]`` is never read there: the same
+    result for finite B, and no NaN from a non-finite straggler row,
+    where the plain product gives one.
     """
     q, m, k = ar.shape
     if br.shape[:2] != (q, k) or ai.shape != ar.shape or bi.shape != br.shape:
@@ -103,11 +122,18 @@ def bcmatmul(ar, ai, br, bi):
         return bcmatmul_body(ar, ai, br, bi)
     dev = _build.check_planes("bcmatmul", ar=ar, ai=ai, br=br, bi=bi)
     check_left_fits("bcmatmul", m, k)
+    if q > _build.MAX_GRID_YZ:
+        raise ValueError(f"bcmatmul: batch q={q} exceeds the grid's "
+                         f"{_build.MAX_GRID_YZ}")
     ell = br.shape[2]
     cr = torch.empty((q, m, ell), dtype=torch.float32, device=dev)
     ci = torch.empty_like(cr)
+    wide = bcmatmul_map(m, ell) == "wide"
+    vec = ell % 4 == 0 and all(t.data_ptr() % 16 == 0
+                               for t in (br, bi, cr, ci))
     p = _build.ptr
-    _build.check(_lib()(p(ar), p(ai), m * k, p(br), p(bi), p(cr), p(ci),
-                        q, m, k, ell, _build.stream_of(dev)), "bcmatmul")
+    _build.check(_lib()(p(ar), p(ai), p(br), p(bi), p(cr), p(ci), q, m, k,
+                        ell, int(wide), int(vec), _build.stream_of(dev)),
+                 "bcmatmul")
     _build.count_launch("bcmatmul")
     return cr, ci

@@ -21,9 +21,12 @@
 // rows), so the transposed stores stay coalesced and the shared-memory
 // reads stay free of conflicts.
 //
-// The dense-DFT passes of the four-step kernels run on it: the column pass
+// Callers, the dense-DFT passes of the four-step kernels: the column pass
 // (F_A @ M, twiddle in the epilogue) and the row pass (T1 @ F_B) of
-// encode_fourstep.cu, fourstep.cu and coded_bucket_streaming.cu.
+// encode_fourstep.cu, coded_bucket_streaming.cu and fourstep.cu's
+// fourstep_streaming, and fourstep.cu's fourstep_stage1 (a column pass).
+// fourstep_stage2, the two-pass row pass, runs the Stockham FFT of
+// fft_rows.cuh instead.
 
 #pragma once
 

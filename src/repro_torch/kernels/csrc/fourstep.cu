@@ -20,9 +20,9 @@
 // and writing the output once: for the 2^20-point plan (128 rows of
 // L = 2^18) that is about 0.05 ms of FP32 work against 0.16 ms of
 // traffic, and for the 4096-point plan (512 rows of L = 1024) about
-// 0.0004 ms against 0.0025 ms.  This first port does more work than that:
-// both passes are dense DFTs, 8*L*(A + B) flops per row (about 10x an
-// FFT's at L = 1024, about 90x at L = 2^18).
+// 0.0004 ms against 0.0025 ms.  The dense passes do more work than that,
+// 8*L*A flops per row for the column pass (8*L*B for a dense row pass):
+// about 10x an FFT's at L = 1024, about 90x at L = 2^18 for the pair.
 //
 // Design.  fourstep_fused runs one block per batch row: it stages the
 // row's A x B matrix in shared memory, writes the column pass into a
@@ -32,19 +32,24 @@
 // bytes) is laid out by fourstep_fft.fourstep_layout on the Python side,
 // which passes the word offsets in at launch; the same reckoning is the
 // fused gate (ops.fourstep_fusable, against 232,448 bytes), so shards up
-// to L = 8192 fuse and longer ones take the two-pass route.  The two
-// passes there are the register-tiled complex GEMM of cgemm.cuh, one
-// launch each, with T1 in device memory: the twiddle rides in the column
-// pass's epilogue.  fourstep_streaming is the same two launches behind
-// one entry, its row pass storing through the GEMM's transposed epilogue
-// (cgemm.cuh, kTransOut).  The TPU kernel streams both passes through
-// VMEM tiles inside one launch; here the pass boundary needs every block
-// of the column pass done, so it is a launch boundary.  A radix FFT over
-// the tile is the way to the bound.
+// to L = 8192 fuse and longer ones take the two-pass route.  There the
+// column pass is the register-tiled complex GEMM of cgemm.cuh (the
+// twiddle in its epilogue), and the row pass is the shared-memory
+// Stockham FFT of fft_rows.cuh: B-point rows, ceil(2048/B) a block, the
+// radix plan and the working set's layout passed in at launch
+// (fourstep_fft.fft_rows_plan / fft_rows_layout), one f32 table of w^t
+// in place of F_B.  T1 sits in device memory between the two launches.
+// fourstep_streaming is the two dense passes behind one entry, its row
+// pass storing through the GEMM's transposed epilogue (cgemm.cuh,
+// kTransOut).  The TPU kernel streams both passes through VMEM tiles
+// inside one launch; here the pass boundary needs every block of the
+// column pass done, so it is a launch boundary.  The row FFT of
+// fft_rows.cuh is the way to the bound for the other passes too.
 
 #include <cstring>
 
 #include "cgemm.cuh"
+#include "fft_rows.cuh"
 
 namespace {
 
@@ -138,15 +143,19 @@ extern "C" int fourstep_stage1_f32(const float* xr, const float* xi,
                       outi, batch, a, b, a, (cudaStream_t)stream);
 }
 
-// Row pass: out[z] = t[z] @ F_B for z < batch (<= 65,535).  t, out:
-// (batch, a, b).  One launch.
+// Row pass: out[row] = DFT_b(t[row]) for the n_rows contiguous b-point
+// rows of t (the (batch, a, b) column-pass result: n_rows = batch*a), in
+// natural order -- t @ F_B.  tw: the (b,) planes of w^t; radix: the
+// plan's `passes` radices; rows: rows a block takes; layout: the 4 words
+// of fft_rows::Layout (host memory).  One launch.
 extern "C" int fourstep_stage2_f32(const float* tr, const float* ti,
-                                   const float* fbr, const float* fbi,
-                                   float* outr, float* outi, int batch, int a,
-                                   int b, void* stream) {
-  return launch_cgemm(tr, ti, (long long)a * b, fbr, fbi, 0, nullptr,
-                      nullptr, outr, outi, batch, a, b, b,
-                      (cudaStream_t)stream);
+                                   const float* twr, const float* twi,
+                                   float* outr, float* outi, long long n_rows,
+                                   int b, const int* radix, int passes,
+                                   int rows, const long long* layout,
+                                   void* stream) {
+  return fft_rows::launch(tr, ti, outr, outi, twr, twi, n_rows, b, radix,
+                          passes, rows, layout, (cudaStream_t)stream);
 }
 
 // Streaming four-step: out[z] = (((F_A @ x[z]) * W) @ F_B)^T for z < batch

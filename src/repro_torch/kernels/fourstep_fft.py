@@ -12,7 +12,10 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
   block's shared memory (its working set: :func:`fourstep_layout`);
 * ``fourstep_stage1`` / ``fourstep_stage2`` -- the two-pass route for
   shards too long for one block: the column pass with the twiddle, then
-  the row pass, the intermediate in device memory;
+  the row pass, the intermediate in device memory.  The row pass is a
+  B-point FFT of every row (a shared-memory Stockham FFT, its radix plan
+  :func:`fft_rows_plan`, working set :func:`fft_rows_layout` and
+  twiddle table :func:`fft_rows_twiddles`), so it takes no DFT plane;
 * ``fourstep_streaming`` -- the same two passes behind one entry, the
   row pass storing its output transposed: natural order ``(batch, B,
   A)``, no unscramble after it;
@@ -23,7 +26,8 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
   fk``: k dense stages, the row in one block's shared memory where it
   fits (:func:`multistep_layout`), else one launch per stage.
 
-CUDA sources: ``csrc/fourstep.cu`` (the first four),
+CUDA sources: ``csrc/fourstep.cu`` (the first four; the row FFT in
+``csrc/fft_rows.cuh``),
 ``csrc/encode_fourstep.cu`` and ``csrc/multistep.cu``; the plain twins
 are :func:`fourstep_body`, :func:`stage1_body`, :func:`stage2_body`,
 :func:`fourstep_streaming_body`, :func:`encode_fourstep_body` and
@@ -37,6 +41,7 @@ import functools
 import itertools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -50,6 +55,9 @@ __all__ = [
     "stage2_body",
     "fourstep_stage1",
     "fourstep_stage2",
+    "fft_rows_layout",
+    "fft_rows_plan",
+    "fft_rows_twiddles",
     "fourstep_streaming_body",
     "fourstep_streaming",
     "encode_fourstep_body",
@@ -297,19 +305,133 @@ def fourstep_stage1(xr, xi, far, fai, wr, wi):
                      {"far": far, "fai": fai, "wr": wr, "wi": wi})
 
 
-def fourstep_stage2(tr, ti, fbr, fbi):
-    """Row pass of the two-pass four-step: ``T @ F_B`` per row.
+# -- the two-pass route's row pass: a Stockham FFT of every row ------------
+# Rows of one block: ceil(FFT_ROWS_TILE / B), at least one
+FFT_ROWS_TILE = 2048
+
+
+@functools.lru_cache(maxsize=None)
+def fft_rows_plan(b: int) -> tuple[int, ...]:
+    """The radix plan of the B-point row FFT, in pass order: an 8 for each
+    three factors of two, the one or two left over as a 2 or a 4 (4, 4 in
+    place of 8, 2), then the odd prime factors in ascending order.  The
+    kernel unrolls radices 2, 4, 8, 3, 5 and 7 in registers and runs any
+    other prime as a dense pass.  ``prod == b``; empty for b = 1."""
+    if b < 1:
+        raise ValueError(f"fft_rows_plan: length {b} < 1")
+    twos = (b & -b).bit_length() - 1
+    eights, rest = divmod(twos, 3)
+    if rest == 1 and eights:
+        eights -= 1
+        head = (4, 4)
+    else:
+        head = {0: (), 1: (2,), 2: (4,)}[rest]
+    plan = [8] * eights + list(head)
+    n = b >> twos
+    p = 3
+    while n > 1:
+        while n % p == 0:
+            plan.append(p)
+            n //= p
+        p += 2
+        if p * p > n > 1:
+            plan.append(n)
+            break
+    return tuple(plan)
+
+
+def fft_rows_per_block(b: int) -> int:
+    """Rows one block of the row FFT takes: ``ceil(2048 / b)``, >= 1."""
+    return max(1, -(-FFT_ROWS_TILE // b))
+
+
+def fft_rows_layout(b: int) -> tuple[int, ...]:
+    """Word offsets of the row FFT's shared arrays, then the total: two
+    planar buffers of a block's rows, then the twiddle table's two planes,
+    each plane padded one word in 32 (``pad(a) = a + a // 32``) against
+    bank conflicts.
+
+    The kernel takes these offsets at launch (``Layout`` in
+    ``csrc/fft_rows.cuh``, same order), so this is the one reckoning of
+    its working set, which :func:`fourstep_stage2` holds against
+    :data:`_build.SMEM_PER_BLOCK_OPTIN`: every B up to 4096 fits.
+    """
+    def plane(n):
+        return n + ((n - 1) >> 5)
+
+    rows = plane(fft_rows_per_block(b) * b)
+    return tuple(itertools.accumulate((2 * rows, 2 * rows, 2 * plane(b)),
+                                      initial=0))
+
+
+@functools.lru_cache(maxsize=None)
+def fft_rows_twiddles(b: int):
+    """The row FFT's twiddle table ``w^t``, t < b, as f32 (re, im):
+    built in float64 from the integer-reduced angle, exactly as the DFT
+    plane tables are, so ``F_B[j][k] == table[(j*k) % b]`` bit for bit."""
+    ang = -1.0 * 2.0 * np.pi * np.arange(b) / b
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_from_twiddles(b: int):
+    """The (b, b) DFT planes F_B[j][k] = table[(j*k) % b], for the CPU
+    twin of :func:`fourstep_stage2`."""
+    jk = np.outer(np.arange(b), np.arange(b)) % b
+    twr, twi = fft_rows_twiddles(b)
+    return torch.as_tensor(twr[jk]), torch.as_tensor(twi[jk])
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles_on(b: int, device: torch.device):
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in fft_rows_twiddles(b))
+
+
+@functools.lru_cache(maxsize=None)
+def _stage2_lib():
+    fn = _build.load("fourstep").fourstep_stage2_f32
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp] * 6 + [i64, i32, ctypes.POINTER(i32), i32, i32,
+                              ctypes.POINTER(i64), vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fourstep_stage2(tr, ti):
+    """Row pass of the two-pass four-step: the B-point DFT of every row,
+    ``T @ F_B`` per (batch, A) row.
 
     ``tr, ti``: (batch, A, B) planes from :func:`fourstep_stage1`.
     Returns (batch, A, B) planes of ``out[c, d] = X[c + d*A]``.  CPU
-    tensors run :func:`stage2_body`; CUDA tensors launch the kernel (one
-    launch per 65,535 rows) or raise.
+    tensors run :func:`stage2_body` with the DFT planes of B; CUDA tensors
+    launch the row FFT (one launch) or raise -- also when a block's
+    working set (:func:`fft_rows_layout`) exceeds its shared memory.
     """
-    _check_fourstep("fourstep_stage2", tr, ti, fbr=fbr, fbi=fbi)
+    if tr.ndim != 3 or ti.shape != tr.shape:
+        raise ValueError("fourstep_stage2: inconsistent shapes")
+    batch, a, b = tr.shape
     if tr.device.type == "cpu":
-        return stage2_body(tr, ti, fbr, fbi)
-    return _two_pass("fourstep_stage2", "fourstep_stage2_f32", (tr, ti),
-                     {"fbr": fbr, "fbi": fbi})
+        return stage2_body(tr, ti, *_dft_from_twiddles(b))
+    dev = _build.check_planes("fourstep_stage2", tr=tr, ti=ti)
+    layout = fft_rows_layout(b)
+    if 4 * layout[-1] > _build.SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"fourstep_stage2: rows of {b} points need {4 * layout[-1]} "
+            f"bytes of shared memory per block, over "
+            f"{_build.SMEM_PER_BLOCK_OPTIN}")
+    plan = fft_rows_plan(b)
+    twr, twi = _twiddles_on(b, dev)
+    outr = torch.empty_like(tr)
+    outi = torch.empty_like(tr)
+    p = _build.ptr
+    _build.check(_stage2_lib()(
+        p(tr), p(ti), p(twr), p(twi), p(outr), p(outi), batch * a, b,
+        (ctypes.c_int * max(1, len(plan)))(*plan), len(plan),
+        fft_rows_per_block(b), (ctypes.c_longlong * len(layout))(*layout),
+        _build.stream_of(dev)), "fourstep_stage2")
+    _build.count_launch("fourstep_stage2")
+    return outr, outi
 
 
 def fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi):

@@ -360,8 +360,7 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
         outr, outi = fourstep_fused(x3r, x3i, far, fai, wr, wi, fbr, fbi)
     else:
         t1r, t1i = fourstep_stage1(x3r, x3i, far, fai, wr, wi)
-        outr, outi = fourstep_stage2(t1r.contiguous(), t1i.contiguous(),
-                                     fbr, fbi)
+        outr, outi = fourstep_stage2(t1r.contiguous(), t1i.contiguous())
     # out[c, d] holds X[c + d*A] -> transpose to (d, c) and flatten
     return (outr.transpose(-1, -2).reshape(batch, ell),
             outi.transpose(-1, -2).reshape(batch, ell))

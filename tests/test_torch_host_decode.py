@@ -583,6 +583,25 @@ def test_gpu_bcmatmul_m64(cuda):
 
 
 @pytest.mark.gpu
+def test_gpu_bcmatmul_m64_decode_planes(cuda):
+    """The host path's m=64 decode apply at the smoke run's shape: 64
+    requests' (64, 128) scatter decode planes from the port's LRU on
+    evenly spread responders, 64 payload columns (the narrow map, 64 live
+    columns of 128)."""
+    q, m, n, ell = 64, 64, 128, 64
+    rng = np.random.default_rng(67)
+    args = _t(*_dplanes(_generator(n, m), _spread_masks(n, q)),
+              *(rng.standard_normal((q, n, ell)).astype(np.float32)
+                for _ in range(2)), device=cuda)
+    before = _build.launch_counts().get("bcmatmul", 0)
+    got = bcmatmul(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["bcmatmul"] == before + 1
+    want = bcmatmul_body(*args)
+    assert _rel([o.cpu() for o in got], [w.cpu() for w in want]) < 1e-5
+
+
+@pytest.mark.gpu
 def test_gpu_recombine_m64(cuda):
     q, m, s = 3, 64, 64 * 96
     rng = np.random.default_rng(66)

@@ -24,7 +24,7 @@ from repro_torch.core import mds as tmds
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import coded_pipeline as tcp
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body
+from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body, bcmatmul_map
 from repro_torch.kernels.fourstep_fft import (
     encode_fourstep_body,
     encode_fourstep_fused,
@@ -339,8 +339,11 @@ def _cuda_planes(device, *arrays):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,m,k,ell", [(3, 4, 8, 1000), (2, 9, 11, 37),
-                                       (1, 32, 64, 300)])
+                                       (1, 32, 64, 300), (2, 4, 8, 4096),
+                                       (1, 16, 20, 2051)])
 def test_gpu_bcmatmul_matches_plain(cuda, q, m, k, ell):
+    """Dense left matrices (every column live), in both thread maps: L
+    not a multiple of 4, q = 1."""
     rng = np.random.default_rng(q * m)
     args = _cuda_planes(cuda, _rand(rng, q, m, k), _rand(rng, q, m, k),
                         _rand(rng, q, k, ell), _rand(rng, q, k, ell))
@@ -349,6 +352,75 @@ def test_gpu_bcmatmul_matches_plain(cuda, q, m, k, ell):
     assert _build.launch_counts()["bcmatmul"] == before + 1
     want = bcmatmul_body(*args)
     assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < PAIR_TOL
+
+
+def _scatter_planes(rng, q, m, n):
+    """Random (q, m, N) decode planes, each request's N - m straggler
+    columns exactly zero (the form of ``ops.lagrange_scatter_planes``);
+    returns the planes and the (q, N) live-column mask."""
+    live = np.zeros((q, n), bool)
+    for i in range(q):
+        live[i, rng.permutation(n)[:m]] = True
+    dr, di = _rand(rng, q, m, n), _rand(rng, q, m, n)
+    return dr * live[:, None], di * live[:, None], live
+
+
+def test_bcmatmul_thread_map():
+    """The kernel's two thread maps, chosen from the shape alone: wide
+    (4 columns a thread, every row in registers) from 1024 payload
+    columns and up to 16 rows -- the m=4 stage route -- else narrow
+    (16 x 64 tiles) -- the m=64 host path, and short payloads."""
+    assert bcmatmul_map(4, 1 << 18) == "wide"
+    assert bcmatmul_map(16, 1024) == "wide"
+    assert bcmatmul_map(17, 1 << 18) == "narrow"
+    assert bcmatmul_map(4, 1023) == "narrow"
+    assert bcmatmul_map(64, 64) == "narrow"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,m,k,ell", [(3, 4, 8, 1000), (64, 64, 128, 64),
+                                       (16, 4, 8, 1 << 18),
+                                       (2, 9, 11, 4099), (2, 4, 300, 2048),
+                                       (2, 20, 200, 100), (1, 16, 32, 1030)])
+def test_gpu_bcmatmul_scatter_matches_plain(cuda, q, m, k, ell):
+    """Scatter decode planes (zero straggler columns): the service's
+    shapes at m=4 (narrow below 1024 columns, wide at 2^18) and m=64, a
+    wide L not a multiple of 4, K past one 128-column chunk in both maps,
+    q = 1."""
+    rng = np.random.default_rng(q * m + k)
+    dr, di, _ = _scatter_planes(rng, q, m, k)
+    args = _cuda_planes(cuda, dr, di, _rand(rng, q, k, ell),
+                        _rand(rng, q, k, ell))
+    before = _build.launch_counts().get("bcmatmul", 0)
+    got = bcmatmul(*args)
+    assert _build.launch_counts()["bcmatmul"] == before + 1
+    want = bcmatmul_body(*args)
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < PAIR_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,m,k,ell", [(3, 4, 8, 2048), (3, 4, 8, 100),
+                                       (4, 64, 128, 64)])
+def test_gpu_bcmatmul_skips_straggler_rows(cuda, q, m, k, ell):
+    """A straggler's spectrum holding inf and NaN: the kernel never reads
+    it (its decode column is zero), so it gives the plain product of the
+    spectra with that row zeroed, where the plain product itself turns
+    NaN -- the deliberate difference of ROADMAP.md Queue 3."""
+    rng = np.random.default_rng(k + ell)
+    dr, di, live = _scatter_planes(rng, q, m, k)
+    br, bi = _rand(rng, q, k, ell), _rand(rng, q, k, ell)
+    dead = ~live
+    br[dead] = np.inf
+    bi[dead] = np.nan
+    got = bcmatmul(*_cuda_planes(cuda, dr, di, br, bi))
+    zr, zi = br.copy(), bi.copy()
+    zr[dead] = 0.0
+    zi[dead] = 0.0
+    want = bcmatmul_body(*_cuda_planes(cuda, dr, di, zr, zi))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < PAIR_TOL
+    plain = bcmatmul_body(*_cuda_planes(cuda, dr, di, br, bi))
+    assert not bool(torch.isfinite(plain[0]).all())
 
 
 @pytest.mark.gpu

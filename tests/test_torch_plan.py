@@ -14,9 +14,16 @@ largest output magnitude:
 * 5e-4 for the whole plan against the reference plan and ``numpy.fft``
   (``tests/test_kernels.py:146``).
 
+The row FFT of ``fourstep_stage2`` has no Pallas twin: a numpy model of
+its pass schedule, index for index, on the radix plan and twiddle table
+the wrapper passes to the kernel, is held against ``numpy.fft`` (1e-12
+on a float64 table, 1e-6 on the f32 one), and the table against the DFT
+plane, bit for bit.
+
 GPU tests (marker ``gpu``, skipped without a CUDA device): each of the
 four kernels against its plain twin on the card, at the smoke run's
-shapes, at A = 1 and at the fused gate, and their launch counters.
+shapes, at A = 1 and at the fused gate, the row FFT over a sweep of B,
+and their launch counters.
 """
 
 import itertools
@@ -33,6 +40,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.cmatmul import cmatmul, cmatmul_body
 from repro_torch.kernels.fourstep_fft import (
+    fft_rows_layout,
+    fft_rows_per_block,
+    fft_rows_plan,
+    fft_rows_twiddles,
     fourstep_body,
     fourstep_fused,
     fourstep_stage1,
@@ -135,7 +146,7 @@ def test_fourstep_plain_twins_match_reference(jref, ell, batch):
                               interpret=True)
     assert _rel(t1, jt1) < PAIR_TOL
     t1n = [np.ascontiguousarray(_np(t)) for t in t1]
-    out = fourstep_stage2(*_t(*t1n, fbr, fbi))
+    out = fourstep_stage2(*_t(*t1n))
     jout = jfs.fourstep_stage2(*j(*t1n, fbr, fbi), block_q=batch,
                                interpret=True)
     assert _rel(out, jout) < PAIR_TOL
@@ -430,6 +441,103 @@ def test_plan_encode_fold_and_worker_fn(jref):
     assert _rel(out, np.fft.fft(x.astype(np.complex128))) < PLAN_TOL
 
 
+# ------------------------------------------------- the row FFT's schedule
+# B sweep of the row FFT (csrc/fft_rows.cuh): small and mixed radices, a
+# prime past the unrolled ones (97), the smoke run's 384 and 512, 1000 =
+# 8 * 5^3, the largest prime B of the two-pass route (4093) and 4096
+ROW_FFT_B = [2, 3, 8, 12, 60, 97, 128, 384, 512, 1000, 4093, 4096]
+UNROLLED = (2, 3, 4, 5, 7, 8)
+
+
+def _stockham_model(x, plan, twr, twi, dense=False):
+    """The row FFT kernel's pass schedule in numpy, index for index: for
+    each pass of radix R (ns the product of the radices before it, m =
+    B/R), butterfly j reads src[j + r*m], twiddles it by
+    table[r * (j % ns) * B/(ns*R)], takes the R-point DFT through
+    table[((r*c) % R) * m] and writes dst[(j - j % ns)*R + j % ns + c*ns].
+    A dense pass (``dense``, or a radix the kernel does not unroll) takes
+    the outputs in pairs (h, R - h): table[(r*h*m) % B] and its
+    conjugate.  complex128 arithmetic on the given table."""
+    rows, b = x.shape
+    tab = twr.astype(np.float64) + 1j * twi.astype(np.float64)
+    src = x.astype(np.complex128)
+    ns = 1
+    for radix in plan:
+        m, unit = b // radix, b // (ns * radix)
+        j = np.arange(m)
+        k = j % ns
+        r = np.arange(radix)
+        v = src[:, j[None, :] + m * r[:, None]] * tab[
+            r[:, None] * k[None, :] * unit]                      # (x, R, m)
+        if radix in UNROLLED and not dense:
+            cw = tab[(np.outer(r, r) % radix) * m]             # [r, c]
+            y = np.einsum("xrj,rc->xcj", v, cw)
+        else:
+            y = np.empty_like(v)
+            for h in range(radix // 2 + 1):
+                t = tab[(r * h * m) % b][None, :, None]
+                y[:, h] = (v * t).sum(1)
+                if h and 2 * h != radix:
+                    y[:, radix - h] = (v * np.conj(t)).sum(1)
+        dst = np.empty_like(src)
+        dst[:, ((j - k) * radix + k)[None, :] + ns * r[:, None]] = y
+        src = dst
+        ns *= radix
+    return src
+
+
+@pytest.mark.parametrize("b", ROW_FFT_B)
+def test_fft_rows_plan_and_schedule_match_numpy(b):
+    """The radix plan multiplies out to B, in the kernel's pass limit;
+    the schedule on that plan and table (unrolled and dense index maths
+    both) is np.fft.fft: to float64 rounding on a float64 table of the
+    same angles, to f32 twiddle rounding on the kernel's own table."""
+    plan = fft_rows_plan(b)
+    assert int(np.prod(plan)) == b and 1 <= len(plan) <= 16
+    assert all(f in UNROLLED or all(f % d for d in range(2, f))
+               for f in plan)
+    rng = np.random.default_rng(b)
+    x = _crand(rng, 3, b).astype(np.complex128)
+    want = np.fft.fft(x, axis=-1)
+    ang = -2.0 * np.pi * np.arange(b) / b
+    for dense in (False, True):
+        got = _stockham_model(x, plan, np.cos(ang), np.sin(ang), dense)
+        assert _rel(got, want) < 1e-12, dense
+    got = _stockham_model(x, plan, *fft_rows_twiddles(b))
+    assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("b", [2, 3, 8, 12, 60, 97, 128, 384, 512, 1000])
+def test_fft_rows_twiddles_are_entries_of_the_dft_plane(b):
+    """The f32 table is row 1 of ``_dft_planes(B)``, and every F_B[j][k]
+    is table[(j*k) % B], bit for bit: the CPU twin of fourstep_stage2 and
+    the kernel use the same numbers as the DFT plane."""
+    twr, twi = fft_rows_twiddles(b)
+    fr, fi = tops._dft_planes(b)
+    assert twr.dtype == np.float32
+    np.testing.assert_array_equal(twr, fr[1])
+    np.testing.assert_array_equal(twi, fi[1])
+    jk = np.outer(np.arange(b), np.arange(b)) % b
+    np.testing.assert_array_equal(fr, twr[jk])
+    np.testing.assert_array_equal(fi, twi[jk])
+
+
+def test_fft_rows_layout_fits_every_two_pass_b():
+    """The row FFT's working set: two buffers of ceil(2048/B) rows and the
+    table, each plane padded one word in 32, one reckoning, within a block's shared memory for
+    every B of the two-pass route (B <= 4096); past it the wrapper
+    refuses."""
+    for b in range(1, 4097):
+        rows = fft_rows_per_block(b)
+        assert rows == max(1, -(-2048 // b))
+        x, y, tab, total = fft_rows_layout(b)
+        last = rows * b - 1
+        assert x == 0 and y == tab - y and y >= 2 * (last + last // 32 + 1)
+        assert total - tab >= 2 * (b - 1 + (b - 1) // 32 + 1)
+        assert 4 * total <= _build.SMEM_PER_BLOCK_OPTIN, b
+    assert 4 * fft_rows_layout(16384)[-1] > _build.SMEM_PER_BLOCK_OPTIN
+
+
 def test_plan_kernel_wrappers_check_their_inputs():
     """The new wrappers refuse inconsistent shapes, and any device that is
     neither CPU nor CUDA -- never copied to the host."""
@@ -448,8 +556,10 @@ def test_plan_kernel_wrappers_check_their_inputs():
                             np.zeros((2, 4, 8), np.float32), *planes[:2],
                             *_planes(8, 4)[2:4]))
     with pytest.raises(ValueError, match="not a CUDA device"):
-        fourstep_stage2(meta(2, 4, 8), meta(2, 4, 8), meta(8, 8),
-                        meta(8, 8))
+        fourstep_stage2(meta(2, 4, 8), meta(2, 4, 8))
+    with pytest.raises(ValueError, match="inconsistent"):
+        fourstep_stage2(*_t(np.zeros((2, 4, 8), np.float32),
+                            np.zeros((2, 4, 9), np.float32)))
 
 
 # ------------------------------------------------------- GPU: kernel vs plain
@@ -491,20 +601,37 @@ def test_gpu_fourstep_fused_refuses_past_the_gate(cuda):
                                        (4, 100, 70), (70_000, 2, 4)])
 def test_gpu_fourstep_stages_match_plain(cuda, batch, a, b):
     """The smoke run's two-pass shape (128 rows of 512 x 512), A = 1, odd
-    tiles, and a batch past the grid's z limit (two launches a pass)."""
+    tiles, and a batch past the grid's z limit (two launches of the
+    column pass; the row FFT lays its rows on grid x, one launch)."""
     rng = np.random.default_rng(a + b)
     xr, xi = _cuda(cuda, _rand(rng, batch, a, b), _rand(rng, batch, a, b))
     far, fai, wr, wi, fbr, fbi = _cuda(cuda, *_planes(a, b))
     chunks = -(-batch // _build.MAX_GRID_YZ)
     before = (_count("fourstep_stage1"), _count("fourstep_stage2"))
     t1 = fourstep_stage1(xr, xi, far, fai, wr, wi)
-    out = fourstep_stage2(*t1, fbr, fbi)
+    out = fourstep_stage2(*t1)
     assert (_count("fourstep_stage1"), _count("fourstep_stage2")) == \
-        (before[0] + chunks, before[1] + chunks)
+        (before[0] + chunks, before[1] + 1)
     assert _rel(t1, stage1_body(xr, xi, far, fai, wr, wi)) < 1e-4
     assert _rel(out, stage2_body(*t1, fbr, fbi)) < 1e-4
     assert _rel(out, fourstep_body(xr, xi, far, fai, wr, wi, fbr, fbi)) \
         < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", ROW_FFT_B)
+def test_gpu_fourstep_stage2_matches_plain(cuda, b):
+    """The row FFT over the B sweep, one launch each, against the plain
+    dense product (the DFT plane of B) and the exact FFT."""
+    rng = np.random.default_rng(b)
+    tr, ti = _cuda(cuda, _rand(rng, 3, 5, b), _rand(rng, 3, 5, b))
+    fbr, fbi = _cuda(cuda, *tops._dft_planes(b))
+    before = _count("fourstep_stage2")
+    out = fourstep_stage2(tr, ti)
+    assert _count("fourstep_stage2") == before + 1
+    assert _rel(out, stage2_body(tr, ti, fbr, fbi)) < 1e-4
+    truth = np.fft.fft(_np(tr).astype(np.float64) + 1j * _np(ti), axis=-1)
+    assert _rel(out, truth) < 1e-5
 
 
 @pytest.mark.gpu
