@@ -7,7 +7,9 @@ Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, in parallel), holds each kernel against its
 plain PyTorch version on the card at the shapes its main path gives it
 (``fourstep_stage2``'s row FFT also at B = 384 and at the prime B =
-4093), then drives the main paths at two sizes each, for each 1-D kind: the
+4093, ``fourstep_streaming``'s column FFTs at (16, 384, 384) and at the
+prime A of (16, 4093, 4)), prints the FFT kernels' ptxas registers and
+spills, then drives the main paths at two sizes each, for each 1-D kind: the
 service's ``submit_batch`` with kind c2c, r2c and c2r (the kind's
 whole-bucket kernel at s=4096; at s=2^20 the masked streaming c2c
 bucket kernel and the stage kernels for the real kinds; the c2c stage
@@ -409,6 +411,7 @@ def main() -> int:
     from repro_torch.kernels.fourstep_fft import (
         encode_fourstep_body,
         encode_fourstep_fused,
+        fft_cols_tile,
         fft_rows_plan,
         fourstep_body,
         fourstep_fused,
@@ -466,6 +469,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(built), "dir": str(_build.build_dir().name),
           "smem_per_block_optin": optin, "ptxas": ptxas})
+    # the Stockham FFT kernels' registers and spills, in each library that
+    # builds them (fft_cols_kernel: both streaming kernels' FFT passes)
+    emit({"phase": "ptxas_fft", **{
+        name: [ln for ln in ptxas[name] if "fft_cols" in ln
+               or "fft_rows" in ln]
+        for name in ("fourstep", "coded_bucket_streaming")}})
 
     rng = np.random.default_rng(0)
     spin_rate = spin_cycles_per_ms(torch)
@@ -646,7 +655,10 @@ def main() -> int:
     del xreal, yhalf, yr, yi, dr, di, xr, xi, xc
 
     # (a''') the streaming c2c bucket: the host path's 2^20-point bucket
-    # of 16 requests, past the planes gate, with its LRU decode planes
+    # of 16 requests, past the planes gate, with its LRU decode planes.
+    # Its FFT phases read W and the f32 tables of A and B (no F_A or F_B
+    # plane): those are its bytes beside the request, D, G, the
+    # recombine twiddle and F_m
     q, s, m, n = 16, 1 << 20, 4, 8
     assert ops.bucket_route(s, m, n, "c2c", masked=False) == "streaming"
     a, b = ops.split_factor(s // m)
@@ -667,7 +679,7 @@ def main() -> int:
                                            *splanes),
         lambda: torch.fft.fft(xc, dim=-1), 3e-4,
         F32 * (4 * q * s + 2 * q * m * n - q * n + 2 * n * m
-               + 2 * (a * a + b * b + a * b + m * ell + m * m)),
+               + 2 * (a * b + a + b + m * ell + m * m)),
         q * (m * fft_flops(ell)
              + ell * (2 * 8 * m * m + 6 * m + fft_flops(m))),
         5, [q, s, m, n])
@@ -686,7 +698,7 @@ def main() -> int:
             xr, xi, smasks.to(torch.float32), gr, gi, *splanes),
         lambda: torch.fft.fft(xc, dim=-1), 1e-4,
         F32 * (4 * q * s + q * n + 2 * n * m
-               + 2 * (a * a + b * b + a * b + m * ell + m * m)),
+               + 2 * (a * b + a + b + m * ell + m * m)),
         q * (m * fft_flops(ell)
              + ell * (2 * 8 * m * m + 6 * m + fft_flops(m))),
         5, [q, s, m, n])
@@ -812,16 +824,19 @@ def main() -> int:
     emit({"phase": "kernel_pair", "names": ["fourstep_stage1",
                                             "fourstep_stage2"],
           "shape": [rows, a, b], **pair})
-    # the streaming four-step on the same rows: the pair's two passes, the
-    # row pass writing natural order (rows, B, A) -- exactly torch.fft.fft
+    # the streaming four-step on the same rows: two column FFTs, the
+    # first storing transposed, natural order (rows, B, A) out -- exactly
+    # torch.fft.fft.  It reads W and the f32 tables of A and B.
     kernel_row(
         "fourstep_streaming", csrc + "fourstep.cu",
         "src/repro/kernels/fourstep_fft.py:533",
         lambda: fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi),
         lambda: fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi),
         lambda: torch.fft.fft(xc, dim=-1), 1e-4,
-        F32 * (4 * rows * ell + 2 * (a * a + a * b + b * b)),
-        rows * fft_flops(ell), 3, [rows, a, b])
+        F32 * (4 * rows * ell + 2 * (a * b + a + b)),
+        rows * fft_flops(ell), 3, [rows, a, b],
+        radix_plans=[list(fft_rows_plan(a)), list(fft_rows_plan(b))],
+        tiles=[fft_cols_tile(a, b), fft_cols_tile(b, a)])
     pair_info = {f"pair_{k}": v for k, v in pair.items()
                  if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_rel_err")}
@@ -863,6 +878,29 @@ def main() -> int:
                   lambda: torch.fft.fft(tc_, dim=-1), 1e-4,
                   F32 * 4 * rows * a * b, rows * a * fft_flops(b), 3)})
         del tr_, ti_, tc_, fbr, fbi
+
+    # the streaming four-step's column FFT at a mixed radix (A = B = 384:
+    # 8, 4, 4, 3 over 8-column tiles) and at a prime A (4093: one dense
+    # pass, one column a tile; then B = 4 over 256-column tiles), against
+    # the dense products
+    for rows, a, b in ((16, 384, 384), (16, 4093, 4)):
+        xr_, xi_ = randn(rows, a, b), randn(rows, a, b)
+        fplanes = ops._fourstep_planes(a, b, dev)
+        xc_ = torch.complex(xr_, xi_).reshape(rows, a * b)
+        emit({"phase": "kernel_check", "name": "fourstep_streaming",
+              "shape": [rows, a, b],
+              "radix_plans": [list(fft_rows_plan(a)),
+                              list(fft_rows_plan(b))],
+              "tiles": [fft_cols_tile(a, b), fft_cols_tile(b, a)],
+              **measure(
+                  "fourstep_streaming",
+                  lambda: fourstep_streaming(xr_, xi_, *fplanes),
+                  lambda: fourstep_streaming_body(xr_, xi_, *fplanes),
+                  lambda: torch.fft.fft(xc_, dim=-1), 1e-4,
+                  F32 * (4 * rows * a * b + 2 * (a * b + a + b)),
+                  rows * fft_flops(a * b), 3)})
+        del xr_, xi_, xc_, fplanes
+    torch.cuda.empty_cache()
 
     # multistep_fused, both modes: the block mode at fourstep_fused's shape
     # (512 rows of L = 1024 in the plan (16, 16, 4)), the per-stage mode at

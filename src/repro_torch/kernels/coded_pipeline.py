@@ -41,8 +41,9 @@ decode, in the same CUDA source as the kind's masked kernel.
 A c2c bucket past the whole-bucket kernel's shared memory streams
 (``csrc/coded_bucket_streaming.cu``): ``coded_fft_bucket_streaming`` on
 host-built decode planes (twin :func:`bucket_body`) is the same function
-as three launches -- column pass, row pass, and the code and recombine
--- with device-memory intermediates no wider than the request;
+as three launches -- the column FFT (the twiddle in its last pass, the
+shards de-interleaved by its store), the row FFT, and the code and
+recombine -- with device-memory intermediates no wider than the request;
 ``coded_fft_bucket_streaming_masked`` (twin :func:`bucket_body_masked`)
 runs one decode launch first that builds every request's (m, N) scatter
 decode planes from its raw mask, then the same three.
@@ -61,7 +62,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import SMEM_PER_BLOCK_OPTIN
 from repro_torch.kernels.cmatmul import bcmatmul_body, cmatmul_body
-from repro_torch.kernels.fourstep_fft import encode_fourstep_body
+from repro_torch.kernels.fourstep_fft import (
+    FftSpec,
+    encode_fourstep_body,
+    fft_cols_spec,
+    fft_rows_spec,
+    fft_twiddles_on,
+)
 
 __all__ = [
     "lagrange_planes_body",
@@ -415,12 +422,15 @@ def streaming_smem_bytes(m: int, n: int) -> int:
 def _streaming_lib():
     fn = _build.load("coded_bucket_streaming").coded_bucket_streaming_f32
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 22 + [i32] * 5 + [vp]
+    spec = ctypes.POINTER(FftSpec)
+    fn.argtypes = [vp] * 22 + [i32] * 3 + [spec, spec, vp]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_streaming(what: str, m: int, n: int, q: int) -> None:
+def _check_streaming(what: str, m: int, n: int, q: int, a: int, b: int):
+    """The streaming bucket's bounds, then its two FFT plans: the column
+    FFT of A over the request's (A, B*m) view, the row FFT of B."""
     if m > MAX_M:
         raise NotImplementedError(
             f"{what}: m={m} > {MAX_M}, the kernel's unrolled shard bound; "
@@ -432,6 +442,12 @@ def _check_streaming(what: str, m: int, n: int, q: int) -> None:
     if q > _build.MAX_GRID_YZ:
         raise ValueError(f"{what}: batch q={q} exceeds the grid's "
                          f"{_build.MAX_GRID_YZ}")
+    return fft_cols_spec(what, a, b * m), fft_rows_spec(what, b)
+
+
+def _fft_tables(a: int, b: int, dev) -> list[int]:
+    """Pointers of the f32 tables of A and B the two FFT launches read."""
+    return [_build.ptr(t) for n in (a, b) for t in fft_twiddles_on(n, dev)]
 
 
 def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
@@ -440,10 +456,12 @@ def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
     kernel's shared memory: the arguments, result and plain twin
     (:func:`bucket_body`) of :func:`coded_fft_bucket`.
 
-    CUDA tensors run three launches (column pass, row pass, code and
+    CUDA tensors run three launches (column FFT, row FFT, code and
     recombine), each counted, with two (q, s) plane pairs of device
-    scratch; or raise.  The caller checks the gate
-    (``ops.coded_bucket_streamable``).
+    scratch; or raise.  The card computes the DFTs from the f32 tables of
+    A and B (``fourstep_fft.fft_rows_twiddles``), whose entries are those
+    of the DFT planes: it reads W, not ``far`` or ``fbr``.  The caller
+    checks the gate (``ops.coded_bucket_streamable``).
     """
     q, s = xr.shape
     n, m = gr.shape
@@ -460,14 +478,16 @@ def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
         "coded_fft_bucket_streaming", xr=xr, xi=xi, dr=dr, di=di, gr=gr,
         gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
         twi=twi, fmr=fmr, fmi=fmi)
-    _check_streaming("coded_fft_bucket_streaming", m, n, q)
+    spec_a, spec_b = _check_streaming("coded_fft_bucket_streaming", m, n, q,
+                                      a, b)
     t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
     p = _build.ptr
     _build.check(_streaming_lib()(
-        p(xr), p(xi), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr),
-        p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr), p(fmi), p(t1r),
-        p(t1i), p(zr), p(zi), p(outr), p(outi), q, n, m, a, b,
-        _build.stream_of(dev)), "coded_fft_bucket_streaming")
+        p(xr), p(xi), p(dr), p(di), p(gr), p(gi), p(wr), p(wi),
+        *_fft_tables(a, b, dev), p(twr), p(twi), p(fmr), p(fmi), p(t1r),
+        p(t1i), p(zr), p(zi), p(outr), p(outi), q, n, m,
+        ctypes.byref(spec_a), ctypes.byref(spec_b), _build.stream_of(dev)),
+        "coded_fft_bucket_streaming")
     _build.count_launch("coded_fft_bucket_streaming", 3)
     return outr, outi
 
@@ -477,7 +497,8 @@ def _streaming_masked_lib():
     fn = (_build.load("coded_bucket_streaming")
           .coded_bucket_streaming_masked_f32)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 24 + [i32] * 5 + [ctypes.c_float, vp]
+    spec = ctypes.POINTER(FftSpec)
+    fn.argtypes = [vp] * 24 + [i32] * 3 + [ctypes.c_float, spec, spec, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -510,17 +531,18 @@ def coded_fft_bucket_streaming_masked(xr, xi, masks, gr, gi, far, fai, wr,
         "coded_fft_bucket_streaming_masked", xr=xr, xi=xi, masks=mk, gr=gr,
         gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
         twi=twi, fmr=fmr, fmi=fmi)
-    _check_streaming("coded_fft_bucket_streaming_masked", m, n, q)
+    spec_a, spec_b = _check_streaming("coded_fft_bucket_streaming_masked", m,
+                                      n, q, a, b)
     dr = torch.empty((q, m, n), dtype=torch.float32, device=dev)
     di = torch.empty_like(dr)
     t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
     p = _build.ptr
     _build.check(_streaming_masked_lib()(
-        p(xr), p(xi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far),
-        p(fai), p(wr), p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr),
-        p(fmi), p(dr), p(di), p(t1r), p(t1i), p(zr), p(zi), p(outr),
-        p(outi), q, n, m, a, b, _ntau(n), _build.stream_of(dev)),
-        "coded_fft_bucket_streaming_masked")
+        p(xr), p(xi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(wr),
+        p(wi), *_fft_tables(a, b, dev), p(twr), p(twi), p(fmr), p(fmi),
+        p(dr), p(di), p(t1r), p(t1i), p(zr), p(zi), p(outr), p(outi), q, n,
+        m, _ntau(n), ctypes.byref(spec_a), ctypes.byref(spec_b),
+        _build.stream_of(dev)), "coded_fft_bucket_streaming_masked")
     _build.count_launch("coded_fft_bucket_streaming_masked", 4)
     return outr, outi
 

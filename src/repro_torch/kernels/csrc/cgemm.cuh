@@ -8,25 +8,11 @@
 // A batch stride of 0 shares one matrix across the batch.  The batch is
 // grid z, at most 65,535: callers chunk larger batches.
 //
-// An interleave factor g > 1 reads C's columns as g interleaved groups
-// (column n = j*g + i is group i's column j): the twiddle is W[row][j]
-// (W has N/g columns) and the result lands at column i*(N/g) + j, so the
-// groups come out as contiguous (N/g)-column blocks.  The streaming c2c
-// bucket's column pass takes the m interleaved message shards of a
-// request this way, straight from its natural layout.
-//
-// kTransOut writes C transposed, as (N, M) per batch entry: the streaming
-// four-step's row pass puts its output in natural order that way.  The
-// thread mapping swaps with it (a warp's threads then own 16 consecutive
-// rows), so the transposed stores stay coalesced and the shared-memory
-// reads stay free of conflicts.
-//
 // Callers, the dense-DFT passes of the four-step kernels: the column pass
 // (F_A @ M, twiddle in the epilogue) and the row pass (T1 @ F_B) of
-// encode_fourstep.cu, coded_bucket_streaming.cu and fourstep.cu's
-// fourstep_streaming, and fourstep.cu's fourstep_stage1 (a column pass).
-// fourstep_stage2, the two-pass row pass, runs the Stockham FFT of
-// fft_rows.cuh instead.
+// encode_fourstep.cu, and fourstep.cu's fourstep_stage1 (a column pass).
+// fourstep_stage2, fourstep_streaming and the streaming c2c bucket run the
+// Stockham FFTs of fft_rows.cuh and fft_cols.cuh instead.
 
 #pragma once
 
@@ -43,17 +29,14 @@ constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 
 // C[z] = A[z] @ B[z] (* W when wr != nullptr), planar complex,
 // A (M, K) at batch stride sa, B (K, N) at batch stride sb, C (M, N)
-// contiguous per batch entry, its columns in g interleaved groups (g
-// divides N; g = 1 is the plain product), or C^T (N, M) when kTransOut
-// (with g = 1).  Grid: (ceil(N/BN), ceil(M/BM), batch).
-template <bool kTransOut>
+// contiguous per batch entry.  Grid: (ceil(N/BN), ceil(M/BM), batch).
 __global__ void __launch_bounds__(kThreads)
 cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
              long long sa, const float* __restrict__ br,
              const float* __restrict__ bi, long long sb,
              const float* __restrict__ wr, const float* __restrict__ wi,
              float* __restrict__ cr, float* __restrict__ ci, int M, int N,
-             int K, int g) {
+             int K) {
   __shared__ float asr[BK][BM];
   __shared__ float asi[BK][BM];
   __shared__ float bsr[BK][BN];
@@ -66,8 +49,8 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   const float* Br = br + z * sb;
   const float* Bi = bi + z * sb;
   const int tid = threadIdx.x;
-  const int tx = kTransOut ? tid / (BM / TM) : tid % (BN / TN);
-  const int ty = kTransOut ? tid % (BM / TM) : tid / (BN / TN);
+  const int tx = tid % (BN / TN);
+  const int ty = tid / (BN / TN);
 
   float accr[TM][TN], acci[TM][TN];
 #pragma unroll
@@ -125,17 +108,14 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
       const int gn = n0 + tx + j * (BN / TN);
       if (gm < M && gn < N) {
         float r = accr[i][j], im = acci[i][j];
-        const int ng = N / g, col = gn / g, grp = gn % g;
         if (wr != nullptr) {
-          const long long woff = (long long)gm * ng + col;
+          const long long woff = (long long)gm * N + gn;
           const float w_r = wr[woff], w_i = wi[woff];
           const float t = r * w_r - im * w_i;
           im = r * w_i + im * w_r;
           r = t;
         }
-        const long long off =
-            kTransOut ? (long long)gn * M + gm
-                      : (long long)gm * N + (long long)grp * ng + col;
+        const long long off = (long long)gm * N + gn;
         Cr[off] = r;
         Ci[off] = im;
       }
@@ -146,16 +126,11 @@ cgemm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
 int launch_cgemm(const float* ar, const float* ai, long long sa,
                  const float* br, const float* bi, long long sb,
                  const float* wr, const float* wi, float* cr, float* ci,
-                 int batch, int M, int N, int K, cudaStream_t stream,
-                 int g = 1, bool trans_out = false) {
+                 int batch, int M, int N, int K, cudaStream_t stream) {
   const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM),
                   (unsigned)batch);
-  if (trans_out)
-    cgemm_kernel<true><<<grid, kThreads, 0, stream>>>(
-        ar, ai, sa, br, bi, sb, wr, wi, cr, ci, M, N, K, 1);
-  else
-    cgemm_kernel<false><<<grid, kThreads, 0, stream>>>(
-        ar, ai, sa, br, bi, sb, wr, wi, cr, ci, M, N, K, g);
+  cgemm_kernel<<<grid, kThreads, 0, stream>>>(ar, ai, sa, br, bi, sb, wr, wi,
+                                              cr, ci, M, N, K);
   return (int)cudaGetLastError();
 }
 

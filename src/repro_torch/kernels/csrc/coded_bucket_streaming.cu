@@ -20,12 +20,15 @@
 //   1. column pass   T1_i = (F_A @ M_i) * W for every message shard
 //                    M_i[a][b] = x[i + (a*B + b)*m], read in place: the
 //                    request viewed as an (A, B*m) matrix IS the m shards
-//                    interleaved column by column, so one GEMM over it
-//                    transforms them all; the epilogue de-interleaves,
-//                    writing t1 as (A, m, B);
-//   2. row pass      Z_i = T1_i @ F_B: t1 as an (A*m, B) matrix, so z is
-//                    (A, m, B) with Z_i[c][d] the spectrum at the natural
-//                    index c + d*A;
+//                    interleaved column by column, so one column FFT over
+//                    it (fft_cols.cuh, ld = B*m) transforms them all; its
+//                    last pass applies W[c][col / m], and its store
+//                    de-interleaves, column col = b*m + i to t1[c][i][b]:
+//                    t1 is (A, m, B);
+//   2. row pass      Z_i = T1_i @ F_B: the row FFT of fft_rows.cuh over
+//                    t1's A*m contiguous B-point rows, as fourstep_stage2
+//                    runs it, so z is (A, m, B) with Z_i[c][d] the
+//                    spectrum at the natural index c + d*A;
 //   3. code          at each payload position (c, d): every worker's
 //                    result b_r = G[r] . t over all N rows, then
 //                    c^ = D . b (the TPU kernel's two contractions, kept
@@ -52,18 +55,20 @@
 // bucket (q = 16, m = 4, N = 8: A = B = 512) the function needs an FFT
 // of each shard and O(N*m) coding work per position, about 0.04 ms of
 // FP32 work, against about 0.08 ms to read x, D and the planes and write
-// the output once.  This first port does far more work: phases 1 and 2
-// are dense DFTs (8*A*B*(A + B) flops per shard, about 90x an FFT's) on
-// the register-tiled complex GEMM of cgemm.cuh, so it is bound by FP32
-// operations.  Phase 3 is bytes: one thread per position, G, D and F_m
-// in shared memory, a warp over 4 c x 8 d positions so z and the twiddle
-// are read in whole 32-byte sectors and the output in half sectors.  A
-// radix FFT over the A x B tile is the way to its bound.  The decode
-// launch is latency: q blocks of O(m^2) work (one thread walks the
-// locator product), then m*N stores per request.
+// the output once.  Phases 1 and 2 are Stockham FFTs, each reading and
+// writing the request once (the f32 tables of A and B in place of the
+// dense F_A and F_B planes): TC = 8 columns a tile at A = 512, so phase
+// 1 reads 32-byte runs, and its de-interleaved store writes runs of 8/m
+// floats (two at m = 4), under a sector, which the neighbouring tiles'
+// blocks complete in L2.  Phase 3
+// is bytes: one thread per position, G, D and F_m in shared memory, a
+// warp over 4 c x 8 d positions so z and the twiddle are read in whole
+// 32-byte sectors and the output in half sectors.  The decode launch is
+// latency: q blocks of O(m^2) work (one thread walks the locator
+// product), then m*N stores per request.
 
 #include "bucket.cuh"
-#include "cgemm.cuh"
+#include "fft_cols.cuh"
 
 namespace {
 
@@ -209,24 +214,26 @@ int launch_code(const float* zr, const float* zi, const float* dr,
   return (int)cudaGetLastError();
 }
 
-// Phases 1-3 on the (q, m, n) decode planes d.
+// Phases 1-3 on the (q, m, n) decode planes d.  sa: the column FFT plan
+// of a over b*m columns; sb: the row FFT plan of b.
 int launch_phases(const float* xr, const float* xi, const float* dr,
                   const float* di, const float* gr, const float* gi,
-                  const float* far, const float* fai, const float* wr,
-                  const float* wi, const float* fbr, const float* fbi,
+                  const float* wr, const float* wi, const float* tar,
+                  const float* tai, const float* tbr, const float* tbi,
                   const float* twr, const float* twi, const float* fmr,
                   const float* fmi, float* t1r, float* t1i, float* zr,
                   float* zi, float* outr, float* outi, int q, int n, int m,
-                  int a, int b, cudaStream_t st) {
-  const long long s = (long long)m * a * b;
-  // 1. column pass over the interleaved (a, b*m) view, shards out as
-  //    (a, m, b), twiddle W[c][bb] on every shard
-  int err = launch_cgemm(far, fai, 0, xr, xi, s, wr, wi, t1r, t1i, q, a,
-                         b * m, a, st, m);
+                  const fft_cols::FftSpec& sa, const fft_cols::FftSpec& sb,
+                  cudaStream_t st) {
+  const int a = sa.n, b = sb.n;
+  // 1. column FFT over the interleaved (a, b*m) view, twiddle W[c][bb] on
+  //    every shard, shards out as (a, m, b)
+  int err = fft_cols::launch(xr, xi, t1r, t1i, tar, tai, wr, wi, q, b * m, m,
+                             false, sa, st);
   if (err != 0) return err;
-  // 2. row pass: (a*m, b) @ F_B
-  err = launch_cgemm(t1r, t1i, s, fbr, fbi, 0, nullptr, nullptr, zr, zi, q,
-                     a * m, b, b, st);
+  // 2. row FFT of the (q*a*m) b-point rows
+  err = fft_rows::launch(t1r, t1i, zr, zi, tbr, tbi, (long long)q * a * m,
+                         b, sb.radix, sb.passes, sb.tile, sb.layout, st);
   if (err != 0) return err;
   // 3. encode, decode, recombine, natural order
   if (m <= 4)
@@ -247,21 +254,23 @@ int launch_phases(const float* xr, const float* xi, const float* dr,
 }  // namespace
 
 // x: (q, s) planes; d: (q, m, n) scatter decode planes; g: (n, m);
-// fa: (a, a); w: (a, b); fb: (b, b); tw: (m, a*b) pre-scrambled;
-// fm: (m, m); t1, z: (q, s) scratch; out: (q, s).  m in [1, 32], q at
-// most 65,535 and 4*(4*n*m + 2*m*m) bytes within the opt-in shared
-// memory: the wrapper checks.  Returns the first nonzero
-// cudaGetLastError() of the three launches.
+// w: (a, b); ta, tb: the (a,) and (b,) f32 tables of w^t; tw: (m, a*b)
+// pre-scrambled; fm: (m, m); t1, z: (q, s) scratch; out: (q, s); sa, sb:
+// the plans of launch_phases, in host memory.  m in [1, 32], q at most
+// 65,535 and 4*(4*n*m + 2*m*m) bytes within the opt-in shared memory:
+// the wrapper checks.  Returns the first nonzero cudaGetLastError() of
+// the three launches.
 extern "C" int coded_bucket_streaming_f32(
     const float* xr, const float* xi, const float* dr, const float* di,
-    const float* gr, const float* gi, const float* far, const float* fai,
-    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* gr, const float* gi, const float* wr, const float* wi,
+    const float* tar, const float* tai, const float* tbr, const float* tbi,
     const float* twr, const float* twi, const float* fmr, const float* fmi,
     float* t1r, float* t1i, float* zr, float* zi, float* outr, float* outi,
-    int q, int n, int m, int a, int b, void* stream) {
-  return launch_phases(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+    int q, int n, int m, const fft_cols::FftSpec* sa,
+    const fft_cols::FftSpec* sb, void* stream) {
+  return launch_phases(xr, xi, dr, di, gr, gi, wr, wi, tar, tai, tbr, tbi,
                        twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
-                       m, a, b, (cudaStream_t)stream);
+                       m, *sa, *sb, (cudaStream_t)stream);
 }
 
 // Masked mode: masks (q, n) float (nonzero = responded); perm (m,) int32,
@@ -271,11 +280,12 @@ extern "C" int coded_bucket_streaming_f32(
 // cudaGetLastError() of the four launches.
 extern "C" int coded_bucket_streaming_masked_f32(
     const float* xr, const float* xi, const float* masks, const int* perm,
-    const float* gr, const float* gi, const float* far, const float* fai,
-    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* gr, const float* gi, const float* wr, const float* wi,
+    const float* tar, const float* tai, const float* tbr, const float* tbi,
     const float* twr, const float* twi, const float* fmr, const float* fmi,
     float* dr, float* di, float* t1r, float* t1i, float* zr, float* zi,
-    float* outr, float* outi, int q, int n, int m, int a, int b, float ntau,
+    float* outr, float* outi, int q, int n, int m, float ntau,
+    const fft_cols::FftSpec* sa, const fft_cols::FftSpec* sb,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
@@ -285,7 +295,7 @@ extern "C" int coded_bucket_streaming_masked_f32(
                                                         dr, di, n, m, ntau);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return launch_phases(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
+  return launch_phases(xr, xi, dr, di, gr, gi, wr, wi, tar, tai, tbr, tbi,
                        twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
-                       m, a, b, st);
+                       m, *sa, *sb, st);
 }

@@ -21,8 +21,8 @@
 // L = 2^18) that is about 0.05 ms of FP32 work against 0.16 ms of
 // traffic, and for the 4096-point plan (512 rows of L = 1024) about
 // 0.0004 ms against 0.0025 ms.  The dense passes do more work than that,
-// 8*L*A flops per row for the column pass (8*L*B for a dense row pass):
-// about 10x an FFT's at L = 1024, about 90x at L = 2^18 for the pair.
+// 8*L*A flops per row for the column pass: about 10x an FFT's at
+// L = 1024, about 90x at L = 2^18.
 //
 // Design.  fourstep_fused runs one block per batch row: it stages the
 // row's A x B matrix in shared memory, writes the column pass into a
@@ -39,17 +39,25 @@
 // radix plan and the working set's layout passed in at launch
 // (fourstep_fft.fft_rows_plan / fft_rows_layout), one f32 table of w^t
 // in place of F_B.  T1 sits in device memory between the two launches.
-// fourstep_streaming is the two dense passes behind one entry, its row
-// pass storing through the GEMM's transposed epilogue (cgemm.cuh,
-// kTransOut).  The TPU kernel streams both passes through VMEM tiles
-// inside one launch; here the pass boundary needs every block of the
-// column pass done, so it is a launch boundary.  The row FFT of
-// fft_rows.cuh is the way to the bound for the other passes too.
+//
+// fourstep_streaming runs no dense DFT: both of its passes are the
+// column FFT of fft_cols.cuh (the same Stockham schedule, over tiles of
+// TC columns), with f32 tables of A and B in place of F_A and F_B.
+// Launch 1 transforms the columns of x (ld = B), folds W into the last
+// pass and stores transposed: T1^T (batch, B, A), one contiguous run a
+// tile.  Launch 2 transforms the columns of T1^T (ld = A) and stores
+// them in place: out[d][c] = X[d*A + c], natural order, TC-float runs.
+// Both launches read TC-float runs (32 bytes at A = B = 512).  The other
+// way -- fft_rows.cuh over T1's rows with a transposed store -- would
+// write runs of one block's rows: 4 rows of B = 512, 16 bytes, half a
+// sector.  The TPU kernel streams both passes through VMEM tiles inside
+// one launch; here the pass boundary needs every block of the column
+// pass done, so it is a launch boundary.
 
 #include <cstring>
 
 #include "cgemm.cuh"
-#include "fft_rows.cuh"
+#include "fft_cols.cuh"
 
 namespace {
 
@@ -158,22 +166,28 @@ extern "C" int fourstep_stage2_f32(const float* tr, const float* ti,
                           passes, rows, layout, (cudaStream_t)stream);
 }
 
-// Streaming four-step: out[z] = (((F_A @ x[z]) * W) @ F_B)^T for z < batch
-// (<= 65,535; the wrapper chunks), natural order: out (batch, b, a) with
-// out[z][d][c] = X[d*a + c].  x: (batch, a, b); t1: (batch, a, b)
-// scratch.  Two launches; returns the first nonzero cudaGetLastError().
+// Streaming four-step: out[z] = (((F_A @ x[z]) * W) @ F_B)^T for
+// z < batch, natural order: out (batch, b, a) with out[z][d][c] =
+// X[d*a + c].  x: (batch, a, b); w: (a, b); ta, tb: the (a,) and (b,)
+// f32 tables of w^t; t1: (batch, b, a) scratch; sa, sb: the column FFT
+// plans of a (over b columns) and b (over a columns), in host memory.
+// Two launches; returns the first nonzero cudaGetLastError().
 extern "C" int fourstep_streaming_f32(const float* xr, const float* xi,
-                                      const float* far, const float* fai,
                                       const float* wr, const float* wi,
-                                      const float* fbr, const float* fbi,
+                                      const float* tar, const float* tai,
+                                      const float* tbr, const float* tbi,
                                       float* t1r, float* t1i, float* outr,
-                                      float* outi, int batch, int a, int b,
+                                      float* outi, long long batch,
+                                      const fft_cols::FftSpec* sa,
+                                      const fft_cols::FftSpec* sb,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long ab = (long long)a * b;
-  int err = launch_cgemm(far, fai, 0, xr, xi, ab, wr, wi, t1r, t1i, batch, a,
-                         b, a, st);
+  const int a = sa->n, b = sb->n;
+  // T1^T = ((F_A @ x) * W)^T: the columns of x, stored transposed
+  int err = fft_cols::launch(xr, xi, t1r, t1i, tar, tai, wr, wi, batch, b, 1,
+                             true, *sa, st);
   if (err != 0) return err;
-  return launch_cgemm(t1r, t1i, ab, fbr, fbi, 0, nullptr, nullptr, outr,
-                      outi, batch, a, b, b, st, 1, /*trans_out=*/true);
+  // out = (T1 @ F_B)^T: the columns of T1^T, stored in place
+  return fft_cols::launch(t1r, t1i, outr, outi, tbr, tbi, nullptr, nullptr,
+                          batch, a, 1, false, *sb, st);
 }

@@ -16,9 +16,11 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
   B-point FFT of every row (a shared-memory Stockham FFT, its radix plan
   :func:`fft_rows_plan`, working set :func:`fft_rows_layout` and
   twiddle table :func:`fft_rows_twiddles`), so it takes no DFT plane;
-* ``fourstep_streaming`` -- the same two passes behind one entry, the
-  row pass storing its output transposed: natural order ``(batch, B,
-  A)``, no unscramble after it;
+* ``fourstep_streaming`` -- the four-step behind one entry with no dense
+  DFT: both passes are the column FFT (the row FFT's Stockham schedule
+  down a tile of columns, its tile :func:`fft_cols_tile`, working set
+  :func:`fft_cols_layout`), the first storing transposed, so the output
+  is in natural order ``(batch, B, A)``, no unscramble after it;
 * ``encode_fourstep_fused`` -- the MDS encode folded in: the generator
   contraction acts across shards and the DFT within each, so the kernel
   transforms the m MESSAGE shards and encodes after (an N/m saving);
@@ -27,7 +29,7 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
   fits (:func:`multistep_layout`), else one launch per stage.
 
 CUDA sources: ``csrc/fourstep.cu`` (the first four; the row FFT in
-``csrc/fft_rows.cuh``),
+``csrc/fft_rows.cuh``, the column FFT in ``csrc/fft_cols.cuh``),
 ``csrc/encode_fourstep.cu`` and ``csrc/multistep.cu``; the plain twins
 are :func:`fourstep_body`, :func:`stage1_body`, :func:`stage2_body`,
 :func:`fourstep_streaming_body`, :func:`encode_fourstep_body` and
@@ -55,9 +57,14 @@ __all__ = [
     "stage2_body",
     "fourstep_stage1",
     "fourstep_stage2",
+    "fft_cols_layout",
+    "fft_cols_spec",
+    "fft_cols_tile",
     "fft_rows_layout",
     "fft_rows_plan",
+    "fft_rows_spec",
     "fft_rows_twiddles",
+    "fft_twiddles_on",
     "fourstep_streaming_body",
     "fourstep_streaming",
     "encode_fourstep_body",
@@ -345,6 +352,12 @@ def fft_rows_per_block(b: int) -> int:
     return max(1, -(-FFT_ROWS_TILE // b))
 
 
+def _padded(n: int) -> int:
+    """Words of an n-word shared plane padded one word in 32: the
+    kernels' ``pad(n - 1) + 1``."""
+    return n + ((n - 1) >> 5)
+
+
 def fft_rows_layout(b: int) -> tuple[int, ...]:
     """Word offsets of the row FFT's shared arrays, then the total: two
     planar buffers of a block's rows, then the twiddle table's two planes,
@@ -356,11 +369,8 @@ def fft_rows_layout(b: int) -> tuple[int, ...]:
     its working set, which :func:`fourstep_stage2` holds against
     :data:`_build.SMEM_PER_BLOCK_OPTIN`: every B up to 4096 fits.
     """
-    def plane(n):
-        return n + ((n - 1) >> 5)
-
-    rows = plane(fft_rows_per_block(b) * b)
-    return tuple(itertools.accumulate((2 * rows, 2 * rows, 2 * plane(b)),
+    rows = _padded(fft_rows_per_block(b) * b)
+    return tuple(itertools.accumulate((2 * rows, 2 * rows, 2 * _padded(b)),
                                       initial=0))
 
 
@@ -383,9 +393,85 @@ def _dft_from_twiddles(b: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _twiddles_on(b: int, device: torch.device):
+def fft_twiddles_on(b: int, device: torch.device):
+    """:func:`fft_rows_twiddles` as two f32 tensors on ``device``."""
     return tuple(torch.as_tensor(t, device=device)
                  for t in fft_rows_twiddles(b))
+
+
+# -- the column FFT: the same schedule down a tile of columns ---------------
+# Points of one block's tile at most: TC * n <= FFT_COLS_TILE
+FFT_COLS_TILE = 4096
+# Widest tile, in columns
+FFT_COLS_MAX_TC = 256
+# Passes a plan record holds (csrc/fft_rows.cuh, kMaxPasses)
+FFT_MAX_PASSES = 16
+
+
+def fft_cols_tile(n: int, ld: int) -> int:
+    """Columns TC of one tile of the n-point column FFT over ``ld``
+    columns: a power of two, doubled while ``2 * TC * n`` stays within
+    :data:`FFT_COLS_TILE`, TC stays under :data:`FFT_COLS_MAX_TC` and the
+    tile is narrower than ``ld``.  So n = 512 takes 8 columns (32-byte
+    runs), n = 384 8, n > 2048 one."""
+    tc = 1
+    while tc < ld and 2 * tc * n <= FFT_COLS_TILE and tc < FFT_COLS_MAX_TC:
+        tc *= 2
+    return tc
+
+
+def fft_cols_layout(n: int, ld: int) -> tuple[int, ...]:
+    """Word offsets of the column FFT's shared arrays, then the total: two
+    planar buffers of one tile (``fft_cols_tile(n, ld) * n`` points),
+    then the twiddle table's two planes, each plane padded one word in 32
+    as :func:`fft_rows_layout` pads.
+
+    The kernel takes these offsets at launch (``FftSpec.layout`` in
+    ``csrc/fft_cols.cuh``), so this is the one reckoning of its working
+    set, which :func:`fft_cols_spec` holds against
+    :data:`_build.SMEM_PER_BLOCK_OPTIN`: every n up to 4096 fits.
+    """
+    tile = _padded(fft_cols_tile(n, ld) * n)
+    return tuple(itertools.accumulate((2 * tile, 2 * tile, 2 * _padded(n)),
+                                      initial=0))
+
+
+class FftSpec(ctypes.Structure):
+    """``fft_cols::FftSpec`` of ``csrc/fft_cols.cuh``: one transform's
+    length, tile (log2 of a column tile's TC, or a row block's rows),
+    radix plan and shared-memory layout, passed to a launch by pointer."""
+
+    _fields_ = [("n", ctypes.c_int), ("tile", ctypes.c_int),
+                ("passes", ctypes.c_int),
+                ("radix", ctypes.c_int * FFT_MAX_PASSES),
+                ("layout", ctypes.c_longlong * 4)]
+
+
+def _fft_spec(what: str, n: int, tile: int, layout) -> FftSpec:
+    plan = fft_rows_plan(n)
+    if 4 * layout[-1] > _build.SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"{what}: a {n}-point FFT needs {4 * layout[-1]} bytes of "
+            f"shared memory per block, over {_build.SMEM_PER_BLOCK_OPTIN}")
+    return FftSpec(n, tile, len(plan),
+                   (ctypes.c_int * FFT_MAX_PASSES)(*plan),
+                   (ctypes.c_longlong * 4)(*layout))
+
+
+@functools.lru_cache(maxsize=None)
+def fft_cols_spec(what: str, n: int, ld: int) -> FftSpec:
+    """The column FFT's plan record for n points over ``ld`` columns.
+    Raises ValueError, naming ``what``, where its working set
+    (:func:`fft_cols_layout`) exceeds one block's shared memory."""
+    return _fft_spec(what, n, fft_cols_tile(n, ld).bit_length() - 1,
+                     fft_cols_layout(n, ld))
+
+
+@functools.lru_cache(maxsize=None)
+def fft_rows_spec(what: str, n: int) -> FftSpec:
+    """The row FFT's plan record for n-point rows (tile: the rows a
+    block takes).  Raises ValueError as :func:`fft_cols_spec` does."""
+    return _fft_spec(what, n, fft_rows_per_block(n), fft_rows_layout(n))
 
 
 @functools.lru_cache(maxsize=None)
@@ -421,7 +507,7 @@ def fourstep_stage2(tr, ti):
             f"bytes of shared memory per block, over "
             f"{_build.SMEM_PER_BLOCK_OPTIN}")
     plan = fft_rows_plan(b)
-    twr, twi = _twiddles_on(b, dev)
+    twr, twi = fft_twiddles_on(b, dev)
     outr = torch.empty_like(tr)
     outi = torch.empty_like(tr)
     p = _build.ptr
@@ -444,6 +530,16 @@ def fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi):
             outi.transpose(-1, -2).contiguous())
 
 
+@functools.lru_cache(maxsize=None)
+def _streaming_lib():
+    fn = _build.load("fourstep").fourstep_streaming_f32
+    vp = ctypes.c_void_p
+    spec = ctypes.POINTER(FftSpec)
+    fn.argtypes = [vp] * 12 + [ctypes.c_longlong, spec, spec, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
     """Batched four-step FFT of rows past one block, natural order out.
 
@@ -451,8 +547,13 @@ def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
     (batch, B, A) planes with ``out[d, c] = X[d*A + c]``: flattened, the
     spectrum in natural order.  CPU tensors run
     :func:`fourstep_streaming_body`; CUDA tensors launch the kernel -- two
-    launches per 65,535 rows (column pass, transposing row pass), each
-    counted, with a (batch, A, B) plane pair of device scratch -- or raise.
+    launches of the column FFT (A points over B columns with W, stored
+    transposed; B points over A columns), counted, with a (batch, B, A)
+    plane pair of device scratch -- or raise, also where a tile's working
+    set (:func:`fft_cols_layout`) exceeds one block's shared memory.  The
+    card computes the DFTs from the f32 tables of A and B
+    (:func:`fft_rows_twiddles`), whose entries are those of the DFT
+    planes: it reads W, not ``far`` or ``fbr``.
     """
     batch, a, b = xr.shape
     _check_fourstep("fourstep_streaming", xr, xi, far=far, fai=fai, wr=wr,
@@ -462,20 +563,20 @@ def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
     dev = _build.check_planes(
         "fourstep_streaming", xr=xr, xi=xi, far=far, fai=fai, wr=wr, wi=wi,
         fbr=fbr, fbi=fbi)
-    t1r = torch.empty_like(xr)
-    t1i = torch.empty_like(xr)
-    outr = torch.empty((batch, b, a), dtype=torch.float32, device=dev)
-    outi = torch.empty_like(outr)
-    fn = _fourstep_lib("fourstep_streaming_f32", 12)
+    spec_a = fft_cols_spec("fourstep_streaming", a, b)
+    spec_b = fft_cols_spec("fourstep_streaming", b, a)
+    t1r, t1i, outr, outi = (
+        torch.empty((batch, b, a), dtype=torch.float32, device=dev)
+        for _ in range(4))
+    if batch == 0:
+        return outr, outi
     p = _build.ptr
-    for z0 in range(0, batch, _build.MAX_GRID_YZ):
-        z1 = min(batch, z0 + _build.MAX_GRID_YZ)
-        _build.check(fn(
-            p(xr[z0:z1]), p(xi[z0:z1]), p(far), p(fai), p(wr), p(wi), p(fbr),
-            p(fbi), p(t1r[z0:z1]), p(t1i[z0:z1]), p(outr[z0:z1]),
-            p(outi[z0:z1]), z1 - z0, a, b, _build.stream_of(dev)),
-            "fourstep_streaming")
-        _build.count_launch("fourstep_streaming", 2)
+    _build.check(_streaming_lib()(
+        p(xr), p(xi), p(wr), p(wi), *(p(t) for t in fft_twiddles_on(a, dev)),
+        *(p(t) for t in fft_twiddles_on(b, dev)), p(t1r), p(t1i), p(outr),
+        p(outi), batch, ctypes.byref(spec_a), ctypes.byref(spec_b),
+        _build.stream_of(dev)), "fourstep_streaming")
+    _build.count_launch("fourstep_streaming", 2)
     return outr, outi
 
 

@@ -653,10 +653,12 @@ def test_gpu_host_service_launches(cuda, kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,m,n", SHAPES + [(1 << 16, 4, 8),
                                             (16 * 64, 16, 32),
-                                            (32 * 32, 32, 64)])
+                                            (32 * 32, 32, 64),
+                                            (3 * 4096, 3, 7)])
 def test_gpu_streaming_bucket_matches_plain(cuda, s, m, n):
     """The streaming bucket kernel (three launches) against its plain
-    twin on the card, at ragged and unrolled-bound shapes, and (narrow
+    twin on the card, at ragged and unrolled-bound shapes, m = 3 not
+    dividing the column FFT's 64-column tile among them, and (narrow
     codes) against numpy."""
     masks = _servable_masks(n, m) if m <= 4 else _spread_masks(n, 3)
     q = len(masks)

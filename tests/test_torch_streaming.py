@@ -35,6 +35,7 @@ import pytest
 import torch
 from test_torch_kernels import adversarial_masks
 from test_torch_kernels import private_autotune_table  # noqa: F401
+from test_torch_plan import UNROLLED, _stockham_model
 from test_torch_real import _mixed_requests as _requests
 from test_torch_real import _port_twin, _rel, _t
 
@@ -48,8 +49,16 @@ from repro_torch.kernels import coded_pipeline as tcp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fourstep_fft import (
+    fft_cols_layout,
+    fft_cols_spec,
+    fft_cols_tile,
+    fft_rows_plan,
+    fft_rows_spec,
+    fft_rows_twiddles,
     fourstep_streaming,
     fourstep_streaming_body,
+    stage1_body,
+    stage2_body,
 )
 from repro_torch.kernels.recombine import (
     recombine_body,
@@ -588,6 +597,269 @@ def test_streaming_variant_routing(monkeypatch):
                            *tops._fourstep_planes(4, 4, CPU))
 
 
+# ------------------------------------------------- the column FFT's schedule
+# A sweep of the column FFT (csrc/fft_cols.cuh): small and mixed radices,
+# a prime past the unrolled ones (97), 384 and 512, and the largest prime
+# and power-of-two A the streaming four-step admits (4093, 4096)
+COL_FFT_A = [2, 3, 12, 60, 97, 384, 512, 4093, 4096]
+
+
+def _table(twr, twi):
+    return np.asarray(twr, np.float64) + 1j * np.asarray(twi, np.float64)
+
+
+def _fft_cols_model(x, n, ld, twr, twi, w=None, g=1, trans=False,
+                    dense=False):
+    """The column FFT kernel's schedule in numpy, index for index, on
+    (batch, n*ld) rows of (n, ld) matrices: per tile of TC =
+    fft_cols_tile(n, ld) columns (col0 = tile*TC; columns past ld dead,
+    loaded as zero), word a*TC + t holds x[a*ld + col0 + t]; each pass of
+    radix R (ns the product of the radices before it, m = n/R) takes
+    butterfly j of column col from words (j + r*m)*TC + col, as
+    _stockham_model does a row, and writes point (j - j % ns)*R + j % ns
+    + c*ns; the last pass multiplies point p of live column col by
+    w[p][(col0 + col) // g].  Then the store: transposed (flat
+    out[(col0 + t)*n + c]) or de-interleaved (column col = b*g + i to
+    flat out[(c*g + i)*(ld//g) + b]).  complex128 on the given table."""
+    batch = x.shape[0]
+    tab = _table(twr, twi)
+    tc = fft_cols_tile(n, ld)
+    lg = tc.bit_length() - 1
+    tiles = -(-ld // tc)
+    col0 = np.arange(tiles) * tc
+    pts, cols = np.arange(n), np.arange(tc)
+    gcol = col0[:, None, None] + cols[None, None, :]       # (tiles, 1, tc)
+    live = np.broadcast_to(gcol < ld, (tiles, n, tc))
+    words = ((pts[:, None] << lg) + cols[None, :]).ravel()
+    src = np.zeros((batch, tiles, n * tc), np.complex128)
+    gather = np.where(live, pts[None, :, None] * ld + gcol, 0)
+    src[:, :, words] = np.where(live, x[:, gather], 0).reshape(
+        batch, tiles, -1)
+    wmul = None
+    if w is not None:
+        # w at (point, tile, column), 1 on dead columns
+        wmul = np.where(live, w[pts[None, :, None],
+                                np.minimum(gcol, ld - 1) // g], 1)
+        wmul = wmul.transpose(1, 0, 2)                     # (n, tiles, tc)
+    plan = fft_rows_plan(n)
+    if not plan and wmul is not None:
+        src = src * wmul[0][None]
+    ns = 1
+    for step, radix in enumerate(plan):
+        m, unit = n // radix, n // (ns * radix)
+        j = np.arange(m)
+        k = j % ns
+        r = np.arange(radix)
+        rd = ((j[None, :, None] + m * r[:, None, None]) << lg) + cols
+        v = src[:, :, rd] * tab[r[:, None] * k[None, :] * unit][
+            None, None, :, :, None]                         # (z, T, R, m, tc)
+        if radix in UNROLLED and not dense:
+            cw = tab[(np.outer(r, r) % radix) * m]          # [r, c]
+            y = np.einsum("ztrjc,rq->ztqjc", v, cw)
+        else:
+            y = np.empty_like(v)
+            for h in range(radix // 2 + 1):
+                t = tab[(r * h * m) % n][None, None, :, None, None]
+                y[:, :, h] = (v * t).sum(2)
+                if h and 2 * h != radix:
+                    y[:, :, radix - h] = (v * np.conj(t)).sum(2)
+        point = ((j - k) * radix + k)[None, :] + ns * r[:, None]  # (R, m)
+        if step + 1 == len(plan) and wmul is not None:
+            y = y * wmul[point].transpose(2, 0, 1, 3)[None]
+        dst = np.empty_like(src)
+        dst[:, :, (point[:, :, None] << lg) + cols] = y
+        src = dst
+        ns *= radix
+    buf = src.reshape(batch, tiles, n, tc)[:, live]        # (z, live words)
+    ti, ci, ki = np.nonzero(live)                          # tile, point, col
+    col = col0[ti] + ki
+    out = np.empty((batch, n * ld), np.complex128)
+    if trans:
+        out[:, col * n + ci] = buf
+    else:
+        bb, ii = col // g, col % g
+        out[:, (ci * g + ii) * (ld // g) + bb] = buf
+    return out
+
+
+def _column_fft(x, n, ld, w=None, g=1):
+    """The reference: np.fft down the columns, times w[c][col // g]."""
+    y = np.fft.fft(x.reshape(-1, n, ld), axis=1)
+    if w is not None:
+        y = y * w[:, np.arange(ld) // g][None]
+    return y
+
+
+@pytest.mark.parametrize("a", COL_FFT_A)
+def test_fft_cols_schedule_and_store_maps_match_numpy(a):
+    """The column FFT's schedule on its radix plan and table, over ragged
+    tiles: np.fft down the columns to float64 rounding on a float64 table
+    (unrolled and dense index maths both) and to f32 twiddle rounding on
+    the kernel's own table; with the four-step twiddle, the transposed
+    store and the de-interleaved one for m in (1, 3, 4, 16)."""
+    b = 2 if a > 512 else 5
+    rng = np.random.default_rng(a)
+    tab64 = np.cos(-2 * np.pi * np.arange(a) / a), np.sin(
+        -2 * np.pi * np.arange(a) / a)
+    x = _crand(rng, 1 if a > 512 else 2, a * 3 * b)
+    want = _column_fft(x, a, 3 * b).reshape(len(x), -1)
+    for dense in (False, True) if a <= 512 else (False,):
+        got = _fft_cols_model(x, a, 3 * b, *tab64, dense=dense)
+        assert _rel([got], [want]) < 1e-12, dense
+    got = _fft_cols_model(x, a, 3 * b, *fft_rows_twiddles(a))
+    assert _rel([got], [want]) < 1e-6
+    wr, wi = tops._twiddle_planes(a, b)
+    w = _table(wr, wi)
+    xt = x[:, :a * b]
+    got = _fft_cols_model(xt, a, b, *fft_rows_twiddles(a), w=w, trans=True)
+    want = _column_fft(xt, a, b, w).transpose(0, 2, 1)
+    assert _rel([got], [want.reshape(len(x), -1)]) < 1e-6
+    for m in (1, 3, 4, 16):
+        xm = _crand(rng, len(x), a * b * m)
+        got = _fft_cols_model(xm, a, b * m, *fft_rows_twiddles(a), w=w,
+                              g=m)
+        want = _column_fft(xm, a, b * m, w, g=m).reshape(len(x), a, b, m)
+        assert _rel([got], [want.transpose(0, 1, 3, 2).reshape(
+            len(x), -1)]) < 1e-6, m
+
+
+# (A, B) of the streaming four-step: both passes' tiles ragged or whole,
+# and a one-point pass (no butterfly: W applied on its own)
+STREAM_FOURSTEP = [(1, 5), (5, 1), (2, 3), (3, 2), (12, 60), (60, 12),
+                   (97, 4), (384, 3), (512, 2), (4093, 2), (4096, 2)]
+
+
+@pytest.mark.parametrize("a,b", STREAM_FOURSTEP)
+def test_streaming_fourstep_schedule_matches_body(a, b):
+    """fourstep_streaming's two launches as the model runs them -- the
+    A-point column FFT over x with W, stored transposed into T1^T
+    (batch, B, A), then the B-point column FFT over T1^T stored in place
+    -- are np.fft in natural order, and (A <= 512, where the dense F_A
+    plane is small) fourstep_streaming_body on the same f32 planes."""
+    rng = np.random.default_rng(a * b)
+    batch = 2
+    x = _crand(rng, batch, a * b, dtype=np.complex64)
+    wr, wi = tops._twiddle_planes(a, b)
+    t1 = _fft_cols_model(x, a, b, *fft_rows_twiddles(a), w=_table(wr, wi),
+                         trans=True)
+    got = _fft_cols_model(t1, b, a, *fft_rows_twiddles(b))
+    truth = np.fft.fft(x.astype(np.complex128), axis=-1)
+    assert _rel([got], [truth]) < 1e-6
+    if a <= 512:
+        xr, xi = _t(x.real.reshape(batch, a, b), x.imag.reshape(batch, a, b))
+        br, bi = fourstep_streaming_body(xr, xi,
+                                         *tops._fourstep_planes(a, b, CPU))
+        assert _rel([got], [(br + 1j * bi).reshape(batch, -1).numpy()]) \
+            < PAIR_TOL
+
+
+# (s, m, N) of the streaming bucket: the GPU tests' shapes, m not
+# dividing the tile width among them
+STREAM_BUCKETS = [(96, 3, 7), (768, 4, 6), (2048, 4, 8), (3 * 4096, 3, 7),
+                  (16384, 4, 8), (32768, 16, 32)]
+
+
+@pytest.mark.parametrize("s,m,n", STREAM_BUCKETS)
+def test_streaming_bucket_schedule_matches_body(s, m, n):
+    """The streaming bucket's phases as the kernels index them: phase 1,
+    the A-point column FFT over the request's (A, B*m) view with W by
+    column // m and the de-interleaved store, is stage1_body of the m
+    interleaved shards in t1's (A, m, B) layout; phase 2, the row FFT of
+    t1's A*m B-point rows (_stockham_model), is stage2_body there, so z
+    holds Z_i[c][d] at (c*m + i)*B + d; and phase 3 reading z at that
+    index (encode, decode, the pre-scrambled twiddle at c*B + d, the
+    m-point DFT, out[j*L + c + d*A]) gives bucket_body's output."""
+    q = 2
+    a, b = tops.split_factor(s // m)
+    ell = a * b
+    rng = np.random.default_rng(s + m)
+    x = _crand(rng, q, s, dtype=np.complex64)
+    far, fai, wr, wi, fbr, fbi, twr, twi, fmr, fmi = tops._bucket_planes(
+        s, m, CPU)
+    t1 = _fft_cols_model(x, a, b * m, *fft_rows_twiddles(a),
+                         w=_table(wr, wi), g=m).reshape(q, a, m, b)
+    shards = _t(*(p.reshape(q, ell, m).transpose(0, 2, 1).reshape(
+        q * m, a, b) for p in (x.real, x.imag)))
+    s1r, s1i = stage1_body(*shards, far, fai, wr, wi)
+    want = (s1r + 1j * s1i).numpy().reshape(q, m, a, b).transpose(0, 2, 1, 3)
+    assert _rel([t1], [want]) < 1e-5
+    z = _stockham_model(t1.reshape(-1, b), fft_rows_plan(b),
+                        *fft_rows_twiddles(b)).reshape(q, a, m, b)
+    s2r, s2i = stage2_body(*_t(want.real.astype(np.float32).reshape(q, -1, b),
+                               want.imag.astype(np.float32).reshape(q, -1, b)),
+                           fbr, fbi)
+    assert _rel([z], [(s2r + 1j * s2i).numpy().reshape(q, a, m, b)]) < 1e-5
+    masks = (adversarial_masks(n, m)[:q] if m <= 4 else
+             np.stack([np.roll(np.arange(n) % (n // m) == 0, i)
+                       for i in range(q)]))
+    _, _, dr, di = tcp.lagrange_planes_body(
+        tcp.mask_subsets(torch.as_tensor(masks), m), n)
+    d = (dr + 1j * di).numpy().astype(np.complex128)          # (q, m, n)
+    g = tmds.rs_generator(n, m, torch.complex128, CPU).numpy()
+    tw = _table(twr, twi)
+    fm = _table(fmr, fmi)
+    c, dd = np.meshgrid(np.arange(a), np.arange(b), indexing="ij")
+    t = z.transpose(0, 2, 1, 3)                          # [q, i, c, d]
+    assert np.array_equal(t[:, :, c, dd].ravel(), z.reshape(q, -1)[
+        :, ((c[None] * m + np.arange(m)[:, None, None]) * b
+            + dd[None])].ravel())
+    h = np.einsum("qjr,ri,qicd->qjcd", d, g, t)
+    h = h * tw.reshape(m, a, b)[None]                    # tw[j][c*B + d]
+    o = np.einsum("pj,qjcd->qpcd", fm, h)
+    out = np.empty((q, s), np.complex128)
+    out[:, (np.arange(m)[:, None, None] * ell + c + dd * a).ravel()] = \
+        o.reshape(q, -1)
+    xr, xi = _t(x.real, x.imag)
+    plain = tcp.bucket_body(xr, xi, dr, di, *_t(g.real.astype(np.float32),
+                                                g.imag.astype(np.float32)),
+                            far, fai, wr, wi, fbr, fbi, twr, twi, fmr, fmi)
+    assert _rel([out], [(plain[0] + 1j * plain[1]).numpy()]) < PAIR_TOL
+    full = masks.sum(axis=1) >= m
+    truth = np.fft.fft(x.astype(np.complex128), axis=-1)
+    assert _rel([out[full]], [truth[full]]) < TRUTH_TOL
+
+
+def test_fft_cols_layout_fits_every_streaming_length():
+    """The column FFT's working set, one reckoning: within a block's
+    shared memory for every A (and B) up to 4096, which bounds both
+    factors fourstep_route(variant="streaming") admits, at TC = 8 for A =
+    512 and 384 and TC = 1 past 2048; the streaming bucket's column FFT
+    of A over B*m columns and row FFT of B fit wherever
+    coded_bucket_streamable admits (s, m, N); past 4096 the route takes
+    the platform FFT, and at 16384 points the plan record -- what the
+    wrapper launches with -- refuses."""
+    for n in range(1, 4097):
+        for ld in (1, 3, n, 1 << 20):
+            tc = fft_cols_tile(n, ld)
+            assert tc & (tc - 1) == 0 and 1 <= tc <= 256
+            assert tc * n <= 4096 or tc == 1
+            assert tc >= min(ld, 4096 // n, 256) or 2 * tc * n > 4096
+            x, y, tab, total = fft_cols_layout(n, ld)
+            last = tc * n - 1
+            assert x == 0 and y == tab - y and y >= 2 * (last + last // 32
+                                                         + 1)
+            assert total - tab >= 2 * (n - 1 + (n - 1) // 32 + 1)
+            assert 4 * total <= _build.SMEM_PER_BLOCK_OPTIN, (n, ld)
+    assert [fft_cols_tile(n, n) for n in (512, 384, 4093, 4096)] == \
+        [8, 8, 1, 1]
+    for ell in (1 << 18, 4093 * 4, 384 * 384, 4096 * 4096):
+        variant, (a, b) = tops.fourstep_route(ell, variant="streaming")
+        assert variant == "streaming" and max(a, b) <= 4096
+        fft_cols_spec("x", a, b)
+        fft_cols_spec("x", b, a)
+    assert tops.fourstep_route(4 * 16384, variant="streaming",
+                               factors=(16384, 4)) == ("xla", None)
+    for s, m, n in STREAM_BUCKETS + [(1 << 20, 4, 8), (1 << 20, 32, 64)]:
+        if tops.coded_bucket_streamable(s, m, n):
+            a, b = tops.split_factor(s // m)
+            assert fft_cols_spec("x", a, b * m).n == a
+            assert fft_rows_spec("x", b).n == b
+    with pytest.raises(ValueError, match="shared memory"):
+        fft_cols_spec("fourstep_streaming", 16384, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        fft_rows_spec("coded_fft_bucket_streaming", 16384)
+
+
 # ------------------------------------------------------------- refusals
 def test_service_refuses_stage_codes_at_construction():
     """A code whose cfg.s bucket takes the stage route with N*m > 29,056
@@ -718,8 +990,14 @@ def test_gpu_streaming_masked_bucket_matches_plain(cuda, s, m, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,a,b", [(3, 64, 128), (2, 100, 37),
-                                       (4, 512, 512)])
+                                       (4, 512, 512), (2, 384, 384),
+                                       (2, 4093, 4), (1, 4096, 4),
+                                       (1, 4, 4096), (2, 1, 64),
+                                       (2, 64, 1)])
 def test_gpu_fourstep_streaming_matches_plain(cuda, batch, a, b):
+    """The streaming four-step (two launches of the column FFT) against
+    its plain twin and numpy: mixed radices, a prime A (one dense pass),
+    A = 4096 (one column a tile), B = 4096, and one-point passes."""
     x = _crand(np.random.default_rng(a + b), batch, a * b,
                dtype=np.complex64)
     xr, xi = _t(x.real.reshape(batch, a, b), x.imag.reshape(batch, a, b),
