@@ -8,12 +8,14 @@ Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 plain PyTorch version on the card at the shapes its main path gives it
 (``fourstep_stage2``'s row FFT also at B = 384 and at the prime B =
 4093, ``fourstep_streaming``'s column FFTs at (16, 384, 384) and at the
-prime A of (16, 4093, 4)), prints the FFT kernels' ptxas registers and
-spills, then drives the main paths at two sizes each, for each 1-D kind: the
-service's ``submit_batch`` with kind c2c, r2c and c2r (the kind's
-whole-bucket kernel at s=4096; at s=2^20 the masked streaming c2c
-bucket kernel and the stage kernels for the real kinds; the c2c stage
-kernels at s=2^21), on the device-decode path and on the host
+prime A of (16, 4093, 4), ``encode_fourstep_fused`` past its fold at
+m = 32, B = 512, three launches, and both its routes forced where both
+fit a block), prints the FFT kernels' ptxas
+registers and spills, then drives the main paths at two sizes each,
+for each 1-D kind: the service's ``submit_batch`` with kind c2c, r2c
+and c2r (the kind's whole-bucket kernel at s=4096; at s=2^20 the
+masked streaming c2c bucket kernel and the stage kernels for the real
+kinds; the c2c stage kernels at s=2^21), on the device-decode path and on the host
 decode-matrix path (``device_decode=False``: the planes bucket kernels
 at s=4096, the streaming c2c bucket kernel at s=2^20, and the stage
 kernels past ``LAGRANGE_MAX_M`` at m=64, N=128), the service's
@@ -66,6 +68,8 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 F32 = 4
+# the FFT kernels' names: the profiled calls sum each one's device ms
+FFT_KERNELS = ("fft_cols_kernel", "fft_rows_kernel", "encode_rows_kernel")
 
 
 def emit(obj) -> None:
@@ -411,6 +415,8 @@ def main() -> int:
     from repro_torch.kernels.fourstep_fft import (
         encode_fourstep_body,
         encode_fourstep_fused,
+        encode_rows_fold,
+        encode_rows_per_block,
         fft_cols_tile,
         fft_rows_plan,
         fourstep_body,
@@ -425,7 +431,10 @@ def main() -> int:
         stage1_body,
         stage2_body,
     )
-    from repro_torch.kernels.fourstep_fft import _parse_stage_planes
+    from repro_torch.kernels.fourstep_fft import (
+        _encode_on_card,
+        _parse_stage_planes,
+    )
     from repro_torch.kernels.recombine import (
         recombine_batched_body,
         recombine_body,
@@ -470,11 +479,14 @@ def main() -> int:
           "built": sorted(built), "dir": str(_build.build_dir().name),
           "smem_per_block_optin": optin, "ptxas": ptxas})
     # the Stockham FFT kernels' registers and spills, in each library that
-    # builds them (fft_cols_kernel: both streaming kernels' FFT passes)
+    # builds them (fft_cols_kernel: the column pass of stage 1, of the
+    # encode and of both streaming kernels; encode_rows_kernel: the
+    # encode's row FFT with G in its store)
     emit({"phase": "ptxas_fft", **{
         name: [ln for ln in ptxas[name] if "fft_cols" in ln
-               or "fft_rows" in ln]
-        for name in ("fourstep", "coded_bucket_streaming")}})
+               or "fft_rows" in ln or "encode_rows" in ln]
+        for name in ("fourstep", "coded_bucket_streaming",
+                     "encode_fourstep")}})
 
     rng = np.random.default_rng(0)
     spin_rate = spin_cycles_per_ms(torch)
@@ -541,6 +553,26 @@ def main() -> int:
                   for k, f in yardsticks}}
         emit({"phase": "kernel", **row})
         into.append(row)
+
+    def launches_of(name, run):
+        """The launches one call of ``run`` counts under ``name``."""
+        before = _build.launch_counts().get(name, 0)
+        run()
+        torch.cuda.synchronize()
+        return _build.launch_counts().get(name, 0) - before
+
+    def encode_route(fold):
+        return "folded" if fold else "fall-back"
+
+    def check_encode_split(split, fold, shape):
+        """The traced encode ran the route its gate chose: the folded row
+        kernel and no G apply, or the row FFT and the G apply."""
+        ran = {k for k, ms in split["tracked_ms"].items() if ms > 0}
+        want = ({"fft_cols_kernel", "encode_rows_kernel"} if fold else
+                {"fft_cols_kernel", "fft_rows_kernel", "bcmatmul_kernel"})
+        if ran != want:
+            fail(f"encode_fourstep_fused {shape}: traced kernels {ran}, "
+                 f"expected {want}")
 
     csrc = "src/repro_torch/kernels/csrc/"
     # -- 3. each kernel against its plain version, at the service shapes --
@@ -717,17 +749,35 @@ def main() -> int:
         # least work: an FFT of each message shard, then the (N, m) encode
         flops = q * m * fft_flops(ell) + q * 8 * n * m * ell
         msg = torch.complex(cr, ci).reshape(q, m, ell)
+        gc = torch.complex(gr, gi)
+        # the card reads the shards, G, W and the f32 tables of A and B
         nbytes = F32 * (2 * q * m * ell + 2 * n * m
-                        + 2 * (a * a + b * b + a * b) + 2 * q * n * ell)
+                        + 2 * (a * b + a + b) + 2 * q * n * ell)
+        fold = encode_rows_fold(m, a, b)
+        run = lambda: encode_fourstep_fused(cr, ci, gr, gi, *fplanes)
+        per_call = launches_of("encode_fourstep_fused", run)
+        if per_call != (2 if fold else 3):
+            fail(f"encode_fourstep_fused {[q, m, a, b, n]}: {per_call} "
+                 f"launches a call, fold={fold}")
         kernel_row(
             "encode_fourstep_fused", csrc + "encode_fourstep.cu",
-            "src/repro/kernels/fourstep_fft.py:187",
-            lambda: encode_fourstep_fused(cr, ci, gr, gi, *fplanes),
+            "src/repro/kernels/fourstep_fft.py:187", run,
             lambda: encode_fourstep_body(cr, ci, gr, gi, *fplanes),
             None, 1e-4, nbytes, flops, reps[0], [q, m, a, b, n],
-            # the FFT work the two dense DFT passes stand in for (no encode)
-            yardsticks=[("fft_ms", lambda: torch.fft.fft(msg, dim=-1))],
-            into=into)
+            # the FFT part alone, and the two library calls that compute
+            # the same function (in natural order): the FFT, then G
+            yardsticks=[("fft_ms", lambda: torch.fft.fft(msg, dim=-1)),
+                        ("fft_then_cmatmul_ms", lambda: torch.matmul(
+                            gc, torch.fft.fft(msg, dim=-1)))],
+            into=into, encode_route=encode_route(fold),
+            launches_per_call=per_call)
+        split = profile_call(torch, run,
+                             track=FFT_KERNELS + ("bcmatmul_kernel",))
+        check_encode_split(split, fold, [q, m, a, b, n])
+        emit({"phase": "kernel_split", "name": "encode_fourstep_fused",
+              "shape": [q, m, a, b, n], "encode_route": encode_route(fold),
+              "rows_per_block": (encode_rows_per_block(m, a, b) if fold
+                                 else None), **split})
         del cr, ci, msg
 
         br, bi = randn(q, n, ell), randn(q, n, ell)
@@ -785,6 +835,70 @@ def main() -> int:
               for p in (dm64.real, dm64.imag))
     stage_rows(q, s, m, n, dr, di, (20, 20), m64_rows)
     del dr, di
+    # the encode past its fold: m = 32 of N = 64 at A = B = 512 (a row
+    # block of 16384 points, past a block's shared memory), 2 requests --
+    # the row FFT, then the G apply: three launches a call -- against its
+    # plain twin
+    q, m, n, a, b = 2, 32, 64, 512, 512
+    if encode_rows_fold(m, a, b):
+        fail(f"encode_fourstep_fused ({m}, {b}) folds")
+    cr, ci = randn(q, m, a, b), randn(q, m, a, b)
+    fplanes = ops._fourstep_planes(a, b, dev)
+    gr32, gi32 = ref.planar(mds.rs_generator(n, m, device=dev))
+    msg, gc = torch.complex(cr, ci).reshape(q, m, a * b), torch.complex(
+        gr32, gi32)
+    run = lambda: encode_fourstep_fused(cr, ci, gr32, gi32, *fplanes)
+    per_call = launches_of("encode_fourstep_fused", run)
+    if per_call != 3:
+        fail(f"encode_fourstep_fused past the fold: {per_call} launches")
+    split = profile_call(torch, run, track=FFT_KERNELS + ("bcmatmul_kernel",))
+    check_encode_split(split, False, [q, m, a, b, n])
+    emit({"phase": "kernel_check", "name": "encode_fourstep_fused",
+          "shape": [q, m, a, b, n], "encode_route": encode_route(False),
+          "launches_per_call": per_call,
+          "fft_then_cmatmul_ms": time_ms(torch, lambda: torch.matmul(
+              gc, torch.fft.fft(msg, dim=-1)), 3, spin_rate),
+          **measure(
+              "encode_fourstep_fused", run,
+              lambda: encode_fourstep_body(cr, ci, gr32, gi32, *fplanes),
+              None, 1e-4,
+              F32 * (2 * q * m * a * b + 2 * n * m
+                     + 2 * (a * b + a + b) + 2 * q * n * a * b),
+              q * m * fft_flops(a * b) + q * 8 * n * m * a * b, 3),
+          "split": split["tracked_ms"]})
+    del cr, ci, msg, fplanes
+    torch.cuda.empty_cache()
+
+    # the encode's fork, where both routes fit a block: the folded row
+    # FFT (one block an SM past 4096 points a block) against the row FFT
+    # and the G apply, each forced, each against the plain twin; the
+    # gate's choice printed beside them
+    for q, m, n, a, b in ((4, 16, 32, 512, 512), (4, 64, 128, 128, 128)):
+        cr, ci = randn(q, m, a, b), randn(q, m, a, b)
+        fplanes = ops._fourstep_planes(a, b, dev)
+        gf = ref.planar(mds.rs_generator(n, m, device=dev))
+        plain = encode_fourstep_body(cr, ci, *gf, *fplanes)
+        fork = {}
+        for folded in (True, False):
+            got = _encode_on_card(cr, ci, *gf, fplanes[2], fplanes[3],
+                                  folded)
+            torch.cuda.synchronize()
+            _, rel = compare(torch, got, plain)
+            if not rel < 1e-4:
+                fail(f"encode fork {[q, m, a, b, n]} folded={folded}: "
+                     f"rel err {rel}")
+            key = encode_route(folded).replace("-", "_")
+            fork[f"{key}_max_rel_err"] = rel
+            fork[f"{key}_ms"] = time_ms(
+                torch, lambda: _encode_on_card(cr, ci, *gf, fplanes[2],
+                                               fplanes[3], folded),
+                5, spin_rate)
+        emit({"phase": "encode_fold_fork", "shape": [q, m, a, b, n],
+              "gate": encode_route(encode_rows_fold(m, a, b)),
+              "points_a_block": m * encode_rows_per_block(m, a, b) * b,
+              **fork})
+        del cr, ci, fplanes, plain, got
+    torch.cuda.empty_cache()
 
     # (e)-(h) the plan's kernels at the shapes CodedFFT.run gives them.
     # fourstep_fused: the s=4096 plan's worker, 64 requests x 8 workers
@@ -1130,7 +1244,8 @@ def main() -> int:
         steady = (time.perf_counter() - t1) / 3
         dispatch = (svc.stats.dispatch_s - d0) / 3
         sync = (svc.stats.sync_s - s0) / 3
-        trace = profile_call(torch, lambda: svc.submit_batch(xs, kind=kind))
+        trace = profile_call(torch, lambda: svc.submit_batch(xs, kind=kind),
+                             track=FFT_KERNELS)
         emit({"phase": "service", "kind": kind, "s": s, "m": m,
               "n_workers": n, "requests": n_req, "autotune": autotune,
               "decode": ("plan " + svc.cfg.decode_method if not kernel
@@ -1221,7 +1336,8 @@ def main() -> int:
             plan.run(x, mask=masks)
         torch.cuda.synchronize()
         steady = (time.perf_counter() - t1) / 3
-        trace = profile_call(torch, lambda: plan.run(x, mask=masks))
+        trace = profile_call(torch, lambda: plan.run(x, mask=masks),
+                             track=FFT_KERNELS)
         emit({"phase": "plan", "plan": cls.__name__, "s": s, "m": 4,
               "n_workers": 8, "requests": n_req, "rel_tol": rel_tol,
               "worker": sorted(worker), **(info or {}), **out,

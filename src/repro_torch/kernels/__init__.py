@@ -14,7 +14,8 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
   -- the c2c bucket past the whole-bucket kernel's shared memory, on
   host-built decode planes (three launches) or raw masks (four: a decode
   launch first) (``coded_pipeline.py``);
-* ``encode_fourstep_fused``   -- fused MDS encode + four-step worker DFT
+* ``encode_fourstep_fused``   -- fused MDS encode + four-step worker DFT:
+  a column FFT, then a row FFT with the generator applied as it stores
   (``fourstep_fft.py``);
 * ``bcmatmul``                -- per-request decode apply (``cmatmul.py``);
 * ``recombine_twiddle_dft_batched``, ``recombine_twiddle_dft`` --

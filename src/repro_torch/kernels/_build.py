@@ -36,8 +36,7 @@ __all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "build", "build_dir
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-HEADERS = ("common.cuh", "cgemm.cuh", "bucket.cuh", "fft_rows.cuh",
-           "fft_cols.cuh")
+HEADERS = ("common.cuh", "bucket.cuh", "fft_rows.cuh", "fft_cols.cuh")
 SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
            "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket",
            "coded_bucket_streaming", "multistep", "wkv")
@@ -50,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # CPU runs take the card's route decisions; the chip smoke run checks it
 # against the device attribute.
 SMEM_PER_BLOCK_OPTIN = 232_448
-# CUDA's limit on grid y and z: a batch laid on either is chunked
+# CUDA's limit on grid y and z: the wrappers that lay a batch on either
+# refuse a larger one
 MAX_GRID_YZ = 65_535
 
 

@@ -45,8 +45,9 @@
 // block), from L2, since every matrix of the batch shares W.  A prime
 // n's dense pass is bound by its shared-memory reads instead.
 //
-// Callers: fourstep.cu (fourstep_streaming_f32, both passes) and
-// coded_bucket_streaming.cu (the column pass).
+// Callers: fourstep.cu (fourstep_streaming_f32, both passes, and
+// fourstep_stage1_f32), coded_bucket_streaming.cu and encode_fourstep.cu
+// (the column pass).
 
 #pragma once
 

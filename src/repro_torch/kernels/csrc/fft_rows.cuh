@@ -43,7 +43,10 @@
 // once): the dense passes of large prime factors are the exception, and
 // only such lengths pay operations past the bytes.
 //
-// Callers: fourstep.cu (fourstep_stage2_f32, the two-pass row pass).
+// Callers: fourstep.cu (fourstep_stage2_f32, the two-pass row pass),
+// coded_bucket_streaming.cu (the row pass) and encode_fourstep.cu (the
+// row pass past the fold; the folded encode runs run_passes on its own
+// block of rows and applies G as it stores).
 
 #pragma once
 
@@ -260,6 +263,50 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b) {
           15) == 0;
 }
 
+// The plan's passes over `rows` rows of p.n points, ping-ponging between
+// the buffers (s, d): on return s holds the transformed rows.
+__device__ __forceinline__ void run_passes(float*& sr, float*& si,
+                                           float*& dr, float*& di,
+                                           const float* tr, const float* ti,
+                                           const Plan& p, int rows, int tid,
+                                           int nt) {
+  const int n = p.n;
+  int ns = 1;
+  for (int s = 0; s < p.passes; ++s) {
+    const int R = p.radix[s];
+    switch (R) {
+      case 2:
+        pass_radix<2>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        break;
+      case 3:
+        pass_radix<3>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        break;
+      case 4:
+        pass_radix<4>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        break;
+      case 5:
+        pass_radix<5>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        break;
+      case 7:
+        pass_radix<7>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        break;
+      case 8:
+        pass_radix<8>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        break;
+      default:
+        pass_dense(sr, si, dr, di, tr, ti, n, ns, R, rows, tid, nt);
+    }
+    __syncthreads();
+    float* t = sr;
+    sr = dr;
+    dr = t;
+    t = si;
+    si = di;
+    di = t;
+    ns *= R;
+  }
+}
+
 // x (n_rows, n) -> out (n_rows, n), each row's DFT.  Grid: ceil(n_rows /
 // p.rows) blocks of kThreads.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -309,40 +356,7 @@ fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     si[pad(t)] = gi[t];
   }
   __syncthreads();
-  int ns = 1;
-  for (int s = 0; s < p.passes; ++s) {
-    const int R = p.radix[s];
-    switch (R) {
-      case 2:
-        pass_radix<2>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
-        break;
-      case 3:
-        pass_radix<3>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
-        break;
-      case 4:
-        pass_radix<4>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
-        break;
-      case 5:
-        pass_radix<5>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
-        break;
-      case 7:
-        pass_radix<7>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
-        break;
-      case 8:
-        pass_radix<8>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
-        break;
-      default:
-        pass_dense(sr, si, dr, di, tr, ti, n, ns, R, rows, tid, nt);
-    }
-    __syncthreads();
-    float* t = sr;
-    sr = dr;
-    dr = t;
-    t = si;
-    si = di;
-    di = t;
-    ns *= R;
-  }
+  run_passes(sr, si, dr, di, tr, ti, p, rows, tid, nt);
   float* hr = outr + base;
   float* hi = outi + base;
   head = 0;

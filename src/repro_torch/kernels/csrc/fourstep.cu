@@ -20,9 +20,8 @@
 // and writing the output once: for the 2^20-point plan (128 rows of
 // L = 2^18) that is about 0.05 ms of FP32 work against 0.16 ms of
 // traffic, and for the 4096-point plan (512 rows of L = 1024) about
-// 0.0004 ms against 0.0025 ms.  The dense passes do more work than that,
-// 8*L*A flops per row for the column pass: about 10x an FFT's at
-// L = 1024, about 90x at L = 2^18.
+// 0.0004 ms against 0.0025 ms.  fourstep_fused's passes are dense DFTs,
+// 8*L*(A + B) flops per row, about 10x an FFT's at L = 1024.
 //
 // Design.  fourstep_fused runs one block per batch row: it stages the
 // row's A x B matrix in shared memory, writes the column pass into a
@@ -32,31 +31,34 @@
 // bytes) is laid out by fourstep_fft.fourstep_layout on the Python side,
 // which passes the word offsets in at launch; the same reckoning is the
 // fused gate (ops.fourstep_fusable, against 232,448 bytes), so shards up
-// to L = 8192 fuse and longer ones take the two-pass route.  There the
-// column pass is the register-tiled complex GEMM of cgemm.cuh (the
-// twiddle in its epilogue), and the row pass is the shared-memory
-// Stockham FFT of fft_rows.cuh: B-point rows, ceil(2048/B) a block, the
-// radix plan and the working set's layout passed in at launch
-// (fourstep_fft.fft_rows_plan / fft_rows_layout), one f32 table of w^t
-// in place of F_B.  T1 sits in device memory between the two launches.
+// to L = 8192 fuse and longer ones take the two-pass route.
 //
-// fourstep_streaming runs no dense DFT: both of its passes are the
-// column FFT of fft_cols.cuh (the same Stockham schedule, over tiles of
-// TC columns), with f32 tables of A and B in place of F_A and F_B.
-// Launch 1 transforms the columns of x (ld = B), folds W into the last
-// pass and stores transposed: T1^T (batch, B, A), one contiguous run a
-// tile.  Launch 2 transforms the columns of T1^T (ld = A) and stores
-// them in place: out[d][c] = X[d*A + c], natural order, TC-float runs.
-// Both launches read TC-float runs (32 bytes at A = B = 512).  The other
-// way -- fft_rows.cuh over T1's rows with a transposed store -- would
-// write runs of one block's rows: 4 rows of B = 512, 16 bytes, half a
-// sector.  The TPU kernel streams both passes through VMEM tiles inside
-// one launch; here the pass boundary needs every block of the column
-// pass done, so it is a launch boundary.
+// The two-pass route and fourstep_streaming run no dense DFT.  Their
+// passes are the shared-memory Stockham FFTs of fft_cols.cuh (A points
+// down tiles of TC columns) and fft_rows.cuh (B-point rows, ceil(2048/B)
+// a block), their radix plans and working sets passed in at launch
+// (fourstep_fft.fft_cols_spec / fft_rows_spec), one f32 table of w^t in
+// place of each DFT plane.  fourstep_stage1 is one column FFT over the
+// batch's (A, B) matrices (ld = B) with W folded into its last pass and
+// the plain store, T1 (batch, A, B): its 1-D grid of batch * tiles
+// blocks takes any batch in one launch.  fourstep_stage2 is the row FFT
+// of T1's batch*A rows.  T1 sits in device memory between the two
+// launches.
+//
+// fourstep_streaming's launch 1 transforms the columns of x (ld = B),
+// folds W into the last pass and stores transposed: T1^T (batch, B, A),
+// one contiguous run a tile.  Launch 2 transforms the columns of T1^T
+// (ld = A) and stores them in place: out[d][c] = X[d*A + c], natural
+// order, TC-float runs.  Both launches read TC-float runs (32 bytes at
+// A = B = 512).  The other way -- fft_rows.cuh over T1's rows with a
+// transposed store -- would write runs of one block's rows: 4 rows of
+// B = 512, 16 bytes, half a sector.  The TPU kernel streams both passes
+// through VMEM tiles inside one launch; here the pass boundary needs
+// every block of the column pass done, so it is a launch boundary.
 
 #include <cstring>
 
-#include "cgemm.cuh"
+#include "common.cuh"
 #include "fft_cols.cuh"
 
 namespace {
@@ -140,15 +142,18 @@ extern "C" int fourstep_fused_f32(const float* xr, const float* xi,
   return (int)cudaGetLastError();
 }
 
-// Column pass: out[z] = (F_A @ x[z]) * W for z < batch (<= 65,535, the
-// grid's z limit; the wrapper chunks).  x, out: (batch, a, b).  One launch.
+// Column pass: out[z] = (F_A @ x[z]) * W for z < batch.  x, out:
+// (batch, a, b) with a = sa->n; w: (a, b); ta: the (a,) f32 table of
+// w^t; sa: the column FFT plan of a over b columns (host memory).  One
+// launch.
 extern "C" int fourstep_stage1_f32(const float* xr, const float* xi,
-                                   const float* far, const float* fai,
                                    const float* wr, const float* wi,
-                                   float* outr, float* outi, int batch, int a,
-                                   int b, void* stream) {
-  return launch_cgemm(far, fai, 0, xr, xi, (long long)a * b, wr, wi, outr,
-                      outi, batch, a, b, a, (cudaStream_t)stream);
+                                   const float* tar, const float* tai,
+                                   float* outr, float* outi, long long batch,
+                                   int b, const fft_cols::FftSpec* sa,
+                                   void* stream) {
+  return fft_cols::launch(xr, xi, outr, outi, tar, tai, wr, wi, batch, b, 1,
+                          false, *sa, (cudaStream_t)stream);
 }
 
 // Row pass: out[row] = DFT_b(t[row]) for the n_rows contiguous b-point

@@ -6,16 +6,19 @@ Factor ``L = A * B`` and compute
     out[c, d] = ((F_A @ M) * W) @ F_B,     M[a, b] = x[a*B + b]
     X[c + d*A] = out[c, d]
 
-two dense DFT matmuls and one elementwise twiddle on planar f32 data.
+two DFT passes (dense matmuls in the plain twins) and one elementwise
+twiddle on planar f32 data.
 
 * ``fourstep_fused`` -- one launch, each batch row's A x B matrix in one
   block's shared memory (its working set: :func:`fourstep_layout`);
 * ``fourstep_stage1`` / ``fourstep_stage2`` -- the two-pass route for
   shards too long for one block: the column pass with the twiddle, then
-  the row pass, the intermediate in device memory.  The row pass is a
-  B-point FFT of every row (a shared-memory Stockham FFT, its radix plan
-  :func:`fft_rows_plan`, working set :func:`fft_rows_layout` and
-  twiddle table :func:`fft_rows_twiddles`), so it takes no DFT plane;
+  the row pass, the intermediate in device memory.  Neither takes a DFT
+  plane on the card: the row pass is a B-point FFT of every row (a
+  shared-memory Stockham FFT, its radix plan :func:`fft_rows_plan`,
+  working set :func:`fft_rows_layout` and twiddle table
+  :func:`fft_rows_twiddles`), the column pass the same schedule down
+  tiles of columns (the column FFT below) with W in its last pass;
 * ``fourstep_streaming`` -- the four-step behind one entry with no dense
   DFT: both passes are the column FFT (the row FFT's Stockham schedule
   down a tile of columns, its tile :func:`fft_cols_tile`, working set
@@ -23,7 +26,11 @@ two dense DFT matmuls and one elementwise twiddle on planar f32 data.
   is in natural order ``(batch, B, A)``, no unscramble after it;
 * ``encode_fourstep_fused`` -- the MDS encode folded in: the generator
   contraction acts across shards and the DFT within each, so the kernel
-  transforms the m MESSAGE shards and encodes after (an N/m saving);
+  transforms the m MESSAGE shards and encodes after (an N/m saving).  On
+  the card: the column FFT of every shard, then the row FFT of row c of
+  all m shards at once with G applied as it stores (its working set
+  :func:`encode_rows_layout`, the gate :func:`encode_rows_fold`), or past
+  that gate the row FFT and a separate G apply;
 * ``multistep_fused`` -- the mixed-radix four-step, ``L = f1 * ... *
   fk``: k dense stages, the row in one block's shared memory where it
   fits (:func:`multistep_layout`), else one launch per stage.
@@ -69,6 +76,10 @@ __all__ = [
     "fourstep_streaming",
     "encode_fourstep_body",
     "encode_fourstep_fused",
+    "encode_rows_fold",
+    "encode_rows_layout",
+    "encode_rows_per_block",
+    "encode_rows_spec",
     "multistep_body",
     "multistep_fused",
     "multistep_layout",
@@ -154,8 +165,9 @@ def encode_fourstep_body(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = _build.load("encode_fourstep").encode_fourstep_f32
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 16 + [i32] * 5 + [vp]
+    vp, spec = ctypes.c_void_p, ctypes.POINTER(FftSpec)
+    fn.argtypes = [vp] * 16 + [ctypes.c_int] * 3 + [spec, spec,
+                                                     ctypes.c_int, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -169,8 +181,13 @@ def encode_fourstep_fused(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
     ``B_k[c + d*A] = out[k, c, d]``.
 
     CPU tensors run :func:`encode_fourstep_body`; CUDA tensors launch the
-    kernel -- three launches (column pass, row pass, encode), each counted
-    -- or raise.
+    kernel or raise.  Launch 1 is the column FFT of every shard with W
+    (the A-point table of :func:`fft_rows_twiddles`); where the row block
+    fits (:func:`encode_rows_fold`) launch 2 is the row FFT of row c of
+    all m shards with G applied as it stores, else the row FFT over every
+    row into device scratch, then the G apply (three launches).  Each
+    launch is counted.  The card reads G, W and the f32 tables of A and
+    B, not ``far`` or ``fbr``.
     """
     q, m, a, b = cr.shape
     n = gr.shape[0]
@@ -182,25 +199,47 @@ def encode_fourstep_fused(cr, ci, gr, gi, far, fai, wr, wi, fbr, fbi):
     if cr.device.type == "cpu":
         return encode_fourstep_body(cr, ci, gr, gi, far, fai, wr, wi,
                                     fbr, fbi)
-    dev = _build.check_planes(
+    _build.check_planes(
         "encode_fourstep_fused", cr=cr, ci=ci, gr=gr, gi=gi, far=far,
         fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi)
-    if q * m > _build.MAX_GRID_YZ:
-        raise ValueError(f"encode_fourstep_fused: batch q*m={q * m} exceeds "
-                         f"the grid's {_build.MAX_GRID_YZ}")
-    check_left_fits("encode_fourstep_fused", n, m)     # the G encode
+    check_left_fits("encode_fourstep_fused", n, m)     # the G apply
+    return _encode_on_card(cr, ci, gr, gi, wr, wi,
+                           encode_rows_fold(m, a, b))
+
+
+def _encode_on_card(cr, ci, gr, gi, wr, wi, fold: bool):
+    """The encode's launches on checked CUDA planes: the folded route
+    (two launches) where ``fold``, else the row FFT and the G apply
+    (three).  :func:`encode_fourstep_fused` passes its gate's decision;
+    a caller may force either route where its working set fits, to time
+    one against the other."""
+    q, m, a, b = cr.shape
+    n = gr.shape[0]
+    dev = cr.device
+    if not fold and q > _build.MAX_GRID_YZ:
+        raise ValueError(f"encode_fourstep_fused: q={q} requests exceed the "
+                         f"G apply's grid of {_build.MAX_GRID_YZ}")
+    spec_a = fft_cols_spec("encode_fourstep_fused", a, b)
+    spec_b = (encode_rows_spec(m, a, b) if fold
+              else fft_rows_spec("encode_fourstep_fused", b))
     t1r = torch.empty_like(cr)
     t1i = torch.empty_like(cr)
-    zr = torch.empty_like(cr)
-    zi = torch.empty_like(cr)
     outr = torch.empty((q, n, a, b), dtype=torch.float32, device=dev)
     outi = torch.empty_like(outr)
+    if q == 0:
+        return outr, outi
+    # Z, the row FFT's output, reaches device memory only past the fold
+    zr, zi = ((None, None) if fold
+              else (torch.empty_like(cr), torch.empty_like(cr)))
     p = _build.ptr
     _build.check(_lib()(
-        p(cr), p(ci), p(gr), p(gi), p(far), p(fai), p(wr), p(wi), p(fbr),
-        p(fbi), p(t1r), p(t1i), p(zr), p(zi), p(outr), p(outi),
-        q, m, n, a, b, _build.stream_of(dev)), "encode_fourstep_fused")
-    _build.count_launch("encode_fourstep_fused", 3)
+        p(cr), p(ci), p(gr), p(gi), p(wr), p(wi),
+        *(p(t) for t in fft_twiddles_on(a, dev)),
+        *(p(t) for t in fft_twiddles_on(b, dev)), p(t1r), p(t1i),
+        *(None if t is None else p(t) for t in (zr, zi)), p(outr), p(outi),
+        q, m, n, ctypes.byref(spec_a), ctypes.byref(spec_b), int(fold),
+        _build.stream_of(dev)), "encode_fourstep_fused")
+    _build.count_launch("encode_fourstep_fused", 2 if fold else 3)
     return outr, outi
 
 
@@ -232,12 +271,11 @@ def _check_fourstep(what, xr, xi, **planes):
 
 
 @functools.lru_cache(maxsize=None)
-def _fourstep_lib(entry: str, n_ptr: int, with_layout: bool = False):
-    fn = getattr(_build.load("fourstep"), entry)
+def _fused_lib():
+    fn = _build.load("fourstep").fourstep_fused_f32
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * n_ptr + [i32] * 3
-                   + ([ctypes.POINTER(ctypes.c_longlong)] if with_layout
-                      else []) + [vp])
+    fn.argtypes = ([vp] * 10 + [i32] * 3
+                   + [ctypes.POINTER(ctypes.c_longlong), vp])
     fn.restype = ctypes.c_int
     return fn
 
@@ -268,7 +306,7 @@ def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     p = _build.ptr
-    _build.check(_fourstep_lib("fourstep_fused_f32", 10, True)(
+    _build.check(_fused_lib()(
         p(xr), p(xi), p(far), p(fai), p(wr), p(wi), p(fbr), p(fbi), p(outr),
         p(outi), batch, a, b, (ctypes.c_longlong * len(layout))(*layout),
         _build.stream_of(dev)), "fourstep_fused")
@@ -276,24 +314,14 @@ def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
     return outr, outi
 
 
-def _two_pass(name, entry, inputs, planes):
-    """Launch one pass of the two-pass four-step over (batch, A, B) planes,
-    in chunks of at most the grid's z limit (one launch each)."""
-    xr, xi = inputs
-    batch, a, b = xr.shape
-    dev = _build.check_planes(name, xr=xr, xi=xi, **planes)
-    outr = torch.empty_like(xr)
-    outi = torch.empty_like(xr)
-    fn = _fourstep_lib(entry, 4 + len(planes))
-    p = _build.ptr
-    for z0 in range(0, batch, _build.MAX_GRID_YZ):
-        z1 = min(batch, z0 + _build.MAX_GRID_YZ)
-        _build.check(fn(
-            p(xr[z0:z1]), p(xi[z0:z1]), *(p(t) for t in planes.values()),
-            p(outr[z0:z1]), p(outi[z0:z1]), z1 - z0, a, b,
-            _build.stream_of(dev)), name)
-        _build.count_launch(name)
-    return outr, outi
+@functools.lru_cache(maxsize=None)
+def _stage1_lib():
+    fn = _build.load("fourstep").fourstep_stage1_f32
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                              ctypes.POINTER(FftSpec), vp]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def fourstep_stage1(xr, xi, far, fai, wr, wi):
@@ -301,15 +329,32 @@ def fourstep_stage1(xr, xi, far, fai, wr, wi):
 
     ``xr, xi``: (batch, A, B) planes of ``M[a, b] = x[a*B + b]``.  Returns
     the twiddled column DFT as (batch, A, B) planes.  CPU tensors run
-    :func:`stage1_body`; CUDA tensors launch the kernel (one launch per
-    65,535 rows) or raise.
+    :func:`stage1_body`; CUDA tensors launch the column FFT (A points
+    over B columns, W folded into its last pass, the plain store: one
+    launch for any batch, counted) or raise -- also where a tile's
+    working set (:func:`fft_cols_layout`) exceeds one block's shared
+    memory.  The card computes the DFT from the f32 table of A
+    (:func:`fft_rows_twiddles`): it reads W, not ``far``.
     """
+    batch, a, b = xr.shape
     _check_fourstep("fourstep_stage1", xr, xi, far=far, fai=fai, wr=wr,
                     wi=wi)
     if xr.device.type == "cpu":
         return stage1_body(xr, xi, far, fai, wr, wi)
-    return _two_pass("fourstep_stage1", "fourstep_stage1_f32", (xr, xi),
-                     {"far": far, "fai": fai, "wr": wr, "wi": wi})
+    dev = _build.check_planes("fourstep_stage1", xr=xr, xi=xi, far=far,
+                              fai=fai, wr=wr, wi=wi)
+    spec = fft_cols_spec("fourstep_stage1", a, b)
+    outr = torch.empty_like(xr)
+    outi = torch.empty_like(xr)
+    if batch == 0:
+        return outr, outi
+    p = _build.ptr
+    _build.check(_stage1_lib()(
+        p(xr), p(xi), p(wr), p(wi), *(p(t) for t in fft_twiddles_on(a, dev)),
+        p(outr), p(outi), batch, b, ctypes.byref(spec),
+        _build.stream_of(dev)), "fourstep_stage1")
+    _build.count_launch("fourstep_stage1")
+    return outr, outi
 
 
 # -- the two-pass route's row pass: a Stockham FFT of every row ------------
@@ -472,6 +517,51 @@ def fft_rows_spec(what: str, n: int) -> FftSpec:
     """The row FFT's plan record for n-point rows (tile: the rows a
     block takes).  Raises ValueError as :func:`fft_cols_spec` does."""
     return _fft_spec(what, n, fft_rows_per_block(n), fft_rows_layout(n))
+
+
+# -- the encode's row FFT with the generator folded into its store ---------
+def encode_rows_per_block(m: int, a: int, b: int) -> int:
+    """Rows c one block of the folded encode takes: row c of each of the
+    m shards is one block row, so ``ceil(2048 / (m*b))`` of them fill
+    the row FFT's 2048-point tile, at least one and at most A."""
+    return min(a, max(1, -(-FFT_ROWS_TILE // (m * b))))
+
+
+def encode_rows_layout(m: int, a: int, b: int) -> tuple[int, ...]:
+    """Word offsets of the folded encode's shared arrays, then the total:
+    two planar buffers of a block's ``m * encode_rows_per_block`` rows of
+    B points, then the table's two planes, each plane padded one word in
+    32 as :func:`fft_rows_layout` pads (``Layout`` of
+    ``csrc/fft_rows.cuh``, the order the kernel takes)."""
+    rows = _padded(m * encode_rows_per_block(m, a, b) * b)
+    return tuple(itertools.accumulate((2 * rows, 2 * rows, 2 * _padded(b)),
+                                      initial=0))
+
+
+def encode_rows_fold(m: int, a: int, b: int) -> bool:
+    """Does the encode fold G into its row FFT (two launches, else
+    three)?  Where the m rows of one c, which a block must hold to apply
+    G as it stores, are at most :data:`FFT_COLS_TILE` points -- 67 KB of
+    buffers, so that two or more blocks share an SM -- and
+    :func:`encode_rows_layout` fits one block's shared memory.  So m = 4
+    and m = 8 fold at B = 512, m = 64 at B = 8; m = 16 at B = 512 (8192
+    points, 139 KB: one block an SM) does not.  The cap is measured: on
+    an H100 (700 W) at (q, m, N, A, B) = (4, 16, 32, 512, 512) the folded
+    route took 0.883 ms and the three launches 0.716 (``chip_smoke.py``,
+    phase ``encode_fold_fork``)."""
+    return (m * b <= FFT_COLS_TILE
+            and 4 * encode_rows_layout(m, a, b)[-1]
+            <= _build.SMEM_PER_BLOCK_OPTIN)
+
+
+@functools.lru_cache(maxsize=None)
+def encode_rows_spec(m: int, a: int, b: int) -> FftSpec:
+    """The folded encode's row plan record: B points, its tile the rows c
+    a block takes (:func:`encode_rows_per_block`), its layout
+    :func:`encode_rows_layout`."""
+    return _fft_spec("encode_fourstep_fused", b,
+                     encode_rows_per_block(m, a, b),
+                     encode_rows_layout(m, a, b))
 
 
 @functools.lru_cache(maxsize=None)

@@ -427,8 +427,9 @@ def encode_worker(cr: torch.Tensor, ci: torch.Tensor,
 
     ``cr, ci``: (q, m, L) planes of the message shards; ``gr, gi``: (n, m)
     generator planes.  Returns natural-order (q, n, L) planes.  One call
-    of the fused encode + four-step kernel (intermediates in device
-    memory), then the unscramble -- unless the balanced split's dense DFT
+    of the fused encode + four-step kernel (two launches, or three past
+    its fold: ``fourstep_fft.encode_rows_fold``), then the unscramble --
+    unless the balanced split's dense DFT
     plane is past :data:`MAX_PLANE_ELEMS` (a near-prime L), where the
     reference's two-pass branch runs: the encode as one ``cmatmul``
     launch with the batch folded into the payload columns, then

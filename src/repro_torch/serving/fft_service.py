@@ -516,6 +516,9 @@ class FFTService:
         if masks is None:
             lat, masks = self._simulate_arrivals(n_live, kind)
             self._account(lat, masks)
+        # the bucket's plan raises its length errors (``m | s``) here,
+        # after the draw and before the decode planes, as the reference's
+        self._plan_for(s, kind)
         # padded rows: every worker "responds" so decode stays well-posed
         full = np.ones((bucket, cfg.n_workers), bool)
         full[:n_live] = masks
@@ -572,12 +575,15 @@ class FFTService:
         self.stats.dispatch_s += time.perf_counter() - t0
 
         # ONE transfer for outputs of two dtypes: complex buckets travel
-        # as their real (re, im) pairs beside the real c2r rows
+        # as their real (re, im) pairs beside the real c2r rows.  An empty
+        # batch fetches nothing and counts its one transfer, as the
+        # reference's does
         t0 = time.perf_counter()
         rdt = self.cfg.dtype.to_real()
-        flat = torch.cat([
-            (torch.view_as_real(out) if out.is_complex() else out)
-            .reshape(-1).to(rdt) for _, out in pending]).cpu().numpy()
+        if pending:
+            flat = torch.cat([
+                (torch.view_as_real(out) if out.is_complex() else out)
+                .reshape(-1).to(rdt) for _, out in pending]).cpu().numpy()
         self.stats.host_transfers += 1
         self.stats.sync_s += time.perf_counter() - t0
         cdt = _NUMPY_DTYPE[self.cfg.dtype]

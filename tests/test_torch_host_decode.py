@@ -48,6 +48,7 @@ from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body
 from repro_torch.kernels.fourstep_fft import (
     encode_fourstep_body,
     encode_fourstep_fused,
+    encode_rows_fold,
 )
 from repro_torch.kernels.recombine import (
     recombine_batched_body,
@@ -545,12 +546,10 @@ def test_gpu_planes_buckets_match_plain(cuda, s, m, n):
         assert _rel(got, truth) < TRUTH_TOL
 
 
-@pytest.mark.gpu
-def test_gpu_encode_fourstep_m64(cuda):
-    """The encode with a (128, 64) G: 64 KB of generator in the bcmatmul
-    stage's shared memory, past the 48 KB a launch gets without opting
-    in."""
-    q, m, n, a, b = 4, 64, 128, 4, 8
+def _encode_m64(cuda, b, launches):
+    """The encode with a (128, 64) G at A = 4: its launches, and the
+    kernel against its plain twin."""
+    q, m, n, a = 4, 64, 128, 4
     rng = np.random.default_rng(64)
     g = _generator(n, m)
     planes = (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
@@ -561,9 +560,28 @@ def test_gpu_encode_fourstep_m64(cuda):
     before = _build.launch_counts().get("encode_fourstep_fused", 0)
     got = encode_fourstep_fused(*args)
     torch.cuda.synchronize()
-    assert _build.launch_counts()["encode_fourstep_fused"] == before + 3
+    assert (_build.launch_counts()["encode_fourstep_fused"]
+            == before + launches)
     want = encode_fourstep_body(*args)
     assert _rel([o.cpu() for o in got], [w.cpu() for w in want]) < PAIR_TOL
+
+
+@pytest.mark.gpu
+def test_gpu_encode_fourstep_m64(cuda):
+    """The smoke run's m = 64 shape, B = 8: the folded route (two
+    launches), its row FFT block holding row c of all 64 shards and G
+    read through the read-only path."""
+    assert encode_rows_fold(64, 4, 8)
+    _encode_m64(cuda, 8, 2)
+
+
+@pytest.mark.gpu
+def test_gpu_encode_fourstep_m64_fall_back(cuda):
+    """B = 128, past the fold (8192 points a block): the row FFT, then
+    the G apply with 64 KB of generator in its shared memory, past the
+    48 KB a launch gets without opting in (three launches)."""
+    assert not encode_rows_fold(64, 4, 128)
+    _encode_m64(cuda, 128, 3)
 
 
 @pytest.mark.gpu

@@ -26,8 +26,10 @@ from repro_torch.kernels import coded_pipeline as tcp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body, bcmatmul_map
 from repro_torch.kernels.fourstep_fft import (
+    _encode_on_card,
     encode_fourstep_body,
     encode_fourstep_fused,
+    encode_rows_fold,
 )
 from repro_torch.kernels.recombine import (
     recombine_batched_body,
@@ -190,8 +192,19 @@ def test_recombine_plain_matches_reference(jref, s, m, n):
     assert _rel(got, jrc.recombine_batched_body(*args)) < PAIR_TOL
 
 
-@pytest.mark.parametrize("s,m,n", SHAPES)
+# (s, m, N) past SHAPES for the encode: A = 1 (a prime L = 127), a prime
+# A (61 x 67: the column FFT's dense pass on the card), the mixed radix
+# A = B = 384, and m = 16
+ENCODE_EDGES = [(4 * 127, 4, 8), (4 * 61 * 67, 4, 8), (3 * 384 * 384, 3, 7),
+                (16 * 64, 16, 32)]
+
+
+@pytest.mark.parametrize("s,m,n", SHAPES + ENCODE_EDGES)
 def test_encode_fourstep_plain_matches_reference(jref, s, m, n):
+    """The plain twin == the JAX Pallas kernel in interpret mode and its
+    direct body (PAIR_TOL), and == numpy.fft of the coded shards G @ c in
+    complex128 (TRUTH_TOL), in the scrambled order out[k, c, d] =
+    B_k[c + d*A]."""
     jnp, _, _, jfs, _, _ = jref
     rng = np.random.default_rng(s + 2)
     q = 2
@@ -206,6 +219,11 @@ def test_encode_fourstep_plain_matches_reference(jref, s, m, n):
     assert _rel(got, jfs.encode_fourstep_fused(
         *args, block_q=q, interpret=True)) < PAIR_TOL
     assert _rel(got, jfs.encode_fourstep_body(*args)) < PAIR_TOL
+    coded = np.einsum("km,qml->qkl", gr + 1j * gi.astype(np.float64),
+                      (cr + 1j * ci.astype(np.float64)).reshape(q, m, -1))
+    spec = np.fft.fft(coded, axis=-1).reshape(q, n, b, a).transpose(
+        0, 1, 3, 2)
+    assert _rel(got, [spec.real, spec.imag]) < TRUTH_TOL
 
 
 @pytest.mark.parametrize("s,m,n", SHAPES)
@@ -439,18 +457,49 @@ def test_gpu_recombine_matches_plain(cuda, s, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,m,n,a,b", [(2, 3, 7, 4, 8), (3, 4, 6, 12, 16),
                                        (2, 4, 8, 1, 31), (2, 4, 8, 100, 70),
-                                       (2, 2, 5, 64, 128)])
+                                       (2, 2, 5, 64, 128),
+                                       (16, 4, 8, 512, 512),
+                                       (2, 4, 8, 61, 67),
+                                       (2, 3, 7, 384, 384),
+                                       (4, 16, 32, 512, 512),
+                                       (2, 16, 32, 7, 1024)])
 def test_gpu_encode_fourstep_matches_plain(cuda, q, m, n, a, b):
+    """Odd shapes, A = 1, the service's 2^20-point shape and a prime and
+    a mixed-radix A on the folded route (two launches); m = 16 at
+    B = 512 and B = 1024 (with A = 7 ragged) past the fold, on the
+    row FFT and the G apply (three)."""
     rng = np.random.default_rng(a * b)
     planes = (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
               *tops._dft_planes(b))
     args = _cuda_planes(cuda, _rand(rng, q, m, a, b), _rand(rng, q, m, a, b),
                         *_gen_planes(n, m), *planes)
+    fold = encode_rows_fold(m, a, b)
+    assert fold == (m * b <= 4096)
     before = _build.launch_counts().get("encode_fourstep_fused", 0)
     got = encode_fourstep_fused(*args)
-    assert _build.launch_counts()["encode_fourstep_fused"] == before + 3
+    assert (_build.launch_counts()["encode_fourstep_fused"]
+            == before + (2 if fold else 3))
     want = encode_fourstep_body(*args)
     assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,m,n,a,b", [(2, 16, 32, 7, 512),
+                                       (2, 64, 128, 4, 128)])
+def test_gpu_encode_fourstep_both_routes_match_plain(cuda, q, m, n, a, b):
+    """Past the 4096-point cap, where both routes fit a block: the folded
+    row FFT (one block an SM) and the row FFT with the G apply, each
+    forced, against the plain twin -- the fork chip_smoke.py times."""
+    rng = np.random.default_rng(m * b)
+    planes = (*tops._dft_planes(a), *tops._twiddle_planes(a, b),
+              *tops._dft_planes(b))
+    args = _cuda_planes(cuda, _rand(rng, q, m, a, b), _rand(rng, q, m, a, b),
+                        *_gen_planes(n, m), *planes)
+    assert not encode_rows_fold(m, a, b)
+    want = encode_fourstep_body(*args)
+    for fold in (True, False):
+        got = _encode_on_card(*args[:4], *args[6:8], fold)
+        assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
 
 
 @pytest.mark.gpu

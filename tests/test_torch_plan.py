@@ -153,6 +153,32 @@ def test_fourstep_plain_twins_match_reference(jref, ell, batch):
     assert _rel(out, got) < PAIR_TOL          # two-pass == fused
 
 
+# (batch, A, B) of the column pass past the plan lengths above: a prime A
+# (61 x 67), the mixed radix A = B = 384, A = 8 over a prime B = 4093
+STAGE1_EDGES = [(2, 61, 67), (1, 384, 384), (2, 8, 4093)]
+
+
+@pytest.mark.parametrize("batch,a,b", STAGE1_EDGES)
+def test_fourstep_stage1_edge_shapes_match_reference(jref, batch, a, b):
+    """fourstep_stage1's plain twin == the reference Pallas kernel in
+    interpret mode (PAIR_TOL) at the column FFT's hard shapes on the card
+    (A = 1 runs in test_fourstep_plain_twins_match_reference), and the
+    pair == numpy.fft (FFT_RTOL)."""
+    jnp, _, _, _, jfs, _ = jref
+    rng = np.random.default_rng(a * b + batch)
+    xr, xi = _rand(rng, batch, a, b), _rand(rng, batch, a, b)
+    far, fai, wr, wi, _, _ = _planes(a, b)
+    t1 = fourstep_stage1(*_t(xr, xi, far, fai, wr, wi))
+    jt1 = jfs.fourstep_stage1(*[jnp.asarray(v) for v in
+                                (xr, xi, far, fai, wr, wi)],
+                              block_q=batch, block_b=b, interpret=True)
+    assert _rel(t1, jt1) < PAIR_TOL
+    out = fourstep_stage2(*(t.contiguous() for t in t1))
+    x = (xr + 1j * xi.astype(np.float64)).reshape(batch, -1)
+    want = np.fft.fft(x, axis=-1).reshape(batch, b, a).transpose(0, 2, 1)
+    assert _rel(out, [want.real, want.imag]) < FFT_RTOL
+
+
 @pytest.mark.parametrize("m,k,ell", [(8, 4, 1000), (4, 4, 64), (7, 3, 37)])
 def test_cmatmul_matches_reference(jref, m, k, ell):
     jnp, _, _, jcm, _, _ = jref
@@ -598,20 +624,23 @@ def test_gpu_fourstep_fused_refuses_past_the_gate(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,a,b", [(128, 512, 512), (3, 1, 127),
-                                       (4, 100, 70), (70_000, 2, 4)])
+                                       (4, 100, 70), (70_000, 2, 4),
+                                       (16, 384, 384), (4, 61, 67),
+                                       (16, 8, 4093), (1, 4096, 4096)])
 def test_gpu_fourstep_stages_match_plain(cuda, batch, a, b):
     """The smoke run's two-pass shape (128 rows of 512 x 512), A = 1, odd
-    tiles, and a batch past the grid's z limit (two launches of the
-    column pass; the row FFT lays its rows on grid x, one launch)."""
+    tiles, a batch past the grid's z limit, the mixed radix A = 384, a
+    prime A (the column FFT's dense pass), A = 8 over a prime B (256-
+    column tiles) and A = 4096 (one column a tile): one launch of each
+    pass, for any batch (both lay their blocks on grid x)."""
     rng = np.random.default_rng(a + b)
     xr, xi = _cuda(cuda, _rand(rng, batch, a, b), _rand(rng, batch, a, b))
     far, fai, wr, wi, fbr, fbi = _cuda(cuda, *_planes(a, b))
-    chunks = -(-batch // _build.MAX_GRID_YZ)
     before = (_count("fourstep_stage1"), _count("fourstep_stage2"))
     t1 = fourstep_stage1(xr, xi, far, fai, wr, wi)
     out = fourstep_stage2(*t1)
     assert (_count("fourstep_stage1"), _count("fourstep_stage2")) == \
-        (before[0] + chunks, before[1] + 1)
+        (before[0] + 1, before[1] + 1)
     assert _rel(t1, stage1_body(xr, xi, far, fai, wr, wi)) < 1e-4
     assert _rel(out, stage2_body(*t1, fbr, fbi)) < 1e-4
     assert _rel(out, fourstep_body(xr, xi, far, fai, wr, wi, fbr, fbi)) \

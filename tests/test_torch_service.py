@@ -5,6 +5,9 @@
   other and of ``numpy.fft`` (the reference's masked-bucket bound), at one
   length under the port's whole-bucket gate and one over it, so both
   routes run.
+* an empty ``submit_batch`` (``[]``, one host transfer counted) and a
+  c2c request with m not dividing s (the reference's ``ValueError``
+  after the same straggler draw) on both services, with equal stats.
 * ``CodedFFT.run`` on the reference backend vs ``repro.core.CodedFFT``
   with NaN-poisoned straggler rows (1e-4 at complex64, 1e-9 at
   complex128, relative to the largest output).
@@ -28,6 +31,7 @@ from test_torch_kernels import private_autotune_table  # noqa: F401
 
 from repro_torch import CodedFFT, FFTService, FFTServiceConfig
 from repro_torch.convert import config_from_reference, generator_from_reference
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -124,6 +128,49 @@ def test_reference_escape_hatch(jref):
         want = np.fft.fft(x.astype(np.complex128))
         assert _rel(t, want) < 1e-4 and _rel(t, np.asarray(j)) < 1e-4
     assert tsvc.stats.coded_latency == jsvc.stats.coded_latency
+
+
+def _assert_stats_equal(tsvc, jsvc):
+    """Every count the port's ServiceStats keeps equals the reference's
+    (the wall-clock fields aside)."""
+    for f in dataclasses.fields(tsvc.stats):
+        if f.name not in ("dispatch_s", "sync_s"):
+            assert getattr(tsvc.stats, f.name) == getattr(jsvc.stats,
+                                                          f.name), f.name
+
+
+def test_submit_batch_of_nothing_matches_reference(jref):
+    """An empty batch returns [] with no launch and no fetch, and counts
+    the one host transfer the reference counts."""
+    _, _, JService, JConfig = jref
+    jsvc = JService(JConfig(s=256, m=4, n_workers=8, seed=2))
+    tsvc = _port_twin(jsvc)
+    _build.reset_launch_counts()
+    assert tsvc.submit_batch([]) == [] == jsvc.submit_batch([])
+    assert _build.launch_counts() == {}
+    assert tsvc.stats.host_transfers == 1
+    _assert_stats_equal(tsvc, jsvc)
+
+
+@pytest.mark.parametrize("device_decode", [True, False])
+@pytest.mark.parametrize("s", [130, 258, 1026, 4097, 16386])
+def test_c2c_length_m_does_not_divide_raises_as_reference(jref, s,
+                                                          device_decode):
+    """A c2c request with m not dividing s: the reference's ValueError,
+    raised after the straggler draw on both decode paths, with the same
+    stats after it (no decode planes built on the host path)."""
+    _, _, JService, JConfig = jref
+    jsvc = JService(JConfig(s=256, m=4, n_workers=8, seed=5,
+                            device_decode=device_decode))
+    tsvc = _port_twin(jsvc)
+    xs = _requests([s], seed=s)
+    with pytest.raises(ValueError) as jerr:
+        jsvc.submit_batch(xs)
+    with pytest.raises(ValueError) as terr:
+        tsvc.submit_batch(xs)
+    assert str(terr.value) == str(jerr.value) == f"m=4 must divide s={s}"
+    assert tsvc.stats.requests == tsvc.stats.batches == 1
+    _assert_stats_equal(tsvc, jsvc)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-4),

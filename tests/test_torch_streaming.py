@@ -9,7 +9,12 @@
   four-step's;
 * the device-decode c2c bucket past the fused gate, on the masked
   streaming bucket kernel's plain twin;
-* the refusals of codes the stage kernels cannot carry, before any draw.
+* the refusals of codes the stage kernels cannot carry, before any draw;
+* numpy models, index for index, of the column FFT and the row FFT the
+  kernels run (csrc/fft_cols.cuh, fft_rows.cuh): the streaming four-step
+  and bucket, fourstep_stage1's plain store, and the encode's two
+  launches (the folded row block's source runs and output addresses,
+  its working set as the fold gate).
 
 CPU tests: the same numpy inputs, made from a seed, go through both
 packages.  Stated tolerances, relative to the largest output magnitude:
@@ -49,6 +54,10 @@ from repro_torch.kernels import coded_pipeline as tcp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fourstep_fft import (
+    encode_fourstep_body,
+    encode_rows_fold,
+    encode_rows_layout,
+    encode_rows_per_block,
     fft_cols_layout,
     fft_cols_spec,
     fft_cols_tile,
@@ -817,6 +826,142 @@ def test_streaming_bucket_schedule_matches_body(s, m, n):
     full = masks.sum(axis=1) >= m
     truth = np.fft.fft(x.astype(np.complex128), axis=-1)
     assert _rel([out[full]], [truth[full]]) < TRUTH_TOL
+
+
+# (batch, A, B) of fourstep_stage1's column FFT: A = 1 (no pass: W
+# alone), a prime A (61: the dense pass), the mixed radix 384, A = 8 over
+# a prime B (256-column tiles, the last ragged) and A = 4096 (TC = 1)
+STAGE1_MODEL = [(3, 1, 5), (2, 61, 67), (1, 384, 24), (2, 8, 4093),
+                (1, 4096, 2)]
+
+
+@pytest.mark.parametrize("batch,a,b", STAGE1_MODEL)
+def test_stage1_column_fft_matches_body(batch, a, b):
+    """fourstep_stage1's one launch as the model runs it -- the A-point
+    column FFT over the batch's (A, B) matrices, ld = B, W in the last
+    pass and the plain store (g = 1: point c of column d to word
+    c*B + d) -- is stage1_body on the same f32 planes, and np.fft down
+    the columns times W."""
+    rng = np.random.default_rng(a * b + batch)
+    x = _crand(rng, batch, a * b, dtype=np.complex64)
+    wr, wi = tops._twiddle_planes(a, b)
+    got = _fft_cols_model(x, a, b, *fft_rows_twiddles(a), w=_table(wr, wi))
+    want = _column_fft(x, a, b, _table(wr, wi)).reshape(batch, -1)
+    assert _rel([got], [want]) < 1e-6
+    if a <= 512:
+        xr, xi = _t(x.real.reshape(batch, a, b), x.imag.reshape(batch, a, b))
+        far, fai, wr_, wi_, _, _ = tops._fourstep_planes(a, b, CPU)
+        s1r, s1i = stage1_body(xr, xi, far, fai, wr_, wi_)
+        assert _rel([got], [(s1r + 1j * s1i).reshape(batch, -1).numpy()]) \
+            < PAIR_TOL
+
+
+def _encode_rows_model(t1, g, m, a, b):
+    """The folded encode's launch 2 in numpy, address for address, on the
+    flat t1 (q, m, A, B): block (q, tile) takes C =
+    encode_rows_per_block(m, a, b) rows c from c0 = tile*C; word
+    i*C*B + w of its buffer holds t1 at (q*m + i)*A*B + c0*B + w for w
+    under the live rows' C'*B (C' = min(C, A - c0)), zero past them; the
+    row FFT's schedule (_stockham_model) runs on the m*C rows of B; the
+    store writes sum_i G[k, i] * word i*C*B + w to out (q, N, A, B) at
+    (q*N + k)*A*B + c0*B + w for w < C'*B.  Asserts every output is
+    written once."""
+    n = g.shape[0]
+    flat = t1.reshape(-1)
+    q = flat.size // (m * a * b)
+    cb = encode_rows_per_block(m, a, b)
+    out = np.zeros(q * n * a * b, np.complex128)
+    hits = np.zeros(out.size, int)
+    i = np.arange(m)[:, None]
+    w = np.arange(cb * b)[None, :]
+    k = np.arange(n)[:, None]
+    for qq in range(q):
+        for c0 in range(0, a, cb):
+            live = min(cb, a - c0) * b
+            src = (qq * m + i) * a * b + c0 * b + np.minimum(w, live - 1)
+            buf = np.where(w < live, flat[src], 0)           # (m, C*B)
+            z = _stockham_model(buf.reshape(m * cb, b), fft_rows_plan(b),
+                                *fft_rows_twiddles(b)).reshape(m, cb * b)
+            dst = (qq * n + k) * a * b + c0 * b + w[:, :live]
+            out[dst] = (g @ z)[:, :live]
+            hits[dst] += 1
+    assert (hits == 1).all()
+    return out
+
+
+# (q, m, N, A, B) of the encode: the row block's C = 1 (m*B = 2048), 2
+# with A ragged (m = 3, B = 384: C*m*B = 2304), 16 and 64 rows c (A = 1:
+# C capped at A), a prime A and B, m = 16 folded (B = 8) and past the
+# fold (B = 512), and m = 64 as the host path's stage route gives it
+ENCODE_MODEL = [(1, 4, 8, 3, 512), (2, 3, 7, 5, 384), (2, 4, 8, 16, 32),
+                (2, 4, 8, 1, 31), (2, 4, 8, 61, 67), (2, 16, 32, 8, 8),
+                (1, 16, 32, 2, 512), (1, 64, 128, 8, 8)]
+
+
+@pytest.mark.parametrize("q,m,n,a,b", ENCODE_MODEL)
+def test_encode_schedule_matches_body(q, m, n, a, b):
+    """The encode's launches as the kernels index them: launch 1, the
+    A-point column FFT of the q*m shards (ld = B, W in the last pass, the
+    g = 1 store), is stage1_body of every shard; then, on the fold
+    (_encode_rows_model: the row block's m source runs at stride A*B,
+    the row FFT, G in the store at out[q, k, c, d]) -- or past it the row
+    FFT of every row and the G apply --, encode_fourstep_body on the same
+    f32 planes (PAIR_TOL) and np.fft of the coded shards G @ c."""
+    rng = np.random.default_rng(q * m * a * b)
+    c = _crand(rng, q * m, a * b, dtype=np.complex64)
+    wr, wi = tops._twiddle_planes(a, b)
+    t1 = _fft_cols_model(c, a, b, *fft_rows_twiddles(a), w=_table(wr, wi))
+    cr, ci = _t(c.real.reshape(q, m, a, b), c.imag.reshape(q, m, a, b))
+    planes = tops._fourstep_planes(a, b, CPU)
+    s1r, s1i = stage1_body(cr.reshape(-1, a, b), ci.reshape(-1, a, b),
+                           *planes[:4])
+    assert _rel([t1], [(s1r + 1j * s1i).reshape(q * m, -1).numpy()]) \
+        < PAIR_TOL
+    g32 = tmds.rs_generator(n, m, torch.complex64, CPU)
+    g = g32.numpy().astype(np.complex128)
+    if encode_rows_fold(m, a, b):
+        out = _encode_rows_model(t1, g, m, a, b)
+    else:
+        z = _stockham_model(t1.reshape(-1, b), fft_rows_plan(b),
+                            *fft_rows_twiddles(b)).reshape(q, m, -1)
+        out = np.einsum("km,qml->qkl", g, z).reshape(-1)
+    br, bi = encode_fourstep_body(cr, ci, g32.real.contiguous(),
+                                  g32.imag.contiguous(), *planes)
+    assert _rel([out], [(br + 1j * bi).reshape(-1).numpy()]) < PAIR_TOL
+    coded = np.einsum("km,qml->qkl", g, c.reshape(q, m, -1))
+    truth = np.fft.fft(coded, axis=-1).reshape(q, n, b, a).transpose(
+        0, 1, 3, 2)
+    assert _rel([out], [truth.reshape(-1)]) < 1e-5
+
+
+def test_encode_rows_layout_is_the_fold_gate():
+    """The folded encode's working set, one reckoning: C = ceil(2048 /
+    (m*B)) rows c a block, at most A; two buffers of m*C*B points and the
+    table of B, each plane padded one word in 32.  The fold holds exactly
+    where m*B <= 4096 points, and there the layout fits a block's shared
+    memory, with room for two blocks an SM; the service's m = 4 at
+    B = 512 (C = 1) and the m = 64 stage code at B = 8 (C = 4) fold, m = 16
+    at B = 512 and m = 64 at B = 128 take the three-launch route."""
+    for m in (1, 2, 3, 4, 8, 16, 64):
+        for b in range(1, 4097):
+            for a in (1, 3, 4096):
+                cb = encode_rows_per_block(m, a, b)
+                assert cb == min(a, max(1, -(-2048 // (m * b))))
+                x, y, tab, total = encode_rows_layout(m, a, b)
+                last = m * cb * b - 1
+                assert x == 0 and y == tab - y
+                assert y >= 2 * (last + last // 32 + 1)
+                assert total - tab >= 2 * (b - 1 + (b - 1) // 32 + 1)
+                fold = encode_rows_fold(m, a, b)
+                assert fold == (m * b <= 4096), (m, a, b)
+                if fold:
+                    assert m * cb * b <= 4096
+                    assert 2 * 4 * total <= 233_472    # the SM's 228 KB
+    assert [encode_rows_per_block(m, 512, b) for m, b in
+            ((4, 512), (64, 8), (3, 384))] == [1, 4, 2]
+    assert encode_rows_fold(4, 512, 512) and encode_rows_fold(64, 8, 8)
+    assert not encode_rows_fold(16, 512, 512)
+    assert not encode_rows_fold(64, 4, 128)
 
 
 def test_fft_cols_layout_fits_every_streaming_length():
