@@ -11,7 +11,12 @@ plain PyTorch version on the card at the shapes its main path gives it
 prime A of (16, 4093, 4), ``encode_fourstep_fused`` past its fold at
 m = 32, B = 512, three launches, and both its routes forced where both
 fit a block), prints the FFT kernels' ptxas
-registers and spills, then drives the main paths at two sizes each,
+registers and spills (failing if the c2c bucket kernel spills), times
+the c2c bucket kernels and both modes of ``multistep_fused`` in seven
+windows each (median, min and max) and traces one call of each, which
+must launch once (k times per stage) and run its own kernels alone --
+the per-stage mode ``fft_cols_kernel`` and ``fft_rows_kernel`` --,
+then drives the main paths at two sizes each,
 for each 1-D kind: the service's ``submit_batch`` with kind c2c, r2c
 and c2r (the kind's whole-bucket kernel at s=4096; at s=2^20 the
 masked streaming c2c bucket kernel and the stage kernels for the real
@@ -70,6 +75,13 @@ PEAK_FP32_S = 67e12
 F32 = 4
 # the FFT kernels' names: the profiled calls sum each one's device ms
 FFT_KERNELS = ("fft_cols_kernel", "fft_rows_kernel", "encode_rows_kernel")
+# torch.profiler maps each kernel's device timestamp onto the host's clock
+# and drops a kernel that lands outside its capture window.  On an H100
+# 80GB HBM3 that mapping ran up to 7.0 ms early, and a call traced at the
+# window's start lost a kernel in 24 of 2,400 traces, none with 25 ms
+# before and after it (tools/trace_window_probe.py).  A traced call
+# starts twice that far into the window, which stays open as long after.
+TRACE_MARGIN_S = 0.05
 
 
 def emit(obj) -> None:
@@ -157,20 +169,24 @@ def time_ms(torch, fn, reps: int, spin_rate: float) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_call(torch, fn, track=()) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: its host wall time,
+def profile_call(torch, fn, track=(), names=False) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, ``TRACE_MARGIN_S``
+    inside the window at both ends: its host wall time,
     the summed device time of the kernels it ran (one stream, so the sum
     is the busy time), the idle share, and the kernels that took most;
-    ``track``: name fragments whose kernels' device ms are summed apart."""
+    ``track``: name fragments whose kernels' device ms are summed apart;
+    ``names``: also every kernel's name and launch count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_MARGIN_S)
     kernels = sorted(
         ((e.self_device_time_total / 1e3, e.key, e.count)
          for e in prof.key_averages()
@@ -184,7 +200,9 @@ def profile_call(torch, fn, track=()) -> dict:
             "device_kernels": sum(k[2] for k in kernels),
             "top": [{"kernel": name[:60], "device_ms": ms, "count": n}
                     for ms, name, n in kernels[:6]],
-            **({"tracked_ms": tracked} if track else {})}
+            **({"tracked_ms": tracked} if track else {}),
+            **({"kernel_names": {name: n for _, name, n in kernels}}
+               if names else {})}
 
 
 def compare(torch, got, want) -> tuple[float, float]:
@@ -428,6 +446,7 @@ def main() -> int:
         multistep_body,
         multistep_fused,
         multistep_mode,
+        multistep_stage_plan,
         stage1_body,
         stage2_body,
     )
@@ -480,13 +499,22 @@ def main() -> int:
           "smem_per_block_optin": optin, "ptxas": ptxas})
     # the Stockham FFT kernels' registers and spills, in each library that
     # builds them (fft_cols_kernel: the column pass of stage 1, of the
-    # encode and of both streaming kernels; encode_rows_kernel: the
-    # encode's row FFT with G in its store)
-    emit({"phase": "ptxas_fft", **{
+    # encode, of both streaming kernels and of multistep's stages;
+    # encode_rows_kernel: the encode's row FFT with G in its store;
+    # coded_bucket_kernel: the whole c2c bucket on the row FFT's passes,
+    # which must not spill)
+    fft_ptxas = {
         name: [ln for ln in ptxas[name] if "fft_cols" in ln
-               or "fft_rows" in ln or "encode_rows" in ln]
+               or "fft_rows" in ln or "encode_rows" in ln
+               or "coded_bucket_kernel" in ln]
         for name in ("fourstep", "coded_bucket_streaming",
-                     "encode_fourstep")}})
+                     "encode_fourstep", "coded_bucket", "multistep")}
+    emit({"phase": "ptxas_fft", **fft_ptxas})
+    spills = [ln for ln in fft_ptxas["coded_bucket"]
+              if "coded_bucket_kernel" in ln
+              and " 0 bytes spill stores" not in ln]
+    if spills or not fft_ptxas["coded_bucket"]:
+        fail(f"coded_bucket_kernel spills or was not reported: {spills}")
 
     rng = np.random.default_rng(0)
     spin_rate = spin_cycles_per_ms(torch)
@@ -511,12 +539,16 @@ def main() -> int:
     table = []
 
     def measure(name, run, plain, library, tol, nbytes, flops, reps,
-                flush=None):
+                flush=None, windows=1):
         """Check ``run`` against ``plain`` on the card and time both and
         the library call (None where no one PyTorch call computes the
         same function).  ``flush`` (a tensor): each time is taken L2-cold,
         every call after a write of ``flush`` (the write's own time
-        subtracted), and the warm kernel time is kept as ``l2_warm_ms``."""
+        subtracted), and the warm kernel time is kept as ``l2_warm_ms``.
+        ``windows`` > 1: each time is the median of that many windows of
+        ``reps`` calls, their min and max beside it (``<key>_min``,
+        ``<key>_max``), for kernels short enough that one window reads
+        apart from the next."""
         got = run()
         want = plain()
         torch.cuda.synchronize()
@@ -532,47 +564,74 @@ def main() -> int:
                             spin_rate)
                     - time_ms(torch, flush.zero_, reps, spin_rate))
 
+        def spread(key, f):
+            ts = sorted(timed(f) for _ in range(windows))
+            return ({key: ts[len(ts) // 2]} if windows == 1 else
+                    {key: ts[len(ts) // 2], f"{key}_min": ts[0],
+                     f"{key}_max": ts[-1]})
+
         warm = ({} if flush is None
                 else {"l2_warm_ms": time_ms(torch, run, reps, spin_rate)})
         return {"max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-                "ms": timed(run), "plain_ms": timed(plain),
+                **spread("ms", run), **spread("plain_ms", plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": timed(library) if library else None, **warm}
+                **(spread("library_ms", library) if library
+                   else {"library_ms": None}),
+                **warm}
 
     def kernel_row(name, source, replaces, run, plain, library, tol, nbytes,
                    flops, reps, shape, yardsticks=(), into=table, flush=None,
-                   **info):
+                   windows=1, plan=None, **info):
         """Measure one kernel and add its row to ``into``.  ``info`` adds
-        plain values to the row, ``yardsticks`` timed calls."""
+        measured values and labels to the row, ``yardsticks`` timed calls;
+        ``plan`` (the wrapper's own reckoning of its launch, which this
+        run does not measure) is printed in the phase line only."""
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0,
                **measure(name, run, plain, library, tol, nbytes, flops,
-                         reps, flush),
+                         reps, flush, windows),
                "shape": shape, **info,
                **{k: time_ms(torch, f, reps, spin_rate)
                   for k, f in yardsticks}}
-        emit({"phase": "kernel", **row})
+        emit({"phase": "kernel", **row, **(plan or {})})
         into.append(row)
 
-    def launches_of(name, run):
-        """The launches one call of ``run`` counts under ``name``."""
+    def check_route(name, kernels, run, shape, **info):
+        """One call of ``run`` counts as many launches under ``name`` as
+        ``kernels`` (name fragment -> launches a call) lists in all, and
+        one traced call ran exactly those: every kernel's name holds one
+        of the fragments, and each fragment's kernels ran as often as it
+        says.  Prints the trace's split beside ``info`` (the wrapper's own
+        reckoning of the launch)."""
         before = _build.launch_counts().get(name, 0)
         run()
         torch.cuda.synchronize()
-        return _build.launch_counts().get(name, 0) - before
+        got = _build.launch_counts().get(name, 0) - before
+        split = profile_call(torch, run, track=tuple(kernels), names=True)
+        ran, strays = dict.fromkeys(kernels, 0), {}
+        for kernel, count in split.pop("kernel_names").items():
+            frag = next((f for f in kernels if f in kernel), None)
+            if frag is None:
+                strays[kernel[:60]] = count
+            else:
+                ran[frag] += count
+        if got != sum(kernels.values()) or strays or ran != kernels:
+            fail(f"{name} {shape}: {got} launches a call, traced {ran} and "
+                 f"outside the route {strays}; expected only {kernels}")
+        emit({"phase": "kernel_split", "name": name, "shape": shape,
+              "launches_per_call": got, "traced_launches": ran, **info,
+              **split})
 
     def encode_route(fold):
         return "folded" if fold else "fall-back"
 
-    def check_encode_split(split, fold, shape):
-        """The traced encode ran the route its gate chose: the folded row
-        kernel and no G apply, or the row FFT and the G apply."""
-        ran = {k for k, ms in split["tracked_ms"].items() if ms > 0}
-        want = ({"fft_cols_kernel", "encode_rows_kernel"} if fold else
-                {"fft_cols_kernel", "fft_rows_kernel", "bcmatmul_kernel"})
-        if ran != want:
-            fail(f"encode_fourstep_fused {shape}: traced kernels {ran}, "
-                 f"expected {want}")
+    def encode_kernels(fold):
+        """The encode's kernels and their launches a call on each route:
+        the column FFT, then the folded row FFT with G in its store, or
+        the row FFT and the G apply."""
+        return ({"fft_cols_kernel": 1, "encode_rows_kernel": 1} if fold
+                else {"fft_cols_kernel": 1, "fft_rows_kernel": 1,
+                      "bcmatmul_kernel": 1})
 
     csrc = "src/repro_torch/kernels/csrc/"
     # -- 3. each kernel against its plain version, at the service shapes --
@@ -595,8 +654,11 @@ def main() -> int:
     # of each request's scatter decode matrix are needed)
     flops_c2c = q * (m * fft_flops(ell)
                      + ell * (2 * 8 * m * m + 6 * m + fft_flops(m)))
+    # what the card reads and writes: x and the output, the masks, G, the
+    # f32 tables of L (the shard FFTs) and of s (the recombine twiddle)
+    # and F_m -- no F_A, F_B, W or recombine plane
     nbytes_c2c = F32 * (4 * q * s + q * n + 2 * n * m
-                        + 2 * (a * a + b * b + a * b + m * ell + m * m))
+                        + 2 * (ell + s + m * m))
     kernel_row(
         "coded_fft_bucket_masked", csrc + "coded_bucket.cu",
         "src/repro/kernels/coded_pipeline.py:857",
@@ -605,7 +667,14 @@ def main() -> int:
         lambda: coded_pipeline.bucket_body_masked(
             xr, xi, masks.to(torch.float32), gr, gi, *planes),
         lambda: torch.fft.fft(xc, dim=-1), 3e-4, nbytes_c2c, flops_c2c, 50,
-        [q, s, m, n])
+        [q, s, m, n], windows=7)
+    fmasks = masks.to(torch.float32)
+    check_route(
+        "coded_fft_bucket_masked", {"coded_bucket_kernel": 1},
+        lambda: coded_pipeline.coded_fft_bucket_masked(
+            xr, xi, fmasks, gr, gi, *planes), [q, s, m, n], windows=7,
+        group_rows=coded_pipeline.bucket_fft_group(m, ell),
+        radix_plan=list(fft_rows_plan(ell)))
 
     # (a') the real kinds' whole buckets at the same config: packed shards
     # of L/2 = A*B, half spectra of s//2+1 bins
@@ -665,7 +734,11 @@ def main() -> int:
             xr, xi, dr, di, gr, gi, *planes),
         lambda: coded_pipeline.bucket_body(xr, xi, dr, di, gr, gi, *planes),
         lambda: torch.fft.fft(xc, dim=-1), 3e-4, nbytes_c2c + dbytes,
-        flops_c2c, 50, [q, s, m, n])
+        flops_c2c, 50, [q, s, m, n], windows=7)
+    check_route(
+        "coded_fft_bucket", {"coded_bucket_kernel": 1},
+        lambda: coded_pipeline.coded_fft_bucket(
+            xr, xi, dr, di, gr, gi, *planes), [q, s, m, n], windows=7)
     kernel_row(
         "coded_rfft_bucket", csrc + "coded_rbucket.cu",
         "src/repro/kernels/coded_pipeline.py:447",
@@ -755,10 +828,6 @@ def main() -> int:
                         + 2 * (a * b + a + b) + 2 * q * n * ell)
         fold = encode_rows_fold(m, a, b)
         run = lambda: encode_fourstep_fused(cr, ci, gr, gi, *fplanes)
-        per_call = launches_of("encode_fourstep_fused", run)
-        if per_call != (2 if fold else 3):
-            fail(f"encode_fourstep_fused {[q, m, a, b, n]}: {per_call} "
-                 f"launches a call, fold={fold}")
         kernel_row(
             "encode_fourstep_fused", csrc + "encode_fourstep.cu",
             "src/repro/kernels/fourstep_fft.py:187", run,
@@ -769,15 +838,12 @@ def main() -> int:
             yardsticks=[("fft_ms", lambda: torch.fft.fft(msg, dim=-1)),
                         ("fft_then_cmatmul_ms", lambda: torch.matmul(
                             gc, torch.fft.fft(msg, dim=-1)))],
-            into=into, encode_route=encode_route(fold),
-            launches_per_call=per_call)
-        split = profile_call(torch, run,
-                             track=FFT_KERNELS + ("bcmatmul_kernel",))
-        check_encode_split(split, fold, [q, m, a, b, n])
-        emit({"phase": "kernel_split", "name": "encode_fourstep_fused",
-              "shape": [q, m, a, b, n], "encode_route": encode_route(fold),
-              "rows_per_block": (encode_rows_per_block(m, a, b) if fold
-                                 else None), **split})
+            into=into, encode_route=encode_route(fold))
+        check_route(
+            "encode_fourstep_fused", encode_kernels(fold), run,
+            [q, m, a, b, n], encode_route=encode_route(fold),
+            rows_per_block=(encode_rows_per_block(m, a, b) if fold
+                            else None))
         del cr, ci, msg
 
         br, bi = randn(q, n, ell), randn(q, n, ell)
@@ -848,14 +914,10 @@ def main() -> int:
     msg, gc = torch.complex(cr, ci).reshape(q, m, a * b), torch.complex(
         gr32, gi32)
     run = lambda: encode_fourstep_fused(cr, ci, gr32, gi32, *fplanes)
-    per_call = launches_of("encode_fourstep_fused", run)
-    if per_call != 3:
-        fail(f"encode_fourstep_fused past the fold: {per_call} launches")
-    split = profile_call(torch, run, track=FFT_KERNELS + ("bcmatmul_kernel",))
-    check_encode_split(split, False, [q, m, a, b, n])
+    check_route("encode_fourstep_fused", encode_kernels(False), run,
+                [q, m, a, b, n], encode_route=encode_route(False))
     emit({"phase": "kernel_check", "name": "encode_fourstep_fused",
           "shape": [q, m, a, b, n], "encode_route": encode_route(False),
-          "launches_per_call": per_call,
           "fft_then_cmatmul_ms": time_ms(torch, lambda: torch.matmul(
               gc, torch.fft.fft(msg, dim=-1)), 3, spin_rate),
           **measure(
@@ -864,8 +926,7 @@ def main() -> int:
               None, 1e-4,
               F32 * (2 * q * m * a * b + 2 * n * m
                      + 2 * (a * b + a + b) + 2 * q * n * a * b),
-              q * m * fft_flops(a * b) + q * 8 * n * m * a * b, 3),
-          "split": split["tracked_ms"]})
+              q * m * fft_flops(a * b) + q * 8 * n * m * a * b, 3)})
     del cr, ci, msg, fplanes
     torch.cuda.empty_cache()
 
@@ -949,8 +1010,9 @@ def main() -> int:
         lambda: torch.fft.fft(xc, dim=-1), 1e-4,
         F32 * (4 * rows * ell + 2 * (a * b + a + b)),
         rows * fft_flops(ell), 3, [rows, a, b],
-        radix_plans=[list(fft_rows_plan(a)), list(fft_rows_plan(b))],
-        tiles=[fft_cols_tile(a, b), fft_cols_tile(b, a)])
+        plan={"radix_plans": [list(fft_rows_plan(a)),
+                              list(fft_rows_plan(b))],
+              "tiles": [fft_cols_tile(a, b), fft_cols_tile(b, a)]})
     pair_info = {f"pair_{k}": v for k, v in pair.items()
                  if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_rel_err")}
@@ -974,7 +1036,8 @@ def main() -> int:
         lambda: stage2_body(t1r, t1i, fbr, fbi),
         lambda: torch.fft.fft(t1c, dim=-1), 1e-4,
         F32 * (4 * rows * ell + 2 * b), rows * a * fft_flops(b), 3,
-        [rows, a, b], radix_plan=list(fft_rows_plan(b)), **pair_info)
+        [rows, a, b], plan={"radix_plan": list(fft_rows_plan(b))},
+        **pair_info)
     del xr, xi, t1r, t1i, t1c
     # the row FFT at a mixed radix (B = 384: 8, 4, 4, 3; the two-pass
     # split of L = 384^2) and at the largest prime B of the two-pass route
@@ -1028,15 +1091,31 @@ def main() -> int:
         mplanes = ops._on_device(ops._multistep_planes, (factors,), dev)
         stages = _parse_stage_planes(factors, mplanes)
         xc = torch.complex(xr, xi)
+        # block mode reads every stage's DFT and twiddle planes; per stage,
+        # the twiddles of every stage but the last and each factor's f32
+        # table, no DFT plane
+        plane_words = (sum(p.numel() for p in mplanes) if mode == "block"
+                       else sum(2 * st[2].numel() for st in stages[:-1])
+                       + 2 * sum(factors))
+        run = lambda: multistep_fused(xr, xi, mplanes, factors)
         kernel_row(
             "multistep_fused", csrc + "multistep.cu",
-            "src/repro/kernels/fourstep_fft.py:374",
-            lambda: multistep_fused(xr, xi, mplanes, factors),
+            "src/repro/kernels/fourstep_fft.py:374", run,
             lambda: multistep_body(xr, xi, stages),
             lambda: torch.fft.fft(xc, dim=-1), 1e-4,
-            F32 * (4 * rows * ell + sum(p.numel() for p in mplanes)),
-            rows * fft_flops(ell), reps, [rows, ell, *factors], mode=mode,
-            launches_per_call=1 if mode == "block" else len(factors))
+            F32 * (4 * rows * ell + plane_words),
+            rows * fft_flops(ell), reps, [rows, ell, *factors], windows=7,
+            mode=mode)
+        # per stage: a column FFT for each stage but the last, then the
+        # row FFT
+        check_route(
+            "multistep_fused",
+            {"multistep_block_kernel": 1} if mode == "block"
+            else {"fft_cols_kernel": len(factors) - 1,
+                  "fft_rows_kernel": 1}, run,
+            [rows, ell, *factors], mode=mode, windows=7,
+            **({"stage_plan": multistep_stage_plan(factors, rows)}
+               if mode == "per_stage" else {}))
         del xr, xi, xc
     torch.cuda.empty_cache()
 

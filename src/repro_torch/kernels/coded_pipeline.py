@@ -10,7 +10,9 @@ Per request the service's hot path is
     X   = F_m @ (c^ * W_s)              recombine butterfly
 
 ``coded_fft_bucket_masked`` runs all of it in one CUDA launch
-(``csrc/coded_bucket.cu``); :func:`bucket_body_masked` is its plain twin.
+(``csrc/coded_bucket.cu``: an L-point FFT of each shard in place of the
+four-step's dense passes, its working set :func:`bucket_fft_layout`);
+:func:`bucket_body_masked` is its plain twin.
 The decode matrices come from :func:`mask_subsets` (first-m responders,
 short rows filled with the first non-responders) and
 :func:`lagrange_planes_body` (the closed-form Lagrange inverse on f32
@@ -64,8 +66,10 @@ from repro_torch.kernels._build import SMEM_PER_BLOCK_OPTIN
 from repro_torch.kernels.cmatmul import bcmatmul_body, cmatmul_body
 from repro_torch.kernels.fourstep_fft import (
     FftSpec,
+    _padded,
     encode_fourstep_body,
     fft_cols_spec,
+    fft_rows_plan,
     fft_rows_spec,
     fft_twiddles_on,
 )
@@ -75,6 +79,8 @@ __all__ = [
     "mask_subsets",
     "bucket_body",
     "bucket_body_masked",
+    "bucket_fft_group",
+    "bucket_fft_layout",
     "bucket_layout",
     "bucket_smem_bytes",
     "coded_fft_bucket",
@@ -240,12 +246,16 @@ def _code_words(m: int, n: int, masked: bool):
 
 def bucket_layout(m: int, a: int, b: int, *, n: int = 0,
                   masked: bool = True) -> tuple[int, ...]:
-    """Word offsets of the c2c bucket kernel's shared arrays, then the
-    total; ``masked=False`` is the planes kernel's (it needs ``n``).
+    """Word offsets of the dense-DFT c2c bucket's shared arrays, then the
+    total; ``masked=False`` is the planes variant's (it needs ``n``).
 
-    The kernel takes these offsets at launch (``Layout`` in
-    ``csrc/coded_bucket.cu``, same order), so this is the one reckoning of
-    its working set, and the fused gate.
+    This is the working set of the first port of ``csrc/coded_bucket.cu``
+    (F_A, F_B, W, a message shard, the column pass and the m spectra at
+    pitch B+1), kept as the fused route's boundary:
+    ``ops.coded_bucket_fusable`` and ``ops.bucket_route`` answer from it,
+    so the kernel's FFT redesign moved no bucket between the fused and
+    the streaming routes.  The kernel itself lays out
+    :func:`bucket_fft_layout`, which fits one block wherever this does.
     """
     gs, decode = _code_words(m, n, masked)
     sizes = (
@@ -264,8 +274,65 @@ def bucket_layout(m: int, a: int, b: int, *, n: int = 0,
 
 def bucket_smem_bytes(m: int, a: int, b: int, *, n: int = 0,
                       masked: bool = True) -> int:
-    """Shared memory one block of the c2c bucket kernel needs, in bytes."""
+    """Shared memory of :func:`bucket_layout`, in bytes: the fused gate's
+    measure."""
     return 4 * bucket_layout(m, a, b, n=n, masked=masked)[-1]
+
+
+def _fft_layout(m: int, ell: int, rows: int, n: int,
+                masked: bool) -> tuple[int, ...]:
+    # the spectra: groups of `rows` shards, each group a padded plane, the
+    # last one only as long as its shards
+    groups = -(-m // rows)
+    gp = _padded(rows * ell)
+    zp = (groups - 1) * gp + _padded((m - (groups - 1) * rows) * ell)
+    gs, decode = _code_words(m, n, masked)
+    sizes = (
+        2 * zp,                  # z: the m shards, then their spectra
+        2 * gp,                  # y: the passes' ping-pong, one group
+        2 * _padded(ell),        # tab: the f32 table of w_L^t
+        gs,                      # gs: G rows (the subset's, or all N)
+        2 * m * m,               # fm: F_m planes
+        *decode,                 # pw, qm (inverse or D), loc, nodes, sub
+    )
+    return tuple(itertools.accumulate(sizes, initial=0))
+
+
+@functools.lru_cache(maxsize=None)
+def bucket_fft_group(m: int, ell: int, *, n: int = 0,
+                     masked: bool = True) -> int:
+    """Shards one group of the c2c bucket kernel's FFT phase takes: all m
+    where the block holds them, so each radix pass runs once over every
+    shard with the block's threads busy (a 1024-point shard alone has
+    128 radix-8 butterflies for 512 threads), and fewer while the
+    working set would pass :data:`SMEM_PER_BLOCK_OPTIN`: a group's
+    ping-pong buffer is the cost, and at m = 32, L = 256 and N = 282 on
+    the planes kernel four shards a group fit where five do not."""
+    rows = m
+    while rows > 1 and (4 * _fft_layout(m, ell, rows, n, masked)[-1]
+                        > SMEM_PER_BLOCK_OPTIN):
+        rows -= 1
+    return rows
+
+
+def bucket_fft_layout(m: int, ell: int, *, n: int = 0,
+                      masked: bool = True) -> tuple[int, ...]:
+    """Word offsets of the c2c bucket kernel's shared arrays, then the
+    total, for shards of ``ell`` points; ``masked=False`` is the planes
+    kernel's (it needs ``n``).
+
+    The kernel takes these offsets at launch (``Layout`` in
+    ``csrc/coded_bucket.cu``, same order), so this is the one reckoning
+    of its working set: the spectra in groups of
+    :func:`bucket_fft_group` shards, shard i at point j in word
+    ``(i // rows) * gp + pad((i % rows) * ell + j)`` of each plane
+    (``gp``, a full group's padded words), one group's ping-pong buffer,
+    the L-point table, then the code state of :func:`bucket_layout`.
+    The wrappers hold it against :data:`SMEM_PER_BLOCK_OPTIN`; it fits
+    wherever the gate, :func:`bucket_layout`, admits a bucket.
+    """
+    return _fft_layout(m, ell, bucket_fft_group(m, ell, n=n, masked=masked),
+                       n, masked)
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,13 +368,42 @@ def _bind(name: str, symbol: str, n_ptrs: int, masked: bool = True):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    return _bind("coded_bucket", "coded_bucket_masked_f32", 18)
+def _c2c_lib(symbol: str, masked: bool):
+    # 14 pointers, (q, n, m, ell), the masked entry's ntau, the radices,
+    # (passes, rows), layout, stream
+    fn = getattr(_build.load("coded_bucket"), symbol)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([vp] * 14 + [i32] * 4
+                   + ([ctypes.c_float] if masked else [])
+                   + [ctypes.POINTER(i32), i32, i32,
+                      ctypes.POINTER(ctypes.c_longlong), vp])
+    fn.restype = ctypes.c_int
+    return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _planes_lib():
-    return _bind("coded_bucket", "coded_bucket_f32", 18, masked=False)
+def _c2c_launch(what: str, symbol: str, xr, xi, decode, gr, gi, fmr, fmi,
+                q: int, n: int, m: int, s: int, masked: bool, dev):
+    """One launch of the c2c bucket kernel on checked CUDA planes;
+    ``decode``: the masked entry's (masks, perm), or the planes entry's
+    (dr, di)."""
+    ell = s // m
+    layout = bucket_fft_layout(m, ell, n=n, masked=masked)
+    _check_launch(what, m, layout, s)
+    rows = bucket_fft_group(m, ell, n=n, masked=masked)
+    plan = fft_rows_plan(ell)
+    outr = torch.empty_like(xr)
+    outi = torch.empty_like(xr)
+    p = _build.ptr
+    _build.check(_c2c_lib(symbol, masked)(
+        p(xr), p(xi), *(p(t) for t in decode), p(gr), p(gi),
+        *(p(t) for t in fft_twiddles_on(ell, dev)),
+        *(p(t) for t in fft_twiddles_on(s, dev)), p(fmr), p(fmi), p(outr),
+        p(outi), q, n, m, ell, *([_ntau(n)] if masked else []),
+        (ctypes.c_int * max(1, len(plan)))(*plan), len(plan), rows,
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        what)
+    _build.count_launch(what)
+    return outr, outi
 
 
 def _check_decode_planes(what, dr, di, q, m, n):
@@ -337,7 +433,8 @@ def coded_fft_bucket(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
 
     The other planes as :func:`coded_fft_bucket_masked` takes them.  CPU
     tensors run :func:`bucket_body`; CUDA tensors launch the kernel (one
-    launch) or raise.  The caller checks the gate
+    launch, counted) or raise, reading what
+    :func:`coded_fft_bucket_masked` reads.  The caller checks the gate
     (``ops.coded_bucket_fusable(..., masked=False)``).
     """
     q, s = xr.shape
@@ -355,18 +452,8 @@ def coded_fft_bucket(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
         "coded_fft_bucket", xr=xr, xi=xi, dr=dr, di=di, gr=gr, gi=gi,
         far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr, twi=twi,
         fmr=fmr, fmi=fmi)
-    layout = bucket_layout(m, a, b, n=n, masked=False)
-    _check_launch("coded_fft_bucket", m, layout, s)
-    outr = torch.empty_like(xr)
-    outi = torch.empty_like(xr)
-    p = _build.ptr
-    _build.check(_planes_lib()(
-        p(xr), p(xi), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr),
-        p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr), p(fmi), p(outr),
-        p(outi), q, n, m, a, b, (ctypes.c_longlong * len(layout))(*layout),
-        _build.stream_of(dev)), "coded_fft_bucket")
-    _build.count_launch("coded_fft_bucket")
-    return outr, outi
+    return _c2c_launch("coded_fft_bucket", "coded_bucket_f32", xr, xi,
+                       (dr, di), gr, gi, fmr, fmi, q, n, m, s, False, dev)
 
 
 def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
@@ -378,7 +465,13 @@ def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
     ``L = s/m = A*B``; ``twr, twi``: (m, L) recombine twiddle pre-permuted
     to the four-step order; ``fmr, fmi``: (m, m) DFT.  CPU tensors run
     :func:`bucket_body_masked`; CUDA tensors launch the kernel (one
-    launch) or raise.  The caller checks the shared-memory gate
+    launch, counted) or raise, also where its working set
+    (:func:`bucket_fft_layout`) is past one block.  The card computes the
+    shard DFTs from the f32 table of L and takes the recombine twiddle of
+    shard j at natural l from the f32 table of s at j*l
+    (``fourstep_fft.fft_rows_twiddles``), whose entries are those of the
+    planes: it reads G and F_m, not ``far``, ``wr``, ``fbr`` or ``twr``.
+    The caller checks the shared-memory gate
     (``ops.coded_bucket_fusable``).
     """
     q, s = xr.shape
@@ -396,19 +489,9 @@ def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
         "coded_fft_bucket_masked", xr=xr, xi=xi, masks=mk, gr=gr, gi=gi,
         far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr, twi=twi,
         fmr=fmr, fmi=fmi)
-    layout = bucket_layout(m, a, b)
-    _check_launch("coded_fft_bucket_masked", m, layout, s)
-    outr = torch.empty_like(xr)
-    outi = torch.empty_like(xr)
-    p = _build.ptr
-    _build.check(_lib()(
-        p(xr), p(xi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far),
-        p(fai), p(wr), p(wi), p(fbr), p(fbi), p(twr), p(twi), p(fmr),
-        p(fmi), p(outr), p(outi), q, n, m, a, b, _ntau(n),
-        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
-        "coded_fft_bucket_masked")
-    _build.count_launch("coded_fft_bucket_masked")
-    return outr, outi
+    return _c2c_launch("coded_fft_bucket_masked", "coded_bucket_masked_f32",
+                       xr, xi, (mk, _perm_on(m, dev)), gr, gi, fmr, fmi, q,
+                       n, m, s, True, dev)
 
 
 def streaming_smem_bytes(m: int, n: int) -> int:

@@ -14,10 +14,10 @@
 //                integers (subset_j * d mod N) before the float multiply --
 //                block_subset_decode of bucket.cuh, shared with the
 //                real-kind bucket kernels;
-//   2. the m interleaved message shards c_i[j] = x[i + j*m], each an A x B
-//      matrix, through the four-step DFT ((F_A @ M_i) * W) @ F_B;
+//   2. the L-point DFT of each of the m interleaved message shards
+//      c_i[j] = x[j*m + i];
 //   3. at every payload position l: worker results b_r = G[subset_r] . t,
-//      decode c^ = inv . b, recombine twiddle, length-m DFT;
+//      decode c^ = inv . b, recombine twiddle w_s^(j*l), length-m DFT;
 //   4. natural-order output X[j*L + l].
 //
 // The planes kernel (kPlanes) takes the request's host-built (m, N)
@@ -28,38 +28,54 @@
 // folded, the coded computation would vanish), the zero straggler
 // columns of D included.
 //
-// Everything after the four-step mixes only the shard axis at a fixed l,
-// so it runs in registers, one thread per l.  The recombine twiddle plane
-// arrives pre-permuted to the four-step order (the reference's contract),
-// so it is read at the scrambled index c*B + d of natural l = c + d*A.
-//
 // What bounds it on the H100: bytes.  Counted as FFTs (5*L*log2(L) flops
 // per shard) plus the O(m^2) coding work per payload position, the
 // service's default bucket (64 requests, s = 4096, m = 4, N = 8) needs
 // about 0.5 us of FP32 work against about 1.25 us to read x and write the
-// output once.  This first port does more work than that: its four-step
-// is two dense DFT contractions (8*L*(A + B) flops per shard), one block
-// per request with every working array in shared memory -- the planes
-// F_A, F_B, W, F_m, one message shard, the column-pass result, the m
-// shard spectra (padded pitch B+1 so the l-walk reads conflict-free) and
-// the O(m^2) decode state -- and plain shared-memory DFT loops; the launch
-// is only as wide as the bucket, so it leaves SMs idle at small q.  The
-// working set is laid out by coded_pipeline.bucket_layout on the Python
-// side, which passes the word offsets in at launch: that one reckoning is
-// also the fused gate (ops.coded_bucket_fusable, against 232,448 bytes).
-// The planes kernel does 2*N*m complex MACs per position where the
-// masked one does 2*m*m, and stages 4*N*m words of G and D.
+// output once.
+//
+// Design.  One block per request, every working array in shared memory.
+//   Load: the request's s values are read as one contiguous run, 16
+//   bytes a thread where aligned, and de-interleaved as they land: x[j*m
+//   + i] goes to shard row i, point j.  The rows sit in groups of `rows`
+//   consecutive shards (Plan.rows), each group its own padded plane
+//   (pad(a) = a + a/32, fft_rows.cuh's), so shard i, point j is word
+//   (i / rows) * gp + pad((i % rows) * L + j), gp the padded words of a
+//   full group.
+//   Shard FFTs: each group runs the Stockham passes of fft_rows.cuh
+//   (run_passes: the radix plan fourstep_fft.fft_rows_plan(L), the f32
+//   table of w_L^t staged once a block, natural-order spectra) from its
+//   rows in place to one ping-pong buffer of a group's size; an odd
+//   number of passes leaves the spectra in the buffer, and they are
+//   copied back.  So the kernel reads no DFT plane: its twiddles are
+//   entries of the table, bit for bit those of F_A and F_B.
+//   Code phase: one thread per natural l, everything after the DFT mixes
+//   only the shard axis, in registers.  A warp reads the spectra at
+//   consecutive words and stores the output in consecutive floats.  The
+//   recombine twiddle of shard j at l is w_s^(j*l) (j*l < s), read from
+//   the f32 table of the s-point twiddles -- the entry the reference's
+//   plane holds at that position, bit for bit -- at stride j across a
+//   warp, from L2.
+// The working set is laid out by coded_pipeline.bucket_fft_layout, which
+// also picks the group rows (all m shards in one group where the block
+// holds them, fewer where it would not fit) and passes the word offsets
+// in at launch.  The
+// route's gate stays coded_pipeline.bucket_layout, the dense design's
+// reckoning: this layout fits one block wherever that one does.
 
 #include <cstring>
 
 #include "bucket.cuh"
+#include "fft_rows.cuh"
 
 namespace {
 
+using fft_rows::pad;
+
 // Word offsets of every shared array, then the total, in this order; the
-// caller computes them (coded_pipeline.bucket_layout).
+// caller computes them (coded_pipeline.bucket_fft_layout).
 struct Layout {
-  long long fa, fb, w, msg, t1, z, gs, fm, pw, qm, loc, nodes, sub, total;
+  long long z, y, tab, gs, fm, pw, qm, loc, nodes, sub, total;
 };
 
 struct BucketArgs {
@@ -71,56 +87,59 @@ struct BucketArgs {
   const float* di;
   const float* gr;
   const float* gi;
-  const float* far;
-  const float* fai;
-  const float* wr;
-  const float* wi;
-  const float* fbr;
-  const float* fbi;
-  const float* twr;
+  const float* tabr;   // (L,) f32 table of w_L^t
+  const float* tabi;
+  const float* twr;    // (s,) f32 table of w_s^t
   const float* twi;
   const float* fmr;
   const float* fmi;
   float* outr;
   float* outi;
-  int n, m, a, b;
-  float ntau;  // -2*pi/n rounded to float
-  Layout o;    // shared-memory word offsets
+  int n, m;
+  float ntau;          // -2*pi/n rounded to float
+  fft_rows::Plan plan; // L, the group rows, the radices
+  Layout o;            // shared-memory word offsets
 };
 
-constexpr int kThreads = 256;
+// Threads a block: 512 where the code phase's registers allow (its
+// per-thread arrays are 4*MM floats), 256 for MM = 32.  One block an SM
+// is the launch's own bound (a block a request), and naming it keeps
+// ptxas from spilling to fit two (MM = 8 spilled 8 bytes at 64
+// registers without it)
+constexpr int threads_for(int mm) { return mm <= 16 ? 512 : 256; }
 
 template <int MM, bool kPlanes>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_for(MM), 1)
 coded_bucket_kernel(BucketArgs p) {
   extern __shared__ float smem[];
-  const int m = p.m, n = p.n, A = p.a, B = p.b;
-  const int L = A * B;
-  const long long s = (long long)m * L;
+  const int m = p.m, n = p.n;
+  const int L = p.plan.n, rows = p.plan.rows;
+  const int s = m * L;
   const long long q = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Layout& o = p.o;
   const int R = kPlanes ? n : m;  // worker rows the decode contracts
-  float* fa_r = smem + o.fa;   float* fa_i = fa_r + A * A;
-  float* fb_r = smem + o.fb;   float* fb_i = fb_r + B * B;
-  float* w_r = smem + o.w;     float* w_i = w_r + L;
-  float* msg_r = smem + o.msg; float* msg_i = msg_r + L;
-  float* t1_r = smem + o.t1;   float* t1_i = t1_r + L;
-  const int zp = B + 1;
-  float* z_r = smem + o.z;     float* z_i = z_r + (size_t)m * A * zp;
-  float* gs_r = smem + o.gs;   float* gs_i = gs_r + R * m;
-  float* fm_r = smem + o.fm;   float* fm_i = fm_r + m * m;
-  float* pw_r = smem + o.pw;   float* pw_i = pw_r + m * m;
-  float* qm_r = smem + o.qm;   float* qm_i = qm_r + m * R;
-  float* loc_r = smem + o.loc; float* loc_i = loc_r + (m + 1);
+  const int gp = pad(rows * L - 1) + 1;  // words of a full group's plane
+  const int groups = (m + rows - 1) / rows;
+  const int zplane = (int)((o.y - o.z) / 2);
+  float* z_r = smem + o.z;      float* z_i = z_r + zplane;
+  float* y_r = smem + o.y;      float* y_i = y_r + gp;
+  float* tb_r = smem + o.tab;   float* tb_i = tb_r + (o.gs - o.tab) / 2;
+  float* gs_r = smem + o.gs;    float* gs_i = gs_r + R * m;
+  float* fm_r = smem + o.fm;    float* fm_i = fm_r + m * m;
+  float* pw_r = smem + o.pw;    float* pw_i = pw_r + m * m;
+  float* qm_r = smem + o.qm;    float* qm_i = qm_r + m * R;
+  float* loc_r = smem + o.loc;  float* loc_i = loc_r + (m + 1);
   float* nd_r = smem + o.nodes; float* nd_i = nd_r + m;
   int* sub = reinterpret_cast<int*>(smem + o.sub);
 
-  // -- shared planes ------------------------------------------------------
-  block_copy(fa_r, p.far, A * A); block_copy(fa_i, p.fai, A * A);
-  block_copy(fb_r, p.fbr, B * B); block_copy(fb_i, p.fbi, B * B);
-  block_copy(w_r, p.wr, L);       block_copy(w_i, p.wi, L);
-  block_copy(fm_r, p.fmr, m * m); block_copy(fm_i, p.fmi, m * m);
+  // -- the L-point table and F_m ------------------------------------------
+  for (int t = tid; t < L; t += nt) {
+    tb_r[pad(t)] = p.tabr[t];
+    tb_i[pad(t)] = p.tabi[t];
+  }
+  block_copy(fm_r, p.fmr, m * m);
+  block_copy(fm_i, p.fmi, m * m);
 
   // -- 1. subset and inv(G[subset]), or G and the request's D ------------
   if (kPlanes) {
@@ -133,47 +152,92 @@ coded_bucket_kernel(BucketArgs p) {
                         dsm);
   }
 
-  // -- 2. four-step DFT of every message shard ----------------------------
-  for (int i = 0; i < m; ++i) {
-    for (int t = tid; t < L; t += nt) {  // M_i[a][b] = x[i + (a*B + b)*m]
-      msg_r[t] = p.xr[q * s + (long long)t * m + i];
-      msg_i[t] = p.xi[q * s + (long long)t * m + i];
+  // -- load: x[j*m + i] -> shard row i, point j ---------------------------
+  const float* xq_r = p.xr + q * s;
+  const float* xq_i = p.xi + q * s;
+  int head = 0;
+  if (fft_rows::aligned16(xq_r, xq_i)) {
+    head = s & ~3;
+    for (int t = tid; t < (s >> 2); t += nt) {
+      const float4 a = reinterpret_cast<const float4*>(xq_r)[t];
+      const float4 b = reinterpret_cast<const float4*>(xq_i)[t];
+      const float va[4] = {a.x, a.y, a.z, a.w};
+      const float vb[4] = {b.x, b.y, b.z, b.w};
+      int j = (4 * t) / m, i = 4 * t - j * m;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int g = i / rows;
+        const int w = g * gp + pad((i - g * rows) * L + j);
+        z_r[w] = va[u];
+        z_i[w] = vb[u];
+        if (++i == m) {
+          i = 0;
+          ++j;
+        }
+      }
     }
-    __syncthreads();
-    block_fourstep_tile(msg_r, msg_i, t1_r, t1_i, fa_r, fa_i, w_r, w_i, fb_r,
-                        fb_i, z_r + (size_t)i * A * zp,
-                        z_i + (size_t)i * A * zp, A, B, zp);
+  }
+  for (int e = head + tid; e < s; e += nt) {
+    const int j = e / m, i = e - j * m, g = i / rows;
+    const int w = g * gp + pad((i - g * rows) * L + j);
+    z_r[w] = xq_r[e];
+    z_i[w] = xq_i[e];
+  }
+  __syncthreads();
+
+  // -- 2. the L-point DFT of every shard, a group of rows at a time -------
+  for (int g = 0; g < groups; ++g) {
+    const int live = min(rows, m - g * rows);
+    float* sr = z_r + g * gp;
+    float* si = z_i + g * gp;
+    float* dr = y_r;
+    float* di = y_i;
+    fft_rows::run_passes(sr, si, dr, di, tb_r, tb_i, p.plan, live, tid, nt);
+    if (sr != z_r + g * gp) {  // odd passes: the spectra are in y
+      for (int t = tid; t < live * L; t += nt) {
+        z_r[g * gp + pad(t)] = sr[pad(t)];
+        z_i[g * gp + pad(t)] = si[pad(t)];
+      }
+      __syncthreads();
+    }
   }
 
   // -- 3./4. encode, decode, recombine at each natural payload index l ----
+  float* outq_r = p.outr + q * s;
+  float* outq_i = p.outi + q * s;
   for (int l = tid; l < L; l += nt) {
-    const int c = l % A, d = l / A;
-    const int zo = c * zp + d;  // spectrum slot of X_i[l]
-    const int lp = c * B + d;   // the same slot in the scrambled order
     float tr[MM], ti[MM], hr[MM], hi[MM];
+    int g = 0, r = 0;
 #pragma unroll
     for (int i = 0; i < MM; ++i) {
       hr[i] = hi[i] = 0.f;
       if (i < m) {
-        tr[i] = z_r[(size_t)i * A * zp + zo];
-        ti[i] = z_i[(size_t)i * A * zp + zo];
+        const int w = g * gp + pad(r * L + l);  // X_i[l]
+        tr[i] = z_r[w];
+        ti[i] = z_i[w];
+        if (++r == rows) {
+          r = 0;
+          ++g;
+        }
       }
     }
 #pragma unroll 1
-    for (int r = 0; r < R; ++r) {
-      float br = 0.f, bi = 0.f;  // worker row r's result b = G[r] . t
+    for (int rr = 0; rr < R; ++rr) {
+      float br = 0.f, bi = 0.f;  // worker row rr's result b = G[rr] . t
 #pragma unroll
       for (int i = 0; i < MM; ++i)
-        if (i < m) cmac(br, bi, gs_r[r * m + i], gs_i[r * m + i], tr[i], ti[i]);
+        if (i < m)
+          cmac(br, bi, gs_r[rr * m + i], gs_i[rr * m + i], tr[i], ti[i]);
 #pragma unroll
-      for (int j = 0; j < MM; ++j)  // decode: c^ += inv[:, r] * b (or D)
-        if (j < m) cmac(hr[j], hi[j], qm_r[j * R + r], qm_i[j * R + r], br, bi);
+      for (int j = 0; j < MM; ++j)  // decode: c^ += inv[:, rr] * b (or D)
+        if (j < m)
+          cmac(hr[j], hi[j], qm_r[j * R + rr], qm_i[j * R + rr], br, bi);
     }
 #pragma unroll
     for (int j = 0; j < MM; ++j) {
       if (j < m) {
-        const float w_re = p.twr[(long long)j * L + lp];
-        const float w_im = p.twi[(long long)j * L + lp];
+        const float w_re = __ldg(p.twr + j * l);
+        const float w_im = __ldg(p.twi + j * l);
         const float u = hr[j] * w_re - hi[j] * w_im;
         hi[j] = hr[j] * w_im + hi[j] * w_re;
         hr[j] = u;
@@ -184,9 +248,10 @@ coded_bucket_kernel(BucketArgs p) {
       float accr = 0.f, acci = 0.f;
 #pragma unroll
       for (int j = 0; j < MM; ++j)
-        if (j < m) cmac(accr, acci, fm_r[jp * m + j], fm_i[jp * m + j], hr[j], hi[j]);
-      p.outr[q * s + (long long)jp * L + l] = accr;
-      p.outi[q * s + (long long)jp * L + l] = acci;
+        if (j < m)
+          cmac(accr, acci, fm_r[jp * m + j], fm_i[jp * m + j], hr[j], hi[j]);
+      outq_r[jp * L + l] = accr;
+      outq_i[jp * L + l] = acci;
     }
   }
 }
@@ -197,14 +262,25 @@ int launch(const BucketArgs& p, int q, size_t smem, cudaStream_t stream) {
       coded_bucket_kernel<MM, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  coded_bucket_kernel<MM, kPlanes><<<q, kThreads, smem, stream>>>(p);
+  if (q < 1) return 0;
+  coded_bucket_kernel<MM, kPlanes><<<q, threads_for(MM), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Both entries: the layout words into p, then the instance for m.
+// Both entries: the plan and the layout words into p, then the instance
+// for m.
 template <bool kPlanes>
-int dispatch(BucketArgs& p, int q, int m, const long long* layout,
-             void* stream) {
+int dispatch(BucketArgs& p, int q, int ell, const int* radix, int passes,
+             int rows, const long long* layout, void* stream) {
+  const int m = p.m;
+  if (m < 1 || ell < 1 || rows < 1 || rows > m || passes < 0 ||
+      passes > fft_rows::kMaxPasses)
+    return (int)cudaErrorInvalidValue;
+  memset(&p.plan, 0, sizeof(p.plan));
+  p.plan.n = ell;
+  p.plan.rows = rows;
+  p.plan.passes = passes;
+  for (int k = 0; k < passes; ++k) p.plan.radix[k] = radix[k];
   memcpy(&p.o, layout, sizeof(Layout));
   const size_t smem = (size_t)p.o.total * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
@@ -227,32 +303,32 @@ extern "C" int device_smem_per_block_optin(int device) {
 }
 
 // x: (q, s) planes; masks: (q, n) float; perm: (m,) int32; g: (n, m);
-// fa: (a, a); w: (a, b); fb: (b, b); tw: (m, a*b) pre-scrambled; fm: (m, m);
-// out: (q, s); layout: the 14 words of Layout, in host memory.  m must be
-// in [1, 32]; the wrapper checks.
+// tab: the (ell,) f32 table of w_ell^t; tw: the (s,) f32 table of w_s^t;
+// fm: (m, m); out: (q, s); radix: the `passes` radices of ell
+// (fourstep_fft.fft_rows_plan); rows: the shards of a group; layout: the
+// 11 words of Layout, in host memory (coded_pipeline.bucket_fft_layout).
+// m must be in [1, 32]; the wrapper checks.
 extern "C" int coded_bucket_masked_f32(
     const float* xr, const float* xi, const float* masks, const int* perm,
-    const float* gr, const float* gi, const float* far, const float* fai,
-    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* gr, const float* gi, const float* tabr, const float* tabi,
     const float* twr, const float* twi, const float* fmr, const float* fmi,
-    float* outr, float* outi, int q, int n, int m, int a, int b, float ntau,
-    const long long* layout, void* stream) {
-  BucketArgs p{xr, xi, masks, perm, nullptr, nullptr, gr, gi, far, fai,
-               wr, wi, fbr, fbi, twr, twi, fmr, fmi, outr, outi,
-               n, m, a, b, ntau, {}};
-  return dispatch<false>(p, q, m, layout, stream);
+    float* outr, float* outi, int q, int n, int m, int ell, float ntau,
+    const int* radix, int passes, int rows, const long long* layout,
+    void* stream) {
+  BucketArgs p{xr, xi, masks, perm, nullptr, nullptr, gr, gi, tabr, tabi,
+               twr, twi, fmr, fmi, outr, outi, n, m, ntau, {}, {}};
+  return dispatch<false>(p, q, ell, radix, passes, rows, layout, stream);
 }
 
 // As coded_bucket_masked_f32, with d: (q, m, n) scatter decode planes in
-// place of the masks (layout: coded_pipeline.bucket_layout(masked=False)).
+// place of the masks (layout: bucket_fft_layout(masked=False)).
 extern "C" int coded_bucket_f32(
     const float* xr, const float* xi, const float* dr, const float* di,
-    const float* gr, const float* gi, const float* far, const float* fai,
-    const float* wr, const float* wi, const float* fbr, const float* fbi,
+    const float* gr, const float* gi, const float* tabr, const float* tabi,
     const float* twr, const float* twi, const float* fmr, const float* fmi,
-    float* outr, float* outi, int q, int n, int m, int a, int b,
-    const long long* layout, void* stream) {
-  BucketArgs p{xr, xi, nullptr, nullptr, dr, di, gr, gi, far, fai, wr, wi,
-               fbr, fbi, twr, twi, fmr, fmi, outr, outi, n, m, a, b, 0.f, {}};
-  return dispatch<true>(p, q, m, layout, stream);
+    float* outr, float* outi, int q, int n, int m, int ell, const int* radix,
+    int passes, int rows, const long long* layout, void* stream) {
+  BucketArgs p{xr, xi, nullptr, nullptr, dr, di, gr, gi, tabr, tabi, twr,
+               twi, fmr, fmi, outr, outi, n, m, 0.f, {}, {}};
+  return dispatch<true>(p, q, ell, radix, passes, rows, layout, stream);
 }

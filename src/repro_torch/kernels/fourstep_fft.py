@@ -32,8 +32,9 @@ twiddle on planar f32 data.
   :func:`encode_rows_layout`, the gate :func:`encode_rows_fold`), or past
   that gate the row FFT and a separate G apply;
 * ``multistep_fused`` -- the mixed-radix four-step, ``L = f1 * ... *
-  fk``: k dense stages, the row in one block's shared memory where it
-  fits (:func:`multistep_layout`), else one launch per stage.
+  fk``: k dense stages with the row in one block's shared memory where it
+  fits (:func:`multistep_layout`), else one FFT launch per stage (the
+  column FFT, the row FFT for the last; :func:`multistep_stage_plan`).
 
 CUDA sources: ``csrc/fourstep.cu`` (the first four; the row FFT in
 ``csrc/fft_rows.cuh``, the column FFT in ``csrc/fft_cols.cuh``),
@@ -84,6 +85,7 @@ __all__ = [
     "multistep_fused",
     "multistep_layout",
     "multistep_mode",
+    "multistep_stage_plan",
 ]
 
 
@@ -673,8 +675,6 @@ def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
 # -- the mixed-radix (multistep) four-step -------------------------------
 # Stages the kernel's plan holds (csrc/multistep.cu, kMaxStages)
 MAX_STAGES = 32
-# Complex elements of one per-stage tile (csrc/multistep.cu, kTileElems)
-STAGE_TILE = 4096
 
 
 def _parse_stage_planes(factors, planes):
@@ -746,33 +746,75 @@ def multistep_layout(factors) -> tuple[int, ...]:
     return tuple(itertools.accumulate(sizes, initial=0))
 
 
+def multistep_stage_plan(factors, batch: int) -> list[tuple]:
+    """The per-stage mode's launches, in order, for ``batch`` rows: one
+    ``(kind, batch, n, ld, tile)`` a stage.  Stage i < k is ``"cols"``,
+    the column FFT of ``fft_cols.cuh`` -- n = f_i points down the ld =
+    rest columns of each of ``batch * f_1 * ... * f_(i-1)`` matrices,
+    tiles of ``tile`` columns (:func:`fft_cols_tile`), the (f, rest)
+    twiddle applied as it stores; the last stage is ``"rows"``, the row
+    FFT of ``fft_rows.cuh`` over that many rows of f_k points (ld = 1),
+    ``tile`` rows a block (:func:`fft_rows_per_block`)."""
+    factors = tuple(int(f) for f in factors)
+    lead, rest, plan = batch, math.prod(factors), []
+    for i, f in enumerate(factors):
+        rest //= f
+        if i + 1 < len(factors):
+            plan.append(("cols", lead, f, rest, fft_cols_tile(f, rest)))
+        else:
+            plan.append(("rows", lead, f, 1, fft_rows_per_block(f)))
+        lead *= f
+    return plan
+
+
+def _stage_specs(factors) -> list[FftSpec]:
+    """Each stage's plan record (:func:`fft_cols_spec`, and
+    :func:`fft_rows_spec` for the last): raises ValueError where a
+    stage's tile is past one block's shared memory."""
+    return [fft_cols_spec("multistep_fused", n, ld) if kind == "cols"
+            else fft_rows_spec("multistep_fused", n)
+            for kind, _, n, ld, _ in multistep_stage_plan(factors, 1)]
+
+
 def multistep_mode(factors) -> str:
     """How ``multistep_fused`` runs a plan on the card, from the plan
     alone: ``"block"`` (one launch, each row in one block's shared
     memory) when :func:`multistep_layout` fits
-    :data:`_build.SMEM_PER_BLOCK_OPTIN`, else ``"per_stage"`` (one launch
-    per stage through a device ping-pong).  Raises ValueError for a plan
-    the kernel cannot take: more than :data:`MAX_STAGES` stages, or a
-    factor whose per-stage tile exceeds one block's shared memory."""
+    :data:`_build.SMEM_PER_BLOCK_OPTIN`, else ``"per_stage"`` (one FFT
+    launch per stage through a device ping-pong,
+    :func:`multistep_stage_plan`).  Raises ValueError for a plan the
+    kernel cannot take: more than :data:`MAX_STAGES` stages, or a stage
+    whose FFT tile (:func:`fft_cols_layout`, :func:`fft_rows_layout`)
+    exceeds one block's shared memory -- a factor past 9392 points, the
+    largest whose one-column tile, its ping-pong buffer and its table
+    fit (a factor of 1 runs as a copy, or the twiddle alone)."""
     factors = tuple(int(f) for f in factors)
     if not 1 <= len(factors) <= MAX_STAGES or min(factors) < 1:
         raise ValueError(f"multistep_fused: plan {factors} needs 1 to "
                          f"{MAX_STAGES} positive factors")
     if 4 * multistep_layout(factors)[-1] <= _build.SMEM_PER_BLOCK_OPTIN:
         return "block"
-    big = max(factors)
-    if 8 * big * max(1, STAGE_TILE // big) > _build.SMEM_PER_BLOCK_OPTIN:
-        raise ValueError(f"multistep_fused: factor {big} is past one "
-                         f"block's shared memory")
+    _stage_specs(factors)
     return "per_stage"
 
 
 @functools.lru_cache(maxsize=None)
-def _multistep_lib():
-    fn = _build.load("multistep").multistep_fused_f32
+def _multistep_block_lib():
+    fn = _build.load("multistep").multistep_block_f32
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * 6 + [ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
+    fn.argtypes = ([vp] * 4 + [ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
                                i32, ctypes.POINTER(ctypes.c_longlong), vp])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _multistep_stages_lib():
+    fn = _build.load("multistep").multistep_stages_f32
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp] * 6 + [ctypes.POINTER(vp), ctypes.POINTER(vp),
+                              ctypes.POINTER(FftSpec), ctypes.c_int,
+                              ctypes.c_longlong, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -788,7 +830,10 @@ def multistep_fused(xr, xi, planes, factors):
 
     CPU tensors run :func:`multistep_body`; CUDA tensors launch the
     kernel or raise: one launch in block mode, one per stage in
-    per-stage mode (:func:`multistep_mode`), each counted.
+    per-stage mode (:func:`multistep_mode`), each counted.  The
+    per-stage mode computes each stage's DFT from the f32 table of its
+    factor (:func:`fft_rows_twiddles`), bit for bit the entries of its
+    DFT plane: it reads the twiddle planes, not the DFT planes.
     """
     factors = tuple(int(f) for f in factors)
     batch, ell = xr.shape
@@ -816,20 +861,25 @@ def multistep_fused(xr, xi, planes, factors):
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     p = _build.ptr
+    vps = lambda ts: (ctypes.c_void_p * len(ts))(*(p(t) for t in ts))
     if mode == "block":
         layout = multistep_layout(factors)
-        lay = (ctypes.c_longlong * len(layout))(*layout)
-        scr = sci = None
-    else:
-        lay = None
-        scr = torch.empty_like(xr)
-        sci = torch.empty_like(xr)
-    _build.check(_multistep_lib()(
-        p(xr), p(xi), p(outr), p(outi),
-        None if scr is None else p(scr), None if sci is None else p(sci),
-        (ctypes.c_void_p * len(planes))(*(p(t) for t in planes)),
-        (ctypes.c_int * len(factors))(*factors), len(factors), batch, lay,
+        _build.check(_multistep_block_lib()(
+            p(xr), p(xi), p(outr), p(outi), vps(planes),
+            (ctypes.c_int * len(factors))(*factors), len(factors), batch,
+            (ctypes.c_longlong * len(layout))(*layout),
+            _build.stream_of(dev)), "multistep_fused")
+        _build.count_launch("multistep_fused")
+        return outr, outi
+    specs = _stage_specs(factors)
+    scr = torch.empty_like(xr)
+    sci = torch.empty_like(xr)
+    tables = [t for f in factors for t in fft_twiddles_on(f, dev)]
+    twiddles = [t for _, _, twr, twi in stages[:-1] for t in (twr, twi)]
+    _build.check(_multistep_stages_lib()(
+        p(xr), p(xi), p(outr), p(outi), p(scr), p(sci), vps(tables),
+        vps(twiddles) if twiddles else None,
+        (FftSpec * len(specs))(*specs), len(factors), batch,
         _build.stream_of(dev)), "multistep_fused")
-    _build.count_launch("multistep_fused",
-                        1 if mode == "block" else len(factors))
+    _build.count_launch("multistep_fused", len(factors))
     return outr, outi

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core import mds as tmds
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, autotune, fourstep_fft
 from repro_torch.kernels import coded_pipeline as tcp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.cmatmul import bcmatmul, bcmatmul_body, bcmatmul_map
@@ -289,6 +289,197 @@ def test_fused_gate_is_the_kernel_reckoning():
     assert tops.SMEM_PER_BLOCK_OPTIN == 227 * 1024
 
 
+# ------------------------------------ the c2c bucket kernel's FFT layout
+def test_bucket_fft_layout_counted_by_hand():
+    """(m=4, L=1024): all four shards in one group, its plane padded one
+    word in 32; every array of the block counted by hand, in the order
+    the kernel takes them."""
+    gp = 4096 + 127                   # _padded(4 * 1024)
+    words = [2 * gp,                  # z: one group of four shards
+             2 * gp,                  # y: that group's ping-pong
+             2 * (1024 + 31),         # tab: the 1024-point table
+             2 * 4 * 4,               # gs: the subset's G rows
+             2 * 4 * 4,               # fm
+             2 * 4 * 4, 2 * 4 * 4,    # pw, qm
+             2 * 5, 2 * 4, 4]         # loc, nodes, sub
+    layout = tcp.bucket_fft_layout(4, 1024)
+    assert tcp.bucket_fft_group(4, 1024) == 4
+    assert layout == tuple(np.cumsum([0] + words))
+    assert layout[-1] == 19152
+    # the planes kernel: all N = 8 rows of G and the request's (4, 8) D
+    planes = tcp.bucket_fft_layout(4, 1024, n=8, masked=False)
+    assert planes[-1] == 4 * gp + 2 * 1055 + 64 + 32 + 64
+    # past the block, fewer shards a group, the last one only as long as
+    # its shards: m = 32, L = 256, N = 282 on the planes kernel takes
+    # four a group, eight groups of 1024 points
+    assert tcp.bucket_fft_group(32, 256, n=282, masked=False) == 4
+    layout = tcp.bucket_fft_layout(32, 256, n=282, masked=False)
+    assert layout[1] == 2 * 8 * (1024 + 31)
+    assert 4 * layout[-1] <= tcp.SMEM_PER_BLOCK_OPTIN
+
+
+_FIT_LENGTHS = sorted({1 << k for k in range(22)} | {
+    96, 768, 4 * 127, 4 * 105, 4 * 1021, 4 * 4099, 12288, 3 * 1000,
+    16 * 384, 32 * 256})
+
+
+def _largest_planes_n(s, m):
+    """The widest code N the planes gate admits at (s, m) (N enters both
+    layouts linearly, so the widest is the one to hold)."""
+    lo, hi = m, 1 << 17
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if tops.coded_bucket_fusable(s, m, mid, masked=False):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("m", range(1, 33))
+def test_bucket_fft_layout_fits_wherever_the_gate_admits(m, masked):
+    """The gate stays the dense design's reckoning (``bucket_layout``);
+    the kernel's own layout fits one block at every shape it admits: s
+    over the powers of two to 2^21 and the odd lengths the tests use,
+    every m to 32, both decode modes, N from m to the widest the planes
+    gate admits."""
+    checked = 0
+    for s in sorted(set(_FIT_LENGTHS) | {m * k for k in (1, 3, 5, 7, 105,
+                                                         127, 1021)}):
+        if s % m or not tops.coded_bucket_fusable(s, m, m, masked=masked):
+            continue
+        ns = [m] if masked else sorted({m, m + 1, 2 * m,
+                                        _largest_planes_n(s, m)})
+        for n in ns:
+            assert tops.coded_bucket_fusable(s, m, n, masked=masked)
+            layout = tcp.bucket_fft_layout(m, s // m, n=n, masked=masked)
+            assert 4 * layout[-1] <= tcp.SMEM_PER_BLOCK_OPTIN, (s, m, n)
+            rows = tcp.bucket_fft_group(m, s // m, n=n, masked=masked)
+            assert 1 <= rows <= m
+            checked += 1
+    assert checked > 0
+
+
+# bucket_route's c2c answers, masked then planes, for the codes (m, N) =
+# (1, 3), (3, 7), (4, 8), (8, 16), (16, 32), (32, 64): F fused, S
+# streaming, T stage.  The kernel's FFT redesign moves no bucket.
+_C2C_ROUTES = {
+    96: "FF FF FF FF FF FF",
+    768: "FF FF FF FF FF FF",
+    2048: "FF TT FF FF FF FF",
+    4096: "FF TT FF FF FF FF",
+    8192: "SS TT FF FF FF FF",
+    12288: "SS SS FF FF FF FF",
+    16384: "SS TT SS FF FF FF",
+    4 * 127: "FF TT FF TT TT TT",
+    4 * 1021: "TT TT TT TT TT TT",
+    4 * 105: "FF FF FF TT TT TT",
+    1 << 20: "TT TT SS SS SS SS",
+    1 << 21: "TT TT TT TT TT TT",
+    4 * 4099: "TT TT TT TT TT TT",
+}
+
+
+@pytest.mark.parametrize("s", sorted(_C2C_ROUTES))
+def test_bucket_route_is_frozen_for_c2c(s):
+    names = {"F": "fused", "S": "streaming", "T": "stage"}
+    codes = [(1, 3), (3, 7), (4, 8), (8, 16), (16, 32), (32, 64)]
+    for (m, n), pair in zip(codes, _C2C_ROUTES[s].split()):
+        assert tops.bucket_route(s, m, n, "c2c") == names[pair[0]]
+        assert tops.bucket_route(s, m, n, "c2c", masked=False) == \
+            names[pair[1]]
+
+
+def _pad(a):
+    return a + (a >> 5)
+
+
+def _bucket_model(xr, xi, dr, di, gr, gi, fmr, fmi, s, m, n, masked):
+    """A numpy model of ``csrc/coded_bucket.cu``, index for index: the
+    contiguous load de-interleaved into the grouped, padded spectrum
+    planes, each group's shards transformed in place (the row FFT's
+    natural-order result), then per natural l the code phase reading
+    those words and the recombine twiddle from the s-point table at j*l.
+    Returns the (q, s) complex output, float64 arithmetic."""
+    q = xr.shape[0]
+    ell = s // m
+    rows = tcp.bucket_fft_group(m, ell, n=n, masked=masked)
+    layout = tcp.bucket_fft_layout(m, ell, n=n, masked=masked)
+    gp = _pad(rows * ell - 1) + 1
+    zplane = (layout[1] - layout[0]) // 2
+    assert layout[2] - layout[1] == 2 * gp           # y: one full group
+    groups = -(-m // rows)
+    # load: x[j*m + i] -> shard row i, point j
+    e = np.arange(s)
+    i, j = e % m, e // m
+    g = i // rows
+    slot = g * gp + _pad((i - g * rows) * ell + j)
+    assert len(np.unique(slot)) == s and slot.max() < zplane
+    # the shard groups partition the shards, the last only as long as its
+    # shards
+    live = [min(rows, m - k * rows) for k in range(groups)]
+    assert sum(live) == m and min(live) >= 1
+    assert zplane == (groups - 1) * gp + _pad(live[-1] * ell - 1) + 1
+    z = np.zeros((q, zplane), np.complex128)
+    z[:, slot] = xr.astype(np.float64) + 1j * xi
+    for k in range(groups):
+        words = k * gp + _pad(np.arange(live[k] * ell))
+        block = z[:, words].reshape(q, live[k], ell)
+        z[:, words] = np.fft.fft(block, axis=-1).reshape(q, -1)
+    # code phase: shard i of natural l at word slot(i, l); the twiddle of
+    # shard j at l is the s-point table's entry j*l, bit for bit the
+    # reference's pre-scrambled plane at c*B + d, l = c + d*A
+    tabr, tabi = fourstep_fft.fft_rows_twiddles(s)
+    a, b = tops.split_factor(ell)
+    pr, pi_, _, _ = tops._recombine_planes_scrambled(s, m, a, b)
+    l = np.arange(ell)
+    lp = (l % a) * b + l // a
+    for jj in range(m):
+        assert np.array_equal(tabr[jj * l], pr[jj, lp])
+        assert np.array_equal(tabi[jj * l], pi_[jj, lp])
+    ii = np.arange(m)[:, None]
+    gi_ = ii // rows
+    words = gi_ * gp + _pad((ii - gi_ * rows) * ell + l[None, :])  # (m, L)
+    t = z[:, words]                                            # (q, m, L)
+    gc = gr.astype(np.float64) + 1j * gi
+    dc = dr.astype(np.float64) + 1j * di                       # (q, m, n)
+    bres = np.einsum("rm,qml->qrl", gc, t)
+    hat = np.einsum("qjr,qrl->qjl", dc, bres)
+    tw = (tabr.astype(np.float64) + 1j * tabi)[np.arange(m)[:, None] * l]
+    fm = fmr.astype(np.float64) + 1j * fmi
+    out = np.einsum("pj,qjl->qpl", fm, hat * tw[None])
+    return out.reshape(q, s)
+
+
+@pytest.mark.parametrize("s,m,n,masked", [
+    (96, 3, 7, True), (768, 4, 6, True), (4096, 4, 8, True),
+    (4096, 4, 8, False), (1024, 1, 3, True), (4 * 105, 4, 8, True),
+    (4 * 1021, 4, 8, True), (16 * 64, 16, 32, True), (32 * 16, 32, 64, True),
+    (8192, 32, 282, False), (3 * 1000, 3, 5, False)])
+def test_bucket_kernel_model_matches_body(s, m, n, masked):
+    """The numpy model of the kernel's index maps (load de-interleave,
+    shard groups, spectrum words, twiddle slots) against the plain twin
+    and numpy.fft, on evenly spread responders."""
+    alt = np.arange(n) % 2 == 0
+    masks = np.stack([np.roll(alt, k) for k in range(3)])
+    rng = np.random.default_rng(s + m)
+    xr, xi = _rand(rng, 3, s), _rand(rng, 3, s)
+    gr, gi = _gen_planes(n, m)
+    dr, di = tops.lagrange_scatter_planes(
+        tops.mask_subsets(torch.as_tensor(masks), m), n)
+    fmr, fmi = tops._dft_planes(m)
+    got = _bucket_model(xr, xi, dr.numpy(), di.numpy(), gr, gi, fmr, fmi, s,
+                        m, n, masked)
+    planes = _bucket_planes(s, m)
+    want = tcp.bucket_body(*_t(xr, xi), dr, di, *_t(gr, gi, *planes))
+    assert _rel((got.real, got.imag), want) < PAIR_TOL
+    if n == 2 * m or m <= 4:
+        truth = np.fft.fft(xr.astype(np.float64) + 1j * xi, axis=-1)
+        assert _rel((got.real, got.imag), (truth.real, truth.imag)) \
+            < TRUTH_TOL
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper takes the plain twin only for CPU tensors; anything that
     is neither CPU nor CUDA is refused, never copied to the host."""
@@ -550,3 +741,65 @@ def test_gpu_bucket_at_the_smem_gate(cuda, s, m, n):
     got = tcp.coded_fft_bucket_masked(*args)
     want = tcp.bucket_body_masked(*args[:2], args[2].float(), *args[3:])
     assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,n", [(8192, 4, 8), (32 * 512, 32, 64)])
+def test_gpu_planes_bucket_at_the_smem_gate(cuda, s, m, n):
+    """The planes entry at the gate's two edge shapes, whose layout holds
+    all N rows of G and the request's D beside the spectra."""
+    assert tops.coded_bucket_fusable(s, m, n, masked=False)
+    alt = np.arange(n) % 2 == 0
+    masks = torch.as_tensor(np.stack([alt, np.roll(alt, 1)]), device=cuda)
+    dr, di = tops.lagrange_scatter_planes(tops.mask_subsets(masks, m), n)
+    rng = np.random.default_rng(s + 1)
+    args = _cuda_planes(cuda, _rand(rng, 2, s), _rand(rng, 2, s))
+    rest = _cuda_planes(cuda, *_gen_planes(n, m), *_bucket_planes(s, m))
+    got = tcp.coded_fft_bucket(*args, dr.contiguous(), di.contiguous(),
+                               *rest)
+    want = tcp.bucket_body(*args, dr, di, *rest)
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
+
+
+# (q, s, m, N): m in 1, 3, 4, 16, 32; shard lengths with radices 3, 5 and
+# 7 (105, 384) and the prime 1021 (one dense pass); q = 1 and 64
+_FFT_BUCKET_CASES = [
+    (64, 4096, 4, 8), (1, 4096, 4, 8), (3, 1024, 1, 3), (3, 96, 3, 7),
+    (3, 3 * 105, 3, 7), (2, 4 * 105, 4, 8), (2, 4 * 384, 4, 8),
+    (1, 4 * 1021, 4, 8), (64, 4 * 1021, 4, 8), (3, 16 * 64, 16, 32),
+    (2, 16 * 384, 16, 32), (3, 32 * 16, 32, 64), (2, 32 * 256, 32, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("q,s,m,n", _FFT_BUCKET_CASES)
+def test_gpu_fft_bucket_matches_plain(cuda, q, s, m, n, masked):
+    """Both entries of the bucket kernel against their plain twins, one
+    launch a call, and numpy.fft where the code is well conditioned
+    (adversarial masks at m <= 4, evenly spread responders past it)."""
+    if m <= 4:
+        masks = np.resize(adversarial_masks(n, m), (q, n))
+    else:
+        alt = np.arange(n) % 2 == 0
+        masks = np.stack([np.roll(alt, k) for k in range(q)])
+    rng = np.random.default_rng(s + q)
+    xr, xi = _rand(rng, q, s), _rand(rng, q, s)
+    x = _cuda_planes(cuda, xr, xi)
+    rest = _cuda_planes(cuda, *_gen_planes(n, m), *_bucket_planes(s, m))
+    mk = torch.as_tensor(masks, device=cuda)
+    name = "coded_fft_bucket_masked" if masked else "coded_fft_bucket"
+    before = _build.launch_counts().get(name, 0)
+    if masked:
+        got = tcp.coded_fft_bucket_masked(*x, mk, *rest)
+        want = tcp.bucket_body_masked(*x, mk.float(), *rest)
+    else:
+        dr, di = tops.lagrange_scatter_planes(tops.mask_subsets(mk, m), n)
+        got = tcp.coded_fft_bucket(*x, dr.contiguous(), di.contiguous(),
+                                   *rest)
+        want = tcp.bucket_body(*x, dr, di, *rest)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < 1e-4
+    truth = np.fft.fft(xr.astype(np.float64) + 1j * xi, axis=-1)
+    assert _rel([g.cpu() for g in got], (truth.real, truth.imag)) \
+        < TRUTH_TOL

@@ -27,6 +27,7 @@ routes on the card.
 
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -41,10 +42,13 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.fourstep_fft import (
     MAX_STAGES,
     _parse_stage_planes,
+    fft_cols_tile,
+    fft_rows_per_block,
     multistep_body,
     multistep_fused,
     multistep_layout,
     multistep_mode,
+    multistep_stage_plan,
 )
 
 CPU = torch.device("cpu")
@@ -224,6 +228,81 @@ def test_multistep_mode_is_a_function_of_the_plan():
     with pytest.raises(ValueError, match="plan"):
         multistep_fused(torch.zeros(1, 60), torch.zeros(1, 60),
                         tops._multistep_planes((4, 4, 4)), (4, 4, 4))
+
+
+# ----------------------------------------- the per-stage mode's launches
+STAGE_PLANS = [(64, 64, 64), (64, 64, 8), (64, 5, 100), (4, 4, 4),
+               (3, 5, 7), (1, 16, 16), (16, 1, 4, 1)]
+
+
+@pytest.mark.parametrize("factors", STAGE_PLANS)
+def test_multistep_stage_plan_matches_body(jref, factors):
+    """The per-stage launches, emulated with numpy.fft along each stage's
+    axis -- the column FFT of n points down ld columns with the stage's
+    twiddle, the last stage a row FFT -- against the port's plain twin
+    and the JAX package's ``multistep_body`` on the same input."""
+    jnp, _, jfs, _, _, _, _ = jref
+    ell, batch = int(np.prod(factors)), 2
+    x = _crand(np.random.default_rng(ell + 7), batch, ell)
+    planes = tops._multistep_planes(factors)
+    stages = _parse_stage_planes(factors, planes)
+    plan = multistep_stage_plan(factors, batch)
+    assert [p[0] for p in plan] == ["cols"] * (len(factors) - 1) + ["rows"]
+    y = x.astype(np.complex128)
+    for (kind, bt, n, ld, tile), f, (_, _, twr, twi) in zip(
+            plan, factors, stages):
+        assert n == f and bt * n * ld == batch * ell
+        if kind == "cols":
+            assert tile == fft_cols_tile(n, ld)
+            tw = twr.astype(np.float64) + 1j * twi
+            y = np.fft.fft(y.reshape(bt, n, ld), axis=1) * tw[None]
+        else:
+            assert ld == 1 and tile == fft_rows_per_block(n)
+            y = np.fft.fft(y.reshape(bt, n), axis=1)
+    y = y.reshape(batch, ell)
+    tstages = [tuple(None if p is None else torch.as_tensor(p) for p in st)
+               for st in stages]
+    body = multistep_body(*_planar(x), tstages)
+    assert _rel(body, y) < LONG_TOL
+    jstages = [tuple(None if p is None else jnp.asarray(p) for p in st)
+               for st in stages]
+    want = jfs.multistep_body(jnp.asarray(x.real), jnp.asarray(x.imag),
+                              jstages)
+    assert _rel(want, y) < LONG_TOL
+
+
+def _multistep_lengths():
+    return sorted({1 << k for k in range(2, 22)} | {
+        960, 3 * 5 * 7 * 11, 4099, 3 * 4099, 6 * 6 * 6 * 6 * 6, 1000000,
+        27 * 125 * 49, 3 << 18})
+
+
+@pytest.mark.parametrize("ell", _multistep_lengths())
+def test_multistep_mode_admits_every_autotune_candidate(ell):
+    """Every plan the search may time (more than two factors) keeps the
+    answer the dense design gave it: block mode where its row fits one
+    block, else per stage -- never a refusal."""
+    for plan in autotune.candidate_factor_plans(ell):
+        if len(plan) <= 2:
+            continue
+        fits = 4 * multistep_layout(plan)[-1] <= _build.SMEM_PER_BLOCK_OPTIN
+        assert multistep_mode(plan) == ("block" if fits else "per_stage")
+
+
+@pytest.mark.parametrize("factors,mode", [
+    ((1, 64, 64, 64), "per_stage"), ((64, 64, 64, 1), "per_stage"),
+    ((9392, 2, 2), "per_stage"), ((2, 2, 9392), "per_stage"),
+    ((9393, 2, 2), None), ((2, 9393, 2), None), ((30000, 2, 2), None)])
+def test_multistep_per_stage_factor_limit(factors, mode):
+    """Per stage, a factor runs as the column FFT's one-column tile or the
+    row FFT's one-row block: 9392 points is the largest whose two buffers
+    and table fit one block; a factor of 1 is a copy (or the twiddle
+    alone)."""
+    if mode is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            multistep_mode(factors)
+    else:
+        assert multistep_mode(factors) == mode
 
 
 # ------------------------------------------------------ the autotune table
@@ -520,3 +599,44 @@ def test_gpu_warmup_search_launches_multistep(cuda):
     assert ent["variant"] in ("fused", "two_pass") and ent["ms"] > 0
     FFTService(FFTServiceConfig(s=4096)).warmup(buckets=[1])
     assert autotune.searches_run() == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factors,batch", [
+    ((64, 64, 64), 2), ((64, 64, 8), 3), ((64, 5, 100), 3),
+    ((1, 64, 64, 64), 2), ((300, 7, 1), 2)])
+def test_gpu_multistep_per_stage_runs_ffts(cuda, factors, batch):
+    """The per-stage mode: k launches, traced as k - 1 column FFTs and one
+    row FFT and nothing else, against the plain twin (1e-4) and
+    torch.fft."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert multistep_mode(factors) == "per_stage"
+    ell = int(np.prod(factors))
+    x = _crand(np.random.default_rng(ell + 1), batch, ell)
+    xr, xi = _planar(x, cuda)
+    planes = tops._on_device(tops._multistep_planes, (factors,), cuda)
+    multistep_fused(xr, xi, planes, factors)          # build and warm
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    # the call sits well inside the trace's window: the profiler drops a
+    # kernel whose device timestamp, mapped onto the host's clock, falls
+    # outside it, and that mapping can run milliseconds early
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        got = multistep_fused(xr, xi, planes, factors)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    assert _build.launch_counts() == {"multistep_fused": len(factors)}
+    ran = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(n for k, n in ran.items() if "fft_cols_kernel" in k) == \
+        len(factors) - 1
+    assert sum(n for k, n in ran.items() if "fft_rows_kernel" in k) == 1
+    assert all("fft_cols_kernel" in k or "fft_rows_kernel" in k
+               for k in ran)
+    want = multistep_body(xr, xi, _parse_stage_planes(factors, planes))
+    assert _rel(got, want) < LONG_TOL
+    spec = torch.fft.fft(torch.as_tensor(x, device=cuda).to(
+        torch.complex128), dim=-1)
+    assert _rel([_unscramble(g, factors) for g in got], spec) < LONG_TOL
