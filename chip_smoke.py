@@ -11,11 +11,12 @@ plain PyTorch version on the card at the shapes its main path gives it
 prime A of (16, 4093, 4), ``encode_fourstep_fused`` past its fold at
 m = 32, B = 512, three launches, and both its routes forced where both
 fit a block), prints the FFT kernels' ptxas
-registers and spills (failing if the c2c bucket kernel spills), times
-the c2c bucket kernels and both modes of ``multistep_fused`` in seven
-windows each (median, min and max) and traces one call of each, which
-must launch once (k times per stage) and run its own kernels alone --
-the per-stage mode ``fft_cols_kernel`` and ``fft_rows_kernel`` --,
+registers and spills (failing if the c2c or r2c bucket kernel spills),
+times the c2c and r2c bucket kernels and both modes of
+``multistep_fused`` in seven windows each (median, min and max) and
+traces one call of each, which must launch once (k times per stage) and
+run its own kernels alone -- the per-stage mode ``fft_cols_kernel`` and
+``fft_rows_kernel`` --,
 then drives the main paths at two sizes each,
 for each 1-D kind: the service's ``submit_batch`` with kind c2c, r2c
 and c2r (the kind's whole-bucket kernel at s=4096; at s=2^20 the
@@ -501,20 +502,25 @@ def main() -> int:
     # builds them (fft_cols_kernel: the column pass of stage 1, of the
     # encode, of both streaming kernels and of multistep's stages;
     # encode_rows_kernel: the encode's row FFT with G in its store;
-    # coded_bucket_kernel: the whole c2c bucket on the row FFT's passes,
-    # which must not spill)
+    # coded_bucket_kernel and coded_rbucket_kernel: the whole c2c and r2c
+    # buckets on the row FFT's passes, which must not spill)
     fft_ptxas = {
         name: [ln for ln in ptxas[name] if "fft_cols" in ln
                or "fft_rows" in ln or "encode_rows" in ln
-               or "coded_bucket_kernel" in ln]
+               or "coded_bucket_kernel" in ln
+               or "coded_rbucket_kernel" in ln]
         for name in ("fourstep", "coded_bucket_streaming",
-                     "encode_fourstep", "coded_bucket", "multistep")}
+                     "encode_fourstep", "coded_bucket", "coded_rbucket",
+                     "multistep")}
     emit({"phase": "ptxas_fft", **fft_ptxas})
-    spills = [ln for ln in fft_ptxas["coded_bucket"]
-              if "coded_bucket_kernel" in ln
-              and " 0 bytes spill stores" not in ln]
-    if spills or not fft_ptxas["coded_bucket"]:
-        fail(f"coded_bucket_kernel spills or was not reported: {spills}")
+    for lib, kernel in (("coded_bucket", "coded_bucket_kernel"),
+                        ("coded_rbucket", "coded_rbucket_kernel")):
+        lines = [ln for ln in fft_ptxas[lib] if kernel in ln]
+        spills = [ln for ln in lines if " 0 bytes spill stores" not in ln]
+        # eight instances: MM in 4, 8, 16, 32, masked and planes
+        if spills or len(lines) != 8:
+            fail(f"{kernel}: {len(lines)} instances reported, spills: "
+                 f"{spills}")
 
     rng = np.random.default_rng(0)
     spin_rate = spin_cycles_per_ms(torch)
@@ -688,11 +694,18 @@ def main() -> int:
     # (or m-point) butterfly at each of the L positions of every shard
     flops_real = q * (m * fft_flops(n2) + n2 * 2 * 8 * m * m + m * n2 * 16
                       + 2 * n2 * m * (6 + 8 * (m // 2 + 1)))
-    fplanes_bytes = 2 * (a * a + b * b + a * b + (n2 + 1) + m * 2 * n2)
-    nbytes_r2c = F32 * (q * s + q * n + 2 * n * m + fplanes_bytes
+    # what the card reads beside the requests, the output, the masks and
+    # G: both kinds the (n2+1)-entry split (or pack) twiddle and the (m, L)
+    # recombine twiddle; r2c the f32 table of n2 (its shard FFTs) and the
+    # m//2+1 DFT rows -- no F_A, F_B or W -- and its masks as bytes, c2r,
+    # whose kernel still runs the dense four-step, F_A, F_B and W, the
+    # m-point DFT and f32 masks
+    twiddle_bytes = 2 * ((n2 + 1) + m * 2 * n2)
+    fplanes_bytes = 2 * (a * a + b * b + a * b)
+    nbytes_r2c = F32 * (q * s + 2 * n * m + 2 * n2 + twiddle_bytes
                         + 2 * (m // 2 + 1) * m + 2 * q * sh)
     nbytes_c2r = F32 * (2 * q * sh + q * n + 2 * n * m + fplanes_bytes
-                        + 2 * m * m + q * s)
+                        + twiddle_bytes + 2 * m * m + q * s)
     xreal = randn(q, s)
     rplanes = (*hplanes, *ops._on_device(ops._r2c_postdecode_planes,
                                          (s, m), dev))
@@ -703,8 +716,17 @@ def main() -> int:
             xreal, masks, gr, gi, *rplanes, s),
         lambda: coded_pipeline.rbucket_body_masked(
             xreal, masks.to(torch.float32), gr, gi, *rplanes, s),
-        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4, nbytes_r2c, flops_real,
-        50, [q, s, m, n])
+        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4, nbytes_r2c + q * n,
+        flops_real, 50, [q, s, m, n], windows=7)
+    rbucket_plan = {
+        "group_rows": coded_pipeline.bucket_fft_group(
+            m, n2, dft_rows=m // 2 + 1),
+        "radix_plan": list(fft_rows_plan(n2))}
+    check_route(
+        "coded_rfft_bucket_masked", {"coded_rbucket_kernel": 1},
+        lambda: coded_pipeline.coded_rfft_bucket_masked(
+            xreal, masks, gr, gi, *rplanes, s), [q, s, m, n], windows=7,
+        **rbucket_plan)
     yhalf = torch.fft.rfft(randn(q, s), dim=-1)
     yr, yi = yhalf.real.contiguous(), yhalf.imag.contiguous()
     iplanes = (*hplanes, *ops._on_device(ops._c2r_message_planes,
@@ -746,8 +768,16 @@ def main() -> int:
             xreal, dr, di, gr, gi, *rplanes, s),
         lambda: coded_pipeline.rbucket_body(
             xreal, dr, di, gr, gi, *rplanes, s),
-        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4, nbytes_r2c + dbytes,
-        flops_real, 50, [q, s, m, n])
+        lambda: torch.fft.rfft(xreal, dim=-1), 1e-4,
+        nbytes_r2c + F32 * 2 * q * m * n, flops_real, 50, [q, s, m, n],
+        windows=7)
+    check_route(
+        "coded_rfft_bucket", {"coded_rbucket_kernel": 1},
+        lambda: coded_pipeline.coded_rfft_bucket(
+            xreal, dr, di, gr, gi, *rplanes, s), [q, s, m, n], windows=7,
+        group_rows=coded_pipeline.bucket_fft_group(
+            m, n2, n=n, masked=False, dft_rows=m // 2 + 1),
+        radix_plan=rbucket_plan["radix_plan"])
     kernel_row(
         "coded_irfft_bucket", csrc + "coded_irbucket.cu",
         "src/repro/kernels/coded_pipeline.py:721",

@@ -22,8 +22,10 @@ The real kinds carry HALF-length payloads through the same stages:
 
 * r2c (``coded_rfft_bucket_masked``, ``csrc/coded_rbucket.cu``; twin
   :func:`rbucket_body_masked`): the real request relabels into
-  pair-packed shards (:func:`pack_real_planes`), four-step over L/2,
-  encode, decode, then the symmetry postdecode
+  pair-packed shards (:func:`pack_real_planes`), a DFT over L/2 (on the
+  card an L/2-point FFT of each shard, the working set
+  :func:`bucket_fft_layout` with m//2+1 DFT rows), encode, decode, then
+  the symmetry postdecode
   (:func:`half_postdecode_body`: split, Hermitian extension, the
   m//2+1 recombine rows that feed the bins X[0..s/2]);
 * c2r (``coded_irfft_bucket_masked``, ``csrc/coded_irbucket.cu``; twin
@@ -279,8 +281,8 @@ def bucket_smem_bytes(m: int, a: int, b: int, *, n: int = 0,
     return 4 * bucket_layout(m, a, b, n=n, masked=masked)[-1]
 
 
-def _fft_layout(m: int, ell: int, rows: int, n: int,
-                masked: bool) -> tuple[int, ...]:
+def _fft_layout(m: int, ell: int, rows: int, n: int, masked: bool,
+                dft_rows: int | None) -> tuple[int, ...]:
     # the spectra: groups of `rows` shards, each group a padded plane, the
     # last one only as long as its shards
     groups = -(-m // rows)
@@ -290,49 +292,55 @@ def _fft_layout(m: int, ell: int, rows: int, n: int,
     sizes = (
         2 * zp,                  # z: the m shards, then their spectra
         2 * gp,                  # y: the passes' ping-pong, one group
-        2 * _padded(ell),        # tab: the f32 table of w_L^t
+        2 * _padded(ell),        # tab: the f32 table of w_ell^t
         gs,                      # gs: G rows (the subset's, or all N)
-        2 * m * m,               # fm: F_m planes
+        2 * (m if dft_rows is None else dft_rows) * m,  # fm or fh
         *decode,                 # pw, qm (inverse or D), loc, nodes, sub
     )
     return tuple(itertools.accumulate(sizes, initial=0))
 
 
 @functools.lru_cache(maxsize=None)
-def bucket_fft_group(m: int, ell: int, *, n: int = 0,
-                     masked: bool = True) -> int:
-    """Shards one group of the c2c bucket kernel's FFT phase takes: all m
+def bucket_fft_group(m: int, ell: int, *, n: int = 0, masked: bool = True,
+                     dft_rows: int | None = None) -> int:
+    """Shards one group of a bucket kernel's FFT phase takes: all m
     where the block holds them, so each radix pass runs once over every
     shard with the block's threads busy (a 1024-point shard alone has
     128 radix-8 butterflies for 512 threads), and fewer while the
     working set would pass :data:`SMEM_PER_BLOCK_OPTIN`: a group's
     ping-pong buffer is the cost, and at m = 32, L = 256 and N = 282 on
-    the planes kernel four shards a group fit where five do not."""
+    the c2c planes kernel four shards a group fit where five do not.
+    ``dft_rows`` as in :func:`bucket_fft_layout`."""
     rows = m
-    while rows > 1 and (4 * _fft_layout(m, ell, rows, n, masked)[-1]
+    while rows > 1 and (4 * _fft_layout(m, ell, rows, n, masked,
+                                        dft_rows)[-1]
                         > SMEM_PER_BLOCK_OPTIN):
         rows -= 1
     return rows
 
 
-def bucket_fft_layout(m: int, ell: int, *, n: int = 0,
-                      masked: bool = True) -> tuple[int, ...]:
-    """Word offsets of the c2c bucket kernel's shared arrays, then the
-    total, for shards of ``ell`` points; ``masked=False`` is the planes
-    kernel's (it needs ``n``).
+def bucket_fft_layout(m: int, ell: int, *, n: int = 0, masked: bool = True,
+                      dft_rows: int | None = None) -> tuple[int, ...]:
+    """Word offsets of a bucket kernel's shared arrays, then the total,
+    for shards of ``ell`` points; ``masked=False`` is the planes
+    kernel's (it needs ``n``).  ``dft_rows``: the rows of the m-point
+    DFT the block stages, m (the default) for the c2c kernel's F_m,
+    m//2+1 for the r2c kernel's half rows, whose shards are the packed
+    ``ell = L/2`` points.
 
-    The kernel takes these offsets at launch (``Layout`` in
-    ``csrc/coded_bucket.cu``, same order), so this is the one reckoning
-    of its working set: the spectra in groups of
-    :func:`bucket_fft_group` shards, shard i at point j in word
-    ``(i // rows) * gp + pad((i % rows) * ell + j)`` of each plane
+    The kernels take these offsets at launch (``Layout`` in
+    ``csrc/coded_bucket.cu`` and ``csrc/coded_rbucket.cu``, same order),
+    so this is the one reckoning of their working sets: the spectra in
+    groups of :func:`bucket_fft_group` shards, shard i at point j in
+    word ``(i // rows) * gp + pad((i % rows) * ell + j)`` of each plane
     (``gp``, a full group's padded words), one group's ping-pong buffer,
-    the L-point table, then the code state of :func:`bucket_layout`.
-    The wrappers hold it against :data:`SMEM_PER_BLOCK_OPTIN`; it fits
-    wherever the gate, :func:`bucket_layout`, admits a bucket.
+    the ell-point table, the G rows, the DFT rows, then the decode state
+    of :func:`bucket_layout`.  The wrappers hold it against
+    :data:`SMEM_PER_BLOCK_OPTIN`; it fits wherever the gates,
+    :func:`bucket_layout` and :func:`rbucket_layout`, admit a bucket.
     """
-    return _fft_layout(m, ell, bucket_fft_group(m, ell, n=n, masked=masked),
-                       n, masked)
+    rows = bucket_fft_group(m, ell, n=n, masked=masked, dft_rows=dft_rows)
+    return _fft_layout(m, ell, rows, n, masked, dft_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,12 +376,12 @@ def _bind(name: str, symbol: str, n_ptrs: int, masked: bool = True):
 
 
 @functools.lru_cache(maxsize=None)
-def _c2c_lib(symbol: str, masked: bool):
-    # 14 pointers, (q, n, m, ell), the masked entry's ntau, the radices,
-    # (passes, rows), layout, stream
-    fn = getattr(_build.load("coded_bucket"), symbol)
+def _fft_bucket_lib(name: str, symbol: str, n_ptrs: int, masked: bool):
+    # the c2c and r2c bucket entries: pointers, (q, n, m, ell), the masked
+    # entry's ntau, the radices, (passes, rows), layout, stream
+    fn = getattr(_build.load(name), symbol)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * 14 + [i32] * 4
+    fn.argtypes = ([vp] * n_ptrs + [i32] * 4
                    + ([ctypes.c_float] if masked else [])
                    + [ctypes.POINTER(i32), i32, i32,
                       ctypes.POINTER(ctypes.c_longlong), vp])
@@ -394,7 +402,7 @@ def _c2c_launch(what: str, symbol: str, xr, xi, decode, gr, gi, fmr, fmi,
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     p = _build.ptr
-    _build.check(_c2c_lib(symbol, masked)(
+    _build.check(_fft_bucket_lib("coded_bucket", symbol, 14, masked)(
         p(xr), p(xi), *(p(t) for t in decode), p(gr), p(gi),
         *(p(t) for t in fft_twiddles_on(ell, dev)),
         *(p(t) for t in fft_twiddles_on(s, dev)), p(fmr), p(fmi), p(outr),
@@ -728,10 +736,19 @@ def rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
 
 def rbucket_layout(m: int, a: int, b: int, *, n: int = 0,
                    masked: bool = True) -> tuple[int, ...]:
-    """Word offsets of the r2c bucket kernel's shared arrays, then the
-    total (``Layout`` in ``csrc/coded_rbucket.cu``, same order), for
-    packed shards of ``L/2 = a*b``: the one reckoning of its working set,
-    and its gate.  ``masked=False`` is the planes kernel's (needs ``n``)."""
+    """Word offsets of the dense-DFT r2c bucket's shared arrays, then the
+    total, for packed shards of ``L/2 = a*b``; ``masked=False`` is the
+    planes variant's (it needs ``n``).
+
+    This is the working set of the first port of ``csrc/coded_rbucket.cu``
+    (F_A, F_B, W, a packed shard, the column pass and the m spectra at
+    pitch B+1), kept as the fused route's boundary:
+    ``ops.coded_rbucket_fusable`` and ``ops.bucket_route`` answer from
+    it, so the kernel's FFT redesign moved no r2c bucket between the
+    fused and the stage routes.  It lays out no kernel: the kernel takes
+    :func:`bucket_fft_layout` with ``dft_rows=m // 2 + 1``, which fits
+    one block wherever this does.
+    """
     gs, decode = _code_words(m, n, masked)
     sizes = (
         2 * a * a,                 # fa: F_A planes
@@ -747,14 +764,32 @@ def rbucket_layout(m: int, a: int, b: int, *, n: int = 0,
     return tuple(itertools.accumulate(sizes, initial=0))
 
 
-@functools.lru_cache(maxsize=None)
-def _rlib():
-    return _bind("coded_rbucket", "coded_rbucket_masked_f32", 19)
-
-
-@functools.lru_cache(maxsize=None)
-def _rplanes_lib():
-    return _bind("coded_rbucket", "coded_rbucket_f32", 19, masked=False)
+def _r2c_launch(what: str, symbol: str, xr, decode, gr, gi, swr, swi, twr,
+                twi, fhr, fhi, q: int, n: int, m: int, s: int, masked: bool,
+                dev):
+    """One launch of the r2c bucket kernel on checked CUDA planes;
+    ``decode``: the masked entry's (masks, perm), or the planes entry's
+    (dr, di)."""
+    n2 = s // m // 2
+    dft_rows = m // 2 + 1
+    layout = bucket_fft_layout(m, n2, n=n, masked=masked, dft_rows=dft_rows)
+    _check_launch(what, m, layout, s)
+    rows = bucket_fft_group(m, n2, n=n, masked=masked, dft_rows=dft_rows)
+    plan = fft_rows_plan(n2)
+    sh = s // 2 + 1
+    outr = torch.empty((q, sh), dtype=torch.float32, device=dev)
+    outi = torch.empty((q, sh), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_fft_bucket_lib("coded_rbucket", symbol, 15, masked)(
+        p(xr), *(p(t) for t in decode), p(gr), p(gi),
+        *(p(t) for t in fft_twiddles_on(n2, dev)), p(swr), p(swi), p(twr),
+        p(twi), p(fhr), p(fhi), p(outr), p(outi), q, n, m, n2,
+        *([_ntau(n)] if masked else []),
+        (ctypes.c_int * max(1, len(plan)))(*plan), len(plan), rows,
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        what)
+    _build.count_launch(what)
+    return outr, outi
 
 
 def coded_rfft_bucket(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
@@ -765,7 +800,8 @@ def coded_rfft_bucket(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
 
     The other planes as :func:`coded_rfft_bucket_masked` takes them.  CPU
     tensors run :func:`rbucket_body`; CUDA tensors launch the kernel (one
-    launch) or raise.  The caller checks the gate
+    launch, counted) or raise, reading what
+    :func:`coded_rfft_bucket_masked` reads.  The caller checks the gate
     (``ops.coded_rbucket_fusable(..., masked=False)``).
     """
     q, s_ = xr.shape
@@ -783,20 +819,9 @@ def coded_rfft_bucket(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
         "coded_rfft_bucket", xr=xr, dr=dr, di=di, gr=gr, gi=gi, far=far,
         fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr,
         twi=twi, fhr=fhr, fhi=fhi)
-    layout = rbucket_layout(m, a, b, n=n, masked=False)
-    _check_launch("coded_rfft_bucket", m, layout, s)
-    sh = s // 2 + 1
-    outr = torch.empty((q, sh), dtype=torch.float32, device=dev)
-    outi = torch.empty((q, sh), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    _build.check(_rplanes_lib()(
-        p(xr), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr), p(wi),
-        p(fbr), p(fbi), p(swr), p(swi), p(twr), p(twi), p(fhr), p(fhi),
-        p(outr), p(outi), q, n, m, a, b,
-        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
-        "coded_rfft_bucket")
-    _build.count_launch("coded_rfft_bucket")
-    return outr, outi
+    return _r2c_launch("coded_rfft_bucket", "coded_rbucket_f32", xr,
+                       (dr, di), gr, gi, swr, swi, twr, twi, fhr, fhi, q, n,
+                       m, s, False, dev)
 
 
 def coded_rfft_bucket_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
@@ -807,8 +832,16 @@ def coded_rfft_bucket_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
     ``far/wr/fbr``: four-step planes for the HALF length ``L/2 = A*B``;
     ``swr, swi``: (1, L/2+1) split twiddle; ``twr, twi``: (m, L)
     recombine twiddle, natural order; ``fhr, fhi``: (m//2+1, m) DFT rows.
-    CPU tensors run :func:`rbucket_body_masked`; CUDA tensors launch the
-    kernel (one launch) or raise.  The caller checks the gate
+    ``masks``: bool, or any dtype whose nonzero entries responded (the
+    card reads a bool mask in place, one byte a worker, and converts any
+    other first).  CPU tensors run :func:`rbucket_body_masked`; CUDA
+    tensors launch the kernel (one launch, counted) or raise, also where
+    its working set (:func:`bucket_fft_layout` with m//2+1 DFT rows) is
+    past one block.
+    The card computes the packed shards' DFTs from the f32 table of L/2
+    (``fourstep_fft.fft_rows_twiddles``), whose entries are those of the
+    planes: it reads G, ``swr``, ``twr`` and ``fhr``, not ``far``,
+    ``wr`` or ``fbr``.  The caller checks the shared-memory gate
     (``ops.coded_rbucket_fusable``).
     """
     q, s_ = xr.shape
@@ -822,25 +855,20 @@ def coded_rfft_bucket_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
     if xr.device.type == "cpu":
         return rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr,
                                    fbi, swr, swi, twr, twi, fhr, fhi, s)
-    mk = masks.to(torch.float32).contiguous()
     dev = _build.check_planes(
-        "coded_rfft_bucket_masked", xr=xr, masks=mk, gr=gr, gi=gi, far=far,
-        fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr,
-        twi=twi, fhr=fhr, fhi=fhi)
-    layout = rbucket_layout(m, a, b)
-    _check_launch("coded_rfft_bucket_masked", m, layout, s)
-    sh = s // 2 + 1
-    outr = torch.empty((q, sh), dtype=torch.float32, device=dev)
-    outi = torch.empty((q, sh), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    _build.check(_rlib()(
-        p(xr), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far), p(fai),
-        p(wr), p(wi), p(fbr), p(fbi), p(swr), p(swi), p(twr), p(twi),
-        p(fhr), p(fhi), p(outr), p(outi), q, n, m, a, b, _ntau(n),
-        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
-        "coded_rfft_bucket_masked")
-    _build.count_launch("coded_rfft_bucket_masked")
-    return outr, outi
+        "coded_rfft_bucket_masked", xr=xr, gr=gr, gi=gi, far=far, fai=fai,
+        wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr, twi=twi,
+        fhr=fhr, fhi=fhi)
+    if masks.device != dev:
+        raise ValueError(f"coded_rfft_bucket_masked: masks are on "
+                         f"{masks.device}, the planes on {dev}")
+    # the kernel reads one byte a worker, nonzero = responded (as
+    # mask_subsets reads them): a bool mask is viewed, not converted
+    mk = (masks if masks.dtype == torch.bool else masks != 0).contiguous()
+    mk = mk.view(torch.uint8)
+    return _r2c_launch("coded_rfft_bucket_masked", "coded_rbucket_masked_f32",
+                       xr, (mk, _perm_on(m, dev)), gr, gi, swr, swi, twr, twi,
+                       fhr, fhi, q, n, m, s, True, dev)
 
 
 # -- the c2r bucket ---------------------------------------------------------

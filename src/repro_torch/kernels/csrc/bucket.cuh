@@ -8,7 +8,9 @@
 //   block_stage_planes   -- planes: all N rows of G and the request's
 //                           host-built (m, N) scatter decode matrix D;
 //   block_fourstep_tile  -- the four-step DFT ((F_A @ M) * W) @ F_B of
-//                           one message shard.
+//                           one message shard: the dense design's, left
+//                           with one caller, coded_irbucket.cu (the c2c
+//                           and r2c kernels run fft_rows.cuh's passes).
 //
 // All three end with a barrier, so their results are visible to the
 // whole block when they return.  Either decode leaves R worker rows of G
@@ -36,7 +38,12 @@ struct DecodeSmem {
   int* sub;      // (m,) the subset
 };
 
-// 1. subset = the first m responders of `mk` (nonzero = responded) in
+// A responder mask entry: a byte responded where nonzero, a float where
+// past 0.5 (the 0/1 floats the c2c and c2r wrappers pass).
+__device__ __forceinline__ bool responded(float v) { return v > 0.5f; }
+__device__ __forceinline__ bool responded(unsigned char v) { return v != 0; }
+
+// 1. subset = the first m responders of `mk` (see responded) in
 //    index order, short rows filled with the first non-responders -- the
 //    stable argsort of coded_pipeline.mask_subsets;
 // 2. inv(G[subset]) in closed form: locator A(z) = prod (z - x_j) with its
@@ -45,7 +52,8 @@ struct DecodeSmem {
 //    inv[i][j] = Q[i][j] / A'(x_j).  Node angles are reduced as integers
 //    (sub_j * d mod n) before the float multiply by ntau = -2*pi/n.
 // Leaves the subset's generator rows in d.gs and the inverse in d.qm.
-__device__ inline void block_subset_decode(const float* mk, const int* perm,
+template <typename Mask>
+__device__ inline void block_subset_decode(const Mask* mk, const int* perm,
                                            const float* gr, const float* gi,
                                            int n, int m, float ntau,
                                            const DecodeSmem& d) {
@@ -53,13 +61,13 @@ __device__ inline void block_subset_decode(const float* mk, const int* perm,
   if (tid == 0) {
     int cnt = 0;
     for (int k = 0; k < n; ++k) {
-      if (mk[k] > 0.5f) {
+      if (responded(mk[k])) {
         if (cnt < m) d.sub[cnt] = k;
         ++cnt;
       }
     }
     for (int k = 0; k < n && cnt < m; ++k) {
-      if (!(mk[k] > 0.5f)) d.sub[cnt++] = k;
+      if (!responded(mk[k])) d.sub[cnt++] = k;
     }
   }
   __syncthreads();
@@ -153,7 +161,7 @@ __device__ inline void block_stage_planes(const float* gr, const float* gi,
 // Four-step DFT of one message shard M (A x B, row-major in msg, complete
 // and visible to the block on entry): T1 = (F_A @ M) * W into t1, then
 // Z = T1 @ F_B into z at row pitch zp.  Z[c][d] is the spectrum at the
-// natural index c + d*A.
+// natural index c + d*A.  Its one caller is coded_irbucket.cu.
 __device__ inline void block_fourstep_tile(
     const float* msg_r, const float* msg_i, float* t1_r, float* t1_i,
     const float* fa_r, const float* fa_i, const float* w_r, const float* w_i,

@@ -625,13 +625,16 @@ def _real_fusable(layout, s: int, m: int, n: int, masked: bool) -> bool:
 
 def coded_rbucket_fusable(s: int, m: int, n: int, *,
                           masked: bool = True) -> bool:
-    """Does the whole r2c bucket fit one block of its kernel?
+    """Does the r2c bucket take the whole-bucket kernel's route?
 
-    The kernel's shared working set (``coded_pipeline.rbucket_layout``,
-    for packed shards of L/2) against :data:`SMEM_PER_BLOCK_OPTIN`, m
-    within the unrolled bound, and ``2m | s``.  ``n`` enters only the
-    planes variant (``masked=False``), which stages all N rows of G and
-    the (m, N) decode planes.
+    The dense design's shared working set
+    (``coded_pipeline.rbucket_layout``, for packed shards of L/2) against
+    :data:`SMEM_PER_BLOCK_OPTIN`, m within the unrolled bound, and
+    ``2m | s``: the route's boundary, kept where it was when the kernel
+    took the FFT layout ``coded_pipeline.bucket_fft_layout``, which fits
+    one block wherever this admits.  ``n`` enters only the planes
+    variant (``masked=False``), which stages all N rows of G and the
+    (m, N) decode planes.
     """
     return _real_fusable(coded_pipeline.rbucket_layout, s, m, n, masked)
 

@@ -36,6 +36,7 @@ import pytest
 import torch
 from test_torch_kernels import adversarial_masks
 from test_torch_kernels import private_autotune_table  # noqa: F401
+from test_torch_real import GPU_REAL_SHAPES
 from test_torch_real import _mixed_requests as _requests
 from test_torch_real import _port_twin, _rel, _t
 
@@ -516,9 +517,7 @@ def test_load_generator_drops_the_lru():
 
 # ------------------------------------------------------ GPU (f): kernels
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,m,n", SHAPES + [(4096, 4, 8), (8192, 4, 8),
-                                            (16 * 64, 16, 32),
-                                            (32 * 32, 32, 64)])
+@pytest.mark.parametrize("s,m,n", SHAPES + [(8192, 4, 8)] + GPU_REAL_SHAPES)
 def test_gpu_planes_buckets_match_plain(cuda, s, m, n):
     """Each planes bucket kernel against its plain twin on the card, one
     launch each, and (narrow codes) against numpy."""

@@ -583,12 +583,22 @@ def test_warmup_over_kinds_and_reference_path():
 
 
 # ------------------------------------------------------- GPU: kernel vs plain
+# real-kind bucket shapes past SHAPES: m from 1 to 32, packed lengths
+# n2 = s/(2m) of radix 3, 5 and 7 (105, 125, 343, 120), prime (127, 61),
+# powers of two, and the largest s the gate admits at m = 4 (16384)
+GPU_REAL_SHAPES = [(4096, 4, 8), (16384, 4, 8), (2 * 127 * 4, 4, 8),
+                   (16 * 64, 16, 32), (32 * 32, 32, 64), (1024, 1, 3),
+                   (420, 2, 5), (630, 3, 6), (840, 4, 8), (610, 5, 10),
+                   (1500, 6, 12), (1344, 7, 14), (5488, 8, 16),
+                   (2880, 12, 24), (3840, 16, 32), (3072, 24, 48),
+                   (4096, 32, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,m,n", SHAPES + [(4096, 4, 8), (16384, 4, 8),
-                                            (2 * 127 * 4, 4, 8),
-                                            (16 * 64, 16, 32),
-                                            (32 * 32, 32, 64)])
+@pytest.mark.parametrize("s,m,n", SHAPES + GPU_REAL_SHAPES)
 def test_gpu_real_buckets_match_plain(cuda, s, m, n):
+    """Both masked real-kind bucket kernels against their plain twins on
+    the card (1e-4), one launch each, and at m <= 4 against numpy."""
     if m <= 4:
         masks = adversarial_masks(n, m)
     else:
