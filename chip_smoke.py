@@ -11,11 +11,13 @@ plain PyTorch version on the card at the shapes its main path gives it
 prime A of (16, 4093, 4), ``encode_fourstep_fused`` past its fold at
 m = 32, B = 512, three launches, and both its routes forced where both
 fit a block), prints the FFT kernels' ptxas
-registers and spills (failing if the c2c or r2c bucket kernel spills),
-times the c2c and r2c bucket kernels and both modes of
-``multistep_fused`` in seven windows each (median, min and max) and
+registers and spills (failing if the c2c or r2c bucket kernel or the
+one-block ``fft_block_kernel`` spills),
+times the c2c and r2c bucket kernels, ``fourstep_fused`` and both modes
+of ``multistep_fused`` in seven windows each (median, min and max) and
 traces one call of each, which must launch once (k times per stage) and
-run its own kernels alone -- the per-stage mode ``fft_cols_kernel`` and
+run its own kernels alone -- ``fft_block_kernel`` for ``fourstep_fused``
+and block mode, the per-stage mode ``fft_cols_kernel`` and
 ``fft_rows_kernel`` --,
 then drives the main paths at two sizes each,
 for each 1-D kind: the service's ``submit_batch`` with kind c2c, r2c
@@ -75,7 +77,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 F32 = 4
 # the FFT kernels' names: the profiled calls sum each one's device ms
-FFT_KERNELS = ("fft_cols_kernel", "fft_rows_kernel", "encode_rows_kernel")
+FFT_KERNELS = ("fft_cols_kernel", "fft_rows_kernel", "encode_rows_kernel",
+               "fft_block_kernel")
 # torch.profiler maps each kernel's device timestamp onto the host's clock
 # and drops a kernel that lands outside its capture window.  On an H100
 # 80GB HBM3 that mapping ran up to 7.0 ms early, and a call traced at the
@@ -437,6 +440,7 @@ def main() -> int:
         encode_rows_fold,
         encode_rows_per_block,
         fft_cols_tile,
+        fft_rows_per_block,
         fft_rows_plan,
         fourstep_body,
         fourstep_fused,
@@ -503,22 +507,28 @@ def main() -> int:
     # encode, of both streaming kernels and of multistep's stages;
     # encode_rows_kernel: the encode's row FFT with G in its store;
     # coded_bucket_kernel and coded_rbucket_kernel: the whole c2c and r2c
-    # buckets on the row FFT's passes, which must not spill)
+    # buckets on the row FFT's passes; fft_block_kernel: fourstep_fused and
+    # multistep's block mode -- these three must not spill)
     fft_ptxas = {
         name: [ln for ln in ptxas[name] if "fft_cols" in ln
                or "fft_rows" in ln or "encode_rows" in ln
+               or "fft_block_kernel" in ln
                or "coded_bucket_kernel" in ln
                or "coded_rbucket_kernel" in ln]
         for name in ("fourstep", "coded_bucket_streaming",
                      "encode_fourstep", "coded_bucket", "coded_rbucket",
                      "multistep")}
     emit({"phase": "ptxas_fft", **fft_ptxas})
-    for lib, kernel in (("coded_bucket", "coded_bucket_kernel"),
-                        ("coded_rbucket", "coded_rbucket_kernel")):
-        lines = [ln for ln in fft_ptxas[lib] if kernel in ln]
+    # eight bucket instances: MM in 4, 8, 16, 32, masked and planes; one
+    # fft_block_kernel in each library that launches it
+    for libs, kernel, instances in (
+            (("coded_bucket",), "coded_bucket_kernel", 8),
+            (("coded_rbucket",), "coded_rbucket_kernel", 8),
+            (("fourstep", "multistep"), "fft_block_kernel", 2)):
+        lines = [ln for lib in libs for ln in fft_ptxas[lib]
+                 if kernel in ln]
         spills = [ln for ln in lines if " 0 bytes spill stores" not in ln]
-        # eight instances: MM in 4, 8, 16, 32, masked and planes
-        if spills or len(lines) != 8:
+        if spills or len(lines) != instances:
             fail(f"{kernel}: {len(lines)} instances reported, spills: "
                  f"{spills}")
 
@@ -992,22 +1002,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (e)-(h) the plan's kernels at the shapes CodedFFT.run gives them.
-    # fourstep_fused: the s=4096 plan's worker, 64 requests x 8 workers
+    # fourstep_fused: the s=4096 plan's worker, 64 requests x 8 workers.
+    # The one-block kernel reads x and the L-point table (no F_A, W or F_B)
+    # and writes the output; the row FFT alone on the same rows, stored in
+    # natural order (fourstep_stage2's kernel), is timed beside it
     rows, a, b = 64 * 8, *ops.split_factor(4096 // 4)
     ell = a * b
     assert ops.fourstep_fusable(a, b)
     xr, xi = randn(rows, a, b), randn(rows, a, b)
     fplanes = ops._fourstep_planes(a, b, dev)
     xc = torch.complex(xr, xi).reshape(rows, ell)
+    xr1, xi1 = xr.reshape(rows, 1, ell), xi.reshape(rows, 1, ell)
+    run = lambda: fourstep_fused(xr, xi, *fplanes)
     kernel_row(
-        "fourstep_fused", csrc + "fourstep.cu",
-        "src/repro/kernels/fourstep_fft.py:117",
-        lambda: fourstep_fused(xr, xi, *fplanes),
+        "fourstep_fused", csrc + "fft_block.cuh",
+        "src/repro/kernels/fourstep_fft.py:117", run,
         lambda: fourstep_body(xr, xi, *fplanes),
         lambda: torch.fft.fft(xc, dim=-1), 1e-4,
-        F32 * (4 * rows * ell + 2 * (a * a + a * b + b * b)),
-        rows * fft_flops(ell), 50, [rows, a, b])
-    del xr, xi, xc
+        F32 * (4 * rows * ell + 2 * ell), rows * fft_flops(ell), 50,
+        [rows, a, b], windows=7,
+        yardsticks=[("row_fft_ms", lambda: fourstep_stage2(xr1, xi1))])
+    check_route("fourstep_fused", {"fft_block_kernel": 1}, run,
+                [rows, a, b], radix_plan=list(fft_rows_plan(ell)),
+                rows_per_block=fft_rows_per_block(ell))
+    del xr, xi, xc, xr1, xi1
 
     # the two-pass pair: the s=2^20 plan's worker, 16 requests x 8 workers
     rows, a, b = 16 * 8, *ops.split_factor((1 << 20) // 4)
@@ -1121,31 +1139,34 @@ def main() -> int:
         mplanes = ops._on_device(ops._multistep_planes, (factors,), dev)
         stages = _parse_stage_planes(factors, mplanes)
         xc = torch.complex(xr, xi)
-        # block mode reads every stage's DFT and twiddle planes; per stage,
-        # the twiddles of every stage but the last and each factor's f32
+        # block mode reads the L-point f32 table, no plane; per stage, the
+        # twiddles of every stage but the last and each factor's f32
         # table, no DFT plane
-        plane_words = (sum(p.numel() for p in mplanes) if mode == "block"
+        plane_words = (2 * ell if mode == "block"
                        else sum(2 * st[2].numel() for st in stages[:-1])
                        + 2 * sum(factors))
         run = lambda: multistep_fused(xr, xi, mplanes, factors)
         kernel_row(
-            "multistep_fused", csrc + "multistep.cu",
+            "multistep_fused",
+            csrc + ("fft_block.cuh" if mode == "block" else "multistep.cu"),
             "src/repro/kernels/fourstep_fft.py:374", run,
             lambda: multistep_body(xr, xi, stages),
             lambda: torch.fft.fft(xc, dim=-1), 1e-4,
             F32 * (4 * rows * ell + plane_words),
             rows * fft_flops(ell), reps, [rows, ell, *factors], windows=7,
             mode=mode)
-        # per stage: a column FFT for each stage but the last, then the
-        # row FFT
+        # block mode: the one-block kernel of fourstep_fused; per stage: a
+        # column FFT for each stage but the last, then the row FFT
         check_route(
             "multistep_fused",
-            {"multistep_block_kernel": 1} if mode == "block"
+            {"fft_block_kernel": 1} if mode == "block"
             else {"fft_cols_kernel": len(factors) - 1,
                   "fft_rows_kernel": 1}, run,
             [rows, ell, *factors], mode=mode, windows=7,
             **({"stage_plan": multistep_stage_plan(factors, rows)}
-               if mode == "per_stage" else {}))
+               if mode == "per_stage" else
+               {"radix_plan": list(fft_rows_plan(ell)),
+                "rows_per_block": fft_rows_per_block(ell)}))
         del xr, xi, xc
     torch.cuda.empty_cache()
 

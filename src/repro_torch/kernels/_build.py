@@ -36,7 +36,8 @@ __all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "build", "build_dir
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-HEADERS = ("common.cuh", "bucket.cuh", "fft_rows.cuh", "fft_cols.cuh")
+HEADERS = ("common.cuh", "bucket.cuh", "fft_rows.cuh", "fft_cols.cuh",
+           "fft_block.cuh")
 SOURCES = ("coded_bucket", "encode_fourstep", "bcmatmul", "recombine",
            "fourstep", "cmatmul", "coded_rbucket", "coded_irbucket",
            "coded_bucket_streaming", "multistep", "wkv")

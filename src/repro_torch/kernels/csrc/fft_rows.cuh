@@ -46,7 +46,11 @@
 // Callers: fourstep.cu (fourstep_stage2_f32, the two-pass row pass),
 // coded_bucket_streaming.cu (the row pass) and encode_fourstep.cu (the
 // row pass past the fold; the folded encode runs run_passes on its own
-// block of rows and applies G as it stores).
+// block of rows and applies G as it stores).  fft_block.cuh runs
+// run_passes over whole four-step rows and stores them scrambled; its
+// layout chooses per length whether the buffers are padded and the table
+// staged, so the passes take their padding maps as template arguments
+// (Pad32, the constant map, by default).
 
 #pragma once
 
@@ -83,6 +87,20 @@ struct Layout {
 };
 
 __device__ __forceinline__ int pad(int a) { return a + (a >> 5); }
+
+// pad() as the passes take it: Pad32, the default, pads one word in 32;
+// Pad{shift} is the same map with the shift chosen at run time (31 pads
+// nothing, for the non-negative indices the passes form), for a kernel
+// whose layout decides per length what it pads (fft_block.cuh).
+struct Pad32 {
+  __device__ __forceinline__ int operator()(int a) const { return pad(a); }
+};
+struct Pad {
+  int shift;
+  __device__ __forceinline__ int operator()(int a) const {
+    return a + (a >> shift);
+  }
+};
 
 // (r, i) = a * b on planar complex scalars.
 __device__ __forceinline__ void cmul(float& r, float& i, float ar, float ai,
@@ -160,18 +178,20 @@ __device__ __forceinline__ void butterfly(float* vr, float* vi,
   }
 }
 
-// One pass of radix R (unrolled) over `rows` rows of n points.
-template <int R>
+// One pass of radix R (unrolled) over `rows` rows of n points; pb pads
+// the buffers' indices, pt the table's.
+template <int R, class PB = Pad32, class PT = Pad32>
 __device__ void pass_radix(const float* sr, const float* si, float* dr,
                            float* di, const float* tr, const float* ti,
-                           int n, int ns, int rows, int tid, int nt) {
+                           int n, int ns, int rows, int tid, int nt,
+                           PB pb = PB(), PT pt = PT()) {
   const int m = n / R;
   const int unit = n / (ns * R);  // twiddle exponent step of r * (j mod ns)
   float cwr[R], cwi[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
-    cwr[q] = tr[pad(q * m)];
-    cwi[q] = ti[pad(q * m)];
+    cwr[q] = tr[pt(q * m)];
+    cwi[q] = ti[pt(q * m)];
   }
   for (int bf = tid; bf < rows * m; bf += nt) {
     const int row = bf / m, j = bf - row * m;
@@ -180,14 +200,14 @@ __device__ void pass_radix(const float* sr, const float* si, float* dr,
     float vr[R], vi[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int a = pad(rb + j + r * m);
+      const int a = pb(rb + j + r * m);
       vr[r] = sr[a];
       vi[r] = si[a];
     }
     if (k != 0) {
 #pragma unroll
       for (int r = 1; r < R; ++r) {
-        const int e = pad(k * r * unit);
+        const int e = pt(k * r * unit);
         float xr, xi;
         cmul(xr, xi, vr[r], vi[r], tr[e], ti[e]);
         vr[r] = xr;
@@ -198,7 +218,7 @@ __device__ void pass_radix(const float* sr, const float* si, float* dr,
     const int o = rb + (j - k) * R + k;
 #pragma unroll
     for (int c = 0; c < R; ++c) {
-      const int a = pad(o + c * ns);
+      const int a = pb(o + c * ns);
       dr[a] = vr[c];
       di[a] = vi[c];
     }
@@ -209,19 +229,22 @@ __device__ void pass_radix(const float* sr, const float* si, float* dr,
 // radix pass's pre-twiddle, in place over src, then the p-point DFT of
 // each butterfly with one thread per output pair (h, p - h), whose terms
 // share one table entry: y[h] takes w^((r*h mod p)*m), y[p - h] its
-// conjugate.  Half the table reads of one thread per output.
+// conjugate.  Half the table reads of one thread per output.  pb, pt as
+// in pass_radix.
+template <class PB = Pad32, class PT = Pad32>
 __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
                            const float* tr, const float* ti, int n, int ns,
-                           int p, int rows, int tid, int nt) {
+                           int p, int rows, int tid, int nt, PB pb = PB(),
+                           PT pt = PT()) {
   const int m = n / p;
   const int unit = n / (ns * p);
   if (ns > 1) {
     for (int w = tid; w < rows * n; w += nt) {  // w = row*n + r*m + j
       const int rem = w % n;
       const int r = rem / m, j = rem - r * m;
-      const int e = pad(r * (j % ns) * unit);
+      const int e = pt(r * (j % ns) * unit);
       if (e != 0) {
-        const int a = pad(w);
+        const int a = pb(w);
         float xr, xi;
         cmul(xr, xi, sr[a], si[a], tr[e], ti[e]);
         sr[a] = xr;
@@ -240,8 +263,8 @@ __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
     float ar = 0.f, ai = 0.f, br = 0.f, bi = 0.f;
     int idx = 0;
     for (int r = 0; r < p; ++r) {
-      const int a = pad(rb + j + r * m);
-      const int t = pad(idx);
+      const int a = pb(rb + j + r * m);
+      const int t = pt(idx);
       const float xr = sr[a], xi = si[a], wr = tr[t], wi = ti[t];
       cmac(ar, ai, xr, xi, wr, wi);
       cmac(br, bi, xr, xi, wr, -wi);
@@ -249,11 +272,11 @@ __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
       if (idx >= n) idx -= n;
     }
     const int o = rb + (j - k) * p + k;
-    dr[pad(o + h * ns)] = ar;
-    di[pad(o + h * ns)] = ai;
+    dr[pb(o + h * ns)] = ar;
+    di[pb(o + h * ns)] = ai;
     if (h > 0 && 2 * h != p) {
-      dr[pad(o + (p - h) * ns)] = br;
-      di[pad(o + (p - h) * ns)] = bi;
+      dr[pb(o + (p - h) * ns)] = br;
+      di[pb(o + (p - h) * ns)] = bi;
     }
   }
 }
@@ -264,37 +287,47 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b) {
 }
 
 // The plan's passes over `rows` rows of p.n points, ping-ponging between
-// the buffers (s, d): on return s holds the transformed rows.
+// the buffers (s, d): on return s holds the transformed rows.  pb, pt as
+// in pass_radix.
+template <class PB = Pad32, class PT = Pad32>
 __device__ __forceinline__ void run_passes(float*& sr, float*& si,
                                            float*& dr, float*& di,
                                            const float* tr, const float* ti,
                                            const Plan& p, int rows, int tid,
-                                           int nt) {
+                                           int nt, PB pb = PB(),
+                                           PT pt = PT()) {
   const int n = p.n;
   int ns = 1;
   for (int s = 0; s < p.passes; ++s) {
     const int R = p.radix[s];
     switch (R) {
       case 2:
-        pass_radix<2>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        pass_radix<2>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt, pb,
+                      pt);
         break;
       case 3:
-        pass_radix<3>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        pass_radix<3>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt, pb,
+                      pt);
         break;
       case 4:
-        pass_radix<4>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        pass_radix<4>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt, pb,
+                      pt);
         break;
       case 5:
-        pass_radix<5>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        pass_radix<5>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt, pb,
+                      pt);
         break;
       case 7:
-        pass_radix<7>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        pass_radix<7>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt, pb,
+                      pt);
         break;
       case 8:
-        pass_radix<8>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt);
+        pass_radix<8>(sr, si, dr, di, tr, ti, n, ns, rows, tid, nt, pb,
+                      pt);
         break;
       default:
-        pass_dense(sr, si, dr, di, tr, ti, n, ns, R, rows, tid, nt);
+        pass_dense(sr, si, dr, di, tr, ti, n, ns, R, rows, tid, nt, pb,
+                   pt);
     }
     __syncthreads();
     float* t = sr;

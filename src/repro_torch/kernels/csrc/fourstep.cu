@@ -19,19 +19,21 @@
 // flops per row), the work is far below the traffic of reading the input
 // and writing the output once: for the 2^20-point plan (128 rows of
 // L = 2^18) that is about 0.05 ms of FP32 work against 0.16 ms of
-// traffic, and for the 4096-point plan (512 rows of L = 1024) about
-// 0.0004 ms against 0.0025 ms.  fourstep_fused's passes are dense DFTs,
-// 8*L*(A + B) flops per row, about 10x an FFT's at L = 1024.
+// traffic, and for the 4096-point plan (512 rows of L = 1024: 8.4 MB,
+// 0.0025 ms at 3.35 TB/s) about 0.0004 ms against 0.0025 ms.
 //
-// Design.  fourstep_fused runs one block per batch row: it stages the
-// row's A x B matrix in shared memory, writes the column pass into a
-// second shared buffer, and streams the row pass straight to the output.
-// F_A, W and F_B are read from global memory, where they are small and
-// stay in L2.  The shared working set (two A x B complex planes, 16*A*B
-// bytes) is laid out by fourstep_fft.fourstep_layout on the Python side,
-// which passes the word offsets in at launch; the same reckoning is the
-// fused gate (ops.fourstep_fusable, against 232,448 bytes), so shards up
-// to L = 8192 fuse and longer ones take the two-pass route.
+// Design.  fourstep_fused is fft_block.cuh's kernel with the two-factor
+// store: one block takes fft_rows_per_block(L) whole rows (two at
+// L = 1024), runs the row FFT's Stockham passes over each row in shared
+// memory from the L-point f32 table of w^t -- no column pass, no twiddle
+// pass, no F_A, W or F_B read on the card: the table's entries are
+// theirs, bit for bit -- and stores out[c*B + d] = X[c + d*A], the
+// reference's scrambled order, reading the natural row at c + d*A.
+// multistep_fused's block mode is the same kernel with the k-digit store
+// (multistep.cu).  Its working set is fourstep_fft.fft_block_layout(L),
+// which fits one block wherever the fused gate (ops.fourstep_fusable, the
+// dense design's 16*L bytes against 232,448: L up to 14,528) admits a
+// row; the gate itself is unchanged, so no length changed route.
 //
 // The two-pass route and fourstep_streaming run no dense DFT.  Their
 // passes are the shared-memory Stockham FFTs of fft_cols.cuh (A points
@@ -59,87 +61,23 @@
 #include <cstring>
 
 #include "common.cuh"
+#include "fft_block.cuh"
 #include "fft_cols.cuh"
 
-namespace {
-
-// Word offsets of the fused kernel's shared arrays, then the total, in
-// this order; the caller computes them (fourstep_fft.fourstep_layout).
-struct FusedLayout {
-  long long x, t1, total;
-};
-
-constexpr int kFusedThreads = 256;
-
-__global__ void __launch_bounds__(kFusedThreads)
-fourstep_fused_kernel(const float* __restrict__ xr,
-                      const float* __restrict__ xi,
-                      const float* __restrict__ far,
-                      const float* __restrict__ fai,
-                      const float* __restrict__ wr,
-                      const float* __restrict__ wi,
-                      const float* __restrict__ fbr,
-                      const float* __restrict__ fbi, float* __restrict__ outr,
-                      float* __restrict__ outi, int A, int B, FusedLayout o) {
-  extern __shared__ float smem[];
-  const int L = A * B;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float* x_r = smem + o.x;
-  float* x_i = x_r + L;
-  float* t_r = smem + o.t1;
-  float* t_i = t_r + L;
-  const long long base = (long long)blockIdx.x * L;
-
-  for (int t = tid; t < L; t += nt) {
-    x_r[t] = xr[base + t];
-    x_i[t] = xi[base + t];
-  }
-  __syncthreads();
-  for (int t = tid; t < L; t += nt) {  // T1 = (F_A @ M) * W
-    const int c = t / B, bb = t % B;
-    float accr = 0.f, acci = 0.f;
-    for (int a = 0; a < A; ++a)
-      cmac(accr, acci, far[c * A + a], fai[c * A + a], x_r[a * B + bb],
-           x_i[a * B + bb]);
-    const float w_r = wr[t], w_i = wi[t];
-    t_r[t] = accr * w_r - acci * w_i;
-    t_i[t] = accr * w_i + acci * w_r;
-  }
-  __syncthreads();
-  for (int t = tid; t < L; t += nt) {  // out = T1 @ F_B
-    const int c = t / B, d = t % B;
-    float accr = 0.f, acci = 0.f;
-    for (int bb = 0; bb < B; ++bb)
-      cmac(accr, acci, t_r[c * B + bb], t_i[c * B + bb], fbr[bb * B + d],
-           fbi[bb * B + d]);
-    outr[base + t] = accr;
-    outi[base + t] = acci;
-  }
-}
-
-}  // namespace
-
-// x, out: (batch, a, b) planes; fa: (a, a); w: (a, b); fb: (b, b);
-// layout: the 3 words of FusedLayout, in host memory.  One launch.
+// x, out: (batch, a, b) planes; tw: the (a*b,) f32 table of w^t; radix:
+// the row FFT's `passes` radices (product a*b); rows: rows a block takes;
+// layout: the 4 words of fourstep_fft.fft_block_layout (host memory).
+// out[z][c][d] = X_z[c + d*a].  One launch.
 extern "C" int fourstep_fused_f32(const float* xr, const float* xi,
-                                  const float* far, const float* fai,
-                                  const float* wr, const float* wi,
-                                  const float* fbr, const float* fbi,
-                                  float* outr, float* outi, int batch, int a,
-                                  int b, const long long* layout,
+                                  const float* twr, const float* twi,
+                                  float* outr, float* outi, long long batch,
+                                  int a, int b, const int* radix, int passes,
+                                  int rows, const long long* layout,
                                   void* stream) {
-  FusedLayout o;
-  memcpy(&o, layout, sizeof(FusedLayout));
-  const size_t smem = (size_t)o.total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fourstep_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fourstep_fused_kernel<<<batch, kFusedThreads, smem,
-                          (cudaStream_t)stream>>>(xr, xi, far, fai, wr, wi,
-                                                  fbr, fbi, outr, outi, a, b,
-                                                  o);
-  return (int)cudaGetLastError();
+  const int factors[2] = {a, b};
+  return fft_block::launch(xr, xi, outr, outi, twr, twi, batch, factors, 2,
+                           radix, passes, rows, layout,
+                           (cudaStream_t)stream);
 }
 
 // Column pass: out[z] = (F_A @ x[z]) * W for z < batch.  x, out:

@@ -9,8 +9,11 @@ Factor ``L = A * B`` and compute
 two DFT passes (dense matmuls in the plain twins) and one elementwise
 twiddle on planar f32 data.
 
-* ``fourstep_fused`` -- one launch, each batch row's A x B matrix in one
-  block's shared memory (its working set: :func:`fourstep_layout`);
+* ``fourstep_fused`` -- one launch, each batch row whole in one block's
+  shared memory: on the card the row FFT's passes over the row, then the
+  store in the scrambled order (the one-block kernel, its working set
+  :func:`fft_block_layout`; the fused gate stays
+  :func:`fourstep_layout`);
 * ``fourstep_stage1`` / ``fourstep_stage2`` -- the two-pass route for
   shards too long for one block: the column pass with the twiddle, then
   the row pass, the intermediate in device memory.  Neither takes a DFT
@@ -32,13 +35,15 @@ twiddle on planar f32 data.
   :func:`encode_rows_layout`, the gate :func:`encode_rows_fold`), or past
   that gate the row FFT and a separate G apply;
 * ``multistep_fused`` -- the mixed-radix four-step, ``L = f1 * ... *
-  fk``: k dense stages with the row in one block's shared memory where it
-  fits (:func:`multistep_layout`), else one FFT launch per stage (the
-  column FFT, the row FFT for the last; :func:`multistep_stage_plan`).
+  fk``: where the row fits one block (the gate :func:`multistep_layout`)
+  the one-block kernel of ``fourstep_fused`` with the k-digit store, else
+  one FFT launch per stage (the column FFT, the row FFT for the last;
+  :func:`multistep_stage_plan`).
 
 CUDA sources: ``csrc/fourstep.cu`` (the first four; the row FFT in
-``csrc/fft_rows.cuh``, the column FFT in ``csrc/fft_cols.cuh``),
-``csrc/encode_fourstep.cu`` and ``csrc/multistep.cu``; the plain twins
+``csrc/fft_rows.cuh``, the column FFT in ``csrc/fft_cols.cuh``, the
+one-block kernel in ``csrc/fft_block.cuh``), ``csrc/encode_fourstep.cu``
+and ``csrc/multistep.cu``; the plain twins
 are :func:`fourstep_body`, :func:`stage1_body`, :func:`stage2_body`,
 :func:`fourstep_streaming_body`, :func:`encode_fourstep_body` and
 :func:`multistep_body`.
@@ -68,6 +73,7 @@ __all__ = [
     "fft_cols_layout",
     "fft_cols_spec",
     "fft_cols_tile",
+    "fft_block_layout",
     "fft_rows_layout",
     "fft_rows_plan",
     "fft_rows_spec",
@@ -247,12 +253,14 @@ def _encode_on_card(cr, ci, gr, gi, wr, wi, fold: bool):
 
 # -- the plan's worker: fused and two-pass four-step ----------------------
 def fourstep_layout(a: int, b: int) -> tuple[int, ...]:
-    """Word offsets of the fused four-step kernel's shared arrays, then
-    the total.
+    """Word offsets of the first port's dense fused four-step kernel's
+    shared arrays (the row's A x B matrix and its column pass), then the
+    total: 16 bytes a point.
 
-    The kernel takes these offsets at launch (``FusedLayout`` in
-    ``csrc/fourstep.cu``, same order), so this is the one reckoning of
-    its working set, and the fused gate (``ops.fourstep_fusable``).
+    No kernel lays this out any more: it is the fused route's boundary
+    (``ops.fourstep_fusable``), kept so that the one-block redesign moved
+    no length between the fused and two-pass routes.  The kernel lays out
+    :func:`fft_block_layout`, which fits one block wherever this does.
     """
     sizes = (
         2 * a * b,               # x: the row's A x B matrix
@@ -275,11 +283,27 @@ def _check_fourstep(what, xr, xi, **planes):
 @functools.lru_cache(maxsize=None)
 def _fused_lib():
     fn = _build.load("fourstep").fourstep_fused_f32
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * 10 + [i32] * 3
-                   + [ctypes.POINTER(ctypes.c_longlong), vp])
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp] * 6 + [i64, i32, i32, ctypes.POINTER(i32), i32, i32,
+                              ctypes.POINTER(i64), vp]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _block_plan(what: str, ell: int):
+    """The one-block kernel's launch arguments for ``ell``-point rows: the
+    row FFT's radices and their count, the rows a block takes and the
+    layout words (:func:`fft_block_layout`).  Raises ValueError, naming
+    ``what``, where the layout is past one block's shared memory."""
+    layout = fft_block_layout(ell)
+    if 4 * layout[-1] > _build.SMEM_PER_BLOCK_OPTIN:
+        raise ValueError(
+            f"{what}: rows of {ell} points need {4 * layout[-1]} bytes of "
+            f"shared memory per block, over {_build.SMEM_PER_BLOCK_OPTIN}")
+    plan = fft_rows_plan(ell)
+    return ((ctypes.c_int * max(1, len(plan)))(*plan), len(plan),
+            fft_rows_per_block(ell),
+            (ctypes.c_longlong * len(layout))(*layout))
 
 
 def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
@@ -288,8 +312,12 @@ def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
     ``xr, xi``: (batch, A, B) planes of ``M[a, b] = x[a*B + b]``.  Returns
     (batch, A, B) planes of ``out[c, d]`` with ``X[c + d*A] = out[c, d]``.
     CPU tensors run :func:`fourstep_body`; CUDA tensors launch the kernel
-    or raise -- also when the row's working set
-    (:func:`fourstep_layout`) exceeds one block's shared memory.
+    (counted) or raise -- also where the fused gate refuses (A, B): the
+    dense design's working set, :func:`fourstep_layout`, past one block's
+    shared memory.  The card runs the one-block kernel: the row FFT over
+    each whole row from the L-point f32 table of
+    :func:`fft_rows_twiddles`, stored in the scrambled order.  It reads
+    none of the six planes: their entries are the table's, bit for bit.
     """
     batch, a, b = xr.shape
     _check_fourstep("fourstep_fused", xr, xi, far=far, fai=fai, wr=wr,
@@ -299,19 +327,21 @@ def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
     dev = _build.check_planes(
         "fourstep_fused", xr=xr, xi=xi, far=far, fai=fai, wr=wr, wi=wi,
         fbr=fbr, fbi=fbi)
-    layout = fourstep_layout(a, b)
-    if 4 * layout[-1] > _build.SMEM_PER_BLOCK_OPTIN:
+    gate = fourstep_layout(a, b)
+    if 4 * gate[-1] > _build.SMEM_PER_BLOCK_OPTIN:
         raise ValueError(
-            f"fourstep_fused: ({a}, {b}) needs {4 * layout[-1]} bytes of "
+            f"fourstep_fused: ({a}, {b}) needs {4 * gate[-1]} bytes of "
             f"shared memory per block, over {_build.SMEM_PER_BLOCK_OPTIN}; "
             f"route it to the two-pass kernels")
+    ell = a * b
+    block = _block_plan("fourstep_fused", ell)
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     p = _build.ptr
     _build.check(_fused_lib()(
-        p(xr), p(xi), p(far), p(fai), p(wr), p(wi), p(fbr), p(fbi), p(outr),
-        p(outi), batch, a, b, (ctypes.c_longlong * len(layout))(*layout),
-        _build.stream_of(dev)), "fourstep_fused")
+        p(xr), p(xi), *(p(t) for t in fft_twiddles_on(ell, dev)), p(outr),
+        p(outi), batch, a, b, *block, _build.stream_of(dev)),
+        "fourstep_fused")
     _build.count_launch("fourstep_fused")
     return outr, outi
 
@@ -419,6 +449,32 @@ def fft_rows_layout(b: int) -> tuple[int, ...]:
     rows = _padded(fft_rows_per_block(b) * b)
     return tuple(itertools.accumulate((2 * rows, 2 * rows, 2 * _padded(b)),
                                       initial=0))
+
+
+def fft_block_layout(ell: int) -> tuple[int, ...]:
+    """Word offsets of the one-block kernel's shared arrays, then the
+    total, for rows of ``ell`` points (``fourstep_fused`` and
+    ``multistep_fused``'s block mode, ``csrc/fft_block.cuh``): the two
+    planar row buffers of a block's :func:`fft_rows_per_block` rows, then
+    the table's two planes -- the order of ``Layout`` in
+    ``csrc/fft_rows.cuh``.
+
+    Per length, what fits one block's shared memory: where
+    :func:`fft_rows_layout` fits (L up to 9392) it is this layout; past
+    that the table stays in global memory (``tab == total``: no words)
+    and the buffers keep their padding up to L = 14,088; past that they
+    are unpadded (plane words == rows * L), up to L = 14,528, the largest
+    row the gates (:func:`fourstep_layout`, :func:`multistep_layout`)
+    admit.  The kernel reads both choices from these offsets.
+    """
+    full = fft_rows_layout(ell)
+    if 4 * full[-1] <= _build.SMEM_PER_BLOCK_OPTIN:
+        return full
+    words = fft_rows_per_block(ell) * ell
+    plane = _padded(words)
+    if 16 * plane > _build.SMEM_PER_BLOCK_OPTIN:
+        plane = words
+    return (0, 2 * plane, 4 * plane, 4 * plane)
 
 
 @functools.lru_cache(maxsize=None)
@@ -733,13 +789,14 @@ def multistep_body(xr, xi, stages):
 
 
 def multistep_layout(factors) -> tuple[int, ...]:
-    """Word offsets of the block-mode kernel's shared arrays, then the
-    total: the row and its ping-pong buffer (two L-point complex planes
-    each), then each stage's (f, f) DFT planes.
+    """Word offsets of the first port's dense block-mode kernel's shared
+    arrays, then the total: the row and its ping-pong buffer (two L-point
+    complex planes each), then each stage's (f, f) DFT planes.
 
-    The kernel takes these offsets at launch (``BlockLayout`` in
-    ``csrc/multistep.cu``, same order), so this is the one reckoning of
-    its working set, and the block-mode gate (:func:`multistep_mode`).
+    No kernel lays this out any more: it is the block mode's boundary
+    (:func:`multistep_mode`), kept so that the one-block redesign moved
+    no plan between the modes.  Block mode lays out
+    :func:`fft_block_layout`, which fits one block wherever this does.
     """
     ell = math.prod(factors)
     sizes = (2 * ell, 2 * ell, *(2 * f * f for f in factors))
@@ -778,9 +835,11 @@ def _stage_specs(factors) -> list[FftSpec]:
 
 def multistep_mode(factors) -> str:
     """How ``multistep_fused`` runs a plan on the card, from the plan
-    alone: ``"block"`` (one launch, each row in one block's shared
-    memory) when :func:`multistep_layout` fits
-    :data:`_build.SMEM_PER_BLOCK_OPTIN`, else ``"per_stage"`` (one FFT
+    alone: ``"block"`` (one launch of the one-block kernel, each row in
+    one block's shared memory) when the route's boundary,
+    :func:`multistep_layout` -- the dense design's working set, no longer
+    the kernel's layout --, fits :data:`_build.SMEM_PER_BLOCK_OPTIN`,
+    else ``"per_stage"`` (one FFT
     launch per stage through a device ping-pong,
     :func:`multistep_stage_plan`).  Raises ValueError for a plan the
     kernel cannot take: more than :data:`MAX_STAGES` stages, or a stage
@@ -801,9 +860,10 @@ def multistep_mode(factors) -> str:
 @functools.lru_cache(maxsize=None)
 def _multistep_block_lib():
     fn = _build.load("multistep").multistep_block_f32
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * 4 + [ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
-                               i32, ctypes.POINTER(ctypes.c_longlong), vp])
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp] * 6 + [ctypes.POINTER(i32), i32, i64,
+                              ctypes.POINTER(i32), i32, i32,
+                              ctypes.POINTER(i64), vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -830,10 +890,13 @@ def multistep_fused(xr, xi, planes, factors):
 
     CPU tensors run :func:`multistep_body`; CUDA tensors launch the
     kernel or raise: one launch in block mode, one per stage in
-    per-stage mode (:func:`multistep_mode`), each counted.  The
+    per-stage mode (:func:`multistep_mode`), each counted.  Block mode
+    runs the one-block kernel of :func:`fourstep_fused` with the k-digit
+    store: the row FFT from the L-point f32 table
+    (:func:`fft_rows_twiddles`), reading none of the planes.  The
     per-stage mode computes each stage's DFT from the f32 table of its
-    factor (:func:`fft_rows_twiddles`), bit for bit the entries of its
-    DFT plane: it reads the twiddle planes, not the DFT planes.
+    factor, bit for bit the entries of its DFT plane: it reads the
+    twiddle planes, not the DFT planes.
     """
     factors = tuple(int(f) for f in factors)
     batch, ell = xr.shape
@@ -863,12 +926,12 @@ def multistep_fused(xr, xi, planes, factors):
     p = _build.ptr
     vps = lambda ts: (ctypes.c_void_p * len(ts))(*(p(t) for t in ts))
     if mode == "block":
-        layout = multistep_layout(factors)
+        block = _block_plan("multistep_fused", ell)
         _build.check(_multistep_block_lib()(
-            p(xr), p(xi), p(outr), p(outi), vps(planes),
+            p(xr), p(xi), p(outr), p(outi),
+            *(p(t) for t in fft_twiddles_on(ell, dev)),
             (ctypes.c_int * len(factors))(*factors), len(factors), batch,
-            (ctypes.c_longlong * len(layout))(*layout),
-            _build.stream_of(dev)), "multistep_fused")
+            *block, _build.stream_of(dev)), "multistep_fused")
         _build.count_launch("multistep_fused")
         return outr, outi
     specs = _stage_specs(factors)

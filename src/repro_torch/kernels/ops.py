@@ -239,11 +239,15 @@ def _fourstep_planes(a: int, b: int, device):
 
 # -- the plan's kernels: four-step worker and mds_apply ----------------
 def fourstep_fusable(a: int, b: int) -> bool:
-    """Does an (A, B) four-step row fit one block of the fused kernel?
+    """Does an (A, B) four-step row take the fused route?
 
-    The kernel's shared-memory working set (:func:`fourstep_layout`, the
-    offsets the wrapper passes to ``csrc/fourstep.cu``) against
-    :data:`SMEM_PER_BLOCK_OPTIN`: shards up to L = 8192 fuse.
+    The route's boundary: the first port's dense working set
+    (:func:`fourstep_layout`, 16 bytes a point) against
+    :data:`SMEM_PER_BLOCK_OPTIN`, so rows up to L = 14,528 fuse.  It is no
+    longer the kernel's layout: the one-block kernel lays out
+    ``fourstep_fft.fft_block_layout``, which fits wherever this admits,
+    and the boundary stays put until the two routes are timed against
+    each other at the lengths near it.
     """
     return 4 * fourstep_layout(a, b)[-1] <= SMEM_PER_BLOCK_OPTIN
 

@@ -547,11 +547,14 @@ def test_near_prime_stage_route_matches_reference(jref, kind, s,
 @pytest.mark.gpu
 @pytest.mark.parametrize("factors,batch", [
     ((16, 16, 4), 9), ((4, 4, 4), 3), ((3, 5, 7), 5), ((2, 64, 3), 2),
-    ((64, 64, 64), 2), ((64, 5, 100), 3), ((7, 11, 13, 31), 2)])
+    ((64, 64, 64), 2), ((64, 5, 100), 3), ((7, 11, 13, 31), 2),
+    ((16, 16, 16, 2), 2), ((64, 64, 2), 3)])
 def test_gpu_multistep_matches_plain(cuda, factors, batch):
     """Both modes of the kernel against the plain twin on the card, its
     launches (one in block mode, one per stage past it), and the
-    unscrambled spectrum against torch.fft."""
+    unscrambled spectrum against torch.fft; (16, 16, 16, 2) and
+    (64, 64, 2) are the largest block-mode plans (L = 8192) of the
+    autotune candidates."""
     ell = int(np.prod(factors))
     x = _crand(np.random.default_rng(ell), batch, ell)
     xr, xi = _planar(x, cuda)

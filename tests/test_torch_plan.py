@@ -600,10 +600,13 @@ def _count(name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,a,b", [(512, 32, 32), (3, 1, 127),
                                        (2, 64, 128), (2, 120, 121),
-                                       (5, 12, 20)])
+                                       (5, 12, 20), (4, 96, 100),
+                                       (2, 112, 128)])
 def test_gpu_fourstep_fused_matches_plain(cuda, batch, a, b):
     """The smoke run's plan shape (512 rows of 32 x 32), A = 1, and the
-    largest fusable rows (L = 8192, and 120 x 121 at the gate)."""
+    long fusable rows: L = 8192, 9600 (past 9392: the kernel's table in
+    global memory), 14,336 and 120 x 121 at the gate (past 14,088: its
+    buffers unpadded)."""
     assert tops.fourstep_fusable(a, b)
     rng = np.random.default_rng(a * b)
     args = _cuda(cuda, _rand(rng, batch, a, b), _rand(rng, batch, a, b),
