@@ -11,14 +11,17 @@ plain PyTorch version on the card at the shapes its main path gives it
 prime A of (16, 4093, 4), ``encode_fourstep_fused`` past its fold at
 m = 32, B = 512, three launches, and both its routes forced where both
 fit a block), prints the FFT kernels' ptxas
-registers and spills (failing if the c2c or r2c bucket kernel or the
-one-block ``fft_block_kernel`` spills),
-times the c2c and r2c bucket kernels, ``fourstep_fused`` and both modes
-of ``multistep_fused`` in seven windows each (median, min and max) and
-traces one call of each, which must launch once (k times per stage) and
-run its own kernels alone -- ``fft_block_kernel`` for ``fourstep_fused``
-and block mode, the per-stage mode ``fft_cols_kernel`` and
-``fft_rows_kernel`` --,
+registers and spills (failing if the c2c, r2c or c2r bucket kernel, the
+one-block ``fft_block_kernel`` or the recombine's tile design spills),
+times both designs of the recombine forced at m = 4..64 (the timings its
+route by m is chosen from),
+times the c2c, r2c and c2r bucket kernels, ``fourstep_fused``, both modes
+of ``multistep_fused`` and the recombine rows in seven windows each
+(median, min and max) and traces one call of each bucket,
+``fourstep_fused`` and ``multistep_fused``, which must launch once (k
+times per stage) and run its own kernels alone -- ``fft_block_kernel``
+for ``fourstep_fused`` and block mode, the per-stage mode
+``fft_cols_kernel`` and ``fft_rows_kernel`` --,
 then drives the main paths at two sizes each,
 for each 1-D kind: the service's ``submit_batch`` with kind c2c, r2c
 and c2r (the kind's whole-bucket kernel at s=4096; at s=2^20 the
@@ -214,6 +217,48 @@ def compare(torch, got, want) -> tuple[float, float]:
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want) or 1.0
     return err, err / scale
+
+
+def recombine_crossover(torch, randn, spin_rate, windows=7) -> list[dict]:
+    """Both designs of ``csrc/recombine.cu`` forced, at m = 4, 8, 16, 32
+    and 64, at the stage route's two bucket shapes (64 requests of s =
+    4096, 16 of s = 2^20): each held against the plain twin (1e-5), then
+    timed in ``windows`` windows (median, min, max) beside the route
+    ``recombine.recombine_design`` takes.  The crossover in m is read
+    from these rows.  Launches here are counted under the batched
+    entry's name, outside every main-path run."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import recombine as rc
+
+    dev = torch.device("cuda")
+    rows = []
+    for q, s, reps in ((64, 4096, 50), (16, 1 << 20, 5)):
+        for m in (4, 8, 16, 32, 64):
+            ell = s // m
+            cr, ci = randn(q, m, ell), randn(q, m, ell)
+            planes = ops._on_device(ops._recombine_planes, (s, m), dev)
+            want = rc.recombine_batched_body(cr, ci, *planes)
+            row = {"q": q, "s": s, "m": m, "L": ell,
+                   "route": rc.recombine_design(m)}
+            for design in ("column", "tile"):
+                run = lambda: rc._launch("recombine_twiddle_dft_batched",
+                                         cr, ci, *planes, design=design)
+                got = run()
+                torch.cuda.synchronize()
+                _, rel = compare(torch, got, want)
+                if not rel < 1e-5:
+                    fail(f"recombine {design} design (q={q}, s={s}, m={m})"
+                         f": rel err {rel} >= 1e-5")
+                ts = sorted(time_ms(torch, run, reps, spin_rate)
+                            for _ in range(windows))
+                row[f"{design}_ms"] = ts[len(ts) // 2]
+                row[f"{design}_ms_min"], row[f"{design}_ms_max"] = ts[0], \
+                    ts[-1]
+                row[f"{design}_max_rel_err"] = rel
+            rows.append(row)
+            del cr, ci, want, got
+        torch.cuda.empty_cache()
+    return rows
 
 
 def lm_rwkv6_3b(torch, rng, counted) -> None:
@@ -462,6 +507,7 @@ def main() -> int:
     from repro_torch.kernels.recombine import (
         recombine_batched_body,
         recombine_body,
+        recombine_design,
         recombine_twiddle_dft,
         recombine_twiddle_dft_batched,
     )
@@ -506,25 +552,31 @@ def main() -> int:
     # builds them (fft_cols_kernel: the column pass of stage 1, of the
     # encode, of both streaming kernels and of multistep's stages;
     # encode_rows_kernel: the encode's row FFT with G in its store;
-    # coded_bucket_kernel and coded_rbucket_kernel: the whole c2c and r2c
-    # buckets on the row FFT's passes; fft_block_kernel: fourstep_fused and
-    # multistep's block mode -- these three must not spill)
+    # coded_bucket_kernel, coded_rbucket_kernel and coded_irbucket_kernel:
+    # the whole c2c, r2c and c2r buckets on the row FFT's passes;
+    # fft_block_kernel: fourstep_fused and multistep's block mode -- these
+    # four must not spill) and the recombine's two designs
     fft_ptxas = {
         name: [ln for ln in ptxas[name] if "fft_cols" in ln
                or "fft_rows" in ln or "encode_rows" in ln
                or "fft_block_kernel" in ln
                or "coded_bucket_kernel" in ln
-               or "coded_rbucket_kernel" in ln]
+               or "coded_rbucket_kernel" in ln
+               or "coded_irbucket_kernel" in ln
+               or "recombine" in ln]
         for name in ("fourstep", "coded_bucket_streaming",
                      "encode_fourstep", "coded_bucket", "coded_rbucket",
-                     "multistep")}
+                     "coded_irbucket", "multistep", "recombine")}
     emit({"phase": "ptxas_fft", **fft_ptxas})
     # eight bucket instances: MM in 4, 8, 16, 32, masked and planes; one
-    # fft_block_kernel in each library that launches it
+    # fft_block_kernel in each library that launches it; the recombine's
+    # tile design at MM in 4, 8, 16, 32, 64
     for libs, kernel, instances in (
             (("coded_bucket",), "coded_bucket_kernel", 8),
             (("coded_rbucket",), "coded_rbucket_kernel", 8),
-            (("fourstep", "multistep"), "fft_block_kernel", 2)):
+            (("coded_irbucket",), "coded_irbucket_kernel", 8),
+            (("fourstep", "multistep"), "fft_block_kernel", 2),
+            (("recombine",), "recombine_tile_kernel", 5)):
         lines = [ln for lib in libs for ln in fft_ptxas[lib]
                  if kernel in ln]
         spills = [ln for ln in lines if " 0 bytes spill stores" not in ln]
@@ -545,6 +597,11 @@ def main() -> int:
         lat = rng.exponential(1.0, size=(q, n))
         kth = np.sort(lat, axis=1)[:, m - 1:m]
         return torch.as_tensor(lat <= kth, device=dev)
+
+    # the recombine's two designs forced at m = 4..64: the timings its
+    # route by m (recombine.recombine_design) is chosen from
+    emit({"phase": "recombine_designs",
+          "rows": recombine_crossover(torch, randn, spin_rate)})
 
     def recombine_library_planes(planes):
         """The recombine's (m, L) twiddle and (m, m) DFT as complex
@@ -618,12 +675,21 @@ def main() -> int:
         one traced call ran exactly those: every kernel's name holds one
         of the fragments, and each fragment's kernels ran as often as it
         says.  Prints the trace's split beside ``info`` (the wrapper's own
-        reckoning of the launch)."""
+        reckoning of the launch).  A trace that recorded no device kernel
+        at all lost the call in the profiler, not the route (a process
+        that has run the card for a while returns such traces now and
+        then, ``PERF.md`` §7): it is taken again, at most twice, and the
+        retakes are printed as ``empty_traces``."""
         before = _build.launch_counts().get(name, 0)
         run()
         torch.cuda.synchronize()
         got = _build.launch_counts().get(name, 0) - before
+        empty = 0
         split = profile_call(torch, run, track=tuple(kernels), names=True)
+        while not split["kernel_names"] and empty < 2:
+            empty += 1
+            split = profile_call(torch, run, track=tuple(kernels),
+                                 names=True)
         ran, strays = dict.fromkeys(kernels, 0), {}
         for kernel, count in split.pop("kernel_names").items():
             frag = next((f for f in kernels if f in kernel), None)
@@ -636,7 +702,7 @@ def main() -> int:
                  f"outside the route {strays}; expected only {kernels}")
         emit({"phase": "kernel_split", "name": name, "shape": shape,
               "launches_per_call": got, "traced_launches": ran, **info,
-              **split})
+              "empty_traces": empty, **split})
 
     def encode_route(fold):
         return "folded" if fold else "fall-back"
@@ -704,18 +770,15 @@ def main() -> int:
     # (or m-point) butterfly at each of the L positions of every shard
     flops_real = q * (m * fft_flops(n2) + n2 * 2 * 8 * m * m + m * n2 * 16
                       + 2 * n2 * m * (6 + 8 * (m // 2 + 1)))
-    # what the card reads beside the requests, the output, the masks and
-    # G: both kinds the (n2+1)-entry split (or pack) twiddle and the (m, L)
-    # recombine twiddle; r2c the f32 table of n2 (its shard FFTs) and the
-    # m//2+1 DFT rows -- no F_A, F_B or W -- and its masks as bytes, c2r,
-    # whose kernel still runs the dense four-step, F_A, F_B and W, the
-    # m-point DFT and f32 masks
-    twiddle_bytes = 2 * ((n2 + 1) + m * 2 * n2)
-    fplanes_bytes = 2 * (a * a + b * b + a * b)
-    nbytes_r2c = F32 * (q * s + 2 * n * m + 2 * n2 + twiddle_bytes
-                        + 2 * (m // 2 + 1) * m + 2 * q * sh)
-    nbytes_c2r = F32 * (2 * q * sh + q * n + 2 * n * m + fplanes_bytes
-                        + twiddle_bytes + 2 * m * m + q * s)
+    # what the card reads beside the requests, the output, the masks (as
+    # bytes) and G: both kinds the f32 table of n2 (their shard FFTs, no
+    # F_A, F_B or W) and the (n2+1)-entry split (or pack) twiddle; r2c the
+    # (m, L) recombine twiddle and the m//2+1 DFT rows, c2r the m-point
+    # DFT and of its (m, L) conjugate twiddle the positions t <= n2
+    nbytes_r2c = F32 * (q * s + 2 * n * m + 2 * n2 + 2 * (n2 + 1)
+                        + 2 * m * 2 * n2 + 2 * (m // 2 + 1) * m + 2 * q * sh)
+    nbytes_c2r = F32 * (2 * q * sh + 2 * n * m + 2 * n2 + 2 * (n2 + 1)
+                        + 2 * m * (n2 + 1) + 2 * m * m + q * s)
     xreal = randn(q, s)
     rplanes = (*hplanes, *ops._on_device(ops._r2c_postdecode_planes,
                                          (s, m), dev))
@@ -748,8 +811,16 @@ def main() -> int:
             yr, yi, masks, gr, gi, *iplanes, s),
         lambda: coded_pipeline.irbucket_body_masked(
             yr, yi, masks.to(torch.float32), gr, gi, *iplanes, s),
-        lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4, nbytes_c2r,
-        flops_real, 50, [q, s, m, n])
+        lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4,
+        nbytes_c2r + q * n, flops_real, 50, [q, s, m, n], windows=7)
+    irbucket_plan = {
+        "group_rows": coded_pipeline.bucket_fft_group(m, n2, side=2 * m),
+        "radix_plan": rbucket_plan["radix_plan"]}
+    check_route(
+        "coded_irfft_bucket_masked", {"coded_irbucket_kernel": 1},
+        lambda: coded_pipeline.coded_irfft_bucket_masked(
+            yr, yi, masks, gr, gi, *iplanes, s), [q, s, m, n], windows=7,
+        **irbucket_plan)
 
     # (a'') the host decode-matrix path's planes buckets, same config and
     # masks: each request's (m, N) scatter decode planes from the port's
@@ -796,7 +867,15 @@ def main() -> int:
         lambda: coded_pipeline.irbucket_body(
             yr, yi, dr, di, gr, gi, *iplanes, s),
         lambda: torch.fft.irfft(yhalf, n=s, dim=-1), 1e-4,
-        nbytes_c2r + dbytes, flops_real, 50, [q, s, m, n])
+        nbytes_c2r + F32 * 2 * q * m * n, flops_real, 50, [q, s, m, n],
+        windows=7)
+    check_route(
+        "coded_irfft_bucket", {"coded_irbucket_kernel": 1},
+        lambda: coded_pipeline.coded_irfft_bucket(
+            yr, yi, dr, di, gr, gi, *iplanes, s), [q, s, m, n], windows=7,
+        group_rows=coded_pipeline.bucket_fft_group(
+            m, n2, n=n, masked=False, side=2 * m),
+        radix_plan=rbucket_plan["radix_plan"])
     del xreal, yhalf, yr, yi, dr, di, xr, xi, xc
 
     # (a''') the streaming c2c bucket: the host path's 2^20-point bucket
@@ -915,7 +994,8 @@ def main() -> int:
             lambda: torch.einsum("qkl,kl,jk->qjl", hc, wc, fc), 1e-5,
             F32 * 2 * (2 * q * m * ell + m * ell + m * m),
             q * ell * (6 * m + fft_flops(m)), reps[1], [q, m, ell],
-            into=into)
+            into=into, windows=7,
+            design=recombine_design(m))
         del hr, hi, hc
 
     # (b)-(d) the stage route of the 2^20-point service phase: 16 requests,
@@ -1202,7 +1282,7 @@ def main() -> int:
         lambda: recombine_body(hr, hi, *rplanes),
         lambda: torch.einsum("kl,kl,jk->jl", hc, wc, fc), 1e-5,
         F32 * 2 * (3 * m * ell + m * m), ell * (6 * m + fft_flops(m)), 20,
-        [m, ell], flush=flush)
+        [m, ell], flush=flush, windows=7, design=recombine_design(m))
     del hr, hi, hc, flush
     torch.cuda.empty_cache()
 

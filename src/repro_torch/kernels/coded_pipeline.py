@@ -282,7 +282,7 @@ def bucket_smem_bytes(m: int, a: int, b: int, *, n: int = 0,
 
 
 def _fft_layout(m: int, ell: int, rows: int, n: int, masked: bool,
-                dft_rows: int | None) -> tuple[int, ...]:
+                dft_rows: int | None, side: int = 0) -> tuple[int, ...]:
     # the spectra: groups of `rows` shards, each group a padded plane, the
     # last one only as long as its shards
     groups = -(-m // rows)
@@ -294,15 +294,16 @@ def _fft_layout(m: int, ell: int, rows: int, n: int, masked: bool,
         2 * gp,                  # y: the passes' ping-pong, one group
         2 * _padded(ell),        # tab: the f32 table of w_ell^t
         gs,                      # gs: G rows (the subset's, or all N)
-        2 * (m if dft_rows is None else dft_rows) * m,  # fm or fh
+        2 * (m if dft_rows is None else dft_rows) * m,  # fm, fh or fp
         *decode,                 # pw, qm (inverse or D), loc, nodes, sub
+        *((side,) if side else ()),  # the c2r kernel's T_i[ell]
     )
     return tuple(itertools.accumulate(sizes, initial=0))
 
 
 @functools.lru_cache(maxsize=None)
 def bucket_fft_group(m: int, ell: int, *, n: int = 0, masked: bool = True,
-                     dft_rows: int | None = None) -> int:
+                     dft_rows: int | None = None, side: int = 0) -> int:
     """Shards one group of a bucket kernel's FFT phase takes: all m
     where the block holds them, so each radix pass runs once over every
     shard with the block's threads busy (a 1024-point shard alone has
@@ -310,37 +311,44 @@ def bucket_fft_group(m: int, ell: int, *, n: int = 0, masked: bool = True,
     working set would pass :data:`SMEM_PER_BLOCK_OPTIN`: a group's
     ping-pong buffer is the cost, and at m = 32, L = 256 and N = 282 on
     the c2c planes kernel four shards a group fit where five do not.
-    ``dft_rows`` as in :func:`bucket_fft_layout`."""
+    ``dft_rows`` and ``side`` as in :func:`bucket_fft_layout`."""
     rows = m
     while rows > 1 and (4 * _fft_layout(m, ell, rows, n, masked,
-                                        dft_rows)[-1]
+                                        dft_rows, side)[-1]
                         > SMEM_PER_BLOCK_OPTIN):
         rows -= 1
     return rows
 
 
 def bucket_fft_layout(m: int, ell: int, *, n: int = 0, masked: bool = True,
-                      dft_rows: int | None = None) -> tuple[int, ...]:
+                      dft_rows: int | None = None,
+                      side: int = 0) -> tuple[int, ...]:
     """Word offsets of a bucket kernel's shared arrays, then the total,
     for shards of ``ell`` points; ``masked=False`` is the planes
     kernel's (it needs ``n``).  ``dft_rows``: the rows of the m-point
-    DFT the block stages, m (the default) for the c2c kernel's F_m,
-    m//2+1 for the r2c kernel's half rows, whose shards are the packed
-    ``ell = L/2`` points.
+    DFT the block stages, m (the default) for the c2c kernel's F_m and
+    the c2r kernel's +sign F_m, m//2+1 for the r2c kernel's half rows;
+    the real kinds' shards are the packed ``ell = L/2`` points.
+    ``side``: words of one more array after the decode state, 2*m for
+    the c2r kernel's T_i[ell] (its message stage writes T_i[t < ell]
+    into shard i's own words and the last point there).
 
     The kernels take these offsets at launch (``Layout`` in
-    ``csrc/coded_bucket.cu`` and ``csrc/coded_rbucket.cu``, same order),
-    so this is the one reckoning of their working sets: the spectra in
-    groups of :func:`bucket_fft_group` shards, shard i at point j in
-    word ``(i // rows) * gp + pad((i % rows) * ell + j)`` of each plane
+    ``csrc/coded_bucket.cu``, ``csrc/coded_rbucket.cu`` and
+    ``csrc/coded_irbucket.cu``, same order), so this is the one
+    reckoning of their working sets: the spectra in groups of
+    :func:`bucket_fft_group` shards, shard i at point j in word
+    ``(i // rows) * gp + pad((i % rows) * ell + j)`` of each plane
     (``gp``, a full group's padded words), one group's ping-pong buffer,
-    the ell-point table, the G rows, the DFT rows, then the decode state
-    of :func:`bucket_layout`.  The wrappers hold it against
-    :data:`SMEM_PER_BLOCK_OPTIN`; it fits wherever the gates,
-    :func:`bucket_layout` and :func:`rbucket_layout`, admit a bucket.
+    the ell-point table, the G rows, the DFT rows, the decode state of
+    :func:`bucket_layout`, then the side array.  The wrappers hold it
+    against :data:`SMEM_PER_BLOCK_OPTIN`; it fits wherever the gates,
+    :func:`bucket_layout`, :func:`rbucket_layout` and
+    :func:`irbucket_layout`, admit a bucket.
     """
-    rows = bucket_fft_group(m, ell, n=n, masked=masked, dft_rows=dft_rows)
-    return _fft_layout(m, ell, rows, n, masked, dft_rows)
+    rows = bucket_fft_group(m, ell, n=n, masked=masked, dft_rows=dft_rows,
+                            side=side)
+    return _fft_layout(m, ell, rows, n, masked, dft_rows, side)
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,19 +373,9 @@ def _ntau(n: int) -> float:
     return float(np.float32(-2.0 * math.pi / n))
 
 
-def _bind(name: str, symbol: str, n_ptrs: int, masked: bool = True):
-    # pointers, (q, n, m, a, b), the masked entries' ntau, layout, stream
-    fn = getattr(_build.load(name), symbol)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * n_ptrs + [i32] * 5
-                   + ([ctypes.c_float] if masked else []) + [vp, vp])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.lru_cache(maxsize=None)
 def _fft_bucket_lib(name: str, symbol: str, n_ptrs: int, masked: bool):
-    # the c2c and r2c bucket entries: pointers, (q, n, m, ell), the masked
+    # the bucket entries of every kind: pointers, (q, n, m, ell), the masked
     # entry's ntau, the radices, (passes, rows), layout, stream
     fn = getattr(_build.load(name), symbol)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -956,10 +954,20 @@ def irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
 
 def irbucket_layout(m: int, a: int, b: int, *, n: int = 0,
                     masked: bool = True) -> tuple[int, ...]:
-    """Word offsets of the c2r bucket kernel's shared arrays, then the
-    total (``Layout`` in ``csrc/coded_irbucket.cu``, same order), for
-    packed shards of ``L/2 = a*b``: the one reckoning of its working set,
-    and its gate.  ``masked=False`` is the planes kernel's (needs ``n``)."""
+    """Word offsets of the dense-DFT c2r bucket's shared arrays, then the
+    total, for packed shards of ``L/2 = a*b``; ``masked=False`` is the
+    planes variant's (it needs ``n``).
+
+    This is the working set of the first port of
+    ``csrc/coded_irbucket.cu`` (F_A, F_B, W, a packed shard, the column
+    pass, the m spectra at pitch B+1 and the folded half spectra), kept
+    as the fused route's boundary, and its gate only:
+    ``ops.coded_irbucket_fusable`` and ``ops.bucket_route`` answer from
+    it, so the kernel's FFT redesign moved no c2r bucket between the
+    fused and the stage routes.  It lays out no kernel: the kernel takes
+    :func:`bucket_fft_layout` with ``side=2 * m``, which fits one block
+    wherever this does.
+    """
     gs, decode = _code_words(m, n, masked)
     sizes = (
         2 * a * a,                 # fa: F_A planes
@@ -976,14 +984,29 @@ def irbucket_layout(m: int, a: int, b: int, *, n: int = 0,
     return tuple(itertools.accumulate(sizes, initial=0))
 
 
-@functools.lru_cache(maxsize=None)
-def _irlib():
-    return _bind("coded_irbucket", "coded_irbucket_masked_f32", 19)
-
-
-@functools.lru_cache(maxsize=None)
-def _irplanes_lib():
-    return _bind("coded_irbucket", "coded_irbucket_f32", 19, masked=False)
+def _c2r_launch(what: str, symbol: str, yr, yi, decode, gr, gi, fpr, fpi,
+                ctwr, ctwi, pwr, pwi, q: int, n: int, m: int, s: int,
+                masked: bool, dev):
+    """One launch of the c2r bucket kernel on checked CUDA planes;
+    ``decode``: the masked entry's (masks, perm), or the planes entry's
+    (dr, di)."""
+    n2 = s // m // 2
+    layout = bucket_fft_layout(m, n2, n=n, masked=masked, side=2 * m)
+    _check_launch(what, m, layout, s)
+    rows = bucket_fft_group(m, n2, n=n, masked=masked, side=2 * m)
+    plan = fft_rows_plan(n2)
+    out = torch.empty((q, s), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_fft_bucket_lib("coded_irbucket", symbol, 15, masked)(
+        p(yr), p(yi), *(p(t) for t in decode), p(gr), p(gi),
+        *(p(t) for t in fft_twiddles_on(n2, dev)), p(fpr), p(fpi), p(ctwr),
+        p(ctwi), p(pwr), p(pwi), p(out), q, n, m, n2,
+        *([_ntau(n)] if masked else []),
+        (ctypes.c_int * max(1, len(plan)))(*plan), len(plan), rows,
+        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
+        what)
+    _build.count_launch(what)
+    return out
 
 
 def coded_irfft_bucket(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
@@ -994,7 +1017,8 @@ def coded_irfft_bucket(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
 
     The other planes as :func:`coded_irfft_bucket_masked` takes them.
     CPU tensors run :func:`irbucket_body`; CUDA tensors launch the kernel
-    (one launch) or raise.  The caller checks the gate
+    (one launch, counted) or raise, reading what
+    :func:`coded_irfft_bucket_masked` reads.  The caller checks the gate
     (``ops.coded_irbucket_fusable(..., masked=False)``).
     """
     q, h = yr.shape
@@ -1013,18 +1037,9 @@ def coded_irfft_bucket(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
         "coded_irfft_bucket", yr=yr, yi=yi, dr=dr, di=di, gr=gr, gi=gi,
         far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
         ctwr=ctwr, ctwi=ctwi, pwr=pwr, pwi=pwi)
-    layout = irbucket_layout(m, a, b, n=n, masked=False)
-    _check_launch("coded_irfft_bucket", m, layout, s)
-    out = torch.empty((q, s), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    _build.check(_irplanes_lib()(
-        p(yr), p(yi), p(dr), p(di), p(gr), p(gi), p(far), p(fai), p(wr),
-        p(wi), p(fbr), p(fbi), p(fpr), p(fpi), p(ctwr), p(ctwi), p(pwr),
-        p(pwi), p(out), q, n, m, a, b,
-        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
-        "coded_irfft_bucket")
-    _build.count_launch("coded_irfft_bucket")
-    return out
+    return _c2r_launch("coded_irfft_bucket", "coded_irbucket_f32", yr, yi,
+                       (dr, di), gr, gi, fpr, fpi, ctwr, ctwi, pwr, pwi, q, n,
+                       m, s, False, dev)
 
 
 def coded_irfft_bucket_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
@@ -1035,10 +1050,18 @@ def coded_irfft_bucket_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
 
     ``far/wr/fbr``: four-step planes for the HALF length ``L/2 = A*B``;
     ``fpr, fpi``: (m, m) +sign DFT; ``ctwr, ctwi``: (m, L) conjugate
-    recombine twiddle; ``pwr, pwi``: (1, L/2+1) pack twiddle.  CPU
-    tensors run :func:`irbucket_body_masked`; CUDA tensors launch the
-    kernel (one launch) or raise.  The caller checks the gate
-    (``ops.coded_irbucket_fusable``).
+    recombine twiddle; ``pwr, pwi``: (1, L/2+1) pack twiddle.
+    ``masks``: bool, or any dtype whose nonzero entries responded (the
+    card reads a bool mask in place, one byte a worker, and converts any
+    other first).  CPU tensors run :func:`irbucket_body_masked`; CUDA
+    tensors launch the kernel (one launch, counted) or raise, also where
+    its working set (:func:`bucket_fft_layout` with ``side=2 * m``) is
+    past one block.
+    The card computes the packed shards' DFTs from the f32 table of L/2
+    (``fourstep_fft.fft_rows_twiddles``), whose entries are those of the
+    planes: it reads G, ``fpr``, ``ctwr`` (positions t <= L/2) and
+    ``pwr``, not ``far``, ``wr`` or ``fbr``.  The caller checks the
+    shared-memory gate (``ops.coded_irbucket_fusable``).
     """
     q, h = yr.shape
     n, m = gr.shape
@@ -1052,20 +1075,18 @@ def coded_irfft_bucket_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
         return irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
                                     fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi,
                                     s)
-    mk = masks.to(torch.float32).contiguous()
     dev = _build.check_planes(
-        "coded_irfft_bucket_masked", yr=yr, yi=yi, masks=mk, gr=gr, gi=gi,
-        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
+        "coded_irfft_bucket_masked", yr=yr, yi=yi, gr=gr, gi=gi, far=far,
+        fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
         ctwr=ctwr, ctwi=ctwi, pwr=pwr, pwi=pwi)
-    layout = irbucket_layout(m, a, b)
-    _check_launch("coded_irfft_bucket_masked", m, layout, s)
-    out = torch.empty((q, s), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    _build.check(_irlib()(
-        p(yr), p(yi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(far),
-        p(fai), p(wr), p(wi), p(fbr), p(fbi), p(fpr), p(fpi), p(ctwr),
-        p(ctwi), p(pwr), p(pwi), p(out), q, n, m, a, b, _ntau(n),
-        (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
-        "coded_irfft_bucket_masked")
-    _build.count_launch("coded_irfft_bucket_masked")
-    return out
+    if masks.device != dev:
+        raise ValueError(f"coded_irfft_bucket_masked: masks are on "
+                         f"{masks.device}, the planes on {dev}")
+    # the kernel reads one byte a worker, nonzero = responded (as
+    # mask_subsets reads them): a bool mask is viewed, not converted
+    mk = (masks if masks.dtype == torch.bool else masks != 0).contiguous()
+    mk = mk.view(torch.uint8)
+    return _c2r_launch("coded_irfft_bucket_masked",
+                       "coded_irbucket_masked_f32", yr, yi,
+                       (mk, _perm_on(m, dev)), gr, gi, fpr, fpi, ctwr, ctwi,
+                       pwr, pwi, q, n, m, s, True, dev)

@@ -6,14 +6,11 @@
 //   block_subset_decode  -- masked: the request's first m responders and
 //                           the closed-form Lagrange inverse of G[subset];
 //   block_stage_planes   -- planes: all N rows of G and the request's
-//                           host-built (m, N) scatter decode matrix D;
-//   block_fourstep_tile  -- the four-step DFT ((F_A @ M) * W) @ F_B of
-//                           one message shard: the dense design's, left
-//                           with one caller, coded_irbucket.cu (the c2c
-//                           and r2c kernels run fft_rows.cuh's passes).
+//                           host-built (m, N) scatter decode matrix D.
 //
-// All three end with a barrier, so their results are visible to the
-// whole block when they return.  Either decode leaves R worker rows of G
+// The kernels' shard FFTs are fft_rows.cuh's passes.  Both decodes end
+// with a barrier, so their results are visible to the whole block when
+// they return.  Either decode leaves R worker rows of G
 // in gs (row r at gs[r*m]) and the matrix that decodes them in qm
 // (column r at qm[j*R + r]): R = m for the masked kernels (the subset
 // and its inverse), R = N for the planes kernels (G and D), so the
@@ -39,7 +36,7 @@ struct DecodeSmem {
 };
 
 // A responder mask entry: a byte responded where nonzero, a float where
-// past 0.5 (the 0/1 floats the c2c and c2r wrappers pass).
+// past 0.5 (the 0/1 floats the c2c wrapper passes).
 __device__ __forceinline__ bool responded(float v) { return v > 0.5f; }
 __device__ __forceinline__ bool responded(unsigned char v) { return v != 0; }
 
@@ -154,39 +151,6 @@ __device__ inline void block_stage_planes(const float* gr, const float* gi,
     gs_i[t] = gi[t];
     d_r[t] = dr[t];
     d_i[t] = di[t];
-  }
-  __syncthreads();
-}
-
-// Four-step DFT of one message shard M (A x B, row-major in msg, complete
-// and visible to the block on entry): T1 = (F_A @ M) * W into t1, then
-// Z = T1 @ F_B into z at row pitch zp.  Z[c][d] is the spectrum at the
-// natural index c + d*A.  Its one caller is coded_irbucket.cu.
-__device__ inline void block_fourstep_tile(
-    const float* msg_r, const float* msg_i, float* t1_r, float* t1_i,
-    const float* fa_r, const float* fa_i, const float* w_r, const float* w_i,
-    const float* fb_r, const float* fb_i, float* z_r, float* z_i, int A,
-    int B, int zp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int L = A * B;
-  for (int t = tid; t < L; t += nt) {  // T1 = (F_A @ M) * W
-    const int c = t / B, bb = t % B;
-    float accr = 0.f, acci = 0.f;
-    for (int a = 0; a < A; ++a)
-      cmac(accr, acci, fa_r[c * A + a], fa_i[c * A + a], msg_r[a * B + bb],
-           msg_i[a * B + bb]);
-    t1_r[t] = accr * w_r[t] - acci * w_i[t];
-    t1_i[t] = accr * w_i[t] + acci * w_r[t];
-  }
-  __syncthreads();
-  for (int t = tid; t < L; t += nt) {  // Z = T1 @ F_B
-    const int c = t / B, d = t % B;
-    float accr = 0.f, acci = 0.f;
-    for (int bb = 0; bb < B; ++bb)
-      cmac(accr, acci, t1_r[c * B + bb], t1_i[c * B + bb], fb_r[bb * B + d],
-           fb_i[bb * B + d]);
-    z_r[c * zp + d] = accr;
-    z_i[c * zp + d] = acci;
   }
   __syncthreads();
 }

@@ -9,7 +9,9 @@ an elementwise twiddle ``T = C * W`` fused with a dense length-m DFT
 ``(q, m, L)`` and ``recombine_twiddle_dft`` on one request ``(m, L)``,
 the same launch of ``csrc/recombine.cu`` on a bucket of one, counted
 under its own name.  Their plain twins are :func:`recombine_batched_body`
-and :func:`recombine_body`.
+and :func:`recombine_body`.  The kernel has two designs, a thread per
+column for narrow codes and a block per tile of positions for wide ones;
+:func:`recombine_design` routes by m.
 """
 
 from __future__ import annotations
@@ -23,11 +25,28 @@ from repro_torch.kernels import _build
 
 __all__ = ["recombine_body", "recombine_twiddle_dft",
            "recombine_batched_body", "recombine_twiddle_dft_batched",
-           "MAX_M"]
+           "recombine_design", "MAX_M", "TILE_MIN_M"]
 
 # the kernel unrolls the shard axis to a compile-time bound: the host
 # decode path's widest code (m = 64, N = 128) included
 MAX_M = 64
+# the narrowest code the tile design takes (see recombine_design)
+TILE_MIN_M = 16
+
+
+def recombine_design(m: int) -> str:
+    """The kernel design that recombines an m-shard code:
+    ``"column"`` (one thread per (request, position) column, the m
+    values in its registers) below :data:`TILE_MIN_M`, ``"tile"`` (one
+    block per request and tile of 32 positions, the outputs split over
+    its warps) from there.  A route by m, not a fallback: both designs
+    serve every m and payload length.  The crossover is timed
+    (``chip_smoke.py``'s ``recombine_designs`` phase, both designs forced
+    at m = 4, 8, 16, 32, 64): on an H100 the column design led at m <= 8
+    and the tile design from m = 16, both for 64 requests of s = 4096
+    (L = s / m, 64 to 1024) and for 16 of s = 2^20 (L = 2^14 to 2^18), so
+    the payload length does not move it."""
+    return "tile" if m >= TILE_MIN_M else "column"
 
 
 def recombine_batched_body(cr, ci, wr, wi, fr, fi):
@@ -55,7 +74,7 @@ def recombine_body(cr, ci, wr, wi, fr, fi):
 def _lib():
     fn = _build.load("recombine").recombine_batched_f32
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp] * 8 + [i32, i32, i64, vp]
+    fn.argtypes = [vp] * 8 + [i32, i32, i64, i32, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,17 +95,21 @@ def _check_shapes(name, cr, ci, wr, wi, fr, fi):
         raise ValueError(f"{name}: inconsistent shapes")
 
 
-def _launch(name, cr, ci, wr, wi, fr, fi):
+def _launch(name, cr, ci, wr, wi, fr, fi, design=None):
     """Launch the kernel once on (q, m, L) planes, counted under
-    ``name``."""
+    ``name``, in ``design`` (default: :func:`recombine_design`'s)."""
     q, m, ell = cr.shape
     dev = _build.check_planes(name, cr=cr, ci=ci, wr=wr, wi=wi, fr=fr, fi=fi)
     _check_m(name, m)
+    design = design or recombine_design(m)
+    if design not in ("column", "tile"):
+        raise ValueError(f"{name}: no recombine design {design!r}")
     outr = torch.empty_like(cr)
     outi = torch.empty_like(cr)
     p = _build.ptr
     _build.check(_lib()(p(cr), p(ci), p(wr), p(wi), p(fr), p(fi), p(outr),
-                        p(outi), q, m, ell, _build.stream_of(dev)), name)
+                        p(outi), q, m, ell, int(design == "tile"),
+                        _build.stream_of(dev)), name)
     _build.count_launch(name)
     return outr, outi
 

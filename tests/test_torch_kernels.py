@@ -31,8 +31,11 @@ from repro_torch.kernels.fourstep_fft import (
     encode_fourstep_fused,
     encode_rows_fold,
 )
+from repro_torch.kernels import recombine as trc
 from repro_torch.kernels.recombine import (
     recombine_batched_body,
+    recombine_design,
+    recombine_twiddle_dft,
     recombine_twiddle_dft_batched,
 )
 
@@ -190,6 +193,14 @@ def test_recombine_plain_matches_reference(jref, s, m, n):
     assert _rel(got, jrc.recombine_twiddle_dft_batched(
         *args, block_q=q, block_l=ell, interpret=True)) < PAIR_TOL
     assert _rel(got, jrc.recombine_batched_body(*args)) < PAIR_TOL
+
+
+# the recombine's route by m, from both designs' timings at m = 4..64
+# (chip_smoke.py's recombine_designs phase): the column design below 16
+# shards, the tile design from there
+@pytest.mark.parametrize("m", range(1, trc.MAX_M + 1))
+def test_recombine_design_is_pinned(m):
+    assert recombine_design(m) == ("tile" if m >= 16 else "column")
 
 
 # (s, m, N) past SHAPES for the encode: A = 1 (a prime L = 127), a prime
@@ -643,6 +654,39 @@ def test_gpu_recombine_matches_plain(cuda, s, m):
     got = recombine_twiddle_dft_batched(*args)
     want = recombine_batched_body(*args)
     assert _rel([g.cpu() for g in got], [w.cpu() for w in want]) < PAIR_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33,
+                               63, 64])
+def test_gpu_recombine_designs_match_plain(cuda, m):
+    """Both designs of ``csrc/recombine.cu`` forced, and the routed one
+    through both entries (one launch a call), against
+    ``recombine_batched_body`` at 1e-5, for buckets of 1, 3 and 64
+    requests and payloads ragged against the tile design's 32
+    positions (L = 1, 33, 96; and 2^18 at m = 4)."""
+    rng = np.random.default_rng(m)
+    name = "recombine_twiddle_dft_batched"
+    for q in (1, 3, 64):
+        for ell in (1, 33, 96) + ((1 << 18,) if m == 4 else ()):
+            args = _cuda_planes(cuda, _rand(rng, q, m, ell),
+                                _rand(rng, q, m, ell),
+                                *tops._recombine_planes(m * ell, m))
+            want = [w.cpu() for w in recombine_batched_body(*args)]
+            for design in ("column", "tile"):
+                got = trc._launch(name, *args, design=design)
+                assert _rel([g.cpu() for g in got], want) < 1e-5, (
+                    q, ell, design)
+            before = _build.launch_counts().get(name, 0)
+            got = recombine_twiddle_dft_batched(*args)
+            torch.cuda.synchronize()
+            assert _build.launch_counts()[name] == before + 1
+            assert _rel([g.cpu() for g in got], want) < 1e-5
+            if q == 1:
+                got = recombine_twiddle_dft(args[0][0], args[1][0],
+                                            *args[2:])
+                assert _rel([g.cpu() for g in got],
+                            [w[0] for w in want]) < 1e-5
 
 
 @pytest.mark.gpu
