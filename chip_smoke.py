@@ -12,11 +12,12 @@ prime A of (16, 4093, 4), ``encode_fourstep_fused`` past its fold at
 m = 32, B = 512, three launches, and both its routes forced where both
 fit a block), prints the FFT kernels' ptxas
 registers and spills (failing if the c2c, r2c or c2r bucket kernel, the
-one-block ``fft_block_kernel`` or the recombine's tile design spills),
+one-block ``fft_block_kernel``, the recombine's tile design or the WKV
+kernel spills),
 times both designs of the recombine forced at m = 4..64 (the timings its
 route by m is chosen from),
 times the c2c, r2c and c2r bucket kernels, ``fourstep_fused``, both modes
-of ``multistep_fused`` and the recombine rows in seven windows each
+of ``multistep_fused``, the recombine rows and ``wkv`` in seven windows each
 (median, min and max) and traces one call of each bucket,
 ``fourstep_fused`` and ``multistep_fused``, which must launch once (k
 times per stage) and run its own kernels alone -- ``fft_block_kernel``
@@ -511,6 +512,7 @@ def main() -> int:
         recombine_twiddle_dft,
         recombine_twiddle_dft_batched,
     )
+    from repro_torch.kernels.wkv import design as wkv_design
     from repro_torch.kernels.wkv import wkv, wkv_body
     from repro_torch.serving import DecodeMatrixCache
 
@@ -583,6 +585,13 @@ def main() -> int:
         if spills or len(lines) != instances:
             fail(f"{kernel}: {len(lines)} instances reported, spills: "
                  f"{spills}")
+    # the WKV kernel: one instance (K <= 64 masked past K), no spill
+    wkv_lines = [ln for ln in ptxas["wkv"] if "wkv_kernel" in ln]
+    emit({"phase": "ptxas_wkv", "wkv": wkv_lines})
+    if (len(wkv_lines) != 1
+            or " 0 bytes spill stores" not in wkv_lines[0]):
+        fail(f"wkv_kernel: {len(wkv_lines)} instances reported, "
+             f"{wkv_lines}")
 
     rng = np.random.default_rng(0)
     spin_rate = spin_cycles_per_ms(torch)
@@ -1288,10 +1297,12 @@ def main() -> int:
 
     # wkv: the rwkv6-3b prefill's WKV of one layer, 4 prompts of 512
     # tokens, 40 heads of 64: planar (160, 512, 64) rows, logw clamped at
-    # -8 as the model does.  Its least work is the per-token recurrence,
-    # about 5 K^2 + 4 K flops a step and row (o = r.S plus the bonus;
-    # S = S*w + k v^T), far below the bytes' time.  o and the state are
-    # each held to 1e-5 of their own largest magnitude.
+    # -8 as the model does; the row prints the compiled design (value
+    # columns a block, chunks a segment, blocks an SM).  Its least work
+    # is the per-token recurrence, about 5 K^2 + 4 K flops a step and row
+    # (o = r.S plus the bonus; S = S*w + k v^T), far below the bytes'
+    # time.  o and the state are each held to 1e-5 of their own largest
+    # magnitude.
     bh, t, kd = 4 * 40, 512, 64
     wr_, wk_, wv_ = randn(bh, t, kd), randn(bh, t, kd), randn(bh, t, kd)
     wlw = torch.clamp(-randn(bh, t, kd).abs(), min=-8.0)
@@ -1307,8 +1318,9 @@ def main() -> int:
         "wkv", csrc + "wkv.cu", "src/repro/kernels/wkv.py:84",
         lambda: wkv(*wargs), lambda: wkv_body(*wargs), None, 1e-5,
         F32 * (5 * bh * t * kd + bh * kd + 2 * bh * kd * kd),
-        bh * t * (5 * kd * kd + 4 * kd), 20, [bh, t, kd],
-        rel_err_o=wkv_rel["o"], rel_err_state=wkv_rel["state"])
+        bh * t * (5 * kd * kd + 4 * kd), 20, [bh, t, kd], windows=7,
+        rel_err_o=wkv_rel["o"], rel_err_state=wkv_rel["state"],
+        design=wkv_design())
     del wargs, got, want, wr_, wk_, wv_, wlw, wu, ws0
     torch.cuda.empty_cache()
 

@@ -13,6 +13,17 @@ exponent stays within (CT/2 + 1) * 8 because the model clamps
 by selection.  :func:`wkv_body` is the plain twin; :func:`wkv` the wrapper
 of ``csrc/wkv.cu``, one launch, counted under ``"wkv"``.
 
+The kernel splits the value axis: one block per (row, slice of
+``VALUE_BLOCK`` value columns), no block depending on another, each
+walking the row in segments of ``SEGMENT_CHUNKS`` chunks -- the decay
+factors and the masked scores of a whole segment first, then a state scan
+held in registers, then every output of the segment at once.  The two
+constants mirror the ``.cu``'s compile-time ``WKV_VB`` and ``WKV_G``.  It
+forms each decay factor as a product of two exponentials (``e^{pm1}``
+times ``e^{-c}``, ``e^{c}`` or ``e^{p_end}`` times ``e^{-p}``, all within
+``e^{+-64}`` under the clamp), so it holds the twin's results for
+``logw >= -8``, the model's clamp.
+
 Layout, as the TPU kernel's: r, k, v, logw (BH, T, K) f32 planar (batch
 and heads flattened b-major), u (BH, K), state (BH, K, K).  T must be a
 multiple of 8: the caller pads, with zeros in logw as well, so padded
@@ -29,10 +40,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-__all__ = ["CT", "MAX_K", "wkv", "wkv_body"]
+__all__ = ["CT", "MAX_K", "SEGMENT_CHUNKS", "VALUE_BLOCK", "design", "wkv",
+           "wkv_body"]
 
 CT = 8       # time chunk
 MAX_K = 64   # the kernel's head-size bound (the model's 64)
+VALUE_BLOCK = 32     # value columns a block (csrc/wkv.cu's WKV_VB)
+SEGMENT_CHUNKS = 2   # chunks a segment (csrc/wkv.cu's WKV_G)
 
 
 def wkv_body(r, k, v, logw, u, state):
@@ -64,6 +78,20 @@ def _lib():
     fn.argtypes = [vp] * 8 + [i32, i32, i32, vp]
     fn.restype = ctypes.c_int
     return fn
+
+
+def design() -> dict:
+    """The compiled kernel's design on the current CUDA device: value
+    columns a block, chunks a segment, threads, shared bytes a block and
+    the blocks an SM holds (the occupancy calculator)."""
+    lib = _build.load("wkv")
+    out = (ctypes.c_int * 5)()
+    lib.wkv_design.argtypes = [ctypes.c_void_p]
+    lib.wkv_design.restype = ctypes.c_int
+    _build.check(lib.wkv_design(ctypes.cast(out, ctypes.c_void_p)),
+                 "wkv_design")
+    return dict(zip(("value_block", "segment_chunks", "threads",
+                     "smem_bytes", "blocks_per_sm"), out))
 
 
 def _check(r, k, v, logw, u, state):

@@ -437,25 +437,31 @@ class FFTService:
         self.stats.uncoded_latency += float(lat_sorted[:, -1].sum())
 
     # -- staging seam ----------------------------------------------------
-    def bucket_key(self, x, kind: str) -> int:
-        """The time-domain length ``s`` one request lands in (a c2r
-        request of ``h`` bins maps to ``s = 2*(h-1)``).  Validates the
-        kind, the half-spectrum width, for the real kinds ``2m | s`` (by
-        building the bucket's plan), and that the code serves the
-        bucket's route, before any straggler draw."""
+    def _check_kind(self, kind: str) -> None:
+        """Refuse a kind this port does not serve: the n-D kinds (not
+        ported yet), and unknown kinds with the reference's error."""
         if kind in self._LATER_KINDS:
             raise _not_ported(f"request kind {kind!r}",
                               "Queue 1, n-D (core/rfftn.py)")
         if kind not in self.KINDS:
             raise ValueError(f"unknown bucket kind {kind!r}")
+
+    def bucket_key(self, x, kind: str) -> int:
+        """The time-domain length ``s`` one request lands in (a c2r
+        request of ``h`` bins maps to ``s = 2*(h-1)``).  Validates the
+        kind, the half-spectrum width and that the code serves the
+        bucket's route, before any straggler draw.  The length itself
+        (``m | s``, and ``2m | s`` for the real kinds) is checked where
+        the reference checks it: by the bucket's plan in
+        :meth:`stage_bucket`, after the draws of every bucket staged
+        before it and of its own."""
+        self._check_kind(kind)
         n_last = int(x.shape[-1])
         if kind == "c2r" and n_last < 2:
             raise ValueError(
                 f"c2r requests need >= 2 half-spectrum bins "
                 f"(s = 2*(bins-1) > 0), got {n_last}")
         s = 2 * (n_last - 1) if kind == "c2r" else n_last
-        if kind in self.REAL_KINDS:
-            self._plan_for(s, kind)
         self._check_servable(s, kind)
         return s
 
@@ -618,7 +624,14 @@ class FFTService:
         winner; the plans' workers and the stage route's two-pass encode
         read it, and the next process skips the search.  The search runs
         on the rows the largest warmed bucket gives those workers
-        (bucket times n_workers), where the JAX package times 4 rows."""
+        (bucket times n_workers), where the JAX package times 4 rows.
+
+        ``lengths`` entries pair as the reference's do: a scalar with the
+        1-D kinds (and with an unknown kind, which then raises), a shape
+        tuple with the n-D kinds (not served yet: ``NotImplementedError``);
+        other pairs are skipped.  Every pair is validated -- the kind, then
+        the bucket's plan (``m | s``, ``2m | s``) and the code's route --
+        before any search, staging or launch."""
         cfg = self.cfg
         lengths = [cfg.s] if lengths is None else list(lengths)
         if buckets is None:
@@ -627,25 +640,30 @@ class FFTService:
                 buckets.append(b)
                 b *= 2
             buckets.append(cfg.max_batch)
-        if cfg.autotune:
-            for s in lengths:
-                for k in kinds:
-                    if self._kernel_path(s, k):
-                        if k in self.REAL_KINDS:
-                            self._plan_for(s, k)    # its 2m | s check
-                        ell = s // cfg.m if k == "c2c" else s // cfg.m // 2
-                        autotune.ensure_fourstep(
-                            ell, max(buckets) * cfg.n_workers,
-                            device=self.device, reps=cfg.autotune_reps)
-        count = 0
+        pairs = []
         for s in lengths:
             for k in kinds:
-                for b in sorted(set(buckets)):
-                    args = self._bucket_args(
-                        s, k, self._bucket_buffer(s, b, k),
-                        np.ones((b, cfg.n_workers), bool))
-                    self._runner_for(s, b, k)(*args)
-                    count += 1
+                if isinstance(s, (tuple, list)) != (k in self._LATER_KINDS):
+                    continue        # scalar<->1-D, tuple<->n-D only
+                self._check_kind(k)
+                self._plan_for(int(s), k)
+                self._check_servable(int(s), k)
+                pairs.append((int(s), k))
+        if cfg.autotune:
+            for s, k in pairs:
+                if self._kernel_path(s, k):
+                    ell = s // cfg.m if k == "c2c" else s // cfg.m // 2
+                    autotune.ensure_fourstep(
+                        ell, max(buckets) * cfg.n_workers,
+                        device=self.device, reps=cfg.autotune_reps)
+        count = 0
+        for s, k in pairs:
+            for b in sorted(set(buckets)):
+                args = self._bucket_args(
+                    s, k, self._bucket_buffer(s, b, k),
+                    np.ones((b, cfg.n_workers), bool))
+                self._runner_for(s, b, k)(*args)
+                count += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return count

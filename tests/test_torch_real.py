@@ -412,9 +412,11 @@ def test_helpers_match_reference(jref):
 
 
 # ------------------------------------------------------- the 2m | s errors
-def test_real_kinds_raise_named_error():
+def test_real_kinds_raise_named_error(jref):
     """s = 18, m = 2: m | s holds but 2m | s does not -- the plan, the
-    packing op and both service entry points name the constraint."""
+    packing op and both service entry points name the constraint, the
+    service after the straggler draw, as a same-seed reference service
+    counts it."""
     trfft.require_even_shards(24, 3)
     for call in (lambda: trfft.require_even_shards(18, 2),
                  lambda: trfft.require_even_shards(0, 1),
@@ -426,14 +428,18 @@ def test_real_kinds_raise_named_error():
     with pytest.raises(ValueError, match=r"axis 1"):
         trfft.require_even_shards(18, 2, axis=1)
     CodedIFFT(s=18, m=2, n_workers=6, device="cpu")     # c2c needs m | s
-    svc = FFTService(FFTServiceConfig(s=48, m=2, n_workers=6), device="cpu")
-    with pytest.raises(ValueError, match=r"2m \| s"):
-        svc.submit_rfft(np.zeros(18, np.float32))
-    with pytest.raises(ValueError, match=r"2m \| s"):
-        svc.submit_irfft(np.zeros(10, np.complex64))
-    with pytest.raises(ValueError, match=">= 2 half-spectrum bins"):
-        svc.submit_irfft(np.zeros(1, np.complex64))
-    assert svc.stats.requests == 0            # refused before any draw
+    _, _, _, _, JService, JConfig = jref
+    jsvc = JService(JConfig(s=48, m=2, n_workers=6))
+    svc = _port_twin(jsvc)
+    for s_ in (jsvc, svc):
+        with pytest.raises(ValueError, match=r"2m \| s"):
+            s_.submit_rfft(np.zeros(18, np.float32))
+        with pytest.raises(ValueError, match=r"2m \| s"):
+            s_.submit_irfft(np.zeros(10, np.complex64))
+        with pytest.raises(ValueError, match=">= 2 half-spectrum bins"):
+            s_.submit_irfft(np.zeros(1, np.complex64))
+    assert svc.stats.requests == jsvc.stats.requests
+    assert svc.stats.coded_latency == jsvc.stats.coded_latency
     with pytest.raises(ValueError, match="unknown bucket kind"):
         svc.submit_batch([np.zeros(48)], kind="dct")
 

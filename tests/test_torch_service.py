@@ -294,6 +294,79 @@ def test_config_from_reference(jref):
         config_from_reference(dataclasses.asdict(JConfig(max_retries=5)))
 
 
+WARMUP_CASES = {
+    "c2c_m_does_not_divide": dict(lengths=[258], kinds=("c2c",)),
+    "c2r_2m_does_not_divide": dict(lengths=[258], kinds=("c2r",)),
+    "r2c_2m_does_not_divide": dict(lengths=[252], kinds=("r2c",)),
+    "unknown_kind": dict(kinds=("bogus",)),
+    "tuple_with_1d_kind": dict(lengths=[(16, 16)], kinds=("c2c",)),
+    "scalar_with_nd_kind": dict(lengths=[256], kinds=("rfftn",)),
+}
+
+
+def _outcome(call):
+    """``("ok", value)`` or ``(exception type name, message)``."""
+    try:
+        return "ok", call()
+    except Exception as err:            # noqa: BLE001 -- compared below
+        return type(err).__name__, str(err)
+
+
+@pytest.mark.parametrize("autotune_on", [False, True])
+@pytest.mark.parametrize("case", sorted(WARMUP_CASES))
+def test_warmup_validates_as_reference(jref, private_autotune_table, case,
+                                       autotune_on):
+    """``warmup`` on the reference and its port twin: the same exception
+    type and message, or the same count, with ``autotune`` off and on --
+    and no search runs or table entry is written for the invalid pairs."""
+    from repro_torch.kernels import autotune
+
+    _, _, JService, JConfig = jref
+    kw = dict(WARMUP_CASES[case], buckets=[1])
+    jsvc = JService(JConfig(s=256, m=4, n_workers=8, seed=2,
+                            autotune=autotune_on))
+    tsvc = _port_twin(jsvc)
+    searches = autotune.searches_run()
+    want = _outcome(lambda: jsvc.warmup(**kw))
+    got = _outcome(lambda: tsvc.warmup(**kw))
+    assert got == want
+    assert got[0] != "ok" or got[1] == 0
+    assert autotune.searches_run() == searches
+    assert autotune.load_table() == {}
+    assert not list(private_autotune_table.glob("**/*.json"))
+    assert tsvc._runners == {}
+
+
+@pytest.mark.parametrize("kind,n", [("c2r", 131), ("r2c", 260)])
+def test_real_kind_length_error_after_draws_as_reference(jref, kind, n):
+    """A real-kind request with 2m not dividing s, behind a c2c request in
+    one call: both services raise the plan's error after the draws of
+    both buckets, so ``requests``, ``batches`` and ``coded_latency`` stay
+    equal -- then and after a following call of four c2c requests."""
+    _, _, JService, JConfig = jref
+    jsvc = JService(JConfig(s=256, m=4, n_workers=8, seed=2,
+                            autotune=False))
+    tsvc = _port_twin(jsvc)
+    rng = np.random.default_rng(0)
+    x0 = _requests([256], seed=5)[0]
+    x1 = (_requests([n], seed=6)[0] if kind == "c2r"
+          else rng.standard_normal(n).astype(np.float32))
+    for svc in (jsvc, tsvc):
+        with pytest.raises(ValueError, match=r"2m \| s"):
+            svc.submit_batch([x0, x1], ["c2c", kind])
+
+    def stats(svc):
+        return (svc.stats.requests, svc.stats.batches,
+                svc.stats.coded_latency)
+
+    assert stats(tsvc) == stats(jsvc)
+    assert jsvc.stats.requests == 2
+    xs = _requests([256] * 4, seed=7)
+    for j, t in zip(jsvc.submit_batch(xs), tsvc.submit_batch(xs)):
+        assert _rel(t, np.asarray(j)) < 3e-4
+    assert stats(tsvc) == stats(jsvc)
+
+
 def test_warmup_and_submit_one():
     svc = FFTService(FFTServiceConfig(s=128, m=4, n_workers=8, max_batch=4),
                      device="cpu")

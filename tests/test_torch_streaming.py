@@ -410,7 +410,8 @@ def test_decode_method_service_matches_reference(jref, method):
 def test_worker_fn_service_matches_reference(jref):
     """A worker_fn service (the c2c plug-in: here the streaming four-step)
     against a JAX service with the platform FFT plug-in; a real-kind
-    request is refused before any draw, as in the reference."""
+    request is refused after its bucket's straggler draw, as in the
+    reference, so the two services' draws stay equal."""
     jnp = jref["jnp"]
     JService, JConfig = jref["Service"], jref["Config"]
     jsvc = JService(JConfig(s=1024, m=4, n_workers=8, seed=2,
@@ -423,12 +424,14 @@ def test_worker_fn_service_matches_reference(jref):
     assert tsvc.plan.worker_fn is streaming_worker
     assert tsvc.plan.resolved_backend == "kernel"
     _serve_twice(jsvc, tsvc, [("c2c", 1024), ("c2c", 4096), ("c2c", 1024)])
-    state = tsvc.rng.bit_generator.state
     with pytest.raises(ValueError, match="worker_fn"):
         tsvc.submit_batch([np.zeros(1024, np.float32)], kind="r2c")
     with pytest.raises(ValueError, match="worker_fn"):
         jsvc.submit_batch([np.zeros(1024, np.float32)], kind="r2c")
-    assert tsvc.rng.bit_generator.state == state
+    assert tsvc.rng.bit_generator.state == jsvc.rng.bit_generator.state
+    assert ((tsvc.stats.requests, tsvc.stats.batches)
+            == (jsvc.stats.requests, jsvc.stats.batches))
+    _serve_twice(jsvc, tsvc, [("c2c", 1024)])
 
 
 def test_config_from_reference_maps_the_decode_knobs(jref):

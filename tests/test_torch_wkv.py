@@ -12,10 +12,21 @@ with the bf16 stream (the reference's bf16 bound,
 (flattening, b-major u, zero padding to a multiple of 8) must match the
 scan oracle at 1e-5 relative for any T.
 
+A numpy-indexed model of the CUDA kernel's schedule (``_schedule_model``:
+value slices, segments of chunks, the factor pre-pass, the scores a
+pair at a time, the register scan's order, the batched inter-chunk
+outputs with their key split) runs on the CPU at small shapes, T not a multiple
+of a segment among them: 1e-5 against ``wkv_body``, the reference's 2e-3
+against the Pallas kernel.
+
 GPU tests (marker ``gpu``, skipped without a CUDA device): the CUDA
 kernel against ``wkv_body`` on the card at 1e-5 relative, odd shapes
 included, its launch counter and its refusals.
 """
+
+import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -169,6 +180,128 @@ def test_prefill_glue_pads_any_length(t):
     assert _rel(s, s_ref) < PAIR_TOL
 
 
+# -- the kernel's schedule, modelled index for index ----------------------
+twkv = importlib.import_module("repro_torch.kernels.wkv")
+KMAX = 64        # csrc/wkv.cu: every key loop runs to 64, zeros past K
+WKV_CU = Path(twkv.__file__).resolve().parent / "csrc" / "wkv.cu"
+BUILD = {name: int(re.search(rf"#define {name} (\d+)", WKV_CU.read_text())
+                   .group(1)) for name in ("WKV_VB", "WKV_G", "WKV_NT")}
+NT = BUILD["WKV_NT"]     # threads a block
+
+
+def test_schedule_constants_match_the_source():
+    assert (BUILD["WKV_VB"], BUILD["WKV_G"]) == (twkv.VALUE_BLOCK,
+                                                 twkv.SEGMENT_CHUNKS)
+    assert re.search(rf"constexpr int KMAX = {twkv.MAX_K};",
+                     WKV_CU.read_text())
+
+
+def _split_dot(a, b, lanes):
+    """sum_j a[..., j] b[..., j] over KMAX keys as ``lanes`` lanes take
+    them: lane q the float4 groups q, q + lanes, ...; partial sums, then
+    the xor-shuffle tree."""
+    kg = KMAX // 4
+    part = (a * b).reshape(*a.shape[:-1], kg // lanes, lanes, 4)
+    part = part.sum(-1).sum(-2)                       # (..., lanes)
+    while part.shape[-1] > 1:
+        h = part.shape[-1] // 2
+        part = part[..., :h] + part[..., h:]
+    return part[..., 0]
+
+
+def _schedule_model(r, k, v, logw, u, state, vb, g):
+    """csrc/wkv.cu's schedule in torch ops: the same slices, segments,
+    factor planes, scores, key split and scan order."""
+    bh, t, kd = r.shape
+    pad = lambda x: torch.nn.functional.pad(x, (0, KMAX - kd))
+    r, k, lw, u = pad(r), pad(k), pad(logw), pad(u)
+    o = torch.zeros(bh, t, kd)
+    s_out = torch.zeros(bh, kd, kd)
+    ct, ts = twkv.CT, g * twkv.CT
+    vq = vb // 4
+    js = max(1, NT // (ts // 2 * vq))    # phase D: two steps a unit, keys split
+    for v0 in range(0, kd, vb):
+        vn = min(vb, kd - v0)
+        vs = torch.zeros(bh, t, vb)
+        vs[..., :vn] = v[..., v0:v0 + vn]
+        st = torch.zeros(bh, KMAX, vb)
+        st[:, :kd, :vn] = state[:, :, v0:v0 + vn]
+        for t0 in range(0, t, ts):
+            nch = min(g, (t - t0) // ct)
+            rows = slice(t0, t0 + nch * ct)
+            rc, kc, lc, vc = (x[:, rows].reshape(bh, nch, ct, -1)
+                              for x in (r, k, lw, vs))
+            # (A) the factor planes of every chunk of the segment, each a
+            # product of two exponentials
+            p = torch.cumsum(lc, dim=2)
+            pm1 = torch.cat([torch.zeros_like(p[:, :, :1]), p[:, :, :-1]], 2)
+            cc, pe = p[:, :, ct // 2:ct // 2 + 1], p[:, :, -1:]
+            e_pe, e_np = torch.exp(pe), torch.exp(-p)
+            rin = rc * torch.exp(pm1)
+            rdc = rin * torch.exp(-cc)
+            kgr, kdc = kc * (torch.exp(cc) * e_np), kc * (e_pe * e_np)
+            dnd = e_pe[:, :, 0]                           # (bh, nch, KMAX)
+            # (B) scores s < t, the bonus on the diagonal: a thread a pair
+            sc = torch.zeros(bh, nch, ct, ct)
+            for ti in range(ct):
+                for si in range(ti + 1):
+                    if si < ti:
+                        sc[..., ti, si] = _split_dot(rdc[:, :, ti],
+                                                     kgr[:, :, si], 1)
+                    else:
+                        sc[..., ti, si] = _split_dot(
+                            rc[:, :, ti] * kc[:, :, ti], u[:, None], 1)
+            # (C) the register scan: each chunk's starting state kept
+            starts = []
+            for c in range(nch):
+                starts.append(st)
+                acc = torch.zeros_like(st)
+                for si in range(ct):
+                    acc = acc + kdc[:, c, si, :, None] * vc[:, c, si, None]
+                st = st * dnd[:, c, :, None] + acc
+            # (D) every output of the segment: the key split, then intra
+            sc_st = torch.stack(starts, 1)                # (bh, nch, K, vb)
+            inter = _split_dot(rin[..., None, :].expand(*rin.shape[:3], vb,
+                                                        KMAX),
+                               sc_st[:, :, None].transpose(-1, -2), js)
+            out = inter
+            for si in range(ct):
+                out = out + torch.where(
+                    torch.arange(ct)[:, None] >= si,
+                    sc[..., si, None] * vc[:, :, si, None], 0.0)
+            o[:, rows, v0:v0 + vn] = out.reshape(bh, nch * ct, vb)[..., :vn]
+        s_out[:, :, v0:v0 + vn] = st[:, :kd, :vn]
+    return o, s_out
+
+
+@pytest.mark.parametrize("vb,g", [(32, 2), (16, 2), (16, 1), (64, 2)])
+@pytest.mark.parametrize("bh,t,kd,decay", [(3, 40, 16, 1.0),
+                                           (2, 24, 64, 1.0),
+                                           (4, 56, 48, 12.0),
+                                           (1, 8, 8, 1.0)])
+def test_schedule_model_matches_twin_and_pallas(jref, bh, t, kd, decay, vb,
+                                                g):
+    """The kernel's schedule at T not a multiple of its segment, K below
+    and at the slice width: 1e-5 against ``wkv_body``, the reference's
+    tolerance against the Pallas kernel in interpret mode."""
+    jnp, wkv_pallas, _ = jref
+    rng = np.random.default_rng(bh * 100 + t + kd)
+    mk = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    lw = np.maximum(-np.abs(mk(bh, t, kd)) * decay, -8.0).astype(np.float32)
+    planar = (mk(bh, t, kd), mk(bh, t, kd), mk(bh, t, kd), lw, mk(bh, kd),
+              mk(bh, kd, kd))
+    o, sf = _schedule_model(*(torch.from_numpy(a) for a in planar), vb, g)
+    o_ref, s_ref = wkv_body(*(torch.from_numpy(a) for a in planar))
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    assert _rel(o, o_ref) < PAIR_TOL
+    assert _rel(sf, s_ref) < PAIR_TOL
+    o_j, s_j = wkv_pallas(*(jnp.asarray(a) for a in planar), interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), rtol=REF_TOL,
+                               atol=REF_TOL)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(s_j), rtol=REF_TOL,
+                               atol=REF_TOL)
+
+
 def _refusal_args(case):
     planar = [torch.from_numpy(a) for a in _planar(*_inputs(1, 2, 16, 8))]
     if case == "t_not_multiple_of_8":
@@ -197,8 +330,15 @@ def test_wkv_refuses(case, exc):
                                            (3, 24, 16, 1.0),
                                            (5, 8, 8, 1.0),
                                            (7, 40, 48, 1.0),
-                                           (4, 64, 64, 12.0)])
+                                           (4, 64, 64, 12.0),
+                                           (1, 520, 64, 1.0),
+                                           (6, 72, 12, 12.0),
+                                           (2, 48, 5, 1.0),
+                                           (160, 504, 64, 12.0)])
 def test_wkv_kernel_matches_twin(cuda, bh, t, kd, decay):
+    """Odd shapes: a partial last segment (T = 24, 40, 72, 504, 520),
+    K < the value slice (5, 8, 12, 16), K not a multiple of four (5),
+    BH = 1, strong decay, and the model's full (160, 512, 64)."""
     rng = np.random.default_rng(bh + t)
     mk = lambda *shape: torch.as_tensor(
         rng.standard_normal(shape).astype(np.float32), device=cuda)
