@@ -47,6 +47,12 @@ once under the measured table (then every search candidate timed on
 that run's 512 worker rows, beside the winner and the empty table's
 route), and a near-prime c2c service (s=16396,
 a 4099-point shard: the stage route's two-pass encode on ``cmatmul``).
+Before the tuned path, the n-D paths (``nd_transforms``): the
+service's rfftn and irfftn kinds on 16 real 2048 x 2048 fields,
+``CodedFFTND.run`` on a 256^3 volume and ``CodedFFTMultiInput.run`` on
+eight 512 x 512 fields (the ``cmatmul`` encode and decode, the
+four-step kernels swept over each shard axis), and that sweep held
+against its plain twin at shard axes of 1, 2, 3 and 6 points.
 The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
 ``GenerationEngine`` on rwkv6-3b at full width and depth (bf16, seeded
 weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
@@ -177,8 +183,9 @@ def time_ms(torch, fn, reps: int, spin_rate: float) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_call(torch, fn, track=(), names=False) -> dict:
-    """One call of ``fn`` under ``torch.profiler``, ``TRACE_MARGIN_S``
+def profile_call(torch, fn, track=(), names=False,
+                 margin_s=TRACE_MARGIN_S) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, ``margin_s`` seconds
     inside the window at both ends: its host wall time,
     the summed device time of the kernels it ran (one stream, so the sum
     is the busy time), the idle share, and the kernels that took most;
@@ -189,12 +196,12 @@ def profile_call(torch, fn, track=(), names=False) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_MARGIN_S)
+        time.sleep(margin_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(TRACE_MARGIN_S)
+        time.sleep(margin_s)
     kernels = sorted(
         ((e.self_device_time_total / 1e3, e.key, e.count)
          for e in prof.key_averages()
@@ -458,6 +465,200 @@ def lm_rwkv6_3b(torch, rng, counted) -> None:
           "nvidia_smi": nvidia_smi()})
 
 
+class _TorchFftCalls:
+    """Counts calls of the ``torch.fft`` transforms while active: a
+    complex64 kernel-backend path must make none."""
+
+    NAMES = ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "rfftn",
+             "irfftn", "fft2", "ifft2")
+
+    def __init__(self, torch):
+        self.mod, self.calls, self.saved = torch.fft, 0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            real = self.saved[name] = getattr(self.mod, name)
+
+            def counting(*args, _real=real, **kw):
+                self.calls += 1
+                return _real(*args, **kw)
+
+            setattr(self.mod, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.saved.items():
+            setattr(self.mod, name, real)
+        return False
+
+
+def nd_transforms(torch, np, rng, dev, counted, service_masks) -> None:
+    """The n-D main paths on the card: ``FFTService.submit_batch`` with
+    kind rfftn then irfftn (m = 4, N = 8: 16 real 2048 x 2048 fields,
+    factors (4, 1) from ``plan_factors``, each worker's packed shard
+    (512, 1024) complex64), ``CodedFFTND.run`` on a 256^3 complex64
+    volume (m = 8 as (2, 2, 2), N = 12: one mask, then a batch of two
+    with per-request masks), ``CodedFFTMultiInput.run`` (q = 8 fields of
+    512 x 512, m_tilde = 2, factors (2, 1), N = 8), and the n-D sweep
+    ``ops.make_kernel_fftn_fn`` at shard axes of 1, 2, 3 and 6 points held
+    against its plain twin (the same sweep on ``fourstep_body``, the
+    fused kernel's plain version, on the card) at 1e-5.
+
+    Each phase: the launches of one call (exactly ``cmatmul`` and
+    ``fourstep_fused``, and no ``torch.fft`` call), the output against
+    ``numpy.fft`` in float64 (max-abs error over the largest magnitude
+    under 1e-3), ms per call over three steady calls (host wall clock,
+    the result's copy to the host included), and one traced call's busy
+    ms and idle share (``profile_call``)."""
+    from repro_torch import FFTService, FFTServiceConfig
+    from repro_torch.core import CodedFFTMultiInput, CodedFFTND, plan_factors
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fourstep_fft import fourstep_body
+
+    tol = 1e-3
+
+    def rel64(got, want) -> float:
+        got = np.asarray(got)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            return math.inf
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def phase(name, run, want, expect, **info):
+        """One counted call of ``run`` (its launches exactly ``expect``,
+        no ``torch.fft``), its error against ``want`` (float64, numpy),
+        three steady calls and one traced call."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _TorchFftCalls(torch) as calls:
+            out, counts = counted(lambda: to_host(run()))
+        first = time.perf_counter() - t0
+        if counts != expect or calls.calls:
+            fail(f"{name}: launches {counts} and {calls.calls} torch.fft "
+                 f"calls, expected {expect} and none")
+        err = rel64(out, want)
+        if not err < tol:
+            fail(f"{name}: max-abs err / max |want| {err} >= {tol}")
+        del out
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            to_host(run())
+        ms = (time.perf_counter() - t1) / 3 * 1e3
+        trace = profile_call(torch, lambda: to_host(run()),
+                             track=FFT_KERNELS)
+        emit({"phase": name, "launches": counts, "torch_fft_calls": 0,
+              "rel_err": err, "rel_tol": tol, "first_call_s": first,
+              "ms_per_call": ms, "profiled_call": trace, **info})
+        torch.cuda.empty_cache()
+
+    def to_host(out):
+        if isinstance(out, list):
+            return np.stack(out)
+        return out.cpu().numpy()
+
+    # (a) the service's n-D kinds: 16 real 2048 x 2048 fields (16 MiB
+    # each); rfftn, then irfftn on their spectra
+    shape, q = (2048, 2048), 16
+    cfg = FFTServiceConfig(m=4, n_workers=8, autotune=False)
+    svc = FFTService(cfg)
+    factors = plan_factors(shape, cfg.m, even_last_shard=True)
+    fields = rng.standard_normal((q,) + shape).astype(np.float32)
+    want = np.fft.rfftn(fields.astype(np.float64), axes=(1, 2))
+    plan = svc._plan_for(shape, "rfftn")
+    info = {"kind": "rfftn", "shape": list(shape), "requests": q,
+            "m": cfg.m, "n_workers": cfg.n_workers,
+            "factors": list(factors),
+            "worker_shard": list(plan.worker_shard_shape),
+            "coded_mib_per_call": q * cfg.n_workers * 8
+            * math.prod(plan.worker_shard_shape) / 2**20}
+    reqs = list(fields)
+    phase("service_rfftn", lambda: svc.submit_batch(reqs, kind="rfftn"),
+          want, {"cmatmul": 1, "fourstep_fused": 2}, **info)
+    spectra = [y.astype(np.complex64) for y in want]
+    del want
+    want = np.fft.irfftn(np.stack(spectra).astype(np.complex128), s=shape,
+                         axes=(1, 2))
+    phase("service_irfftn",
+          lambda: svc.submit_batch(spectra, kind="irfftn"), want,
+          {"cmatmul": 1, "fourstep_fused": 2},
+          **{**info, "kind": "irfftn"})
+    del fields, spectra, want, svc, reqs
+
+    # (b) CodedFFTND on a 256^3 complex64 volume (128 MiB), m = 8, N = 12
+    shape, factors, n = (256, 256, 256), (2, 2, 2), 12
+    plan = CodedFFTND(shape=shape, factors=factors, n_workers=n)
+    if plan.device.type != "cuda" or plan.resolved_backend != "kernel":
+        fail(f"CodedFFTND on {plan.device}, {plan.resolved_backend}")
+    x = (rng.standard_normal((2,) + shape)
+         + 1j * rng.standard_normal((2,) + shape)).astype(np.complex64)
+    want = np.fft.fftn(x.astype(np.complex128), axes=(1, 2, 3))
+    xt = torch.as_tensor(x, device=dev)
+    masks = service_masks(2, n, plan.m)
+    info = {"shape": list(shape), "factors": list(factors), "m": plan.m,
+            "n_workers": n, "worker_shard": list(plan.worker_shard_shape)}
+    phase("plan_fftn", lambda: plan.run(xt[0], mask=masks[0]), want[0],
+          {"cmatmul": 2, "fourstep_fused": 3}, requests=1,
+          decode="one mask: subset_decode_matrix then cmatmul", **info)
+    phase("plan_fftn", lambda: plan.run(xt, mask=masks), want,
+          {"cmatmul": 1, "fourstep_fused": 3}, requests=2,
+          decode="per-request masks: torch.linalg.solve", **info)
+    del x, xt, want
+
+    # (c) CodedFFTMultiInput: q = 8 fields of 512 x 512
+    qn, shape = 8, (512, 512)
+    plan = CodedFFTMultiInput(q=qn, shape=shape, m_tilde=2, factors=(2, 1),
+                              n_workers=8)
+    x = (rng.standard_normal((qn,) + shape)
+         + 1j * rng.standard_normal((qn,) + shape)).astype(np.complex64)
+    want = np.fft.fftn(x.astype(np.complex128), axes=(1, 2))
+    xt = torch.as_tensor(x, device=dev)
+    mask = service_masks(1, 8, plan.m)[0]
+    phase("plan_multi_input", lambda: plan.run(xt, mask=mask), want,
+          {"cmatmul": 2, "fourstep_fused": 2}, q=qn, shape=list(shape),
+          m_tilde=2, factors=[2, 1], m=plan.m, n_workers=8,
+          worker_shard=list(plan.worker_shard_shape))
+    del x, xt, want
+
+    # (d) the n-D sweep at shard axes of 1, 2, 3 and 6 points: 64 requests
+    # of N = 8 packed shards of rfftn (8, 4, 4) / (2, 1, 2), (16, 4) /
+    # (4, 1), (12, 6) / (2, 3), c2c shards of (12, 12) / (2, 2) and
+    # (6, 6) / (2, 2), and every length at once
+    def sweep_plain(a, nd):
+        for ax in range(a.ndim - nd, a.ndim):
+            moved = a.movedim(ax, -1).contiguous()
+            lead, ell = tuple(moved.shape[:-1]), moved.shape[-1]
+            fa, fb = ops.split_factor(ell)
+            xr, xi = ref.planar(moved.reshape(-1, fa, fb))
+            outr, outi = fourstep_body(xr, xi,
+                                       *ops._fourstep_planes(fa, fb, dev))
+            a = ref.unplanar(outr.transpose(-1, -2), outi.transpose(-1, -2)
+                             ).reshape(lead + (ell,)).movedim(-1, ax)
+        return a
+
+    for shape in ((64, 8, 4, 4, 1), (64, 8, 4, 2), (64, 8, 6, 1),
+                  (64, 8, 6, 6), (64, 8, 3, 3), (64, 1, 2, 3, 6)):
+        nd = len(shape) - 2
+        routes = [ops.fourstep_route(ell, device=dev) for ell in shape[2:]]
+        if any(v != "fused" for v, _ in routes):
+            fail(f"ndim_axis_lengths {shape}: routes {routes}")
+        a = (rng.standard_normal(shape)
+             + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        at = torch.as_tensor(a, device=dev)
+        sweep = ops.make_kernel_fftn_fn(nd)
+        got = sweep(at)
+        plain = sweep_plain(at, nd)
+        torch.cuda.synchronize()
+        twin = float((got - plain).abs().max() / plain.abs().max())
+        if not twin < 1e-5:
+            fail(f"ndim_axis_lengths {shape}: kernel vs plain {twin}")
+        phase("ndim_axis_lengths", lambda: sweep(at),
+              np.fft.fftn(a.astype(np.complex128),
+                          axes=tuple(range(2, 2 + nd))),
+              {"fourstep_fused": nd}, shape=list(shape),
+              routes=[[v, list(f)] for v, f in routes],
+              kernel_vs_plain=twin, kernel_vs_plain_tol=1e-5)
+
+
 def main() -> int:
     import torch
 
@@ -687,18 +888,22 @@ def main() -> int:
         reckoning of the launch).  A trace that recorded no device kernel
         at all lost the call in the profiler, not the route (a process
         that has run the card for a while returns such traces now and
-        then, ``PERF.md`` §7): it is taken again, at most twice, and the
-        retakes are printed as ``empty_traces``."""
+        then, ``PERF.md`` §7; a mapping of device timestamps that drifted
+        past the margin would drop every kernel): it is taken again, at
+        most three times, the margin four times wider each time (0.2, 0.8
+        and 3.2 s), and the retakes and the last margin are printed as
+        ``empty_traces`` and ``trace_margin_s``."""
         before = _build.launch_counts().get(name, 0)
         run()
         torch.cuda.synchronize()
         got = _build.launch_counts().get(name, 0) - before
-        empty = 0
+        empty, margin = 0, TRACE_MARGIN_S
         split = profile_call(torch, run, track=tuple(kernels), names=True)
-        while not split["kernel_names"] and empty < 2:
+        while not split["kernel_names"] and empty < 3:
             empty += 1
+            margin *= 4
             split = profile_call(torch, run, track=tuple(kernels),
-                                 names=True)
+                                 names=True, margin_s=margin)
         ran, strays = dict.fromkeys(kernels, 0), {}
         for kernel, count in split.pop("kernel_names").items():
             frag = next((f for f in kernels if f in kernel), None)
@@ -708,10 +913,11 @@ def main() -> int:
                 ran[frag] += count
         if got != sum(kernels.values()) or strays or ran != kernels:
             fail(f"{name} {shape}: {got} launches a call, traced {ran} and "
-                 f"outside the route {strays}; expected only {kernels}")
+                 f"outside the route {strays} ({empty} empty traces retaken"
+                 f", to a {margin} s margin); expected only {kernels}")
         emit({"phase": "kernel_split", "name": name, "shape": shape,
               "launches_per_call": got, "traced_launches": ran, **info,
-              "empty_traces": empty, **split})
+              "empty_traces": empty, "trace_margin_s": margin, **split})
 
     def encode_route(fold):
         return "folded" if fold else "fall-back"
@@ -1609,6 +1815,9 @@ def main() -> int:
     emit({"phase": "recombine_fused", "s": s, "m": m, "launches": counts,
           "rel_err": rel, "rel_tol": 1e-3})
     del x, want, c_hat, got
+
+    # -- 8b. n-D: the service's rfftn / irfftn kinds and the n-D plans ----
+    nd_transforms(torch, np, rng, dev, counted, service_masks)
 
     # -- 9. the tuned four-step path --------------------------------------
     # (a) the default service's warmup search, from an empty cache: the

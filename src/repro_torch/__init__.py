@@ -19,12 +19,26 @@ kind's bucket runs a planes whole-bucket kernel, or the stage kernels.
 ``CodedFFT`` and the real and inverse plans (``CodedRFFT``,
 ``CodedIFFT``, ``CodedIRFFT``) run their default kernel backend on
 three more: the ``cmatmul`` encode and decode apply, and the four-step
-worker, fused or two-pass.
+worker, fused or two-pass.  The n-D plans (``CodedFFTND``,
+``CodedRFFTN``, ``CodedIRFFTN``, ``CodedFFTMultiInput``), and the
+service's rfftn and irfftn kinds through them, run the same kernels, the
+four-step swept over each shard axis.
 """
 
-from repro_torch.core import CodedFFT, CodedIFFT, CodedIRFFT, CodedRFFT
+from repro_torch.core import (
+    CodedFFT,
+    CodedFFTMultiInput,
+    CodedFFTND,
+    CodedIFFT,
+    CodedIRFFT,
+    CodedIRFFTN,
+    CodedRFFT,
+    CodedRFFTN,
+)
 from repro_torch.distributed import StragglerModel
 from repro_torch.serving import FFTService, FFTServiceConfig, ServiceStats
 
-__all__ = ["CodedFFT", "CodedIFFT", "CodedIRFFT", "CodedRFFT", "FFTService",
-           "FFTServiceConfig", "ServiceStats", "StragglerModel"]
+__all__ = ["CodedFFT", "CodedFFTMultiInput", "CodedFFTND", "CodedIFFT",
+           "CodedIRFFT", "CodedIRFFTN", "CodedRFFT", "CodedRFFTN",
+           "FFTService", "FFTServiceConfig", "ServiceStats",
+           "StragglerModel"]

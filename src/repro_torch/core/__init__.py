@@ -2,14 +2,22 @@
 
 Ported so far: the 1-D plans -- complex (``CodedFFT``), real-input
 (``CodedRFFT``), inverse (``CodedIFFT``) and real-output
-(``CodedIRFFT``) -- on their kernel and reference backends, the (N, m)
-Reed-Solomon code with the closed-form Lagrange decode and the
-transform decode's dispatch (``decode_auto``), interleave and recombine
-(full and half spectrum).
+(``CodedIRFFT``) --, the n-D plans -- complex (``CodedFFTND``, its
+factors from ``plan_factors``), real-input (``CodedRFFTN``), real-output
+(``CodedIRFFTN``) and multi-input (``CodedFFTMultiInput``) -- on their
+kernel and reference backends, all of them ``CodedPlan`` and ``MDSPlan``
+instances; the (N, m) Reed-Solomon code with the closed-form Lagrange
+decode and the transform decode's dispatch (``decode_auto``), interleave
+and recombine (1-D, n-D and half spectrum).
 """
 
-from repro_torch.core.coded_fft import CodedFFT
-from repro_torch.core.interleave import deinterleave, interleave
+from repro_torch.core.coded_fft import CodedFFT, CodedFFTND, plan_factors
+from repro_torch.core.interleave import (
+    deinterleave,
+    deinterleave_nd,
+    interleave,
+    interleave_nd,
+)
 from repro_torch.core.mds import (
     IFFT_AUTO_MAX_M,
     LAGRANGE_MAX_M,
@@ -28,11 +36,18 @@ from repro_torch.core.mds import (
     rs_nodes,
     subset_decode_matrix,
 )
-from repro_torch.core.plan import MDSPlanBase, resolve_device
+from repro_torch.core.multi_input import CodedFFTMultiInput
+from repro_torch.core.plan import (
+    CodedPlan,
+    MDSPlan,
+    MDSPlanBase,
+    resolve_device,
+)
 from repro_torch.core.recombine import (
     dft_matrix,
     recombine,
     recombine_half,
+    recombine_nd,
     twiddle,
 )
 from repro_torch.core.rfft import (
@@ -46,39 +61,63 @@ from repro_torch.core.rfft import (
     split_packed,
     unpack_pairs,
 )
+from repro_torch.core.rfftn import (
+    CodedIRFFTN,
+    CodedRFFTN,
+    adjoint_fold_nd,
+    hermitian_extend_nd,
+    neg_freq,
+    pack_half_nd,
+    split_packed_nd,
+)
 
 __all__ = [
     "CodedFFT",
+    "CodedFFTMultiInput",
+    "CodedFFTND",
     "CodedIFFT",
     "CodedIRFFT",
+    "CodedIRFFTN",
+    "CodedPlan",
     "CodedRFFT",
+    "CodedRFFTN",
     "IFFT_AUTO_MAX_M",
     "LAGRANGE_MAX_M",
+    "MDSPlan",
     "MDSPlanBase",
+    "adjoint_fold_nd",
     "decode_auto",
     "decode_from_subset",
     "decode_ifft",
     "decode_masked",
     "deinterleave",
+    "deinterleave_nd",
     "dft_matrix",
     "encode",
     "encode_dft",
     "first_available",
     "hermitian_extend",
+    "hermitian_extend_nd",
     "interleave",
+    "interleave_nd",
     "is_contiguous_subset",
     "lagrange_decode_matrices",
     "lagrange_decode_matrix",
     "lagrange_inverse",
+    "neg_freq",
     "pack_half",
+    "pack_half_nd",
     "pack_pairs",
+    "plan_factors",
     "recombine",
     "recombine_half",
+    "recombine_nd",
     "require_even_shards",
     "resolve_device",
     "rs_generator",
     "rs_nodes",
     "split_packed",
+    "split_packed_nd",
     "subset_decode_matrix",
     "twiddle",
     "unpack_pairs",

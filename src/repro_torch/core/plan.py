@@ -19,19 +19,26 @@ other decode follows the reference's ``decode_auto`` dispatch (see
 construction a code whose (N, m) generator ``mds_apply`` cannot hold.
 The batched service does not use plan stages on its bucket-kernel path
 -- it runs the bucket kernels directly.
+
+Every plan satisfies the :class:`CodedPlan` protocol, and the MDS plans
+(all of the port's) :class:`MDSPlan`: ``message`` and ``postdecode``
+split the master's two stages, so ``encode = encode_dft(message(x))``
+and ``decode = postdecode(mds_subset_decode(b))``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.core import mds
 from repro_torch.kernels import ops
 
-__all__ = ["MDSPlanBase", "batch_shape", "resolve_device"]
+__all__ = ["CodedPlan", "MDSPlan", "MDSPlanBase", "batch_shape",
+           "resolve_device"]
 
 _METHODS = ("auto", "solve", "ifft")
 
@@ -60,6 +67,80 @@ def batch_shape(arr: torch.Tensor, core_ndim: int,
     return tuple(arr.shape[:extra])
 
 
+@runtime_checkable
+class CodedPlan(Protocol):
+    """The contract every computation strategy satisfies: ``CodedFFT``,
+    ``CodedFFTND`` and ``CodedFFTMultiInput`` (complex), ``CodedRFFT``,
+    ``CodedIFFT`` and ``CodedIRFFT`` (1-D real and inverse),
+    ``CodedRFFTN`` and ``CodedIRFFTN`` (n-D real)."""
+
+    n_workers: int
+
+    @property
+    def recovery_threshold(self) -> int:
+        """How many responders the master waits for (``m`` for every MDS
+        plan)."""
+        ...
+
+    @property
+    def input_shape(self) -> tuple[int, ...]:
+        """Core (unbatched) request shape."""
+        ...
+
+    @property
+    def output_shape(self) -> tuple[int, ...]:
+        """Core (unbatched) result shape; the real kinds' differs from
+        ``input_shape``."""
+        ...
+
+    @property
+    def worker_shard_shape(self) -> tuple[int, ...]:
+        """What ONE worker stores, transforms and ships."""
+        ...
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Input -> coded worker shards ``(*B, N, *worker_shard_shape)``."""
+        ...
+
+    def worker_compute(self, a: torch.Tensor) -> torch.Tensor:
+        """The per-worker transform over the trailing shard axes."""
+        ...
+
+    def decode(self, b, subset=None, mask=None):
+        """Worker results -> output from any ``recovery_threshold``
+        responders (``subset`` indices or a boolean ``mask``)."""
+        ...
+
+    def run(self, x, subset=None, mask=None):
+        """``decode(worker_compute(encode(x)))``."""
+        ...
+
+
+@runtime_checkable
+class MDSPlan(CodedPlan, Protocol):
+    """A plan on the (N, m) complex Reed-Solomon code: decodable from ANY
+    ``m`` responders, and split into per-worker encode rows."""
+
+    @property
+    def m(self) -> int:
+        """Each worker holds ``1/m`` of the input; the recovery
+        threshold."""
+        ...
+
+    @property
+    def generator(self) -> torch.Tensor:
+        """The ``(N, m)`` generator ``G[k, i] = omega_N^{ki}``."""
+        ...
+
+    def message(self, x: torch.Tensor) -> torch.Tensor:
+        """Input -> the ``m`` uncoded message shards."""
+        ...
+
+    def postdecode(self, c_hat: torch.Tensor) -> torch.Tensor:
+        """Decoded message-shard transforms -> final output."""
+        ...
+
+
 class MDSPlanBase:
     """Shared batched encode/decode/run for the MDS-coded plans.
 
@@ -86,6 +167,29 @@ class MDSPlanBase:
         """Each worker transforms its own coded shard (trailing axes)."""
         raise NotImplementedError
 
+    # -- the decode system ---------------------------------------------------
+    @property
+    def decode_generator(self) -> torch.Tensor:
+        """Generator of the linear system decode solves: the encode
+        generator for every MDS plan."""
+        return self.generator
+
+    @property
+    def decode_width(self) -> int:
+        """Responder rows decode needs: the column count of
+        ``decode_generator`` (``m``)."""
+        return self.m
+
+    def decodable(self, mask=None) -> bool:
+        """Host-side check: can the master finish from these responders?
+        For an any-subset-decodable code, a count against
+        ``recovery_threshold``."""
+        if mask is None:
+            return self.n_workers >= self.recovery_threshold
+        if isinstance(mask, torch.Tensor):
+            mask = mask.cpu().numpy()
+        return int(np.asarray(mask).sum()) >= self.recovery_threshold
+
     @property
     def resolved_backend(self) -> str:
         """``"kernel"`` only when requested AND the dtype is complex64."""
@@ -107,6 +211,28 @@ class MDSPlanBase:
             return ops.make_kernel_worker_fn(inverse=inverse)(a)
         fn = torch.fft.ifft if inverse else torch.fft.fft
         return fn(a, dim=-1)
+
+    def _fftn_worker(self, a: torch.Tensor, nd: int) -> torch.Tensor:
+        """Backend-dispatched n-D FFT over the trailing ``nd`` axes: the
+        worker of the n-D and multi-input plans.  Kernel backend: the
+        four-step kernels swept over each axis
+        (``ops.make_kernel_fftn_fn``); else ``torch.fft.fftn``."""
+        a = self._as_tensor(a)
+        if self.resolved_backend == "kernel":
+            return ops.make_kernel_fftn_fn(nd)(a)
+        return torch.fft.fftn(a, dim=tuple(range(-nd, 0)))
+
+    def _ifftn_worker(self, a: torch.Tensor, nd: int) -> torch.Tensor:
+        """Backend-dispatched n-D inverse FFT over the trailing ``nd``
+        axes: the worker of the n-D real-output plan.  Kernel backend: the
+        forward sweep through ``ifftn(a) = conj(fftn(conj(a))) / prod(L)``;
+        else ``torch.fft.ifftn``."""
+        a = self._as_tensor(a)
+        if self.resolved_backend == "kernel":
+            scale = math.prod(a.shape[-nd:])
+            return torch.conj_physical(ops.make_kernel_fftn_fn(nd)(
+                torch.conj_physical(a))) / scale
+        return torch.fft.ifftn(a, dim=tuple(range(-nd, 0)))
 
     # -- public pipeline -----------------------------------------------------
     def _cast_input(self, x: torch.Tensor) -> torch.Tensor:
@@ -150,6 +276,14 @@ class MDSPlanBase:
         coded = self.generator.to(c.dtype) @ c.reshape(lead + (self.m, -1))
         return coded.reshape(lead + (self.n_workers,) + shard)
 
+    def postdecode(self, c_hat: torch.Tensor) -> torch.Tensor:
+        """Decoded message-shard transforms ``(*B, m, *worker_shard_shape)``
+        -> final output ``(*B, *output_shape)``."""
+        c_hat = self._as_tensor(c_hat)
+        batch_shape(c_hat, 1 + len(self.worker_shard_shape),
+                    "decoded shards")
+        return self._postdecode(c_hat)
+
     def decode(self, b: torch.Tensor, subset: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None, *,
                method: str = "auto") -> torch.Tensor:
@@ -174,7 +308,7 @@ class MDSPlanBase:
             raise ValueError("pass at most one of subset / mask")
         if method not in _METHODS:
             raise ValueError(f"unknown decode method {method!r}")
-        m, n = self.m, self.n_workers
+        m, n = self.decode_width, self.n_workers
         shard = tuple(self.worker_shard_shape)
         b = self._as_tensor(b)
         batch = batch_shape(b, 1 + len(shard), "worker results")
@@ -192,7 +326,7 @@ class MDSPlanBase:
                 out = self._decode_kernel(flat[0], subset1)
             else:
                 out = self._postdecode(mds.decode_auto(
-                    self.generator, flat[0], subset1, method=method))
+                    self.decode_generator, flat[0], subset1, method=method))
             return out.reshape(batch + tuple(out.shape))
         if subset is None and mask is None:
             shared = torch.arange(m, device=self.device)
@@ -203,7 +337,8 @@ class MDSPlanBase:
         if shared is not None:
             # one subset for the whole batch: the batch folds into the
             # payload, each column decoded exactly as alone
-            c_hat = mds.decode_auto(self.generator, flat.transpose(0, 1),
+            c_hat = mds.decode_auto(self.decode_generator,
+                                    flat.transpose(0, 1),
                                     shared, method=method).transpose(0, 1)
         else:
             if subset is not None:
@@ -227,7 +362,7 @@ class MDSPlanBase:
         if method == "ifft":
             return mds.decode_ifft_batched(flat, subsets, self.n_workers)
         rows = flat[torch.arange(nb, device=flat.device)[:, None], subsets]
-        gsub = self.generator[subsets].to(flat.dtype)        # (nb, m, m)
+        gsub = self.decode_generator[subsets].to(flat.dtype)  # (nb, m, m)
         c_hat = torch.linalg.solve(gsub, rows.reshape(nb, m, -1))
         return c_hat.reshape(rows.shape)
 
@@ -238,7 +373,7 @@ class MDSPlanBase:
         rows through ``mds_apply``.  Rows outside the subset are never
         read, so straggler garbage stays out."""
         rows = b[subset]
-        dmat = mds.subset_decode_matrix(self.generator, subset).to(
+        dmat = mds.subset_decode_matrix(self.decode_generator, subset).to(
             self.dtype)
         c_hat = ops.mds_apply(dmat, rows)
         return self._postdecode(c_hat)

@@ -7,7 +7,9 @@ Given the decoded sub-transforms ``C`` with ``C[k] = DFT_{s/m}(c_k)``,
 an elementwise twiddle followed by ``s/m`` length-m DFTs along the shard
 axis.  ``sign=+1`` with a caller-applied ``1/m`` recombines inverse
 sub-transforms; :func:`recombine_half` computes only the non-redundant
-half spectrum of a real input.  The n-D variant is a later slice.
+half spectrum of a real input; :func:`recombine_nd` is the n-D
+butterfly (paper eq. 31), master-side glue in plain PyTorch as in the
+reference.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["twiddle", "dft_matrix", "recombine", "recombine_half"]
+from repro_torch.core.interleave import deinterleave_nd
+
+__all__ = ["twiddle", "dft_matrix", "recombine", "recombine_half",
+           "recombine_nd"]
 
 
 def dft_matrix(m: int, dtype=torch.complex64, sign: float = -1.0,
@@ -58,3 +63,46 @@ def recombine_half(c_full: torch.Tensor, s: int) -> torch.Tensor:
     x_mat = f_half @ (c_full * w)                # (*B, m//2 + 1, s/m)
     lead = tuple(c_full.shape[:-2])
     return x_mat.reshape(lead + (rows * ell,))[..., : s // 2 + 1]
+
+
+def recombine_nd(c_hat: torch.Tensor, shape: tuple[int, ...],
+                 factors: tuple[int, ...]) -> torch.Tensor:
+    """n-D recombination (paper eq. 31).
+
+    ``c_hat``: ``(*B, m, L_0, ..., L_{n-1})`` decoded sub-transforms
+    indexed by the row-major shard tuple ``(k_0..k_{n-1})``; returns the
+    ``(*B, *shape)`` n-D transforms
+
+        T[..., i_d + j_d*L_d, ...] = sum_{k} C[(k), (i)] *
+            prod_d omega_{s_d}^{i_d k_d} * omega_{m_d}^{j_d k_d}
+
+    -- per axis, the twiddle ``omega_{s_d}^{i_d k_d}`` and an
+    ``m_d``-point DFT over ``k_d``, then a de-interleave with factors
+    ``L_d``.
+    """
+    n = len(shape)
+    ells = tuple(sd // md for sd, md in zip(shape, factors))
+    lead = tuple(c_hat.shape[:c_hat.ndim - 1 - n])
+    nb = len(lead)
+    dt, dev = c_hat.dtype, c_hat.device
+    # (*B, m_0..m_{n-1}, L_0..L_{n-1})
+    c = c_hat.reshape(lead + tuple(factors) + ells)
+    for d in range(n):
+        md, sd, ld = factors[d], shape[d], ells[d]
+        tw = torch.as_tensor(
+            np.exp(-2j * np.pi * np.outer(np.arange(md), np.arange(ld)) / sd),
+            device=dev).to(dt)
+        bshape = [1] * (2 * n)
+        bshape[d] = md
+        bshape[n + d] = ld
+        c = c * tw.reshape(bshape)
+        # length-m_d DFT along axis d: k_d -> j_d
+        f = dft_matrix(md, dt, device=dev)
+        c = torch.tensordot(f, c, dims=([1], [nb + d])).movedim(0, nb + d)
+    # c[(j_0..j_{n-1}), (i_0..i_{n-1})] holds T[..., i_d + j_d*L_d, ...]:
+    # an interleave of T with factors L_d (outer index j_d in m_d, inner
+    # i_d in L_d), so deinterleave_nd with factors ells inverts it
+    c = c.permute(list(range(nb)) + list(range(nb + n, nb + 2 * n))
+                  + list(range(nb, nb + n)))             # (*B, i.., j..)
+    return deinterleave_nd(c.reshape(lead + (-1,) + tuple(factors)), ells,
+                           tuple(shape))

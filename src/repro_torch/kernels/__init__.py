@@ -57,6 +57,7 @@ from repro_torch.kernels.ops import (
     fourstep_fusable,
     fourstep_planar,
     kernel_backend_supported,
+    make_kernel_fftn_fn,
     make_kernel_worker_fn,
     mds_apply,
     recombine_fused,
@@ -83,6 +84,7 @@ __all__ = [
     "fourstep_planar",
     "kernel_backend_supported",
     "launch_counts",
+    "make_kernel_fftn_fn",
     "make_kernel_worker_fn",
     "mds_apply",
     "multistep_fused",

@@ -85,6 +85,7 @@ __all__ = [
     "fft_fourstep",
     "mds_apply",
     "make_kernel_worker_fn",
+    "make_kernel_fftn_fn",
     "encode_worker",
     "decode_apply",
     "recombine_planar",
@@ -420,6 +421,26 @@ def make_kernel_worker_fn(inverse: bool = False):
         else:
             out = fft_fourstep(flat)
         return out.reshape(lead + (ell,))
+
+    return worker_fn
+
+
+def make_kernel_fftn_fn(nd: int):
+    """An n-D worker on the four-step kernels: the 1-D FFT swept over the
+    last ``nd`` axes (the multidimensional DFT is separable).
+
+    Each axis is moved last and made contiguous, then every row of every
+    leading axis (requests, workers and the other shard axes) goes
+    through ONE :func:`fft_fourstep` call: a launch per pass and axis,
+    whatever the batch.  Each axis length routes on its own
+    (:func:`fourstep_route`, the autotune table first).
+    """
+
+    def worker_fn(a: torch.Tensor) -> torch.Tensor:
+        for ax in range(a.ndim - nd, a.ndim):
+            moved = a.movedim(ax, -1).contiguous()
+            a = fft_fourstep(moved).movedim(-1, ax)
+        return a
 
     return worker_fn
 

@@ -1,4 +1,4 @@
-"""The straggler-tolerant FFT service (1-D kinds) on the hand-written kernels.
+"""The straggler-tolerant FFT service on the hand-written kernels.
 
 Clients submit transform requests; the service runs them under the
 (N, m) coded plan and answers as soon as the fastest ``m`` of ``N``
@@ -8,9 +8,11 @@ draw; the reported coded latency is the m-th order statistic.
 Requests are bucketed by ``(s, kind)``, stacked, padded to a power-of-two
 bucket and pushed through ONE bucket executor with a per-request
 responder mask.  ``kind`` is ``"c2c"`` (complex forward), ``"r2c"`` (real
-input -> half spectrum) or ``"c2r"`` (half spectrum -> real output); ``s``
-is the time-domain length, so a c2r request of ``h`` bins lands in
-``s = 2*(h-1)``.  On the device-decode path (the default, for
+input -> half spectrum), ``"c2r"`` (half spectrum -> real output), or the
+n-D real pair ``"rfftn"`` / ``"irfftn"``; ``s`` is the time-domain
+extent, so a c2r request of ``h`` bins lands in ``s = 2*(h-1)``, and an
+n-D request's ``s`` is its time-domain shape tuple.  On the device-decode
+path (the default, for
 ``m <= mds.LAGRANGE_MAX_M``) the executor takes the requests and the RAW
 masks; on a c2c bucket it runs
 
@@ -44,6 +46,13 @@ admits runs the streaming bucket kernel, as the reference routes it;
 anything else takes the same stage route with the host planes as its
 decode.
 
+The n-D kinds always run the ``plan.run`` executor of their plan
+(``CodedRFFTN`` / ``CodedIRFFTN``, factors from ``plan_factors`` with
+``even_last_shard=True``), as the reference routes them: the ``cmatmul``
+encode, the four-step kernels swept over each shard axis, and the
+plan's decode (``cmatmul`` for a bucket of one, the per-request solve
+otherwise).
+
 The stage kernels hold the code's whole (N, m) G and (m, N) D in one
 block's shared memory, and the recombine unrolls m up to 64: a length
 whose bucket would take the stage route with a code past those bounds is
@@ -76,9 +85,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import mds
-from repro_torch.core.coded_fft import CodedFFT
+from repro_torch.core.coded_fft import CodedFFT, plan_factors
 from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
+from repro_torch.core.rfftn import CodedIRFFTN, CodedRFFTN
 from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.kernels import autotune, ops, ref
 from repro_torch.serving.batching import bucket_size
@@ -87,7 +97,8 @@ from repro_torch.serving.decode_cache import DecodeMatrixCache
 __all__ = ["FFTService", "FFTServiceConfig", "ServiceStats"]
 
 _NUMPY_DTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
-_PLAN_CLASS = {"c2c": CodedFFT, "r2c": CodedRFFT, "c2r": CodedIRFFT}
+_PLAN_CLASS = {"c2c": CodedFFT, "r2c": CodedRFFT, "c2r": CodedIRFFT,
+               "rfftn": CodedRFFTN, "irfftn": CodedIRFFTN}
 # per kind: the whole-bucket masked and planes entry points
 _WHOLE = {
     "c2c": (ops.coded_bucket_masked, ops.coded_bucket),
@@ -182,19 +193,24 @@ class ServiceStats:
 
 
 class FFTService:
-    """Batched straggler-tolerant FFT front end (c2c, r2c and c2r kinds).
+    """Batched straggler-tolerant FFT front end (c2c, r2c, c2r, rfftn and
+    irfftn kinds).
 
-    Requests of any length with ``m | s`` (``2m | s`` for the real kinds)
-    are accepted; each ``(s, kind)`` gets its own plan and bucket
-    executors.  ``device=None`` runs on CUDA and
-    raises without a GPU; ``device="cpu"`` runs the kernels' plain
-    PyTorch versions (the tests' mode) with the same route decisions.
+    Requests of any length with ``m | s`` (``2m | s`` for the real kinds,
+    along the last axis's shard for the n-D kinds) are accepted; each
+    ``(s, kind)`` gets its own plan and bucket executors.
+    ``device=None`` runs on CUDA and raises without a GPU;
+    ``device="cpu"`` runs the kernels' plain PyTorch versions (the tests'
+    mode) with the same route decisions.
     """
 
-    KINDS = ("c2c", "r2c", "c2r")
-    REAL_KINDS = ("r2c", "c2r")
-    # kinds of the JAX service this port does not serve yet
-    _LATER_KINDS = ("rfftn", "irfftn")
+    KINDS = ("c2c", "r2c", "c2r", "rfftn", "irfftn")
+    # half-payload kinds: workers ship pair-packed shards with a halved
+    # (last) axis, so their wire time is charged at payload_scale=0.5
+    REAL_KINDS = ("r2c", "c2r", "rfftn", "irfftn")
+    # n-D kinds bucket by the time-domain shape tuple and run the plan.run
+    # executor (the bucket kernels are 1-D layouts)
+    ND_KINDS = ("rfftn", "irfftn")
 
     def __init__(self, cfg: FFTServiceConfig, device=None, *, mesh=None,
                  pool=None):
@@ -227,11 +243,20 @@ class FFTService:
         return ops.bucket_route(s, self.cfg.m, self.cfg.n_workers, kind,
                                 masked=self._device_decode())
 
-    def _check_servable(self, s: int, kind: str) -> None:
+    def _check_servable(self, s, kind: str) -> None:
         """Refuse, before any draw or staging, an ``(s, kind)`` bucket that
         would take the stage route with a code the stage kernels cannot
         carry (``ops.check_stage_code``); the recombine kernel serves the
-        c2c kind only."""
+        c2c kind only.  An n-D bucket's kernel-backend plan holds the (N,
+        m) code in ``mds_apply``, so its code is checked the same way."""
+        cfg = self.cfg
+        if kind in self.ND_KINDS:
+            if (not cfg.use_reference
+                    and ops.kernel_backend_supported(cfg.dtype)):
+                ops.check_stage_code(
+                    cfg.n_workers, cfg.m,
+                    f"the mds_apply of shape {tuple(s)} {kind} plans")
+            return
         if self._kernel_path(s, kind) and self._route(s, kind) == "stage":
             ops.check_stage_code(
                 self.cfg.n_workers, self.cfg.m,
@@ -239,11 +264,13 @@ class FFTService:
                 recombine=kind == "c2c")
 
     # -- plans, generator state and executors ----------------------------
-    def _plan_for(self, s: int, kind: str = "c2c"):
+    def _plan_for(self, s, kind: str = "c2c"):
         """The plan serving ``(s, kind)`` buckets: ``CodedFFT``,
-        ``CodedRFFT`` or ``CodedIRFFT`` on the same (N, m) code.  A real
-        kind's plan raises its ``2m | s`` error here, and so does a
-        real-kind request on a ``worker_fn`` service.
+        ``CodedRFFT``, ``CodedIRFFT``, or for the n-D kinds (``s`` the
+        shape tuple) ``CodedRFFTN`` / ``CodedIRFFTN`` with the factors of
+        ``plan_factors(s, m, even_last_shard=True)``, all on the same (N,
+        m) code.  A real kind's plan raises its ``2m | s`` error here, and
+        so does a non-c2c request on a ``worker_fn`` service.
 
         On the bucket-kernel path the plan only holds the code and checks
         the length -- the bucket kernels compute -- so it is built on the
@@ -257,9 +284,16 @@ class FFTService:
                 raise ValueError(
                     f"worker_fn plug-ins only apply to c2c buckets; got a "
                     f"{kind!r} request on a worker_fn service")
-            kwargs = {"worker_fn": cfg.worker_fn} if kind == "c2c" else {}
+            if kind in self.ND_KINDS:
+                shape = tuple(int(d) for d in s)
+                kwargs = {"shape": shape, "factors": plan_factors(
+                    shape, cfg.m, even_last_shard=True)}
+            else:
+                kwargs = {"s": s, "m": cfg.m}
+                if kind == "c2c":
+                    kwargs["worker_fn"] = cfg.worker_fn
             self._plans[key] = _PLAN_CLASS[kind](
-                s=s, m=cfg.m, n_workers=cfg.n_workers, dtype=cfg.dtype,
+                n_workers=cfg.n_workers, dtype=cfg.dtype,
                 backend=("reference" if cfg.use_reference
                          or self._kernel_path(s, kind) else "kernel"),
                 device=self.device, **kwargs)
@@ -296,12 +330,14 @@ class FFTService:
                 g.astype(np.complex64), maxsize=self.cfg.decode_cache_size)
         return self._decode_cache
 
-    def _kernel_path(self, s: int, kind: str = "c2c") -> bool:
+    def _kernel_path(self, s, kind: str = "c2c") -> bool:
         """Does this bucket run the bucket kernels (else ``plan.run``)?
-        Not for a reference or complex128 service, a ``worker_fn``
-        plug-in or a pinned ``decode_method`` (the reference's rule)."""
+        Not for an n-D kind (the bucket kernels are 1-D layouts), a
+        reference or complex128 service, a ``worker_fn`` plug-in or a
+        pinned ``decode_method`` (the reference's rule)."""
         cfg = self.cfg
-        return (not cfg.use_reference and cfg.worker_fn is None
+        return (kind not in self.ND_KINDS
+                and not cfg.use_reference and cfg.worker_fn is None
                 and cfg.decode_method == "auto"
                 and ops.kernel_backend_supported(cfg.dtype))
 
@@ -312,7 +348,7 @@ class FFTService:
         the subset inverse's conditioning, and the host LRU decodes."""
         return self.cfg.device_decode and self.cfg.m <= mds.LAGRANGE_MAX_M
 
-    def _runner_for(self, s: int, bucket: int, kind: str = "c2c"):
+    def _runner_for(self, s, bucket: int, kind: str = "c2c"):
         kernel = self._kernel_path(s, kind)
         masked = kernel and self._device_decode()
         key = (s, kind, bucket, kernel, masked)
@@ -438,45 +474,51 @@ class FFTService:
 
     # -- staging seam ----------------------------------------------------
     def _check_kind(self, kind: str) -> None:
-        """Refuse a kind this port does not serve: the n-D kinds (not
-        ported yet), and unknown kinds with the reference's error."""
-        if kind in self._LATER_KINDS:
-            raise _not_ported(f"request kind {kind!r}",
-                              "Queue 1, n-D (core/rfftn.py)")
+        """Refuse an unknown kind with the reference's error."""
         if kind not in self.KINDS:
             raise ValueError(f"unknown bucket kind {kind!r}")
 
-    def bucket_key(self, x, kind: str) -> int:
-        """The time-domain length ``s`` one request lands in (a c2r
-        request of ``h`` bins maps to ``s = 2*(h-1)``).  Validates the
-        kind, the half-spectrum width and that the code serves the
-        bucket's route, before any straggler draw.  The length itself
-        (``m | s``, and ``2m | s`` for the real kinds) is checked where
-        the reference checks it: by the bucket's plan in
-        :meth:`stage_bucket`, after the draws of every bucket staged
-        before it and of its own."""
+    def bucket_key(self, x, kind: str):
+        """The time-domain extent ``s`` one request lands in: a length for
+        the 1-D kinds (a c2r request of ``h`` bins maps to ``s =
+        2*(h-1)``), the time-domain shape tuple for the n-D kinds (an
+        irfftn request's last axis likewise).  Validates the kind, the
+        half-spectrum width and that the code serves the bucket's route,
+        before any straggler draw.  The length itself (``m | s``, ``2m |
+        s`` for the real kinds, the n-D factors) is checked where the
+        reference checks it: by the bucket's plan in :meth:`stage_bucket`,
+        after the draws of every bucket staged before it and of its
+        own."""
         self._check_kind(kind)
         n_last = int(x.shape[-1])
-        if kind == "c2r" and n_last < 2:
+        if kind in ("c2r", "irfftn") and n_last < 2:
             raise ValueError(
-                f"c2r requests need >= 2 half-spectrum bins "
+                f"{kind} requests need >= 2 half-spectrum bins "
                 f"(s = 2*(bins-1) > 0), got {n_last}")
-        s = 2 * (n_last - 1) if kind == "c2r" else n_last
+        time_last = 2 * (n_last - 1) if kind in ("c2r", "irfftn") else n_last
+        s = (tuple(int(d) for d in x.shape[:-1]) + (time_last,)
+             if kind in self.ND_KINDS else time_last)
         self._check_servable(s, kind)
         return s
 
-    def _bucket_buffer(self, s: int, bucket: int,
+    def _bucket_buffer(self, s, bucket: int,
                        kind: str = "c2c") -> np.ndarray:
         """The staging buffer of one bucket in the kind's ingress dtype:
-        a real plane for r2c, ``s//2 + 1`` complex bins for c2r."""
+        a real plane for r2c and rfftn, ``s//2 + 1`` complex bins (along
+        the last axis) for c2r and irfftn."""
         cdt = _NUMPY_DTYPE[self.cfg.dtype]
+        if kind == "rfftn":
+            return np.zeros((bucket,) + tuple(s), dtype=np.finfo(cdt).dtype)
+        if kind == "irfftn":
+            return np.zeros((bucket,) + tuple(s[:-1]) + (s[-1] // 2 + 1,),
+                            dtype=cdt)
         if kind == "r2c":
             return np.zeros((bucket, s), dtype=np.finfo(cdt).dtype)
         if kind == "c2r":
             return np.zeros((bucket, s // 2 + 1), dtype=cdt)
         return np.zeros((bucket, s), dtype=cdt)
 
-    def _bucket_args(self, s: int, kind: str, xb: np.ndarray,
+    def _bucket_args(self, s, kind: str, xb: np.ndarray,
                      masks: np.ndarray) -> tuple:
         """Device arguments of one bucket: the requests, then the raw
         (q, N) masks -- or, on the host decode-matrix path, the (2, q, m,
@@ -493,7 +535,7 @@ class FFTService:
             return xt, torch.from_numpy(dplanes).to(self.device)
         return xt, torch.from_numpy(masks).to(self.device)
 
-    def stage_bucket(self, s: int, kind: str, reqs: Sequence,
+    def stage_bucket(self, s, kind: str, reqs: Sequence,
                      masks: Optional[np.ndarray] = None) -> tuple:
         """Host-side staging for one bucket of same-``(s, kind)``
         requests: the straggler draw, the pack into the padded bucket
@@ -515,14 +557,16 @@ class FFTService:
                                  f" got {masks.shape}")
         self.stats.batches += 1
         xb = self._bucket_buffer(s, bucket, kind)
+        real_in = kind in ("r2c", "rfftn")
         for row, x in enumerate(reqs):
             x = (x.cpu().numpy() if isinstance(x, torch.Tensor)
                  else np.asarray(x))
-            xb[row] = x.real if kind == "r2c" and np.iscomplexobj(x) else x
+            xb[row] = x.real if real_in and np.iscomplexobj(x) else x
         if masks is None:
             lat, masks = self._simulate_arrivals(n_live, kind)
             self._account(lat, masks)
-        # the bucket's plan raises its length errors (``m | s``) here,
+        # the bucket's plan raises its length errors (``m | s``, ``2m | s``,
+        # the n-D factors) here,
         # after the draw and before the decode planes, as the reference's
         self._plan_for(s, kind)
         # padded rows: every worker "responds" so decode stays well-posed
@@ -530,7 +574,7 @@ class FFTService:
         full[:n_live] = masks
         return bucket, self._bucket_args(s, kind, xb, full)
 
-    def launch_bucket(self, s: int, bucket: int, kind: str,
+    def launch_bucket(self, s, bucket: int, kind: str,
                       args: tuple) -> torch.Tensor:
         """Launch one staged bucket; returns the UNSYNCED device result."""
         return self._runner_for(s, bucket, kind)(*args)
@@ -550,10 +594,26 @@ class FFTService:
         length ``2*(len(y) - 1)``."""
         return self.submit_batch([y], kind="c2r")[0]
 
+    def submit_rfftn(self, t) -> np.ndarray:
+        """One n-D REAL request: returns ``numpy.fft.rfftn(t)``, the half
+        spectrum over the last axis (``t.shape[:-1] + (last//2 + 1,)``),
+        from half-payload worker shards.  The last axis's shard must be
+        even once ``plan_factors`` has split ``m`` across the axes (the
+        ``2m | s`` ValueError otherwise)."""
+        return self.submit_batch([t], kind="rfftn")[0]
+
+    def submit_irfftn(self, y) -> np.ndarray:
+        """One n-D half-spectrum request: returns the real
+        ``numpy.fft.irfftn(y)`` of shape
+        ``y.shape[:-1] + (2*(y.shape[-1] - 1),)``."""
+        return self.submit_batch([y], kind="irfftn")[0]
+
     def submit_batch(self, xs: Sequence,
                      kind: Union[str, Sequence[str]] = "c2c"
                      ) -> list[np.ndarray]:
-        """Serve a batch of requests, bucketed by ``(s, kind)``.
+        """Serve a batch of requests, bucketed by ``(s, kind)``: ``s`` the
+        time-domain length of a 1-D request, the time-domain shape tuple
+        of an n-D one.
 
         ``kind`` is one kind for the whole call or one per request
         (mixed traffic).  Every bucket is staged and launched before any
@@ -628,10 +688,11 @@ class FFTService:
 
         ``lengths`` entries pair as the reference's do: a scalar with the
         1-D kinds (and with an unknown kind, which then raises), a shape
-        tuple with the n-D kinds (not served yet: ``NotImplementedError``);
-        other pairs are skipped.  Every pair is validated -- the kind, then
-        the bucket's plan (``m | s``, ``2m | s``) and the code's route --
-        before any search, staging or launch."""
+        tuple with the n-D kinds; other pairs are skipped.  The n-D kinds
+        run no four-step search, as in the reference.  Every pair is
+        validated -- the kind, then the bucket's plan (``m | s``, ``2m |
+        s``, the n-D factors) and the code's route -- before any search,
+        staging or launch."""
         cfg = self.cfg
         lengths = [cfg.s] if lengths is None else list(lengths)
         if buckets is None:
@@ -642,13 +703,15 @@ class FFTService:
             buckets.append(cfg.max_batch)
         pairs = []
         for s in lengths:
+            nd = isinstance(s, (tuple, list))
+            s = tuple(int(d) for d in s) if nd else int(s)
             for k in kinds:
-                if isinstance(s, (tuple, list)) != (k in self._LATER_KINDS):
+                if nd != (k in self.ND_KINDS):
                     continue        # scalar<->1-D, tuple<->n-D only
                 self._check_kind(k)
-                self._plan_for(int(s), k)
-                self._check_servable(int(s), k)
-                pairs.append((int(s), k))
+                self._plan_for(s, k)
+                self._check_servable(s, k)
+                pairs.append((s, k))
         if cfg.autotune:
             for s, k in pairs:
                 if self._kernel_path(s, k):

@@ -13,7 +13,7 @@
   complex128, relative to the largest output).
 * ``import repro_torch`` loads neither JAX nor the JAX package; entry
   points refuse to run without a GPU unless asked for the CPU; every
-  configuration and kind the port does not serve yet raises
+  configuration and runtime the port does not serve yet raises
   NotImplementedError (``device_decode=False`` and ``m >
   LAGRANGE_MAX_M`` are served: ``tests/test_torch_host_decode.py``).
 """
@@ -236,7 +236,8 @@ def test_kernel_backend_plan_raises_until_ported():
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.serving, repro_torch.kernels.ops, "
-            "repro_torch.core.rfft; "
+            "repro_torch.core.rfft, repro_torch.core.rfftn, "
+            "repro_torch.core.multi_input; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -269,9 +270,6 @@ def test_unserved_configs_raise(kwargs):
 
 
 def test_unserved_kinds_and_runtimes_raise():
-    svc = FFTService(FFTServiceConfig(s=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.submit_batch([np.zeros((4, 64), np.float32)], kind="rfftn")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FFTService(FFTServiceConfig(), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
