@@ -52,7 +52,15 @@ service's rfftn and irfftn kinds on 16 real 2048 x 2048 fields,
 ``CodedFFTND.run`` on a 256^3 volume and ``CodedFFTMultiInput.run`` on
 eight 512 x 512 fields (the ``cmatmul`` encode and decode, the
 four-step kernels swept over each shard axis), and that sweep held
-against its plain twin at shard axes of 1, 2, 3 and 6 points.
+against its plain twin at shard axes of 1, 2, 3 and 6 points.  Then
+the fault runtime and the open-loop front-end (``fault_runtime``):
+deadline masks from kill and delay faults on the masked c2c (s=4096,
+2^20), r2c and c2r bucket kernels; ``verify="correct"`` and
+``"detect"`` with corrupt workers on ``cmatmul`` and
+``fourstep_fused``; an elastic pool growing N from 8 to 9; the measured
+thread-per-worker runtime's rows from the card; and
+``StreamingFFTService`` under Poisson arrivals, streaming against the
+naive baseline, then mixed tiers.
 The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
 ``GenerationEngine`` on rwkv6-3b at full width and depth (bf16, seeded
 weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
@@ -657,6 +665,360 @@ def nd_transforms(torch, np, rng, dev, counted, service_masks) -> None:
               {"fourstep_fused": nd}, shape=list(shape),
               routes=[[v, list(f)] for v, f in routes],
               kernel_vs_plain=twin, kernel_vs_plain_tol=1e-5)
+
+
+def fault_runtime(torch, np, rng, counted) -> None:
+    """The fault runtime and the open-loop front-end on the card, five
+    phases (m = 4, N = 8, services with ``autotune=False`` like every
+    phase before the tuned path):
+
+    * ``service_faults`` -- ``health=True`` and ``FaultPlan(seed=0)
+      .kill(2, rounds=3).delay(5, 0.4, rounds=8)``: 64 c2c requests at
+      s=4096 (exactly one ``coded_fft_bucket_masked`` launch, fed the
+      deadline masks), 16 at 2^20 (the masked streaming bucket's four),
+      then one r2c and one c2r bucket of 64 at s=4096 (their masked
+      whole-bucket kernels);
+    * ``service_verify`` -- 64 c2c requests at s=4096, complex64, every
+      worker arriving: ``verify="correct"`` with two corrupt workers (the
+      ``cmatmul`` encode, one ``fourstep_fused``, a ``cmatmul`` decode a
+      request), with three (every request the typed
+      ``corrupt_uncorrectable``), ``verify="detect"`` with two, and on
+      clean rounds (its false detections, and the largest clean-round
+      syndrome against ``detect_errors``' 1e-6);
+    * ``service_elastic`` -- an ``ElasticWorkerPool``: all live, a
+      leave, then a refill and a join that grows N from 8 to 9 (the
+      bucket kernel on the grown generator);
+    * ``measured_runtime`` -- ``measured=True`` with one killed worker
+      (rows on the card: ``cmatmul`` and ``fourstep_fused`` on each
+      worker's stream), ``t_met`` and ``t_last`` of the call; then
+      ``require_all=True`` (``retries_exhausted``) and a pool with 3 live
+      (``insufficient_workers``);
+    * ``streaming_open_loop`` -- ``StreamingFFTService`` over the warmed
+      s=2048, max_batch=32 service as the reference's open-loop bench
+      sets it up: Poisson arrivals at 500, 1000 and 2000 req/s, 600
+      each, ``slack_s=5e-3``, the streaming mode and the naive baseline;
+      then a mixed-tier run at 1000 req/s (interactive 2 ms, standard
+      5 ms, batch 50 ms).
+
+    Every served result is held to complex128 ``numpy.fft`` at the
+    reference's limits (3e-4 on buckets, 1e-3 at 2^20); every call's
+    launches are checked (no ``torch.fft`` call); each line prints the
+    call's ms (three steady calls, host wall clock) and one traced
+    call's device busy and idle (``profile_call``)."""
+    from repro_torch import FFTService, FFTServiceConfig, ServiceStats
+    from repro_torch.core import mds
+    from repro_torch.core.fault_tolerance import syndromes
+    from repro_torch.distributed import (
+        ElasticWorkerPool,
+        FaultPlan,
+        StragglerModel,
+    )
+    from repro_torch.serving import (
+        AdmissionError,
+        DegradedResult,
+        StreamConfig,
+        StreamingFFTService,
+    )
+
+    fields = ("requests", "retries", "redispatched_shards", "degraded",
+              "detected", "corrected", "coded_latency", "uncoded_latency",
+              "stragglers_tolerated")
+
+    def make(kind, q, s):
+        """``q`` requests of ``kind`` and their float64 truths."""
+        if kind == "r2c":
+            x = rng.standard_normal((q, s)).astype(np.float32)
+            return list(x), np.fft.rfft(x.astype(np.float64), axis=-1)
+        if kind == "c2r":
+            y = np.fft.rfft(rng.standard_normal((q, s)), axis=-1)
+            y = y.astype(np.complex64)
+            return list(y), np.fft.irfft(y.astype(np.complex128), n=s,
+                                         axis=-1)
+        x = (rng.standard_normal((q, s))
+             + 1j * rng.standard_normal((q, s))).astype(np.complex64)
+        return list(x), np.fft.fft(x.astype(np.complex128), axis=-1)
+
+    def cfg(**kw):
+        base = dict(s=4096, m=4, n_workers=8, autotune=False)
+        base.update(kw)
+        return FFTServiceConfig(**base)
+
+    def drive(phase, svc, kind, reqs, want, tol, expect, *, match="exact",
+              degraded=None, **info):
+        """One counted ``submit_batch`` (its launches ``expect`` exactly,
+        or by ``match="keys"`` its kernels, ``"subset"`` within them; no
+        ``torch.fft``); ``degraded``: None (every row served), a reason
+        (every row that reason) or ``"any"``.  Served rows within ``tol``
+        of ``want``; then three steady calls and one traced call."""
+        before = {f: getattr(svc.stats, f) for f in fields}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _TorchFftCalls(torch) as calls:
+            out, counts = counted(lambda: svc.submit_batch(reqs, kind=kind))
+        first = time.perf_counter() - t0
+        delta = {f: getattr(svc.stats, f) - before[f] for f in fields}
+        launch_ok = {"exact": counts == expect,
+                     "keys": set(counts) == set(expect),
+                     "subset": set(counts) <= set(expect)}[match]
+        if calls.calls or not launch_ok:
+            fail(f"{phase} {info}: launches {counts} ({match} {expect}), "
+                 f"{calls.calls} torch.fft calls")
+        bad = [i for i, y in enumerate(out) if isinstance(y, DegradedResult)]
+        reasons = sorted({out[i].reason for i in bad})
+        if degraded is None and bad:
+            fail(f"{phase} {info}: {len(bad)} degraded rows {reasons}")
+        if degraded not in (None, "any") and (len(bad) != len(out)
+                                              or reasons != [degraded]):
+            fail(f"{phase} {info}: degraded {len(bad)}/{len(out)} "
+                 f"{reasons}, expected every row {degraded}")
+        err = 0.0
+        for i, y in enumerate(out):
+            if i in bad:
+                continue
+            y = np.asarray(y)
+            if y.shape != want[i].shape or not np.isfinite(y).all():
+                fail(f"{phase} {info}: row {i} {y.shape} not finite or "
+                     f"not {want[i].shape}")
+            err = max(err, float(np.abs(y - want[i]).max()
+                                 / np.abs(want[i]).max()))
+        if not err < tol:
+            fail(f"{phase} {info}: max-abs err / max |want| {err} >= {tol}")
+        t1 = time.perf_counter()
+        for _ in range(3):
+            svc.submit_batch(reqs, kind=kind)
+        ms = (time.perf_counter() - t1) / 3 * 1e3
+        trace = profile_call(torch, lambda: svc.submit_batch(reqs, kind=kind),
+                             track=FFT_KERNELS)
+        line = {"phase": phase, **info, "kind": kind,
+                "requests": len(reqs), "launches": counts,
+                "torch_fft_calls": 0, "rel_err": err, "rel_tol": tol,
+                "served": len(out) - len(bad), "degraded_rows": len(bad),
+                "reasons": reasons, "call_stats": delta,
+                "first_call_s": first, "ms_per_call": ms,
+                "profiled_call": trace}
+        emit(line)
+        torch.cuda.empty_cache()
+        return line
+
+    # -- service_faults: deadline masks on the masked bucket kernels -----
+    plan = FaultPlan(seed=0).kill(2, rounds=3).delay(5, 0.4, rounds=8)
+    svc = FFTService(cfg(health=True, faults=plan, on_failure="degrade"))
+    svc.warmup(lengths=[4096], kinds=("c2c", "r2c", "c2r"), buckets=[64])
+    svc.warmup(lengths=[1 << 20], buckets=[16])
+    info = {"faults": "kill(2, rounds=3).delay(5, 0.4, rounds=8)",
+            "health": True}
+    reqs, want = make("c2c", 64, 4096)
+    drive("service_faults", svc, "c2c", reqs, want, 3e-4,
+          {"coded_fft_bucket_masked": 1}, degraded="any", s=4096, **info)
+    reqs, want = make("c2c", 16, 1 << 20)
+    drive("service_faults", svc, "c2c", reqs, want, 1e-3,
+          {"coded_fft_bucket_streaming_masked": 4}, degraded="any",
+          s=1 << 20, **info)
+    del reqs, want
+    for kind, kernel in (("r2c", "coded_rfft_bucket_masked"),
+                         ("c2r", "coded_irfft_bucket_masked")):
+        reqs, want = make(kind, 64, 4096)
+        drive("service_faults", svc, kind, reqs, want, 3e-4, {kernel: 1},
+              degraded="any", s=4096, **info)
+    emit({"phase": "service_faults_health", "rounds": svc._round,
+          "health": svc.health.summary(),
+          "stats": {f: getattr(svc.stats, f) for f in fields}})
+
+    # -- service_verify: the kernel-backend plan and the syndromes ------
+    tight = StragglerModel(t0=1.0, mu=1e6)       # every worker arrives
+    two = FaultPlan(seed=1).corrupt(1, rounds=999).corrupt(6, rounds=999)
+    three = (FaultPlan(seed=2).corrupt(1, rounds=999).corrupt(4, rounds=999)
+             .corrupt(6, rounds=999))
+    reqs, want = make("c2c", 64, 4096)
+    served = {"cmatmul": 1 + len(reqs), "fourstep_fused": 1}
+    refused = {"cmatmul": 1, "fourstep_fused": 1}
+    for case, faults, verify, expect, degraded in (
+            ("correct, 2 corrupt", two, "correct", served, None),
+            ("correct, 3 corrupt", three, "correct", refused,
+             "corrupt_uncorrectable"),
+            ("detect, 2 corrupt", two, "detect", refused,
+             "corrupt_uncorrectable"),
+            ("detect, clean", None, "detect", served, "any")):
+        svc = FFTService(cfg(straggler=tight, faults=faults, verify=verify,
+                             on_failure="degrade"))
+        extra = {}
+        if faults is None:
+            # the largest clean-round syndrome of the card's rows, over
+            # the largest row, against detect_errors' 1e-6
+            kplan = svc._instrumented_plan(4096, "c2c")
+            b = kplan.worker_compute(kplan.encode(torch.as_tensor(
+                np.stack(reqs), device="cuda"))).cpu().numpy()
+            nodes = mds.rs_nodes(8, torch.complex128).numpy()
+            extra["clean_syndrome_max"] = max(
+                float(np.abs(syndromes(nodes, r.astype(np.complex128), 4))
+                      .max() / max(np.abs(r).max(), 1.0))
+                for r in b.reshape(len(reqs), 8, -1))
+            extra["syndrome_tol"] = 1e-6
+        line = drive("service_verify", svc, "c2c", reqs, want, 3e-4, expect,
+                     degraded=degraded, case=case, verify=verify,
+                     dtype="complex64", s=4096, **extra)
+        if faults is None:
+            line_fd = line["call_stats"]["detected"]
+            emit({"phase": "service_verify_clean", "false_detections":
+                  line_fd, "of_requests": len(reqs), **extra})
+
+    # -- service_elastic: a leave, then a growth to N = 9 ---------------
+    pool = ElasticWorkerPool(8, 4)
+    svc = FFTService(cfg(), pool=pool)
+    drive("service_elastic", svc, "c2c", reqs, want, 3e-4,
+          {"coded_fft_bucket_masked": 1}, step="all live", n_workers=8,
+          s=4096)
+    pool.leave(3)
+    drive("service_elastic", svc, "c2c", reqs, want, 3e-4,
+          {"coded_fft_bucket_masked": 1}, step="leave 3", n_workers=8,
+          s=4096)
+    pool.join()                                  # refills slot 3
+    grown = pool.join()                          # a new slot: N = 9
+    gr, gi = svc.generator_planes()
+    g9 = mds.rs_generator(9, 4, torch.complex64, gr.device)
+    if (grown != 8 or svc._n_workers() != 9 or tuple(gr.shape) != (9, 4)
+            or not torch.equal(gr, g9.real) or not torch.equal(gi, g9.imag)):
+        fail(f"service_elastic: slot {grown}, N {svc._n_workers()}, "
+             f"planes {tuple(gr.shape)}")
+    drive("service_elastic", svc, "c2c", reqs, want, 3e-4,
+          {"coded_fft_bucket_masked": 1}, step="join: N=9", n_workers=9,
+          s=4096, pool=pool.summary())
+
+    # -- measured_runtime: rows from the card on per-worker streams -----
+    reqs, want = make("c2c", 16, 4096)
+    svc = FFTService(cfg(measured=True, max_retries=6, on_failure="degrade",
+                         faults=FaultPlan().kill(3, rounds=999)))
+    for _ in range(2):                           # warm: learn the times
+        svc.submit_batch(reqs)
+    line = drive("measured_runtime", svc, "c2c", reqs, want, 3e-4,
+                 {"cmatmul": 0, "fourstep_fused": 0}, match="keys",
+                 case="coded, worker 3 killed", max_retries=6, s=4096)
+    n = line["requests"]
+    emit({"phase": "measured_runtime_times",
+          "t_met_ms": line["call_stats"]["coded_latency"] / n * 1e3,
+          "t_last_ms": line["call_stats"]["uncoded_latency"] / n * 1e3,
+          "health_ewma_ms": [None if v is None else v * 1e3
+                             for v in svc.health.summary()["ewma_s"]],
+          "min_deadline_ms": 2.0})
+    svc.close(wait=True)
+    svc = FFTService(cfg(measured=True, require_all=True, max_retries=0,
+                         on_failure="degrade",
+                         faults=FaultPlan().kill(3, rounds=999)))
+    drive("measured_runtime", svc, "c2c", reqs, want, 3e-4,
+          {"cmatmul": 0, "fourstep_fused": 0}, match="subset",
+          degraded="retries_exhausted", case="require_all, worker 3 killed",
+          s=4096)
+    svc.close(wait=True)
+    pool = ElasticWorkerPool(8, 4)
+    for w in range(5):
+        pool.leave(w)
+    svc = FFTService(cfg(measured=True, on_failure="degrade"), pool=pool)
+    drive("measured_runtime", svc, "c2c", reqs, want, 3e-4,
+          {"cmatmul": 0, "fourstep_fused": 0}, match="subset",
+          degraded="insufficient_workers", case="3 live of 8", s=4096)
+    svc.close(wait=True)
+    del reqs, want
+
+    # -- streaming_open_loop: Poisson arrivals, both modes --------------
+    svc = FFTService(FFTServiceConfig(
+        s=2048, m=4, n_workers=8, straggler=StragglerModel(t0=1.0, mu=1.0),
+        seed=0, max_batch=32, autotune=False))
+    svc.warmup()
+    pool_x, pool_want = make("c2c", 32, 2048)
+
+    def open_loop(scfg, rate, n_per, tiers=None):
+        svc.stats = ServiceStats()               # a fresh window per drive
+        stream = StreamingFFTService(svc, scfg)
+        arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n_per))
+        names = list(tiers or ())
+        pick = (rng.integers(len(names), size=n_per) if names
+                else np.zeros(n_per, int))
+        futs, rejected = [], 0
+        t0 = time.perf_counter()
+        for i, t_arr in enumerate(arrivals):
+            lag = t_arr - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            tier = names[pick[i]] if names else None
+            try:
+                futs.append((i, tier, stream.submit(pool_x[i % 32],
+                                                    tier=tier)))
+            except AdmissionError:
+                rejected += 1
+        stream.drain()
+        stream.close()
+        wall = time.perf_counter() - t0
+        worst = 0.0
+        for i, _, f in futs:
+            w = pool_want[i % 32]
+            worst = max(worst, float(np.abs(f.result() - w).max()
+                                     / np.abs(w).max()))
+        st = svc.stats.summary()
+        if (len(futs) + rejected != n_per
+                or st["host_transfers"] != st["batches"]
+                or st["latency"]["count"] != len(futs)):
+            fail(f"streaming_open_loop {rate} req/s: {len(futs)} + "
+                 f"{rejected} of {n_per}, {st['host_transfers']} fetches "
+                 f"for {st['batches']} buckets")
+        if not worst < 3e-4:
+            fail(f"streaming_open_loop {rate} req/s: err {worst} >= 3e-4")
+        lats = np.asarray([f.latency_s for _, _, f in futs]) * 1e3
+        row = {"offered_rps": rate, "n_offered": n_per,
+               "completed": len(futs), "rejected": rejected,
+               "wall_s": wall, "p50_ms": float(np.percentile(lats, 50)),
+               "p99_ms": float(np.percentile(lats, 99)),
+               "mean_ms": float(lats.mean()), "max_rel_err": worst,
+               "buckets": st["batches"],
+               "fill_dispatches": st["fill_dispatches"],
+               "deadline_dispatches": st["deadline_dispatches"],
+               "drain_dispatches": st["drain_dispatches"],
+               "queue_peak": st["queue_peak"],
+               "staging_overlap_s": st["staging_overlap_s"],
+               "dispatch_s": st["dispatch_s"], "sync_s": st["sync_s"]}
+        if names:
+            for name in names:
+                mine = np.asarray([f.latency_s for _, t, f in futs
+                                   if t == name]) * 1e3
+                row.setdefault("tiers", {})[name] = {
+                    "count": int(mine.size),
+                    "p50_ms": float(np.percentile(mine, 50)),
+                    "p99_ms": float(np.percentile(mine, 99)),
+                    "histogram": st["tiers"].get(name)}
+        return row
+
+    def counted_loop(scfg, rate, n_per, tiers=None):
+        with _TorchFftCalls(torch) as calls:
+            row, counts = counted(lambda: open_loop(scfg, rate, n_per,
+                                                    tiers))
+        if calls.calls or counts != {"coded_fft_bucket_masked":
+                                     row["buckets"]}:
+            fail(f"streaming_open_loop {rate} req/s: launches {counts}, "
+                 f"{calls.calls} torch.fft calls, {row['buckets']} buckets")
+        row["launches"] = counts
+        return row
+
+    slack = 5e-3
+    modes = {"streaming": StreamConfig(slack_s=slack),
+             "naive": StreamConfig(slack_s=slack, fill_only=True,
+                                   pipelined=False)}
+    for mode, scfg in modes.items():
+        curve = [counted_loop(scfg, rate, 600) for rate in (500, 1000, 2000)]
+        if mode == "streaming" and not sum(r["staging_overlap_s"]
+                                           for r in curve) > 0.0:
+            fail(f"streaming_open_loop: no staging overlap {curve}")
+        trace = profile_call(torch, lambda: open_loop(scfg, 1000, 600))
+        emit({"phase": "streaming_open_loop", "mode": mode, "s": 2048,
+              "m": 4, "n_workers": 8, "max_batch": 32,
+              "slack_ms": slack * 1e3, "curve": curve,
+              "profiled_run_1000_rps": trace})
+    tiers = {"interactive": 0.002, "standard": 0.005, "batch": 0.050}
+    scfg = StreamConfig(slack_s=slack, tiers=tiers)
+    row = counted_loop(scfg, 1000, 600, tiers)
+    trace = profile_call(torch, lambda: open_loop(scfg, 1000, 600, tiers))
+    emit({"phase": "streaming_open_loop", "mode": "streaming, mixed tiers",
+          "tiers_ms": {k: v * 1e3 for k, v in tiers.items()}, **row,
+          "profiled_run": trace})
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1818,6 +2180,11 @@ def main() -> int:
 
     # -- 8b. n-D: the service's rfftn / irfftn kinds and the n-D plans ----
     nd_transforms(torch, np, rng, dev, counted, service_masks)
+
+    # -- 8c. the fault runtime and the open-loop streaming front-end -----
+    t0 = time.perf_counter()
+    fault_runtime(torch, np, rng, counted)
+    emit({"phase": "fault_runtime_done", "seconds": time.perf_counter() - t0})
 
     # -- 9. the tuned four-step path --------------------------------------
     # (a) the default service's warmup search, from an empty cache: the

@@ -3,7 +3,9 @@
 A second package beside the JAX one (``repro``), with the same layout:
 ``core`` (plans and the MDS code), ``kernels`` (hand-written CUDA kernels
 and their plain PyTorch twins), ``serving`` (the batched FFT service and
-the LM generation engine), ``distributed`` (the straggler model),
+the LM generation engine, the open-loop streaming front-end),
+``distributed`` (the straggler model and the fault runtime: fault
+plans, worker health, the elastic pool, the measured worker runtime),
 ``configs`` and ``models`` (RWKV-6, whose prefill runs the ``wkv``
 kernel) and ``launch`` (``python -m repro_torch.launch.serve``).  It
 imports ``torch`` and
@@ -22,7 +24,10 @@ three more: the ``cmatmul`` encode and decode apply, and the four-step
 worker, fused or two-pass.  The n-D plans (``CodedFFTND``,
 ``CodedRFFTN``, ``CodedIRFFTN``, ``CodedFFTMultiInput``), and the
 service's rfftn and irfftn kinds through them, run the same kernels, the
-four-step swept over each shard axis.
+four-step swept over each shard axis.  The service's fault-tolerant path
+feeds deadline-derived masks to the same bucket kernels, and its
+Byzantine verify path and measured workers compute rows with ``cmatmul``
+and the four-step kernels.
 """
 
 from repro_torch.core import (

@@ -14,25 +14,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.distributed.faults import FaultPlan, WorkerFault
 from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.serving.fft_service import FFTServiceConfig
 
 __all__ = ["generator_from_reference", "config_from_reference",
-           "rwkv_params_from_reference"]
+           "fault_plan_from_reference", "rwkv_params_from_reference"]
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
-# Reference fields the port's config does not carry: the fault-runtime /
-# strategy parameters, which are inert at their reference defaults.
+# Reference fields the port's config does not carry: the strategy zoo's
+# parameter, which is inert at its reference default.
 _INERT_DEFAULTS = {
-    "deadline_slack": 0.5,
-    "max_retries": 2,
-    "retry_backoff": 2.0,
-    "verify_quorum": 2,
-    "on_failure": "raise",
-    "require_all": False,
     "strategy_param": None,
 }
+_FAULT_FIELDS = ("worker", "kind", "start_round", "rounds", "delay_s")
 
 
 def generator_from_reference(g: np.ndarray, device) -> tuple[torch.Tensor,
@@ -57,11 +53,26 @@ def _straggler(value) -> StragglerModel:
     return StragglerModel(t0=value.t0, mu=value.mu, wire_frac=value.wire_frac)
 
 
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def fault_plan_from_reference(value) -> FaultPlan | None:
+    """A reference ``FaultPlan`` (the object, or its ``dataclasses.asdict``
+    dict) -> the port's: the same faults and seed, so the same draws."""
+    if value is None or isinstance(value, FaultPlan):
+        return value
+    faults = tuple(WorkerFault(**{k: _field(f, k) for k in _FAULT_FIELDS})
+                   for f in _field(value, "faults"))
+    return FaultPlan(faults, int(_field(value, "seed")))
+
+
 def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
     """Map the reference ``FFTServiceConfig``'s fields (a dict, e.g. from
     ``dataclasses.asdict`` or ``vars``) onto the port's config.
 
-    The dtype maps by name, the straggler model by its three parameters;
+    The dtype maps by name, the straggler model by its three parameters,
+    a fault plan by its faults and seed;
     ``decode_method`` and ``worker_fn`` map as they are (a ``worker_fn``
     must take and return torch tensors on the port's side).  Fields the
     port does not carry must hold the reference default; any other value
@@ -77,12 +88,12 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
                 value = _DTYPES[np.dtype(value).name]
             elif name == "straggler":
                 value = _straggler(value)
+            elif name == "faults":
+                value = fault_plan_from_reference(value)
             kwargs[name] = value
         elif name in _INERT_DEFAULTS:
             if value != _INERT_DEFAULTS[name]:
-                item = ("Queue 1, the strategy zoo"
-                        if name == "strategy_param"
-                        else "Queue 1, the fault runtime")
+                item = "Queue 1, the strategy zoo"
                 raise NotImplementedError(
                     f"{name}={value!r} is not served by the PyTorch port "
                     f"yet -- see ROADMAP.md, {item}")

@@ -8,10 +8,12 @@ factors from ``plan_factors``), real-input (``CodedRFFTN``), real-output
 kernel and reference backends, all of them ``CodedPlan`` and ``MDSPlan``
 instances; the (N, m) Reed-Solomon code with the closed-form Lagrange
 decode and the transform decode's dispatch (``decode_auto``), interleave
-and recombine (1-D, n-D and half spectrum).
+and recombine (1-D, n-D and half spectrum); the Byzantine detection and
+correction of paper Remark 3 (``robust_decode``, ``RobustCodedFFT``).
 """
 
 from repro_torch.core.coded_fft import CodedFFT, CodedFFTND, plan_factors
+from repro_torch.core.fault_tolerance import RobustCodedFFT, robust_decode
 from repro_torch.core.interleave import (
     deinterleave,
     deinterleave_nd,
@@ -85,6 +87,7 @@ __all__ = [
     "LAGRANGE_MAX_M",
     "MDSPlan",
     "MDSPlanBase",
+    "RobustCodedFFT",
     "adjoint_fold_nd",
     "decode_auto",
     "decode_from_subset",
@@ -114,6 +117,7 @@ __all__ = [
     "recombine_nd",
     "require_even_shards",
     "resolve_device",
+    "robust_decode",
     "rs_generator",
     "rs_nodes",
     "split_packed",

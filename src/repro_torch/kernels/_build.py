@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -120,13 +121,23 @@ def build(names=SOURCES) -> dict[str, float]:
     return {name: dt for name in todo}
 
 
+# one build at a time in a process: threads that launch a kernel first
+# (the measured runtime's workers, the streaming stager) share its library
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
+    build((name,))
+    return ctypes.CDLL(str(_lib_path(name)))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     if name not in SOURCES:
         raise ValueError(f"unknown kernel library {name!r}")
-    build((name,))
-    return ctypes.CDLL(str(_lib_path(name)))
+    with _BUILD_LOCK:
+        return _load(name)
 
 
 def check(status: int, what: str) -> None:
@@ -137,20 +148,25 @@ def check(status: int, what: str) -> None:
 
 # -- launch counters -----------------------------------------------------
 # Each wrapper adds one here per CUDA kernel it launches (never on the CPU
-# path), so a run can prove the main path went through the kernels.
+# path), so a run can prove the main path went through the kernels.  A
+# lock keeps the counts exact when several threads launch at once.
 _LAUNCHES: dict[str, int] = {}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def count_launch(name: str, k: int = 1) -> None:
-    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + k
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + k
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        _LAUNCHES.clear()
 
 
 # -- wrapper helpers -------------------------------------------------------

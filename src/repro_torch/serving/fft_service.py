@@ -73,12 +73,31 @@ The numpy straggler draws happen in the reference service's order
 same-seed reference service sees the same masks and the same
 ``coded_latency``; real-kind shards ship half the c2c payload, so their
 draws charge the wire share at ``payload_scale=0.5``.
+
+The fault-tolerant path (opt-in: ``faults``, ``health``, ``verify``,
+``measured`` or an ``ElasticWorkerPool``) derives each round's masks at
+launch time from a learned DEADLINE (``WorkerHealthTracker``) with capped
+retry and re-dispatch rounds, in the reference's draw order (the
+straggler times, the injected kills and delays, then a fresh draw per
+re-dispatch round).  With ``verify="off"`` and no live corruption it
+serves the bucket through the same bucket executor, fed the deadline
+masks; otherwise (the instrumented path) a kernel-backend plan computes
+real worker rows -- the ``cmatmul`` encode and the four-step worker --,
+the injector corrupts them, and each request is verified on the host
+(complex128 syndromes) and decoded by the plan (``cmatmul``).
+``measured=True`` runs c2c buckets on the thread-per-worker
+``MeasuredWorkerRuntime``.  A request that cannot be served gets a typed
+:class:`ServiceError` (``on_failure="raise"``) or a
+:class:`DegradedResult` slot (``"degrade"``).  Plans, generator planes,
+decode caches and executors are keyed by the live code size N, which an
+elastic pool can grow.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -86,15 +105,25 @@ import torch
 
 from repro_torch.core import mds
 from repro_torch.core.coded_fft import CodedFFT, plan_factors
+from repro_torch.core.fault_tolerance import detect_errors, robust_decode
 from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.core.rfftn import CodedIRFFTN, CodedRFFTN
+from repro_torch.distributed.elastic import ElasticWorkerPool
+from repro_torch.distributed.faults import (
+    FaultInjector,
+    FaultPlan,
+    RoundFaults,
+)
+from repro_torch.distributed.health import WorkerHealthTracker
 from repro_torch.distributed.straggler import StragglerModel
+from repro_torch.distributed.worker_runtime import MeasuredWorkerRuntime
 from repro_torch.kernels import autotune, ops, ref
-from repro_torch.serving.batching import bucket_size
+from repro_torch.serving.batching import LatencyHistogram, bucket_size
 from repro_torch.serving.decode_cache import DecodeMatrixCache
 
-__all__ = ["FFTService", "FFTServiceConfig", "ServiceStats"]
+__all__ = ["DegradedResult", "FAILURE_REASONS", "FFTService",
+           "FFTServiceConfig", "ServiceError", "ServiceStats"]
 
 _NUMPY_DTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 _PLAN_CLASS = {"c2c": CodedFFT, "r2c": CodedRFFT, "c2r": CodedIRFFT,
@@ -105,6 +134,65 @@ _WHOLE = {
     "r2c": (ops.coded_rbucket_masked, ops.coded_rbucket),
     "c2r": (ops.coded_irbucket_masked, ops.coded_irbucket),
 }
+
+# machine-readable per-request failure reasons
+FAILURE_REASONS = ("insufficient_workers", "retries_exhausted",
+                   "corrupt_uncorrectable")
+
+
+class ServiceError(RuntimeError):
+    """Typed per-request failure from the fault-tolerant service path.
+
+    ``reason`` is one of :data:`FAILURE_REASONS`:
+
+    * ``insufficient_workers`` -- fewer than ``m`` live workers exist (or
+      none are healthy enough to re-dispatch to), so the MDS threshold is
+      unreachable no matter how long the master waits.
+    * ``retries_exhausted`` -- ``m`` responses never arrived inside the
+      capped retry windows (``max_retries`` x ``retry_backoff``).
+    * ``corrupt_uncorrectable`` -- the Byzantine syndrome check failed and
+      correction was impossible (``verify="detect"``, or more than
+      ``floor((k - m)/2)`` corrupt responders under ``verify="correct"``).
+
+    Surfaces as a raised exception from ``submit_batch``
+    (``on_failure="raise"``), a :class:`DegradedResult` slot
+    (``on_failure="degrade"``), and a per-request Future exception on the
+    streaming path -- never as a dead scheduler thread.
+    """
+
+    def __init__(self, reason: str, detail: str = ""):
+        if reason not in FAILURE_REASONS:
+            raise ValueError(f"unknown failure reason {reason!r}")
+        super().__init__(f"request failed: {reason}"
+                         + (f" ({detail})" if detail else ""))
+        self.reason = reason
+        self.detail = detail
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradedResult:
+    """Graceful-degradation slot value (``on_failure="degrade"``).
+
+    Takes the place of the transform result for a request the fault path
+    could not serve; ``reason``/``detail`` mirror :class:`ServiceError`.
+    """
+
+    reason: str
+    detail: str = ""
+
+    @property
+    def ok(self) -> bool:
+        return False
+
+
+class _Launched:
+    """A launched robust bucket: its rows on the device + per-row errors."""
+
+    __slots__ = ("out", "errors")
+
+    def __init__(self, out: torch.Tensor, errors: list):
+        self.out = out          # (bucket, *output_shape), not synced
+        self.errors = errors    # per-bucket-row Optional[ServiceError]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,23 +222,39 @@ class FFTServiceConfig:
     #                               (kernels/autotune.py); dispatch routes
     #                               by shape on a miss
     autotune_reps: int = 3        # timing repetitions per candidate
+    # -- fault-tolerant runtime (opt-in) ----------------------------------
+    faults: Optional[FaultPlan] = None  # seeded kill/delay/corrupt schedule;
+    #                               None leaves every code path the
+    #                               fault-free one
+    health: bool = False          # track per-worker EWMAs and derive each
+    #                               round's availability mask from a DEADLINE
+    #                               (m-th-fastest estimate + slack) instead of
+    #                               a straggler draw's m-th order statistic
+    deadline_slack: float = 0.5   # deadline = (1 + slack) * m-th-fastest
+    max_retries: int = 2          # re-dispatch rounds for missing shards
+    retry_backoff: float = 2.0    # wait-window multiplier per retry
+    verify: str = "off"           # Byzantine check on surplus responses when
+    #                               k > m arrive: "off" | "detect" | "correct"
+    #                               (detect k-m, correct floor((k-m)/2))
+    verify_quorum: int = 2        # measured path only: extra rows beyond m
+    #                               the master waits for when verify is on
+    on_failure: str = "raise"     # "raise" ServiceError from submit_batch, or
+    #                               "degrade" to a DegradedResult slot
+    measured: bool = False        # run c2c buckets on the thread-per-worker
+    #                               MeasuredWorkerRuntime (wall-clock
+    #                               deadlines and retries, rows from the
+    #                               service's device)
+    require_all: bool = False     # measured path waits for ALL live workers
+    #                               (the uncoded baseline)
     # -- the options below are served by later slices of the port; a
     #    non-default value raises NotImplementedError at construction
     precision: str = "f32"        # "bf16" plane precision
-    faults: Optional[object] = None
-    health: bool = False
-    verify: str = "off"
-    measured: bool = False
     strategy: str = "mds"
 
 
 # config values this slice does not serve -> the ROADMAP item serving them
 _LATER = {
     "precision": ("f32", "Queue 1, bf16 planes (the bf16 probe)"),
-    "faults": (None, "the fault runtime"),
-    "health": (False, "the fault runtime"),
-    "verify": ("off", "the fault runtime"),
-    "measured": (False, "the fault runtime"),
     "strategy": ("mds", "the strategy zoo"),
 }
 
@@ -170,9 +274,35 @@ class ServiceStats:
     stragglers_tolerated: int = 0
     dispatch_s: float = 0.0        # wall time staging + launching buckets
     sync_s: float = 0.0            # wall time blocked on device results
-    host_transfers: int = 0        # device->host fetches (1 per submit_batch)
+    host_transfers: int = 0        # device->host fetches (1 per submit_batch
+    #                                call; 1 per bucket on the streaming path)
     decode_cache_hits: int = 0     # host decode-matrix LRU hits
     decode_cache_misses: int = 0   # ... and misses (host inversions paid)
+    # -- open-loop streaming observables (serving/streaming.py) -----------
+    queue_peak: int = 0            # high-water mark of undispatched requests
+    rejected: int = 0              # admission-control rejections (both
+    #                                "queue_full" and "closed" reasons)
+    cancelled: int = 0             # futures the caller cancelled before
+    #                                resolution (the bucket still computed)
+    fill_dispatches: int = 0       # buckets dispatched because they filled
+    deadline_dispatches: int = 0   # ... because the earliest deadline
+    #                                across bucket heads expired (EDF)
+    drain_dispatches: int = 0      # ... flushed by drain()/close()
+    staging_overlap_s: float = 0.0  # host staging wall time hidden behind
+    #                                 a downstream bucket's device compute
+    # -- fault-tolerant runtime observables -------------------------------
+    retries: int = 0               # retry rounds performed (window extensions)
+    redispatched_shards: int = 0   # shard computations re-dispatched to
+    #                                healthy workers after a missed deadline
+    degraded: int = 0              # requests that failed with a typed reason
+    detected: int = 0              # corrupt workers caught by the syndrome
+    #                                check (verify="detect"/"correct")
+    corrected: int = 0             # ... of those, corrected (verify="correct")
+    latency: LatencyHistogram = dataclasses.field(
+        default_factory=LatencyHistogram)  # per-request arrival->result
+    tier_latency: dict = dataclasses.field(default_factory=dict)
+    #                              # per-SLO-tier LatencyHistogram, keyed by
+    #                                tier name (streaming front-end only)
 
     def summary(self) -> dict:
         n = max(self.requests, 1)
@@ -184,11 +314,26 @@ class ServiceStats:
             "speedup": (self.uncoded_latency / self.coded_latency
                         if self.coded_latency > 0 else float("nan")),
             "stragglers_tolerated": self.stragglers_tolerated,
+            "decode_cache_hits": self.decode_cache_hits,
+            "decode_cache_misses": self.decode_cache_misses,
             "dispatch_s": self.dispatch_s,
             "sync_s": self.sync_s,
             "host_transfers": self.host_transfers,
-            "decode_cache_hits": self.decode_cache_hits,
-            "decode_cache_misses": self.decode_cache_misses,
+            "queue_peak": self.queue_peak,
+            "rejected": self.rejected,
+            "cancelled": self.cancelled,
+            "fill_dispatches": self.fill_dispatches,
+            "deadline_dispatches": self.deadline_dispatches,
+            "drain_dispatches": self.drain_dispatches,
+            "staging_overlap_s": self.staging_overlap_s,
+            "retries": self.retries,
+            "redispatched_shards": self.redispatched_shards,
+            "degraded": self.degraded,
+            "detected": self.detected,
+            "corrected": self.corrected,
+            "latency": self.latency.summary(),
+            "tiers": {name: hist.summary()
+                      for name, hist in sorted(self.tier_latency.items())},
         }
 
 
@@ -201,7 +346,10 @@ class FFTService:
     ``(s, kind)`` gets its own plan and bucket executors.
     ``device=None`` runs on CUDA and raises without a GPU;
     ``device="cpu"`` runs the kernels' plain PyTorch versions (the tests'
-    mode) with the same route decisions.
+    mode) with the same route decisions.  ``pool``: an
+    ``ElasticWorkerPool`` with the config's ``m`` whose membership the
+    fault-tolerant path reads each round (its capacity is the live N).
+    ``close()`` stops the measured runtime's worker threads.
     """
 
     KINDS = ("c2c", "r2c", "c2r", "rfftn", "irfftn")
@@ -213,34 +361,72 @@ class FFTService:
     ND_KINDS = ("rfftn", "irfftn")
 
     def __init__(self, cfg: FFTServiceConfig, device=None, *, mesh=None,
-                 pool=None):
+                 pool: Optional[ElasticWorkerPool] = None):
         for name, (default, item) in _LATER.items():
             if getattr(cfg, name) != default:
                 raise _not_ported(f"{name}={getattr(cfg, name)!r}", item)
         if mesh is not None:
             raise _not_ported("a mesh", "the multi-device runtime")
-        if pool is not None:
-            raise _not_ported("an elastic worker pool", "the fault runtime")
+        if cfg.verify not in ("off", "detect", "correct"):
+            raise ValueError(
+                f'verify must be "off"|"detect"|"correct", got {cfg.verify!r}')
+        if cfg.on_failure not in ("raise", "degrade"):
+            raise ValueError(
+                f'on_failure must be "raise"|"degrade", got {cfg.on_failure!r}')
+        if pool is not None and pool.m != cfg.m:
+            raise ValueError(
+                f"pool threshold m={pool.m} must match cfg.m={cfg.m}")
         if cfg.dtype not in _NUMPY_DTYPE:
             raise ValueError(f"dtype must be complex64 or complex128, got "
                              f"{cfg.dtype}")
         if cfg.decode_method not in ("auto", "solve", "ifft"):
             raise ValueError(f"unknown decode_method {cfg.decode_method!r}")
         self.cfg = cfg
+        self.pool = pool
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
         self.stats = ServiceStats()
-        self._plans: dict[tuple[int, str], object] = {}
+        # plans, generator planes, decode-matrix LRUs and executors are
+        # keyed by the live code size N: an elastic pool can GROW it, and
+        # each N is a distinct roots-of-unity code
+        self._plans: dict[tuple, object] = {}
+        # the instrumented (verify / measured) path's kernel-backend plans
+        self._kplans: dict[tuple, object] = {}
         self._runners: dict[tuple, object] = {}
-        self._gplanes: Optional[tuple[torch.Tensor, torch.Tensor]] = None
-        self._decode_cache: Optional[DecodeMatrixCache] = None
+        self._gplanes: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._decode_caches: dict[int, DecodeMatrixCache] = {}
+        # -- fault-tolerant runtime state ---------------------------------
+        self._robust = (cfg.faults is not None or cfg.health
+                        or cfg.verify != "off" or cfg.measured
+                        or pool is not None)
+        self.injector = (FaultInjector(cfg.faults)
+                         if cfg.faults is not None else None)
+        self.health = (WorkerHealthTracker(
+            self._n_workers(), slack_frac=cfg.deadline_slack)
+            if self._robust else None)
+        self._measured: dict[tuple, MeasuredWorkerRuntime] = {}
+        self._round = 0                # monotone fault/health round counter
         self.plan = self._plan_for(cfg.s)
         self._check_servable(cfg.s, "c2c")
 
+    def _n_workers(self) -> int:
+        """Current code size N: the pool's capacity when elastic, else the
+        config's."""
+        return self.pool.capacity if self.pool is not None \
+            else self.cfg.n_workers
+
+    def close(self, wait: bool = False) -> None:
+        """Stop the measured runtimes' worker threads (a no-op for a
+        service that built none); ``wait=True`` also waits for rows still
+        computing."""
+        for rt in self._measured.values():
+            rt.close(wait=wait)
+        self._measured.clear()
+
     def _route(self, s: int, kind: str) -> str:
         """The kernel path's ``ops.bucket_route`` for ``(s, kind)``
-        buckets on this service's decode path."""
-        return ops.bucket_route(s, self.cfg.m, self.cfg.n_workers, kind,
+        buckets at the live N on this service's decode path."""
+        return ops.bucket_route(s, self.cfg.m, self._n_workers(), kind,
                                 masked=self._device_decode())
 
     def _check_servable(self, s, kind: str) -> None:
@@ -248,18 +434,21 @@ class FFTService:
         would take the stage route with a code the stage kernels cannot
         carry (``ops.check_stage_code``); the recombine kernel serves the
         c2c kind only.  An n-D bucket's kernel-backend plan holds the (N,
-        m) code in ``mds_apply``, so its code is checked the same way."""
+        m) code in ``mds_apply``, so its code is checked the same way.  The
+        code is the live one: an elastic pool's growth is checked before
+        that bucket's draw."""
         cfg = self.cfg
+        n = self._n_workers()
         if kind in self.ND_KINDS:
             if (not cfg.use_reference
                     and ops.kernel_backend_supported(cfg.dtype)):
                 ops.check_stage_code(
-                    cfg.n_workers, cfg.m,
+                    n, cfg.m,
                     f"the mds_apply of shape {tuple(s)} {kind} plans")
             return
         if self._kernel_path(s, kind) and self._route(s, kind) == "stage":
             ops.check_stage_code(
-                self.cfg.n_workers, self.cfg.m,
+                n, self.cfg.m,
                 f"the stage route of s={s} {kind} buckets",
                 recombine=kind == "c2c")
 
@@ -276,8 +465,9 @@ class FFTService:
         the length -- the bucket kernels compute -- so it is built on the
         reference backend, free of the plan kernels' bounds; the
         ``plan.run`` executor's plan takes the kernel backend unless
-        ``use_reference``."""
-        key = (s, kind)
+        ``use_reference``.  Keyed by ``(s, kind, N)`` at the live N."""
+        n = self._n_workers()
+        key = (s, kind, n)
         if key not in self._plans:
             cfg = self.cfg
             if cfg.worker_fn is not None and kind != "c2c":
@@ -293,42 +483,65 @@ class FFTService:
                 if kind == "c2c":
                     kwargs["worker_fn"] = cfg.worker_fn
             self._plans[key] = _PLAN_CLASS[kind](
-                n_workers=cfg.n_workers, dtype=cfg.dtype,
+                n_workers=n, dtype=cfg.dtype,
                 backend=("reference" if cfg.use_reference
                          or self._kernel_path(s, kind) else "kernel"),
                 device=self.device, **kwargs)
         return self._plans[key]
 
+    def _instrumented_plan(self, s, kind: str):
+        """The plan the instrumented path (verify, measured) computes real
+        worker rows with.  A bucket-kernel bucket's ``_plan_for`` plan is
+        on the reference backend (it only holds the code), so this is a
+        kernel-backend plan of its own -- its ``encode`` runs ``cmatmul``,
+        its ``worker_compute`` the four-step kernels, its one-request
+        ``decode`` ``cmatmul`` -- cached by ``(s, kind, N)``.  Any other
+        bucket's plan (``plan.run`` executor) already computes as the
+        service does, and serves as it is."""
+        if not self._kernel_path(s, kind):
+            return self._plan_for(s, kind)
+        cfg = self.cfg
+        n = self._n_workers()
+        key = (s, kind, n)
+        if key not in self._kplans:
+            self._kplans[key] = _PLAN_CLASS[kind](
+                s=s, m=cfg.m, n_workers=n, dtype=cfg.dtype,
+                backend="kernel", device=self.device)
+        return self._kplans[key]
+
     def generator_planes(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The (N, m) generator as f32 planes on the service's device --
-        the code's only state, shared by every bucket length."""
-        if self._gplanes is None:
-            self._gplanes = ref.planar(self.plan.generator)
-        return self._gplanes
+        """The live (N, m) generator as f32 planes on the service's
+        device -- the code's only state, shared by every bucket length."""
+        n = self._n_workers()
+        if n not in self._gplanes:
+            self._gplanes[n] = ref.planar(self._plan_for(self.cfg.s).generator)
+        return self._gplanes[n]
 
     def load_generator(self, gr: torch.Tensor, gi: torch.Tensor) -> None:
-        """Replace the kernel path's generator planes (e.g. with another
-        implementation's, via ``repro_torch.convert``).  Drops the built
-        executors, which captured the old planes, and the decode-matrix
-        LRU, which inverted them."""
-        want = (self.cfg.n_workers, self.cfg.m)
+        """Replace the kernel path's generator planes at the live N (e.g.
+        with another implementation's, via ``repro_torch.convert``).
+        Drops the built executors, which captured the old planes, and
+        that N's decode-matrix LRU, which inverted them."""
+        n = self._n_workers()
+        want = (n, self.cfg.m)
         if tuple(gr.shape) != want or tuple(gi.shape) != want:
             raise ValueError(f"generator planes must be {want}, got "
                              f"{tuple(gr.shape)} / {tuple(gi.shape)}")
-        self._gplanes = (gr.to(self.device, torch.float32).contiguous(),
-                         gi.to(self.device, torch.float32).contiguous())
+        self._gplanes[n] = (gr.to(self.device, torch.float32).contiguous(),
+                            gi.to(self.device, torch.float32).contiguous())
         self._runners.clear()
-        self._decode_cache = None
+        self._decode_caches.pop(n, None)
 
     def _decode_cache_for(self) -> DecodeMatrixCache:
-        """The host decode-matrix LRU over the generator planes: one for
-        the service's (N, m) code, shared by every ``(s, kind)``."""
-        if self._decode_cache is None:
+        """The host decode-matrix LRU over the generator planes: one per
+        live (N, m) code, shared by every ``(s, kind)``."""
+        n = self._n_workers()
+        if n not in self._decode_caches:
             gr, gi = self.generator_planes()
             g = gr.cpu().numpy() + 1j * gi.cpu().numpy()
-            self._decode_cache = DecodeMatrixCache(
+            self._decode_caches[n] = DecodeMatrixCache(
                 g.astype(np.complex64), maxsize=self.cfg.decode_cache_size)
-        return self._decode_cache
+        return self._decode_caches[n]
 
     def _kernel_path(self, s, kind: str = "c2c") -> bool:
         """Does this bucket run the bucket kernels (else ``plan.run``)?
@@ -351,7 +564,7 @@ class FFTService:
     def _runner_for(self, s, bucket: int, kind: str = "c2c"):
         kernel = self._kernel_path(s, kind)
         masked = kernel and self._device_decode()
-        key = (s, kind, bucket, kernel, masked)
+        key = (s, kind, bucket, kernel, masked, self._n_workers())
         if key not in self._runners:
             if kernel:
                 self._runners[key] = self._make_kernel_runner(
@@ -378,7 +591,7 @@ class FFTService:
         past it streams, ``ops.coded_bucket`` and
         ``ops.coded_bucket_masked`` routing it), else the stage kernels.
         """
-        m, n = self.cfg.m, self.cfg.n_workers
+        m, n = self.cfg.m, self._n_workers()
         gr, gi = self.generator_planes()
         whole = self._route(s, kind) != "stage"
         whole_fn = _WHOLE[kind][0 if masked else 1]
@@ -472,6 +685,317 @@ class FFTService:
         self.stats.stragglers_tolerated += int((~mask).sum())
         self.stats.uncoded_latency += float(lat_sorted[:, -1].sum())
 
+    # -- fault-tolerant bucket path (opt-in) -------------------------------
+    def _fault_arrivals(self, n_live: int, kind: str):
+        """The deadline/retry state machine for one robust bucket.
+
+        Ground truth is still a per-(request, worker) completion-time draw
+        (plus injected kill=inf / delay=+d), but the MASK is no longer "the
+        m fastest of the draw": the master only admits workers whose time
+        beats the LEARNED deadline (m-th-fastest health estimate + slack).
+        Requests below the threshold go through capped retry rounds --
+        late originals count, missing shards are re-dispatched to healthy
+        workers with fresh draws, the window backs off geometrically --
+        and requests that still miss get a typed ServiceError.  The draws
+        are the reference's, in its order (the ``"mds"`` strategy's
+        branch: a per-worker mask, threshold ``m``).
+
+        Returns ``(masks, errors, t_comp, lat, round_faults, round_idx)``.
+        """
+        cfg = self.cfg
+        n = self._n_workers()
+        need = cfg.m
+        if self.health.n_workers < n:
+            self.health.grow(n)       # elastic capacity growth keeps history
+        round_idx = self._round
+        self._round += 1
+        rf = (self.injector.faults_for(round_idx)
+              if self.injector is not None else RoundFaults())
+        alive = (self.pool.mask() if self.pool is not None
+                 else np.ones(n, bool))
+        scale = self._wire_scale(kind)
+        lat = cfg.straggler.sample((n_live, n), 1.0 / cfg.m, self.rng,
+                                   payload_scale=scale)
+        if self.injector is not None:
+            lat = self.injector.perturb_latencies(lat, round_idx)
+        lat = np.where(alive[None, :], lat, np.inf)
+        errors: list = [None] * n_live
+        masks = np.zeros((n_live, n), bool)
+        t_comp = np.full(n_live, np.inf)
+
+        if int(alive.sum()) < need:
+            err = ServiceError(
+                "insufficient_workers",
+                f"{int(alive.sum())} live workers < threshold {need}")
+            errors = [err] * n_live
+            self.stats.degraded += n_live
+            masks[:] = True   # padding decode stays well-posed; never surfaced
+            return masks, errors, t_comp, lat, rf, round_idx
+
+        if self.health.rounds == 0:
+            # cold start: no learned estimates yet -- bootstrap from this
+            # round's own threshold-order statistics
+            kth = np.sort(lat, axis=1)[:, need - 1]
+            kth = kth[np.isfinite(kth)]
+            deadline = (float(kth.max()) * (1.0 + cfg.deadline_slack)
+                        if kth.size else float("inf"))
+        else:
+            deadline = self.health.deadline(need, alive=alive)
+        masks = self.health.mask_from_times(lat, deadline) & alive
+        met = masks.sum(axis=1) >= need
+        t_comp[met] = np.sort(lat, axis=1)[:, need - 1][met]
+
+        killed = np.zeros(n, bool)
+        for w in rf.killed:
+            if w < n:
+                killed[w] = True
+        healthy = alive & ~killed & ~self.health.byzantine[:n]
+        window = deadline
+        for _ in range(cfg.max_retries):
+            if met.all():
+                break
+            prev = window
+            window *= cfg.retry_backoff
+            self.stats.retries += 1
+            for i in np.flatnonzero(~met):
+                # late originals land inside the extended window
+                masks[i] |= self.health.mask_from_times(lat[i], window) & alive
+                missing = np.flatnonzero(alive & ~masks[i])
+                if missing.size and healthy.any():
+                    # re-dispatch the missing shard rows to healthy workers:
+                    # fresh work issued when the previous window closed,
+                    # racing the extension (a shard row is data, not a
+                    # worker identity -- any healthy thread recomputes it)
+                    redraw = cfg.straggler.sample(
+                        missing.size, 1.0 / cfg.m, self.rng,
+                        payload_scale=scale)
+                    masks[i][missing[prev + redraw <= window]] = True
+                    self.stats.redispatched_shards += int(missing.size)
+                if int(masks[i].sum()) >= need:
+                    met[i] = True
+                    t_comp[i] = window   # conservative: met at window close
+        for i in np.flatnonzero(~met):
+            if not healthy.any():
+                reason = "insufficient_workers"
+                detail = "no healthy workers to re-dispatch to"
+            else:
+                detail = (f"{int(masks[i].sum())}/{need} shards after "
+                          f"{cfg.max_retries} retries")
+                reason = "retries_exhausted"
+            errors[i] = ServiceError(reason, detail)
+            self.stats.degraded += 1
+            masks[i] = True
+        # feed the tracker: per-worker mean measured time this round
+        col = np.where(np.isfinite(lat), lat, np.nan)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            col_mean = np.nanmean(col, axis=0)
+        self.health.observe_round(np.where(np.isnan(col_mean), np.inf,
+                                           col_mean))
+        return masks, errors, t_comp, lat, rf, round_idx
+
+    def _account_robust(self, t_comp: np.ndarray, lat: np.ndarray,
+                        masks: np.ndarray, errors: list) -> None:
+        self.stats.requests += int(t_comp.shape[0])
+        finite = lat[np.isfinite(lat)]
+        cap = float(finite.max()) if finite.size else 0.0
+        coded = np.where(np.isfinite(t_comp), t_comp, cap)
+        self.stats.coded_latency += float(coded.sum())
+        unc = np.where(np.isfinite(lat), lat, cap).max(axis=1)
+        self.stats.uncoded_latency += float(unc.sum())
+        ok = np.array([e is None for e in errors], bool)
+        if ok.any():
+            self.stats.stragglers_tolerated += int((~masks[ok]).sum())
+
+    def _robust_launch(self, s, bucket: int, kind: str, xb: np.ndarray,
+                       n_live: int) -> _Launched:
+        """Launch one staged bucket through the fault-tolerant path."""
+        cfg = self.cfg
+        n = self._n_workers()
+        if cfg.measured:
+            if kind != "c2c":
+                raise ValueError(
+                    "measured=True serves c2c buckets only "
+                    "(MeasuredWorkerRuntime is a 1-D c2c runtime)")
+            return self._measured_launch(s, bucket, xb, n_live)
+        masks, errors, t_comp, lat, rf, round_idx = \
+            self._fault_arrivals(n_live, kind)
+        self._account_robust(t_comp, lat, masks, errors)
+        # the bucket's plan raises its length errors here, after the draws,
+        # as the reference's executor lookup does
+        self._plan_for(s, kind)
+        full = np.ones((bucket, n), bool)
+        full[:n_live] = masks
+        errors = errors + [None] * (bucket - n_live)
+        live_corrupt = [w for w in sorted(rf.corrupt) if w < n]
+        if cfg.verify == "off" and not live_corrupt:
+            # fault-free data path: the bucket executor (on the kernel path
+            # the masked whole-bucket or streaming kernel) fed the
+            # deadline-derived masks
+            out = self._runner_for(s, bucket, kind)(
+                *self._bucket_args(s, kind, xb, full))
+            return _Launched(out, errors)
+        # instrumented path: corruption must land in real worker rows and
+        # verification must see them
+        rows, errors = self._verify_execute(s, kind, xb, full, errors,
+                                            round_idx, rf, n_live)
+        return _Launched(rows, errors)
+
+    def _verify_execute(self, s, kind: str, xb: np.ndarray,
+                        masks: np.ndarray, errors: list, round_idx: int,
+                        rf: RoundFaults, n_live: int
+                        ) -> tuple[torch.Tensor, list]:
+        """Instrumented bucket execution: real worker rows from the
+        kernel-backend plan, injected corruption, per-request Byzantine
+        verification + decode."""
+        plan = self._instrumented_plan(s, kind)
+        b = plan.worker_compute(plan.encode(
+            torch.as_tensor(xb, device=self.device)))
+        live_corrupt = [w for w in sorted(rf.corrupt) if w < plan.n_workers]
+        if live_corrupt and self.injector is not None:
+            # the reference corrupts complex128 host rows: so does this
+            bh = b.cpu().numpy().astype(np.complex128)
+            b = torch.as_tensor(self.injector.corrupt_array(
+                bh, live_corrupt, round_idx, worker_axis=1),
+                device=self.device)
+        return self._decode_collected(s, kind, b, masks, errors, n_live)
+
+    def _decode_collected(self, s, kind: str, b: torch.Tensor,
+                          masks: np.ndarray, errors: list, n_live: int
+                          ) -> tuple[torch.Tensor, list]:
+        """Per-request decode of collected worker rows ``(bucket, N, ...)``,
+        with the configured Byzantine check on surplus responses.
+
+        ``verify="detect"``: k > m responses run the generalized-RS
+        syndrome check (catches up to k - m liars); a hit fails the request
+        (detection cannot say WHO lied with that budget).
+        ``verify="correct"``: Prony error location corrects up to
+        floor((k - m)/2) corrupt rows, flags the offenders into the health
+        tracker (excluded from future re-dispatch), and decodes from clean
+        rows.  The syndromes run in complex128 on the host; every decode
+        is the instrumented plan's one-request ``decode`` on the device.
+        Returns the bucket's rows on the device (zeros under an error).
+        """
+        cfg = self.cfg
+        plan = self._instrumented_plan(s, kind)
+        m, n = plan.m, plan.n_workers
+        bucket = b.shape[0]
+        nodes_all = mds.rs_nodes(n, torch.complex128).numpy()
+        zero = torch.as_tensor(self._zero_row(s, kind), device=self.device)
+        rows: list = [zero] * bucket
+        host_rows = None             # the bucket's rows on the host, once
+        for i in range(min(bucket, n_live)):   # padding rows never decode
+            if errors[i] is not None:
+                continue
+            recv = np.flatnonzero(masks[i])
+            k = int(recv.size)
+            bi = b[i].to(plan.dtype)
+            if cfg.verify != "off" and k > m:
+                if host_rows is None:
+                    host_rows = b.cpu().numpy().astype(np.complex128)
+                host = host_rows[i]
+                if cfg.verify == "detect":
+                    if detect_errors(nodes_all[recv],
+                                     host[recv].reshape(k, -1), m):
+                        self.stats.detected += 1
+                        self.stats.degraded += 1
+                        errors[i] = ServiceError(
+                            "corrupt_uncorrectable",
+                            f"syndrome check failed over {k} responses "
+                            f'(verify="detect" cannot correct)')
+                        continue
+                    y = plan.decode(bi, subset=torch.as_tensor(
+                        recv[:m], device=self.device))
+                else:
+                    res = robust_decode(plan, host, recv)
+                    if not res.ok:
+                        self.stats.detected += 1
+                        self.stats.degraded += 1
+                        errors[i] = ServiceError(
+                            "corrupt_uncorrectable",
+                            f"more than {(k - m) // 2} corrupt rows among "
+                            f"{k} responses")
+                        continue
+                    if res.n_errors_corrected:
+                        self.stats.detected += res.n_errors_corrected
+                        self.stats.corrected += res.n_errors_corrected
+                        for w in np.asarray(
+                                res.error_worker_indices).tolist():
+                            self.health.flag_byzantine(int(w))
+                    y = torch.as_tensor(res.output, device=self.device)
+            else:
+                y = plan.decode(bi, mask=torch.as_tensor(
+                    masks[i], device=self.device))
+            rows[i] = y.to(zero.dtype)
+        return torch.stack(rows), errors
+
+    def _zero_row(self, s, kind: str) -> np.ndarray:
+        """All-zeros result row (the slot value under a per-row error)."""
+        plan = self._plan_for(s, kind)
+        cdt = _NUMPY_DTYPE[self.cfg.dtype]
+        dt = np.finfo(cdt).dtype if kind in ("c2r", "irfftn") else cdt
+        return np.zeros(tuple(plan.output_shape), dt)
+
+    def _measured_for(self, s: int) -> MeasuredWorkerRuntime:
+        cfg = self.cfg
+        key = (s, self._n_workers())
+        if key not in self._measured:
+            self._measured[key] = MeasuredWorkerRuntime(
+                self._instrumented_plan(s, "c2c"), self.health,
+                injector=self.injector, max_retries=cfg.max_retries,
+                retry_backoff=cfg.retry_backoff,
+                require_all=cfg.require_all,
+                threshold_extra=(0 if cfg.verify == "off"
+                                 else cfg.verify_quorum))
+        return self._measured[key]
+
+    def _measured_launch(self, s: int, bucket: int, xb: np.ndarray,
+                         n_live: int) -> _Launched:
+        """Run one bucket on the thread-per-worker measured runtime."""
+        n = self._n_workers()
+        rt = self._measured_for(s)
+        round_idx = self._round
+        self._round += 1
+        alive = self.pool.mask() if self.pool is not None else None
+        res = rt.round(xb, round_idx, alive)
+        self.stats.retries += res.retries
+        self.stats.redispatched_shards += res.redispatched
+        self.stats.requests += n_live
+        t_last = res.t_last if np.isfinite(res.t_last) else 0.0
+        self.stats.uncoded_latency += t_last * n_live
+        errors: list = [None] * bucket
+        if not res.ok:
+            err = ServiceError(res.reason, f"measured round {round_idx}")
+            for i in range(n_live):
+                errors[i] = err
+            self.stats.degraded += n_live
+            self.stats.coded_latency += t_last * n_live
+            zero = torch.as_tensor(self._zero_row(s, "c2c"),
+                                   device=self.device)
+            return _Launched(zero.expand((bucket,) + tuple(zero.shape))
+                             .contiguous(), errors)
+        self.stats.coded_latency += float(res.t_met) * n_live
+        alive_arr = np.ones(n, bool) if alive is None else alive
+        self.stats.stragglers_tolerated += \
+            int((alive_arr & ~res.mask).sum()) * n_live
+        masks = np.ones((bucket, n), bool)
+        masks[:n_live] = res.mask[None, :]
+        # corruption was already injected by the worker threads inside
+        # res.b, so the shared decode/verify step runs as-is
+        return _Launched(*self._decode_collected(s, "c2c", res.b, masks,
+                                                 errors, n_live))
+
+    def fetch_bucket(self, out) -> tuple[np.ndarray, Optional[list]]:
+        """Host rows + per-row errors for one launched bucket.
+
+        The streaming syncer calls this instead of a bare ``.cpu()`` so
+        the robust path's per-row :class:`ServiceError` objects never go
+        through a device transfer.  The copy runs on the caller's current
+        stream."""
+        if isinstance(out, _Launched):
+            return out.out.cpu().numpy(), out.errors
+        return out.cpu().numpy(), None
+
     # -- staging seam ----------------------------------------------------
     def _check_kind(self, kind: str) -> None:
         """Refuse an unknown kind with the reference's error."""
@@ -544,16 +1068,27 @@ class FFTService:
 
         ``masks`` (``(len(reqs), N)`` bool) stages the bucket with those
         responders instead of a straggler draw, and accounts no latency:
-        the seam a check uses to serve a bucket with chosen responders.
+        the seam a check uses to serve a bucket with chosen responders
+        (the non-robust path only).
+
+        On the fault-tolerant path the masks are derived at LAUNCH time --
+        the deadline/retry state machine mutates health and round state,
+        which the launch step owns -- so this returns ``(bucket, (xb,
+        n_live))`` with the packed host buffer.
         """
         cfg = self.cfg
         self._check_servable(s, kind)
         n_live = len(reqs)
+        n = self._n_workers()
         bucket = bucket_size(n_live, cfg.max_batch)
         if masks is not None:
+            if self._robust:
+                raise ValueError("masks= stages a bucket on the non-robust "
+                                 "path only; the fault-tolerant path "
+                                 "derives its masks at launch")
             masks = np.asarray(masks, bool)
-            if masks.shape != (n_live, cfg.n_workers):
-                raise ValueError(f"masks must be {(n_live, cfg.n_workers)},"
+            if masks.shape != (n_live, n):
+                raise ValueError(f"masks must be {(n_live, n)},"
                                  f" got {masks.shape}")
         self.stats.batches += 1
         xb = self._bucket_buffer(s, bucket, kind)
@@ -562,6 +1097,8 @@ class FFTService:
             x = (x.cpu().numpy() if isinstance(x, torch.Tensor)
                  else np.asarray(x))
             xb[row] = x.real if real_in and np.iscomplexobj(x) else x
+        if self._robust:
+            return bucket, (xb, n_live)
         if masks is None:
             lat, masks = self._simulate_arrivals(n_live, kind)
             self._account(lat, masks)
@@ -570,13 +1107,19 @@ class FFTService:
         # after the draw and before the decode planes, as the reference's
         self._plan_for(s, kind)
         # padded rows: every worker "responds" so decode stays well-posed
-        full = np.ones((bucket, cfg.n_workers), bool)
+        full = np.ones((bucket, n), bool)
         full[:n_live] = masks
         return bucket, self._bucket_args(s, kind, xb, full)
 
-    def launch_bucket(self, s, bucket: int, kind: str,
-                      args: tuple) -> torch.Tensor:
-        """Launch one staged bucket; returns the UNSYNCED device result."""
+    def launch_bucket(self, s, bucket: int, kind: str, args: tuple):
+        """Launch one staged bucket; returns the UNSYNCED device result.
+
+        On the fault-tolerant path the return value is a ``_Launched``
+        (device rows + per-row errors); fetch it with
+        :meth:`fetch_bucket`."""
+        if self._robust:
+            xb, n_live = args
+            return self._robust_launch(s, bucket, kind, xb, n_live)
         return self._runner_for(s, bucket, kind)(*args)
 
     # -- public API ------------------------------------------------------
@@ -619,7 +1162,10 @@ class FFTService:
         (mixed traffic).  Every bucket is staged and launched before any
         wait; then ONE device->host transfer fetches all results --
         complex and real alike, packed into one real buffer -- returned
-        in submission order as host arrays.
+        in submission order as host arrays.  On the fault-tolerant path a
+        request that failed raises its :class:`ServiceError`
+        (``on_failure="raise"``) or holds a :class:`DegradedResult`
+        (``"degrade"``).
         """
         kinds = [kind] * len(xs) if isinstance(kind, str) else list(kind)
         if len(kinds) != len(xs):
@@ -630,7 +1176,7 @@ class FFTService:
             by_bucket.setdefault((self.bucket_key(x, k), k), []).append(i)
 
         t0 = time.perf_counter()
-        pending: list[tuple[list[int], torch.Tensor]] = []
+        pending: list[tuple[list[int], object]] = []
         for (s, k), idxs in by_bucket.items():
             for start in range(0, len(idxs), self.cfg.max_batch):
                 chunk = idxs[start:start + self.cfg.max_batch]
@@ -646,24 +1192,34 @@ class FFTService:
         # reference's does
         t0 = time.perf_counter()
         rdt = self.cfg.dtype.to_real()
+        outs = [out.out if isinstance(out, _Launched) else out
+                for _, out in pending]
         if pending:
             flat = torch.cat([
                 (torch.view_as_real(out) if out.is_complex() else out)
-                .reshape(-1).to(rdt) for _, out in pending]).cpu().numpy()
+                .reshape(-1).to(rdt) for out in outs]).cpu().numpy()
         self.stats.host_transfers += 1
         self.stats.sync_s += time.perf_counter() - t0
         cdt = _NUMPY_DTYPE[self.cfg.dtype]
-        results: list[Optional[np.ndarray]] = [None] * len(xs)
+        results: list = [None] * len(xs)
         offset = 0
-        for chunk, out in pending:
+        for (chunk, launched), out in zip(pending, outs):
             width = 2 if out.is_complex() else 1
             seg = flat[offset:offset + width * out.numel()]
             offset += width * out.numel()
             rows = (seg.view(cdt) if out.is_complex() else seg).reshape(
                 tuple(out.shape))
+            errors = (launched.errors if isinstance(launched, _Launched)
+                      else None)
             for row, i in enumerate(chunk):
-                results[i] = rows[row]
-        return results  # type: ignore[return-value]
+                err = errors[row] if errors is not None else None
+                if err is not None:
+                    if self.cfg.on_failure == "raise":
+                        raise err
+                    results[i] = DegradedResult(err.reason, err.detail)
+                else:
+                    results[i] = rows[row]
+        return results
 
     def warmup(self, lengths: Optional[Sequence[int]] = None,
                kinds: Sequence[str] = ("c2c",),
@@ -717,14 +1273,14 @@ class FFTService:
                 if self._kernel_path(s, k):
                     ell = s // cfg.m if k == "c2c" else s // cfg.m // 2
                     autotune.ensure_fourstep(
-                        ell, max(buckets) * cfg.n_workers,
+                        ell, max(buckets) * self._n_workers(),
                         device=self.device, reps=cfg.autotune_reps)
         count = 0
         for s, k in pairs:
             for b in sorted(set(buckets)):
                 args = self._bucket_args(
                     s, k, self._bucket_buffer(s, b, k),
-                    np.ones((b, cfg.n_workers), bool))
+                    np.ones((b, self._n_workers()), bool))
                 self._runner_for(s, b, k)(*args)
                 count += 1
         if self.device.type == "cuda":

@@ -15,7 +15,8 @@
   points refuse to run without a GPU unless asked for the CPU; every
   configuration and runtime the port does not serve yet raises
   NotImplementedError (``device_decode=False`` and ``m >
-  LAGRANGE_MAX_M`` are served: ``tests/test_torch_host_decode.py``).
+  LAGRANGE_MAX_M`` are served: ``tests/test_torch_host_decode.py``; the
+  fault runtime and a ``pool=``: ``tests/test_torch_faults.py``).
 """
 
 import dataclasses
@@ -130,13 +131,24 @@ def test_reference_escape_hatch(jref):
     assert tsvc.stats.coded_latency == jsvc.stats.coded_latency
 
 
+def _hist_state(hist):
+    """A latency histogram's whole state, comparable across packages."""
+    return (hist.counts, hist.n, hist.total, hist.max)
+
+
 def _assert_stats_equal(tsvc, jsvc):
     """Every count the port's ServiceStats keeps equals the reference's
-    (the wall-clock fields aside)."""
+    (the wall-clock fields aside; the latency histograms by their state)."""
     for f in dataclasses.fields(tsvc.stats):
-        if f.name not in ("dispatch_s", "sync_s"):
-            assert getattr(tsvc.stats, f.name) == getattr(jsvc.stats,
-                                                          f.name), f.name
+        if f.name in ("dispatch_s", "sync_s"):
+            continue
+        got, want = getattr(tsvc.stats, f.name), getattr(jsvc.stats, f.name)
+        if f.name == "latency":
+            got, want = _hist_state(got), _hist_state(want)
+        elif f.name == "tier_latency":
+            got = {k: _hist_state(h) for k, h in got.items()}
+            want = {k: _hist_state(h) for k, h in want.items()}
+        assert got == want, f.name
 
 
 def test_submit_batch_of_nothing_matches_reference(jref):
@@ -259,21 +271,30 @@ def test_entry_points_refuse_without_gpu(monkeypatch):
 @pytest.mark.parametrize("kwargs", [
     {"precision": "bf16"},
     {"strategy": "partial"},
-    {"verify": "detect"},
-    {"health": True},
-    {"measured": True},
-    {"faults": object()},
+    {"strategy": "comm_efficient"},
+    {"strategy": "repetition"},
+    {"precision": "bf16", "verify": "detect"},
+    {"strategy": "partial", "measured": True},
 ])
 def test_unserved_configs_raise(kwargs):
+    """bf16 planes and the strategy zoo still raise, alone and beside the
+    fault runtime's options (which the port serves:
+    tests/test_torch_faults.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FFTService(FFTServiceConfig(**kwargs), device="cpu")
 
 
 def test_unserved_kinds_and_runtimes_raise():
+    """A mesh, and moving state across meshes, wait for the multi-device
+    runtime (an elastic pool is served: tests/test_torch_faults.py)."""
+    from repro_torch.distributed import reshard, reshard_like
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FFTService(FFTServiceConfig(), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFTService(FFTServiceConfig(), device="cpu", pool=object())
+        reshard({}, object(), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        reshard_like({}, object())
 
 
 def test_config_from_reference(jref):
@@ -289,7 +310,10 @@ def test_config_from_reference(jref):
     assert cfg.dtype == torch.complex64
     assert cfg.straggler.wire_frac == jcfg.straggler.wire_frac
     with pytest.raises(NotImplementedError):
-        config_from_reference(dataclasses.asdict(JConfig(max_retries=5)))
+        config_from_reference(dataclasses.asdict(JConfig(strategy_param=3)))
+    # the fault runtime's fields map as they are
+    assert config_from_reference(dataclasses.asdict(
+        JConfig(max_retries=5, on_failure="degrade"))).max_retries == 5
 
 
 WARMUP_CASES = {
