@@ -1021,6 +1021,355 @@ def fault_runtime(torch, np, rng, counted) -> None:
     torch.cuda.empty_cache()
 
 
+def strategy_zoo(torch, np, rng, dev, counted) -> None:
+    """The strategy zoo on the card (m = 4, N = 8 unless named; services
+    with ``autotune=False``, the autotune table still empty):
+
+    * ``race`` -- the reference's strategy race
+      (``benchmarks/bench_comm_load.py`` ``_service_race``: s=4096, N=8,
+      m=2, mu=4, ``wire_frac`` 0.8 and 0.0, 30 rounds of 8 requests,
+      seed 0, ``use_reference=True``) for mds, partial and
+      comm_efficient: mean coverage, max relative error (< 5e-4) and
+      stragglers tolerated; the folded payload must win at 0.8 and lose
+      at 0.0, and partial's coverage never trail mds's;
+    * ``service`` -- ``strategy="partial"`` (r=2) and
+      ``"comm_efficient"`` (q=2) at s=4096 (64 requests) and s=2^20 (16):
+      the reference's route (``plan.run`` on ``torch.fft`` and the batched
+      solve), so no hand-written kernel launches; ms a call, busy and
+      idle, the error against complex128 ``numpy.fft`` (5e-4, 1e-3 at
+      2^20) on the service's own draws;
+    * ``plan`` -- ``CodedPartialFFT`` and ``CodedCommEffFFT`` on the
+      kernel backend at s=4096 and 2^20, a batch of 16 with per-request
+      masks (evenly spread finished fragments for partial, the other
+      rows NaN), then one request: the worker on ``fourstep_fused`` at
+      4096 and on the two-pass pair at 2^20, and the comm-efficient
+      single request's decode on ``cmatmul``; each held against the same
+      plan on the reference backend on the card and against
+      ``numpy.fft``;
+    * ``repetition`` -- ``UncodedRepetitionFFT`` (``torch.matmul`` of the
+      dense blocks) at s=4096, m=4, N=16 (one replica a block:
+      ``worst_case_threshold() == 16``, a straggler refuses) and m=2,
+      N=16 with one straggler a block;
+    * ``faults`` -- ``strategy="partial"``, ``health=True`` and a kill and
+      a delay at s=4096: retries, re-dispatched shards, degraded rows and
+      reasons;
+    * ``direct`` -- ``ops.coded_bucket_direct``, ``coded_rbucket_direct``
+      and ``coded_irbucket_direct`` at s=4096, q=64, m=4, N=8 against the
+      kind's masked whole-bucket kernel on the same masks and against
+      ``numpy.fft``.
+
+    ``dev`` may be the CPU (a rehearsal at cut sizes from a scratch copy:
+    the plain twins, no ``nvidia-smi`` and no profiler)."""
+    from repro_torch import FFTService, FFTServiceConfig
+    from repro_torch.core import (
+        CodedCommEffFFT,
+        CodedPartialFFT,
+        UncodedRepetitionFFT,
+        mds,
+    )
+    from repro_torch.distributed import FaultPlan, StragglerModel
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DegradedResult
+
+    sz = dict(s=4096, big=1 << 20, q=64, q_big=16, q_plan=16, rounds=30,
+              batch=8)
+    s, big = sz["s"], sz["big"]
+    smi = nvidia_smi() if dev.type == "cuda" else "cpu"
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda *a: None))
+
+    def crand(shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    def rel(got, want) -> float:
+        got = np.asarray(got)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            return math.inf
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def host(out):
+        return (np.stack(out) if isinstance(out, list)
+                else out.cpu().numpy())
+
+    def timed(name, run, want, tol, expect, after=None, **info):
+        """One counted call (its launches exactly ``expect``), its error
+        against ``want``, three steady calls, one traced call; ``after``:
+        a dict of figures read just after the counted call."""
+        sync()
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: host(run()))
+        first = time.perf_counter() - t0
+        if counts != expect:
+            fail(f"strategy_zoo {name} {info}: launches {counts}, expected "
+                 f"{expect}")
+        err = rel(out, want)
+        if not err < tol:
+            fail(f"strategy_zoo {name} {info}: max-abs err / max |want| "
+                 f"{err} >= {tol}")
+        if after is not None:
+            info["first_call"] = after()
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            host(run())
+        ms = (time.perf_counter() - t1) / 3 * 1e3
+        trace = (profile_call(torch, lambda: host(run()), track=FFT_KERNELS)
+                 if dev.type == "cuda" else None)
+        line = {"phase": "strategy_zoo", "part": name, **info,
+                "launches": counts, "rel_err": err, "rel_tol": tol,
+                "first_call_s": first, "ms_per_call": ms,
+                "profiled_call": trace, "nvidia_smi": smi}
+        emit(line)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return line
+
+    # -- race: the reference's service race through strategy= ----------
+    t0 = time.perf_counter()
+    race_rng = np.random.default_rng(1)
+    xs = [(race_rng.standard_normal((sz["batch"], s))
+           + 1j * race_rng.standard_normal((sz["batch"], s)))
+          .astype(np.complex64) for _ in range(sz["rounds"])]
+    refs = [np.fft.fft(xb.astype(np.complex128), axis=-1) for xb in xs]
+    points = []
+    for wf in (0.8, 0.0):
+        row = {"wire_frac": wf}
+        for strategy in ("mds", "partial", "comm_efficient"):
+            svc = FFTService(FFTServiceConfig(
+                s=s, m=2, n_workers=8, strategy=strategy,
+                use_reference=True, autotune=False, seed=0,
+                straggler=StragglerModel(t0=1.0, mu=4.0, wire_frac=wf)),
+                device=dev)
+
+            def race():
+                worst = 0.0
+                for xb, want in zip(xs, refs):
+                    got = np.stack(svc.submit_batch(list(xb)))
+                    worst = max(worst, rel(got, want))
+                return worst
+
+            err, counts = counted(race)
+            if counts or not err < 5e-4:
+                fail(f"strategy_zoo race {strategy} wire_frac={wf}: err "
+                     f"{err}, launches {counts}")
+            row[strategy] = {
+                "mean_latency": svc.stats.coded_latency / svc.stats.requests,
+                "max_rel_err": err,
+                "stragglers_tolerated": svc.stats.stragglers_tolerated,
+                "requests": svc.stats.requests}
+        points.append(row)
+    hi, lo = points
+    if not (hi["comm_efficient"]["mean_latency"] < hi["mds"]["mean_latency"]
+            and lo["comm_efficient"]["mean_latency"]
+            > lo["mds"]["mean_latency"]
+            and all(r["partial"]["mean_latency"]
+                    <= r["mds"]["mean_latency"] + 1e-12 for r in points)):
+        fail(f"strategy_zoo race: the crossover does not hold: {points}")
+    emit({"phase": "strategy_zoo", "part": "race", "s": s, "m": 2,
+          "n_workers": 8, "mu": 4.0, "rounds": sz["rounds"],
+          "batch": sz["batch"], "seed": 0, "use_reference": True,
+          "points": points, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    del xs, refs
+
+    # -- service: partial and comm_efficient at full width ---------------
+    for length, q, tol in ((s, sz["q"], 5e-4), (big, sz["q_big"], 1e-3)):
+        x = crand((q, length))
+        want = np.fft.fft(x.astype(np.complex128), axis=-1)
+        reqs = list(x)
+        for strategy in ("partial", "comm_efficient"):
+            svc = FFTService(FFTServiceConfig(
+                s=length, m=4, n_workers=8, strategy=strategy,
+                autotune=False), device=dev)
+            timed("service", lambda: svc.submit_batch(reqs), want, tol, {},
+                  strategy=strategy, param=svc.plan.fragments
+                  if strategy == "partial" else svc.plan.q, s=length,
+                  requests=q, route="plan.run on torch.fft and the batched "
+                  "torch.linalg.solve (the reference's jnp executor)",
+                  after=lambda: {f: getattr(svc.stats, f) for f in
+                                 ("requests", "coded_latency",
+                                  "stragglers_tolerated")})
+        del x, want, reqs
+
+    # -- plan: the kernel backend ----------------------------------------
+    for length in (s, big):
+        nq = sz["q_plan"]
+        x = crand((nq, length))
+        want = np.fft.fft(x.astype(np.complex128), axis=-1)
+        xt = torch.as_tensor(x, device=dev)
+        for cls, kw in ((CodedPartialFFT, {"r": 2}),
+                        (CodedCommEffFFT, {"q": 2})):
+            plans = {b: cls(s=length, m=4, n_workers=8, backend=b,
+                            device=dev, **kw)
+                     for b in ("kernel", "reference")}
+            kplan = plans["kernel"]
+            if kplan.resolved_backend != "kernel":
+                fail(f"strategy_zoo plan {cls.__name__}: "
+                     f"{kplan.resolved_backend}")
+            partial = cls is CodedPartialFFT
+            ell = kplan.frag_len if partial else kplan.shard_len
+            variant, factors = ops.fourstep_route(ell, device=dev)
+            worker = ({"fourstep_fused": 1} if variant == "fused" else
+                      {"fourstep_stage1": 1, "fourstep_stage2": 1})
+            if (variant == "fused") != (length == s):
+                fail(f"strategy_zoo plan: L={ell} routes {variant}")
+            if partial:
+                # evenly spread finished fragments: the even or the odd
+                # workers complete, alternately per request
+                masks = np.zeros((nq, 8, 2), bool)
+                masks[0::2, 0::2] = True
+                masks[1::2, 1::2] = True
+            else:
+                masks = np.ones((nq, 8), bool)   # m*q = N: all eight
+            mt = torch.as_tensor(masks, device=dev)
+            key = "fragment_mask" if partial else "mask"
+
+            def run(plan, xin, mk):
+                b = plan.worker_compute(plan.encode(xin))
+                b = b.masked_fill(~mk.reshape(mk.shape + (1,) * (
+                    b.ndim - mk.ndim)), float("nan"))
+                return plan.decode(b, **{key: mk})
+
+            for xin, mk, w, tag in ((xt, mt, want, "batch"),
+                                    (xt[0], mt[0], want[0], "one request")):
+                expect = dict(worker)
+                if not partial and tag == "one request":
+                    expect["cmatmul"] = 1
+                refout = host(run(plans["reference"], xin, mk))
+                line = timed("plan", lambda: run(kplan, xin, mk), w,
+                             5e-4 if length == s else 1e-3, expect,
+                             plan=cls.__name__, s=length, m=4, n_workers=8,
+                             requests=nq if tag == "batch" else 1,
+                             case=tag, worker_route=[variant, factors],
+                             masks="evenly spread fragments, the rest NaN"
+                             if partial else "all eight (m*q = N)")
+                got = host(run(kplan, xin, mk))
+                vs_ref = rel(got, refout)
+                if not vs_ref < 1e-3:
+                    fail(f"strategy_zoo plan {cls.__name__} {tag}: kernel "
+                         f"vs reference backend {vs_ref}")
+                emit({"phase": "strategy_zoo", "part": "plan_vs_reference",
+                      "plan": cls.__name__, "s": length, "case": tag,
+                      "kernel_vs_reference_backend": vs_ref,
+                      "vs_numpy": line["rel_err"]})
+        del x, want, xt
+
+    # -- repetition: the uncoded baseline --------------------------------
+    x = crand((2, s))
+    want = np.fft.fft(x.astype(np.complex128), axis=-1)
+    xt = torch.as_tensor(x, device=dev)
+    rep = UncodedRepetitionFFT(s=s, m=4, n_workers=16, device=dev)
+    if rep.worst_case_threshold() != 16:
+        fail(f"repetition: worst case {rep.worst_case_threshold()}")
+    timed("repetition", lambda: rep.run(xt), want, 5e-4, {}, m=4,
+          n_workers=16, case="all alive",
+          worst_case_threshold=rep.worst_case_threshold())
+    straggler = np.ones(16, bool)
+    straggler[5] = False
+    try:
+        rep.run(xt, mask=straggler)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        fail("repetition m=4, N=16: a straggler did not refuse")
+    rep2 = UncodedRepetitionFFT(s=s, m=2, n_workers=16, device=dev)
+    one_per_block = np.ones(16, bool)
+    one_per_block[[0, 5, 10, 15]] = False   # blocks (0,0) (0,1) (1,0) (1,1)
+    if not rep2.decodable(one_per_block):
+        fail("repetition m=2: one straggler a block must decode")
+    timed("repetition", lambda: rep2.run(xt, mask=one_per_block), want,
+          5e-4, {}, m=2, n_workers=16, case="one straggler a block",
+          worst_case_threshold=rep2.worst_case_threshold(),
+          refused_at_m4=refused)
+    del rep, rep2, x, xt
+
+    # -- faults: the partial strategy's deadline machine -----------------
+    faults = FaultPlan(seed=0).kill(2, rounds=3).delay(5, 0.4, rounds=8)
+    svc = FFTService(FFTServiceConfig(
+        s=s, m=4, n_workers=8, strategy="partial", health=True,
+        faults=faults, on_failure="degrade", autotune=False), device=dev)
+    x = crand((sz["q"], s))
+    want = np.fft.fft(x.astype(np.complex128), axis=-1)
+    fields = ("requests", "retries", "redispatched_shards", "degraded",
+              "coded_latency", "stragglers_tolerated")
+    before = {f: getattr(svc.stats, f) for f in fields}
+    out, counts = counted(lambda: svc.submit_batch(list(x)))
+    first = {f: getattr(svc.stats, f) - before[f] for f in fields}
+    bad = [i for i, y in enumerate(out) if isinstance(y, DegradedResult)]
+    served = [i for i in range(len(out)) if i not in bad]
+    err = max((rel(out[i], want[i]) for i in served), default=0.0)
+    if counts or not err < 5e-4:
+        fail(f"strategy_zoo faults: err {err}, launches {counts}")
+    rounds_stats = []
+    for _ in range(3):
+        svc.submit_batch(list(x))
+        rounds_stats.append({f: getattr(svc.stats, f) for f in fields})
+    emit({"phase": "strategy_zoo", "part": "faults", "strategy": "partial",
+          "s": s, "requests": len(out),
+          "faults": "kill(2, rounds=3).delay(5, 0.4, rounds=8)",
+          "health": True, "served": len(served), "degraded_rows": len(bad),
+          "reasons": sorted({out[i].reason for i in bad}), "rel_err": err,
+          "first_call_stats": first, "after_rounds": rounds_stats, "launches": counts,
+          "health_summary": svc.health.summary(), "nvidia_smi": smi})
+    del x, want, out
+
+    # -- direct: the off-accelerator bucket executors ---------------------
+    q, m, n = sz["q"], 4, 8
+    masks = np.zeros((q, n), bool)
+    for row in masks:
+        row[rng.choice(n, size=int(rng.integers(m, n + 1)),
+                       replace=False)] = True
+    mt = torch.as_tensor(masks, device=dev)
+    subsets = ops.mask_subsets(mt, m)
+    dvr, dvi = ops.lagrange_compact_planes(subsets, n)
+    g = mds.rs_generator(n, m, torch.complex64, dev)
+    gr, gi = g.real.contiguous(), g.imag.contiguous()
+    x = crand((q, s))
+    xr_ = torch.as_tensor(x.real.copy(), device=dev)
+    xi_ = torch.as_tensor(x.imag.copy(), device=dev)
+    y = np.fft.rfft(x.real.astype(np.float64), axis=-1).astype(np.complex64)
+    yr_ = torch.as_tensor(y.real.copy(), device=dev)
+    yi_ = torch.as_tensor(y.imag.copy(), device=dev)
+    cases = {
+        "c2c": (lambda: ops.coded_bucket_direct(xr_, xi_, dvr, dvi, subsets,
+                                                gr, gi, s),
+                lambda: ops.coded_bucket_masked(xr_, xi_, mt, gr, gi, s),
+                np.fft.fft(x.astype(np.complex128), axis=-1)),
+        "r2c": (lambda: ops.coded_rbucket_direct(xr_, dvr, dvi, subsets, gr,
+                                                 gi, s),
+                lambda: ops.coded_rbucket_masked(xr_, mt, gr, gi, s),
+                np.fft.rfft(x.real.astype(np.float64), axis=-1)),
+        "c2r": (lambda: ops.coded_irbucket_direct(yr_, yi_, dvr, dvi,
+                                                  subsets, gr, gi, s),
+                lambda: ops.coded_irbucket_masked(yr_, yi_, mt, gr, gi, s),
+                np.fft.irfft(y.astype(np.complex128), n=s, axis=-1))}
+
+    def as_np(out):
+        if isinstance(out, tuple):
+            return (out[0] + 1j * out[1]).cpu().numpy()
+        return out.cpu().numpy()
+
+    for kind, (direct, whole, truth) in cases.items():
+        got, counts = counted(lambda: as_np(direct()))
+        if counts:
+            fail(f"strategy_zoo direct {kind}: launched {counts}")
+        bucket = as_np(whole())        # a comparison: not counted
+        err, vs_bucket = rel(got, truth), rel(got, bucket)
+        if not (err < 3e-4 and vs_bucket < 3e-4):
+            fail(f"strategy_zoo direct {kind}: err {err}, vs the masked "
+                 f"bucket {vs_bucket}")
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            as_np(direct())
+        ms = (time.perf_counter() - t1) / 3 * 1e3
+        emit({"phase": "strategy_zoo", "part": "direct", "kind": kind,
+              "s": s, "q": q, "m": m, "n_workers": n, "rel_err": err,
+              "vs_masked_bucket_kernel": vs_bucket, "rel_tol": 3e-4,
+              "ms_per_call": ms, "launches": counts, "nvidia_smi": smi})
+
+
 def main() -> int:
     import torch
 
@@ -1247,32 +1596,42 @@ def main() -> int:
         one traced call ran exactly those: every kernel's name holds one
         of the fragments, and each fragment's kernels ran as often as it
         says.  Prints the trace's split beside ``info`` (the wrapper's own
-        reckoning of the launch).  A trace that recorded no device kernel
-        at all lost the call in the profiler, not the route (a process
-        that has run the card for a while returns such traces now and
-        then, ``PERF.md`` §7; a mapping of device timestamps that drifted
-        past the margin would drop every kernel): it is taken again, at
-        most three times, the margin four times wider each time (0.2, 0.8
-        and 3.2 s), and the retakes and the last margin are printed as
-        ``empty_traces`` and ``trace_margin_s``."""
+        reckoning of the launch).  A trace that recorded fewer of the
+        route's kernels and nothing else -- none at all included -- lost
+        part of the call in the profiler, not the route (the profiler
+        drops a kernel whose mapped device timestamp lands outside its
+        window, the first kernels of a call most often, ``PERF.md`` §7;
+        a process that has run the card for a while returns wholly
+        empty traces now and then, for seconds at a time): it is taken
+        again, at most six times, the margin four times wider each time
+        up to 3.2 s (0.2, 0.8, then 3.2 s), and the retakes and the last
+        margin are printed as ``empty_traces`` and ``trace_margin_s``.
+        The last trace must show the route exactly."""
         before = _build.launch_counts().get(name, 0)
         run()
         torch.cuda.synchronize()
         got = _build.launch_counts().get(name, 0) - before
+
+        def tally(names):
+            ran, strays = dict.fromkeys(kernels, 0), {}
+            for kernel, count in names.items():
+                frag = next((f for f in kernels if f in kernel), None)
+                if frag is None:
+                    strays[kernel[:60]] = count
+                else:
+                    ran[frag] += count
+            return ran, strays
+
         empty, margin = 0, TRACE_MARGIN_S
         split = profile_call(torch, run, track=tuple(kernels), names=True)
-        while not split["kernel_names"] and empty < 3:
+        ran, strays = tally(split.pop("kernel_names"))
+        while (not strays and ran != kernels and empty < 6
+               and all(ran[f] <= kernels[f] for f in kernels)):
             empty += 1
-            margin *= 4
+            margin = min(margin * 4, 3.2)
             split = profile_call(torch, run, track=tuple(kernels),
                                  names=True, margin_s=margin)
-        ran, strays = dict.fromkeys(kernels, 0), {}
-        for kernel, count in split.pop("kernel_names").items():
-            frag = next((f for f in kernels if f in kernel), None)
-            if frag is None:
-                strays[kernel[:60]] = count
-            else:
-                ran[frag] += count
+            ran, strays = tally(split.pop("kernel_names"))
         if got != sum(kernels.values()) or strays or ran != kernels:
             fail(f"{name} {shape}: {got} launches a call, traced {ran} and "
                  f"outside the route {strays} ({empty} empty traces retaken"
@@ -2185,6 +2544,11 @@ def main() -> int:
     t0 = time.perf_counter()
     fault_runtime(torch, np, rng, counted)
     emit({"phase": "fault_runtime_done", "seconds": time.perf_counter() - t0})
+
+    # -- 8d. the strategy zoo and the direct bucket executors ------------
+    t0 = time.perf_counter()
+    strategy_zoo(torch, np, rng, dev, counted)
+    emit({"phase": "strategy_zoo_done", "seconds": time.perf_counter() - t0})
 
     # -- 9. the tuned four-step path --------------------------------------
     # (a) the default service's warmup search, from an empty cache: the

@@ -27,7 +27,11 @@ service's rfftn and irfftn kinds through them, run the same kernels, the
 four-step swept over each shard axis.  The service's fault-tolerant path
 feeds deadline-derived masks to the same bucket kernels, and its
 Byzantine verify path and measured workers compute rows with ``cmatmul``
-and the four-step kernels.
+and the four-step kernels.  The strategy zoo (``core.strategies``: the
+partial-work and communication-efficient plans, the uncoded repetition
+baseline, the registry) serves through ``FFTServiceConfig(strategy=...)``
+on ``torch.fft`` and the batched solve, as the reference does; on the
+kernel backend its plans run the four-step kernels and ``cmatmul``.
 """
 
 from repro_torch.core import (

@@ -23,11 +23,6 @@ __all__ = ["generator_from_reference", "config_from_reference",
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
-# Reference fields the port's config does not carry: the strategy zoo's
-# parameter, which is inert at its reference default.
-_INERT_DEFAULTS = {
-    "strategy_param": None,
-}
 _FAULT_FIELDS = ("worker", "kind", "start_round", "rounds", "delay_s")
 
 
@@ -72,13 +67,12 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
     ``dataclasses.asdict`` or ``vars``) onto the port's config.
 
     The dtype maps by name, the straggler model by its three parameters,
-    a fault plan by its faults and seed;
-    ``decode_method`` and ``worker_fn`` map as they are (a ``worker_fn``
-    must take and return torch tensors on the port's side).  Fields the
-    port does not carry must hold the reference default; any other value
-    raises ``NotImplementedError`` naming the
-    ROADMAP item that ports them.  Fields the port carries but does not
-    serve yet raise when the service is built.
+    a fault plan by its faults and seed; ``decode_method``, ``worker_fn``
+    (which must take and return torch tensors on the port's side),
+    ``strategy`` and ``strategy_param`` map as they are.  A field the
+    port carries but does not serve yet (``precision="bf16"``) raises
+    ``NotImplementedError`` naming its ROADMAP item when the service is
+    built; an unknown field raises ValueError.
     """
     own = {f.name for f in dataclasses.fields(FFTServiceConfig)}
     kwargs = {}
@@ -91,12 +85,6 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
             elif name == "faults":
                 value = fault_plan_from_reference(value)
             kwargs[name] = value
-        elif name in _INERT_DEFAULTS:
-            if value != _INERT_DEFAULTS[name]:
-                item = "Queue 1, the strategy zoo"
-                raise NotImplementedError(
-                    f"{name}={value!r} is not served by the PyTorch port "
-                    f"yet -- see ROADMAP.md, {item}")
         else:
             raise ValueError(f"unknown reference config field {name!r}")
     return FFTServiceConfig(**kwargs)

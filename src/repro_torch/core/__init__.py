@@ -9,7 +9,11 @@ kernel and reference backends, all of them ``CodedPlan`` and ``MDSPlan``
 instances; the (N, m) Reed-Solomon code with the closed-form Lagrange
 decode and the transform decode's dispatch (``decode_auto``), interleave
 and recombine (1-D, n-D and half spectrum); the Byzantine detection and
-correction of paper Remark 3 (``robust_decode``, ``RobustCodedFFT``).
+correction of paper Remark 3 (``robust_decode``, ``RobustCodedFFT``);
+the strategy zoo -- partial work (``CodedPartialFFT``), the folded
+payload (``CodedCommEffFFT``), the uncoded repetition baseline
+(``UncodedRepetitionFFT``), the Remark 4 thresholds and the strategy
+registry (``REGISTRY``, ``make_strategy``).
 """
 
 from repro_torch.core.coded_fft import CodedFFT, CodedFFTND, plan_factors
@@ -72,14 +76,28 @@ from repro_torch.core.rfftn import (
     pack_half_nd,
     split_packed_nd,
 )
+from repro_torch.core.strategies import (
+    REGISTRY,
+    CodedCommEffFFT,
+    CodedPartialFFT,
+    StrategyEntry,
+    UncodedRepetitionFFT,
+    coded_fft_threshold,
+    make_strategy,
+    register_strategy,
+    repetition_threshold,
+    short_dot_threshold,
+)
 
 __all__ = [
+    "CodedCommEffFFT",
     "CodedFFT",
     "CodedFFTMultiInput",
     "CodedFFTND",
     "CodedIFFT",
     "CodedIRFFT",
     "CodedIRFFTN",
+    "CodedPartialFFT",
     "CodedPlan",
     "CodedRFFT",
     "CodedRFFTN",
@@ -87,8 +105,12 @@ __all__ = [
     "LAGRANGE_MAX_M",
     "MDSPlan",
     "MDSPlanBase",
+    "REGISTRY",
     "RobustCodedFFT",
+    "StrategyEntry",
+    "UncodedRepetitionFFT",
     "adjoint_fold_nd",
+    "coded_fft_threshold",
     "decode_auto",
     "decode_from_subset",
     "decode_ifft",
@@ -107,6 +129,7 @@ __all__ = [
     "lagrange_decode_matrices",
     "lagrange_decode_matrix",
     "lagrange_inverse",
+    "make_strategy",
     "neg_freq",
     "pack_half",
     "pack_half_nd",
@@ -115,11 +138,14 @@ __all__ = [
     "recombine",
     "recombine_half",
     "recombine_nd",
+    "register_strategy",
+    "repetition_threshold",
     "require_even_shards",
     "resolve_device",
     "robust_decode",
     "rs_generator",
     "rs_nodes",
+    "short_dot_threshold",
     "split_packed",
     "split_packed_nd",
     "subset_decode_matrix",

@@ -17,11 +17,13 @@ folded into the payload columns, the worker on the four-step kernels
 other decode follows the reference's ``decode_auto`` dispatch (see
 :meth:`MDSPlanBase.decode`).  A kernel-backend plan refuses at
 construction a code whose (N, m) generator ``mds_apply`` cannot hold.
-The batched service does not use plan stages on its bucket-kernel path
+The strategy zoo's partial and communication-efficient plans default to
+``backend="reference"`` and always encode with the DFT, as the
+reference's do.  The batched service does not use plan stages on its bucket-kernel path
 -- it runs the bucket kernels directly.
 
 Every plan satisfies the :class:`CodedPlan` protocol, and the MDS plans
-(all of the port's) :class:`MDSPlan`: ``message`` and ``postdecode``
+(all but ``UncodedRepetitionFFT``) :class:`MDSPlan`: ``message`` and ``postdecode``
 split the master's two stages, so ``encode = encode_dft(message(x))``
 and ``decode = postdecode(mds_subset_decode(b))``.
 """
@@ -72,7 +74,9 @@ class CodedPlan(Protocol):
     """The contract every computation strategy satisfies: ``CodedFFT``,
     ``CodedFFTND`` and ``CodedFFTMultiInput`` (complex), ``CodedRFFT``,
     ``CodedIFFT`` and ``CodedIRFFT`` (1-D real and inverse),
-    ``CodedRFFTN`` and ``CodedIRFFTN`` (n-D real)."""
+    ``CodedRFFTN`` and ``CodedIRFFTN`` (n-D real), and the strategy zoo's
+    ``CodedPartialFFT``, ``CodedCommEffFFT`` and
+    ``UncodedRepetitionFFT`` (the one plan that is not an ``MDSPlan``)."""
 
     n_workers: int
 
@@ -309,6 +313,8 @@ class MDSPlanBase:
         if method not in _METHODS:
             raise ValueError(f"unknown decode method {method!r}")
         m, n = self.decode_width, self.n_workers
+        if subset is not None and self._as_tensor(subset).shape[-1] != m:
+            raise ValueError(f"subset must have exactly m={m} entries")
         shard = tuple(self.worker_shard_shape)
         b = self._as_tensor(b)
         batch = batch_shape(b, 1 + len(shard), "worker results")

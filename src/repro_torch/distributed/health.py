@@ -20,10 +20,8 @@ completion times and must decide, per round, how long to wait.
 
 The tracker is plain numpy and cheap (O(N) per round), the JAX package's
 tracker line for line; the service owns one per ``FFTService`` and the
-measured worker runtime shares it.  The per-fragment mask of the
-partial-work strategy (``fragment_mask_from_times``) comes with the
-strategy zoo (ROADMAP.md, Queue 1): this port serves the ``"mds"``
-strategy only.
+measured worker runtime shares it.  ``fragment_mask_from_times`` gates
+each fragment of a partial-work worker on its own.
 """
 
 from __future__ import annotations
@@ -154,6 +152,22 @@ class WorkerHealthTracker:
         times = np.asarray(times, dtype=np.float64)
         with np.errstate(invalid="ignore"):
             return np.where(np.isfinite(times), times <= deadline, False)
+
+    def fragment_mask_from_times(self, times: np.ndarray, deadline: float,
+                                 fractions: Sequence[float]) -> np.ndarray:
+        """Per-fragment availability for partial-work plans.
+
+        A partial-work worker emits fragment ``f`` at ``times * fractions
+        [f]`` of its full-shard completion (fragments are sequential, so
+        ``fractions`` is increasing, e.g. ``(f+1)/r``).  The deadline then
+        gates each fragment separately: a worker that misses the round
+        deadline overall still lands the prefix of fragments whose scaled
+        times beat it.  ``times``: ``(..., N)`` -> mask ``(..., N, F)``.
+        """
+        times = np.asarray(times, dtype=np.float64)
+        ft = times[..., None] * np.asarray(fractions, dtype=np.float64)
+        with np.errstate(invalid="ignore"):
+            return np.where(np.isfinite(ft), ft <= deadline, False)
 
     # -- calibration ------------------------------------------------------
     def calibrate(self, workload: float = 1.0, *,

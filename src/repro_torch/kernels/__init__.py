@@ -33,7 +33,11 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 
 ``ops`` is the dispatch layer; ``autotune`` the four-step's measured
 table; ``ref`` holds the planar helpers and the test oracles; ``_build``
-compiles the libraries and counts launches.
+compiles the libraries and counts launches.  ``ops`` also exports the
+JAX package's direct (off-accelerator) bucket executors in plain
+PyTorch -- ``coded_bucket_direct``, ``coded_rbucket_direct``,
+``coded_irbucket_direct`` with ``lagrange_compact_planes`` -- which run
+no kernel and which the service does not route to.
 """
 
 from repro_torch.kernels import autotune
@@ -42,13 +46,16 @@ from repro_torch.kernels.fourstep_fft import multistep_fused
 from repro_torch.kernels.wkv import wkv
 from repro_torch.kernels.ops import (
     coded_bucket,
+    coded_bucket_direct,
     coded_bucket_fusable,
     coded_bucket_masked,
     coded_bucket_streamable,
     coded_irbucket,
+    coded_irbucket_direct,
     coded_irbucket_fusable,
     coded_irbucket_masked,
     coded_rbucket,
+    coded_rbucket_direct,
     coded_rbucket_fusable,
     coded_rbucket_masked,
     decode_apply,
@@ -57,6 +64,7 @@ from repro_torch.kernels.ops import (
     fourstep_fusable,
     fourstep_planar,
     kernel_backend_supported,
+    lagrange_compact_planes,
     make_kernel_fftn_fn,
     make_kernel_worker_fn,
     mds_apply,
@@ -68,13 +76,16 @@ from repro_torch.kernels.ops import (
 __all__ = [
     "autotune",
     "coded_bucket",
+    "coded_bucket_direct",
     "coded_bucket_fusable",
     "coded_bucket_masked",
     "coded_bucket_streamable",
     "coded_irbucket",
+    "coded_irbucket_direct",
     "coded_irbucket_fusable",
     "coded_irbucket_masked",
     "coded_rbucket",
+    "coded_rbucket_direct",
     "coded_rbucket_fusable",
     "coded_rbucket_masked",
     "decode_apply",
@@ -83,6 +94,7 @@ __all__ = [
     "fourstep_fusable",
     "fourstep_planar",
     "kernel_backend_supported",
+    "lagrange_compact_planes",
     "launch_counts",
     "make_kernel_fftn_fn",
     "make_kernel_worker_fn",

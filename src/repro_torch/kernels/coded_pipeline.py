@@ -51,6 +51,12 @@ recombine -- with device-memory intermediates no wider than the request;
 ``coded_fft_bucket_streaming_masked`` (twin :func:`bucket_body_masked`)
 runs one decode launch first that builds every request's (m, N) scatter
 decode planes from its raw mask, then the same three.
+
+The ``*_body_fftworker`` functions are the JAX package's direct
+(off-accelerator) bucket executors in plain PyTorch: the worker DFT on
+``torch.fft`` and a gathered compact (m, m) decode.  No kernel runs
+them and the service does not route to them (``ops.coded_bucket_direct``
+and its real twins export them).
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ __all__ = [
     "mask_subsets",
     "bucket_body",
     "bucket_body_masked",
+    "bucket_body_fftworker",
     "bucket_fft_group",
     "bucket_fft_layout",
     "bucket_layout",
@@ -94,6 +101,7 @@ __all__ = [
     "half_postdecode_body",
     "rbucket_body",
     "rbucket_body_masked",
+    "rbucket_body_fftworker",
     "rbucket_layout",
     "coded_rfft_bucket",
     "coded_rfft_bucket_masked",
@@ -101,6 +109,7 @@ __all__ = [
     "ir_unpack_body",
     "irbucket_body",
     "irbucket_body_masked",
+    "irbucket_body_fftworker",
     "irbucket_layout",
     "coded_irfft_bucket",
     "coded_irfft_bucket_masked",
@@ -227,6 +236,52 @@ def bucket_body_masked(xr, xi, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
     _, _, dr, di = lagrange_planes_body(mask_subsets(masks, m), n)
     return bucket_body(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
                        twr, twi, fmr, fmi)
+
+
+def _gather_rows(er, ei, subsets):
+    """Each request's responder rows: ``(bq, n, L)`` planes and ``(bq,
+    m)`` subsets -> ``(bq, m, L)``; only those rows are read."""
+    idx = subsets.long()[:, :, None].expand(-1, -1, er.shape[-1])
+    return torch.gather(er, 1, idx), torch.gather(ei, 1, idx)
+
+
+def _code_rows(tr, ti, gr, gi, bq):
+    """``(m, bq*L)`` message planes -> ``(bq, n, L)`` coded planes: the
+    MDS encode as one shared matmul, the batch folded into the columns."""
+    n = gr.shape[0]
+    er, ei = cmatmul_body(gr, gi, tr, ti)
+    return (er.reshape(n, bq, -1).transpose(0, 1),
+            ei.reshape(n, bq, -1).transpose(0, 1))
+
+
+def bucket_body_fftworker(xr, xi, dvr, dvi, subsets, gr, gi,
+                          twr, twi, fmr, fmi):
+    """The direct (off-accelerator) c2c bucket: :func:`bucket_body`'s
+    stages with the worker DFT on the platform FFT (``torch.fft``) and
+    the decode as gathered COMPACT ``(m, m)`` inverses ``dvr/dvi``
+    applied to each request's ``subsets`` rows; ``twr/twi`` the
+    natural-order recombine twiddle.  Plain PyTorch, the JAX package's
+    direct lowering: no kernel runs it."""
+    bq, s = xr.shape
+    n, m = gr.shape
+    ell = s // m
+    # interleave on planes: c_i[j] = x[i + j*m]
+    cr = xr.reshape(bq, ell, m).transpose(1, 2)
+    ci = xi.reshape(bq, ell, m).transpose(1, 2)
+    # worker DFT of the m message shards (linear: commutes with encode)
+    spec = torch.fft.fft(torch.complex(cr, ci), dim=-1)
+    tr = spec.real.to(xr.dtype).transpose(0, 1).reshape(m, bq * ell)
+    ti = spec.imag.to(xr.dtype).transpose(0, 1).reshape(m, bq * ell)
+    er, ei = _code_rows(tr, ti, gr, gi, bq)               # (bq, N, L)
+    hr, hi = bcmatmul_body(dvr, dvi, *_gather_rows(er, ei, subsets))
+    # recombine twiddle (natural order) + length-m DFT
+    ur = hr * twr[None] - hi * twi[None]
+    ui = hr * twi[None] + hi * twr[None]
+    ur = ur.transpose(0, 1).reshape(m, bq * ell)
+    ui = ui.transpose(0, 1).reshape(m, bq * ell)
+    outr, outi = cmatmul_body(fmr, fmi, ur, ui)
+    return (outr.reshape(m, bq, ell).transpose(0, 1).reshape(bq, s),
+            outi.reshape(m, bq, ell).transpose(0, 1).reshape(bq, s))
 
 
 def _code_words(m: int, n: int, masked: bool):
@@ -732,6 +787,24 @@ def rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
                         swr, swi, twr, twi, fhr, fhi, s)
 
 
+def rbucket_body_fftworker(xr, dvr, dvi, subsets, gr, gi,
+                           swr, swi, twr, twi, fhr, fhi, s):
+    """The direct r2c bucket: the platform FFT on the packed half-length
+    shards, the gathered compact decode (cf.
+    :func:`bucket_body_fftworker`), the symmetry postdecode.  Plain
+    PyTorch."""
+    bq = xr.shape[0]
+    m = gr.shape[1]
+    n2 = s // m // 2
+    zr, zi = pack_real_planes(xr, m)                       # (bq, m, n2)
+    spec = torch.fft.fft(torch.complex(zr, zi), dim=-1)
+    tr = spec.real.to(xr.dtype).transpose(0, 1).reshape(m, bq * n2)
+    ti = spec.imag.to(xr.dtype).transpose(0, 1).reshape(m, bq * n2)
+    er, ei = _code_rows(tr, ti, gr, gi, bq)
+    hr, hi = bcmatmul_body(dvr, dvi, *_gather_rows(er, ei, subsets))
+    return half_postdecode_body(hr, hi, swr, swi, twr, twi, fhr, fhi, s)
+
+
 def rbucket_layout(m: int, a: int, b: int, *, n: int = 0,
                    masked: bool = True) -> tuple[int, ...]:
     """Word offsets of the dense-DFT r2c bucket's shared arrays, then the
@@ -950,6 +1023,27 @@ def irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
     _, _, dr, di = lagrange_planes_body(mask_subsets(masks, m), n)
     return irbucket_body(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
                          fpr, fpi, ctwr, ctwi, pwr, pwi, s)
+
+
+def irbucket_body_fftworker(yr, yi, dvr, dvi, subsets, gr, gi,
+                            fpr, fpi, ctwr, ctwi, pwr, pwi, s):
+    """The direct c2r bucket: the message stage on planes, the platform
+    ifft on the packed half-length coded shards, the gathered compact
+    decode, the relabel unpack.  Returns ONE real plane (bq, s).  Plain
+    PyTorch."""
+    bq = yr.shape[0]
+    n, m = gr.shape
+    n2 = s // m // 2
+    zr, zi = ir_message_body(yr, yi, fpr, fpi, ctwr, ctwi, pwr, pwi, s, m)
+    tr = zr.transpose(0, 1).reshape(m, bq * n2)
+    ti = zi.transpose(0, 1).reshape(m, bq * n2)
+    ar_, ai_ = cmatmul_body(gr, gi, tr, ti)
+    spec = torch.fft.ifft(torch.complex(ar_, ai_).reshape(n, bq, n2),
+                          dim=-1)
+    er = spec.real.to(yr.dtype).transpose(0, 1)
+    ei = spec.imag.to(yr.dtype).transpose(0, 1)
+    hr, hi = bcmatmul_body(dvr, dvi, *_gather_rows(er, ei, subsets))
+    return ir_unpack_body(hr, hi)
 
 
 def irbucket_layout(m: int, a: int, b: int, *, n: int = 0,

@@ -40,6 +40,7 @@ from repro_torch.kernels import autotune, coded_pipeline, ref
 from repro_torch.kernels.cmatmul import bcmatmul, check_left_fits, cmatmul
 from repro_torch.kernels.coded_pipeline import (
     SMEM_PER_BLOCK_OPTIN,
+    bucket_body_fftworker,
     bucket_smem_bytes,
     coded_fft_bucket,
     coded_fft_bucket_masked,
@@ -52,9 +53,11 @@ from repro_torch.kernels.coded_pipeline import (
     half_postdecode_body,
     ir_message_body,
     ir_unpack_body,
+    irbucket_body_fftworker,
     lagrange_planes_body,
     mask_subsets,
     pack_real_planes,
+    rbucket_body_fftworker,
     streaming_smem_bytes,
 )
 from repro_torch.kernels.fourstep_fft import (
@@ -92,20 +95,24 @@ __all__ = [
     "recombine_fused",
     "check_stage_code",
     "mask_subsets",
+    "lagrange_compact_planes",
     "lagrange_scatter_planes",
     "coded_bucket_fusable",
     "coded_bucket_streamable",
     "bucket_route",
     "coded_bucket",
     "coded_bucket_masked",
+    "coded_bucket_direct",
     "pack_real_planes",
     "coded_rbucket_fusable",
     "coded_rbucket",
     "coded_rbucket_masked",
+    "coded_rbucket_direct",
     "rfft_postdecode_planar",
     "coded_irbucket_fusable",
     "coded_irbucket",
     "coded_irbucket_masked",
+    "coded_irbucket_direct",
     "irfft_message_planar",
     "irfft_unpack_planar",
 ]
@@ -489,6 +496,13 @@ def decode_apply(dr: torch.Tensor, di: torch.Tensor,
                     bi.contiguous())
 
 
+def lagrange_compact_planes(subsets: torch.Tensor, n: int):
+    """Per-request compact ``(B, m, m)`` inverse planes from subsets: the
+    gathered-decode form of the direct bucket executors."""
+    ivr, ivi, _, _ = lagrange_planes_body(subsets, n)
+    return ivr, ivi
+
+
 def lagrange_scatter_planes(subsets: torch.Tensor, n: int):
     """Per-request scatter ``(B, m, N)`` decode planes (zero straggler
     columns) from subsets -- the form :func:`decode_apply` contracts."""
@@ -639,6 +653,23 @@ def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
     return coded_fft_bucket_masked(xr, xi, masks, gr, gi, *planes)
 
 
+def coded_bucket_direct(xr: torch.Tensor, xi: torch.Tensor,
+                        dvr: torch.Tensor, dvi: torch.Tensor,
+                        subsets: torch.Tensor, gr: torch.Tensor,
+                        gi: torch.Tensor, s: int):
+    """The JAX package's off-accelerator c2c bucket executor: the
+    pipeline of :func:`coded_bucket` with the worker DFT on ``torch.fft``
+    and the decode as gathered compact ``(m, m)`` products (``dvr/dvi``
+    inverses of each request's ``subsets`` rows, e.g. from
+    ``DecodeMatrixCache.compact`` or :func:`lagrange_compact_planes`).
+    Plain PyTorch at any bucket shape; the service does not route here
+    (it runs the card's routes on every device)."""
+    m = gr.shape[1]
+    return bucket_body_fftworker(
+        xr, xi, dvr, dvi, subsets, gr, gi,
+        *_on_device(_recombine_planes, (s, m), xr.device))
+
+
 # -- real kinds: r2c and c2r buckets ---------------------------------------
 def _real_fusable(layout, s: int, m: int, n: int, masked: bool) -> bool:
     if s < 2 * m or s % (2 * m) != 0 or m > coded_pipeline.MAX_M:
@@ -728,6 +759,31 @@ def coded_irbucket(yr: torch.Tensor, yi: torch.Tensor, dr: torch.Tensor,
     return coded_irfft_bucket(
         yr, yi, dr, di, gr, gi, *_irbucket_planes(s, gr.shape[1], yr.device),
         s)
+
+
+def coded_rbucket_direct(xr: torch.Tensor, dvr: torch.Tensor,
+                         dvi: torch.Tensor, subsets: torch.Tensor,
+                         gr: torch.Tensor, gi: torch.Tensor, s: int):
+    """Off-accelerator r2c bucket executor: ``torch.fft`` on the packed
+    half-length shards, the gathered compact decode, the symmetry
+    postdecode (cf. :func:`coded_bucket_direct`).  Plain PyTorch."""
+    return rbucket_body_fftworker(
+        xr, dvr, dvi, subsets, gr, gi,
+        *_on_device(_r2c_postdecode_planes, (s, gr.shape[1]), xr.device),
+        s)
+
+
+def coded_irbucket_direct(yr: torch.Tensor, yi: torch.Tensor,
+                          dvr: torch.Tensor, dvi: torch.Tensor,
+                          subsets: torch.Tensor, gr: torch.Tensor,
+                          gi: torch.Tensor, s: int):
+    """Off-accelerator c2r bucket executor: the message stage on planes,
+    ``torch.fft.ifft`` on the packed half-length shards, the gathered
+    compact decode, the relabel unpack.  Returns ONE real plane (q, s).
+    Plain PyTorch."""
+    return irbucket_body_fftworker(
+        yr, yi, dvr, dvi, subsets, gr, gi,
+        *_on_device(_c2r_message_planes, (s, gr.shape[1]), yr.device), s)
 
 
 def rfft_postdecode_planar(hr: torch.Tensor, hi: torch.Tensor, s: int):

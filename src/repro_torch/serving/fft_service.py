@@ -60,6 +60,16 @@ refused (``ops.check_stage_code``) when the service is built (for
 ``cfg.s``) or in ``bucket_key`` (any other length), before any straggler
 draw.  Lengths whose buckets fuse or stream still serve.
 
+``strategy=`` picks the plan serving the c2c buckets from the strategy
+registry (``core.strategies``): ``"partial"`` (r sequentially-useful
+fragments per worker, per-fragment masks) and ``"comm_efficient"`` (a
+1/q folded payload at threshold m*q) run ``plan.run`` on the reference
+backend -- ``torch.fft`` and the batched ``torch.linalg.solve`` -- as
+the reference runs them on its jnp executor, with the draws, the wire
+charge and the fault path's deadline machine at the plan's own
+threshold; the other kinds, ``verify``, ``measured``, ``worker_fn`` and
+the ``"repetition"`` baseline are refused with the reference's errors.
+
 ``use_reference=True`` (or a complex128 dtype) runs ``plan.run`` on the
 reference backend instead; a ``worker_fn`` plug-in (c2c only) or a
 pinned ``decode_method`` runs ``plan.run(..., method=decode_method)`` on
@@ -109,6 +119,7 @@ from repro_torch.core.fault_tolerance import detect_errors, robust_decode
 from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.core.rfftn import CodedIRFFTN, CodedRFFTN
+from repro_torch.core.strategies import REGISTRY, make_strategy
 from repro_torch.distributed.elastic import ElasticWorkerPool
 from repro_torch.distributed.faults import (
     FaultInjector,
@@ -246,16 +257,27 @@ class FFTServiceConfig:
     #                               service's device)
     require_all: bool = False     # measured path waits for ALL live workers
     #                               (the uncoded baseline)
-    # -- the options below are served by later slices of the port; a
-    #    non-default value raises NotImplementedError at construction
+    # -- computation strategy --------------------------------------------
+    strategy: str = "mds"         # registered strategy serving the c2c
+    #                               buckets: "mds" (the paper's code),
+    #                               "partial" (Wang 1804.09791: r fragments
+    #                               per worker, decode from any m*r),
+    #                               "comm_efficient" (Jeong 1805.09891:
+    #                               1/q payload at threshold m*q), or
+    #                               "repetition" (bench-only, refused).
+    #                               Non-"mds" strategies are c2c-only and
+    #                               run the plan.run executor on torch
+    strategy_param: Optional[int] = None  # the strategy's own knob (r for
+    #                               partial, q for comm_efficient); None
+    #                               means the registry entry's default
+    # -- served by a later slice of the port; a non-default value raises
+    #    NotImplementedError at construction
     precision: str = "f32"        # "bf16" plane precision
-    strategy: str = "mds"
 
 
 # config values this slice does not serve -> the ROADMAP item serving them
 _LATER = {
     "precision": ("f32", "Queue 1, bf16 planes (the bf16 probe)"),
-    "strategy": ("mds", "the strategy zoo"),
 }
 
 
@@ -350,6 +372,8 @@ class FFTService:
     ``ElasticWorkerPool`` with the config's ``m`` whose membership the
     fault-tolerant path reads each round (its capacity is the live N).
     ``close()`` stops the measured runtime's worker threads.
+    ``cfg.strategy`` other than ``"mds"`` serves c2c only, through the
+    strategy's plan on the ``plan.run`` executor.
     """
 
     KINDS = ("c2c", "r2c", "c2r", "rfftn", "irfftn")
@@ -365,14 +389,41 @@ class FFTService:
         for name, (default, item) in _LATER.items():
             if getattr(cfg, name) != default:
                 raise _not_ported(f"{name}={getattr(cfg, name)!r}", item)
-        if mesh is not None:
-            raise _not_ported("a mesh", "the multi-device runtime")
         if cfg.verify not in ("off", "detect", "correct"):
             raise ValueError(
                 f'verify must be "off"|"detect"|"correct", got {cfg.verify!r}')
         if cfg.on_failure not in ("raise", "degrade"):
             raise ValueError(
                 f'on_failure must be "raise"|"degrade", got {cfg.on_failure!r}')
+        if cfg.strategy not in REGISTRY:
+            raise ValueError(
+                f"unknown strategy {cfg.strategy!r}; "
+                f"registered: {sorted(REGISTRY)}")
+        if cfg.strategy != "mds":
+            # the Byzantine verifier and the measured runtime speak the
+            # (N, m) MDS row code; the worker plug-in contract is the MDS
+            # c2c worker
+            if cfg.verify != "off" or cfg.measured:
+                raise ValueError(
+                    f"strategy {cfg.strategy!r} does not compose with "
+                    f"verify/measured (MDS-row machinery)")
+            if cfg.worker_fn is not None:
+                raise ValueError(
+                    f"worker_fn plug-ins apply to the mds strategy only, "
+                    f"got strategy {cfg.strategy!r}")
+            if cfg.strategy == "repetition":
+                # its replication decode is host-side block assembly, not
+                # the masked-subset protocol the bucket executors speak
+                raise ValueError(
+                    "the repetition baseline is bench-only; the service "
+                    "serves subset-decodable strategies")
+        if mesh is not None:
+            # the reference's own refusal first, then the port's
+            if not REGISTRY[cfg.strategy].mesh_ok:
+                raise ValueError(
+                    f"strategy {cfg.strategy!r} does not compose with a "
+                    f"mesh")
+            raise _not_ported("a mesh", "the multi-device runtime")
         if pool is not None and pool.m != cfg.m:
             raise ValueError(
                 f"pool threshold m={pool.m} must match cfg.m={cfg.m}")
@@ -439,6 +490,8 @@ class FFTService:
         that bucket's draw."""
         cfg = self.cfg
         n = self._n_workers()
+        if cfg.strategy != "mds":
+            return      # the strategy plans hold no kernel-bounded code
         if kind in self.ND_KINDS:
             if (not cfg.use_reference
                     and ops.kernel_backend_supported(cfg.dtype)):
@@ -470,6 +523,9 @@ class FFTService:
         key = (s, kind, n)
         if key not in self._plans:
             cfg = self.cfg
+            if cfg.strategy != "mds":
+                self._plans[key] = self._strategy_plan(s, kind, n)
+                return self._plans[key]
             if cfg.worker_fn is not None and kind != "c2c":
                 raise ValueError(
                     f"worker_fn plug-ins only apply to c2c buckets; got a "
@@ -488,6 +544,26 @@ class FFTService:
                          or self._kernel_path(s, kind) else "kernel"),
                 device=self.device, **kwargs)
         return self._plans[key]
+
+    def _strategy_plan(self, s, kind: str, n: int):
+        """A non-``mds`` strategy's plan from the registry: c2c only (the
+        real and n-D pipelines are built on the (N, m) MDS row code),
+        where the entry is applicable, always on the reference backend
+        (``torch.fft`` and the batched solve), as the reference builds it
+        (``StrategyEntry.kernel_ok``)."""
+        cfg = self.cfg
+        if kind != "c2c":
+            raise ValueError(
+                f"strategy {cfg.strategy!r} serves c2c buckets only; got a "
+                f"{kind!r} request")
+        if not REGISTRY[cfg.strategy].applicable(s, cfg.m, n,
+                                                 cfg.strategy_param):
+            raise ValueError(
+                f"strategy {cfg.strategy!r} is not applicable at (s={s}, "
+                f"m={cfg.m}, N={n}, param={cfg.strategy_param})")
+        return make_strategy(cfg.strategy, s, cfg.m, n, dtype=cfg.dtype,
+                             backend="reference", param=cfg.strategy_param,
+                             device=self.device)
 
     def _instrumented_plan(self, s, kind: str):
         """The plan the instrumented path (verify, measured) computes real
@@ -546,10 +622,11 @@ class FFTService:
     def _kernel_path(self, s, kind: str = "c2c") -> bool:
         """Does this bucket run the bucket kernels (else ``plan.run``)?
         Not for an n-D kind (the bucket kernels are 1-D layouts), a
-        reference or complex128 service, a ``worker_fn`` plug-in or a
+        non-``mds`` strategy (the bucket kernels are (N, m) MDS layouts),
+        a reference or complex128 service, a ``worker_fn`` plug-in or a
         pinned ``decode_method`` (the reference's rule)."""
         cfg = self.cfg
-        return (kind not in self.ND_KINDS
+        return (kind not in self.ND_KINDS and cfg.strategy == "mds"
                 and not cfg.use_reference and cfg.worker_fn is None
                 and cfg.decode_method == "auto"
                 and ops.kernel_backend_supported(cfg.dtype))
@@ -572,8 +649,13 @@ class FFTService:
             else:
                 plan = self._plan_for(s, kind)
                 method = self.cfg.decode_method
-                self._runners[key] = lambda xb, masks: plan.run(
-                    xb, mask=masks, method=method)
+                if getattr(plan, "fragments", 1) > 1:
+                    # partial-work strategy: per-fragment (bucket, N, r)
+                    self._runners[key] = lambda xb, masks: plan.run(
+                        xb, fragment_mask=masks, method=method)
+                else:
+                    self._runners[key] = lambda xb, masks: plan.run(
+                        xb, mask=masks, method=method)
         return self._runners[key]
 
     def _make_kernel_runner(self, s: int, bucket: int, kind: str, *,
@@ -660,29 +742,57 @@ class FFTService:
 
     # -- straggler simulation --------------------------------------------
     def _wire_scale(self, kind: str) -> float:
-        """Per-shard wire payload relative to the c2c shard: the real
-        kinds ship half of it (pair packing)."""
-        return 0.5 if kind in self.REAL_KINDS else 1.0
+        """Per-shard wire payload relative to the c2c MDS shard: the real
+        kinds ship half of it (pair packing); a strategy charges its own
+        ``payload_scale`` (1/q for comm_efficient, 1 for partial)."""
+        base = 0.5 if kind in self.REAL_KINDS else 1.0
+        return base * float(getattr(self.plan, "payload_scale", 1.0))
+
+    def _fragment_times(self, lat: np.ndarray) -> np.ndarray:
+        """Partial strategy: fragment f of worker w lands at ``lat *
+        fractions[f]``: ``(..., N)`` -> ``(..., N, r)``."""
+        return lat[..., None] * np.asarray(self.plan.fragment_fractions)
 
     def _simulate_arrivals(self, n_requests: int, kind: str = "c2c"
                            ) -> tuple[np.ndarray, np.ndarray]:
         """Per-request worker latencies + availability masks at decode
         time: ONE vectorized draw per bucket, the mask admitting the
-        fastest ``m`` (the m-th order statistic and everything before).
-        The wire share is charged at the kind's payload
-        (:meth:`_wire_scale`)."""
+        fastest ``k`` (the plan's recovery threshold: ``m``, or ``m*q``
+        for comm_efficient) -- the k-th order statistic and everything
+        before.  The partial strategy's mask is per FRAGMENT, ``(n, N,
+        r)``, admitting fragments until ``m*r`` have arrived.  The wire
+        share is charged at the kind's payload (:meth:`_wire_scale`)."""
         cfg = self.cfg
+        plan = self.plan
         lat = cfg.straggler.sample(
             (n_requests, cfg.n_workers), 1.0 / cfg.m, self.rng,
             payload_scale=self._wire_scale(kind))
-        t_done = np.sort(lat, axis=-1)[:, cfg.m - 1]
+        if getattr(plan, "fragments", 1) > 1:
+            ft = self._fragment_times(lat)
+            need = plan.fragments_needed
+            t_done = np.sort(ft.reshape(n_requests, -1), -1)[:, need - 1]
+            return lat, ft <= t_done[:, None, None]
+        k = plan.recovery_threshold
+        t_done = np.sort(lat, axis=-1)[:, k - 1]
         return lat, lat <= t_done[:, None]
 
     def _account(self, lat: np.ndarray, mask: np.ndarray) -> None:
+        plan = self.plan
         lat_sorted = np.sort(lat, axis=-1)
         self.stats.requests += lat.shape[0]
-        self.stats.coded_latency += float(lat_sorted[:, self.cfg.m - 1].sum())
-        self.stats.stragglers_tolerated += int((~mask).sum())
+        if mask.ndim == 3:
+            # partial strategy: the coded latency is the fragment-coverage
+            # time; a tolerated straggler is a worker whose LAST fragment
+            # the master did not wait for
+            need = plan.fragments_needed
+            t_cov = np.sort(self._fragment_times(lat).reshape(
+                lat.shape[0], -1), -1)[:, need - 1]
+            self.stats.coded_latency += float(t_cov.sum())
+            self.stats.stragglers_tolerated += int((~mask[..., -1]).sum())
+        else:
+            k = plan.recovery_threshold
+            self.stats.coded_latency += float(lat_sorted[:, k - 1].sum())
+            self.stats.stragglers_tolerated += int((~mask).sum())
         self.stats.uncoded_latency += float(lat_sorted[:, -1].sum())
 
     # -- fault-tolerant bucket path (opt-in) -------------------------------
@@ -697,14 +807,27 @@ class FFTService:
         late originals count, missing shards are re-dispatched to healthy
         workers with fresh draws, the window backs off geometrically --
         and requests that still miss get a typed ServiceError.  The draws
-        are the reference's, in its order (the ``"mds"`` strategy's
-        branch: a per-worker mask, threshold ``m``).
+        are the reference's, in its order.
+
+        Strategy-generic: the worker-count threshold and the wire payload
+        come from the configured plan (``m`` for mds, ``m*q`` for
+        comm_efficient), and the partial strategy's masks are per
+        FRAGMENT, ``(n_live, N, r)``: the deadline gates each fragment
+        (:meth:`WorkerHealthTracker.fragment_mask_from_times`), ``met``
+        counts fragments against the ``m*r`` coverage condition, and a
+        re-dispatched shard lands all r fragments at once.
 
         Returns ``(masks, errors, t_comp, lat, round_faults, round_idx)``.
         """
         cfg = self.cfg
         n = self._n_workers()
-        need = cfg.m
+        plan = self.plan
+        need = plan.recovery_threshold
+        nf = getattr(plan, "fragments", 1)
+        frac = (np.asarray(plan.fragment_fractions, np.float64)
+                if nf > 1 else None)
+        # fragments needed for decode; in worker units it is `need`
+        need_units = getattr(plan, "fragments_needed", need)
         if self.health.n_workers < n:
             self.health.grow(n)       # elastic capacity growth keeps history
         round_idx = self._round
@@ -720,8 +843,24 @@ class FFTService:
             lat = self.injector.perturb_latencies(lat, round_idx)
         lat = np.where(alive[None, :], lat, np.inf)
         errors: list = [None] * n_live
-        masks = np.zeros((n_live, n), bool)
+        masks = np.zeros((n_live, n) + ((nf,) if nf > 1 else ()), bool)
         t_comp = np.full(n_live, np.inf)
+
+        def admit(times, window):
+            """Per-worker (or per-fragment) arrivals inside ``window``."""
+            if nf > 1:
+                return (self.health.fragment_mask_from_times(
+                    times, window, frac) & alive[..., :, None])
+            return self.health.mask_from_times(times, window) & alive
+
+        def coverage_time(lat_rows):
+            """Per-request completion: the need-th worker (need_units-th
+            fragment for partial) order statistic."""
+            if nf > 1:
+                ft = np.sort(self._fragment_times(lat_rows).reshape(
+                    lat_rows.shape[0], -1), axis=1)
+                return ft[:, need_units - 1]
+            return np.sort(lat_rows, axis=1)[:, need - 1]
 
         if int(alive.sum()) < need:
             err = ServiceError(
@@ -735,15 +874,15 @@ class FFTService:
         if self.health.rounds == 0:
             # cold start: no learned estimates yet -- bootstrap from this
             # round's own threshold-order statistics
-            kth = np.sort(lat, axis=1)[:, need - 1]
+            kth = coverage_time(lat)
             kth = kth[np.isfinite(kth)]
             deadline = (float(kth.max()) * (1.0 + cfg.deadline_slack)
                         if kth.size else float("inf"))
         else:
             deadline = self.health.deadline(need, alive=alive)
-        masks = self.health.mask_from_times(lat, deadline) & alive
-        met = masks.sum(axis=1) >= need
-        t_comp[met] = np.sort(lat, axis=1)[:, need - 1][met]
+        masks = admit(lat, deadline)
+        met = masks.reshape(n_live, -1).sum(axis=1) >= need_units
+        t_comp[met] = coverage_time(lat)[met]
 
         killed = np.zeros(n, bool)
         for w in rf.killed:
@@ -758,9 +897,11 @@ class FFTService:
             window *= cfg.retry_backoff
             self.stats.retries += 1
             for i in np.flatnonzero(~met):
-                # late originals land inside the extended window
-                masks[i] |= self.health.mask_from_times(lat[i], window) & alive
-                missing = np.flatnonzero(alive & ~masks[i])
+                # late originals land inside the extended window (for
+                # partial: the late worker's finished fragment PREFIX)
+                masks[i] |= admit(lat[i], window)
+                done = masks[i] if nf == 1 else masks[i].all(axis=-1)
+                missing = np.flatnonzero(alive & ~done)
                 if missing.size and healthy.any():
                     # re-dispatch the missing shard rows to healthy workers:
                     # fresh work issued when the previous window closed,
@@ -769,9 +910,10 @@ class FFTService:
                     redraw = cfg.straggler.sample(
                         missing.size, 1.0 / cfg.m, self.rng,
                         payload_scale=scale)
+                    # (a re-dispatched shard lands all r fragments at once)
                     masks[i][missing[prev + redraw <= window]] = True
                     self.stats.redispatched_shards += int(missing.size)
-                if int(masks[i].sum()) >= need:
+                if int(masks[i].sum()) >= need_units:
                     met[i] = True
                     t_comp[i] = window   # conservative: met at window close
         for i in np.flatnonzero(~met):
@@ -779,7 +921,8 @@ class FFTService:
                 reason = "insufficient_workers"
                 detail = "no healthy workers to re-dispatch to"
             else:
-                detail = (f"{int(masks[i].sum())}/{need} shards after "
+                unit = "fragments" if nf > 1 else "shards"
+                detail = (f"{int(masks[i].sum())}/{need_units} {unit} after "
                           f"{cfg.max_retries} retries")
                 reason = "retries_exhausted"
             errors[i] = ServiceError(reason, detail)
@@ -821,10 +964,9 @@ class FFTService:
         masks, errors, t_comp, lat, rf, round_idx = \
             self._fault_arrivals(n_live, kind)
         self._account_robust(t_comp, lat, masks, errors)
-        # the bucket's plan raises its length errors here, after the draws,
-        # as the reference's executor lookup does
-        self._plan_for(s, kind)
-        full = np.ones((bucket, n), bool)
+        # the bucket's plan raises its length and strategy errors here,
+        # after the draws, as the reference's executor lookup does
+        full = self._full_masks(s, kind, bucket)
         full[:n_live] = masks
         errors = errors + [None] * (bucket - n_live)
         live_corrupt = [w for w in sorted(rf.corrupt) if w < n]
@@ -923,6 +1065,9 @@ class FFTService:
                                 res.error_worker_indices).tolist():
                             self.health.flag_byzantine(int(w))
                     y = torch.as_tensor(res.output, device=self.device)
+            elif getattr(plan, "fragments", 1) > 1:
+                y = plan.decode(bi, fragment_mask=torch.as_tensor(
+                    masks[i], device=self.device))
             else:
                 y = plan.decode(bi, mask=torch.as_tensor(
                     masks[i], device=self.device))
@@ -1042,6 +1187,20 @@ class FFTService:
             return np.zeros((bucket, s // 2 + 1), dtype=cdt)
         return np.zeros((bucket, s), dtype=cdt)
 
+    def _mask_tail(self) -> tuple[int, ...]:
+        """Trailing mask axes after the worker axis: ``(r,)`` for the
+        partial strategy's per-fragment masks, else none."""
+        nf = getattr(self.plan, "fragments", 1)
+        return (nf,) if nf > 1 else ()
+
+    def _full_masks(self, s, kind: str, bucket: int) -> np.ndarray:
+        """All-responders mask block for one bucket: ``(bucket, N)``, or
+        ``(bucket, N, r)`` per fragment for the partial strategy.  Builds
+        the bucket's plan first, so its length and strategy errors raise
+        here, where the reference raises them."""
+        self._plan_for(s, kind)
+        return np.ones((bucket, self._n_workers()) + self._mask_tail(), bool)
+
     def _bucket_args(self, s, kind: str, xb: np.ndarray,
                      masks: np.ndarray) -> tuple:
         """Device arguments of one bucket: the requests, then the raw
@@ -1066,7 +1225,8 @@ class FFTService:
         buffer, the decode planes on the host decode-matrix path, and the
         host->device copies.  Returns ``(bucket, args)``.
 
-        ``masks`` (``(len(reqs), N)`` bool) stages the bucket with those
+        ``masks`` (``(len(reqs), N)`` bool, ``(len(reqs), N, r)`` under the
+        partial strategy) stages the bucket with those
         responders instead of a straggler draw, and accounts no latency:
         the seam a check uses to serve a bucket with chosen responders
         (the non-robust path only).
@@ -1087,9 +1247,9 @@ class FFTService:
                                  "path only; the fault-tolerant path "
                                  "derives its masks at launch")
             masks = np.asarray(masks, bool)
-            if masks.shape != (n_live, n):
-                raise ValueError(f"masks must be {(n_live, n)},"
-                                 f" got {masks.shape}")
+            want = (n_live, n) + self._mask_tail()
+            if masks.shape != want:
+                raise ValueError(f"masks must be {want}, got {masks.shape}")
         self.stats.batches += 1
         xb = self._bucket_buffer(s, bucket, kind)
         real_in = kind in ("r2c", "rfftn")
@@ -1103,11 +1263,11 @@ class FFTService:
             lat, masks = self._simulate_arrivals(n_live, kind)
             self._account(lat, masks)
         # the bucket's plan raises its length errors (``m | s``, ``2m | s``,
-        # the n-D factors) here,
-        # after the draw and before the decode planes, as the reference's
-        self._plan_for(s, kind)
-        # padded rows: every worker "responds" so decode stays well-posed
-        full = np.ones((bucket, n), bool)
+        # the n-D factors) and a strategy's errors (c2c only, applicable)
+        # here, after the draw and before the decode planes, as the
+        # reference's; padded rows: every worker "responds" so decode
+        # stays well-posed
+        full = self._full_masks(s, kind, bucket)
         full[:n_live] = masks
         return bucket, self._bucket_args(s, kind, xb, full)
 
@@ -1280,7 +1440,7 @@ class FFTService:
             for b in sorted(set(buckets)):
                 args = self._bucket_args(
                     s, k, self._bucket_buffer(s, b, k),
-                    np.ones((b, self._n_workers()), bool))
+                    self._full_masks(s, k, b))
                 self._runner_for(s, b, k)(*args)
                 count += 1
         if self.device.type == "cuda":

@@ -14,7 +14,8 @@
 * ``import repro_torch`` loads neither JAX nor the JAX package; entry
   points refuse to run without a GPU unless asked for the CPU; every
   configuration and runtime the port does not serve yet raises
-  NotImplementedError (``device_decode=False`` and ``m >
+  NotImplementedError, and the strategy zoo's configurations do what
+  the reference's do (``device_decode=False`` and ``m >
   LAGRANGE_MAX_M`` are served: ``tests/test_torch_host_decode.py``; the
   fault runtime and a ``pool=``: ``tests/test_torch_faults.py``).
 """
@@ -276,12 +277,34 @@ def test_entry_points_refuse_without_gpu(monkeypatch):
     {"precision": "bf16", "verify": "detect"},
     {"strategy": "partial", "measured": True},
 ])
-def test_unserved_configs_raise(kwargs):
-    """bf16 planes and the strategy zoo still raise, alone and beside the
-    fault runtime's options (which the port serves:
-    tests/test_torch_faults.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFTService(FFTServiceConfig(**kwargs), device="cpu")
+def test_unserved_configs_raise(jref, kwargs):
+    """bf16 planes still raise, alone and beside the fault runtime's
+    options (which the port serves: tests/test_torch_faults.py).  The
+    strategy zoo does what the reference does: ``partial`` and
+    ``comm_efficient`` build and serve c2c as a same-seed JAX service
+    does (tests/test_torch_strategy_service.py holds the rest), and
+    ``repetition`` and ``partial`` with ``measured`` raise the reference's
+    ValueError."""
+    _, _, JService, JConfig = jref
+    if "precision" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FFTService(FFTServiceConfig(**kwargs), device="cpu")
+        return
+    cfg = dict(s=256, m=2, n_workers=8, seed=4, autotune=False, **kwargs)
+    try:
+        jsvc = JService(JConfig(**cfg))
+    except ValueError as err:
+        with pytest.raises(ValueError) as ours:
+            FFTService(FFTServiceConfig(**cfg), device="cpu")
+        assert str(ours.value) == str(err)
+        return
+    tsvc = FFTService(FFTServiceConfig(**cfg), device="cpu")
+    xs = _requests([256, 256, 256], seed=5)
+    for t, j, x in zip(tsvc.submit_batch(xs), jsvc.submit_batch(xs), xs):
+        want = np.fft.fft(x.astype(np.complex128))
+        assert _rel(t, want) < 5e-4 and _rel(t, np.asarray(j)) < 5e-4
+    assert tsvc.stats.coded_latency == jsvc.stats.coded_latency
+    assert tsvc.rng.bit_generator.state == jsvc.rng.bit_generator.state
 
 
 def test_unserved_kinds_and_runtimes_raise():
@@ -309,8 +332,9 @@ def test_config_from_reference(jref):
         JConfig())).decode_cache_size == JConfig().decode_cache_size == 512
     assert cfg.dtype == torch.complex64
     assert cfg.straggler.wire_frac == jcfg.straggler.wire_frac
-    with pytest.raises(NotImplementedError):
-        config_from_reference(dataclasses.asdict(JConfig(strategy_param=3)))
+    # the strategy knobs map as they are
+    assert config_from_reference(dataclasses.asdict(JConfig(
+        strategy="partial", strategy_param=3))).strategy_param == 3
     # the fault runtime's fields map as they are
     assert config_from_reference(dataclasses.asdict(
         JConfig(max_retries=5, on_failure="degrade"))).max_retries == 5

@@ -440,8 +440,9 @@ def test_config_from_reference_maps_the_decode_knobs(jref):
     cfg = config_from_reference(dataclasses.asdict(JConfig(
         decode_method="ifft")) | {"worker_fn": fn})
     assert cfg.decode_method == "ifft" and cfg.worker_fn is fn
-    with pytest.raises(NotImplementedError, match="strategy zoo"):
-        config_from_reference(dataclasses.asdict(JConfig(strategy_param=3)))
+    # the strategy zoo's knob maps as it is
+    assert config_from_reference(dataclasses.asdict(JConfig(
+        strategy_param=3))).strategy_param == 3
     # the fault runtime's knobs map as they are
     assert config_from_reference(dataclasses.asdict(JConfig(
         max_retries=5))).max_retries == 5
