@@ -60,7 +60,13 @@ deadline masks from kill and delay faults on the masked c2c (s=4096,
 ``fourstep_fused``; an elastic pool growing N from 8 to 9; the measured
 thread-per-worker runtime's rows from the card; and
 ``StreamingFFTService`` under Poisson arrivals, streaming against the
-naive baseline, then mixed tiers.
+naive baseline, then mixed tiers.  After the strategy zoo, the
+multi-device runtime (``mesh_runtime``), each world in child processes:
+a world of one on NCCL (``DistributedCodedPlan.run`` of the 1-D, real,
+n-D and strategy plans, ``run_sharded``, ``FFTService(mesh=)``: the
+``cmatmul`` encode, the four-step workers, the ``bcmatmul`` decode) and
+four ``gloo`` ranks sharing the card (``run``, ``run_sharded``, the
+service and a ``reshard`` 4 -> 2 -> 4 ranks, against the world of one).
 The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
 ``GenerationEngine`` on rwkv6-3b at full width and depth (bf16, seeded
 weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
@@ -1370,6 +1376,399 @@ def strategy_zoo(torch, np, rng, dev, counted) -> None:
               "ms_per_call": ms, "launches": counts, "nvidia_smi": smi})
 
 
+# -- the multi-device runtime (mesh_runtime) ---------------------------------
+# m = 4, N = 8 throughout; the 1-D shapes of the other phases
+MESH_M, MESH_N, MESH_S, MESH_BIG = 4, 8, 4096, 1 << 20
+
+
+def _mesh_inputs(np, big: bool = True):
+    """Both worlds' inputs, alike in every process: 64 complex requests at
+    s = 4096 (and one real and one half-spectrum batch) and, with ``big``,
+    16 at 2^20 and one real 2048 x 2048 field; the masks are the
+    service's own straggler draws (fastest m of N, per fragment for
+    partial), from same-seed CPU services (their draws are numpy's
+    alone)."""
+    from repro_torch import FFTService, FFTServiceConfig
+
+    rng = np.random.default_rng(31)
+
+    def crand(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    def draws(q, **kw):
+        svc = FFTService(FFTServiceConfig(
+            s=MESH_S, m=MESH_M, n_workers=MESH_N, seed=q, autotune=False,
+            **kw), device="cpu")
+        return svc._simulate_arrivals(q)[1]
+
+    inp = {"x": crand(64, MESH_S), "masks": draws(64)}
+    if big:
+        inp.update(
+            real=rng.standard_normal((64, MESH_S)).astype(np.float32),
+            half=np.fft.rfft(rng.standard_normal((64, MESH_S))).astype(
+                np.complex64),
+            xbig=crand(16, MESH_BIG),
+            field=rng.standard_normal((2048, 2048)).astype(np.float32),
+            masks_big=draws(16), fmasks=draws(64, strategy="partial"),
+            cmasks=draws(64, strategy="comm_efficient"))
+    return inp
+
+
+def _mesh_service_cfg(**kw):
+    from repro_torch import FFTServiceConfig
+
+    return FFTServiceConfig(s=MESH_S, m=MESH_M, n_workers=MESH_N, seed=7,
+                            max_batch=64, autotune=False, **kw)
+
+
+def _mesh_child(fn, rank: int, world: int, backend: str, outdir: str):
+    """A rank of one world: the process group (``file://`` rendezvous in
+    ``outdir``), ``fn(torch, np, mesh, rank)``'s results written to
+    ``outdir``, a traceback there on failure."""
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import test_mesh
+
+    out = Path(outdir)
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(backend,
+                                init_method=f"file://{out / 'rendezvous'}",
+                                rank=rank, world_size=world)
+        try:
+            mesh = test_mesh((world,), ("workers",), device_type="cuda")
+            info, arrays = fn(torch, np, mesh, rank)
+        finally:
+            dist.destroy_process_group()
+        np.savez(out / f"rank{rank}.npz", **arrays)
+        (out / f"rank{rank}.json").write_text(json.dumps(info))
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _mesh_counted(torch, run):
+    """``run()`` with the launch counts set to 0 just before it; its
+    result and the counts read just after."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, _build.launch_counts()
+
+
+def _mesh_timing(torch, run, track=("nccl",), profiled=True) -> dict:
+    """Three steady calls' mean wall ms; ``profiled``: then one profiled
+    call's busy and idle share and the collective's device ms."""
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    row = {"ms": (time.perf_counter() - t0) * 1e3 / 3}
+    if profiled:
+        prof = profile_call(torch, run, track=track)
+        row.update(busy_ms=prof["device_busy_ms"],
+                   idle_share=prof["device_idle_share"],
+                   collective_ms=prof["tracked_ms"])
+    return row
+
+
+def _mesh_case(torch, np, name, run, want, tol, expect, rows, arrays,
+               timed=True, profiled=False):
+    """One counted call (its launches exactly ``expect``), its error
+    against ``want`` (complex128/float64 on the card), NaN-free; then
+    (``timed``) three steady calls' mean wall ms and (``profiled``) one
+    profiled call."""
+    out, counts = _mesh_counted(torch, run)
+    got = out.to_local() if hasattr(out, "to_local") else out
+    if counts != expect:
+        raise RuntimeError(f"{name}: launches {counts}, expected {expect}")
+    if bool(torch.isnan(got).any()):
+        raise RuntimeError(f"{name}: NaN reached the output")
+    err = float((got.to(want.dtype) - want).abs().max() / want.abs().max())
+    if not err < tol:
+        raise RuntimeError(f"{name}: rel err {err} >= {tol}")
+    row = {"case": name, "shape": list(got.shape), "launches": counts,
+           "rel_err": err, "rel_tol": tol}
+    if timed:
+        row.update(_mesh_timing(torch, run, track=("nccl", "Memcpy"),
+                                profiled=profiled))
+    rows.append(row)
+    arrays[name] = got.cpu().numpy()
+    return out
+
+
+def _mesh_world_one(torch, np, mesh, rank):
+    """(a) the NCCL world of one on the card: every path at full width."""
+    from repro_torch import FFTService
+    from repro_torch.core import (
+        CodedFFT,
+        CodedIRFFT,
+        CodedRFFT,
+        CodedRFFTN,
+        make_strategy,
+        plan_factors,
+    )
+    from repro_torch.distributed import DistributedCodedPlan, reshard
+
+    inp = _mesh_inputs(np)
+    dev = torch.device("cuda")
+    m, n, s, big = MESH_M, MESH_N, MESH_S, MESH_BIG
+    nan = float("nan")
+
+    def cuda(a):
+        return torch.as_tensor(a, device=dev)
+
+    x, xbig = cuda(inp["x"]), cuda(inp["xbig"])
+    masks, masks_big = cuda(inp["masks"]), cuda(inp["masks_big"])
+    fx = torch.fft.fft(x.to(torch.complex128), dim=-1)
+    rows, arrays = [], {}
+    small = {"cmatmul": 1, "fourstep_fused": 1, "bcmatmul": 1}
+    two_pass = {"cmatmul": 1, "fourstep_stage1": 1, "fourstep_stage2": 1}
+
+    def runtime(plan):
+        return DistributedCodedPlan(plan, mesh, masked_fill=nan)
+
+    d = runtime(CodedFFT(s=s, m=m, n_workers=n, device=dev))
+    _mesh_case(torch, np, "fft_64x4096", lambda: d.run(x, masks), fx, 5e-4,
+               small, rows, arrays, profiled=True)
+    rows[-1]["collectives"] = d.last_collectives
+    d = runtime(CodedFFT(s=big, m=m, n_workers=n, device=dev))
+    want = torch.fft.fft(xbig.to(torch.complex128), dim=-1)
+    _mesh_case(torch, np, "fft_16x2^20", lambda: d.run(xbig, masks_big),
+               want, 1e-3, {**two_pass, "bcmatmul": 1}, rows, arrays,
+               profiled=True)
+    rows[-1]["collectives"] = d.last_collectives
+    del want
+    want = torch.fft.fft(xbig[0].to(torch.complex128)).reshape(m, -1)
+    xm = _mesh_case(torch, np, "run_sharded_2^20",
+                    lambda: d.run_sharded(xbig[0], masks_big[0]), want,
+                    1e-3, two_pass, rows, arrays, profiled=True)
+    rows[-1]["collectives"] = d.last_collectives
+    full = reshard(xm, mesh, ()).to_local()
+    if not torch.equal(full, xm.to_local()):
+        raise RuntimeError("run_sharded: the replicated value differs")
+    del want, xm, full
+
+    real, half = cuda(inp["real"]), cuda(inp["half"])
+    d = runtime(CodedRFFT(s=s, m=m, n_workers=n, device=dev))
+    _mesh_case(torch, np, "rfft_64x4096", lambda: d.run(real, masks),
+               torch.fft.rfft(real.double(), dim=-1), 5e-4, small, rows,
+               arrays)
+    d = runtime(CodedIRFFT(s=s, m=m, n_workers=n, device=dev))
+    _mesh_case(torch, np, "irfft_64x4096", lambda: d.run(half, masks),
+               torch.fft.irfft(half.to(torch.complex128), n=s, dim=-1),
+               5e-4, small, rows, arrays)
+    field = cuda(inp["field"])
+    d = runtime(CodedRFFTN(shape=(2048, 2048), factors=plan_factors(
+        (2048, 2048), m, even_last_shard=True), n_workers=n, device=dev))
+    _mesh_case(torch, np, "rfftn_2048x2048",
+               lambda: d.run(field, masks[0]),
+               torch.fft.rfftn(field.double()), 1e-3,
+               {"cmatmul": 1, "fourstep_fused": 2}, rows, arrays)
+    for name, key in (("partial", "fmasks"), ("comm_efficient", "cmasks")):
+        d = runtime(make_strategy(name, s, m, n, backend="kernel",
+                                  device=dev))
+        mk = cuda(inp[key])
+        kw = ({"fragment_mask": mk} if name == "partial" else {"mask": mk})
+        _mesh_case(torch, np, f"{name}_64x4096", lambda: d.run(x, **kw),
+                   fx, 5e-4, small, rows, arrays)
+
+    # the service with mesh= against a same-seed service without one: the
+    # same draws (rng state) and coded latency after every call
+    svc = FFTService(_mesh_service_cfg(), device=dev, mesh=mesh)
+    twin = FFTService(_mesh_service_cfg(), device=dev)
+    timed_svc = FFTService(_mesh_service_cfg(), device=dev, mesh=mesh)
+    for kind, key, want, tol, expect in (
+            ("c2c", "x", fx, 5e-4, small),
+            ("r2c", "real", torch.fft.rfft(real.double(), dim=-1), 5e-4,
+             small),
+            ("c2r", "half", torch.fft.irfft(half.to(torch.complex128), n=s,
+                                            dim=-1), 5e-4, small),
+            ("c2c", "xbig", torch.fft.fft(xbig.to(torch.complex128), dim=-1),
+             1e-3, {**two_pass, "bcmatmul": 1})):
+        batch = list(inp[key])
+
+        def call(svc=svc, kind=kind, batch=batch):
+            return cuda(np.stack(svc.submit_batch(batch, kind=kind)))
+
+        name = f"service_{kind}_{len(batch)}x{inp[key].shape[-1]}"
+        _mesh_case(torch, np, name, call, want, tol, expect, rows, arrays,
+                   timed=False)
+        twin.submit_batch(batch, kind=kind)
+        if (svc.rng.bit_generator.state != twin.rng.bit_generator.state
+                or svc.stats.coded_latency != twin.stats.coded_latency):
+            raise RuntimeError(f"{name}: draws differ from the same-seed "
+                               f"service without a mesh")
+        rows[-1]["coded_latency"] = svc.stats.coded_latency
+        # timed on a service of its own, so the two above stay in step
+        rows[-1].update(_mesh_timing(
+            torch, lambda: call(svc=timed_svc), profiled=kind == "c2c"))
+    return {"rows": rows}, arrays
+
+
+def _mesh_world_gloo(torch, np, mesh, rank):
+    """(b) four ranks sharing the card over gloo (n_local = 2)."""
+    from repro_torch import FFTService
+    from repro_torch.core import CodedFFT
+    from repro_torch.distributed import (
+        DistributedCodedPlan,
+        reshard,
+        test_mesh,
+    )
+
+    inp = _mesh_inputs(np, big=False)
+    dev = torch.device("cuda")
+    x = torch.as_tensor(inp["x"], device=dev)
+    masks = torch.as_tensor(inp["masks"], device=dev)
+    fx = torch.fft.fft(x.to(torch.complex128), dim=-1)
+    rows, arrays = [], {}
+    small = {"cmatmul": 1, "fourstep_fused": 1, "bcmatmul": 1}
+    d = DistributedCodedPlan(
+        CodedFFT(s=MESH_S, m=MESH_M, n_workers=MESH_N, device=dev), mesh,
+        masked_fill=float("nan"))
+    _mesh_case(torch, np, "fft_64x4096", lambda: d.run(x, masks), fx, 5e-4,
+               small, rows, arrays, profiled=True)
+    rows[-1]["collectives"] = d.last_collectives
+    cols = MESH_S // MESH_M // mesh.size(0)
+    xm = _mesh_case(torch, np, "run_sharded_4096",
+                    lambda: d.run_sharded(x[0], masks[0]),
+                    fx[0].reshape(MESH_M, -1)[:, rank * cols:(rank + 1) * cols],
+                    5e-4, {"cmatmul": 1, "fourstep_fused": 1}, rows, arrays,
+                    timed=False)
+    rows[-1]["collectives"] = d.last_collectives
+    arrays["run_sharded_full"] = reshard(xm, mesh, ()).to_local().cpu().numpy()
+    svc = FFTService(_mesh_service_cfg(), device=dev, mesh=mesh)
+    _mesh_case(torch, np, f"service_c2c_64x{MESH_S}",
+               lambda: torch.as_tensor(
+                   np.stack(svc.submit_batch(list(inp["x"]))), device=dev),
+               fx, 5e-4, small, rows, arrays, timed=False)
+    rows[-1]["coded_latency"] = svc.stats.coded_latency
+    # reshard 4 -> 2 -> 4 ranks, bit for bit
+    tree = {"w": torch.arange(64.0, device=dev).reshape(8, 8),
+            "tw": torch.polar(torch.ones(16, device=dev),
+                              torch.arange(16.0, device=dev)),
+            "step": torch.tensor(7, dtype=torch.int32, device=dev)}
+    specs = {"w": ("d", None), "tw": (), "step": ()}
+    m4 = test_mesh((4,), ("d",), device_type="cuda")
+    m2 = test_mesh((2,), ("d",), device_type="cuda")
+    back = reshard(reshard(reshard(tree, m4, specs), m2, specs), m4, specs)
+    whole = reshard(back, m4, None)
+    exact = all(torch.equal(whole[k].to_local(), tree[k]) for k in tree)
+    local = list(back["w"].to_local().shape)
+    if not exact or local != [2, 8]:
+        raise RuntimeError(f"reshard 4 -> 2 -> 4: exact {exact}, local "
+                           f"shard {local}")
+    return {"rows": rows, "reshard_exact": exact}, arrays
+
+
+def mesh_runtime(torch, np, launches) -> None:
+    """The multi-device runtime on the card, each world in child processes
+    (spawned; a child's failure fails the run; the kernels are built
+    already, so no rank builds one):
+
+    * (a) a world of one on NCCL, m = 4, N = 8, ``masked_fill=nan``, the
+      service's own straggler draws as masks: ``DistributedCodedPlan.run``
+      of ``CodedFFT`` on 64 x 4096 and 16 x 2^20, ``run_sharded`` on one
+      2^20 request, ``CodedRFFT`` / ``CodedIRFFT`` at 4096 and
+      ``CodedRFFTN`` on one 2048 x 2048 field, the partial and
+      comm_efficient kernel-backend plans at 4096, and ``FFTService(mesh=)``
+      for c2c, r2c and c2r on 64 x 4096 and c2c on 16 x 2^20 (its rng state
+      and coded latency those of a same-seed service without a mesh);
+      each run's launches exactly ``cmatmul``, the four-step kernels and,
+      batched, ``bcmatmul``; its error against complex128 ``torch.fft``
+      (5e-4 at 4096, 1e-3 at 2^20 and n-D), no NaN; ms a call over three
+      steady calls, one profiled call's busy and idle share and the
+      collective's device ms;
+    * (b) four ranks sharing the card over ``gloo`` (``("workers",)`` of 4,
+      n_local = 2): ``run`` and ``run_sharded`` of ``CodedFFT`` and the
+      service on 64 x 4096, every rank within 5e-4 of (a), the
+      collectives each rank records, and a ``reshard`` 4 -> 2 -> 4 ranks,
+      bit for bit.
+
+    The children's launches add to ``launches``."""
+    import multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    base = ROOT / "build" / f"mesh-{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    results = {}
+    for tag, fn, world, backend in (
+            ("one", _mesh_world_one, 1, "nccl"),
+            ("gloo", _mesh_world_gloo, 4, "gloo")):
+        outdir = base / tag
+        outdir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_child,
+                             args=(fn, r, world, backend, str(outdir)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = "".join(f.read_text() for f in sorted(outdir.glob("*.err")))
+        if any(p.exitcode != 0 for p in procs) or errs:
+            fail(f"mesh_runtime world {tag}: exit codes "
+                 f"{[p.exitcode for p in procs]}\n{errs[-4000:]}")
+        ranks = [(json.loads((outdir / f"rank{r}.json").read_text()),
+                  dict(np.load(outdir / f"rank{r}.npz")))
+                 for r in range(world)]
+        for info, _ in ranks:
+            for row in info["rows"]:
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        results[tag] = ranks
+        emit({"phase": f"mesh_runtime_{tag}", "backend": backend,
+              "world": world, "seconds": time.perf_counter() - t0,
+              "rows": ranks[0][0]["rows"],
+              **({"reshard_exact": [i["reshard_exact"] for i, _ in ranks]}
+                 if tag == "gloo" else {})})
+    one = results["one"][0][1]
+    ell = MESH_S // MESH_M
+    for rank, (info, arr) in enumerate(results["gloo"]):
+        errs = {}
+        for name, want in (("fft_64x4096", one["fft_64x4096"]),
+                           (f"service_c2c_64x{MESH_S}",
+                            one[f"service_c2c_64x{MESH_S}"]),
+                           ("run_sharded_full",
+                            one["fft_64x4096"][0].reshape(MESH_M, ell))):
+            errs[name] = float(np.abs(arr[name] - want).max()
+                               / np.abs(want).max())
+            if not errs[name] < 5e-4:
+                fail(f"mesh_runtime gloo rank {rank} {name}: rel err "
+                     f"{errs[name]} against the NCCL world of one")
+        coll = {row["case"]: row.get("collectives") for row in info["rows"]}
+        want_coll = {
+            "fft_64x4096": [{"kind": "all_gather", "group_size": 4,
+                             "send_symbols": 2 * 64 * ell,
+                             "recv_symbols": MESH_N * 64 * ell}],
+            "run_sharded_4096": [{"kind": "all_to_all", "group_size": 4,
+                                  "send_symbols": 2 * ell,
+                                  "recv_symbols": MESH_N * ell // 4}]}
+        for name, want in want_coll.items():
+            if coll[name] != want:
+                fail(f"mesh_runtime gloo rank {rank} {name}: collectives "
+                     f"{coll[name]}, expected {want}")
+        emit({"phase": "mesh_runtime_gloo_vs_one", "rank": rank,
+              "rel_err": errs})
+    shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "mesh_runtime_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
 
@@ -2549,6 +2948,10 @@ def main() -> int:
     t0 = time.perf_counter()
     strategy_zoo(torch, np, rng, dev, counted)
     emit({"phase": "strategy_zoo_done", "seconds": time.perf_counter() - t0})
+
+    # -- 8e. the multi-device runtime: an NCCL world of one and four gloo
+    # ranks sharing the card, each in child processes --------------------
+    mesh_runtime(torch, np, launches)
 
     # -- 9. the tuned four-step path --------------------------------------
     # (a) the default service's warmup search, from an empty cache: the

@@ -1,18 +1,21 @@
-"""Elastic worker membership for the coded service.
+"""Elastic scaling: worker membership + resharding state between meshes.
 
-``ElasticWorkerPool`` tracks coded-FFT worker membership between rounds:
-workers ``join``/``leave`` live while the recovery threshold ``m`` stays
-fixed.  The paper's MDS property makes departure a *latency event* --
-any ``m`` of the live workers still decode -- so a leave is just a mask
-flip.  Joins first refill departed slots (same RS evaluation node, no
-new code); joins beyond capacity grow the code to ``N+1`` nodes, which
-with root-of-unity nodes re-derives the node set, so consumers key
-their plan, generator and decode-cache state by ``pool.capacity``.
+Two mechanisms live here:
 
-The JAX package's module also moves parameter trees from one device
-mesh onto another (``reshard`` / ``reshard_like``).  Those wait for the
-port's multi-device runtime (ROADMAP.md, Queue 1 item 8); here they
-raise ``NotImplementedError`` naming it.
+* ``reshard`` / ``reshard_like`` move a tree of tensors (nested dicts,
+  lists and tuples) from its current layout onto the equivalent logical
+  layout over a new ``torch.distributed`` device mesh.  Every leaf moves
+  through its global value, so the transfer is exact between meshes of
+  any size (4 -> 2 -> 4 ranks round-trips bit for bit, including specs
+  naming axes the new mesh lacks).
+* ``ElasticWorkerPool`` tracks coded-FFT worker membership between rounds:
+  workers ``join``/``leave`` live while the recovery threshold ``m`` stays
+  fixed.  The paper's MDS property makes departure a *latency event* --
+  any ``m`` of the live workers still decode -- so a leave is just a mask
+  flip.  Joins first refill departed slots (same RS evaluation node, no
+  new code); joins beyond capacity grow the code to ``N+1`` nodes, which
+  with root-of-unity nodes re-derives the node set, so consumers key
+  their plan, generator and decode-cache state by ``pool.capacity``.
 """
 
 from __future__ import annotations
@@ -20,26 +23,87 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils import _pytree as pytree
+
+from repro_torch.distributed.sharding import (
+    global_tensor,
+    place,
+    spec_placements,
+)
 
 __all__ = ["ElasticWorkerPool", "reshard", "reshard_like"]
 
-_MULTI_DEVICE = "ROADMAP.md, Queue 1 item 8 (the multi-device runtime)"
+
+def _resolve(spec_leaf, mesh) -> tuple:
+    """A PartitionSpec tuple with the axis names ``mesh`` lacks dropped
+    (e.g. "pod" after a shrink); anything but a tuple is replicated,
+    ``()``.  ``mesh``: a DeviceMesh or its dimension names."""
+    names = tuple(getattr(mesh, "mesh_dim_names", mesh) or ())
+    spec = spec_leaf if isinstance(spec_leaf, tuple) else ()
+    cleaned = []
+    for entry in spec:
+        if entry is None:
+            cleaned.append(None)
+        elif isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if a in names)
+            cleaned.append(kept if kept else None)
+        else:
+            cleaned.append(entry if entry in names else None)
+    return tuple(cleaned)
 
 
-def reshard(tree: Any, mesh: Any, pspecs: Any) -> Any:
-    """Place ``tree`` onto ``mesh`` under ``pspecs``: not served by the
-    port yet -- it needs the multi-device runtime."""
-    raise NotImplementedError(
-        f"reshard is not served by the PyTorch port yet -- see "
-        f"{_MULTI_DEVICE}")
+def reshard(tree: Any, mesh, pspecs: Any) -> Any:
+    """Place ``tree`` onto ``mesh`` under the ``pspecs`` tree.
+
+    ``pspecs`` has the tree's structure down to its leaves, a
+    PartitionSpec tuple at each (``None`` replicates every leaf); axes
+    missing from the target mesh are silently dropped (pod removal).  A
+    DTensor leaf moves through its global value, which reaches every rank
+    (:func:`~repro_torch.distributed.sharding.global_tensor`); a plain
+    tensor or array is every rank's copy of the whole value.  Every rank
+    of the default group calls this with the same tree; the leaves come
+    back as DTensors on ``mesh``.
+    """
+    flat, treedef = pytree.tree_flatten(tree)
+    specs = (treedef.flatten_up_to(pspecs) if pspecs is not None
+             else [()] * len(flat))
+    out = [place(_global_value(leaf), mesh,
+                 spec_placements(_resolve(spec, mesh), mesh))
+           for leaf, spec in zip(flat, specs)]
+    return pytree.tree_unflatten(out, treedef)
 
 
-def reshard_like(tree: Any, mesh: Any) -> Any:
-    """Reshard keeping each leaf's layout (mesh swap only): not served by
-    the port yet -- it needs the multi-device runtime."""
-    raise NotImplementedError(
-        f"reshard_like is not served by the PyTorch port yet -- see "
-        f"{_MULTI_DEVICE}")
+def _global_value(leaf) -> torch.Tensor:
+    if isinstance(leaf, DTensor):
+        return global_tensor(leaf)
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.as_tensor(np.asarray(leaf))
+
+
+def _spec_of(x) -> tuple:
+    """A DTensor's PartitionSpec, read back from its placements and its
+    mesh's dimension names; a plain tensor is replicated, ``()``."""
+    if not isinstance(x, DTensor):
+        return ()
+    names = x.device_mesh.mesh_dim_names or ()
+    entries: list = [None] * x.ndim
+    for name, p in zip(names, x.placements):
+        if p.is_shard():
+            prev = entries[p.dim]
+            entries[p.dim] = name if prev is None else (
+                (prev if isinstance(prev, tuple) else (prev,)) + (name,))
+    return tuple(entries)
+
+
+def reshard_like(tree: Any, mesh) -> Any:
+    """Reshard keeping each leaf's current PartitionSpec (mesh swap
+    only)."""
+    flat, treedef = pytree.tree_flatten(tree)
+    return reshard(tree, mesh, pytree.tree_unflatten(
+        [_spec_of(x) for x in flat], treedef))
 
 
 class ElasticWorkerPool:

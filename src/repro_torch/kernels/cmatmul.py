@@ -112,14 +112,18 @@ def bcmatmul(ar, ai, br, bi):
     that is exactly zero in both planes (a scatter decode matrix's
     straggler columns), so ``B[q][k]`` is never read there: the same
     result for finite B, and no NaN from a non-finite straggler row,
-    where the plain product gives one.
+    where the plain product gives one.  The CPU route skips them too: it
+    zeroes those rows of B before the plain product.
     """
     q, m, k = ar.shape
     if br.shape[:2] != (q, k) or ai.shape != ar.shape or bi.shape != br.shape:
         raise ValueError(f"bcmatmul: shapes {tuple(ar.shape)} @ "
                          f"{tuple(br.shape)} do not contract")
     if ar.device.type == "cpu":
-        return bcmatmul_body(ar, ai, br, bi)
+        live = ((ar != 0) | (ai != 0)).any(dim=1)[:, :, None]   # (q, k, 1)
+        zero = br.new_zeros(())
+        return bcmatmul_body(ar, ai, torch.where(live, br, zero),
+                             torch.where(live, bi, zero))
     dev = _build.check_planes("bcmatmul", ar=ar, ai=ai, br=br, bi=bi)
     check_left_fits("bcmatmul", m, k)
     if q > _build.MAX_GRID_YZ:

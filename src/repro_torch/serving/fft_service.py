@@ -78,6 +78,15 @@ worker or the plug-in, the chosen decode), as the reference routes them.
 ``submit_batch`` launches every bucket before it waits, then makes ONE
 device-to-host transfer for the call.
 
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` whose ``axis``
+dimension carries the workers) serves every bucket of every kind through
+``DistributedCodedPlan.run`` on the bucket's plan (kernel backend unless
+``use_reference``): each rank encodes and transforms its own coded rows,
+one all-gather fans them in, and every rank decodes.  Each rank calls
+``submit_batch`` with the same requests, and a same-seed service on every
+rank draws the same masks, so every rank returns the same outputs.  The
+fault-tolerant path does not compose with a mesh, as in the reference.
+
 The numpy straggler draws happen in the reference service's order
 (one ``default_rng(cfg.seed)``, one vectorized draw per bucket), so a
 same-seed reference service sees the same masks and the same
@@ -120,6 +129,7 @@ from repro_torch.core.plan import resolve_device
 from repro_torch.core.rfft import CodedIRFFT, CodedRFFT
 from repro_torch.core.rfftn import CodedIRFFTN, CodedRFFTN
 from repro_torch.core.strategies import REGISTRY, make_strategy
+from repro_torch.distributed.coded_runtime import DistributedCodedPlan
 from repro_torch.distributed.elastic import ElasticWorkerPool
 from repro_torch.distributed.faults import (
     FaultInjector,
@@ -373,7 +383,10 @@ class FFTService:
     fault-tolerant path reads each round (its capacity is the live N).
     ``close()`` stops the measured runtime's worker threads.
     ``cfg.strategy`` other than ``"mds"`` serves c2c only, through the
-    strategy's plan on the ``plan.run`` executor.
+    strategy's plan on the ``plan.run`` executor.  ``mesh``: a
+    ``DeviceMesh`` (device type that of ``device``) whose ``axis``
+    dimension runs the workers through ``DistributedCodedPlan``; every
+    rank builds the same service and submits the same requests.
     """
 
     KINDS = ("c2c", "r2c", "c2r", "rfftn", "irfftn")
@@ -385,6 +398,7 @@ class FFTService:
     ND_KINDS = ("rfftn", "irfftn")
 
     def __init__(self, cfg: FFTServiceConfig, device=None, *, mesh=None,
+                 axis: str = "workers",
                  pool: Optional[ElasticWorkerPool] = None):
         for name, (default, item) in _LATER.items():
             if getattr(cfg, name) != default:
@@ -417,13 +431,9 @@ class FFTService:
                 raise ValueError(
                     "the repetition baseline is bench-only; the service "
                     "serves subset-decodable strategies")
-        if mesh is not None:
-            # the reference's own refusal first, then the port's
-            if not REGISTRY[cfg.strategy].mesh_ok:
-                raise ValueError(
-                    f"strategy {cfg.strategy!r} does not compose with a "
-                    f"mesh")
-            raise _not_ported("a mesh", "the multi-device runtime")
+        if mesh is not None and not REGISTRY[cfg.strategy].mesh_ok:
+            raise ValueError(
+                f"strategy {cfg.strategy!r} does not compose with a mesh")
         if pool is not None and pool.m != cfg.m:
             raise ValueError(
                 f"pool threshold m={pool.m} must match cfg.m={cfg.m}")
@@ -433,6 +443,8 @@ class FFTService:
         if cfg.decode_method not in ("auto", "solve", "ifft"):
             raise ValueError(f"unknown decode_method {cfg.decode_method!r}")
         self.cfg = cfg
+        self.mesh = mesh
+        self.axis = axis
         self.pool = pool
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -441,6 +453,8 @@ class FFTService:
         # keyed by the live code size N: an elastic pool can GROW it, and
         # each N is a distinct roots-of-unity code
         self._plans: dict[tuple, object] = {}
+        # the mesh runtimes over those plans, keyed by (s, m, kind, N)
+        self._runtimes: dict[tuple, DistributedCodedPlan] = {}
         # the instrumented (verify / measured) path's kernel-backend plans
         self._kplans: dict[tuple, object] = {}
         self._runners: dict[tuple, object] = {}
@@ -457,7 +471,12 @@ class FFTService:
             if self._robust else None)
         self._measured: dict[tuple, MeasuredWorkerRuntime] = {}
         self._round = 0                # monotone fault/health round counter
+        if self._robust and mesh is not None:
+            raise ValueError("the fault-tolerant service path is host-"
+                             "orchestrated; it does not compose with a mesh")
         self.plan = self._plan_for(cfg.s)
+        self.runtime = (self._runtime_for(cfg.s) if mesh is not None
+                        else None)
         self._check_servable(cfg.s, "c2c")
 
     def _n_workers(self) -> int:
@@ -545,6 +564,15 @@ class FFTService:
                 device=self.device, **kwargs)
         return self._plans[key]
 
+    def _runtime_for(self, s, kind: str = "c2c") -> DistributedCodedPlan:
+        """The mesh runtime over the ``(s, kind)`` bucket's plan at the
+        live N."""
+        key = (s, self.cfg.m, kind, self._n_workers())
+        if key not in self._runtimes:
+            self._runtimes[key] = DistributedCodedPlan(
+                self._plan_for(s, kind), self.mesh, self.axis)
+        return self._runtimes[key]
+
     def _strategy_plan(self, s, kind: str, n: int):
         """A non-``mds`` strategy's plan from the registry: c2c only (the
         real and n-D pipelines are built on the (N, m) MDS row code),
@@ -620,13 +648,15 @@ class FFTService:
         return self._decode_caches[n]
 
     def _kernel_path(self, s, kind: str = "c2c") -> bool:
-        """Does this bucket run the bucket kernels (else ``plan.run``)?
-        Not for an n-D kind (the bucket kernels are 1-D layouts), a
-        non-``mds`` strategy (the bucket kernels are (N, m) MDS layouts),
-        a reference or complex128 service, a ``worker_fn`` plug-in or a
-        pinned ``decode_method`` (the reference's rule)."""
+        """Does this bucket run the bucket kernels (else ``plan.run``, or
+        the mesh runtime)?  Not under a mesh, for an n-D kind (the bucket
+        kernels are 1-D layouts), a non-``mds`` strategy (the bucket
+        kernels are (N, m) MDS layouts), a reference or complex128
+        service, a ``worker_fn`` plug-in or a pinned ``decode_method``
+        (the reference's rule)."""
         cfg = self.cfg
         return (kind not in self.ND_KINDS and cfg.strategy == "mds"
+                and self.mesh is None
                 and not cfg.use_reference and cfg.worker_fn is None
                 and cfg.decode_method == "auto"
                 and ops.kernel_backend_supported(cfg.dtype))
@@ -648,13 +678,15 @@ class FFTService:
                     s, bucket, kind, masked=masked)
             else:
                 plan = self._plan_for(s, kind)
+                run = (self._runtime_for(s, kind).run if self.mesh is not None
+                       else plan.run)
                 method = self.cfg.decode_method
                 if getattr(plan, "fragments", 1) > 1:
                     # partial-work strategy: per-fragment (bucket, N, r)
-                    self._runners[key] = lambda xb, masks: plan.run(
+                    self._runners[key] = lambda xb, masks: run(
                         xb, fragment_mask=masks, method=method)
                 else:
-                    self._runners[key] = lambda xb, masks: plan.run(
+                    self._runners[key] = lambda xb, masks: run(
                         xb, mask=masks, method=method)
         return self._runners[key]
 

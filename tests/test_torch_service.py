@@ -250,7 +250,10 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.serving, repro_torch.kernels.ops, "
             "repro_torch.core.rfft, repro_torch.core.rfftn, "
-            "repro_torch.core.multi_input; "
+            "repro_torch.core.multi_input, repro_torch.distributed, "
+            "repro_torch.distributed.coded_runtime, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.mesh, repro_torch.distributed.elastic; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -307,17 +310,32 @@ def test_unserved_configs_raise(jref, kwargs):
     assert tsvc.rng.bit_generator.state == jsvc.rng.bit_generator.state
 
 
-def test_unserved_kinds_and_runtimes_raise():
-    """A mesh, and moving state across meshes, wait for the multi-device
-    runtime (an elastic pool is served: tests/test_torch_faults.py)."""
-    from repro_torch.distributed import reshard, reshard_like
+def test_unserved_kinds_and_runtimes_raise(tmp_path):
+    """A mesh, and moving state across meshes, are served now (the
+    multi-device runtime: tests/test_torch_coded_runtime.py holds them
+    against the JAX package): in a world of one, a ``mesh=`` service
+    answers through ``DistributedCodedPlan`` and ``reshard`` /
+    ``reshard_like`` place a tree on the mesh, value for value."""
+    from torch_mesh_worker import world_of_one
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFTService(FFTServiceConfig(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reshard({}, object(), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reshard_like({}, object())
+    from repro_torch.distributed import reshard, reshard_like, test_mesh
+
+    with world_of_one(tmp_path / "pg"):
+        mesh = test_mesh((1,), ("workers",))
+        svc = FFTService(FFTServiceConfig(s=64, m=4, n_workers=8,
+                                          autotune=False), device="cpu",
+                         mesh=mesh)
+        xs = _requests([64, 64], seed=3)
+        for x, y in zip(xs, svc.submit_batch(xs)):
+            assert _rel(y, np.fft.fft(x.astype(np.complex128))) < 5e-4
+        assert svc.runtime.last_collectives[0]["kind"] == "all_gather"
+        tree = {"w": torch.arange(8.0).reshape(4, 2), "b": [torch.ones(3)]}
+        placed = reshard(tree, mesh, {"w": ("workers", None), "b": [()]})
+        again = reshard_like(placed, mesh)
+        for got in (placed, again):
+            assert torch.equal(got["w"].to_local(), tree["w"])
+            assert torch.equal(got["b"][0].to_local(), tree["b"][0])
+        assert again["w"].placements[0].is_shard()
 
 
 def test_config_from_reference(jref):

@@ -196,10 +196,11 @@ def test_constructor_refusals_as_reference(jref):
                    device="cpu")
 
 
-def test_mesh_refusals():
+def test_mesh_refusals(tmp_path):
     """An entry with ``mesh_ok=False`` refuses a mesh with the
-    reference's ValueError; any other mesh waits for the multi-device
-    runtime."""
+    reference's ValueError; a ``mesh_ok`` strategy is served on the mesh
+    (tests/test_torch_coded_runtime.py holds it against the JAX
+    package's)."""
     entry = StrategyEntry(
         name="test_only_no_mesh",
         factory=REGISTRY["partial"].factory,
@@ -216,9 +217,19 @@ def test_mesh_refusals():
         assert svc.plan.fragments == 2
     finally:
         REGISTRY.pop(entry.name, None)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        FFTService(FFTServiceConfig(strategy="partial"), device="cpu",
-                   mesh=object())
+    from torch_mesh_worker import world_of_one
+
+    from repro_torch.distributed import test_mesh
+
+    with world_of_one(tmp_path / "pg"):
+        svc = FFTService(FFTServiceConfig(s=S, m=M, n_workers=N,
+                                          strategy="partial", autotune=False),
+                         device="cpu", mesh=test_mesh((1,), ("workers",)))
+        assert svc.runtime.plan is svc.plan
+        x = np.random.default_rng(0).normal(size=S).astype(np.complex64)
+        (y,) = svc.submit_batch([x])
+        want = np.fft.fft(x.astype(np.complex128))
+        assert np.abs(y - want).max() / np.abs(want).max() < 5e-4
 
 
 # -- the wire model (tests/test_wire_model.py) -----------------------------
