@@ -67,6 +67,12 @@ n-D and strategy plans, ``run_sharded``, ``FFTService(mesh=)``: the
 ``cmatmul`` encode, the four-step workers, the ``bcmatmul`` decode) and
 four ``gloo`` ranks sharing the card (``run``, ``run_sharded``, the
 service and a ``reshard`` 4 -> 2 -> 4 ranks, against the world of one).
+Then bf16 planes (``bf16_planes``): every ``*_bf16`` kernel entry
+beside its f32 twin in the same seven windows, held to its plain twin
+and to ``torch.fft`` within ``BF16_RTOL``, and ``precision="bf16"``
+services probed from an empty autotune table (each verdict ``ok``, the
+bf16 entries counted); the ptxas report pairs each bf16 instance with
+its f32 twin and fails where it spills more.
 The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
 ``GenerationEngine`` on rwkv6-3b at full width and depth (bf16, seeded
 weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
@@ -101,6 +107,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 F32 = 4
 # the FFT kernels' names: the profiled calls sum each one's device ms
+# multistep_fused's launch counters, f32 and bf16 entries: their rows
+# take the launches of the runs in their own mode
+MULTISTEP_NAMES = ("multistep_fused", "multistep_fused[bf16]")
 FFT_KERNELS = ("fft_cols_kernel", "fft_rows_kernel", "encode_rows_kernel",
                "fft_block_kernel")
 # torch.profiler maps each kernel's device timestamp onto the host's clock
@@ -1769,6 +1778,491 @@ def mesh_runtime(torch, np, launches) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+def bf16_twin_spills(ptxas: dict) -> list[dict]:
+    """Each bf16-table instance of a library's ptxas report beside its f32
+    twin (the same template instance with ``float`` tables): its spill
+    stores and the twin's, and ``worse`` where it spills more or has no
+    twin."""
+    def spill(line):
+        part = line.split(" | ")[1]
+        return int(part.split("bytes spill stores")[0].split()[-1]) \
+            if "spill stores" in part else 0
+
+    out = []
+    for lib, lines in ptxas.items():
+        f32 = {ln.split(" | ")[0].split("EEv")[0]: ln for ln in lines
+               if "13__nv_bfloat16" not in ln}
+        for ln in lines:
+            name = ln.split(" | ")[0]
+            if "13__nv_bfloat16" not in name:
+                continue
+            twin = f32.get(name.replace("13__nv_bfloat16", "f")
+                           .split("EEv")[0])
+            mine = spill(ln)
+            theirs = None if twin is None else spill(twin)
+            out.append({"lib": lib, "kernel": name[:90],
+                        "spill_bytes": mine, "f32_spill_bytes": theirs,
+                        "worse": theirs is None or mine > theirs})
+    return out
+
+
+def bf16_planes(torch, np, rng, dev, counted, spin_rate, table) -> None:
+    """``precision="bf16"`` on the card: every bf16 kernel entry beside
+    its f32 twin, then bf16 services probed from an empty autotune table.
+
+    (a) Each wrapper the bf16 planes reach, at the kernel table's shapes,
+    on bf16 planes: within ``ops.BF16_RTOL`` of its plain twin (the same
+    bf16 planes widened) and of complex128 ``torch.fft``, different from
+    its f32 entry; timed in seven windows with its f32 twin in the same
+    windows (median, min, max), the plain twin and the library call in
+    three; the bound counts each table entry at 2 bytes.  Each row joins
+    the ``kernels`` line as ``<name>[bf16]``.
+    (b) The main paths: ``precision="bf16"`` services at s=4096 (c2c, r2c,
+    c2r, both decode paths, 64 requests) and c2c s=2^20 (both paths, 16
+    requests), each with an f32 twin of the same seed: the first call
+    probes the verdict, which must read ``ok``; the next is counted and
+    must launch exactly the kind's ``[bf16]`` entry; three steady calls of
+    each timed on the host clock.  Then ``ops.fourstep_planar(...,
+    precision="bf16")`` on the four-step rows (fused, two-pass,
+    streaming, multistep in both modes), counted.
+    """
+    from repro_torch import FFTService, FFTServiceConfig
+    from repro_torch.core import mds
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import coded_pipeline as cp
+    from repro_torch.kernels import fourstep_fft as ff
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import DecodeMatrixCache
+
+    tol = ops.BF16_RTOL
+    bf16 = torch.bfloat16
+    tab16 = 2                    # bytes of a bf16 table entry
+    csrc = "src/repro_torch/kernels/csrc/"
+    t_start = time.perf_counter()
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def masks_for(q, n, m):
+        lat = rng.exponential(1.0, size=(q, n))
+        kth = np.sort(lat, axis=1)[:, m - 1:m]
+        return torch.as_tensor(lat <= kth, device=dev)
+
+    def c128(out):
+        if isinstance(out, tuple):
+            return torch.complex(out[0].double(), out[1].double())
+        return out.double()
+
+    def rel(got, want):
+        got, want = c128(got), want if not isinstance(want, tuple) \
+            else c128(want)
+        return float((got - want).abs().max() / want.abs().max())
+
+    def windows(fn, reps, n):
+        ts = sorted(time_ms(torch, fn, reps, spin_rate) for _ in range(n))
+        return ts[n // 2], ts[0], ts[-1]
+
+    rows = []
+
+    def entry(name, source, replaces, run16, run32, plain16, library,
+              oracle, nbytes, flops, reps, shape, natural=None, **info):
+        """One bf16 row: checks, then the timings, appended to the
+        kernels table as ``<name>[bf16]``."""
+        natural = natural or (lambda o: c128(o))
+        got, want, got32 = run16(), plain16(), run32()
+        torch.cuda.synchronize()
+        err_plain = rel(got, c128(want))
+        err_oracle = float((natural(got) - oracle).abs().max()
+                           / oracle.abs().max())
+        abs_err = float((c128(got) - c128(want)).abs().max())
+        diff = float((c128(got) - c128(got32)).abs().max())
+        if not (err_plain < tol and err_oracle < tol and diff > 0):
+            fail(f"{name}[bf16]: rel err {err_plain} vs plain, "
+                 f"{err_oracle} vs torch.fft (tol {tol}), {diff} from f32")
+        b16, b32 = [], []
+        for _ in range(7):       # the two entries in the same windows
+            b16.append(time_ms(torch, run16, reps, spin_rate))
+            b32.append(time_ms(torch, run32, reps, spin_rate))
+        b16.sort()
+        b32.sort()
+        plain_ms = windows(plain16, reps, 3)
+        lib_ms = windows(library, reps, 3) if library else None
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {"name": f"{name}[bf16]", "route": "cuda", "source": source,
+               "replaces": replaces, "launches": 0, "max_abs_err": abs_err,
+               "rel_err_plain": err_plain, "rel_err_oracle": err_oracle,
+               "tol": tol, "diff_from_f32": diff,
+               "ms": b16[3], "ms_min": b16[0], "ms_max": b16[-1],
+               "f32_ms": b32[3], "f32_ms_min": b32[0], "f32_ms_max": b32[-1],
+               "ms_over_f32": b16[3] / b32[3],
+               "plain_ms": plain_ms[0], "plain_ms_min": plain_ms[1],
+               "plain_ms_max": plain_ms[2], "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "library_ms": None if lib_ms is None else lib_ms[0],
+               "shape": shape, **info}
+        emit({"phase": "kernel_bf16", **row})
+        rows.append(row)
+        table.append(row)
+
+    def widened(planes):
+        return tuple(p.float() for p in planes)
+
+    # -- (a) the bucket entries at the kernel table's shapes --------------
+    q, s, m, n = 64, 4096, 4, 8
+    gr, gi = ref.planar(mds.rs_generator(n, m, device=dev))
+    a, b = ops.split_factor(s // m)
+    ell = a * b
+    p16 = ops._bucket_planes(s, m, dev, bf16)
+    p32 = ops._bucket_planes(s, m, dev)
+    xr, xi = randn(q, s), randn(q, s)
+    xc = torch.complex(xr, xi)
+    truth = torch.fft.fft(xc.to(torch.complex128), dim=-1)
+    masks = masks_for(q, n, m)
+    fmasks = masks.to(torch.float32)
+    g_host = (gr.cpu().numpy() + 1j * gi.cpu().numpy()).astype(np.complex64)
+    dmats = DecodeMatrixCache(g_host).matrices(masks.cpu().numpy())
+    dr, di = (torch.as_tensor(np.ascontiguousarray(x), device=dev)
+              for x in (dmats.real, dmats.imag))
+    flops_c2c = q * (m * fft_flops(ell)
+                     + ell * (2 * 8 * m * m + 6 * m + fft_flops(m)))
+    # x and the output, the masks, G; the bf16 tables of L and of s, F_m
+    bytes_c2c = (F32 * (4 * q * s + q * n + 2 * n * m)
+                 + tab16 * 2 * (ell + s + m * m))
+    dbytes = F32 * (2 * q * m * n - q * n)
+    entry("coded_fft_bucket_masked", csrc + "coded_bucket.cu",
+          "src/repro/kernels/coded_pipeline.py:857",
+          lambda: cp.coded_fft_bucket_masked(xr, xi, fmasks, gr, gi, *p16),
+          lambda: cp.coded_fft_bucket_masked(xr, xi, fmasks, gr, gi, *p32),
+          lambda: cp.bucket_body_masked(xr, xi, fmasks, gr, gi,
+                                        *widened(p16)),
+          lambda: torch.fft.fft(xc, dim=-1), truth, bytes_c2c, flops_c2c,
+          50, [q, s, m, n])
+    entry("coded_fft_bucket", csrc + "coded_bucket.cu",
+          "src/repro/kernels/coded_pipeline.py:804",
+          lambda: cp.coded_fft_bucket(xr, xi, dr, di, gr, gi, *p16),
+          lambda: cp.coded_fft_bucket(xr, xi, dr, di, gr, gi, *p32),
+          lambda: cp.bucket_body(xr, xi, dr, di, gr, gi, *widened(p16)),
+          lambda: torch.fft.fft(xc, dim=-1), truth, bytes_c2c + dbytes,
+          flops_c2c, 50, [q, s, m, n])
+    del xr, xi, xc, truth
+    n2 = s // m // 2
+    sh = s // 2 + 1
+    r16, r32 = (ops._rbucket_planes(s, m, dev, dt)
+                for dt in (bf16, torch.float32))
+    i16, i32 = (ops._irbucket_planes(s, m, dev, dt)
+                for dt in (bf16, torch.float32))
+    xreal = randn(q, s)
+    rtruth = torch.fft.rfft(xreal.double(), dim=-1)
+    yhalf = torch.fft.rfft(randn(q, s), dim=-1)
+    yr, yi = yhalf.real.contiguous(), yhalf.imag.contiguous()
+    itruth = torch.fft.irfft(yhalf.to(torch.complex128), n=s, dim=-1)
+    flops_real = q * (m * fft_flops(n2) + n2 * 2 * 8 * m * m + m * n2 * 16
+                      + 2 * n2 * m * (6 + 8 * (m // 2 + 1)))
+    # beside the requests, the output and G: r2c the bf16 table of n2,
+    # split twiddle, recombine twiddle and DFT rows; c2r the table, pack
+    # twiddle, m-point DFT and the t <= n2 positions of its twiddle
+    bytes_r2c = (F32 * (q * s + 2 * n * m + 2 * q * sh)
+                 + tab16 * (2 * n2 + 2 * (n2 + 1) + 2 * m * 2 * n2
+                            + 2 * (m // 2 + 1) * m))
+    bytes_c2r = (F32 * (2 * q * sh + 2 * n * m + q * s)
+                 + tab16 * (2 * n2 + 2 * (n2 + 1) + 2 * m * (n2 + 1)
+                            + 2 * m * m))
+    for name, src, line, w, wbytes, dec, body, args16, args32, lib, tr in (
+            ("coded_rfft_bucket_masked", "coded_rbucket.cu", 510,
+             cp.coded_rfft_bucket_masked, bytes_r2c + q * n, (masks,),
+             cp.rbucket_body_masked, r16, r32,
+             lambda: torch.fft.rfft(xreal, dim=-1), rtruth),
+            ("coded_rfft_bucket", "coded_rbucket.cu", 447,
+             cp.coded_rfft_bucket, bytes_r2c + F32 * 2 * q * m * n,
+             (dr, di), cp.rbucket_body, r16, r32,
+             lambda: torch.fft.rfft(xreal, dim=-1), rtruth),
+            ("coded_irfft_bucket_masked", "coded_irbucket.cu", 768,
+             cp.coded_irfft_bucket_masked, bytes_c2r + q * n, (masks,),
+             cp.irbucket_body_masked, i16, i32,
+             lambda: torch.fft.irfft(yhalf, n=s, dim=-1), itruth),
+            ("coded_irfft_bucket", "coded_irbucket.cu", 721,
+             cp.coded_irfft_bucket, bytes_c2r + F32 * 2 * q * m * n,
+             (dr, di), cp.irbucket_body, i16, i32,
+             lambda: torch.fft.irfft(yhalf, n=s, dim=-1), itruth)):
+        data = (xreal,) if name.startswith("coded_rfft") else (yr, yi)
+        pdec = tuple(d.to(torch.float32) if d.dtype == torch.bool else d
+                     for d in dec)
+        entry(name, csrc + src, f"src/repro/kernels/coded_pipeline.py:{line}",
+              lambda: w(*data, *dec, gr, gi, *args16, s),
+              lambda: w(*data, *dec, gr, gi, *args32, s),
+              lambda: body(*data, *pdec, gr, gi, *widened(args16), s),
+              lib, tr, wbytes, flops_real, 50, [q, s, m, n])
+    del xreal, yhalf, yr, yi, rtruth, itruth
+
+    # the streaming c2c bucket, both modes: 16 requests of 2^20
+    q, s = 16, 1 << 20
+    a, b = ops.split_factor(s // m)
+    ell = a * b
+    s16, s32 = (ops._bucket_planes(s, m, dev, dt)
+                for dt in (bf16, torch.float32))
+    xr, xi = randn(q, s), randn(q, s)
+    xc = torch.complex(xr, xi)
+    truth = torch.fft.fft(xc.to(torch.complex128), dim=-1)
+    smasks = masks_for(q, n, m)
+    fsm = smasks.to(torch.float32)
+    dmats = DecodeMatrixCache(g_host).matrices(smasks.cpu().numpy())
+    dr, di = (torch.as_tensor(np.ascontiguousarray(x), device=dev)
+              for x in (dmats.real, dmats.imag))
+    flops_s = q * (m * fft_flops(ell)
+                   + ell * (2 * 8 * m * m + 6 * m + fft_flops(m)))
+    # W, the bf16 tables of A and B, the recombine twiddle and F_m
+    tabs = tab16 * 2 * (a * b + a + b + m * ell + m * m)
+    entry("coded_fft_bucket_streaming", csrc + "coded_bucket_streaming.cu",
+          "src/repro/kernels/coded_pipeline.py:1086",
+          lambda: cp.coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi,
+                                                *s16),
+          lambda: cp.coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi,
+                                                *s32),
+          lambda: cp.bucket_body(xr, xi, dr, di, gr, gi, *widened(s16)),
+          lambda: torch.fft.fft(xc, dim=-1), truth,
+          F32 * (4 * q * s + 2 * q * m * n - q * n + 2 * n * m) + tabs,
+          flops_s, 5, [q, s, m, n])
+    entry("coded_fft_bucket_streaming_masked",
+          csrc + "coded_bucket_streaming.cu",
+          "src/repro/kernels/coded_pipeline.py:1086",
+          lambda: cp.coded_fft_bucket_streaming_masked(xr, xi, smasks, gr,
+                                                       gi, *s16),
+          lambda: cp.coded_fft_bucket_streaming_masked(xr, xi, smasks, gr,
+                                                       gi, *s32),
+          lambda: cp.bucket_body_masked(xr, xi, fsm, gr, gi, *widened(s16)),
+          lambda: torch.fft.fft(xc, dim=-1), truth,
+          F32 * (4 * q * s + q * n + 2 * n * m) + tabs, flops_s, 5,
+          [q, s, m, n])
+    del xr, xi, xc, truth, dr, di
+    torch.cuda.empty_cache()
+
+    # -- the four-step entries: 512 rows of L = 1024, 128 of L = 2^18 ------
+    nrows, a, b = 512, 32, 32
+    ell = a * b
+    x3r, x3i = randn(nrows, a, b), randn(nrows, a, b)
+    f16 = ops._fourstep_planes(a, b, dev, bf16)
+    f32p = ops._fourstep_planes(a, b, dev)
+    truth = torch.fft.fft(torch.complex(x3r, x3i).reshape(nrows, ell)
+                          .to(torch.complex128), dim=-1)
+    xc = torch.complex(x3r, x3i).reshape(nrows, ell)
+
+    def scrambled(o):    # out[c, d] = X[c + d*A]
+        return c128(o).transpose(-1, -2).reshape(o[0].shape[0], -1)
+
+    entry("fourstep_fused", csrc + "fft_block.cuh",
+          "src/repro/kernels/fourstep_fft.py:117",
+          lambda: ff.fourstep_fused(x3r, x3i, *f16),
+          lambda: ff.fourstep_fused(x3r, x3i, *f32p),
+          lambda: ff.fourstep_body(x3r, x3i, *widened(f16)),
+          lambda: torch.fft.fft(xc, dim=-1), truth,
+          F32 * 4 * nrows * ell + tab16 * 2 * ell, nrows * fft_flops(ell),
+          50, [nrows, a, b], natural=scrambled)
+    # multistep block mode on the same rows, plan (16, 16, 4)
+    factors = (16, 16, 4)
+    m16 = ops._on_device(ops._multistep_planes, (factors,), dev, bf16)
+    m32 = ops._on_device(ops._multistep_planes, (factors,), dev)
+    x2r, x2i = x3r.reshape(nrows, ell), x3i.reshape(nrows, ell)
+
+    def digits(fs):      # the k-digit scrambled order, reversed
+        perm = (0, *range(len(fs), 0, -1))
+        return lambda o: c128(o).reshape(-1, *fs).permute(perm).reshape(
+            o[0].shape[0], -1)
+
+    entry("multistep_fused", csrc + "fft_block.cuh",
+          "src/repro/kernels/fourstep_fft.py:374",
+          lambda: ff.multistep_fused(x2r, x2i, m16, factors),
+          lambda: ff.multistep_fused(x2r, x2i, m32, factors),
+          lambda: ff.multistep_body(x2r, x2i, ff._parse_stage_planes(
+              factors, widened(m16))),
+          lambda: torch.fft.fft(xc, dim=-1), truth,
+          F32 * 4 * nrows * ell + tab16 * 2 * ell, nrows * fft_flops(ell),
+          50, [nrows, ell, *factors], natural=digits(factors),
+          mode=ff.multistep_mode(factors))
+    del x3r, x3i, x2r, x2i, xc, truth
+    nrows, a, b = 128, 512, 512
+    ell = a * b
+    x3r, x3i = randn(nrows, a, b), randn(nrows, a, b)
+    far, fai, wr, wi, fbr, fbi = f16 = ops._fourstep_planes(a, b, dev, bf16)
+    f32p = ops._fourstep_planes(a, b, dev)
+    x128 = torch.complex(x3r, x3i).to(torch.complex128)
+    truth = torch.fft.fft(x128.reshape(nrows, ell), dim=-1)
+    xc = torch.complex(x3r, x3i).reshape(nrows, ell)
+    entry("fourstep_streaming", csrc + "fourstep.cu",
+          "src/repro/kernels/fourstep_fft.py:533",
+          lambda: ff.fourstep_streaming(x3r, x3i, *f16),
+          lambda: ff.fourstep_streaming(x3r, x3i, *f32p),
+          lambda: ff.fourstep_streaming_body(x3r, x3i, *widened(f16)),
+          lambda: torch.fft.fft(xc, dim=-1), truth,
+          F32 * 4 * nrows * ell + tab16 * 2 * (a * b + a + b),
+          nrows * fft_flops(ell), 3, [nrows, a, b],
+          natural=lambda o: c128(o).reshape(nrows, -1))
+    # stage 1: the twiddled column DFT, its truth in complex128
+    cc, bb = torch.meshgrid(torch.arange(a, device=dev),
+                            torch.arange(b, device=dev), indexing="ij")
+    w128 = torch.exp(-2j * math.pi * (cc * bb).double() / ell)
+    t1truth = torch.fft.fft(x128, dim=1) * w128
+    entry("fourstep_stage1", csrc + "fourstep.cu",
+          "src/repro/kernels/fourstep_fft.py:243",
+          lambda: ff.fourstep_stage1(x3r, x3i, far, fai, wr, wi),
+          lambda: ff.fourstep_stage1(x3r, x3i, *f32p[:4]),
+          lambda: ff.stage1_body(x3r, x3i, *widened((far, fai, wr, wi))),
+          None, t1truth,
+          F32 * 4 * nrows * ell + tab16 * 2 * (a * a + a * b),
+          nrows * (b * fft_flops(a) + 6 * ell), 3, [nrows, a, b])
+    del t1truth, w128, cc, bb
+    t1r, t1i = ff.fourstep_stage1(x3r, x3i, *f32p[:4])
+    t1c = torch.complex(t1r, t1i)
+    t2truth = torch.fft.fft(t1c.to(torch.complex128), dim=-1)
+    fb16 = widened((fbr, fbi))
+    entry("fourstep_stage2", csrc + "fourstep.cu",
+          "src/repro/kernels/fourstep_fft.py:281",
+          lambda: ff.fourstep_stage2(t1r, t1i, precision="bf16"),
+          lambda: ff.fourstep_stage2(t1r, t1i),
+          lambda: ff.stage2_body(t1r, t1i, *fb16),
+          lambda: torch.fft.fft(t1c, dim=-1), t2truth,
+          F32 * 4 * nrows * ell + tab16 * 2 * b,
+          nrows * a * fft_flops(b), 3, [nrows, a, b])
+    del t1r, t1i, t1c, t2truth
+    # multistep per-stage mode on the same rows, plan (64, 64, 64)
+    factors = (64, 64, 64)
+    m16 = ops._on_device(ops._multistep_planes, (factors,), dev, bf16)
+    m32 = ops._on_device(ops._multistep_planes, (factors,), dev)
+    st16 = ff._parse_stage_planes(factors, m16)
+    x2r, x2i = x3r.reshape(nrows, ell), x3i.reshape(nrows, ell)
+    entry("multistep_fused", csrc + "multistep.cu",
+          "src/repro/kernels/fourstep_fft.py:374",
+          lambda: ff.multistep_fused(x2r, x2i, m16, factors),
+          lambda: ff.multistep_fused(x2r, x2i, m32, factors),
+          lambda: ff.multistep_body(x2r, x2i, ff._parse_stage_planes(
+              factors, widened(m16))),
+          lambda: torch.fft.fft(xc, dim=-1), truth,
+          F32 * 4 * nrows * ell
+          + tab16 * (sum(2 * st[2].numel() for st in st16[:-1])
+                     + 2 * sum(factors)),
+          nrows * fft_flops(ell), 3, [nrows, ell, *factors],
+          natural=digits(factors), mode=ff.multistep_mode(factors))
+    del x3r, x3i, x2r, x2i, xc, truth, x128
+    torch.cuda.empty_cache()
+    kernels_s = time.perf_counter() - t_start
+
+    # -- (b) the main paths ------------------------------------------------
+    backend = autotune.backend_of(dev)
+    if any(k.startswith("bf16|") for k in autotune.load_table(backend)):
+        fail("the bf16 phase's autotune table is not empty")
+    expect = {
+        (True, "c2c"): {"coded_fft_bucket_masked[bf16]": 1},
+        (True, "r2c"): {"coded_rfft_bucket_masked[bf16]": 1},
+        (True, "c2r"): {"coded_irfft_bucket_masked[bf16]": 1},
+        (False, "c2c"): {"coded_fft_bucket[bf16]": 1},
+        (False, "r2c"): {"coded_rfft_bucket[bf16]": 1},
+        (False, "c2r"): {"coded_irfft_bucket[bf16]": 1}}
+    cells = [(kind, 4096, 64, dd) for dd in (True, False)
+             for kind in ("c2c", "r2c", "c2r")]
+    cells += [("c2c", 1 << 20, 16, dd) for dd in (True, False)]
+    services = []
+    for kind, s, n_req, dd in cells:
+        svcs = {p: FFTService(FFTServiceConfig(
+            s=s, device_decode=dd, autotune=False, seed=11, precision=p))
+            for p in ("bf16", "f32")}
+        xt = randn(n_req, s)
+        if kind == "c2c":
+            x = torch.complex(xt, randn(n_req, s))
+            want = torch.fft.fft(x.to(torch.complex128), dim=-1)
+        elif kind == "r2c":
+            x, want = xt, torch.fft.rfft(xt.double(), dim=-1)
+        else:
+            x = torch.fft.rfft(xt, dim=-1)
+            want = torch.fft.irfft(x.to(torch.complex128), n=s, dim=-1)
+        xs = list(x.cpu().numpy())
+        t0 = time.perf_counter()
+        svcs["bf16"].submit_batch(xs, kind=kind)      # probes the verdict
+        first = time.perf_counter() - t0
+        verdict = autotune.lookup("bf16", backend=backend, s=s, m=4, k=kind,
+                                  mode="kernel")
+        if verdict != {"ok": True}:
+            fail(f"bf16 verdict of ({s}, {kind}): {verdict}")
+        if s > 4096:
+            exp = ({"coded_fft_bucket_streaming_masked[bf16]": 4} if dd
+                   else {"coded_fft_bucket_streaming[bf16]": 3})
+        else:
+            exp = expect[(dd, kind)]
+        out, counts = counted(lambda: svcs["bf16"].submit_batch(xs,
+                                                                kind=kind))
+        if counts != exp:
+            fail(f"bf16 service {kind} s={s} device_decode={dd}: "
+                 f"launches {counts}, expected {exp}")
+        out32 = svcs["f32"].submit_batch(xs, kind=kind)
+        got = torch.as_tensor(np.stack(out), device=dev)
+        err = float((got.to(want.dtype) - want).abs().max()
+                    / want.abs().max())
+        diff = float(np.abs(np.stack(out) - np.stack(out32)).max())
+        if not (err < tol and diff > 0):
+            fail(f"bf16 service {kind} s={s}: rel err {err} (tol {tol}), "
+                 f"{diff} from the f32 service")
+        ms = {}
+        for _ in range(3):       # the two services in turns
+            for p, svc in svcs.items():
+                t0 = time.perf_counter()
+                svc.submit_batch(xs, kind=kind)
+                ms.setdefault(p, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        cell = {"kind": kind, "s": s, "requests": n_req,
+                "decode": "device" if dd else "host", "verdict": verdict,
+                "launches": counts, "rel_err": err, "rel_tol": tol,
+                "diff_from_f32": diff, "first_call_s": first,
+                "ms": float(np.median(ms["bf16"])),
+                "f32_ms": float(np.median(ms["f32"])),
+                "ms_calls": ms["bf16"], "f32_ms_calls": ms["f32"]}
+        emit({"phase": "bf16_service", **cell})
+        services.append(cell)
+        del svcs, x, xt, want, got
+        torch.cuda.empty_cache()
+    verdicts = {k: v for k, v in autotune.load_table(backend).items()
+                if k.startswith("bf16|")}
+    if len(verdicts) != 4 or any(v != {"ok": True}
+                                 for v in verdicts.values()):
+        fail(f"bf16 verdicts probed in this call: {verdicts}")
+
+    # fourstep_planar at bf16: the four-step rows through the dispatch op
+    for ell, nrows, kw, exp, mode in (
+            (1024, 512, dict(variant="fused"), {"fourstep_fused[bf16]": 1},
+             None),
+            (1 << 18, 128, dict(variant="two_pass"),
+             {"fourstep_stage1[bf16]": 1, "fourstep_stage2[bf16]": 1}, None),
+            (1 << 18, 128, dict(variant="streaming"),
+             {"fourstep_streaming[bf16]": 2}, None),
+            (1024, 512, dict(variant="fused", factors=(16, 16, 4)),
+             {"multistep_fused[bf16]": 1}, "block"),
+            (1 << 18, 128, dict(variant="fused", factors=(64, 64, 64)),
+             {"multistep_fused[bf16]": 3}, "per_stage")):
+        xr, xi = randn(nrows, ell), randn(nrows, ell)
+        want = torch.fft.fft(torch.complex(xr, xi).to(torch.complex128),
+                             dim=-1)
+        out, counts = counted(lambda: ops.fourstep_planar(
+            xr, xi, precision="bf16", **kw), ms_mode=mode)
+        err = rel(out, want)
+        if counts != exp or not err < tol:
+            fail(f"fourstep_planar bf16 {kw} L={ell}: launches {counts}, "
+                 f"rel err {err}")
+        emit({"phase": "bf16_fourstep_planar", "L": ell, "rows": nrows,
+              **{k: list(v) if isinstance(v, tuple) else v
+                 for k, v in kw.items()},
+              "launches": counts, "rel_err": err, "rel_tol": tol})
+        del xr, xi, want, out
+    torch.cuda.empty_cache()
+    emit({"phase": "bf16_planes", "kernel_rows_s": kernels_s,
+          "seconds": time.perf_counter() - t_start,
+          "rows": [{"name": r["name"], "shape": r["shape"], "ms": r["ms"],
+                    "f32_ms": r["f32_ms"], "ms_over_f32": r["ms_over_f32"],
+                    "bound_ms": r["bound_ms"],
+                    "rel_err_oracle": r["rel_err_oracle"]} for r in rows],
+          "services": [{k: c[k] for k in ("kind", "s", "decode", "ms",
+                                          "f32_ms", "rel_err")}
+                       for c in services],
+          "verdicts": verdicts})
+
+
 def main() -> int:
     import torch
 
@@ -1881,14 +2375,15 @@ def main() -> int:
                      "encode_fourstep", "coded_bucket", "coded_rbucket",
                      "coded_irbucket", "multistep", "recombine")}
     emit({"phase": "ptxas_fft", **fft_ptxas})
-    # eight bucket instances: MM in 4, 8, 16, 32, masked and planes; one
-    # fft_block_kernel in each library that launches it; the recombine's
-    # tile design at MM in 4, 8, 16, 32, 64
+    # sixteen bucket instances: MM in 4, 8, 16, 32, masked and planes, f32
+    # and bf16 tables; two fft_block_kernel (f32, bf16) in each library
+    # that launches it; the recombine's tile design at MM in 4, 8, 16, 32,
+    # 64
     for libs, kernel, instances in (
-            (("coded_bucket",), "coded_bucket_kernel", 8),
-            (("coded_rbucket",), "coded_rbucket_kernel", 8),
-            (("coded_irbucket",), "coded_irbucket_kernel", 8),
-            (("fourstep", "multistep"), "fft_block_kernel", 2),
+            (("coded_bucket",), "coded_bucket_kernel", 16),
+            (("coded_rbucket",), "coded_rbucket_kernel", 16),
+            (("coded_irbucket",), "coded_irbucket_kernel", 16),
+            (("fourstep", "multistep"), "fft_block_kernel", 4),
             (("recombine",), "recombine_tile_kernel", 5)):
         lines = [ln for lib in libs for ln in fft_ptxas[lib]
                  if kernel in ln]
@@ -1896,6 +2391,13 @@ def main() -> int:
         if spills or len(lines) != instances:
             fail(f"{kernel}: {len(lines)} instances reported, spills: "
                  f"{spills}")
+    # every bf16 instance beside its f32 twin: it must not spill where
+    # the twin does not (nor spill more)
+    bf16_spills = bf16_twin_spills(ptxas)
+    emit({"phase": "ptxas_bf16", "pairs": len(bf16_spills),
+          "worse": [r for r in bf16_spills if r["worse"]]})
+    if not bf16_spills or any(r["worse"] for r in bf16_spills):
+        fail(f"bf16 instances against their f32 twins: {bf16_spills}")
     # the WKV kernel: one instance (K <= 64 masked past K), no spill
     wkv_lines = [ln for ln in ptxas["wkv"] if "wkv_kernel" in ln]
     emit({"phase": "ptxas_wkv", "wkv": wkv_lines})
@@ -2653,8 +3155,9 @@ def main() -> int:
     # every main-path run adds its counts here; each kernel's row gets the
     # total of the runs that launched it
     launches: dict[str, int] = {}
-    # multistep_fused's launches by mode, from the runs that name theirs
-    ms_launches = {"block": 0, "per_stage": 0}
+    # multistep_fused's launches (f32 and bf16 entries) by mode, from the
+    # runs that name theirs: (name, mode) -> launches
+    ms_launches: dict[tuple, int] = {}
 
     def counted(run, ms_mode=None):
         """Run ``run()`` with the counts set to 0 just before it, and
@@ -2667,8 +3170,11 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         if ms_mode is not None:
-            ms_launches[ms_mode] += counts.get("multistep_fused", 0)
-        elif counts.get("multistep_fused"):
+            for name in MULTISTEP_NAMES:
+                key = (name, ms_mode)
+                ms_launches[key] = ms_launches.get(key, 0) + counts.get(name,
+                                                                        0)
+        elif any(counts.get(name) for name in MULTISTEP_NAMES):
             fail(f"a run with no multistep mode launched it: {counts}")
         return out, counts
 
@@ -2953,6 +3459,13 @@ def main() -> int:
     # ranks sharing the card, each in child processes --------------------
     mesh_runtime(torch, np, launches)
 
+    # -- 8f. bf16 planes: every bf16 kernel entry beside its f32 twin, and
+    # bf16 services probed from an empty autotune table -----------------
+    t0 = time.perf_counter()
+    fresh_autotune_cache("bf16")
+    bf16_planes(torch, np, rng, dev, counted, spin_rate, table)
+    emit({"phase": "bf16_planes_done", "seconds": time.perf_counter() - t0})
+
     # -- 9. the tuned four-step path --------------------------------------
     # (a) the default service's warmup search, from an empty cache: the
     # L = 1024 candidates (32, 32), (64, 16) and (16, 16, 4) fused, and the
@@ -3067,8 +3580,8 @@ def main() -> int:
     lm_rwkv6_3b(torch, rng, counted)
 
     for row in table:
-        row["launches"] = (ms_launches[row["mode"]]
-                           if row["name"] == "multistep_fused"
+        row["launches"] = (ms_launches.get((row["name"], row["mode"]), 0)
+                           if row["name"] in MULTISTEP_NAMES
                            else launches.get(row["name"], 0))
         if row["launches"] < 1:
             fail(f"kernel {row['name']} was launched by no main path "

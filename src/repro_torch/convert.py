@@ -69,10 +69,9 @@ def config_from_reference(cfg_fields: dict) -> FFTServiceConfig:
     The dtype maps by name, the straggler model by its three parameters,
     a fault plan by its faults and seed; ``decode_method``, ``worker_fn``
     (which must take and return torch tensors on the port's side),
-    ``strategy`` and ``strategy_param`` map as they are.  A field the
-    port carries but does not serve yet (``precision="bf16"``) raises
-    ``NotImplementedError`` naming its ROADMAP item when the service is
-    built; an unknown field raises ValueError.
+    ``strategy``, ``strategy_param`` and ``precision`` (``"bf16"`` served
+    as the reference serves it: probed per shape) map as they are; an
+    unknown field raises ValueError.
     """
     own = {f.name for f in dataclasses.fields(FFTServiceConfig)}
     kwargs = {}

@@ -31,6 +31,11 @@ Kernels ported so far (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 * ``wkv``                     -- the RWKV-6 WKV recurrence of the model's
   prefill, chunked and factorised (``wkv.py``).
 
+The buckets and the four-step kernels (not the encode, ``bcmatmul``,
+the recombine or ``cmatmul``) also have a ``*_bf16`` entry on bfloat16
+tables and planes, which ``precision="bf16"`` reaches; its launches
+count as ``<name>[bf16]``.
+
 ``ops`` is the dispatch layer; ``autotune`` the four-step's measured
 table; ``ref`` holds the planar helpers and the test oracles; ``_build``
 compiles the libraries and counts launches.  ``ops`` also exports the

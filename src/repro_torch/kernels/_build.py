@@ -30,9 +30,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "build", "build_dir", "check", "check_planes",
-           "count_launch", "launch_counts", "load", "log_path", "ptr",
-           "reset_launch_counts", "stream_of"]
+__all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "TABLE_DTYPES",
+           "build", "build_dir", "check", "check_planes", "count_launch",
+           "entry", "is_bf16", "launch_counts", "launch_name", "load",
+           "log_path", "ptr", "reset_launch_counts", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
@@ -170,11 +171,19 @@ def reset_launch_counts() -> None:
 
 
 # -- wrapper helpers -------------------------------------------------------
-def check_planes(what: str, **planes) -> torch.device:
+# the constant tables' precisions: a kernel's *_f32 entry or its *_bf16 twin
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_planes(what: str, tables=None, **planes) -> torch.device:
     """Validate the planes a kernel wrapper passes to CUDA: one CUDA
-    device, float32, contiguous.  Returns that device."""
+    device, contiguous; ``planes`` (the payload, G, the decode) float32,
+    ``tables`` (a dict of the DFT, twiddle, recombine, split and pack
+    planes) all float32 or all bfloat16, the precision of the entry the
+    wrapper launches.  Returns that device."""
+    tables = tables or {}
     device = None
-    for name, t in planes.items():
+    for name, t in {**planes, **tables}.items():
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}, not a CUDA "
                              f"device")
@@ -183,11 +192,32 @@ def check_planes(what: str, **planes) -> torch.device:
         elif t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, the other "
                              f"planes on {device}")
-        if t.dtype != torch.float32:
+        if name in planes and t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    dtypes = {t.dtype for t in tables.values()}
+    if len(dtypes) > 1 or not dtypes <= set(TABLE_DTYPES):
+        raise TypeError(f"{what}: the tables must be all float32 or all "
+                        f"bfloat16, got {sorted(map(str, dtypes))}")
     return device
+
+
+def is_bf16(table: torch.Tensor) -> bool:
+    """Does a wrapper given ``table`` launch its kernel's bf16 entry?"""
+    return table.dtype == torch.bfloat16
+
+
+def entry(symbol: str, bf16: bool) -> str:
+    """A kernel's C entry for its tables' precision: ``<base>_f32`` or
+    ``<base>_bf16``."""
+    return symbol[:-len("_f32")] + "_bf16" if bf16 else symbol
+
+
+def launch_name(name: str, bf16: bool) -> str:
+    """The launch counter of a wrapper's entry: its own name for the f32
+    tables, ``<name>[bf16]`` for the bf16 twin."""
+    return f"{name}[bf16]" if bf16 else name
 
 
 def stream_of(device) -> int:

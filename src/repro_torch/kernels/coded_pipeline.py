@@ -52,6 +52,15 @@ recombine -- with device-memory intermediates no wider than the request;
 runs one decode launch first that builds every request's (m, N) scatter
 decode planes from its raw mask, then the same three.
 
+Precision: every bucket wrapper takes its constant planes (F_A, W, F_B,
+the recombine twiddle, F_m, the r2c split twiddle and DFT rows, the c2r
+message rows and pack twiddle) in float32 or, under the dispatch
+layer's ``precision="bf16"``, all in bfloat16; the payload, G and the
+decode are float32 either way.  CPU tensors run the plain twin on the
+planes widened to f32; CUDA tensors launch the kernel's ``*_bf16`` entry
+on the bf16 tables of ``fourstep_fft.fft_twiddles_on`` and the bf16
+planes, counted as ``<name>[bf16]``.
+
 The ``*_body_fftworker`` functions are the JAX package's direct
 (off-accelerator) bucket executors in plain PyTorch: the worker DFT on
 ``torch.fft`` and a gathered compact (m, m) decode.  No kernel runs
@@ -75,6 +84,7 @@ from repro_torch.kernels.cmatmul import bcmatmul_body, cmatmul_body
 from repro_torch.kernels.fourstep_fft import (
     FftSpec,
     _padded,
+    _widened,
     encode_fourstep_body,
     fft_cols_spec,
     fft_rows_plan,
@@ -446,7 +456,8 @@ def _c2c_launch(what: str, symbol: str, xr, xi, decode, gr, gi, fmr, fmi,
                 q: int, n: int, m: int, s: int, masked: bool, dev):
     """One launch of the c2c bucket kernel on checked CUDA planes;
     ``decode``: the masked entry's (masks, perm), or the planes entry's
-    (dr, di)."""
+    (dr, di).  bf16 planes launch the ``*_bf16`` entry."""
+    bf16 = _build.is_bf16(fmr)
     ell = s // m
     layout = bucket_fft_layout(m, ell, n=n, masked=masked)
     _check_launch(what, m, layout, s)
@@ -455,15 +466,16 @@ def _c2c_launch(what: str, symbol: str, xr, xi, decode, gr, gi, fmr, fmi,
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     p = _build.ptr
-    _build.check(_fft_bucket_lib("coded_bucket", symbol, 14, masked)(
+    _build.check(_fft_bucket_lib(
+        "coded_bucket", _build.entry(symbol, bf16), 14, masked)(
         p(xr), p(xi), *(p(t) for t in decode), p(gr), p(gi),
-        *(p(t) for t in fft_twiddles_on(ell, dev)),
-        *(p(t) for t in fft_twiddles_on(s, dev)), p(fmr), p(fmi), p(outr),
-        p(outi), q, n, m, ell, *([_ntau(n)] if masked else []),
+        *(p(t) for n_ in (ell, s)
+          for t in fft_twiddles_on(n_, dev, fmr.dtype)), p(fmr), p(fmi),
+        p(outr), p(outi), q, n, m, ell, *([_ntau(n)] if masked else []),
         (ctypes.c_int * max(1, len(plan)))(*plan), len(plan), rows,
         (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
         what)
-    _build.count_launch(what)
+    _build.count_launch(_build.launch_name(what, bf16))
     return outr, outi
 
 
@@ -507,12 +519,12 @@ def coded_fft_bucket(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
         raise ValueError("coded_fft_bucket: inconsistent shapes")
     _check_decode_planes("coded_fft_bucket", dr, di, q, m, n)
     if xr.device.type == "cpu":
-        return bucket_body(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr,
-                           fbi, twr, twi, fmr, fmi)
+        return bucket_body(xr, xi, dr, di, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, twr, twi, fmr, fmi))
     dev = _build.check_planes(
         "coded_fft_bucket", xr=xr, xi=xi, dr=dr, di=di, gr=gr, gi=gi,
-        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr, twi=twi,
-        fmr=fmr, fmi=fmi)
+        tables=dict(far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi,
+                    twr=twr, twi=twi, fmr=fmr, fmi=fmi))
     return _c2c_launch("coded_fft_bucket", "coded_bucket_f32", xr, xi,
                        (dr, di), gr, gi, fmr, fmi, q, n, m, s, False, dev)
 
@@ -532,8 +544,9 @@ def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
     shard j at natural l from the f32 table of s at j*l
     (``fourstep_fft.fft_rows_twiddles``), whose entries are those of the
     planes: it reads G and F_m, not ``far``, ``wr``, ``fbr`` or ``twr``.
-    The caller checks the shared-memory gate
-    (``ops.coded_bucket_fusable``).
+    With bf16 planes it reads the bf16 tables and F_m (the ``*_bf16``
+    entry, counted as ``coded_fft_bucket_masked[bf16]``).  The caller
+    checks the shared-memory gate (``ops.coded_bucket_fusable``).
     """
     q, s = xr.shape
     n, m = gr.shape
@@ -543,13 +556,13 @@ def coded_fft_bucket_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
             or twr.shape != (m, ell) or fmr.shape != (m, m)):
         raise ValueError("coded_fft_bucket_masked: inconsistent shapes")
     if xr.device.type == "cpu":
-        return bucket_body_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
-                                  fbr, fbi, twr, twi, fmr, fmi)
+        return bucket_body_masked(xr, xi, masks, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, twr, twi, fmr, fmi))
     mk = masks.to(torch.float32).contiguous()
     dev = _build.check_planes(
         "coded_fft_bucket_masked", xr=xr, xi=xi, masks=mk, gr=gr, gi=gi,
-        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr, twi=twi,
-        fmr=fmr, fmi=fmi)
+        tables=dict(far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi,
+                    twr=twr, twi=twi, fmr=fmr, fmi=fmi))
     return _c2c_launch("coded_fft_bucket_masked", "coded_bucket_masked_f32",
                        xr, xi, (mk, _perm_on(m, dev)), gr, gi, fmr, fmi, q,
                        n, m, s, True, dev)
@@ -563,8 +576,9 @@ def streaming_smem_bytes(m: int, n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _streaming_lib():
-    fn = _build.load("coded_bucket_streaming").coded_bucket_streaming_f32
+def _streaming_lib(bf16: bool = False):
+    fn = getattr(_build.load("coded_bucket_streaming"),
+                 _build.entry("coded_bucket_streaming_f32", bf16))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     spec = ctypes.POINTER(FftSpec)
     fn.argtypes = [vp] * 22 + [i32] * 3 + [spec, spec, vp]
@@ -589,9 +603,11 @@ def _check_streaming(what: str, m: int, n: int, q: int, a: int, b: int):
     return fft_cols_spec(what, a, b * m), fft_rows_spec(what, b)
 
 
-def _fft_tables(a: int, b: int, dev) -> list[int]:
-    """Pointers of the f32 tables of A and B the two FFT launches read."""
-    return [_build.ptr(t) for n in (a, b) for t in fft_twiddles_on(n, dev)]
+def _fft_tables(a: int, b: int, dev, dtype) -> list[int]:
+    """Pointers of the tables of A and B (f32 or bf16) the two FFT
+    launches read."""
+    return [_build.ptr(t) for n in (a, b)
+            for t in fft_twiddles_on(n, dev, dtype)]
 
 
 def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
@@ -602,10 +618,11 @@ def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
 
     CUDA tensors run three launches (column FFT, row FFT, code and
     recombine), each counted, with two (q, s) plane pairs of device
-    scratch; or raise.  The card computes the DFTs from the f32 tables of
-    A and B (``fourstep_fft.fft_rows_twiddles``), whose entries are those
-    of the DFT planes: it reads W, not ``far`` or ``fbr``.  The caller
-    checks the gate (``ops.coded_bucket_streamable``).
+    scratch; or raise.  The card computes the DFTs from the tables of A
+    and B (``fourstep_fft.fft_rows_twiddles``, f32 or bf16 as the planes
+    are), whose entries are those of the DFT planes: it reads W, not
+    ``far`` or ``fbr``.  The caller checks the gate
+    (``ops.coded_bucket_streamable``).
     """
     q, s = xr.shape
     n, m = gr.shape
@@ -616,30 +633,32 @@ def coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, far, fai, wr, wi,
         raise ValueError("coded_fft_bucket_streaming: inconsistent shapes")
     _check_decode_planes("coded_fft_bucket_streaming", dr, di, q, m, n)
     if xr.device.type == "cpu":
-        return bucket_body(xr, xi, dr, di, gr, gi, far, fai, wr, wi, fbr,
-                           fbi, twr, twi, fmr, fmi)
+        return bucket_body(xr, xi, dr, di, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, twr, twi, fmr, fmi))
     dev = _build.check_planes(
         "coded_fft_bucket_streaming", xr=xr, xi=xi, dr=dr, di=di, gr=gr,
-        gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
-        twi=twi, fmr=fmr, fmi=fmi)
+        gi=gi, tables=dict(far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi,
+                           twr=twr, twi=twi, fmr=fmr, fmi=fmi))
+    bf16 = _build.is_bf16(far)
     spec_a, spec_b = _check_streaming("coded_fft_bucket_streaming", m, n, q,
                                       a, b)
     t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
     p = _build.ptr
-    _build.check(_streaming_lib()(
+    _build.check(_streaming_lib(bf16)(
         p(xr), p(xi), p(dr), p(di), p(gr), p(gi), p(wr), p(wi),
-        *_fft_tables(a, b, dev), p(twr), p(twi), p(fmr), p(fmi), p(t1r),
-        p(t1i), p(zr), p(zi), p(outr), p(outi), q, n, m,
+        *_fft_tables(a, b, dev, far.dtype), p(twr), p(twi), p(fmr), p(fmi),
+        p(t1r), p(t1i), p(zr), p(zi), p(outr), p(outi), q, n, m,
         ctypes.byref(spec_a), ctypes.byref(spec_b), _build.stream_of(dev)),
         "coded_fft_bucket_streaming")
-    _build.count_launch("coded_fft_bucket_streaming", 3)
+    _build.count_launch(
+        _build.launch_name("coded_fft_bucket_streaming", bf16), 3)
     return outr, outi
 
 
 @functools.lru_cache(maxsize=None)
-def _streaming_masked_lib():
-    fn = (_build.load("coded_bucket_streaming")
-          .coded_bucket_streaming_masked_f32)
+def _streaming_masked_lib(bf16: bool = False):
+    fn = getattr(_build.load("coded_bucket_streaming"),
+                 _build.entry("coded_bucket_streaming_masked_f32", bf16))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     spec = ctypes.POINTER(FftSpec)
     fn.argtypes = [vp] * 24 + [i32] * 3 + [ctypes.c_float, spec, spec, vp]
@@ -668,26 +687,29 @@ def coded_fft_bucket_streaming_masked(xr, xi, masks, gr, gi, far, fai, wr,
         raise ValueError(
             "coded_fft_bucket_streaming_masked: inconsistent shapes")
     if xr.device.type == "cpu":
-        return bucket_body_masked(xr, xi, masks, gr, gi, far, fai, wr, wi,
-                                  fbr, fbi, twr, twi, fmr, fmi)
+        return bucket_body_masked(xr, xi, masks, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, twr, twi, fmr, fmi))
     mk = masks.to(torch.float32).contiguous()
     dev = _build.check_planes(
         "coded_fft_bucket_streaming_masked", xr=xr, xi=xi, masks=mk, gr=gr,
-        gi=gi, far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, twr=twr,
-        twi=twi, fmr=fmr, fmi=fmi)
+        gi=gi, tables=dict(far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi,
+                           twr=twr, twi=twi, fmr=fmr, fmi=fmi))
+    bf16 = _build.is_bf16(far)
     spec_a, spec_b = _check_streaming("coded_fft_bucket_streaming_masked", m,
                                       n, q, a, b)
     dr = torch.empty((q, m, n), dtype=torch.float32, device=dev)
     di = torch.empty_like(dr)
     t1r, t1i, zr, zi, outr, outi = (torch.empty_like(xr) for _ in range(6))
     p = _build.ptr
-    _build.check(_streaming_masked_lib()(
+    _build.check(_streaming_masked_lib(bf16)(
         p(xr), p(xi), p(mk), p(_perm_on(m, dev)), p(gr), p(gi), p(wr),
-        p(wi), *_fft_tables(a, b, dev), p(twr), p(twi), p(fmr), p(fmi),
+        p(wi), *_fft_tables(a, b, dev, far.dtype), p(twr), p(twi), p(fmr),
+        p(fmi),
         p(dr), p(di), p(t1r), p(t1i), p(zr), p(zi), p(outr), p(outi), q, n,
         m, _ntau(n), ctypes.byref(spec_a), ctypes.byref(spec_b),
         _build.stream_of(dev)), "coded_fft_bucket_streaming_masked")
-    _build.count_launch("coded_fft_bucket_streaming_masked", 4)
+    _build.count_launch(
+        _build.launch_name("coded_fft_bucket_streaming_masked", bf16), 4)
     return outr, outi
 
 
@@ -840,7 +862,8 @@ def _r2c_launch(what: str, symbol: str, xr, decode, gr, gi, swr, swi, twr,
                 dev):
     """One launch of the r2c bucket kernel on checked CUDA planes;
     ``decode``: the masked entry's (masks, perm), or the planes entry's
-    (dr, di)."""
+    (dr, di).  bf16 planes launch the ``*_bf16`` entry."""
+    bf16 = _build.is_bf16(swr)
     n2 = s // m // 2
     dft_rows = m // 2 + 1
     layout = bucket_fft_layout(m, n2, n=n, masked=masked, dft_rows=dft_rows)
@@ -851,15 +874,16 @@ def _r2c_launch(what: str, symbol: str, xr, decode, gr, gi, swr, swi, twr,
     outr = torch.empty((q, sh), dtype=torch.float32, device=dev)
     outi = torch.empty((q, sh), dtype=torch.float32, device=dev)
     p = _build.ptr
-    _build.check(_fft_bucket_lib("coded_rbucket", symbol, 15, masked)(
+    _build.check(_fft_bucket_lib(
+        "coded_rbucket", _build.entry(symbol, bf16), 15, masked)(
         p(xr), *(p(t) for t in decode), p(gr), p(gi),
-        *(p(t) for t in fft_twiddles_on(n2, dev)), p(swr), p(swi), p(twr),
-        p(twi), p(fhr), p(fhi), p(outr), p(outi), q, n, m, n2,
-        *([_ntau(n)] if masked else []),
+        *(p(t) for t in fft_twiddles_on(n2, dev, swr.dtype)), p(swr),
+        p(swi), p(twr), p(twi), p(fhr), p(fhi), p(outr), p(outi), q, n, m,
+        n2, *([_ntau(n)] if masked else []),
         (ctypes.c_int * max(1, len(plan)))(*plan), len(plan), rows,
         (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
         what)
-    _build.count_launch(what)
+    _build.count_launch(_build.launch_name(what, bf16))
     return outr, outi
 
 
@@ -884,12 +908,12 @@ def coded_rfft_bucket(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
         raise ValueError("coded_rfft_bucket: inconsistent shapes")
     _check_decode_planes("coded_rfft_bucket", dr, di, q, m, n)
     if xr.device.type == "cpu":
-        return rbucket_body(xr, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
-                            swr, swi, twr, twi, fhr, fhi, s)
+        return rbucket_body(xr, dr, di, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, swr, swi, twr, twi, fhr, fhi), s)
     dev = _build.check_planes(
-        "coded_rfft_bucket", xr=xr, dr=dr, di=di, gr=gr, gi=gi, far=far,
-        fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr,
-        twi=twi, fhr=fhr, fhi=fhi)
+        "coded_rfft_bucket", xr=xr, dr=dr, di=di, gr=gr, gi=gi, tables=dict(
+            far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr,
+            swi=swi, twr=twr, twi=twi, fhr=fhr, fhi=fhi))
     return _r2c_launch("coded_rfft_bucket", "coded_rbucket_f32", xr,
                        (dr, di), gr, gi, swr, swi, twr, twi, fhr, fhi, q, n,
                        m, s, False, dev)
@@ -924,12 +948,12 @@ def coded_rfft_bucket_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr, fbi,
             or fhr.shape != (m // 2 + 1, m)):
         raise ValueError("coded_rfft_bucket_masked: inconsistent shapes")
     if xr.device.type == "cpu":
-        return rbucket_body_masked(xr, masks, gr, gi, far, fai, wr, wi, fbr,
-                                   fbi, swr, swi, twr, twi, fhr, fhi, s)
+        return rbucket_body_masked(xr, masks, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, swr, swi, twr, twi, fhr, fhi), s)
     dev = _build.check_planes(
-        "coded_rfft_bucket_masked", xr=xr, gr=gr, gi=gi, far=far, fai=fai,
-        wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr, swi=swi, twr=twr, twi=twi,
-        fhr=fhr, fhi=fhi)
+        "coded_rfft_bucket_masked", xr=xr, gr=gr, gi=gi, tables=dict(
+            far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, swr=swr,
+            swi=swi, twr=twr, twi=twi, fhr=fhr, fhi=fhi))
     if masks.device != dev:
         raise ValueError(f"coded_rfft_bucket_masked: masks are on "
                          f"{masks.device}, the planes on {dev}")
@@ -1083,7 +1107,8 @@ def _c2r_launch(what: str, symbol: str, yr, yi, decode, gr, gi, fpr, fpi,
                 masked: bool, dev):
     """One launch of the c2r bucket kernel on checked CUDA planes;
     ``decode``: the masked entry's (masks, perm), or the planes entry's
-    (dr, di)."""
+    (dr, di).  bf16 planes launch the ``*_bf16`` entry."""
+    bf16 = _build.is_bf16(fpr)
     n2 = s // m // 2
     layout = bucket_fft_layout(m, n2, n=n, masked=masked, side=2 * m)
     _check_launch(what, m, layout, s)
@@ -1091,15 +1116,16 @@ def _c2r_launch(what: str, symbol: str, yr, yi, decode, gr, gi, fpr, fpi,
     plan = fft_rows_plan(n2)
     out = torch.empty((q, s), dtype=torch.float32, device=dev)
     p = _build.ptr
-    _build.check(_fft_bucket_lib("coded_irbucket", symbol, 15, masked)(
+    _build.check(_fft_bucket_lib(
+        "coded_irbucket", _build.entry(symbol, bf16), 15, masked)(
         p(yr), p(yi), *(p(t) for t in decode), p(gr), p(gi),
-        *(p(t) for t in fft_twiddles_on(n2, dev)), p(fpr), p(fpi), p(ctwr),
-        p(ctwi), p(pwr), p(pwi), p(out), q, n, m, n2,
+        *(p(t) for t in fft_twiddles_on(n2, dev, fpr.dtype)), p(fpr),
+        p(fpi), p(ctwr), p(ctwi), p(pwr), p(pwi), p(out), q, n, m, n2,
         *([_ntau(n)] if masked else []),
         (ctypes.c_int * max(1, len(plan)))(*plan), len(plan), rows,
         (ctypes.c_longlong * len(layout))(*layout), _build.stream_of(dev)),
         what)
-    _build.count_launch(what)
+    _build.count_launch(_build.launch_name(what, bf16))
     return out
 
 
@@ -1125,12 +1151,13 @@ def coded_irfft_bucket(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr, fbi,
         raise ValueError("coded_irfft_bucket: inconsistent shapes")
     _check_decode_planes("coded_irfft_bucket", dr, di, q, m, n)
     if yr.device.type == "cpu":
-        return irbucket_body(yr, yi, dr, di, gr, gi, far, fai, wr, wi, fbr,
-                             fbi, fpr, fpi, ctwr, ctwi, pwr, pwi, s)
+        return irbucket_body(yr, yi, dr, di, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi), s)
     dev = _build.check_planes(
         "coded_irfft_bucket", yr=yr, yi=yi, dr=dr, di=di, gr=gr, gi=gi,
-        far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
-        ctwr=ctwr, ctwi=ctwi, pwr=pwr, pwi=pwi)
+        tables=dict(far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi,
+                    fpr=fpr, fpi=fpi, ctwr=ctwr, ctwi=ctwi, pwr=pwr,
+                    pwi=pwi))
     return _c2r_launch("coded_irfft_bucket", "coded_irbucket_f32", yr, yi,
                        (dr, di), gr, gi, fpr, fpi, ctwr, ctwi, pwr, pwi, q, n,
                        m, s, False, dev)
@@ -1166,13 +1193,13 @@ def coded_irfft_bucket_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
             or ctwr.shape != (m, 2 * n2) or pwr.shape != (1, n2 + 1)):
         raise ValueError("coded_irfft_bucket_masked: inconsistent shapes")
     if yr.device.type == "cpu":
-        return irbucket_body_masked(yr, yi, masks, gr, gi, far, fai, wr, wi,
-                                    fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi,
-                                    s)
+        return irbucket_body_masked(yr, yi, masks, gr, gi, *_widened(
+            far, fai, wr, wi, fbr, fbi, fpr, fpi, ctwr, ctwi, pwr, pwi), s)
     dev = _build.check_planes(
-        "coded_irfft_bucket_masked", yr=yr, yi=yi, gr=gr, gi=gi, far=far,
-        fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi, fpr=fpr, fpi=fpi,
-        ctwr=ctwr, ctwi=ctwi, pwr=pwr, pwi=pwi)
+        "coded_irfft_bucket_masked", yr=yr, yi=yi, gr=gr, gi=gi,
+        tables=dict(far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi,
+                    fpr=fpr, fpi=fpi, ctwr=ctwr, ctwi=ctwi, pwr=pwr,
+                    pwi=pwi))
     if masks.device != dev:
         raise ValueError(f"coded_irfft_bucket_masked: masks are on "
                          f"{masks.device}, the planes on {dev}")

@@ -155,8 +155,11 @@ __device__ inline void block_stage_planes(const float* gr, const float* gi,
   __syncthreads();
 }
 
-// dst[t] = src[t] for t < count, spread over the block (no barrier).
-__device__ inline void block_copy(float* dst, const float* src, int count) {
-  for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = src[t];
+// dst[t] = src[t] for t < count, widened to f32 (a bf16 plane under
+// precision="bf16"), spread over the block (no barrier).
+template <class T>
+__device__ inline void block_copy(float* dst, const T* src, int count) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x)
+    dst[t] = widen(src[t]);
 }
 

@@ -62,6 +62,12 @@
 // in at launch.  The
 // route's gate stays coded_pipeline.bucket_layout, the dense design's
 // reckoning: this layout fits one block wherever that one does.
+//
+// Precision.  Each entry has a *_bf16 twin (precision="bf16"): the tables
+// of L and of s and F_m in bfloat16 (TW), widened to f32 as they load --
+// the L-point table and F_m into shared memory, the recombine twiddle as
+// it is read.  The payload, G, the decode (with its sincosf) and shared
+// memory stay f32, so the layout and the gate are the f32 entries'.
 
 #include <cstring>
 
@@ -78,6 +84,7 @@ struct Layout {
   long long z, y, tab, gs, fm, pw, qm, loc, nodes, sub, total;
 };
 
+template <class TW>
 struct BucketArgs {
   const float* xr;
   const float* xi;
@@ -87,12 +94,12 @@ struct BucketArgs {
   const float* di;
   const float* gr;
   const float* gi;
-  const float* tabr;   // (L,) f32 table of w_L^t
-  const float* tabi;
-  const float* twr;    // (s,) f32 table of w_s^t
-  const float* twi;
-  const float* fmr;
-  const float* fmi;
+  const TW* tabr;      // (L,) table of w_L^t
+  const TW* tabi;
+  const TW* twr;       // (s,) table of w_s^t
+  const TW* twi;
+  const TW* fmr;       // (m, m) DFT
+  const TW* fmi;
   float* outr;
   float* outi;
   int n, m;
@@ -108,9 +115,9 @@ struct BucketArgs {
 // registers without it)
 constexpr int threads_for(int mm) { return mm <= 16 ? 512 : 256; }
 
-template <int MM, bool kPlanes>
+template <int MM, bool kPlanes, class TW>
 __global__ void __launch_bounds__(threads_for(MM), 1)
-coded_bucket_kernel(BucketArgs p) {
+coded_bucket_kernel(BucketArgs<TW> p) {
   extern __shared__ float smem[];
   const int m = p.m, n = p.n;
   const int L = p.plan.n, rows = p.plan.rows;
@@ -135,8 +142,8 @@ coded_bucket_kernel(BucketArgs p) {
 
   // -- the L-point table and F_m ------------------------------------------
   for (int t = tid; t < L; t += nt) {
-    tb_r[pad(t)] = p.tabr[t];
-    tb_i[pad(t)] = p.tabi[t];
+    tb_r[pad(t)] = widen(p.tabr[t]);
+    tb_i[pad(t)] = widen(p.tabi[t]);
   }
   block_copy(fm_r, p.fmr, m * m);
   block_copy(fm_i, p.fmi, m * m);
@@ -236,8 +243,8 @@ coded_bucket_kernel(BucketArgs p) {
 #pragma unroll
     for (int j = 0; j < MM; ++j) {
       if (j < m) {
-        const float w_re = __ldg(p.twr + j * l);
-        const float w_im = __ldg(p.twi + j * l);
+        const float w_re = ldg_f32(p.twr + j * l);
+        const float w_im = ldg_f32(p.twi + j * l);
         const float u = hr[j] * w_re - hi[j] * w_im;
         hi[j] = hr[j] * w_im + hi[j] * w_re;
         hr[j] = u;
@@ -256,22 +263,24 @@ coded_bucket_kernel(BucketArgs p) {
   }
 }
 
-template <int MM, bool kPlanes>
-int launch(const BucketArgs& p, int q, size_t smem, cudaStream_t stream) {
+template <int MM, bool kPlanes, class TW>
+int launch(const BucketArgs<TW>& p, int q, size_t smem,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      coded_bucket_kernel<MM, kPlanes>,
+      coded_bucket_kernel<MM, kPlanes, TW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (q < 1) return 0;
-  coded_bucket_kernel<MM, kPlanes><<<q, threads_for(MM), smem, stream>>>(p);
+  coded_bucket_kernel<MM, kPlanes, TW>
+      <<<q, threads_for(MM), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // Both entries: the plan and the layout words into p, then the instance
 // for m.
-template <bool kPlanes>
-int dispatch(BucketArgs& p, int q, int ell, const int* radix, int passes,
-             int rows, const long long* layout, void* stream) {
+template <bool kPlanes, class TW>
+int dispatch(BucketArgs<TW>& p, int q, int ell, const int* radix,
+             int passes, int rows, const long long* layout, void* stream) {
   const int m = p.m;
   if (m < 1 || ell < 1 || rows < 1 || rows > m || passes < 0 ||
       passes > fft_rows::kMaxPasses)
@@ -284,14 +293,42 @@ int dispatch(BucketArgs& p, int q, int ell, const int* radix, int passes,
   memcpy(&p.o, layout, sizeof(Layout));
   const size_t smem = (size_t)p.o.total * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 4) return launch<4, kPlanes>(p, q, smem, st);
-  if (m <= 8) return launch<8, kPlanes>(p, q, smem, st);
-  if (m <= 16) return launch<16, kPlanes>(p, q, smem, st);
-  if (m <= 32) return launch<32, kPlanes>(p, q, smem, st);
+  if (m <= 4) return launch<4, kPlanes, TW>(p, q, smem, st);
+  if (m <= 8) return launch<8, kPlanes, TW>(p, q, smem, st);
+  if (m <= 16) return launch<16, kPlanes, TW>(p, q, smem, st);
+  if (m <= 32) return launch<32, kPlanes, TW>(p, q, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 
+template <class TW>
+int masked_entry(const float* xr, const float* xi, const float* masks,
+                 const int* perm, const float* gr, const float* gi,
+                 const TW* tabr, const TW* tabi, const TW* twr,
+                 const TW* twi, const TW* fmr, const TW* fmi, float* outr,
+                 float* outi, int q, int n, int m, int ell, float ntau,
+                 const int* radix, int passes, int rows,
+                 const long long* layout, void* stream) {
+  BucketArgs<TW> p{xr, xi, masks, perm, nullptr, nullptr, gr, gi, tabr,
+                   tabi, twr, twi, fmr, fmi, outr, outi, n, m, ntau, {}, {}};
+  return dispatch<false>(p, q, ell, radix, passes, rows, layout, stream);
+}
+
+template <class TW>
+int planes_entry(const float* xr, const float* xi, const float* dr,
+                 const float* di, const float* gr, const float* gi,
+                 const TW* tabr, const TW* tabi, const TW* twr,
+                 const TW* twi, const TW* fmr, const TW* fmi, float* outr,
+                 float* outi, int q, int n, int m, int ell, const int* radix,
+                 int passes, int rows, const long long* layout,
+                 void* stream) {
+  BucketArgs<TW> p{xr, xi, nullptr, nullptr, dr, di, gr, gi, tabr, tabi,
+                   twr, twi, fmr, fmi, outr, outi, n, m, 0.f, {}, {}};
+  return dispatch<true>(p, q, ell, radix, passes, rows, layout, stream);
+}
+
 }  // namespace
+
+using bf16 = __nv_bfloat16;
 
 // The device's opt-in shared memory per block (the gate's limit), or -1.
 extern "C" int device_smem_per_block_optin(int device) {
@@ -303,11 +340,12 @@ extern "C" int device_smem_per_block_optin(int device) {
 }
 
 // x: (q, s) planes; masks: (q, n) float; perm: (m,) int32; g: (n, m);
-// tab: the (ell,) f32 table of w_ell^t; tw: the (s,) f32 table of w_s^t;
-// fm: (m, m); out: (q, s); radix: the `passes` radices of ell
+// tab: the (ell,) table of w_ell^t; tw: the (s,) table of w_s^t; fm:
+// (m, m); out: (q, s); radix: the `passes` radices of ell
 // (fourstep_fft.fft_rows_plan); rows: the shards of a group; layout: the
 // 11 words of Layout, in host memory (coded_pipeline.bucket_fft_layout).
-// m must be in [1, 32]; the wrapper checks.
+// tab, tw and fm are f32 here, bf16 in the _bf16 twin.  m must be in
+// [1, 32]; the wrapper checks.
 extern "C" int coded_bucket_masked_f32(
     const float* xr, const float* xi, const float* masks, const int* perm,
     const float* gr, const float* gi, const float* tabr, const float* tabi,
@@ -315,9 +353,21 @@ extern "C" int coded_bucket_masked_f32(
     float* outr, float* outi, int q, int n, int m, int ell, float ntau,
     const int* radix, int passes, int rows, const long long* layout,
     void* stream) {
-  BucketArgs p{xr, xi, masks, perm, nullptr, nullptr, gr, gi, tabr, tabi,
-               twr, twi, fmr, fmi, outr, outi, n, m, ntau, {}, {}};
-  return dispatch<false>(p, q, ell, radix, passes, rows, layout, stream);
+  return masked_entry(xr, xi, masks, perm, gr, gi, tabr, tabi, twr, twi,
+                      fmr, fmi, outr, outi, q, n, m, ell, ntau, radix,
+                      passes, rows, layout, stream);
+}
+
+extern "C" int coded_bucket_masked_bf16(
+    const float* xr, const float* xi, const float* masks, const int* perm,
+    const float* gr, const float* gi, const bf16* tabr, const bf16* tabi,
+    const bf16* twr, const bf16* twi, const bf16* fmr, const bf16* fmi,
+    float* outr, float* outi, int q, int n, int m, int ell, float ntau,
+    const int* radix, int passes, int rows, const long long* layout,
+    void* stream) {
+  return masked_entry(xr, xi, masks, perm, gr, gi, tabr, tabi, twr, twi,
+                      fmr, fmi, outr, outi, q, n, m, ell, ntau, radix,
+                      passes, rows, layout, stream);
 }
 
 // As coded_bucket_masked_f32, with d: (q, m, n) scatter decode planes in
@@ -328,7 +378,18 @@ extern "C" int coded_bucket_f32(
     const float* twr, const float* twi, const float* fmr, const float* fmi,
     float* outr, float* outi, int q, int n, int m, int ell, const int* radix,
     int passes, int rows, const long long* layout, void* stream) {
-  BucketArgs p{xr, xi, nullptr, nullptr, dr, di, gr, gi, tabr, tabi, twr,
-               twi, fmr, fmi, outr, outi, n, m, 0.f, {}, {}};
-  return dispatch<true>(p, q, ell, radix, passes, rows, layout, stream);
+  return planes_entry(xr, xi, dr, di, gr, gi, tabr, tabi, twr, twi, fmr, fmi,
+                      outr, outi, q, n, m, ell, radix, passes, rows, layout,
+                      stream);
+}
+
+extern "C" int coded_bucket_bf16(
+    const float* xr, const float* xi, const float* dr, const float* di,
+    const float* gr, const float* gi, const bf16* tabr, const bf16* tabi,
+    const bf16* twr, const bf16* twi, const bf16* fmr, const bf16* fmi,
+    float* outr, float* outi, int q, int n, int m, int ell, const int* radix,
+    int passes, int rows, const long long* layout, void* stream) {
+  return planes_entry(xr, xi, dr, di, gr, gi, tabr, tabi, twr, twi, fmr, fmi,
+                      outr, outi, q, n, m, ell, radix, passes, rows, layout,
+                      stream);
 }

@@ -66,6 +66,11 @@
 // 32-byte sectors and the output in half sectors.  The decode launch is
 // latency: q blocks of O(m^2) work (one thread walks the locator
 // product), then m*N stores per request.
+//
+// Precision.  Each entry has a *_bf16 twin (precision="bf16"): the
+// tables of A and B, W, the recombine twiddle and F_m in bfloat16 (TW),
+// widened to f32 as they load.  The payload, G, D, the decode launch and
+// the intermediates stay f32.
 
 #include "bucket.cuh"
 #include "fft_cols.cuh"
@@ -78,15 +83,14 @@ constexpr int kTileC = kCodeThreads / kTileD;    // c positions per block
 
 // Phase 3.  Grid: (ceil(B/kTileD), ceil(A/kTileC), q).  Shared memory:
 // G (n, m), this request's D (m, n) and F_m (m, m), planar.
-template <int MM>
+template <int MM, class TW>
 __global__ void __launch_bounds__(kCodeThreads)
 stream_code_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                    const float* __restrict__ dr, const float* __restrict__ di,
                    const float* __restrict__ gr, const float* __restrict__ gi,
-                   const float* __restrict__ twr,
-                   const float* __restrict__ twi,
-                   const float* __restrict__ fmr,
-                   const float* __restrict__ fmi, float* __restrict__ outr,
+                   const TW* __restrict__ twr, const TW* __restrict__ twi,
+                   const TW* __restrict__ fmr, const TW* __restrict__ fmi,
+                   float* __restrict__ outr,
                    float* __restrict__ outi, int n, int m, int A, int B) {
   extern __shared__ float smem[];
   float* gs_r = smem;          float* gs_i = gs_r + n * m;
@@ -102,8 +106,8 @@ stream_code_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
     d_i[t] = di[q * m * n + t];
   }
   for (int t = threadIdx.x; t < m * m; t += blockDim.x) {
-    fm_r[t] = fmr[t];
-    fm_i[t] = fmi[t];
+    fm_r[t] = widen(fmr[t]);
+    fm_i[t] = widen(fmi[t]);
   }
   __syncthreads();
   const int d = blockIdx.x * kTileD + threadIdx.x % kTileD;
@@ -135,8 +139,8 @@ stream_code_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 #pragma unroll
   for (int j = 0; j < MM; ++j) {
     if (j < m) {
-      const float w_re = twr[(long long)j * L + lp];
-      const float w_im = twi[(long long)j * L + lp];
+      const float w_re = widen(twr[(long long)j * L + lp]);
+      const float w_im = widen(twi[(long long)j * L + lp]);
       const float u = hr[j] * w_re - hi[j] * w_im;
       hi[j] = hr[j] * w_im + hi[j] * w_re;
       hr[j] = u;
@@ -194,34 +198,36 @@ stream_decode_kernel(const float* __restrict__ mk,
   }
 }
 
-template <int MM>
+template <int MM, class TW>
 int launch_code(const float* zr, const float* zi, const float* dr,
                 const float* di, const float* gr, const float* gi,
-                const float* twr, const float* twi, const float* fmr,
-                const float* fmi, float* outr, float* outi, int q, int n,
-                int m, int a, int b, cudaStream_t st) {
+                const TW* twr, const TW* twi, const TW* fmr, const TW* fmi,
+                float* outr, float* outi, int q, int n, int m, int a, int b,
+                cudaStream_t st) {
   const size_t smem = (size_t)(4 * n * m + 2 * m * m) * sizeof(float);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stream_code_kernel<MM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stream_code_kernel<MM, TW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)((b + kTileD - 1) / kTileD),
                   (unsigned)((a + kTileC - 1) / kTileC), (unsigned)q);
-  stream_code_kernel<MM><<<grid, kCodeThreads, smem, st>>>(
+  stream_code_kernel<MM, TW><<<grid, kCodeThreads, smem, st>>>(
       zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr, outi, n, m, a, b);
   return (int)cudaGetLastError();
 }
 
 // Phases 1-3 on the (q, m, n) decode planes d.  sa: the column FFT plan
 // of a over b*m columns; sb: the row FFT plan of b.
+template <class TW>
 int launch_phases(const float* xr, const float* xi, const float* dr,
                   const float* di, const float* gr, const float* gi,
-                  const float* wr, const float* wi, const float* tar,
-                  const float* tai, const float* tbr, const float* tbi,
-                  const float* twr, const float* twi, const float* fmr,
-                  const float* fmi, float* t1r, float* t1i, float* zr,
+                  const TW* wr, const TW* wi, const TW* tar, const TW* tai,
+                  const TW* tbr, const TW* tbi, const TW* twr,
+                  const TW* twi, const TW* fmr, const TW* fmi, float* t1r,
+                  float* t1i, float* zr,
                   float* zi, float* outr, float* outi, int q, int n, int m,
                   const fft_cols::FftSpec& sa, const fft_cols::FftSpec& sb,
                   cudaStream_t st) {
@@ -237,34 +243,74 @@ int launch_phases(const float* xr, const float* xi, const float* dr,
   if (err != 0) return err;
   // 3. encode, decode, recombine, natural order
   if (m <= 4)
-    return launch_code<4>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+    return launch_code<4, TW>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
                           outi, q, n, m, a, b, st);
   if (m <= 8)
-    return launch_code<8>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+    return launch_code<8, TW>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
                           outi, q, n, m, a, b, st);
   if (m <= 16)
-    return launch_code<16>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+    return launch_code<16, TW>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
                            outi, q, n, m, a, b, st);
   if (m <= 32)
-    return launch_code<32>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
+    return launch_code<32, TW>(zr, zi, dr, di, gr, gi, twr, twi, fmr, fmi, outr,
                            outi, q, n, m, a, b, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// Masked mode: the decode launch, then the three phases.
+template <class TW>
+int masked_phases(const float* xr, const float* xi, const float* masks,
+                  const int* perm, const float* gr, const float* gi,
+                  const TW* wr, const TW* wi, const TW* tar, const TW* tai,
+                  const TW* tbr, const TW* tbi, const TW* twr,
+                  const TW* twi, const TW* fmr, const TW* fmi, float* dr,
+                  float* di, float* t1r, float* t1i, float* zr, float* zi,
+                  float* outr, float* outi, int q, int n, int m, float ntau,
+                  const fft_cols::FftSpec* sa, const fft_cols::FftSpec* sb,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(6 * m * m + 4 * m + 2) * sizeof(float) +
+                      (size_t)m * sizeof(int);
+  stream_decode_kernel<<<q, kDecodeThreads, smem, st>>>(masks, perm, gr, gi,
+                                                        dr, di, n, m, ntau);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_phases(xr, xi, dr, di, gr, gi, wr, wi, tar, tai, tbr, tbi,
+                       twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
+                       m, *sa, *sb, st);
+}
+
 }  // namespace
 
+using bf16 = __nv_bfloat16;
+
 // x: (q, s) planes; d: (q, m, n) scatter decode planes; g: (n, m);
-// w: (a, b); ta, tb: the (a,) and (b,) f32 tables of w^t; tw: (m, a*b)
+// w: (a, b); ta, tb: the (a,) and (b,) tables of w^t; tw: (m, a*b)
 // pre-scrambled; fm: (m, m); t1, z: (q, s) scratch; out: (q, s); sa, sb:
-// the plans of launch_phases, in host memory.  m in [1, 32], q at most
-// 65,535 and 4*(4*n*m + 2*m*m) bytes within the opt-in shared memory:
-// the wrapper checks.  Returns the first nonzero cudaGetLastError() of
-// the three launches.
+// the plans of launch_phases, in host memory.  w, ta, tb, tw and fm are
+// f32 here, bf16 in the _bf16 twin.  m in [1, 32], q at most 65,535 and
+// 4*(4*n*m + 2*m*m) bytes within the opt-in shared memory: the wrapper
+// checks.  Returns the first nonzero cudaGetLastError() of the three
+// launches.
 extern "C" int coded_bucket_streaming_f32(
     const float* xr, const float* xi, const float* dr, const float* di,
     const float* gr, const float* gi, const float* wr, const float* wi,
     const float* tar, const float* tai, const float* tbr, const float* tbi,
     const float* twr, const float* twi, const float* fmr, const float* fmi,
+    float* t1r, float* t1i, float* zr, float* zi, float* outr, float* outi,
+    int q, int n, int m, const fft_cols::FftSpec* sa,
+    const fft_cols::FftSpec* sb, void* stream) {
+  return launch_phases(xr, xi, dr, di, gr, gi, wr, wi, tar, tai, tbr, tbi,
+                       twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
+                       m, *sa, *sb, (cudaStream_t)stream);
+}
+
+extern "C" int coded_bucket_streaming_bf16(
+    const float* xr, const float* xi, const float* dr, const float* di,
+    const float* gr, const float* gi, const bf16* wr, const bf16* wi,
+    const bf16* tar, const bf16* tai, const bf16* tbr, const bf16* tbi,
+    const bf16* twr, const bf16* twi, const bf16* fmr, const bf16* fmi,
     float* t1r, float* t1i, float* zr, float* zi, float* outr, float* outi,
     int q, int n, int m, const fft_cols::FftSpec* sa,
     const fft_cols::FftSpec* sb, void* stream) {
@@ -287,15 +333,21 @@ extern "C" int coded_bucket_streaming_masked_f32(
     float* outr, float* outi, int q, int n, int m, float ntau,
     const fft_cols::FftSpec* sa, const fft_cols::FftSpec* sb,
     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(6 * m * m + 4 * m + 2) * sizeof(float) +
-                      (size_t)m * sizeof(int);
-  stream_decode_kernel<<<q, kDecodeThreads, smem, st>>>(masks, perm, gr, gi,
-                                                        dr, di, n, m, ntau);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return launch_phases(xr, xi, dr, di, gr, gi, wr, wi, tar, tai, tbr, tbi,
-                       twr, twi, fmr, fmi, t1r, t1i, zr, zi, outr, outi, q, n,
-                       m, *sa, *sb, st);
+  return masked_phases(xr, xi, masks, perm, gr, gi, wr, wi, tar, tai, tbr,
+                       tbi, twr, twi, fmr, fmi, dr, di, t1r, t1i, zr, zi,
+                       outr, outi, q, n, m, ntau, sa, sb, stream);
+}
+
+extern "C" int coded_bucket_streaming_masked_bf16(
+    const float* xr, const float* xi, const float* masks, const int* perm,
+    const float* gr, const float* gi, const bf16* wr, const bf16* wi,
+    const bf16* tar, const bf16* tai, const bf16* tbr, const bf16* tbi,
+    const bf16* twr, const bf16* twi, const bf16* fmr, const bf16* fmi,
+    float* dr, float* di, float* t1r, float* t1i, float* zr, float* zi,
+    float* outr, float* outi, int q, int n, int m, float ntau,
+    const fft_cols::FftSpec* sa, const fft_cols::FftSpec* sb,
+    void* stream) {
+  return masked_phases(xr, xi, masks, perm, gr, gi, wr, wi, tar, tai, tbr,
+                       tbi, twr, twi, fmr, fmi, dr, di, t1r, t1i, zr, zi,
+                       outr, outi, q, n, m, ntau, sa, sb, stream);
 }

@@ -65,6 +65,12 @@
 // group rows, and passed in at launch.  The route's gate stays
 // coded_pipeline.irbucket_layout, the dense design's reckoning: this
 // layout fits one block wherever that one does.
+//
+// Precision.  Each entry has a *_bf16 twin (precision="bf16"): the
+// n2-point table, the +sign F_m, the conjugate recombine twiddle and the
+// pack twiddle in bfloat16 (TW), widened to f32 as they load.  The
+// payload, G, the decode and shared memory stay f32: the layout is the
+// f32 entries'.
 
 #include <cstring>
 
@@ -81,6 +87,7 @@ struct Layout {
   long long z, y, tab, gs, fp, pw, qm, loc, nodes, sub, side, total;
 };
 
+template <class TW>
 struct IRBucketArgs {
   const float* yr;     // (q, s//2+1)
   const float* yi;
@@ -90,14 +97,14 @@ struct IRBucketArgs {
   const float* di;
   const float* gr;
   const float* gi;
-  const float* tabr;   // (n2,) f32 table of w_n2^t
-  const float* tabi;
-  const float* fpr;    // (m, m) +sign DFT
-  const float* fpi;
-  const float* ctwr;   // (m, L) conjugate recombine twiddle
-  const float* ctwi;
-  const float* pwr;    // (n2+1,) pack twiddle omega_L^{+p}
-  const float* pwi;
+  const TW* tabr;      // (n2,) table of w_n2^t
+  const TW* tabi;
+  const TW* fpr;       // (m, m) +sign DFT
+  const TW* fpi;
+  const TW* ctwr;      // (m, L) conjugate recombine twiddle
+  const TW* ctwi;
+  const TW* pwr;       // (n2+1,) pack twiddle omega_L^{+p}
+  const TW* pwi;
   float* out;          // (q, s) real
   int n, m;
   float ntau;          // -2*pi/n rounded to float
@@ -123,9 +130,9 @@ __device__ __forceinline__ void pack_conj(float ar, float ai, float br,
   zi = -(ei + our);  // ... conjugated for the forward FFT
 }
 
-template <int MM, bool kPlanes>
+template <int MM, bool kPlanes, class TW>
 __global__ void __launch_bounds__(threads_for(MM), 1)
-coded_irbucket_kernel(IRBucketArgs p) {
+coded_irbucket_kernel(IRBucketArgs<TW> p) {
   extern __shared__ float smem[];
   const int m = p.m, n = p.n;
   const int n2 = p.plan.n, rows = p.plan.rows;  // packed shard length L/2
@@ -153,8 +160,8 @@ coded_irbucket_kernel(IRBucketArgs p) {
 
   // -- the n2-point table and the +sign DFT -------------------------------
   for (int t = tid; t < n2; t += nt) {
-    tb_r[pad(t)] = p.tabr[t];
-    tb_i[pad(t)] = p.tabi[t];
+    tb_r[pad(t)] = widen(p.tabr[t]);
+    tb_i[pad(t)] = widen(p.tabi[t]);
   }
   block_copy(fp_r, p.fpr, m * m);
   block_copy(fp_i, p.fpi, m * m);
@@ -196,8 +203,8 @@ coded_irbucket_kernel(IRBucketArgs p) {
       for (int r = 0; r < MM; ++r)
         if (r < m)
           cmac(accr, acci, fp_r[i * m + r], fp_i[i * m + r], xr[r], xi[r]);
-      const float c_re = __ldg(p.ctwr + i * L + t);
-      const float c_im = __ldg(p.ctwi + i * L + t);
+      const float c_re = ldg_f32(p.ctwr + i * L + t);
+      const float c_im = ldg_f32(p.ctwi + i * L + t);
       const float vr = accr * c_re - acci * c_im;
       const float vi = accr * c_im + acci * c_re;
       if (t < n2) {
@@ -228,11 +235,12 @@ coded_irbucket_kernel(IRBucketArgs p) {
     const float br = pp == 0 ? se_r[i] : z_r[wb];
     const float bi = pp == 0 ? se_i[i] : z_i[wb];
     float zr, zi;
-    pack_conj(ar, ai, br, bi, __ldg(p.pwr + pp), __ldg(p.pwi + pp), zr, zi);
+    pack_conj(ar, ai, br, bi, ldg_f32(p.pwr + pp), ldg_f32(p.pwi + pp), zr,
+              zi);
     if (pp > 0 && 2 * pp != n2) {  // the partner n2 - p, from the same two
       float ur, ui;
-      pack_conj(br, bi, ar, ai, __ldg(p.pwr + n2 - pp),
-                __ldg(p.pwi + n2 - pp), ur, ui);
+      pack_conj(br, bi, ar, ai, ldg_f32(p.pwr + n2 - pp),
+                ldg_f32(p.pwi + n2 - pp), ur, ui);
       z_r[wb] = ur;
       z_i[wb] = ui;
     }
@@ -315,22 +323,24 @@ coded_irbucket_kernel(IRBucketArgs p) {
   }
 }
 
-template <int MM, bool kPlanes>
-int launch(const IRBucketArgs& p, int q, size_t smem, cudaStream_t stream) {
+template <int MM, bool kPlanes, class TW>
+int launch(const IRBucketArgs<TW>& p, int q, size_t smem,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      coded_irbucket_kernel<MM, kPlanes>,
+      coded_irbucket_kernel<MM, kPlanes, TW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (q < 1) return 0;
-  coded_irbucket_kernel<MM, kPlanes><<<q, threads_for(MM), smem, stream>>>(p);
+  coded_irbucket_kernel<MM, kPlanes, TW>
+      <<<q, threads_for(MM), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // Both entries: the plan and the layout words into p, then the instance
 // for m.
-template <bool kPlanes>
-int dispatch(IRBucketArgs& p, int q, int n2, const int* radix, int passes,
-             int rows, const long long* layout, void* stream) {
+template <bool kPlanes, class TW>
+int dispatch(IRBucketArgs<TW>& p, int q, int n2, const int* radix,
+             int passes, int rows, const long long* layout, void* stream) {
   const int m = p.m;
   if (m < 1 || n2 < 1 || rows < 1 || rows > m || passes < 0 ||
       passes > fft_rows::kMaxPasses)
@@ -343,22 +353,53 @@ int dispatch(IRBucketArgs& p, int q, int n2, const int* radix, int passes,
   memcpy(&p.o, layout, sizeof(Layout));
   const size_t smem = (size_t)p.o.total * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 4) return launch<4, kPlanes>(p, q, smem, st);
-  if (m <= 8) return launch<8, kPlanes>(p, q, smem, st);
-  if (m <= 16) return launch<16, kPlanes>(p, q, smem, st);
-  if (m <= 32) return launch<32, kPlanes>(p, q, smem, st);
+  if (m <= 4) return launch<4, kPlanes, TW>(p, q, smem, st);
+  if (m <= 8) return launch<8, kPlanes, TW>(p, q, smem, st);
+  if (m <= 16) return launch<16, kPlanes, TW>(p, q, smem, st);
+  if (m <= 32) return launch<32, kPlanes, TW>(p, q, smem, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <class TW>
+int masked_entry(const float* yr, const float* yi,
+                 const unsigned char* masks, const int* perm,
+                 const float* gr, const float* gi, const TW* tabr,
+                 const TW* tabi, const TW* fpr, const TW* fpi,
+                 const TW* ctwr, const TW* ctwi, const TW* pwr,
+                 const TW* pwi, float* out, int q, int n, int m, int n2,
+                 float ntau, const int* radix, int passes, int rows,
+                 const long long* layout, void* stream) {
+  IRBucketArgs<TW> p{yr, yi, masks, perm, nullptr, nullptr, gr, gi, tabr,
+                     tabi, fpr, fpi, ctwr, ctwi, pwr, pwi, out, n, m, ntau,
+                     {}, {}};
+  return dispatch<false>(p, q, n2, radix, passes, rows, layout, stream);
+}
+
+template <class TW>
+int planes_entry(const float* yr, const float* yi, const float* dr,
+                 const float* di, const float* gr, const float* gi,
+                 const TW* tabr, const TW* tabi, const TW* fpr,
+                 const TW* fpi, const TW* ctwr, const TW* ctwi,
+                 const TW* pwr, const TW* pwi, float* out, int q, int n,
+                 int m, int n2, const int* radix, int passes, int rows,
+                 const long long* layout, void* stream) {
+  IRBucketArgs<TW> p{yr, yi, nullptr, nullptr, dr, di, gr, gi, tabr, tabi,
+                     fpr, fpi, ctwr, ctwi, pwr, pwi, out, n, m, 0.f, {}, {}};
+  return dispatch<true>(p, q, n2, radix, passes, rows, layout, stream);
 }
 
 }  // namespace
 
+using bf16 = __nv_bfloat16;
+
 // y: (q, s//2+1) planes; masks: (q, n) bytes, nonzero = responded; perm:
-// (m,) int32; g: (n, m); tab: the (n2,) f32 table of w_n2^t for
+// (m,) int32; g: (n, m); tab: the (n2,) table of w_n2^t for
 // n2 = s/(2m); fp: (m, m); ctw: (m, 2*n2); pw: (n2+1,); out: (q, s) real;
 // radix: the `passes` radices of n2 (fourstep_fft.fft_rows_plan); rows:
 // the shards of a group; layout: the 12 words of Layout, in host memory
-// (coded_pipeline.bucket_fft_layout with side=2*m).  m must be in
-// [1, 32]; the wrapper checks.
+// (coded_pipeline.bucket_fft_layout with side=2*m).  tab, fp, ctw and pw
+// are f32 here, bf16 in the _bf16 twin.  m must be in [1, 32]; the
+// wrapper checks.
 extern "C" int coded_irbucket_masked_f32(
     const float* yr, const float* yi, const unsigned char* masks,
     const int* perm, const float* gr, const float* gi, const float* tabr,
@@ -366,9 +407,21 @@ extern "C" int coded_irbucket_masked_f32(
     const float* ctwi, const float* pwr, const float* pwi, float* out, int q,
     int n, int m, int n2, float ntau, const int* radix, int passes, int rows,
     const long long* layout, void* stream) {
-  IRBucketArgs p{yr, yi, masks, perm, nullptr, nullptr, gr, gi, tabr, tabi,
-                 fpr, fpi, ctwr, ctwi, pwr, pwi, out, n, m, ntau, {}, {}};
-  return dispatch<false>(p, q, n2, radix, passes, rows, layout, stream);
+  return masked_entry(yr, yi, masks, perm, gr, gi, tabr, tabi, fpr, fpi,
+                      ctwr, ctwi, pwr, pwi, out, q, n, m, n2, ntau, radix,
+                      passes, rows, layout, stream);
+}
+
+extern "C" int coded_irbucket_masked_bf16(
+    const float* yr, const float* yi, const unsigned char* masks,
+    const int* perm, const float* gr, const float* gi, const bf16* tabr,
+    const bf16* tabi, const bf16* fpr, const bf16* fpi, const bf16* ctwr,
+    const bf16* ctwi, const bf16* pwr, const bf16* pwi, float* out, int q,
+    int n, int m, int n2, float ntau, const int* radix, int passes, int rows,
+    const long long* layout, void* stream) {
+  return masked_entry(yr, yi, masks, perm, gr, gi, tabr, tabi, fpr, fpi,
+                      ctwr, ctwi, pwr, pwi, out, q, n, m, n2, ntau, radix,
+                      passes, rows, layout, stream);
 }
 
 // As coded_irbucket_masked_f32, with d: (q, m, n) scatter decode planes
@@ -381,7 +434,19 @@ extern "C" int coded_irbucket_f32(
     const float* pwr, const float* pwi, float* out, int q, int n, int m,
     int n2, const int* radix, int passes, int rows, const long long* layout,
     void* stream) {
-  IRBucketArgs p{yr, yi, nullptr, nullptr, dr, di, gr, gi, tabr, tabi, fpr,
-                 fpi, ctwr, ctwi, pwr, pwi, out, n, m, 0.f, {}, {}};
-  return dispatch<true>(p, q, n2, radix, passes, rows, layout, stream);
+  return planes_entry(yr, yi, dr, di, gr, gi, tabr, tabi, fpr, fpi, ctwr,
+                      ctwi, pwr, pwi, out, q, n, m, n2, radix, passes, rows,
+                      layout, stream);
+}
+
+extern "C" int coded_irbucket_bf16(
+    const float* yr, const float* yi, const float* dr, const float* di,
+    const float* gr, const float* gi, const bf16* tabr, const bf16* tabi,
+    const bf16* fpr, const bf16* fpi, const bf16* ctwr, const bf16* ctwi,
+    const bf16* pwr, const bf16* pwi, float* out, int q, int n, int m,
+    int n2, const int* radix, int passes, int rows, const long long* layout,
+    void* stream) {
+  return planes_entry(yr, yi, dr, di, gr, gi, tabr, tabi, fpr, fpi, ctwr,
+                      ctwi, pwr, pwi, out, q, n, m, n2, radix, passes, rows,
+                      layout, stream);
 }

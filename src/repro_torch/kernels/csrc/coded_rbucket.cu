@@ -63,6 +63,11 @@
 // passed in at launch.  The route's gate stays
 // coded_pipeline.rbucket_layout, the dense design's reckoning: this
 // layout fits one block wherever that one does.
+//
+// Precision.  Each entry has a *_bf16 twin (precision="bf16"): the
+// n2-point table, the split twiddle, the recombine twiddle and the DFT
+// rows in bfloat16 (TW), widened to f32 as they load.  The payload, G,
+// the decode and shared memory stay f32: the layout is the f32 entries'.
 
 #include <cstring>
 
@@ -79,6 +84,7 @@ struct Layout {
   long long z, y, tab, gs, fh, pw, qm, loc, nodes, sub, total;
 };
 
+template <class TW>
 struct RBucketArgs {
   const float* xr;
   const unsigned char* masks;  // masked kernel: (q, n) responder bytes
@@ -87,14 +93,14 @@ struct RBucketArgs {
   const float* di;
   const float* gr;
   const float* gi;
-  const float* tabr;   // (n2,) f32 table of w_n2^t
-  const float* tabi;
-  const float* swr;    // (n2+1,) split twiddle omega_L^p
-  const float* swi;
-  const float* twr;    // (m, L) recombine twiddle, natural order
-  const float* twi;
-  const float* fhr;    // (m//2+1, m) DFT rows
-  const float* fhi;
+  const TW* tabr;      // (n2,) table of w_n2^t
+  const TW* tabi;
+  const TW* swr;       // (n2+1,) split twiddle omega_L^p
+  const TW* swi;
+  const TW* twr;       // (m, L) recombine twiddle, natural order
+  const TW* twi;
+  const TW* fhr;       // (m//2+1, m) DFT rows
+  const TW* fhi;
   float* outr;         // (q, s//2+1)
   float* outi;
   int n, m;
@@ -108,9 +114,9 @@ struct RBucketArgs {
 // as coded_bucket.cu names it, so ptxas does not spill to fit two
 constexpr int threads_for(int mm) { return mm <= 16 ? 512 : 256; }
 
-template <int MM, bool kPlanes>
+template <int MM, bool kPlanes, class TW>
 __global__ void __launch_bounds__(threads_for(MM), 1)
-coded_rbucket_kernel(RBucketArgs p) {
+coded_rbucket_kernel(RBucketArgs<TW> p) {
   extern __shared__ float smem[];
   const int m = p.m, n = p.n;
   const int n2 = p.plan.n, rows = p.plan.rows;  // packed shard length L/2
@@ -138,8 +144,8 @@ coded_rbucket_kernel(RBucketArgs p) {
 
   // -- the n2-point table and the DFT rows --------------------------------
   for (int t = tid; t < n2; t += nt) {
-    tb_r[pad(t)] = p.tabr[t];
-    tb_i[pad(t)] = p.tabi[t];
+    tb_r[pad(t)] = widen(p.tabr[t]);
+    tb_i[pad(t)] = widen(p.tabi[t]);
   }
   block_copy(fh_r, p.fhr, hrows * m);
   block_copy(fh_i, p.fhi, hrows * m);
@@ -257,7 +263,7 @@ coded_rbucket_kernel(RBucketArgs p) {
     const int sp = lower ? u : L - u;       // split index in [0, n2]
     const int pa = sp == n2 ? 0 : sp;       // Z[sp mod n2]
     const int pb = sp == 0 ? 0 : n2 - sp;   // Z[(n2 - sp) mod n2]
-    const float sw_re = __ldg(p.swr + sp), sw_im = __ldg(p.swi + sp);
+    const float sw_re = ldg_f32(p.swr + sp), sw_im = ldg_f32(p.swi + sp);
     float ur[MM], ui[MM];
     int g = 0, r = 0;
 #pragma unroll
@@ -276,8 +282,8 @@ coded_rbucket_kernel(RBucketArgs p) {
         const float cr = er + our * sw_re - oui * sw_im;
         float ci = ei + our * sw_im + oui * sw_re;
         if (!lower) ci = -ci;  // C[L-p] = conj(C[p])
-        const float w_re = __ldg(p.twr + j * L + u);
-        const float w_im = __ldg(p.twi + j * L + u);
+        const float w_re = ldg_f32(p.twr + j * L + u);
+        const float w_im = ldg_f32(p.twi + j * L + u);
         ur[j] = cr * w_re - ci * w_im;
         ui[j] = cr * w_im + ci * w_re;
       }
@@ -297,22 +303,24 @@ coded_rbucket_kernel(RBucketArgs p) {
   }
 }
 
-template <int MM, bool kPlanes>
-int launch(const RBucketArgs& p, int q, size_t smem, cudaStream_t stream) {
+template <int MM, bool kPlanes, class TW>
+int launch(const RBucketArgs<TW>& p, int q, size_t smem,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      coded_rbucket_kernel<MM, kPlanes>,
+      coded_rbucket_kernel<MM, kPlanes, TW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (q < 1) return 0;
-  coded_rbucket_kernel<MM, kPlanes><<<q, threads_for(MM), smem, stream>>>(p);
+  coded_rbucket_kernel<MM, kPlanes, TW>
+      <<<q, threads_for(MM), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // Both entries: the plan and the layout words into p, then the instance
 // for m.
-template <bool kPlanes>
-int dispatch(RBucketArgs& p, int q, int n2, const int* radix, int passes,
-             int rows, const long long* layout, void* stream) {
+template <bool kPlanes, class TW>
+int dispatch(RBucketArgs<TW>& p, int q, int n2, const int* radix,
+             int passes, int rows, const long long* layout, void* stream) {
   const int m = p.m;
   if (m < 1 || n2 < 1 || rows < 1 || rows > m || passes < 0 ||
       passes > fft_rows::kMaxPasses)
@@ -325,23 +333,53 @@ int dispatch(RBucketArgs& p, int q, int n2, const int* radix, int passes,
   memcpy(&p.o, layout, sizeof(Layout));
   const size_t smem = (size_t)p.o.total * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 4) return launch<4, kPlanes>(p, q, smem, st);
-  if (m <= 8) return launch<8, kPlanes>(p, q, smem, st);
-  if (m <= 16) return launch<16, kPlanes>(p, q, smem, st);
-  if (m <= 32) return launch<32, kPlanes>(p, q, smem, st);
+  if (m <= 4) return launch<4, kPlanes, TW>(p, q, smem, st);
+  if (m <= 8) return launch<8, kPlanes, TW>(p, q, smem, st);
+  if (m <= 16) return launch<16, kPlanes, TW>(p, q, smem, st);
+  if (m <= 32) return launch<32, kPlanes, TW>(p, q, smem, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <class TW>
+int masked_entry(const float* xr, const unsigned char* masks,
+                 const int* perm, const float* gr, const float* gi,
+                 const TW* tabr, const TW* tabi, const TW* swr,
+                 const TW* swi, const TW* twr, const TW* twi, const TW* fhr,
+                 const TW* fhi, float* outr, float* outi, int q, int n,
+                 int m, int n2, float ntau, const int* radix, int passes,
+                 int rows, const long long* layout, void* stream) {
+  RBucketArgs<TW> p{xr, masks, perm, nullptr, nullptr, gr, gi, tabr, tabi,
+                    swr, swi, twr, twi, fhr, fhi, outr, outi, n, m, ntau,
+                    {}, {}};
+  return dispatch<false>(p, q, n2, radix, passes, rows, layout, stream);
+}
+
+template <class TW>
+int planes_entry(const float* xr, const float* dr, const float* di,
+                 const float* gr, const float* gi, const TW* tabr,
+                 const TW* tabi, const TW* swr, const TW* swi,
+                 const TW* twr, const TW* twi, const TW* fhr, const TW* fhi,
+                 float* outr, float* outi, int q, int n, int m, int n2,
+                 const int* radix, int passes, int rows,
+                 const long long* layout, void* stream) {
+  RBucketArgs<TW> p{xr, nullptr, nullptr, dr, di, gr, gi, tabr, tabi, swr,
+                    swi, twr, twi, fhr, fhi, outr, outi, n, m, 0.f, {}, {}};
+  return dispatch<true>(p, q, n2, radix, passes, rows, layout, stream);
 }
 
 }  // namespace
 
+using bf16 = __nv_bfloat16;
+
 // x: (q, s) real plane; masks: (q, n) bytes, nonzero = responded; perm:
 // (m,) int32; g: (n, m);
-// tab: the (n2,) f32 table of w_n2^t for n2 = s/(2m); sw: (n2+1,);
+// tab: the (n2,) table of w_n2^t for n2 = s/(2m); sw: (n2+1,);
 // tw: (m, 2*n2) natural order; fh: (m//2+1, m); out: (q, s//2+1) planes;
 // radix: the `passes` radices of n2 (fourstep_fft.fft_rows_plan); rows:
 // the shards of a group; layout: the 11 words of Layout, in host memory
-// (coded_pipeline.bucket_fft_layout with m//2+1 DFT rows).  m must be in
-// [1, 32]; the wrapper checks.
+// (coded_pipeline.bucket_fft_layout with m//2+1 DFT rows).  tab, sw, tw
+// and fh are f32 here, bf16 in the _bf16 twin.  m must be in [1, 32];
+// the wrapper checks.
 extern "C" int coded_rbucket_masked_f32(
     const float* xr, const unsigned char* masks, const int* perm,
     const float* gr,
@@ -350,10 +388,21 @@ extern "C" int coded_rbucket_masked_f32(
     const float* fhi, float* outr, float* outi, int q, int n, int m, int n2,
     float ntau, const int* radix, int passes, int rows,
     const long long* layout, void* stream) {
-  RBucketArgs p{xr, masks, perm, nullptr, nullptr, gr, gi, tabr, tabi,
-                swr, swi, twr, twi, fhr, fhi, outr, outi, n, m, ntau,
-                {}, {}};
-  return dispatch<false>(p, q, n2, radix, passes, rows, layout, stream);
+  return masked_entry(xr, masks, perm, gr, gi, tabr, tabi, swr, swi, twr,
+                      twi, fhr, fhi, outr, outi, q, n, m, n2, ntau, radix,
+                      passes, rows, layout, stream);
+}
+
+extern "C" int coded_rbucket_masked_bf16(
+    const float* xr, const unsigned char* masks, const int* perm,
+    const float* gr, const float* gi, const bf16* tabr, const bf16* tabi,
+    const bf16* swr, const bf16* swi, const bf16* twr, const bf16* twi,
+    const bf16* fhr, const bf16* fhi, float* outr, float* outi, int q, int n,
+    int m, int n2, float ntau, const int* radix, int passes, int rows,
+    const long long* layout, void* stream) {
+  return masked_entry(xr, masks, perm, gr, gi, tabr, tabi, swr, swi, twr,
+                      twi, fhr, fhi, outr, outi, q, n, m, n2, ntau, radix,
+                      passes, rows, layout, stream);
 }
 
 // As coded_rbucket_masked_f32, with d: (q, m, n) scatter decode planes in
@@ -365,7 +414,19 @@ extern "C" int coded_rbucket_f32(
     const float* fhi, float* outr, float* outi, int q, int n, int m, int n2,
     const int* radix, int passes, int rows, const long long* layout,
     void* stream) {
-  RBucketArgs p{xr, nullptr, nullptr, dr, di, gr, gi, tabr, tabi, swr, swi,
-                twr, twi, fhr, fhi, outr, outi, n, m, 0.f, {}, {}};
-  return dispatch<true>(p, q, n2, radix, passes, rows, layout, stream);
+  return planes_entry(xr, dr, di, gr, gi, tabr, tabi, swr, swi, twr, twi,
+                      fhr, fhi, outr, outi, q, n, m, n2, radix, passes, rows,
+                      layout, stream);
+}
+
+extern "C" int coded_rbucket_bf16(
+    const float* xr, const float* dr, const float* di, const float* gr,
+    const float* gi, const bf16* tabr, const bf16* tabi, const bf16* swr,
+    const bf16* swi, const bf16* twr, const bf16* twi, const bf16* fhr,
+    const bf16* fhi, float* outr, float* outi, int q, int n, int m, int n2,
+    const int* radix, int passes, int rows, const long long* layout,
+    void* stream) {
+  return planes_entry(xr, dr, di, gr, gi, tabr, tabi, swr, swi, twr, twi,
+                      fhr, fhi, outr, outi, q, n, m, n2, radix, passes, rows,
+                      layout, stream);
 }

@@ -4,11 +4,37 @@
 // imaginary planes, the layout the JAX package's Pallas kernels use, so
 // the ports take the same arrays.  Arithmetic is FP32 on CUDA cores with
 // FP32 accumulation (no TF32: the reference tolerances rule it out).
+//
+// The constant tables and planes (DFT, twiddle, recombine, split and
+// pack) come as float, or as bfloat16 under precision="bf16": the FFT and
+// bucket kernels take their element type as a template parameter TW and
+// widen every entry to float once, as it loads (widen, ldg_f32).  The
+// payload, G and the decode stay float, and so does shared memory.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// A table or plane entry as float.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// *p through the read-only cache, as float.
+template <class TW>
+__device__ __forceinline__ float ldg_f32(const TW* p) {
+  return widen(__ldg(p));
+}
+
+// T itself, in a context that does not deduce it: a launcher's optional
+// plane pointer (nullptr for none) takes the table's element type.
+template <class T>
+struct same_type {
+  using type = T;
+};
 
 // acc += a * b on planar complex scalars.
 __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,

@@ -43,7 +43,9 @@
 // read from global memory, where its 8*L bytes stay in L2 (tab == total
 // says so); the buffers padded one word in 32 where that fits, else not
 // (plane words == rows*L says so: only L in (14088, 14528]).  So one
-// kernel serves every length the dense design's gates admit.
+// kernel serves every length the dense design's gates admit.  The table
+// is f32, or bf16 under precision="bf16" (TW): staged, it is widened as
+// it lands; in global memory, the passes widen each read.
 //
 // What bounds it on the H100: bytes.  512 rows of L = 1024 (the s = 4096
 // plan's worker rows) move 8.4 MB, 0.0025 ms at 3.35 TB/s, against about
@@ -66,6 +68,7 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 #include "fft_rows.cuh"
@@ -113,11 +116,12 @@ __device__ __forceinline__ int source(int e, int n, const Store& st) {
 
 // x (n_rows, n) -> out (n_rows, n): each row's DFT, stored scrambled.
 // Grid: ceil(n_rows / p.rows) blocks of kThreads.
+template <class TW>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_block_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ outr, float* __restrict__ outi,
-                 const float* __restrict__ twr,
-                 const float* __restrict__ twi, long long n_rows,
+                 const TW* __restrict__ twr,
+                 const TW* __restrict__ twi, long long n_rows,
                  const __grid_constant__ fft_rows::Plan p,
                  fft_rows::Layout o, const __grid_constant__ Store st) {
   extern __shared__ float smem[];
@@ -131,17 +135,22 @@ fft_block_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const fft_rows::Pad pb{plane > p.rows * n ? 5 : 31};
   const bool staged = o.total > o.tab;
   const fft_rows::Pad pt{staged ? 5 : 31};
-  const float* tr = twr;
-  const float* ti = twi;
+  // f32: the table staged or read in place, one pointer; bf16: staged
+  // (widened) into shared memory, or read and widened in place
+  const float* tr = nullptr;
+  const float* ti = nullptr;
   if (staged) {
     float* sr_ = smem + o.tab;
     float* si_ = sr_ + (o.total - o.tab) / 2;
     for (int t = tid; t < n; t += nt) {
-      sr_[pt(t)] = twr[t];
-      si_[pt(t)] = twi[t];
+      sr_[pt(t)] = widen(twr[t]);
+      si_[pt(t)] = widen(twi[t]);
     }
     tr = sr_;
     ti = si_;
+  } else if constexpr (std::is_same<TW, float>::value) {
+    tr = twr;
+    ti = twi;
   }
   float* sr = smem + o.x;
   float* si = sr + plane;
@@ -171,7 +180,12 @@ fft_block_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     si[pb(t)] = gi[t];
   }
   __syncthreads();
-  fft_rows::run_passes(sr, si, dr, di, tr, ti, p, rows, tid, nt, pb, pt);
+  if constexpr (std::is_same<TW, float>::value)
+    fft_rows::run_passes(sr, si, dr, di, tr, ti, p, rows, tid, nt, pb, pt);
+  else if (staged)
+    fft_rows::run_passes(sr, si, dr, di, tr, ti, p, rows, tid, nt, pb, pt);
+  else
+    fft_rows::run_passes(sr, si, dr, di, twr, twi, p, rows, tid, nt, pb, pt);
   float* hr = outr + base;
   float* hi = outi + base;
   head = 0;
@@ -200,11 +214,12 @@ fft_block_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
 // Launch fft_block_kernel on `stream`: x, out (n_rows, n) planes, n the
 // product of the k factors (the store's digits, f1 first); tw: the (n,)
-// table planes; radix: the row FFT's `passes` radices (product n); rows:
-// rows a block takes; layout: the 4 words of fft_rows::Layout (host
-// memory).  Returns the first CUDA error.
+// table planes, f32 or bf16; radix: the row FFT's `passes` radices
+// (product n); rows: rows a block takes; layout: the 4 words of
+// fft_rows::Layout (host memory).  Returns the first CUDA error.
+template <class TW>
 static inline int launch(const float* xr, const float* xi, float* outr,
-                         float* outi, const float* twr, const float* twi,
+                         float* outi, const TW* twr, const TW* twi,
                          long long n_rows, const int* factors, int k,
                          const int* radix, int passes, int rows,
                          const long long* layout, cudaStream_t stream) {
@@ -241,13 +256,13 @@ static inline int launch(const float* xr, const float* xi, float* outr,
   const size_t smem = (size_t)o.total * sizeof(float);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fft_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fft_block_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (n_rows + rows - 1) / rows;
   if (blocks < 1) return 0;
-  fft_block_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  fft_block_kernel<TW><<<(unsigned)blocks, kThreads, smem, stream>>>(
       xr, xi, outr, outi, twr, twi, n_rows, p, o, st);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@
 // (fft_rows_twiddles(n)) indexed by an exponent reduced mod n -- every
 // twiddle bit for bit an entry of F_n --, radices 2, 4 and 8 as exact
 // butterflies, 3, 5 and 7 unrolled, any other prime a dense pass over
-// output pairs (h, p - h).  Only the addressing differs.
+// output pairs (h, p - h).  Only the addressing differs.  The table and
+// the twiddle W are f32 or, under precision="bf16", bf16 (TW): the table
+// is widened as it is staged, each W entry as it is read.
 //
 // Layout.  A block takes one tile: TC consecutive columns (TC a power of
 // two) of one matrix, read at the row stride ld, so each of the n rows
@@ -86,28 +88,32 @@ struct Plan {
 
 // The epilogue: the twiddle (nullptr for none), read as W[point][(col0 +
 // col) / g] at row stride wld = ld / g, on the tile's live columns only
+template <class TW>
 struct Twiddle {
-  const float* wr;
-  const float* wi;
+  const TW* wr;
+  const TW* wi;
   int wld, col0, g, cols;
 };
 
-__device__ __forceinline__ void twiddle(float& r, float& i, const Twiddle& w,
-                                        int point, int col) {
+template <class TW>
+__device__ __forceinline__ void twiddle(float& r, float& i,
+                                        const Twiddle<TW>& w, int point,
+                                        int col) {
   if (w.wr == nullptr || col >= w.cols) return;
   const long long e = (long long)point * w.wld + (w.col0 + col) / w.g;
   float xr, xi;
-  cmul(xr, xi, r, i, __ldg(w.wr + e), __ldg(w.wi + e));
+  cmul(xr, xi, r, i, ldg_f32(w.wr + e), ldg_f32(w.wi + e));
   r = xr;
   i = xi;
 }
 
 // One pass of radix R (unrolled) over the tile's TC = 1 << lg columns of
 // n points: butterfly j of column col reads points j + r*m.
-template <int R>
+template <int R, class TW>
 __device__ void pass_radix(const float* sr, const float* si, float* dr,
                            float* di, const float* tr, const float* ti,
-                           int n, int ns, int lg, Twiddle w, int tid, int nt) {
+                           int n, int ns, int lg, Twiddle<TW> w, int tid,
+                           int nt) {
   const int m = n / R;
   const int unit = n / (ns * R);  // twiddle exponent step of r * (j mod ns)
   const int tc = 1 << lg;
@@ -152,9 +158,10 @@ __device__ void pass_radix(const float* sr, const float* si, float* dr,
 // One dense pass of any radix p, as fft_rows::pass_dense: the pre-twiddle
 // in place over src, then one thread per output pair (h, p - h) of a
 // butterfly and column.
+template <class TW>
 __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
                            const float* tr, const float* ti, int n, int ns,
-                           int p, int lg, Twiddle w, int tid, int nt) {
+                           int p, int lg, Twiddle<TW> w, int tid, int nt) {
   const int m = n / p;
   const int unit = n / (ns * p);
   const int tc = 1 << lg;
@@ -203,13 +210,14 @@ __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
 }
 
 // x (batch, n, ld) -> out: (batch, ld, n) when trans, else (batch, n, g,
-// ld / g); tw: the table's (n,) planes; wr, wi: (n, ld / g) or nullptr.
-// Grid: batch * tiles blocks of kThreads, tiles = ceil(ld / TC).
+// ld / g); tw: the table's (n,) planes; wr, wi: (n, ld / g) or nullptr;
+// both TW.  Grid: batch * tiles blocks of kThreads, tiles = ceil(ld / TC).
+template <class TW>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ outr, float* __restrict__ outi,
-                const float* __restrict__ twr, const float* __restrict__ twi,
-                const float* __restrict__ wr, const float* __restrict__ wi,
+                const TW* __restrict__ twr, const TW* __restrict__ twi,
+                const TW* __restrict__ wr, const TW* __restrict__ wi,
                 int ld, int g, int trans, int tiles, Plan p,
                 fft_rows::Layout o) {
   extern __shared__ float smem[];
@@ -222,8 +230,8 @@ fft_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* tr = smem + o.tab;
   float* ti = tr + (o.total - o.tab) / 2;
   for (int t = tid; t < n; t += nt) {
-    tr[pad(t)] = twr[t];
-    ti[pad(t)] = twi[t];
+    tr[pad(t)] = widen(twr[t]);
+    ti[pad(t)] = widen(twi[t]);
   }
   float* sr = smem + o.x;
   float* si = sr + plane;
@@ -261,8 +269,8 @@ fft_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
   }
   __syncthreads();
-  const Twiddle none = {nullptr, nullptr, 0, 0, 1, 0};
-  const Twiddle last = {wr, wi, ld / g, col0, g, cols};
+  const Twiddle<TW> none = {nullptr, nullptr, 0, 0, 1, 0};
+  const Twiddle<TW> last = {wr, wi, ld / g, col0, g, cols};
   if (p.passes == 0 && wr != nullptr) {  // n = 1: no pass to fold it into
     for (int t = tid; t < cols; t += nt) {
       float r = sr[pad(t)], i = si[pad(t)];
@@ -275,7 +283,7 @@ fft_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   int ns = 1;
   for (int s = 0; s < p.passes; ++s) {
     const int R = p.radix[s];
-    const Twiddle w = s + 1 == p.passes ? last : none;
+    const Twiddle<TW> w = s + 1 == p.passes ? last : none;
     switch (R) {
       case 2:
         pass_radix<2>(sr, si, dr, di, tr, ti, n, ns, lg, w, tid, nt);
@@ -377,13 +385,15 @@ struct FftSpec {
 
 // Launch fft_cols_kernel on `stream`: x (batch, n, ld) planes; out as the
 // kernel states; tw: the table's (n,) planes; w: (n, ld / g) twiddle
-// planes or nullptr; s: the plan, its tile log2 of TC (host memory).
-// Returns the first CUDA error.
+// planes of the table's type, or nullptr; s: the plan, its tile log2 of
+// TC (host memory).  Returns the first CUDA error.
+template <class TW>
 static inline int launch(const float* xr, const float* xi, float* outr,
-                         float* outi, const float* twr, const float* twi,
-                         const float* wr, const float* wi, long long batch,
-                         int ld, int g, bool trans, const FftSpec& s,
-                         cudaStream_t stream) {
+                         float* outi, const TW* twr, const TW* twi,
+                         const typename same_type<TW>::type* wr,
+                         const typename same_type<TW>::type* wi,
+                         long long batch, int ld, int g, bool trans,
+                         const FftSpec& s, cudaStream_t stream) {
   if (s.passes < 0 || s.passes > kMaxPasses || s.n < 1 || ld < 1 ||
       g < 1 || ld % g != 0 || s.tile < 0 || s.tile > 10 ||
       (trans && g != 1))
@@ -399,7 +409,7 @@ static inline int launch(const float* xr, const float* xi, float* outr,
   const size_t smem = (size_t)o.total * sizeof(float);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fft_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fft_cols_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -407,7 +417,7 @@ static inline int launch(const float* xr, const float* xi, float* outr,
   const long long blocks = batch * tiles;
   if (blocks < 1) return 0;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fft_cols_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  fft_cols_kernel<TW><<<(unsigned)blocks, kThreads, smem, stream>>>(
       xr, xi, outr, outi, twr, twi, wr, wi, ld, g, trans ? 1 : 0,
       (int)tiles, p, o);
   return (int)cudaGetLastError();

@@ -25,7 +25,12 @@
 // w^t, t < B (built in float64 from the integer-reduced angle, as the
 // plane tables are), indexed by an exponent reduced mod B -- bit for bit
 // an entry of F_B -- or, in a dense pass, that entry's conjugate.  The
-// table sits in shared memory, staged once a block.
+// table sits in shared memory, staged once a block.  Under
+// precision="bf16" the kernel takes the bf16 table (TW = __nv_bfloat16,
+// each entry that of the bf16 plane, bit for bit) and widens it to f32 as
+// it stages it; the passes read f32 from shared memory as before.  They
+// also take a table in global memory of either type (fft_block.cuh's
+// longest rows), widening each read.
 //
 // Layout.  A block takes `rows` consecutive rows (ceil(2048 / B), at
 // least one): the rows are contiguous in memory, so the block's load and
@@ -179,19 +184,19 @@ __device__ __forceinline__ void butterfly(float* vr, float* vi,
 }
 
 // One pass of radix R (unrolled) over `rows` rows of n points; pb pads
-// the buffers' indices, pt the table's.
-template <int R, class PB = Pad32, class PT = Pad32>
+// the buffers' indices, pt the table's; TT the table's element type.
+template <int R, class PB = Pad32, class PT = Pad32, class TT = float>
 __device__ void pass_radix(const float* sr, const float* si, float* dr,
-                           float* di, const float* tr, const float* ti,
-                           int n, int ns, int rows, int tid, int nt,
-                           PB pb = PB(), PT pt = PT()) {
+                           float* di, const TT* tr, const TT* ti, int n,
+                           int ns, int rows, int tid, int nt, PB pb = PB(),
+                           PT pt = PT()) {
   const int m = n / R;
   const int unit = n / (ns * R);  // twiddle exponent step of r * (j mod ns)
   float cwr[R], cwi[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
-    cwr[q] = tr[pt(q * m)];
-    cwi[q] = ti[pt(q * m)];
+    cwr[q] = widen(tr[pt(q * m)]);
+    cwi[q] = widen(ti[pt(q * m)]);
   }
   for (int bf = tid; bf < rows * m; bf += nt) {
     const int row = bf / m, j = bf - row * m;
@@ -209,7 +214,7 @@ __device__ void pass_radix(const float* sr, const float* si, float* dr,
       for (int r = 1; r < R; ++r) {
         const int e = pt(k * r * unit);
         float xr, xi;
-        cmul(xr, xi, vr[r], vi[r], tr[e], ti[e]);
+        cmul(xr, xi, vr[r], vi[r], widen(tr[e]), widen(ti[e]));
         vr[r] = xr;
         vi[r] = xi;
       }
@@ -231,10 +236,10 @@ __device__ void pass_radix(const float* sr, const float* si, float* dr,
 // share one table entry: y[h] takes w^((r*h mod p)*m), y[p - h] its
 // conjugate.  Half the table reads of one thread per output.  pb, pt as
 // in pass_radix.
-template <class PB = Pad32, class PT = Pad32>
+template <class PB = Pad32, class PT = Pad32, class TT = float>
 __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
-                           const float* tr, const float* ti, int n, int ns,
-                           int p, int rows, int tid, int nt, PB pb = PB(),
+                           const TT* tr, const TT* ti, int n, int ns, int p,
+                           int rows, int tid, int nt, PB pb = PB(),
                            PT pt = PT()) {
   const int m = n / p;
   const int unit = n / (ns * p);
@@ -246,7 +251,7 @@ __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
       if (e != 0) {
         const int a = pb(w);
         float xr, xi;
-        cmul(xr, xi, sr[a], si[a], tr[e], ti[e]);
+        cmul(xr, xi, sr[a], si[a], widen(tr[e]), widen(ti[e]));
         sr[a] = xr;
         si[a] = xi;
       }
@@ -265,7 +270,8 @@ __device__ void pass_dense(float* sr, float* si, float* dr, float* di,
     for (int r = 0; r < p; ++r) {
       const int a = pb(rb + j + r * m);
       const int t = pt(idx);
-      const float xr = sr[a], xi = si[a], wr = tr[t], wi = ti[t];
+      const float xr = sr[a], xi = si[a];
+      const float wr = widen(tr[t]), wi = widen(ti[t]);
       cmac(ar, ai, xr, xi, wr, wi);
       cmac(br, bi, xr, xi, wr, -wi);
       idx += step;
@@ -287,12 +293,12 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b) {
 }
 
 // The plan's passes over `rows` rows of p.n points, ping-ponging between
-// the buffers (s, d): on return s holds the transformed rows.  pb, pt as
-// in pass_radix.
-template <class PB = Pad32, class PT = Pad32>
+// the buffers (s, d): on return s holds the transformed rows.  pb, pt and
+// TT as in pass_radix.
+template <class PB = Pad32, class PT = Pad32, class TT = float>
 __device__ __forceinline__ void run_passes(float*& sr, float*& si,
                                            float*& dr, float*& di,
-                                           const float* tr, const float* ti,
+                                           const TT* tr, const TT* ti,
                                            const Plan& p, int rows, int tid,
                                            int nt, PB pb = PB(),
                                            PT pt = PT()) {
@@ -340,12 +346,13 @@ __device__ __forceinline__ void run_passes(float*& sr, float*& si,
   }
 }
 
-// x (n_rows, n) -> out (n_rows, n), each row's DFT.  Grid: ceil(n_rows /
-// p.rows) blocks of kThreads.
+// x (n_rows, n) -> out (n_rows, n), each row's DFT; tw: the table, f32 or
+// bf16.  Grid: ceil(n_rows / p.rows) blocks of kThreads.
+template <class TW>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ outr, float* __restrict__ outi,
-                const float* __restrict__ twr, const float* __restrict__ twi,
+                const TW* __restrict__ twr, const TW* __restrict__ twi,
                 long long n_rows, Plan p, Layout o) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -358,8 +365,8 @@ fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* tr = smem + o.tab;
   float* ti = tr + (o.total - o.tab) / 2;
   for (int t = tid; t < n; t += nt) {
-    tr[pad(t)] = twr[t];
-    ti[pad(t)] = twi[t];
+    tr[pad(t)] = widen(twr[t]);
+    ti[pad(t)] = widen(twi[t]);
   }
   float* sr = smem + o.x;
   float* si = sr + plane;
@@ -410,11 +417,12 @@ fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // Launch fft_rows_kernel on `stream`: x, out (n_rows, n) planes; tw: the
-// table's (n,) planes; radix: the plan's `passes` radices (product n);
-// rows: rows a block takes; layout: the 4 words of Layout (host memory).
-// Returns the first CUDA error.
+// table's (n,) planes, f32 or bf16; radix: the plan's `passes` radices
+// (product n); rows: rows a block takes; layout: the 4 words of Layout
+// (host memory).  Returns the first CUDA error.
+template <class TW>
 static inline int launch(const float* xr, const float* xi, float* outr,
-                         float* outi, const float* twr, const float* twi,
+                         float* outi, const TW* twr, const TW* twi,
                          long long n_rows, int n, const int* radix,
                          int passes, int rows, const long long* layout,
                          cudaStream_t stream) {
@@ -431,13 +439,13 @@ static inline int launch(const float* xr, const float* xi, float* outr,
   const size_t smem = (size_t)o.total * sizeof(float);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fft_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fft_rows_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (n_rows + rows - 1) / rows;
   if (blocks < 1) return 0;
-  fft_rows_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  fft_rows_kernel<TW><<<(unsigned)blocks, kThreads, smem, stream>>>(
       xr, xi, outr, outi, twr, twi, n_rows, p, o);
   return (int)cudaGetLastError();
 }

@@ -64,7 +64,54 @@
 #include "fft_block.cuh"
 #include "fft_cols.cuh"
 
-// x, out: (batch, a, b) planes; tw: the (a*b,) f32 table of w^t; radix:
+// Each entry comes twice: *_f32 on the f32 tables and planes, *_bf16 on
+// their bfloat16 twins (precision="bf16": the tables of w^t and the
+// twiddle W rounded to bf16, widened as the kernels load them).  The
+// payload and the output are f32 in both.
+using bf16 = __nv_bfloat16;
+
+namespace {
+
+template <class TW>
+int fused(const float* xr, const float* xi, const TW* twr, const TW* twi,
+          float* outr, float* outi, long long batch, int a, int b,
+          const int* radix, int passes, int rows, const long long* layout,
+          void* stream) {
+  const int factors[2] = {a, b};
+  return fft_block::launch(xr, xi, outr, outi, twr, twi, batch, factors, 2,
+                           radix, passes, rows, layout,
+                           (cudaStream_t)stream);
+}
+
+template <class TW>
+int stage1(const float* xr, const float* xi, const TW* wr, const TW* wi,
+           const TW* tar, const TW* tai, float* outr, float* outi,
+           long long batch, int b, const fft_cols::FftSpec* sa,
+           void* stream) {
+  return fft_cols::launch(xr, xi, outr, outi, tar, tai, wr, wi, batch, b, 1,
+                          false, *sa, (cudaStream_t)stream);
+}
+
+template <class TW>
+int streaming(const float* xr, const float* xi, const TW* wr, const TW* wi,
+              const TW* tar, const TW* tai, const TW* tbr, const TW* tbi,
+              float* t1r, float* t1i, float* outr, float* outi,
+              long long batch, const fft_cols::FftSpec* sa,
+              const fft_cols::FftSpec* sb, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int a = sa->n, b = sb->n;
+  // T1^T = ((F_A @ x) * W)^T: the columns of x, stored transposed
+  int err = fft_cols::launch(xr, xi, t1r, t1i, tar, tai, wr, wi, batch, b, 1,
+                             true, *sa, st);
+  if (err != 0) return err;
+  // out = (T1 @ F_B)^T: the columns of T1^T, stored in place
+  return fft_cols::launch(t1r, t1i, outr, outi, tbr, tbi, nullptr, nullptr,
+                          batch, a, 1, false, *sb, st);
+}
+
+}  // namespace
+
+// x, out: (batch, a, b) planes; tw: the (a*b,) table of w^t; radix:
 // the row FFT's `passes` radices (product a*b); rows: rows a block takes;
 // layout: the 4 words of fourstep_fft.fft_block_layout (host memory).
 // out[z][c][d] = X_z[c + d*a].  One launch.
@@ -74,24 +121,40 @@ extern "C" int fourstep_fused_f32(const float* xr, const float* xi,
                                   int a, int b, const int* radix, int passes,
                                   int rows, const long long* layout,
                                   void* stream) {
-  const int factors[2] = {a, b};
-  return fft_block::launch(xr, xi, outr, outi, twr, twi, batch, factors, 2,
-                           radix, passes, rows, layout,
-                           (cudaStream_t)stream);
+  return fused(xr, xi, twr, twi, outr, outi, batch, a, b, radix, passes,
+               rows, layout, stream);
+}
+
+extern "C" int fourstep_fused_bf16(const float* xr, const float* xi,
+                                   const bf16* twr, const bf16* twi,
+                                   float* outr, float* outi, long long batch,
+                                   int a, int b, const int* radix, int passes,
+                                   int rows, const long long* layout,
+                                   void* stream) {
+  return fused(xr, xi, twr, twi, outr, outi, batch, a, b, radix, passes,
+               rows, layout, stream);
 }
 
 // Column pass: out[z] = (F_A @ x[z]) * W for z < batch.  x, out:
-// (batch, a, b) with a = sa->n; w: (a, b); ta: the (a,) f32 table of
-// w^t; sa: the column FFT plan of a over b columns (host memory).  One
-// launch.
+// (batch, a, b) with a = sa->n; w: (a, b); ta: the (a,) table of w^t; sa:
+// the column FFT plan of a over b columns (host memory).  One launch.
 extern "C" int fourstep_stage1_f32(const float* xr, const float* xi,
                                    const float* wr, const float* wi,
                                    const float* tar, const float* tai,
                                    float* outr, float* outi, long long batch,
                                    int b, const fft_cols::FftSpec* sa,
                                    void* stream) {
-  return fft_cols::launch(xr, xi, outr, outi, tar, tai, wr, wi, batch, b, 1,
-                          false, *sa, (cudaStream_t)stream);
+  return stage1(xr, xi, wr, wi, tar, tai, outr, outi, batch, b, sa, stream);
+}
+
+extern "C" int fourstep_stage1_bf16(const float* xr, const float* xi,
+                                    const bf16* wr, const bf16* wi,
+                                    const bf16* tar, const bf16* tai,
+                                    float* outr, float* outi,
+                                    long long batch, int b,
+                                    const fft_cols::FftSpec* sa,
+                                    void* stream) {
+  return stage1(xr, xi, wr, wi, tar, tai, outr, outi, batch, b, sa, stream);
 }
 
 // Row pass: out[row] = DFT_b(t[row]) for the n_rows contiguous b-point
@@ -109,12 +172,22 @@ extern "C" int fourstep_stage2_f32(const float* tr, const float* ti,
                           passes, rows, layout, (cudaStream_t)stream);
 }
 
+extern "C" int fourstep_stage2_bf16(const float* tr, const float* ti,
+                                    const bf16* twr, const bf16* twi,
+                                    float* outr, float* outi,
+                                    long long n_rows, int b, const int* radix,
+                                    int passes, int rows,
+                                    const long long* layout, void* stream) {
+  return fft_rows::launch(tr, ti, outr, outi, twr, twi, n_rows, b, radix,
+                          passes, rows, layout, (cudaStream_t)stream);
+}
+
 // Streaming four-step: out[z] = (((F_A @ x[z]) * W) @ F_B)^T for
 // z < batch, natural order: out (batch, b, a) with out[z][d][c] =
 // X[d*a + c].  x: (batch, a, b); w: (a, b); ta, tb: the (a,) and (b,)
-// f32 tables of w^t; t1: (batch, b, a) scratch; sa, sb: the column FFT
-// plans of a (over b columns) and b (over a columns), in host memory.
-// Two launches; returns the first nonzero cudaGetLastError().
+// tables of w^t; t1: (batch, b, a) scratch; sa, sb: the column FFT plans
+// of a (over b columns) and b (over a columns), in host memory.  Two
+// launches; returns the first nonzero cudaGetLastError().
 extern "C" int fourstep_streaming_f32(const float* xr, const float* xi,
                                       const float* wr, const float* wi,
                                       const float* tar, const float* tai,
@@ -124,13 +197,19 @@ extern "C" int fourstep_streaming_f32(const float* xr, const float* xi,
                                       const fft_cols::FftSpec* sa,
                                       const fft_cols::FftSpec* sb,
                                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int a = sa->n, b = sb->n;
-  // T1^T = ((F_A @ x) * W)^T: the columns of x, stored transposed
-  int err = fft_cols::launch(xr, xi, t1r, t1i, tar, tai, wr, wi, batch, b, 1,
-                             true, *sa, st);
-  if (err != 0) return err;
-  // out = (T1 @ F_B)^T: the columns of T1^T, stored in place
-  return fft_cols::launch(t1r, t1i, outr, outi, tbr, tbi, nullptr, nullptr,
-                          batch, a, 1, false, *sb, st);
+  return streaming(xr, xi, wr, wi, tar, tai, tbr, tbi, t1r, t1i, outr, outi,
+                   batch, sa, sb, stream);
+}
+
+extern "C" int fourstep_streaming_bf16(const float* xr, const float* xi,
+                                       const bf16* wr, const bf16* wi,
+                                       const bf16* tar, const bf16* tai,
+                                       const bf16* tbr, const bf16* tbi,
+                                       float* t1r, float* t1i, float* outr,
+                                       float* outi, long long batch,
+                                       const fft_cols::FftSpec* sa,
+                                       const fft_cols::FftSpec* sb,
+                                       void* stream) {
+  return streaming(xr, xi, wr, wi, tar, tai, tbr, tbi, t1r, t1i, outr, outi,
+                   batch, sa, sb, stream);
 }

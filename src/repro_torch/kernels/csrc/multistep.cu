@@ -59,35 +59,17 @@
 
 constexpr int kMaxStages = 32;  // fourstep_fft.MAX_STAGES
 
-// Block mode, one launch.  x, out: (batch, L) planes, L = prod(factors);
-// tw: the (L,) f32 table of w^t; radix: the row FFT's `passes` radices
-// (product L); rows: rows a block takes; layout: the 4 words of
-// fourstep_fft.fft_block_layout (host memory).  Returns the CUDA error.
-extern "C" int multistep_block_f32(const float* xr, const float* xi,
-                                   float* outr, float* outi,
-                                   const float* twr, const float* twi,
-                                   const int* factors, int k,
-                                   long long batch, const int* radix,
-                                   int passes, int rows,
-                                   const long long* layout, void* stream) {
-  return fft_block::launch(xr, xi, outr, outi, twr, twi, batch, factors, k,
-                           radix, passes, rows, layout,
-                           (cudaStream_t)stream);
-}
+// Each entry comes twice: *_f32 on the f32 tables and twiddle planes,
+// *_bf16 on their bfloat16 twins (precision="bf16"); payload f32 in both.
+using bf16 = __nv_bfloat16;
 
-// Per-stage mode, k launches.  x, out, t: (batch, L) planes (t scratch);
-// tables: 2k device pointers, the (f,) f32 table of w_f^t of each stage;
-// twiddles: 2(k - 1) device pointers, the (f, rest) twiddle planes of
-// every stage but the last; specs: the k stage plans in host memory
-// (fourstep_fft.fft_cols_spec(f, rest) for stage i < k, fft_rows_spec(f)
-// for the last).  The stages alternate between out and t so that the
-// last lands in out.  Returns the first nonzero CUDA error.
-extern "C" int multistep_stages_f32(const float* xr, const float* xi,
-                                    float* outr, float* outi, float* tr,
-                                    float* ti, const void* const* tables,
-                                    const void* const* twiddles,
-                                    const fft_cols::FftSpec* specs, int k,
-                                    long long batch, void* stream) {
+namespace {
+
+template <class TW>
+int stages(const float* xr, const float* xi, float* outr, float* outi,
+           float* tr, float* ti, const void* const* tables,
+           const void* const* twiddles, const fft_cols::FftSpec* specs,
+           int k, long long batch, void* stream) {
   if (k < 1 || k > kMaxStages) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   long long L = 1;
@@ -102,14 +84,14 @@ extern "C" int multistep_stages_f32(const float* xr, const float* xi,
     const bool to_out = (k - 1 - s) % 2 == 0;
     float* dr = to_out ? outr : tr;
     float* di = to_out ? outi : ti;
-    const float* tbr = (const float*)tables[2 * s];
-    const float* tbi = (const float*)tables[2 * s + 1];
+    const TW* tbr = (const TW*)tables[2 * s];
+    const TW* tbi = (const TW*)tables[2 * s + 1];
     int err;
     if (s + 1 < k) {
       if (rest > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
       err = fft_cols::launch(sr, si, dr, di, tbr, tbi,
-                             (const float*)twiddles[2 * s],
-                             (const float*)twiddles[2 * s + 1], n_lead,
+                             (const TW*)twiddles[2 * s],
+                             (const TW*)twiddles[2 * s + 1], n_lead,
                              (int)rest, 1, false, spec, st);
     } else {
       err = fft_rows::launch(sr, si, dr, di, tbr, tbi, n_lead, f,
@@ -122,4 +104,61 @@ extern "C" int multistep_stages_f32(const float* xr, const float* xi,
     n_lead *= f;
   }
   return 0;
+}
+
+}  // namespace
+
+// Block mode, one launch.  x, out: (batch, L) planes, L = prod(factors);
+// tw: the (L,) table of w^t; radix: the row FFT's `passes` radices
+// (product L); rows: rows a block takes; layout: the 4 words of
+// fourstep_fft.fft_block_layout (host memory).  Returns the CUDA error.
+extern "C" int multistep_block_f32(const float* xr, const float* xi,
+                                   float* outr, float* outi,
+                                   const float* twr, const float* twi,
+                                   const int* factors, int k,
+                                   long long batch, const int* radix,
+                                   int passes, int rows,
+                                   const long long* layout, void* stream) {
+  return fft_block::launch(xr, xi, outr, outi, twr, twi, batch, factors, k,
+                           radix, passes, rows, layout,
+                           (cudaStream_t)stream);
+}
+
+extern "C" int multistep_block_bf16(const float* xr, const float* xi,
+                                    float* outr, float* outi,
+                                    const bf16* twr, const bf16* twi,
+                                    const int* factors, int k,
+                                    long long batch, const int* radix,
+                                    int passes, int rows,
+                                    const long long* layout, void* stream) {
+  return fft_block::launch(xr, xi, outr, outi, twr, twi, batch, factors, k,
+                           radix, passes, rows, layout,
+                           (cudaStream_t)stream);
+}
+
+// Per-stage mode, k launches.  x, out, t: (batch, L) planes (t scratch);
+// tables: 2k device pointers, the (f,) table of w_f^t of each stage;
+// twiddles: 2(k - 1) device pointers, the (f, rest) twiddle planes of
+// every stage but the last; specs: the k stage plans in host memory
+// (fourstep_fft.fft_cols_spec(f, rest) for stage i < k, fft_rows_spec(f)
+// for the last).  The stages alternate between out and t so that the
+// last lands in out.  Returns the first nonzero CUDA error.
+extern "C" int multistep_stages_f32(const float* xr, const float* xi,
+                                    float* outr, float* outi, float* tr,
+                                    float* ti, const void* const* tables,
+                                    const void* const* twiddles,
+                                    const fft_cols::FftSpec* specs, int k,
+                                    long long batch, void* stream) {
+  return stages<float>(xr, xi, outr, outi, tr, ti, tables, twiddles, specs,
+                       k, batch, stream);
+}
+
+extern "C" int multistep_stages_bf16(const float* xr, const float* xi,
+                                     float* outr, float* outi, float* tr,
+                                     float* ti, const void* const* tables,
+                                     const void* const* twiddles,
+                                     const fft_cols::FftSpec* specs, int k,
+                                     long long batch, void* stream) {
+  return stages<bf16>(xr, xi, outr, outi, tr, ti, tables, twiddles, specs,
+                      k, batch, stream);
 }

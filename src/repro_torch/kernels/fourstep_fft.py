@@ -40,6 +40,17 @@ twiddle on planar f32 data.
   one FFT launch per stage (the column FFT, the row FFT for the last;
   :func:`multistep_stage_plan`).
 
+Precision: the wrappers of the first five (and ``multistep_fused``'s both
+modes) take the constant planes in float32 or, under the dispatch
+layer's ``precision="bf16"``, in bfloat16, and dispatch on their dtype.
+CPU tensors run the plain twin on the planes widened to f32 (the
+reference's dense arithmetic on the same rounded constants); CUDA
+tensors launch the kernel's ``*_bf16`` entry, which reads the bf16
+tables of :func:`fft_twiddles_on` (each entry that of the bf16 plane,
+bit for bit) and the caller's bf16 twiddle W, widening each to f32 as it
+loads.  Its launches count as ``<name>[bf16]``.  The encode stays f32,
+as in the reference.
+
 CUDA sources: ``csrc/fourstep.cu`` (the first four; the row FFT in
 ``csrc/fft_rows.cuh``, the column FFT in ``csrc/fft_cols.cuh``, the
 one-block kernel in ``csrc/fft_block.cuh``), ``csrc/encode_fourstep.cu``
@@ -280,9 +291,16 @@ def _check_fourstep(what, xr, xi, **planes):
         raise ValueError(f"{what}: inconsistent shapes")
 
 
+def _widened(*planes):
+    """The planes as the plain twins take them: f32 (a bf16 plane widened,
+    exactly)."""
+    return tuple(p.float() for p in planes)
+
+
 @functools.lru_cache(maxsize=None)
-def _fused_lib():
-    fn = _build.load("fourstep").fourstep_fused_f32
+def _fused_lib(bf16: bool = False):
+    fn = getattr(_build.load("fourstep"),
+                 _build.entry("fourstep_fused_f32", bf16))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [vp] * 6 + [i64, i32, i32, ctypes.POINTER(i32), i32, i32,
                               ctypes.POINTER(i64), vp]
@@ -315,18 +333,20 @@ def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
     (counted) or raise -- also where the fused gate refuses (A, B): the
     dense design's working set, :func:`fourstep_layout`, past one block's
     shared memory.  The card runs the one-block kernel: the row FFT over
-    each whole row from the L-point f32 table of
-    :func:`fft_rows_twiddles`, stored in the scrambled order.  It reads
-    none of the six planes: their entries are the table's, bit for bit.
+    each whole row from the L-point table of :func:`fft_rows_twiddles`
+    (f32, or bf16 for bf16 planes), stored in the scrambled order.  It
+    reads none of the six planes: their entries are the table's, bit for
+    bit.
     """
     batch, a, b = xr.shape
     _check_fourstep("fourstep_fused", xr, xi, far=far, fai=fai, wr=wr,
                     wi=wi, fbr=fbr, fbi=fbi)
     if xr.device.type == "cpu":
-        return fourstep_body(xr, xi, far, fai, wr, wi, fbr, fbi)
+        return fourstep_body(xr, xi, *_widened(far, fai, wr, wi, fbr, fbi))
     dev = _build.check_planes(
-        "fourstep_fused", xr=xr, xi=xi, far=far, fai=fai, wr=wr, wi=wi,
-        fbr=fbr, fbi=fbi)
+        "fourstep_fused", xr=xr, xi=xi, tables=dict(
+            far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi))
+    bf16 = _build.is_bf16(far)
     gate = fourstep_layout(a, b)
     if 4 * gate[-1] > _build.SMEM_PER_BLOCK_OPTIN:
         raise ValueError(
@@ -338,17 +358,18 @@ def fourstep_fused(xr, xi, far, fai, wr, wi, fbr, fbi):
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     p = _build.ptr
-    _build.check(_fused_lib()(
-        p(xr), p(xi), *(p(t) for t in fft_twiddles_on(ell, dev)), p(outr),
-        p(outi), batch, a, b, *block, _build.stream_of(dev)),
+    _build.check(_fused_lib(bf16)(
+        p(xr), p(xi), *(p(t) for t in fft_twiddles_on(ell, dev, far.dtype)),
+        p(outr), p(outi), batch, a, b, *block, _build.stream_of(dev)),
         "fourstep_fused")
-    _build.count_launch("fourstep_fused")
+    _build.count_launch(_build.launch_name("fourstep_fused", bf16))
     return outr, outi
 
 
 @functools.lru_cache(maxsize=None)
-def _stage1_lib():
-    fn = _build.load("fourstep").fourstep_stage1_f32
+def _stage1_lib(bf16: bool = False):
+    fn = getattr(_build.load("fourstep"),
+                 _build.entry("fourstep_stage1_f32", bf16))
     vp = ctypes.c_void_p
     fn.argtypes = [vp] * 8 + [ctypes.c_longlong, ctypes.c_int,
                               ctypes.POINTER(FftSpec), vp]
@@ -365,27 +386,30 @@ def fourstep_stage1(xr, xi, far, fai, wr, wi):
     over B columns, W folded into its last pass, the plain store: one
     launch for any batch, counted) or raise -- also where a tile's
     working set (:func:`fft_cols_layout`) exceeds one block's shared
-    memory.  The card computes the DFT from the f32 table of A
-    (:func:`fft_rows_twiddles`): it reads W, not ``far``.
+    memory.  The card computes the DFT from the table of A
+    (:func:`fft_rows_twiddles`, f32 or bf16 as the planes are): it reads
+    W, not ``far``.
     """
     batch, a, b = xr.shape
     _check_fourstep("fourstep_stage1", xr, xi, far=far, fai=fai, wr=wr,
                     wi=wi)
     if xr.device.type == "cpu":
-        return stage1_body(xr, xi, far, fai, wr, wi)
-    dev = _build.check_planes("fourstep_stage1", xr=xr, xi=xi, far=far,
-                              fai=fai, wr=wr, wi=wi)
+        return stage1_body(xr, xi, *_widened(far, fai, wr, wi))
+    dev = _build.check_planes("fourstep_stage1", xr=xr, xi=xi, tables=dict(
+        far=far, fai=fai, wr=wr, wi=wi))
+    bf16 = _build.is_bf16(far)
     spec = fft_cols_spec("fourstep_stage1", a, b)
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
     if batch == 0:
         return outr, outi
     p = _build.ptr
-    _build.check(_stage1_lib()(
-        p(xr), p(xi), p(wr), p(wi), *(p(t) for t in fft_twiddles_on(a, dev)),
-        p(outr), p(outi), batch, b, ctypes.byref(spec),
-        _build.stream_of(dev)), "fourstep_stage1")
-    _build.count_launch("fourstep_stage1")
+    _build.check(_stage1_lib(bf16)(
+        p(xr), p(xi), p(wr), p(wi),
+        *(p(t) for t in fft_twiddles_on(a, dev, far.dtype)), p(outr),
+        p(outi), batch, b, ctypes.byref(spec), _build.stream_of(dev)),
+        "fourstep_stage1")
+    _build.count_launch(_build.launch_name("fourstep_stage1", bf16))
     return outr, outi
 
 
@@ -487,18 +511,22 @@ def fft_rows_twiddles(b: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _dft_from_twiddles(b: int):
-    """The (b, b) DFT planes F_B[j][k] = table[(j*k) % b], for the CPU
+def _dft_from_twiddles(b: int, dtype=torch.float32):
+    """The (b, b) DFT planes F_B[j][k] = table[(j*k) % b] in ``dtype``
+    (the bf16 planes are the f32 ones rounded), widened to f32: the CPU
     twin of :func:`fourstep_stage2`."""
     jk = np.outer(np.arange(b), np.arange(b)) % b
-    twr, twi = fft_rows_twiddles(b)
-    return torch.as_tensor(twr[jk]), torch.as_tensor(twi[jk])
+    return tuple(torch.as_tensor(t[jk]).to(dtype).float()
+                 for t in fft_rows_twiddles(b))
 
 
 @functools.lru_cache(maxsize=None)
-def fft_twiddles_on(b: int, device: torch.device):
-    """:func:`fft_rows_twiddles` as two f32 tensors on ``device``."""
-    return tuple(torch.as_tensor(t, device=device)
+def fft_twiddles_on(b: int, device: torch.device, dtype=torch.float32):
+    """:func:`fft_rows_twiddles` as two tensors on ``device``: f32, or
+    (``dtype=torch.bfloat16``, the bf16 entries' tables) the f32 values
+    rounded to nearest even, each entry that of the bf16 DFT plane, bit
+    for bit."""
+    return tuple(torch.as_tensor(t).to(dtype).to(device)
                  for t in fft_rows_twiddles(b))
 
 
@@ -623,8 +651,9 @@ def encode_rows_spec(m: int, a: int, b: int) -> FftSpec:
 
 
 @functools.lru_cache(maxsize=None)
-def _stage2_lib():
-    fn = _build.load("fourstep").fourstep_stage2_f32
+def _stage2_lib(bf16: bool = False):
+    fn = getattr(_build.load("fourstep"),
+                 _build.entry("fourstep_stage2_f32", bf16))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [vp] * 6 + [i64, i32, ctypes.POINTER(i32), i32, i32,
                               ctypes.POINTER(i64), vp]
@@ -632,21 +661,28 @@ def _stage2_lib():
     return fn
 
 
-def fourstep_stage2(tr, ti):
+def fourstep_stage2(tr, ti, *, precision: str = "f32"):
     """Row pass of the two-pass four-step: the B-point DFT of every row,
     ``T @ F_B`` per (batch, A) row.
 
     ``tr, ti``: (batch, A, B) planes from :func:`fourstep_stage1`.
-    Returns (batch, A, B) planes of ``out[c, d] = X[c + d*A]``.  CPU
-    tensors run :func:`stage2_body` with the DFT planes of B; CUDA tensors
-    launch the row FFT (one launch) or raise -- also when a block's
-    working set (:func:`fft_rows_layout`) exceeds its shared memory.
+    Returns (batch, A, B) planes of ``out[c, d] = X[c + d*A]``.  It takes
+    no plane: ``precision`` (``"f32"`` or ``"bf16"``) is that of its
+    table, the DFT of B's entries.  CPU tensors run :func:`stage2_body`
+    with the DFT planes of B in that precision; CUDA tensors launch the
+    row FFT (one launch, its ``*_bf16`` entry for bf16) or raise -- also
+    when a block's working set (:func:`fft_rows_layout`) exceeds its
+    shared memory.
     """
     if tr.ndim != 3 or ti.shape != tr.shape:
         raise ValueError("fourstep_stage2: inconsistent shapes")
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"unknown plane precision {precision!r}")
+    bf16 = precision == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
     batch, a, b = tr.shape
     if tr.device.type == "cpu":
-        return stage2_body(tr, ti, *_dft_from_twiddles(b))
+        return stage2_body(tr, ti, *_dft_from_twiddles(b, dtype))
     dev = _build.check_planes("fourstep_stage2", tr=tr, ti=ti)
     layout = fft_rows_layout(b)
     if 4 * layout[-1] > _build.SMEM_PER_BLOCK_OPTIN:
@@ -655,16 +691,16 @@ def fourstep_stage2(tr, ti):
             f"bytes of shared memory per block, over "
             f"{_build.SMEM_PER_BLOCK_OPTIN}")
     plan = fft_rows_plan(b)
-    twr, twi = fft_twiddles_on(b, dev)
+    twr, twi = fft_twiddles_on(b, dev, dtype)
     outr = torch.empty_like(tr)
     outi = torch.empty_like(tr)
     p = _build.ptr
-    _build.check(_stage2_lib()(
+    _build.check(_stage2_lib(bf16)(
         p(tr), p(ti), p(twr), p(twi), p(outr), p(outi), batch * a, b,
         (ctypes.c_int * max(1, len(plan)))(*plan), len(plan),
         fft_rows_per_block(b), (ctypes.c_longlong * len(layout))(*layout),
         _build.stream_of(dev)), "fourstep_stage2")
-    _build.count_launch("fourstep_stage2")
+    _build.count_launch(_build.launch_name("fourstep_stage2", bf16))
     return outr, outi
 
 
@@ -679,8 +715,9 @@ def fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi):
 
 
 @functools.lru_cache(maxsize=None)
-def _streaming_lib():
-    fn = _build.load("fourstep").fourstep_streaming_f32
+def _streaming_lib(bf16: bool = False):
+    fn = getattr(_build.load("fourstep"),
+                 _build.entry("fourstep_streaming_f32", bf16))
     vp = ctypes.c_void_p
     spec = ctypes.POINTER(FftSpec)
     fn.argtypes = [vp] * 12 + [ctypes.c_longlong, spec, spec, vp]
@@ -699,18 +736,21 @@ def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
     transposed; B points over A columns), counted, with a (batch, B, A)
     plane pair of device scratch -- or raise, also where a tile's working
     set (:func:`fft_cols_layout`) exceeds one block's shared memory.  The
-    card computes the DFTs from the f32 tables of A and B
-    (:func:`fft_rows_twiddles`), whose entries are those of the DFT
-    planes: it reads W, not ``far`` or ``fbr``.
+    card computes the DFTs from the tables of A and B
+    (:func:`fft_rows_twiddles`, f32 or bf16 as the planes are), whose
+    entries are those of the DFT planes: it reads W, not ``far`` or
+    ``fbr``.
     """
     batch, a, b = xr.shape
     _check_fourstep("fourstep_streaming", xr, xi, far=far, fai=fai, wr=wr,
                     wi=wi, fbr=fbr, fbi=fbi)
     if xr.device.type == "cpu":
-        return fourstep_streaming_body(xr, xi, far, fai, wr, wi, fbr, fbi)
+        return fourstep_streaming_body(
+            xr, xi, *_widened(far, fai, wr, wi, fbr, fbi))
     dev = _build.check_planes(
-        "fourstep_streaming", xr=xr, xi=xi, far=far, fai=fai, wr=wr, wi=wi,
-        fbr=fbr, fbi=fbi)
+        "fourstep_streaming", xr=xr, xi=xi, tables=dict(
+            far=far, fai=fai, wr=wr, wi=wi, fbr=fbr, fbi=fbi))
+    bf16 = _build.is_bf16(far)
     spec_a = fft_cols_spec("fourstep_streaming", a, b)
     spec_b = fft_cols_spec("fourstep_streaming", b, a)
     t1r, t1i, outr, outi = (
@@ -719,12 +759,12 @@ def fourstep_streaming(xr, xi, far, fai, wr, wi, fbr, fbi):
     if batch == 0:
         return outr, outi
     p = _build.ptr
-    _build.check(_streaming_lib()(
-        p(xr), p(xi), p(wr), p(wi), *(p(t) for t in fft_twiddles_on(a, dev)),
-        *(p(t) for t in fft_twiddles_on(b, dev)), p(t1r), p(t1i), p(outr),
-        p(outi), batch, ctypes.byref(spec_a), ctypes.byref(spec_b),
-        _build.stream_of(dev)), "fourstep_streaming")
-    _build.count_launch("fourstep_streaming", 2)
+    _build.check(_streaming_lib(bf16)(
+        p(xr), p(xi), p(wr), p(wi),
+        *(p(t) for n in (a, b) for t in fft_twiddles_on(n, dev, far.dtype)),
+        p(t1r), p(t1i), p(outr), p(outi), batch, ctypes.byref(spec_a),
+        ctypes.byref(spec_b), _build.stream_of(dev)), "fourstep_streaming")
+    _build.count_launch(_build.launch_name("fourstep_streaming", bf16), 2)
     return outr, outi
 
 
@@ -858,8 +898,9 @@ def multistep_mode(factors) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _multistep_block_lib():
-    fn = _build.load("multistep").multistep_block_f32
+def _multistep_block_lib(bf16: bool = False):
+    fn = getattr(_build.load("multistep"),
+                 _build.entry("multistep_block_f32", bf16))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [vp] * 6 + [ctypes.POINTER(i32), i32, i64,
                               ctypes.POINTER(i32), i32, i32,
@@ -869,8 +910,9 @@ def _multistep_block_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _multistep_stages_lib():
-    fn = _build.load("multistep").multistep_stages_f32
+def _multistep_stages_lib(bf16: bool = False):
+    fn = getattr(_build.load("multistep"),
+                 _build.entry("multistep_stages_f32", bf16))
     vp = ctypes.c_void_p
     fn.argtypes = [vp] * 6 + [ctypes.POINTER(vp), ctypes.POINTER(vp),
                               ctypes.POINTER(FftSpec), ctypes.c_int,
@@ -892,11 +934,13 @@ def multistep_fused(xr, xi, planes, factors):
     kernel or raise: one launch in block mode, one per stage in
     per-stage mode (:func:`multistep_mode`), each counted.  Block mode
     runs the one-block kernel of :func:`fourstep_fused` with the k-digit
-    store: the row FFT from the L-point f32 table
+    store: the row FFT from the L-point table
     (:func:`fft_rows_twiddles`), reading none of the planes.  The
-    per-stage mode computes each stage's DFT from the f32 table of its
+    per-stage mode computes each stage's DFT from the table of its
     factor, bit for bit the entries of its DFT plane: it reads the
-    twiddle planes, not the DFT planes.
+    twiddle planes, not the DFT planes.  The tables are f32, or bf16
+    (the ``*_bf16`` entries, counted as ``multistep_fused[bf16]``) for
+    bf16 planes.
     """
     factors = tuple(int(f) for f in factors)
     batch, ell = xr.shape
@@ -916,10 +960,14 @@ def multistep_fused(xr, xi, planes, factors):
             raise ValueError(f"multistep_fused: stage planes do not fit "
                              f"plan {factors}")
     if xr.device.type == "cpu":
-        return multistep_body(xr, xi, stages)
+        return multistep_body(xr, xi, _parse_stage_planes(
+            factors, _widened(*planes)))
     dev = _build.check_planes(
         "multistep_fused", xr=xr, xi=xi,
-        **{f"plane{i}": p for i, p in enumerate(planes)})
+        tables={f"plane{i}": p for i, p in enumerate(planes)})
+    bf16 = _build.is_bf16(planes[0])
+    dtype = planes[0].dtype
+    name = _build.launch_name("multistep_fused", bf16)
     mode = multistep_mode(factors)
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xr)
@@ -927,22 +975,22 @@ def multistep_fused(xr, xi, planes, factors):
     vps = lambda ts: (ctypes.c_void_p * len(ts))(*(p(t) for t in ts))
     if mode == "block":
         block = _block_plan("multistep_fused", ell)
-        _build.check(_multistep_block_lib()(
+        _build.check(_multistep_block_lib(bf16)(
             p(xr), p(xi), p(outr), p(outi),
-            *(p(t) for t in fft_twiddles_on(ell, dev)),
+            *(p(t) for t in fft_twiddles_on(ell, dev, dtype)),
             (ctypes.c_int * len(factors))(*factors), len(factors), batch,
             *block, _build.stream_of(dev)), "multistep_fused")
-        _build.count_launch("multistep_fused")
+        _build.count_launch(name)
         return outr, outi
     specs = _stage_specs(factors)
     scr = torch.empty_like(xr)
     sci = torch.empty_like(xr)
-    tables = [t for f in factors for t in fft_twiddles_on(f, dev)]
+    tables = [t for f in factors for t in fft_twiddles_on(f, dev, dtype)]
     twiddles = [t for _, _, twr, twi in stages[:-1] for t in (twr, twi)]
-    _build.check(_multistep_stages_lib()(
+    _build.check(_multistep_stages_lib(bf16)(
         p(xr), p(xi), p(outr), p(outi), p(scr), p(sci), vps(tables),
         vps(twiddles) if twiddles else None,
         (FftSpec * len(specs))(*specs), len(factors), batch,
         _build.stream_of(dev)), "multistep_fused")
-    _build.count_launch("multistep_fused", len(factors))
+    _build.count_launch(name, len(factors))
     return outr, outi

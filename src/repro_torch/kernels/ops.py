@@ -26,6 +26,17 @@ only, so the CPU tests take the same routes as the card.  The one
 measured input is the four-step's autotune table (``kernels/autotune.py``,
 one per device): ``fourstep_planar(variant=None)`` reads its variant and
 radix plan there, and routes by shape on a miss.
+
+Precision: ``fourstep_planar`` and the six bucket ops take
+``precision="f32"`` or ``"bf16"`` (:func:`_plane_dtype`), as in the
+reference: bf16 builds the constant planes (DFT, twiddle, recombine,
+split, message) in bfloat16, the f32 values rounded to nearest even --
+bit for bit the reference's bf16 planes -- while the payload, G and the
+decode stay f32 and every product accumulates in f32.  The wrappers
+dispatch on the planes' dtype (``fourstep_fft``, ``coded_pipeline``).
+The stage route, the direct executors, ``fft_fourstep`` and the n-D
+sweep take no precision, as in the reference; :data:`BF16_RTOL` is the
+error budget the service's probe holds bf16 to.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from repro_torch.kernels.recombine import (
 )
 
 __all__ = [
+    "BF16_RTOL",
     "SMEM_PER_BLOCK_OPTIN",
     "MAX_PLANE_ELEMS",
     "kernel_backend_supported",
@@ -125,6 +137,19 @@ MAX_PLANE_ELEMS = 1 << 24
 # The reference's VMEM budget of one plane (ops._FUSED_MAX_ELEMS), which
 # its streaming gate applies to the DFT planes and the recombine twiddle
 _STREAM_MAX_ELEMS = 512 * 512
+# bf16-plane mode: the relative error budget (max abs error over the
+# largest magnitude, against the f32 run of the same op) the service's
+# per-shape probe holds a bf16 bucket to, as the reference does
+BF16_RTOL = 2e-2
+
+
+def _plane_dtype(precision: str) -> torch.dtype:
+    """The constant planes' dtype for a ``precision`` knob."""
+    if precision == "bf16":
+        return torch.bfloat16
+    if precision in (None, "f32", "float32"):
+        return torch.float32
+    raise ValueError(f"unknown plane precision {precision!r}")
 
 
 def kernel_backend_supported(dtype) -> bool:
@@ -229,20 +254,26 @@ def _multistep_planes(factors: tuple, dtype=np.float32):
 
 
 @functools.lru_cache(maxsize=None)
-def _on_device(table, args: tuple, device: torch.device):
-    return tuple(torch.as_tensor(p, device=device) for p in table(*args))
+def _on_device(table, args: tuple, device: torch.device,
+               dtype: torch.dtype = torch.float32):
+    """A memoized numpy table's f32 planes on ``device`` in ``dtype``: a
+    bf16 plane is the f32 one rounded to nearest even, as the reference's
+    ``astype(bfloat16)`` rounds it."""
+    return tuple(torch.as_tensor(p).to(dtype).to(device)
+                 for p in table(*args))
 
 
-def _fourstep_planes(a: int, b: int, device):
+def _fourstep_planes(a: int, b: int, device,
+                     dtype: torch.dtype = torch.float32):
     if max(a, b) ** 2 > MAX_PLANE_ELEMS:
         raise NotImplementedError(
             f"four-step split ({a}, {b}) needs a dense {max(a, b)}-point DFT "
             f"plane, past MAX_PLANE_ELEMS: no two-factor kernel takes it "
             f"(fourstep_planar and encode_worker route such lengths "
             f"elsewhere)")
-    return (*_on_device(_dft_planes, (a,), device),
-            *_on_device(_twiddle_planes, (a, b), device),
-            *_on_device(_dft_planes, (b,), device))
+    return (*_on_device(_dft_planes, (a,), device, dtype),
+            *_on_device(_twiddle_planes, (a, b), device, dtype),
+            *_on_device(_dft_planes, (b,), device, dtype))
 
 
 # -- the plan's kernels: four-step worker and mds_apply ----------------
@@ -322,7 +353,7 @@ def fourstep_route(ell: int, *, variant: str | None = None,
 
 def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
                     variant: str | None = None, fused: bool | None = None,
-                    factors=None):
+                    factors=None, precision: str = "f32"):
     """Batched planar FFT along the last axis via the four-step kernels.
 
     ``xr, xi``: (batch, L) f32 planes.  Returns natural-order (batch, L)
@@ -335,6 +366,9 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
     the first two.  ``factors``: an explicit ``(A, B)`` split or radix
     plan.  :func:`fourstep_route` resolves the plan (``variant=None``
     reads the autotune table, and routes by shape on a miss).
+    ``precision="bf16"`` runs every kernel variant on bf16 DFT and twiddle
+    planes (f32 accumulation, the f32 payload); ``"xla"`` ignores it, as
+    in the reference.
 
     The JAX package gates on a TPU's VMEM instead (fused up to A*B =
     512^2, the platform FFT past B^2 = 512^2), so at some lengths the port
@@ -349,8 +383,9 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
     if variant == "xla":
         z = torch.fft.fft(torch.complex(xr, xi), dim=-1)
         return z.real.contiguous(), z.imag.contiguous()
+    dt = _plane_dtype(precision)
     if len(factors) > 2:
-        planes = _on_device(_multistep_planes, (factors,), xr.device)
+        planes = _on_device(_multistep_planes, (factors,), xr.device, dt)
         outr, outi = multistep_fused(xr.contiguous(), xi.contiguous(),
                                      planes, factors)
         # digit-reversed X[c1 + f1*c2 + ...] at (c1, ..., ck): reverse
@@ -361,7 +396,7 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
                 outi.reshape(batch, *factors).permute(perm).reshape(batch,
                                                                     ell))
     a, b = factors
-    far, fai, wr, wi, fbr, fbi = _fourstep_planes(a, b, xr.device)
+    far, fai, wr, wi, fbr, fbi = _fourstep_planes(a, b, xr.device, dt)
     x3r = xr.contiguous().reshape(batch, a, b)
     x3i = xi.contiguous().reshape(batch, a, b)
     if variant == "streaming":
@@ -372,7 +407,8 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
         outr, outi = fourstep_fused(x3r, x3i, far, fai, wr, wi, fbr, fbi)
     else:
         t1r, t1i = fourstep_stage1(x3r, x3i, far, fai, wr, wi)
-        outr, outi = fourstep_stage2(t1r.contiguous(), t1i.contiguous())
+        outr, outi = fourstep_stage2(t1r.contiguous(), t1i.contiguous(),
+                                     precision=precision)
     # out[c, d] holds X[c + d*A] -> transpose to (d, c) and flatten
     return (outr.transpose(-1, -2).reshape(batch, ell),
             outi.transpose(-1, -2).reshape(batch, ell))
@@ -614,23 +650,26 @@ def bucket_route(s: int, m: int, n: int, kind: str, *,
     return "stage"
 
 
-def _bucket_planes(s: int, m: int, device):
+def _bucket_planes(s: int, m: int, device,
+                   dtype: torch.dtype = torch.float32):
     a, b = split_factor(s // m)
-    return (*_fourstep_planes(a, b, device),
-            *_on_device(_recombine_planes_scrambled, (s, m, a, b), device))
+    return (*_fourstep_planes(a, b, device, dtype),
+            *_on_device(_recombine_planes_scrambled, (s, m, a, b), device,
+                        dtype))
 
 
 def coded_bucket(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor,
                  di: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
-                 s: int):
+                 s: int, *, precision: str = "f32"):
     """The host decode-matrix path's whole c2c bucket: (q, s) request
     planes + (q, m, N) scatter decode planes -> (q, s) output planes.
     One launch of the planes bucket kernel on the ``"fused"``
     :func:`bucket_route` (``masked=False``), else the streaming bucket
     kernel, as the reference routes it; the caller checks that the route
-    is not ``"stage"``."""
+    is not ``"stage"``.  ``precision="bf16"``: both routes on bf16 planes
+    (the kernels' bf16 entries)."""
     n, m = gr.shape
-    planes = _bucket_planes(s, m, xr.device)
+    planes = _bucket_planes(s, m, xr.device, _plane_dtype(precision))
     if bucket_route(s, m, n, "c2c", masked=False) == "streaming":
         return coded_fft_bucket_streaming(xr, xi, dr, di, gr, gi, *planes)
     return coded_fft_bucket(xr, xi, dr, di, gr, gi, *planes)
@@ -638,15 +677,17 @@ def coded_bucket(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor,
 
 def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
                         masks: torch.Tensor, gr: torch.Tensor,
-                        gi: torch.Tensor, s: int):
+                        gi: torch.Tensor, s: int, *,
+                        precision: str = "f32"):
     """The service's whole-bucket hot path: (q, s) request planes + raw
     (q, N) responder masks -> (q, s) output planes, subset selection and
     Lagrange decode inside the kernel.  One launch of the masked bucket
     kernel on the ``"fused"`` :func:`bucket_route`, else the masked
     streaming bucket kernel, as the reference routes it; the caller
-    checks that the route is not ``"stage"``."""
+    checks that the route is not ``"stage"``.  ``precision`` as
+    :func:`coded_bucket` takes it."""
     n, m = gr.shape
-    planes = _bucket_planes(s, m, xr.device)
+    planes = _bucket_planes(s, m, xr.device, _plane_dtype(precision))
     if bucket_route(s, m, n, "c2c") == "streaming":
         return coded_fft_bucket_streaming_masked(xr, xi, masks, gr, gi,
                                                  *planes)
@@ -703,62 +744,76 @@ def coded_irbucket_fusable(s: int, m: int, n: int, *,
     return _real_fusable(coded_pipeline.irbucket_layout, s, m, n, masked)
 
 
-def _half_fourstep_planes(s: int, m: int, device):
-    return _fourstep_planes(*split_factor(s // m // 2), device)
+def _half_fourstep_planes(s: int, m: int, device,
+                          dtype: torch.dtype = torch.float32):
+    return _fourstep_planes(*split_factor(s // m // 2), device, dtype)
 
 
-def _rbucket_planes(s: int, m: int, device):
-    return (*_half_fourstep_planes(s, m, device),
-            *_on_device(_r2c_postdecode_planes, (s, m), device))
+def _rbucket_planes(s: int, m: int, device,
+                    dtype: torch.dtype = torch.float32):
+    return (*_half_fourstep_planes(s, m, device, dtype),
+            *_on_device(_r2c_postdecode_planes, (s, m), device, dtype))
 
 
-def _irbucket_planes(s: int, m: int, device):
-    return (*_half_fourstep_planes(s, m, device),
-            *_on_device(_c2r_message_planes, (s, m), device))
+def _irbucket_planes(s: int, m: int, device,
+                     dtype: torch.dtype = torch.float32):
+    return (*_half_fourstep_planes(s, m, device, dtype),
+            *_on_device(_c2r_message_planes, (s, m), device, dtype))
 
 
 def coded_rbucket_masked(xr: torch.Tensor, masks: torch.Tensor,
-                         gr: torch.Tensor, gi: torch.Tensor, s: int):
+                         gr: torch.Tensor, gi: torch.Tensor, s: int, *,
+                         precision: str = "f32"):
     """The r2c whole-bucket path: the (q, s) REAL request plane + raw
     (q, N) masks -> (q, s//2+1) half-spectrum planes, one kernel launch.
-    Caller checks :func:`coded_rbucket_fusable`."""
+    Caller checks :func:`coded_rbucket_fusable`.  ``precision="bf16"``:
+    bf16 four-step, split, recombine and DFT-row planes."""
     return coded_rfft_bucket_masked(
         xr.contiguous(), masks, gr, gi,
-        *_rbucket_planes(s, gr.shape[1], xr.device), s)
+        *_rbucket_planes(s, gr.shape[1], xr.device,
+                         _plane_dtype(precision)), s)
 
 
 def coded_rbucket(xr: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
-                  gr: torch.Tensor, gi: torch.Tensor, s: int):
+                  gr: torch.Tensor, gi: torch.Tensor, s: int, *,
+                  precision: str = "f32"):
     """The host decode-matrix path's whole r2c bucket: the (q, s) REAL
     request plane + (q, m, N) scatter decode planes -> (q, s//2+1)
     half-spectrum planes, one kernel launch.  Caller checks
-    :func:`coded_rbucket_fusable` with ``masked=False``."""
+    :func:`coded_rbucket_fusable` with ``masked=False``.  ``precision``
+    as :func:`coded_rbucket_masked` takes it."""
     return coded_rfft_bucket(
         xr.contiguous(), dr, di, gr, gi,
-        *_rbucket_planes(s, gr.shape[1], xr.device), s)
+        *_rbucket_planes(s, gr.shape[1], xr.device,
+                         _plane_dtype(precision)), s)
 
 
 def coded_irbucket_masked(yr: torch.Tensor, yi: torch.Tensor,
                           masks: torch.Tensor, gr: torch.Tensor,
-                          gi: torch.Tensor, s: int):
+                          gi: torch.Tensor, s: int, *,
+                          precision: str = "f32"):
     """The c2r whole-bucket path: (q, s//2+1) half-spectrum planes + raw
     (q, N) masks -> the (q, s) real plane, one kernel launch.  Caller
-    checks :func:`coded_irbucket_fusable`."""
+    checks :func:`coded_irbucket_fusable`.  ``precision="bf16"``: bf16
+    four-step and message planes."""
     return coded_irfft_bucket_masked(
-        yr, yi, masks, gr, gi, *_irbucket_planes(s, gr.shape[1], yr.device),
-        s)
+        yr, yi, masks, gr, gi,
+        *_irbucket_planes(s, gr.shape[1], yr.device,
+                          _plane_dtype(precision)), s)
 
 
 def coded_irbucket(yr: torch.Tensor, yi: torch.Tensor, dr: torch.Tensor,
                    di: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
-                   s: int):
+                   s: int, *, precision: str = "f32"):
     """The host decode-matrix path's whole c2r bucket: (q, s//2+1)
     half-spectrum planes + (q, m, N) scatter decode planes -> the (q, s)
     real plane, one kernel launch.  Caller checks
-    :func:`coded_irbucket_fusable` with ``masked=False``."""
+    :func:`coded_irbucket_fusable` with ``masked=False``.  ``precision``
+    as :func:`coded_irbucket_masked` takes it."""
     return coded_irfft_bucket(
-        yr, yi, dr, di, gr, gi, *_irbucket_planes(s, gr.shape[1], yr.device),
-        s)
+        yr, yi, dr, di, gr, gi,
+        *_irbucket_planes(s, gr.shape[1], yr.device,
+                          _plane_dtype(precision)), s)
 
 
 def coded_rbucket_direct(xr: torch.Tensor, dvr: torch.Tensor,

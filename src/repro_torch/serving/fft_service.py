@@ -46,6 +46,13 @@ admits runs the streaming bucket kernel, as the reference routes it;
 anything else takes the same stage route with the host planes as its
 decode.
 
+``precision="bf16"`` runs the whole-bucket and streaming kernels on
+bfloat16 DFT, twiddle and recombine planes (f32 payload, G, decode and
+accumulation) for each ``(s, m, kind)`` whose probe keeps the error
+within ``ops.BF16_RTOL``; the verdict lives in the device's autotune
+table (``_precision_for``).  The stage route, the n-D kinds, the
+strategies, a mesh and ``plan.run`` stay f32, as in the reference.
+
 The n-D kinds always run the ``plan.run`` executor of their plan
 (``CodedRFFTN`` / ``CodedIRFFTN``, factors from ``plan_factors`` with
 ``even_last_shard=True``), as the reference routes them: the ``cmatmul``
@@ -280,21 +287,12 @@ class FFTServiceConfig:
     strategy_param: Optional[int] = None  # the strategy's own knob (r for
     #                               partial, q for comm_efficient); None
     #                               means the registry entry's default
-    # -- served by a later slice of the port; a non-default value raises
-    #    NotImplementedError at construction
-    precision: str = "f32"        # "bf16" plane precision
-
-
-# config values this slice does not serve -> the ROADMAP item serving them
-_LATER = {
-    "precision": ("f32", "Queue 1, bf16 planes (the bf16 probe)"),
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not served by the PyTorch port yet -- see ROADMAP.md, "
-        f"{item}")
+    precision: str = "f32"        # kernel plane precision: "bf16" casts the
+    #                               whole-bucket kernels' DFT, twiddle and
+    #                               recombine planes to bfloat16 (f32
+    #                               payload and accumulation) where a
+    #                               per-shape probe keeps the error within
+    #                               ops.BF16_RTOL; any other value is f32
 
 
 @dataclasses.dataclass
@@ -400,9 +398,6 @@ class FFTService:
     def __init__(self, cfg: FFTServiceConfig, device=None, *, mesh=None,
                  axis: str = "workers",
                  pool: Optional[ElasticWorkerPool] = None):
-        for name, (default, item) in _LATER.items():
-            if getattr(cfg, name) != default:
-                raise _not_ported(f"{name}={getattr(cfg, name)!r}", item)
         if cfg.verify not in ("off", "detect", "correct"):
             raise ValueError(
                 f'verify must be "off"|"detect"|"correct", got {cfg.verify!r}')
@@ -668,14 +663,80 @@ class FFTService:
         the subset inverse's conditioning, and the host LRU decodes."""
         return self.cfg.device_decode and self.cfg.m <= mds.LAGRANGE_MAX_M
 
+    def _precision_for(self, s, kind: str) -> str:
+        """The resolved plane precision of one ``(s, m, kind)`` bucket
+        family on the kernel path.
+
+        ``cfg.precision="bf16"`` is a request: the first bucket of each
+        ``(s, m, kind)`` probes the bf16 whole-bucket kernel against its
+        f32 run (:meth:`_probe_bf16`) and records the verdict ``{"ok":
+        err <= ops.BF16_RTOL}`` in the device's autotune table under
+        ``bf16|k=<kind>|m=<m>|mode=<mode>|s=<s>``, where it persists; a
+        recorded verdict is read, never probed again.  Two differences
+        from the reference, on purpose: a probe that raises (a bf16
+        kernel that fails to build or launch) propagates instead of
+        recording ``ok=False``, and a bucket on the stage route, which
+        carries no planes, resolves to ``"f32"`` with no probe and no
+        verdict.
+        """
+        cfg = self.cfg
+        if (cfg.precision != "bf16" or not self._kernel_path(s, kind)
+                or self._route(s, kind) == "stage"):
+            return "f32"
+        key = dict(backend=autotune.backend_of(self.device), s=s, m=cfg.m,
+                   k=kind, mode=autotune.mode_of(self.device))
+        ent = autotune.lookup("bf16", **key)
+        if ent is None:
+            ent = autotune.record(
+                "bf16", {"ok": bool(self._probe_bf16(s, kind))}, **key)
+        return "bf16" if ent.get("ok") else "f32"
+
+    def _probe_bf16(self, s: int, kind: str) -> bool:
+        """Does the bf16 whole-bucket kernel stay inside the f32 error
+        budget at this ``(s, m, kind)``?  One masked bucket of two
+        requests (seeded normal data, every worker responding) at f32 and
+        at bf16, the reference's probe: max abs difference over the f32
+        run's largest magnitude, against ``ops.BF16_RTOL``."""
+        gr, gi = self.generator_planes()
+        n = gr.shape[0]
+        rng = np.random.default_rng(0)
+        q = 2
+        dev = self.device
+        masks = torch.ones((q, n), dtype=torch.bool, device=dev)
+
+        def normal(*shape):
+            return torch.as_tensor(
+                rng.standard_normal(shape).astype(np.float32), device=dev)
+
+        if kind == "r2c":
+            xb = normal(q, s)
+            run = lambda p: ops.coded_rbucket_masked(xb, masks, gr, gi, s,
+                                                     precision=p)
+        elif kind == "c2r":
+            yr, yi = normal(q, s // 2 + 1), normal(q, s // 2 + 1)
+            run = lambda p: ops.coded_irbucket_masked(yr, yi, masks, gr, gi,
+                                                      s, precision=p)
+        else:
+            xr, xi = normal(q, s), normal(q, s)
+            run = lambda p: ops.coded_bucket_masked(xr, xi, masks, gr, gi, s,
+                                                    precision=p)
+        want, got = run("f32"), run("bf16")
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        scale = max(float(w.abs().max()) for w in want) or 1.0
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(got, want)) / scale
+        return err <= ops.BF16_RTOL
+
     def _runner_for(self, s, bucket: int, kind: str = "c2c"):
         kernel = self._kernel_path(s, kind)
         masked = kernel and self._device_decode()
-        key = (s, kind, bucket, kernel, masked, self._n_workers())
+        prec = self._precision_for(s, kind) if kernel else "f32"
+        key = (s, kind, bucket, kernel, masked, prec, self._n_workers())
         if key not in self._runners:
             if kernel:
                 self._runners[key] = self._make_kernel_runner(
-                    s, bucket, kind, masked=masked)
+                    s, bucket, kind, masked=masked, precision=prec)
             else:
                 plan = self._plan_for(s, kind)
                 run = (self._runtime_for(s, kind).run if self.mesh is not None
@@ -691,7 +752,7 @@ class FFTService:
         return self._runners[key]
 
     def _make_kernel_runner(self, s: int, bucket: int, kind: str, *,
-                            masked: bool):
+                            masked: bool, precision: str):
         """A kernel-path bucket executor: ``(requests, decode) ->
         outputs``.
 
@@ -703,12 +764,16 @@ class FFTService:
         host-built scatter decode planes.  Either runs the kind's
         whole-bucket kernel when the bucket fits its gate (a c2c bucket
         past it streams, ``ops.coded_bucket`` and
-        ``ops.coded_bucket_masked`` routing it), else the stage kernels.
+        ``ops.coded_bucket_masked`` routing it), at the resolved
+        ``precision`` (:meth:`_precision_for`), else the stage kernels.
         """
         m, n = self.cfg.m, self._n_workers()
         gr, gi = self.generator_planes()
         whole = self._route(s, kind) != "stage"
-        whole_fn = _WHOLE[kind][0 if masked else 1]
+        whole_op = _WHOLE[kind][0 if masked else 1]
+
+        def whole_fn(*args):
+            return whole_op(*args, precision=precision)
 
         def decode_args(dec):
             # the whole-bucket kernel's decode arguments

@@ -190,10 +190,22 @@ def test_constructor_refusals_as_reference(jref):
         with pytest.raises(ValueError) as je:
             js.FFTService(js.FFTServiceConfig(s=S, m=M, n_workers=N, **kw))
         assert str(te.value) == str(je.value), kw
-    # precision="bf16" keeps its refusal beside a served strategy
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FFTService(FFTServiceConfig(strategy="partial", precision="bf16"),
-                   device="cpu")
+    # precision="bf16" beside a served strategy serves at f32, as the
+    # reference does: a strategy bucket runs plan.run, which carries no
+    # planes, so nothing is probed and the values are the f32 service's
+    kw = dict(s=S, m=M, n_workers=N, strategy="partial", seed=1,
+              autotune=False)
+    tsvc = FFTService(FFTServiceConfig(precision="bf16", **kw),
+                      device="cpu")
+    jsvc = js.FFTService(js.FFTServiceConfig(precision="bf16", **kw))
+    f32 = FFTService(FFTServiceConfig(**kw), device="cpu")
+    assert tsvc._precision_for(S, "c2c") == "f32"
+    xs = _reqs([S, S], 3)
+    for t, j, f, x in zip(tsvc.submit_batch(xs), jsvc.submit_batch(xs),
+                          f32.submit_batch(xs), xs):
+        _same_slot(t, j, np.fft.fft(x.astype(np.complex128)), 5e-4)
+        np.testing.assert_array_equal(t, f)
+    _same_state(tsvc, jsvc)
 
 
 def test_mesh_refusals(tmp_path):
