@@ -76,7 +76,10 @@ its f32 twin and fails where it spills more.
 The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
 ``GenerationEngine`` on rwkv6-3b at full width and depth (bf16, seeded
 weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
-running the ``wkv`` kernel once a layer (checks in ``lm_rwkv6_3b``).
+running the ``wkv`` kernel once a layer (checks in ``lm_rwkv6_3b``);
+then the decoder-only transformer (``lm_dense``): gemma-2b at full width
+and depth and qwen2.5-14b at full width and 4 layers, on plain torch
+attention over a KV cache, launching none of the port's kernels.
 Each FFT run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
@@ -486,6 +489,195 @@ def lm_rwkv6_3b(torch, rng, counted) -> None:
           "profiled_generate": trace_generate,
           "profiled_decode_step": trace_decode,
           "nvidia_smi": nvidia_smi()})
+
+
+# the decoder-only transformer cells: (arch, layers kept or None for all,
+# prompts, prompt tokens, new tokens); the KV cache holds DENSE_CACHE_LEN
+DENSE_CELLS = (("gemma-2b", None, 4, 512, 16), ("qwen2.5-14b", 4, 2, 512, 8))
+DENSE_CACHE_LEN = 1024
+
+
+def lm_dense(torch, rng, counted) -> None:
+    """The generation engine on the decoder-only transformer: gemma-2b at
+    full width and depth (18 layers, d_model 2048, MQA with head_dim 256,
+    vocab 256,000) on 4 prompts of 512 tokens and 16 new tokens, then
+    qwen2.5-14b at full width and 4 of its 48 layers (GQA 40/8, QKV
+    bias, rope_theta 1e6, an untied unembed) on 2 x 512 and 8 new; bf16
+    weights from a seeded init on the card, a KV cache of 1024 slots,
+    greedy.  Attention is plain torch (no hand-written kernel): the run
+    must launch none of the port's kernels.
+
+    Checks: the outputs in range and the logits finite; the engine's
+    first token the prefill's argmax; on f32 weights (the same seed)
+    prefill(T) against prefill(T-1) and one decode step, the same next
+    token and logits within 5% (the bf16 weights' figures are printed);
+    at the model's head shapes, standard-normal q/k/v, attention over the
+    int8 cache within the reference's max-abs 0.05 of the unquantized
+    one (``tests/test_attention.py``); a decode step on the int8 cache
+    finite; the head's bf16 product against the same product in f32
+    (1e-5, TF32 off).  Prints prefill tokens/s and decode ms a step (host
+    clock around a synchronize) beside the weights' bytes bound of a
+    decode step, generate seconds, peak memory, and the profiled busy
+    and idle shares of a prefill and of a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.attention import chunked_attention, quantize_kv
+    from repro_torch.serving import EngineConfig, GenerationEngine
+
+    dev = torch.device("cuda")
+    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+    finite = lambda *xs: all(bool(torch.isfinite(x).all()) for x in xs)
+    for arch, layers, b, t, new in DENSE_CELLS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        engine = GenerationEngine(model, params, EngineConfig(
+            batch_size=b, prompt_len=t, max_new_tokens=new,
+            cache_len=DENSE_CACHE_LEN))
+        prompts = [list(rng.integers(1, cfg.vocab_size, t))
+                   for _ in range(b)]
+        t0 = time.perf_counter()
+        outs, counts = counted(lambda: engine.generate(prompts))
+        first_s = time.perf_counter() - t0
+        if counts:
+            fail(f"{arch} generate launched hand-written kernels: {counts}")
+        if (len(outs) != b or any(len(o) != new for o in outs)
+                or not all(0 <= x < cfg.vocab_size for o in outs for x in o)):
+            fail(f"{arch} generate: outputs {[len(o) for o in outs]}")
+        tokens = torch.as_tensor(engine._pad_prompts(prompts), device=dev)
+
+        def prefill(mdl, prm, toks, quantized=False):
+            return transformer.lm_prefill(
+                prm, {"tokens": toks},
+                mdl.init_cache(b, DENSE_CACHE_LEN, quantized=quantized))
+
+        def consistency(mdl, prm):
+            """prefill(T) and prefill(T-1) + one decode step at T-1."""
+            full, _ = prefill(mdl, prm, tokens)
+            _, cache = prefill(mdl, prm, tokens[:, :-1])
+            dec, _ = transformer.lm_decode_step(
+                prm, cache, {"tokens": tokens[:, -1:]}, t - 1)
+            torch.cuda.synchronize()
+            return {"finite": finite(full, dec),
+                    "decode_logits_rel": rel(dec, full),
+                    "decode_same_token": bool(torch.equal(full.argmax(-1),
+                                                          dec.argmax(-1)))}
+
+        logits, cache = prefill(model, params, tokens)
+        greedy = logits.argmax(-1)
+        bf16 = {"finite": finite(logits),
+                "engine_first_token_is_prefill_argmax": (
+                    [o[0] for o in outs] == greedy.reshape(-1).tolist()),
+                "prefill_then_decode": consistency(model, params)}
+        # the head on the card against the same product in f32
+        x = torch.randn((b, 1, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)
+                        ).to(torch.bfloat16)
+        want = x.float() @ transformer.unembed_matrix(params).float()
+        bf16["head_vs_f32_product_rel"] = rel(
+            transformer._head(params, x), want / cfg.logit_divisor)
+        del want
+        # int8 cache: attention at the head shapes, then a decode step
+        g = torch.Generator(device=dev).manual_seed(2)
+        q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), device=dev,
+                        generator=g)
+        k, v = (torch.randn((b, DENSE_CACHE_LEN, cfg.n_kv_heads,
+                             cfg.head_dim), device=dev, generator=g)
+                for _ in range(2))
+        pos = dict(q_positions=torch.arange(DENSE_CACHE_LEN - 1,
+                                            DENSE_CACHE_LEN, device=dev),
+                   kv_positions=torch.arange(DENSE_CACHE_LEN, device=dev),
+                   chunk=min(2048, DENSE_CACHE_LEN))
+        bf16["int8_attention_max_abs_err"] = float(
+            (chunked_attention(q, quantize_kv(k), quantize_kv(v), **pos)
+             - chunked_attention(q, k, v, **pos)).abs().max())
+        _, qcache = prefill(model, params, tokens, quantized=True)
+        qlogits, _ = transformer.lm_decode_step(
+            params, qcache, {"tokens": greedy.to(torch.int32)}, t)
+        bf16["int8_cache_decode_finite"] = finite(qlogits)
+        del q, k, v, qcache
+        if not (bf16["finite"] and bf16["prefill_then_decode"]["finite"]
+                and bf16["engine_first_token_is_prefill_argmax"]
+                and bf16["head_vs_f32_product_rel"] < 1e-5
+                and bf16["int8_attention_max_abs_err"] < 0.05
+                and bf16["int8_cache_decode_finite"]):
+            fail(f"{arch} bf16 checks: {bf16}")
+
+        # rates: the prefill alone (3 calls) and the decode step alone
+        # (``new`` steps on the prefill's cache), host clock around a
+        # synchronize
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            prefill(model, params, tokens)
+        torch.cuda.synchronize()
+        prefill_s = (time.perf_counter() - t1) / 3
+        tok = greedy.to(torch.int32)
+        t1 = time.perf_counter()
+        for i in range(new):
+            lg, cache = transformer.lm_decode_step(params, cache,
+                                                   {"tokens": tok}, t + i)
+            tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t1) / new
+        t1 = time.perf_counter()
+        engine.generate(prompts)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t1
+        trace_prefill = profile_call(torch, lambda: prefill(model, params,
+                                                            tokens))
+        trace_decode = profile_call(torch, lambda: transformer.lm_decode_step(
+            params, cache, {"tokens": tok}, t + new))
+        max_gb = torch.cuda.max_memory_allocated() / 1e9
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        del params, engine, cache, logits, lg, qlogits, model
+        torch.cuda.empty_cache()
+
+        # f32 weights, the same seed: prefill(T) against prefill(T-1) +
+        # one decode step, gated
+        model32 = build_model(cfg, dtype=torch.float32)
+        params32 = model32.init(torch.Generator(device=dev).manual_seed(0))
+        f32 = consistency(model32, params32)
+        if not (f32["finite"] and f32["decode_same_token"]
+                and f32["decode_logits_rel"] < 0.05):
+            fail(f"{arch} f32 checks: {f32}")
+        n_params = model32.n_params
+        del params32, model32
+        torch.cuda.empty_cache()
+
+        emit({"phase": "lm_dense", "arch": cfg.name, "family": cfg.family,
+              "layers": cfg.n_layers,
+              "layers_published": get_config(arch).n_layers,
+              "d_model": cfg.d_model, "heads": cfg.n_heads,
+              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+              "vocab": cfg.vocab_size, "dtype": "bfloat16",
+              "n_params": n_params, "batch": b, "prompt_len": t,
+              "new_tokens": new, "cache_len": DENSE_CACHE_LEN,
+              "launches": counts,
+              "tolerances": {"f32_decode_logits": 0.05,
+                             "head_vs_f32_product": 1e-5,
+                             "int8_attention_max_abs": 0.05},
+              "bf16": bf16, "f32": f32,
+              "init_s": init_s, "first_generate_s": first_s,
+              "generate_s": generate_s, "prefill_s": prefill_s,
+              "prefill_tokens_per_s": b * t / prefill_s,
+              "decode_ms_per_step": decode_s * 1e3,
+              "decode_tokens_per_s": b / decode_s,
+              "decode_weights_bytes_bound_ms": (weight_bytes / PEAK_BYTES_S
+                                                * 1e3),
+              "max_memory_gb": max_gb,
+              "profiled_prefill": trace_prefill,
+              "profiled_decode_step": trace_decode,
+              "nvidia_smi": nvidia_smi()})
 
 
 class _TorchFftCalls:
@@ -3578,6 +3770,10 @@ def main() -> int:
 
     # -- 10. RWKV-6 generation: rwkv6-3b at full width and depth, bf16 --
     lm_rwkv6_3b(torch, rng, counted)
+
+    # -- 11. the decoder-only transformer: gemma-2b at full width and
+    # depth, qwen2.5-14b at full width and 4 layers, bf16 --
+    lm_dense(torch, rng, counted)
 
     for row in table:
         row["launches"] = (ms_launches.get((row["name"], row["mode"]), 0)

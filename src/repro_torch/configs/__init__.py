@@ -31,21 +31,44 @@ class RWKVSettings:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The fields the port's builders read; a family ported later brings
-    its own."""
+    """The fields the port's builders read, with the reference's defaults;
+    a family ported later brings its own.  ``n_kv_heads`` and ``head_dim``
+    are required by the transformer families (the ssm family reads
+    ``rwkv.head_size``)."""
 
     name: str
-    family: str                    # ssm (built) | dense | moe | hybrid | ...
+    family: str                    # ssm | dense | vlm (built) | moe | ...
     n_layers: int
     d_model: int
     n_heads: int
     d_ff: int
     vocab_size: int
+    n_kv_heads: Optional[int] = None
+    head_dim: Optional[int] = None
+    mlp_variant: str = "swiglu"    # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    emb_multiplier: float = 1.0    # gemma: sqrt(d_model); minicpm: 12
+    logit_divisor: float = 1.0     # minicpm: d_model / 256
+    depth_scale: Optional[float] = None  # minicpm residual scale: v/sqrt(L)
+    attn_window: Optional[int] = None
+    logit_cap: Optional[float] = None
+    norm: str = "rms"              # rms | ln
     rwkv: Optional[RWKVSettings] = None
+    num_prefix_tokens: int = 0     # vlm: SigLIP patch count (stub frontend)
+    frontend: Optional[str] = None  # "vision_patches" | None
+    kv_quant_decode: bool = False  # int8 KV for decode cells (memory fit)
+    notes: str = ""
 
 
 _MODULES = {
+    "qwen1.5-32b": "qwen1_5_32b",
+    "minicpm-2b": "minicpm_2b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "gemma-2b": "gemma_2b",
     "rwkv6-3b": "rwkv6_3b",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

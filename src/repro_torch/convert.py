@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, as plain numpy and dicts.
 
 The coded FFT has no weights: its state is the (N, m) generator G and the
-seeded straggler masks.  The RWKV-6 model's state is its parameter tree.
+seeded straggler masks.  A language model's state is its parameter
+tree.
 These helpers take what the JAX package exposes (numpy arrays, dicts,
 dataclass fields) without importing it, so the port computes with exactly
 the reference's G, configuration and weights.
@@ -19,7 +20,8 @@ from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.serving.fft_service import FFTServiceConfig
 
 __all__ = ["generator_from_reference", "config_from_reference",
-           "fault_plan_from_reference", "rwkv_params_from_reference"]
+           "fault_plan_from_reference", "rwkv_params_from_reference",
+           "transformer_params_from_reference"]
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
@@ -104,15 +106,11 @@ def _flatten(tree: dict, prefix: str, out: dict) -> None:
             out[prefix + name] = value
 
 
-def rwkv_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
-    """A JAX RWKV-6 parameter tree (nested dicts of numpy arrays, the
-    ``layers`` subtree stacked on a leading layer axis) -> the port's
-    ``RWKV6`` state dict (CPU tensors, split per layer as
-    ``layers.<i>.<path>``), for ``load_state_dict``."""
-    flat: dict = {}
-    _flatten({k: v for k, v in tree.items() if k != "layers"}, "", flat)
+def _split_layers(flat: dict, stacked_tree: dict) -> dict:
+    """Add the leaves of a layer-stacked subtree to ``flat``, split per
+    layer as ``layers.<i>.<path>``; returns the port's state dict."""
     stacked: dict = {}
-    _flatten(tree["layers"], "", stacked)
+    _flatten(stacked_tree, "", stacked)
     depth = {int(np.shape(a)[0]) for a in stacked.values()}
     if len(depth) != 1:
         raise ValueError(f"layer leaves disagree on the depth: {depth}")
@@ -120,3 +118,28 @@ def rwkv_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
         for path, a in stacked.items():
             flat[f"layers.{i}.{path}"] = np.asarray(a)[i]
     return {name: _tensor(a) for name, a in flat.items()}
+
+
+def rwkv_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+    """A JAX RWKV-6 parameter tree (nested dicts of numpy arrays, the
+    ``layers`` subtree stacked on a leading layer axis) -> the port's
+    ``RWKV6`` state dict (CPU tensors, split per layer as
+    ``layers.<i>.<path>``), for ``load_state_dict``."""
+    flat: dict = {}
+    _flatten({k: v for k, v in tree.items() if k != "layers"}, "", flat)
+    return _split_layers(flat, tree["layers"])
+
+
+def transformer_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+    """A JAX decoder-only transformer tree (``embed``, ``final_norm``,
+    ``blocks`` -- one layer-stacked subtree, as the dense and vlm families
+    build it -- and ``unembed`` when untied; numpy leaves, bf16 included)
+    -> the port's ``Transformer`` state dict (CPU tensors, layers as
+    ``layers.<i>.<path>``), for ``load_state_dict``."""
+    blocks = tree["blocks"]
+    if len(blocks) != 1:
+        raise ValueError(f"{len(blocks)} superblock slots: only one stacked "
+                         f"slot (no MoE interleave) is ported")
+    flat: dict = {}
+    _flatten({k: v for k, v in tree.items() if k != "blocks"}, "", flat)
+    return _split_layers(flat, blocks[0])

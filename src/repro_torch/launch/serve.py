@@ -9,6 +9,12 @@ Examples::
     # the same family reduced, on the CPU (the kernels' plain twins)
     python -m repro_torch.launch.serve --arch rwkv6-3b --reduced --device cpu
 
+    # the decoder-only transformer (dense: gemma-2b, minicpm-2b,
+    # qwen2.5-14b, qwen1.5-32b; vlm: paligemma-3b), prompts prefilled
+    # into a KV cache of --cache-len slots
+    python -m repro_torch.launch.serve --arch gemma-2b --cache-len 1024
+    python -m repro_torch.launch.serve --arch gemma-2b --reduced --device cpu
+
     # the paper's application: straggler-tolerant FFT serving
     python -m repro_torch.launch.serve --fft --s 4096 --m 4 --workers 8 --requests 20
 
@@ -36,7 +42,7 @@ def _serve_lm(args) -> int:
         torch.Generator(device=model.device).manual_seed(args.seed))
     engine = GenerationEngine(model, params, EngineConfig(
         batch_size=args.prompts, prompt_len=args.prompt_len,
-        max_new_tokens=args.new_tokens,
+        max_new_tokens=args.new_tokens, cache_len=args.cache_len,
         temperature=args.temperature, seed=args.seed))
     rng = np.random.default_rng(args.seed)
     prompts = [list(rng.integers(1, cfg.vocab_size, size=args.prompt_len // 2))
@@ -86,6 +92,7 @@ def main(argv=None) -> int:
     ap.add_argument("--prompts", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0)
     # FFT service
     ap.add_argument("--s", type=int, default=4096)

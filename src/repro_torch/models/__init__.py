@@ -1,4 +1,5 @@
-"""The port's language models: RWKV-6 for serving (prefill and decode)."""
+"""The port's language models for serving (prefill and decode): RWKV-6
+and the decoder-only transformer (families dense and vlm)."""
 
 from repro_torch.models.model_factory import BuiltModel, build_model
 

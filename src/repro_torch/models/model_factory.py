@@ -3,13 +3,18 @@
 ``build_model(cfg)`` returns a ``BuiltModel`` exposing:
 
 * ``init(generator)``       materialised parameters (an ``nn.Module``)
-* ``prefill / decode_step`` (params, ...) functions
-* ``init_cache(batch)``     the decode state (RWKV-6's does not grow with
-  the sequence)
+* ``prefill(params, batch, cache)`` and
+  ``decode_step(params, cache, batch, step)`` (``step`` the absolute
+  position of the decoded token)
+* ``init_cache(batch, cache_len=None, quantized=False)``  the decode
+  state: the transformer's KV cache (``cache_len`` slots, int8 when
+  ``quantized``); RWKV-6's state does not grow with the sequence and
+  ignores both
 * ``n_params``              for 6·N·D bookkeeping
 
-The port builds family ``"ssm"`` (RWKV-6); the others raise, naming the
-ROADMAP item that ports them.
+The port builds families ``"ssm"`` (RWKV-6), ``"dense"`` and ``"vlm"``
+(the decoder-only transformer); the others raise, naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.plan import resolve_device
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.params import count_params, init_params
 
 __all__ = ["BuiltModel", "build_model"]
@@ -31,8 +36,8 @@ __all__ = ["BuiltModel", "build_model"]
 class BuiltModel:
     cfg: ArchConfig
     prefill: Callable                    # (params, batch, cache) -> (logits, cache)
-    decode_step: Callable                # (params, cache, batch) -> (logits, cache)
-    init_cache: Callable                 # (batch,) -> cache
+    decode_step: Callable                # (params, cache, batch, step) -> (logits, cache)
+    init_cache: Callable                 # (batch, cache_len, quantized) -> cache
     n_params: int
     device: torch.device
     make_params: Callable                # () -> uninitialised parameters
@@ -47,17 +52,31 @@ def build_model(cfg: ArchConfig, dtype=torch.bfloat16,
     """The model of ``cfg`` on ``device`` (``None``: CUDA, raising without
     one; ``"cpu"`` runs the kernels' plain twins)."""
     fam = cfg.family
-    if fam != "ssm":
+    if fam not in ("ssm", "dense", "vlm"):
         raise NotImplementedError(
             f"model family {fam!r} ({cfg.name}) is not built by the PyTorch "
             f"port yet -- see ROADMAP.md, Queue 1, the seed LM stack")
     device = resolve_device(device)
+    if fam == "ssm":
+        return BuiltModel(
+            cfg=cfg,
+            prefill=rwkv6.rwkv_prefill,
+            decode_step=lambda p, c, b, step: rwkv6.rwkv_decode_step(p, c, b),
+            init_cache=lambda batch, cache_len=None, quantized=False:
+                rwkv6.init_rwkv_state(cfg, batch, device),
+            n_params=count_params(rwkv6.rwkv_specs(cfg)),
+            device=device,
+            make_params=lambda: rwkv6.RWKV6(cfg, dtype, device),
+        )
     return BuiltModel(
         cfg=cfg,
-        prefill=rwkv6.rwkv_prefill,
-        decode_step=rwkv6.rwkv_decode_step,
-        init_cache=lambda batch: rwkv6.init_rwkv_state(cfg, batch, device),
-        n_params=count_params(rwkv6.rwkv_specs(cfg)),
+        prefill=transformer.lm_prefill,
+        decode_step=transformer.lm_decode_step,
+        init_cache=lambda batch, cache_len=None, quantized=False:
+            transformer.init_kv_cache(cfg, batch, cache_len,
+                                      quantized=quantized, dtype=dtype,
+                                      device=device),
+        n_params=count_params(transformer.transformer_specs(cfg)),
         device=device,
-        make_params=lambda: rwkv6.RWKV6(cfg, dtype, device),
+        make_params=lambda: transformer.Transformer(cfg, dtype, device),
     )

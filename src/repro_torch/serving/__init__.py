@@ -1,7 +1,8 @@
 """The batched straggler-tolerant FFT service (the 1-D kinds c2c, r2c
 and c2r and the n-D kinds rfftn and irfftn), its fault-tolerant path
 (typed failures, degraded results), the open-loop streaming front-end,
-and the LM generation engine (RWKV-6)."""
+and the LM generation engine (RWKV-6 and the decoder-only
+transformer)."""
 
 from repro_torch.serving.batching import (
     LatencyHistogram,

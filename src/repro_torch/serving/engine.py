@@ -29,6 +29,7 @@ class EngineConfig:
     batch_size: int = 4
     prompt_len: int = 32       # fixed prefill bucket
     max_new_tokens: int = 16
+    cache_len: int = 128       # KV slots (the transformer; RWKV-6 ignores it)
     temperature: float = 0.0
     eos_id: Optional[int] = None
     seed: int = 0
@@ -76,19 +77,21 @@ class GenerationEngine:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(e.seed)
 
-        cache = self.model.init_cache(e.batch_size)
+        cache = self.model.init_cache(e.batch_size, e.cache_len)
         logits, cache = self.model.prefill(self.params, {"tokens": tokens},
                                            cache)
         pending = _fetch_async(sample_token(logits, generator, e.temperature))
 
         outs: list[list[int]] = [[] for _ in range(e.batch_size)]
         done = np.zeros(e.batch_size, bool)
+        step0 = e.prompt_len
         for t in range(e.max_new_tokens):
             spec = None
             if t + 1 < e.max_new_tokens:
-                # queue step t+1 before token t is read on the host
+                # queue step t+1 before token t is read on the host; the
+                # token decoded sits at absolute position prompt_len + t
                 logits, cache = self.model.decode_step(
-                    self.params, cache, {"tokens": pending[0]})
+                    self.params, cache, {"tokens": pending[0]}, step0 + t)
                 spec = _fetch_async(
                     sample_token(logits, generator, e.temperature))
             _, host, ready = pending

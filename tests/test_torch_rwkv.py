@@ -404,7 +404,7 @@ def test_sample_token_temperature_zero_is_argmax():
 
 
 # -- construction ---------------------------------------------------------
-@pytest.mark.parametrize("family", ["dense", "moe", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec"])
 def test_build_model_refuses_other_families(family):
     cfg = dataclasses.replace(get_reduced_config("rwkv6-3b"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -489,7 +489,8 @@ def test_cpu_prefill_counts_no_launch(jref):
 def test_import_loads_neither_jax_nor_reference_lm():
     code = ("import sys, repro_torch.models, repro_torch.configs, "
             "repro_torch.launch.serve, repro_torch.serving.engine, "
-            "repro_torch.kernels.wkv, repro_torch.convert; "
+            "repro_torch.kernels.wkv, repro_torch.convert, "
+            "repro_torch.models.transformer, repro_torch.models.attention; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
