@@ -79,7 +79,11 @@ weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
 running the ``wkv`` kernel once a layer (checks in ``lm_rwkv6_3b``);
 then the decoder-only transformer (``lm_dense``): gemma-2b at full width
 and depth and qwen2.5-14b at full width and 4 layers, on plain torch
-attention over a KV cache, launching none of the port's kernels.
+attention over a KV cache, launching none of the port's kernels; then
+the MoE family (``lm_moe``: llama4-maverick-400b-a17b at full width and
+2 layers, dbrx-132b at full width and 4, capacity-routed experts) and
+the hybrid (``lm_hybrid``: recurrentgemma-9b whole, the RG-LRU's
+doubling scan and local attention), likewise on plain torch.
 Each FFT run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
@@ -678,6 +682,246 @@ def lm_dense(torch, rng, counted) -> None:
               "profiled_prefill": trace_prefill,
               "profiled_decode_step": trace_decode,
               "nvidia_smi": nvidia_smi()})
+
+
+# the MoE cells: (arch, layers kept, prompts, prompt tokens, new tokens,
+# layers of the f32 consistency model or None); the hybrid cell likewise.
+# The caches hold LM_CACHE_LEN slots.
+MOE_CELLS = (("llama4-maverick-400b-a17b", 2, 2, 512, 8, None),
+             ("dbrx-132b", 4, 2, 512, 8, 1))
+HYBRID_CELLS = (("recurrentgemma-9b", None, 4, 512, 16, 5),)
+LM_CACHE_LEN = 1024
+
+
+def _moe_first_layer_drops(torch, model, params, tokens) -> dict:
+    """One prefill of ``tokens`` with the first MoE layer's routing
+    recorded (a wrapper around ``moe.moe_ffn`` for this call): its
+    assignments, capacity, largest expert load and the share capacity
+    dropped."""
+    from repro_torch.models import moe
+
+    real, rec = moe.moe_ffn, {}
+
+    def first(x, p, m, *, router_style="softmax"):
+        if not rec:
+            b, s, d = x.shape
+            g = moe._dp_groups(b * s)
+            cap = moe.moe_capacity(b * s // g, m)
+            r = moe.route_tokens(x.reshape(g, -1, d), p.router, m, cap,
+                                 router_style)
+            load = torch.bincount(r.se.reshape(-1), minlength=m.num_experts)
+            rec.update(assignments=int(r.keep.numel()), capacity=cap,
+                       groups=g, max_expert_load=int(load.max()),
+                       experts_over_capacity=int((load > cap).sum()),
+                       dropped_share=float(1.0 - r.keep.float().mean()))
+        return real(x, p, m, router_style=router_style)
+
+    moe.moe_ffn = first
+    try:
+        model.prefill(params, {"tokens": tokens},
+                      model.init_cache(tokens.shape[0], LM_CACHE_LEN))
+    finally:
+        moe.moe_ffn = real
+    return rec
+
+
+def _lm_serve_cell(torch, rng, counted, phase, arch, layers, b, t, new,
+                   f32_layers, extra=None) -> None:
+    """One model through the generation engine on the card: bf16 weights
+    from a seeded init, greedy, a cache of LM_CACHE_LEN slots; no
+    hand-written kernel may launch.  Checks the outputs in range and
+    finite, the engine's first token the prefill's argmax and, on f32
+    weights at ``f32_layers`` layers (the same seed), prefill(8) against
+    prefill(7) and one decode step at 1 x 8: the same next token, logits
+    within 5% (the bf16 model's figures printed).  Prints prefill
+    tokens/s, decode ms a step (host clock around a synchronize) beside
+    the bytes bound of the weights a step reads (every expert, as the
+    reference's batched product reads them; of an untied embedding only
+    its B rows), generate seconds, peak memory, the profiled busy and
+    idle shares of a prefill and a decode step, and ``extra(model,
+    params, tokens)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, GenerationEngine
+
+    dev = torch.device("cuda")
+    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+    finite = lambda *xs: all(bool(torch.isfinite(x).all()) for x in xs)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the init's peak holds one f32 draw of the largest weight beside
+    # the model; serving's peak is read apart
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    engine = GenerationEngine(model, params, EngineConfig(
+        batch_size=b, prompt_len=t, max_new_tokens=new,
+        cache_len=LM_CACHE_LEN))
+    prompts = [list(rng.integers(1, cfg.vocab_size, t)) for _ in range(b)]
+    t0 = time.perf_counter()
+    outs, counts = counted(lambda: engine.generate(prompts))
+    first_s = time.perf_counter() - t0
+    if counts:
+        fail(f"{arch} generate launched hand-written kernels: {counts}")
+    if (len(outs) != b or any(len(o) != new for o in outs)
+            or not all(0 <= x < cfg.vocab_size for o in outs for x in o)):
+        fail(f"{arch} generate: outputs {[len(o) for o in outs]}")
+    tokens = torch.as_tensor(engine._pad_prompts(prompts), device=dev)
+
+    def prefill(mdl, prm, toks):
+        return mdl.prefill(prm, {"tokens": toks},
+                           mdl.init_cache(toks.shape[0], LM_CACHE_LEN))
+
+    def consistency(mdl, prm):
+        """prefill(8) and prefill(7) + one decode step at 1 x 8."""
+        toks = tokens[:1, :8]
+        full, _ = prefill(mdl, prm, toks)
+        _, cache = prefill(mdl, prm, toks[:, :-1])
+        dec, _ = mdl.decode_step(prm, cache, {"tokens": toks[:, -1:]}, 7)
+        torch.cuda.synchronize()
+        return {"finite": finite(full, dec),
+                "decode_logits_rel": rel(dec, full),
+                "decode_same_token": bool(torch.equal(full.argmax(-1),
+                                                      dec.argmax(-1)))}
+
+    logits, cache = prefill(model, params, tokens)
+    greedy = logits.argmax(-1)
+    bf16 = {"finite": finite(logits),
+            "engine_first_token_is_prefill_argmax": (
+                [o[0] for o in outs] == greedy.reshape(-1).tolist()),
+            "prefill_then_decode_1x8": consistency(model, params)}
+    if extra is not None:
+        bf16.update(extra(model, params, tokens))
+    if not (bf16["finite"] and bf16["engine_first_token_is_prefill_argmax"]
+            and bf16["prefill_then_decode_1x8"]["finite"]):
+        fail(f"{arch} bf16 checks: {bf16}")
+
+    # rates: the prefill alone (3 calls) and the decode step alone (``new``
+    # steps on the prefill's cache), host clock around a synchronize
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        prefill(model, params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t1) / 3
+    tok = greedy.to(torch.int32)
+    t1 = time.perf_counter()
+    for i in range(new):
+        lg, cache = model.decode_step(params, cache, {"tokens": tok}, t + i)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t1) / new
+    if not finite(lg):
+        fail(f"{arch} decode logits not finite")
+    t1 = time.perf_counter()
+    engine.generate(prompts)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t1
+    trace_prefill = profile_call(torch, lambda: prefill(model, params,
+                                                        tokens))
+    trace_decode = profile_call(torch, lambda: model.decode_step(
+        params, cache, {"tokens": tok}, t + new))
+    max_gb = torch.cuda.max_memory_allocated() / 1e9
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    if not cfg.tie_embeddings:
+        weight_bytes -= params.embed.numel() * params.embed.element_size()
+    n_params, n_active = model.n_params, model.n_active_params
+    del params, engine, cache, logits, lg, model
+    torch.cuda.empty_cache()
+
+    f32 = None
+    if f32_layers is not None:
+        cfg32 = dataclasses.replace(cfg, n_layers=f32_layers)
+        model32 = build_model(cfg32, dtype=torch.float32)
+        params32 = model32.init(torch.Generator(device=dev).manual_seed(0))
+        f32 = consistency(model32, params32)
+        f32["layers"] = f32_layers
+        del params32, model32
+        torch.cuda.empty_cache()
+        if not (f32["finite"] and f32["decode_same_token"]
+                and f32["decode_logits_rel"] < 0.05):
+            fail(f"{arch} f32 checks: {f32}")
+
+    emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.n_layers,
+          "layers_published": get_config(arch).n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+          "vocab": cfg.vocab_size, "dtype": "bfloat16",
+          "n_params": n_params, "n_active_params": n_active,
+          "batch": b, "prompt_len": t, "new_tokens": new,
+          "cache_len": LM_CACHE_LEN, "launches": counts,
+          "tolerances": {"f32_decode_logits": 0.05},
+          "bf16": bf16, "f32": f32,
+          "init_s": init_s, "first_generate_s": first_s,
+          "generate_s": generate_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": b * t / prefill_s,
+          "decode_ms_per_step": decode_s * 1e3,
+          "decode_tokens_per_s": b / decode_s,
+          "decode_weights_bytes": weight_bytes,
+          "decode_weights_bytes_bound_ms": (weight_bytes / PEAK_BYTES_S
+                                            * 1e3),
+          "max_memory_gb": max_gb, "init_max_memory_gb": init_gb,
+          "profiled_prefill": trace_prefill,
+          "profiled_decode_step": trace_decode,
+          "nvidia_smi": nvidia_smi()})
+
+
+def lm_moe(torch, rng, counted) -> None:
+    """The generation engine on the MoE family at full width:
+    llama4-maverick-400b-a17b at 2 of its 48 layers (one dense + MoE
+    superblock: 128 experts of 5120 x 8192 top-1 with the shared expert,
+    the dense layer's d_ff 16384, vocab 202,048 untied; 37.4 GB of bf16
+    weights) and dbrx-132b at 4 of 40 (16 experts of 6144 x 10752,
+    top-4; 28.5 GB), each on 2 prompts of 512 tokens and 8 new, freed
+    before the next.  Capacity-routed experts on plain torch (a stable
+    argsort, the kept-only scatter, batched expert products over every
+    expert): no hand-written kernel launches.  Prints the share of the
+    prefill's assignments that capacity dropped in the first MoE layer;
+    the f32 consistency check runs dbrx at 1 layer (18 GB)."""
+    for arch, layers, b, t, new, f32_layers in MOE_CELLS:
+        _lm_serve_cell(torch, rng, counted, "lm_moe", arch, layers, b, t,
+                       new, f32_layers,
+                       extra=lambda m, p, toks: {
+                           "first_moe_layer_prefill": _moe_first_layer_drops(
+                               torch, m, p, toks)})
+
+
+def lm_hybrid(torch, rng, counted) -> None:
+    """The generation engine on recurrentgemma-9b whole (38 layers: 26
+    RG-LRU recurrent and 12 local-attention, d_model and d_rnn 4096, MQA
+    with head_dim 256, window 2048, vocab 256,000 tied; 18.8 GB of bf16
+    weights) on 4 prompts of 512 tokens and 16 new: the doubling scan
+    in prefill, one recurrence step a decode step, the attention cache
+    of 1024 slots (shorter than the window: no ring); no hand-written
+    kernel launches.  The f32 consistency check runs 5 layers (one
+    superblock and the tail, 8.7 GB).  Prints the FP32 gate products'
+    operations (``wa`` and ``wx``: 2 x 2 x B x T x d_rnn^2 a recurrent
+    layer, TF32 off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+
+    for arch, layers, b, t, new, f32_layers in HYBRID_CELLS:
+        cfg = get_config(arch)
+        n_rec = rglru.layer_kinds(cfg).count("rec")
+        flop = 2 * 2 * b * t * cfg.recurrent.d_rnn ** 2 * n_rec
+        _lm_serve_cell(torch, rng, counted, "lm_hybrid", arch, layers, b, t,
+                       new, f32_layers,
+                       extra=lambda m, p, toks: {
+                           "recurrent_layers": n_rec,
+                           "prefill_fp32_gate_products_tflop": flop / 1e12,
+                           "fp32_gate_products_bound_ms": (
+                               flop / PEAK_FP32_S * 1e3)})
 
 
 class _TorchFftCalls:
@@ -3774,6 +4018,11 @@ def main() -> int:
     # -- 11. the decoder-only transformer: gemma-2b at full width and
     # depth, qwen2.5-14b at full width and 4 layers, bf16 --
     lm_dense(torch, rng, counted)
+
+    # -- 12. the MoE family at full width (llama4-maverick at 2 layers,
+    # dbrx-132b at 4) and the hybrid recurrentgemma-9b whole, bf16 --
+    lm_moe(torch, rng, counted)
+    lm_hybrid(torch, rng, counted)
 
     for row in table:
         row["launches"] = (ms_launches.get((row["name"], row["mode"]), 0)

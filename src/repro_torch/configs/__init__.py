@@ -16,10 +16,22 @@ from typing import Optional
 __all__ = [
     "ARCH_IDS",
     "ArchConfig",
+    "MoESettings",
     "RWKVSettings",
+    "RecurrentSettings",
     "get_config",
     "get_reduced_config",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    interleave_step: int = 1      # 1 = every layer MoE; 2 = alternate dense/MoE
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +42,15 @@ class RWKVSettings:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecurrentSettings:
+    """Griffin/RG-LRU hybrid settings."""
+
+    d_rnn: int
+    conv_width: int = 4
+    block_pattern: tuple[str, ...] = ("rec", "rec", "attn")
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The fields the port's builders read, with the reference's defaults;
     a family ported later brings its own.  ``n_kv_heads`` and ``head_dim``
@@ -37,7 +58,7 @@ class ArchConfig:
     ``rwkv.head_size``)."""
 
     name: str
-    family: str                    # ssm | dense | vlm (built) | moe | ...
+    family: str                    # ssm | dense | vlm | moe | hybrid (built) | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,18 +76,32 @@ class ArchConfig:
     attn_window: Optional[int] = None
     logit_cap: Optional[float] = None
     norm: str = "rms"              # rms | ln
+    moe: Optional[MoESettings] = None
     rwkv: Optional[RWKVSettings] = None
+    recurrent: Optional[RecurrentSettings] = None
     num_prefix_tokens: int = 0     # vlm: SigLIP patch count (stub frontend)
     frontend: Optional[str] = None  # "vision_patches" | None
     kv_quant_decode: bool = False  # int8 KV for decode cells (memory fit)
     notes: str = ""
 
+    @property
+    def moe_layer_flags(self) -> tuple[bool, ...]:
+        """Which layers are MoE: every ``interleave_step``-th, offset
+        ``step - 1`` (the HF llama4 convention); none without ``moe``."""
+        if self.moe is None:
+            return tuple(False for _ in range(self.n_layers))
+        step = self.moe.interleave_step
+        return tuple((i % step) == (step - 1) for i in range(self.n_layers))
+
 
 _MODULES = {
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "qwen1.5-32b": "qwen1_5_32b",
     "minicpm-2b": "minicpm_2b",
     "qwen2.5-14b": "qwen2_5_14b",
     "gemma-2b": "gemma_2b",
+    "dbrx-132b": "dbrx_132b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "rwkv6-3b": "rwkv6_3b",
     "paligemma-3b": "paligemma_3b",
 }

@@ -20,6 +20,7 @@ from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.serving.fft_service import FFTServiceConfig
 
 __all__ = ["generator_from_reference", "config_from_reference",
+           "griffin_params_from_reference",
            "fault_plan_from_reference", "rwkv_params_from_reference",
            "transformer_params_from_reference"]
 
@@ -106,17 +107,27 @@ def _flatten(tree: dict, prefix: str, out: dict) -> None:
             out[prefix + name] = value
 
 
-def _split_layers(flat: dict, stacked_tree: dict) -> dict:
-    """Add the leaves of a layer-stacked subtree to ``flat``, split per
-    layer as ``layers.<i>.<path>``; returns the port's state dict."""
-    stacked: dict = {}
-    _flatten(stacked_tree, "", stacked)
-    depth = {int(np.shape(a)[0]) for a in stacked.values()}
-    if len(depth) != 1:
-        raise ValueError(f"layer leaves disagree on the depth: {depth}")
-    for i in range(depth.pop()):
-        for path, a in stacked.items():
-            flat[f"layers.{i}.{path}"] = np.asarray(a)[i]
+def _split_layers(flat: dict, slots: list, tail: list = ()) -> dict:
+    """Add the leaves of layer-stacked superblock ``slots`` to ``flat``,
+    split per layer as ``layers.<i>.<path>`` (layer ``r * len(slots) +
+    s`` from slot ``s`` at repeat ``r``), then the unstacked ``tail``
+    layers in order; returns the port's state dict."""
+    stacked = []
+    for slot in slots:
+        leaves: dict = {}
+        _flatten(slot, "", leaves)
+        stacked.append(leaves)
+    depth = {int(np.shape(a)[0]) for leaves in stacked for a in leaves.values()}
+    if len(depth) > 1:
+        raise ValueError(f"the superblock slots' layer leaves disagree on "
+                         f"the depth: {sorted(depth)}")
+    repeats = depth.pop() if depth else 0
+    for r in range(repeats):
+        for s, leaves in enumerate(stacked):
+            for path, a in leaves.items():
+                flat[f"layers.{r * len(slots) + s}.{path}"] = np.asarray(a)[r]
+    for j, layer in enumerate(tail):
+        _flatten(layer, f"layers.{repeats * len(slots) + j}.", flat)
     return {name: _tensor(a) for name, a in flat.items()}
 
 
@@ -127,19 +138,28 @@ def rwkv_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
     ``layers.<i>.<path>``), for ``load_state_dict``."""
     flat: dict = {}
     _flatten({k: v for k, v in tree.items() if k != "layers"}, "", flat)
-    return _split_layers(flat, tree["layers"])
+    return _split_layers(flat, [tree["layers"]])
 
 
 def transformer_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
     """A JAX decoder-only transformer tree (``embed``, ``final_norm``,
-    ``blocks`` -- one layer-stacked subtree, as the dense and vlm families
-    build it -- and ``unembed`` when untied; numpy leaves, bf16 included)
-    -> the port's ``Transformer`` state dict (CPU tensors, layers as
-    ``layers.<i>.<path>``), for ``load_state_dict``."""
-    blocks = tree["blocks"]
-    if len(blocks) != 1:
-        raise ValueError(f"{len(blocks)} superblock slots: only one stacked "
-                         f"slot (no MoE interleave) is ported")
+    ``blocks`` -- one layer-stacked subtree a superblock slot: one for the
+    dense and vlm families, ``interleave_step`` for an interleaved MoE --
+    and ``unembed`` when untied; numpy leaves, bf16 included) -> the
+    port's ``Transformer`` state dict (CPU tensors, layer ``r * step + s``
+    from slot ``s`` at repeat ``r``, as ``layers.<i>.<path>``), for
+    ``load_state_dict``."""
     flat: dict = {}
     _flatten({k: v for k, v in tree.items() if k != "blocks"}, "", flat)
-    return _split_layers(flat, blocks[0])
+    return _split_layers(flat, list(tree["blocks"]))
+
+
+def griffin_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+    """A JAX Griffin tree (``embed``, ``final_norm``, ``blocks`` -- one
+    layer-stacked subtree a pattern slot -- and the unstacked ``tail``
+    layers) -> the port's ``Griffin`` state dict (the blocks' layers as
+    for the transformer, then the tail in order)."""
+    flat: dict = {}
+    _flatten({k: v for k, v in tree.items() if k not in ("blocks", "tail")},
+             "", flat)
+    return _split_layers(flat, list(tree["blocks"]), list(tree["tail"]))

@@ -15,6 +15,13 @@ Examples::
     python -m repro_torch.launch.serve --arch gemma-2b --cache-len 1024
     python -m repro_torch.launch.serve --arch gemma-2b --reduced --device cpu
 
+    # MoE (dbrx-132b, llama4-maverick-400b-a17b: capacity-routed experts;
+    # their full depth outgrows one card, so serve them --reduced or cut
+    # n_layers in code) and the hybrid (recurrentgemma-9b: RG-LRU and
+    # local attention, whole on one card)
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --cache-len 1024
+    python -m repro_torch.launch.serve --arch dbrx-132b --reduced --device cpu
+
     # the paper's application: straggler-tolerant FFT serving
     python -m repro_torch.launch.serve --fft --s 4096 --m 4 --workers 8 --requests 20
 

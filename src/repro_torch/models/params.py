@@ -75,8 +75,10 @@ def _draw(spec: Spec, param: torch.Tensor, generator) -> torch.Tensor:
     if fan_in is None:
         fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
     scale = 1.0 if spec.init == "embed" else 1.0 / math.sqrt(max(fan_in, 1))
+    # scaled in place: one f32 draw alive at a time (an expert stack's
+    # draw alone is 21 GB at llama4-maverick's width)
     return torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                       device=param.device) * scale
+                       device=param.device).mul_(scale)
 
 
 @torch.no_grad()

@@ -1,9 +1,12 @@
-"""Decoder-only transformer LM for serving: families ``dense`` and ``vlm``
-(a prefix-LM over stub patch embeddings on the same stack).
+"""Decoder-only transformer LM for serving: families ``dense``, ``moe``
+(the MoE FFN of ``models/moe.py`` on the layers ``moe_layer_flags``
+marks) and ``vlm`` (a prefix-LM over stub patch embeddings on the same
+stack).
 
 The JAX package's ``models/transformer.py`` as an ``nn.Module`` tree of
 :class:`ParamModule`s, layers as ``layers.<i>`` in layer order (the
-reference scans a stacked tree; ``convert.transformer_params_from_
+reference scans a stacked tree of superblock slots, layer ``r * step +
+s`` in slot ``s`` at repeat ``r``; ``convert.transformer_params_from_
 reference`` splits it).  Prefill fills a KV cache, then decode steps
 attend over it: a full cache written at slot ``step``, a ring cache of
 ``attn_window`` slots when the config sets a window, or an int8
@@ -11,12 +14,12 @@ attend over it: a full cache written at slot ``step``, a ring cache of
 and return it (the reference's engine donates the cache the same way).
 
 Rounding points, as in the reference: q/k/v, the attention output
-projection and the MLP in the weights' dtype (bf16 on the card); the
-norms, RoPE and attention in f32, cast back; the cache in its own dtype;
-the head a bf16 product with f32 logits (``torch.mm(..., out_dtype=
-torch.float32)`` on the card), then divided by ``logit_divisor``.
-Attention is plain tensor code (``models/attention.py``).  MoE layers
-are not ported: ``build_model`` refuses family ``moe``.
+projection, the MLP and the expert products in the weights' dtype (bf16
+on the card); the norms, RoPE, attention and the MoE router in f32,
+cast back; the cache in its own dtype; the head a bf16 product with f32
+logits (``torch.mm(..., out_dtype=torch.float32)`` on the card), then
+divided by ``logit_divisor``.  Attention is plain tensor code
+(``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (
     QuantKV,
     chunked_attention,
@@ -45,6 +49,7 @@ __all__ = [
     "DecoderLayer",
     "Transformer",
     "attn_apply",
+    "bf16_logits",
     "decoder_hidden",
     "embed_tokens",
     "init_kv_cache",
@@ -94,9 +99,25 @@ def _norm_specs(cfg: ArchConfig) -> dict:
     return {"w": Spec((d,), init="zeros", dtype=F32)}
 
 
-def _layer_specs(cfg: ArchConfig) -> dict:
-    return {"ln1": _norm_specs(cfg), "attn": _attn_specs(cfg),
-            "ln2": _norm_specs(cfg), "mlp": _mlp_specs(cfg)}
+def _layer_specs(cfg: ArchConfig, is_moe: bool) -> dict:
+    sp = {"ln1": _norm_specs(cfg), "attn": _attn_specs(cfg),
+          "ln2": _norm_specs(cfg)}
+    if is_moe:
+        sp["moe"] = moe_lib.moe_layer_specs(cfg.d_model, cfg.moe)
+    else:
+        sp["mlp"] = _mlp_specs(cfg)
+    return sp
+
+
+def _check_periodic(cfg: ArchConfig) -> None:
+    """The reference scans superblocks of ``interleave_step`` layers, so
+    the MoE layers must repeat with that period over the whole depth."""
+    if cfg.moe is None:
+        return
+    flags, step = cfg.moe_layer_flags, cfg.moe.interleave_step
+    if flags != flags[:step] * (cfg.n_layers // step):
+        raise ValueError(f"{cfg.name}: non-periodic MoE pattern ("
+                         f"{cfg.n_layers} layers, interleave_step {step})")
 
 
 def transformer_specs(cfg: ArchConfig) -> dict:
@@ -104,10 +125,12 @@ def transformer_specs(cfg: ArchConfig) -> dict:
     if cfg.n_kv_heads is None or cfg.head_dim is None:
         raise ValueError(f"{cfg.name}: the transformer needs n_kv_heads "
                          f"and head_dim")
+    _check_periodic(cfg)
     sp = {
         "embed": Spec((cfg.vocab_size, cfg.d_model), init="embed"),
         "final_norm": _norm_specs(cfg),
-        "layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)],
+        "layers": [_layer_specs(cfg, is_moe)
+                   for is_moe in cfg.moe_layer_flags],
     }
     if not cfg.tie_embeddings:
         sp["unembed"] = Spec((cfg.d_model, cfg.vocab_size),
@@ -208,8 +231,9 @@ def _cache_len(cache: dict) -> int:
 # modules
 # --------------------------------------------------------------------------
 class DecoderLayer(nn.Module):
-    """Pre-norm attention and MLP, each residual branch scaled by
-    ``depth_scale / sqrt(n_layers)`` where the config sets it."""
+    """Pre-norm attention, then the MLP or (an MoE layer) the MoE FFN,
+    each residual branch scaled by ``depth_scale / sqrt(n_layers)`` where
+    the config sets it.  Returns (x, the MoE aux loss or None)."""
 
     def __init__(self, cfg: ArchConfig, specs: dict, dtype, device):
         super().__init__()
@@ -217,7 +241,13 @@ class DecoderLayer(nn.Module):
         self.ln1 = ParamModule(specs["ln1"], dtype, device)
         self.attn = ParamModule(specs["attn"], dtype, device)
         self.ln2 = ParamModule(specs["ln2"], dtype, device)
-        self.mlp = ParamModule(specs["mlp"], dtype, device)
+        self.is_moe = "moe" in specs
+        if self.is_moe:
+            self.moe = ParamModule(specs["moe"], dtype, device)
+            # the reference's router by top_k: Llama-4's sigmoid top-1
+            self.router_style = "sigmoid" if cfg.moe.top_k == 1 else "softmax"
+        else:
+            self.mlp = ParamModule(specs["mlp"], dtype, device)
         self.resid_scale = (None if cfg.depth_scale is None else
                             _rounded(cfg.depth_scale / cfg.n_layers ** 0.5,
                                      dtype))
@@ -231,11 +261,16 @@ class DecoderLayer(nn.Module):
         if self.resid_scale is not None:
             h = h * self.resid_scale
         x = x + h
-        h2 = mlp_apply(norm_apply(self.ln2, cfg, x), self.mlp,
-                       cfg.mlp_variant)
+        hn = norm_apply(self.ln2, cfg, x)
+        aux = None
+        if self.is_moe:
+            h2, aux = moe_lib.moe_ffn(hn, self.moe, cfg.moe,
+                                      router_style=self.router_style)
+        else:
+            h2 = mlp_apply(hn, self.mlp, cfg.mlp_variant)
         if self.resid_scale is not None:
             h2 = h2 * self.resid_scale
-        return x + h2
+        return x + h2, aux
 
 
 class Transformer(ParamModule):
@@ -258,22 +293,28 @@ class Transformer(ParamModule):
 # the stack, embeddings and heads
 # --------------------------------------------------------------------------
 def decoder_hidden(params: Transformer, embeds: torch.Tensor, *, mode: str,
-                   cache=None, step=None, prefix_len=None) -> torch.Tensor:
+                   cache=None, step=None, prefix_len=None,
+                   with_aux: bool = False):
     """Run the stack on (B, S, D) ``embeds`` at positions 0..S-1, or at
     ``step`` in decode; the final norm applied.  ``cache``
-    (``init_kv_cache``'s) is written in place."""
+    (``init_kv_cache``'s) is written in place.  With ``with_aux``,
+    returns (hidden, the MoE layers' summed f32 aux loss)."""
     cfg = params.cfg
     dev = embeds.device
     positions = (torch.arange(step, step + 1, device=dev) if mode == "decode"
                  else torch.arange(embeds.shape[1], device=dev))
     cos, sin = rotary_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
+    aux_sum = torch.zeros((), dtype=F32, device=dev) if with_aux else None
     for i, layer in enumerate(params.layers):
-        x = layer(x, cos, sin, mode=mode,
-                  cache=None if cache is None else {kv: cache[kv][i]
-                                                    for kv in ("k", "v")},
-                  step=step, prefix_len=prefix_len)
-    return norm_apply(params.final_norm, cfg, x)
+        x, aux = layer(x, cos, sin, mode=mode,
+                       cache=None if cache is None else {
+                           kv: cache[kv][i] for kv in ("k", "v")},
+                       step=step, prefix_len=prefix_len)
+        if with_aux and aux is not None:
+            aux_sum = aux_sum + aux
+    hidden = norm_apply(params.final_norm, cfg, x)
+    return (hidden, aux_sum) if with_aux else hidden
 
 
 def embed_tokens(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -288,18 +329,24 @@ def unembed_matrix(params: Transformer) -> torch.Tensor:
     return params.unembed
 
 
-def _head(params: Transformer, hidden: torch.Tensor) -> torch.Tensor:
-    """bf16 inputs against the bf16 unembedding with f32 accumulation and
-    f32 logits, divided by ``logit_divisor``."""
+def bf16_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., D) ``hidden`` and the (D, V) unembedding, both rounded to
+    bf16, in one product with f32 accumulation: f32 logits (..., V)."""
     xb = hidden.to(torch.bfloat16).reshape(-1, hidden.shape[-1])
-    wb = unembed_matrix(params).to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
     if xb.is_cuda:
         logits = torch.mm(xb, wb, out_dtype=F32)
     else:
         # a product of two bf16 values is exact in f32: the same sums
         logits = xb.float() @ wb.float()
-    logits = logits.reshape(*hidden.shape[:-1], -1)
-    return logits / params.cfg.logit_divisor
+    return logits.reshape(*hidden.shape[:-1], -1)
+
+
+def _head(params: Transformer, hidden: torch.Tensor) -> torch.Tensor:
+    """The bf16 head against ``unembed_matrix``, divided by
+    ``logit_divisor``."""
+    return (bf16_logits(hidden, unembed_matrix(params))
+            / params.cfg.logit_divisor)
 
 
 def _prep_embeds(params: Transformer, batch: dict):

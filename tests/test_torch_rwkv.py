@@ -404,7 +404,7 @@ def test_sample_token_temperature_zero_is_argmax():
 
 
 # -- construction ---------------------------------------------------------
-@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec"])
+@pytest.mark.parametrize("family", ["encdec"])
 def test_build_model_refuses_other_families(family):
     cfg = dataclasses.replace(get_reduced_config("rwkv6-3b"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -260,8 +260,9 @@ def test_attention_block_and_layer_match_jax(f32):
     want, _, _ = jtf._layer_apply(jlayer, m["jcfg"], jnp.asarray(x), jcos,
                                   jsin, is_moe=False, mode="prefill",
                                   cache=None, step=None, prefix_len=prefix)
-    got = layer(torch.from_numpy(x), cos, sin, mode="prefill",
-                prefix_len=prefix)
+    got, aux = layer(torch.from_numpy(x), cos, sin, mode="prefill",
+                     prefix_len=prefix)
+    assert aux is None
     assert _rel(got, want) < TOL
 
 
@@ -447,9 +448,10 @@ def test_convert_carries_a_bf16_tree(gemma):
     got = params.layers[1].attn.wq
     assert got.dtype == torch.bfloat16
     assert np.array_equal(got.float().numpy(), wq.astype(np.float32))
+    short = jax.tree.map(lambda a: a[:1], tree["blocks"][0])
     with pytest.raises(ValueError, match="superblock"):
         convert.transformer_params_from_reference(
-            dict(tree, blocks=tree["blocks"] * 2))
+            dict(tree, blocks=tree["blocks"] + [short]))
 
 
 def test_entry_points_refuse_without_gpu(monkeypatch):

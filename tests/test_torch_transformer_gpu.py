@@ -1,11 +1,17 @@
-"""The port's decoder-only transformer on the card (marker ``gpu``,
-skipped without a CUDA device; no JAX import, so the file runs where
-only torch is installed).
+"""The port's decoder-only transformer, MoE and hybrid models on the card
+(marker ``gpu``, skipped without a CUDA device; no JAX import, so the
+file runs where only torch is installed).
 
 * Reduced gemma-2b and qwen2.5-14b with f32 weights and TF32 off, on
   the card against the same weights on the CPU (which
   ``tests/test_torch_transformer.py`` holds against the JAX package):
-  prefill and two decode steps, logits and caches within 1e-4;
+  prefill and two decode steps, logits and caches within 1e-4; reduced
+  dbrx-132b, llama4-maverick-400b-a17b and recurrentgemma-9b the same
+  way (``test_torch_moe.py``, ``test_torch_rglru.py`` against JAX),
+  with the head's f32 input in place of the logits and every cache or
+  recurrent state, within 1e-4;
+* the RG-LRU's doubling scan at d_rnn = 4096 and T = 512 against a
+  sequential f32 loop of the recurrence on the card, within 1e-5;
 * the head's bf16 product with f32 accumulation, the tied unembedding
   read as ``embed.T``, against the same product in f32 (1e-5: products
   of bf16 values are exact in f32, only the order of the sums differs).
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.configs import get_reduced_config
 from repro_torch.models import build_model
+from repro_torch.models import rglru as trg
 from repro_torch.models import transformer as ttf
 
 B, CACHE = 2, 32
@@ -35,6 +42,14 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _leaves(cache):
+    """A cache's tensors by name: the transformer's ``{"k", "v"}``, the
+    hybrid's list of per-layer dicts."""
+    if isinstance(cache, dict):
+        return dict(cache)
+    return {f"{i}.{k}": v for i, st in enumerate(cache) for k, v in st.items()}
 
 
 @pytest.mark.gpu
@@ -67,6 +82,78 @@ def test_gpu_f32_model_matches_cpu(cuda, arch):
         assert _rel(a, b) < 1e-4
     for kv in ("k", "v"):
         assert _rel(cg[kv], cc[kv]) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
+                                  "recurrentgemma-9b"])
+def test_gpu_f32_moe_and_hybrid_match_cpu(cuda, arch, monkeypatch):
+    """Reduced MoE and hybrid models, f32 weights, on the card against
+    the CPU: prefill and two decode steps, the f32 hidden state handed
+    to the head and every cache or state within 1e-4.  The head rounds
+    that state to bf16, which turns a difference of a few 1e-6 into up
+    to 2e-4 of the logits (reduced dbrx, its weights scaled by 1 + 1e-6
+    noise on the CPU alone), so the logits are held to the head's own
+    test above."""
+    heads = []
+    real = ttf.bf16_logits
+
+    def recorded(hidden, w):
+        heads.append(hidden.detach().cpu())
+        return real(hidden, w)
+
+    monkeypatch.setattr(ttf, "bf16_logits", recorded)
+    cfg = get_reduced_config(arch)
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(3))
+    card = build_model(cfg, dtype=torch.float32, device=cuda)
+    on_card = card.make_params()
+    on_card.load_state_dict(params.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        1, cfg.vocab_size, (B, 11)).astype(np.int32))
+    runs = []
+    for mdl, prm, dev in ((cpu, params, torch.device("cpu")),
+                          (card, on_card, cuda)):
+        heads.clear()
+        cache = mdl.init_cache(B, CACHE)
+        logits, cache = mdl.prefill(prm, {"tokens": toks[:, :9].to(dev)},
+                                    cache)
+        for i in range(9, 11):
+            logits, cache = mdl.decode_step(
+                prm, cache, {"tokens": toks[:, i:i + 1].to(dev)}, i)
+            assert bool(torch.isfinite(logits).all())
+        runs.append((list(heads), _leaves(cache)))
+    (hc, cc), (hg, cg) = runs
+    assert len(hc) == len(hg) == 3
+    for a, b in zip(hg, hc):
+        assert _rel(a, b) < 1e-4
+    assert cc.keys() == cg.keys()
+    for name in cc:
+        assert _rel(cg[name], cc[name]) < 1e-4, name
+
+
+@pytest.mark.gpu
+def test_gpu_doubling_scan_matches_sequential_loop(cuda):
+    """The RG-LRU's scan at recurrentgemma-9b's width (d_rnn 4096) over
+    T = 512, its a and b from the RG-LRU's formulas on seeded inputs,
+    against h_t = a_t h_{t-1} + b_t step by step in f32 (1e-5)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b_, t, c = 2, 512, 4096
+    r = torch.sigmoid(torch.randn((b_, t, c), device=cuda, generator=g))
+    lam = 1.0 + 0.5 * torch.randn((c,), device=cuda, generator=g)
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * r
+    a = torch.exp(log_a)
+    x = torch.randn((b_, t, c), device=cuda, generator=g)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                       1e-12)) * x
+    h0 = torch.randn((b_, c), device=cuda, generator=g)
+    a_seq, b_seq = trg.doubling_scan(a, gated)
+    got = a_seq * h0[:, None] + b_seq
+    h, want = h0, []
+    for i in range(t):
+        h = a[:, i] * h + gated[:, i]
+        want.append(h)
+    assert _rel(got, torch.stack(want, 1)) < 1e-5
 
 
 @pytest.mark.gpu
