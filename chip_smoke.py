@@ -83,7 +83,12 @@ attention over a KV cache, launching none of the port's kernels; then
 the MoE family (``lm_moe``: llama4-maverick-400b-a17b at full width and
 2 layers, dbrx-132b at full width and 4, capacity-routed experts) and
 the hybrid (``lm_hybrid``: recurrentgemma-9b whole, the RG-LRU's
-doubling scan and local attention), likewise on plain torch.
+doubling scan and local attention), likewise on plain torch; then the
+encoder-decoder (``lm_encdec``: whisper-medium whole on 4 x 1500 frames,
+prefill and 32 decode steps through the model API, plain torch) and the
+coded spectral mixer (``spectral_coded``: 4096 rows of 4096 points
+through ``CodedFFT`` with two of six workers down, exactly two
+``cmatmul`` launches and one ``fourstep_fused``).
 Each FFT run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
@@ -922,6 +927,262 @@ def lm_hybrid(torch, rng, counted) -> None:
                            "prefill_fp32_gate_products_tflop": flop / 1e12,
                            "fp32_gate_products_bound_ms": (
                                flop / PEAK_FP32_S * 1e3)})
+
+
+# whisper-medium whole: (arch, prompts, frames, prompt tokens, new tokens,
+# cache slots) -- Whisper's 30 s window of 1500 frames and its 448-token
+# text context
+ENCDEC_CELL = ("whisper-medium", 4, 1500, 32, 32, 448)
+# the decode steps whose logits are held against a fresh prefill
+ENCDEC_CHECK_STEPS = (0, 15, 31)
+
+
+def lm_encdec(torch, np, rng, counted) -> None:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads, vocab 51,865 tied; 1.52 GB of bf16
+    weights from a seeded init) through the model API, as the reference
+    serves it: ``prefill(params, {"frames", "tokens"}, cache)`` on 4 x
+    1500 seeded frame embeddings and a 32-token prompt, then 32 greedy
+    ``decode_step``s on a cache of 448 slots.  Plain torch: no
+    hand-written kernel may launch.
+
+    Checks: logits finite and tokens in range; the cross K/V as long as
+    the frames (1500, not the cache's 448 slots); the decode step's
+    logits at steps 0, 15 and 31 against a fresh prefill of the prompt
+    and the tokens generated up to that step (within 5%, the bf16
+    tolerance of ``tests/test_torch_encdec.py``; the same argmax
+    printed).  Prints the prefill's ms split into the encoder and the
+    decoder, the decode ms a step and tokens/s (host clock around a
+    synchronize), the step's bytes bound (what the code reads: the
+    decoder's weights but the cross ``wk``/``wv``, the whole embedding
+    for the head, both caches whole; the logits written) at 3.35 TB/s,
+    one profiled prefill and decode step (busy, idle, kernels) and the
+    peak memory of serving."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec
+
+    arch, b, t_enc, t, new, c_len = ENCDEC_CELL
+    dev = torch.device("cuda")
+    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    frames = torch.as_tensor(
+        rng.standard_normal((b, t_enc, cfg.d_model)).astype(np.float32),
+        device=dev).to(torch.bfloat16)
+    prompt = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (b, t)).astype(np.int32), device=dev)
+
+    def prefill(toks):
+        return model.prefill(params, {"frames": frames, "tokens": toks},
+                             model.init_cache(b, c_len))
+
+    def generate():
+        logits, cache = prefill(prompt)
+        toks, steps = [logits.argmax(-1).to(torch.int32)], []
+        for i in range(new):
+            lg, cache = model.decode_step(params, cache,
+                                          {"tokens": toks[-1]}, t + i)
+            steps.append(lg)
+            toks.append(lg.argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        return logits, cache, toks, steps
+
+    t0 = time.perf_counter()
+    (logits, cache, toks, steps), counts = counted(generate)
+    first_s = time.perf_counter() - t0
+    if counts:
+        fail(f"{arch} launched hand-written kernels: {counts}")
+    gen = torch.cat(toks, dim=1)
+    cross = tuple(cache["cross"]["k"].shape)
+    checks = {
+        "finite": all(bool(torch.isfinite(x).all()) for x in [logits] + steps),
+        "tokens_in_range": bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+        "cross_kv_shape": list(cross),
+        "cross_kv_len_is_frames": (cross == (cfg.n_layers, b, t_enc,
+                                             cfg.n_kv_heads, cfg.head_dim)
+                                   and tuple(cache["cross"]["v"].shape)
+                                   == cross),
+        "self_kv_len": int(cache["self"]["k"].shape[2])}
+    steps_vs_prefill = []
+    for i in ENCDEC_CHECK_STEPS:
+        full, _ = prefill(torch.cat([prompt, gen[:, :i + 1]], dim=1))
+        steps_vs_prefill.append({
+            "step": i, "logits_rel": rel(steps[i], full),
+            "same_argmax": bool(torch.equal(steps[i].argmax(-1),
+                                            full.argmax(-1)))})
+    checks["decode_vs_fresh_prefill"] = steps_vs_prefill
+    if not (checks["finite"] and checks["tokens_in_range"]
+            and checks["cross_kv_len_is_frames"]
+            and all(r["logits_rel"] < 0.05 for r in steps_vs_prefill)):
+        fail(f"{arch} checks: {checks}")
+
+    # rates, host clock around a synchronize: the encoder alone, the
+    # decoder's prefill on its output, the whole prefill (3 calls each);
+    # ``new`` decode steps on the prefill's cache
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / reps * 1e3, out
+
+    encoder_ms, enc_out = timed(lambda: encdec.encode(params, frames))
+    decoder_ms, _ = timed(lambda: encdec._head(params, encdec._decoder(
+        params, prompt, model.init_cache(b, c_len), mode="prefill",
+        enc_out=enc_out)[0][:, -1:]))
+    prefill_ms, (_, cache) = timed(lambda: prefill(prompt))
+    tok = toks[0]
+    t1 = time.perf_counter()
+    for i in range(new):
+        lg, cache = model.decode_step(params, cache, {"tokens": tok}, t + i)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t1) / new
+    trace_prefill = profile_call(torch, lambda: prefill(prompt))
+    trace_decode = profile_call(torch, lambda: model.decode_step(
+        params, cache, {"tokens": tok}, t + new - 1))
+    max_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the bytes a decode step must move: the decoder's weights but the
+    # cross K/V projections (their products are cached), the final norm,
+    # the whole embedding (the head), both caches read whole, one self
+    # K/V slot a layer written, the f32 logits written
+    nbytes = lambda ts: sum(x.numel() * x.element_size() for x in ts)
+    dec_weights = [p for name, p in params.dec_layers.named_parameters()
+                   if not name.endswith(("cross_attn.wk", "cross_attn.wv"))]
+    kv = [cache[part][k] for part in ("self", "cross") for k in ("k", "v")]
+    step_bytes = (nbytes(dec_weights) + nbytes(params.dec_ln_post.parameters())
+                  + nbytes([params.embed]) + nbytes(kv)
+                  + 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim
+                  * cache["self"]["k"].element_size()
+                  + b * cfg.vocab_size * F32)
+    n_params = model.n_params
+    del params, cache, logits, steps, lg, enc_out, model, frames
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_encdec", "arch": cfg.name, "family": cfg.family,
+          "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "dtype": "bfloat16", "n_params": n_params,
+          "batch": b, "frames": t_enc, "prompt_len": t, "new_tokens": new,
+          "cache_len": c_len, "launches": counts,
+          "tolerances": {"decode_vs_fresh_prefill_logits": 0.05},
+          "checks": checks, "init_s": init_s, "first_generate_s": first_s,
+          "prefill_ms": prefill_ms, "prefill_encoder_ms": encoder_ms,
+          "prefill_decoder_ms": decoder_ms,
+          "decode_ms_per_step": decode_s * 1e3,
+          "decode_tokens_per_s": b / decode_s,
+          "decode_step_bytes": step_bytes,
+          "decode_step_bytes_bound_ms": step_bytes / PEAK_BYTES_S * 1e3,
+          "max_memory_gb": max_gb,
+          "profiled_prefill": trace_prefill,
+          "profiled_decode_step": trace_decode,
+          "nvidia_smi": nvidia_smi()})
+
+
+# the coded spectral mixer: (B, S, D), filter taps, and the plan (s, m, N)
+# with the example's workers 1 and 4 down
+SPECTRAL_CELL = ((4, 2048, 1024), 2048, (4096, 4, 6))
+SPECTRAL_MASK = (True, False, True, True, False, True)
+
+
+def spectral_coded(torch, np, rng, counted, spin_rate) -> None:
+    """The coded spectral mixer (``models/spectral.py``) at (B, S, D) =
+    (4, 2048, 1024) with 2048-tap filters: its 4096 rows of 4096
+    complex64 points through ``CodedFFT(s=4096, m=4, n_workers=6)`` with
+    workers 1 and 4 down -- one ``cmatmul`` encode, one
+    ``fourstep_fused`` pass over the 24,576 coded rows of L = 1024, one
+    ``cmatmul`` decode (run with an empty autotune table, so L = 1024
+    routes to ``fourstep_fused``).  Its launches must be exactly those,
+    with no ``torch.fft`` call inside the plan (the filter's transforms
+    and the inverse are ``torch.fft``, as in the reference).
+
+    Checks: coded against the plain mixer (``torch.fft.rfft``) within
+    max-abs 1e-3, the example's bound; the gradient of ``mean(y**2)``
+    with respect to the filter ``h`` through both within max-abs 1e-4.
+    Prints the ms of the
+    coded and plain mixers, medians of 7 windows (CUDA events), and one
+    profiled coded call (busy, idle, the largest kernels)."""
+    from repro_torch.core import CodedFFT
+    from repro_torch.kernels import ops
+    from repro_torch.models import spectral
+
+    (b, s, d), taps, (n, m, workers) = SPECTRAL_CELL
+    dev = torch.device("cuda")
+    p = spectral.decaying_filter_init(torch.Generator(device=dev).manual_seed(0),
+                                      d, taps, device=dev)
+    x = torch.as_tensor(rng.standard_normal((b, s, d)).astype(np.float32),
+                        device=dev)
+    plan = CodedFFT(s=n, m=m, n_workers=workers)
+    route = ops.fourstep_route(plan.shard_len, device=dev)
+    if (plan.device.type != "cuda" or plan.resolved_backend != "kernel"
+            or route[0] != "fused"):
+        fail(f"spectral plan on {plan.device}, {plan.resolved_backend}, "
+             f"worker route {route}")
+    mask = torch.tensor(SPECTRAL_MASK, device=dev)
+    real_run, fft_calls = spectral._run_rows, []
+
+    def run_rows(*args):
+        with _TorchFftCalls(torch) as calls:
+            out = real_run(*args)
+        fft_calls.append(calls.calls)
+        return out
+
+    coded = lambda pp: spectral.spectral_apply_coded(pp, x, plan, mask=mask)
+    plain = lambda pp: spectral.spectral_apply(pp, x)
+
+    def grad_h(mixer):
+        pp = {k: v.clone().requires_grad_() for k, v in p.items()}
+        return torch.autograd.grad((mixer(pp) ** 2).mean(), pp["h"])[0]
+
+    spectral._run_rows = run_rows
+    try:
+        y, counts = counted(lambda: coded(p))
+        g_coded, grad_counts = counted(lambda: grad_h(coded))
+    finally:
+        spectral._run_rows = real_run
+    expect = {"cmatmul": 2, "fourstep_fused": 1}
+    if counts != expect or grad_counts != expect or any(fft_calls):
+        fail(f"spectral_coded: launches {counts} (forward), {grad_counts} "
+             f"(gradient), torch.fft calls inside the plan {fft_calls}; "
+             f"expected {expect} and none")
+    y_plain, g_plain = plain(p), grad_h(plain)
+    torch.cuda.synchronize()
+    err = float((y - y_plain).abs().max())
+    gerr = float((g_coded - g_plain).abs().max())
+    if not (err < 1e-3 and gerr < 1e-4):
+        fail(f"spectral_coded: coded vs plain {err} (< 1e-3), filter "
+             f"gradient {gerr} (< 1e-4)")
+
+    def windows(fn):
+        ts = sorted(time_ms(torch, fn, 5, spin_rate) for _ in range(7))
+        return {"ms": ts[3], "ms_min": ts[0], "ms_max": ts[-1]}
+
+    emit({"phase": "spectral_coded", "batch": b, "seq": s, "d_model": d,
+          "filter_taps": taps, "plan": {"s": n, "m": m, "n_workers": workers},
+          "mask": list(SPECTRAL_MASK), "rows": b * d,
+          "worker_rows": b * d * workers, "worker_route": [route[0],
+                                                           list(route[1])],
+          "launches": counts, "gradient_launches": grad_counts,
+          "torch_fft_calls_in_plan": sum(fft_calls),
+          "coded_vs_plain_max_abs": err, "coded_vs_plain_tol": 1e-3,
+          "filter_grad_max_abs": gerr, "filter_grad_tol": 1e-4,
+          "coded": windows(lambda: coded(p)),
+          "plain": windows(lambda: plain(p)),
+          "profiled_coded": profile_call(torch, lambda: coded(p),
+                                         track=FFT_KERNELS),
+          "nvidia_smi": nvidia_smi()})
+    del x, y, y_plain, g_coded, g_plain, p
+    torch.cuda.empty_cache()
 
 
 class _TorchFftCalls:
@@ -4023,6 +4284,16 @@ def main() -> int:
     # dbrx-132b at 4) and the hybrid recurrentgemma-9b whole, bf16 --
     lm_moe(torch, rng, counted)
     lm_hybrid(torch, rng, counted)
+
+    # -- 13. the encoder-decoder: whisper-medium at full width and depth
+    # through prefill/decode_step; then the coded spectral mixer on the
+    # plan's kernels, from an empty autotune table --
+    t0 = time.perf_counter()
+    lm_encdec(torch, np, rng, counted)
+    fresh_autotune_cache("spectral")
+    spectral_coded(torch, np, rng, counted, spin_rate)
+    emit({"phase": "encdec_spectral_done",
+          "seconds": time.perf_counter() - t0})
 
     for row in table:
         row["launches"] = (ms_launches.get((row["name"], row["mode"]), 0)

@@ -3,8 +3,8 @@
 Each architecture the port builds is a frozen ``ArchConfig`` in its own
 module (the published numbers), registered here under its ``--arch`` id;
 ``REDUCED`` is the same family at a small size, for CPU tests.  The
-registry lists only the configurations whose family the port builds
-(``models.model_factory``).
+registry holds every architecture of the JAX package's registry, each
+family built by ``models.model_factory``.
 """
 
 from __future__ import annotations
@@ -52,13 +52,13 @@ class RecurrentSettings:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The fields the port's builders read, with the reference's defaults;
-    a family ported later brings its own.  ``n_kv_heads`` and ``head_dim``
-    are required by the transformer families (the ssm family reads
+    """The fields the port's models read, with the reference's defaults.
+    ``n_kv_heads`` and ``head_dim`` are required by the transformer
+    families and the encoder-decoder (the ssm family reads
     ``rwkv.head_size``)."""
 
     name: str
-    family: str                    # ssm | dense | vlm | moe | hybrid (built) | encdec
+    family: str                    # ssm | dense | vlm | moe | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -79,8 +79,9 @@ class ArchConfig:
     moe: Optional[MoESettings] = None
     rwkv: Optional[RWKVSettings] = None
     recurrent: Optional[RecurrentSettings] = None
+    encoder_layers: int = 0        # enc-dec only
     num_prefix_tokens: int = 0     # vlm: SigLIP patch count (stub frontend)
-    frontend: Optional[str] = None  # "vision_patches" | None
+    frontend: Optional[str] = None  # "audio_frames" | "vision_patches" | None
     kv_quant_decode: bool = False  # int8 KV for decode cells (memory fit)
     notes: str = ""
 
@@ -100,6 +101,7 @@ _MODULES = {
     "minicpm-2b": "minicpm_2b",
     "qwen2.5-14b": "qwen2_5_14b",
     "gemma-2b": "gemma_2b",
+    "whisper-medium": "whisper_medium",
     "dbrx-132b": "dbrx_132b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "rwkv6-3b": "rwkv6_3b",
@@ -111,9 +113,8 @@ ARCH_IDS = tuple(_MODULES)
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(_MODULES)} (see ROADMAP.md, Queue 1, the "
-                       f"seed LM stack)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

@@ -20,7 +20,7 @@ from repro_torch.distributed.straggler import StragglerModel
 from repro_torch.serving.fft_service import FFTServiceConfig
 
 __all__ = ["generator_from_reference", "config_from_reference",
-           "griffin_params_from_reference",
+           "encdec_params_from_reference", "griffin_params_from_reference",
            "fault_plan_from_reference", "rwkv_params_from_reference",
            "transformer_params_from_reference"]
 
@@ -107,9 +107,10 @@ def _flatten(tree: dict, prefix: str, out: dict) -> None:
             out[prefix + name] = value
 
 
-def _split_layers(flat: dict, slots: list, tail: list = ()) -> dict:
+def _split_layers(flat: dict, slots: list, tail: list = (),
+                  prefix: str = "layers") -> dict:
     """Add the leaves of layer-stacked superblock ``slots`` to ``flat``,
-    split per layer as ``layers.<i>.<path>`` (layer ``r * len(slots) +
+    split per layer as ``<prefix>.<i>.<path>`` (layer ``r * len(slots) +
     s`` from slot ``s`` at repeat ``r``), then the unstacked ``tail``
     layers in order; returns the port's state dict."""
     stacked = []
@@ -125,9 +126,10 @@ def _split_layers(flat: dict, slots: list, tail: list = ()) -> dict:
     for r in range(repeats):
         for s, leaves in enumerate(stacked):
             for path, a in leaves.items():
-                flat[f"layers.{r * len(slots) + s}.{path}"] = np.asarray(a)[r]
+                flat[f"{prefix}.{r * len(slots) + s}.{path}"] = \
+                    np.asarray(a)[r]
     for j, layer in enumerate(tail):
-        _flatten(layer, f"layers.{repeats * len(slots) + j}.", flat)
+        _flatten(layer, f"{prefix}.{repeats * len(slots) + j}.", flat)
     return {name: _tensor(a) for name, a in flat.items()}
 
 
@@ -163,3 +165,18 @@ def griffin_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
     _flatten({k: v for k, v in tree.items() if k not in ("blocks", "tail")},
              "", flat)
     return _split_layers(flat, list(tree["blocks"]), list(tree["tail"]))
+
+
+def encdec_params_from_reference(tree: dict) -> dict[str, torch.Tensor]:
+    """A JAX encoder-decoder tree (``embed``, ``enc_ln_post``,
+    ``dec_ln_post``, and ``enc_layers`` and ``dec_layers``, each stacked
+    on a leading layer axis; numpy leaves, bf16 included) -> the port's
+    ``EncDec`` state dict (CPU tensors, the layers split as
+    ``enc_layers.<i>.<path>`` and ``dec_layers.<i>.<path>``), for
+    ``load_state_dict``."""
+    flat: dict = {}
+    _flatten({k: v for k, v in tree.items()
+              if k not in ("enc_layers", "dec_layers")}, "", flat)
+    state = _split_layers(flat, [tree["enc_layers"]], prefix="enc_layers")
+    state.update(_split_layers({}, [tree["dec_layers"]], prefix="dec_layers"))
+    return state

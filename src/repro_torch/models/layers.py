@@ -1,17 +1,18 @@
-"""Shared building blocks of the port's models: the norms, the MLPs, RoPE
-and the logit soft cap, with the JAX package's rounding points (f32
-inside where the reference computes in f32, cast back to the input's
-dtype)."""
+"""Shared building blocks of the port's models: the norms, the MLPs, RoPE,
+sinusoidal positions and the logit soft cap, with the JAX package's
+rounding points (f32 inside where the reference computes in f32, cast
+back to the input's dtype)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["apply_rotary", "layer_norm", "mlp_apply", "rms_norm",
-           "rotary_cos_sin", "softcap"]
+           "rotary_cos_sin", "sinusoidal_positions", "softcap"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -41,7 +42,9 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def mlp_apply(x: torch.Tensor, p, variant: str) -> torch.Tensor:
     """Gated or plain MLP in the weights' dtype.  ``p`` has attributes
-    ``wi``, ``wo`` and, gated, ``wg``.
+    ``wi``, ``wo``, gated ``wg``, and optionally the biases ``bi`` (plain
+    variant only: added before the activation) and ``bo`` (added to the
+    output).
 
     variant: swiglu (silu gate) | geglu (tanh-gelu gate) | gelu (plain
     two-layer, tanh-gelu)."""
@@ -52,10 +55,16 @@ def mlp_apply(x: torch.Tensor, p, variant: str) -> torch.Tensor:
                                                            approximate="tanh")
         h = act * h
     elif variant == "gelu":
-        h = F.gelu(x @ p.wi, approximate="tanh")
+        h = x @ p.wi
+        if hasattr(p, "bi"):
+            h = h + p.bi
+        h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown mlp variant {variant!r}")
-    return h @ p.wo
+    out = h @ p.wo
+    if hasattr(p, "bo"):
+        out = out + p.bo
+    return out
 
 
 def rotary_cos_sin(positions: torch.Tensor, head_dim: int,
@@ -81,6 +90,20 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     c, s = cos[..., None, :], sin[..., None, :]
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, *, start: int = 0,
+                         device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings of positions ``start`` ..
+    ``start + length - 1``: (length, dim) f32, the sines then the cosines,
+    frequencies ``exp(-i * ln(1e4) / (dim/2 - 1))``.  Row ``p`` is the
+    same whatever ``start`` and ``length`` hold it."""
+    half = dim // 2
+    scale = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                      * math.log(10000.0) / (half - 1))
+    ang = (torch.arange(start, start + length, dtype=torch.float32,
+                        device=device)[:, None] * scale[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

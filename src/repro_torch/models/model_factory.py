@@ -9,14 +9,17 @@
 * ``init_cache(batch, cache_len=None, quantized=False)``  the decode
   state: the transformer's KV cache (``cache_len`` slots, int8 when
   ``quantized``); the hybrid's attention K/V (``cache_len`` slots, at
-  most ``attn_window``) and recurrent states; RWKV-6's state does not
-  grow with the sequence and ignores both
+  most ``attn_window``) and recurrent states; the encoder-decoder's self
+  and cross K/V (``cache_len`` slots; the prefill replaces the cross
+  K/V with the encoder's length); RWKV-6's state does not grow with the
+  sequence and ignores both
 * ``n_params / n_active_params``  for 6·N·D bookkeeping (the active
   count leaves out the experts a token does not reach)
 
-The port builds families ``"ssm"`` (RWKV-6), ``"dense"``, ``"moe"`` and
-``"vlm"`` (the decoder-only transformer) and ``"hybrid"`` (Griffin);
-``"encdec"`` raises, naming the ROADMAP item that ports it.
+The port builds every family of the JAX package: ``"ssm"`` (RWKV-6),
+``"dense"``, ``"moe"`` and ``"vlm"`` (the decoder-only transformer),
+``"hybrid"`` (Griffin) and ``"encdec"`` (Whisper, whose prefill needs
+``batch["frames"]``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.plan import resolve_device
-from repro_torch.models import rglru, rwkv6, transformer
+from repro_torch.models import encdec, rglru, rwkv6, transformer
 from repro_torch.models.params import count_params, init_params
 
 __all__ = ["BuiltModel", "build_model"]
@@ -67,10 +70,8 @@ def build_model(cfg: ArchConfig, dtype=torch.bfloat16,
     """The model of ``cfg`` on ``device`` (``None``: CUDA, raising without
     one; ``"cpu"`` runs the kernels' plain twins)."""
     fam = cfg.family
-    if fam not in ("ssm", "dense", "moe", "vlm", "hybrid"):
-        raise NotImplementedError(
-            f"model family {fam!r} ({cfg.name}) is not built by the PyTorch "
-            f"port yet -- see ROADMAP.md, Queue 1, the seed LM stack")
+    if fam not in ("ssm", "dense", "moe", "vlm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {fam}")
     device = resolve_device(device)
     if fam == "ssm":
         n = count_params(rwkv6.rwkv_specs(cfg))
@@ -98,6 +99,20 @@ def build_model(cfg: ArchConfig, dtype=torch.bfloat16,
             n_active_params=n,
             device=device,
             make_params=lambda: rglru.Griffin(cfg, dtype, device),
+        )
+    if fam == "encdec":
+        n = count_params(encdec.encdec_specs(cfg))
+        return BuiltModel(
+            cfg=cfg,
+            prefill=encdec.encdec_prefill,
+            decode_step=encdec.encdec_decode_step,
+            init_cache=lambda batch, cache_len=None, quantized=False:
+                encdec.init_encdec_cache(cfg, batch, cache_len, dtype=dtype,
+                                         device=device),
+            n_params=n,
+            n_active_params=n,
+            device=device,
+            make_params=lambda: encdec.EncDec(cfg, dtype, device),
         )
     n = count_params(transformer.transformer_specs(cfg))
     return BuiltModel(

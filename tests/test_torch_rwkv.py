@@ -406,9 +406,14 @@ def test_sample_token_temperature_zero_is_argmax():
 # -- construction ---------------------------------------------------------
 @pytest.mark.parametrize("family", ["encdec"])
 def test_build_model_refuses_other_families(family):
+    """Every family of the JAX package builds now: an RWKV config
+    relabelled as another family is refused for the fields that family
+    needs, and an unknown family as the reference refuses it."""
     cfg = dataclasses.replace(get_reduced_config("rwkv6-3b"), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="n_kv_heads and head_dim"):
         build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="mamba"), device="cpu")
 
 
 def test_param_count_matches_jax_full_config(jref):
