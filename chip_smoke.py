@@ -88,7 +88,11 @@ encoder-decoder (``lm_encdec``: whisper-medium whole on 4 x 1500 frames,
 prefill and 32 decode steps through the model API, plain torch) and the
 coded spectral mixer (``spectral_coded``: 4096 rows of 4096 points
 through ``CodedFFT`` with two of six workers down, exactly two
-``cmatmul`` launches and one ``fourstep_fused``).
+``cmatmul`` launches and one ``fourstep_fused``, and again for its
+gradient with respect to the input); then training (``lm_train``:
+gemma-2b at full width and depth, 4 steps of exact AdamW on 4 x 512
+tokens, the loss falling, and the trainer's bit-exact restart from a
+checkpoint on reduced gemma-2b).
 Each FFT run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
@@ -1091,6 +1095,132 @@ def lm_encdec(torch, np, rng, counted) -> None:
 
 # the coded spectral mixer: (B, S, D), filter taps, and the plan (s, m, N)
 # with the example's workers 1 and 4 down
+TRAIN_CELL = ("gemma-2b", 4, 512, 4)     # arch, batch, seq, steps
+TRAIN_RESTART = ("gemma-2b", 4, 32, 8, 5)  # reduced; batch, seq, total, ckpt
+PEAK_BF16_S = 989e12                      # H100 SXM dense bf16 flop/s
+
+
+def lm_train(torch, counted) -> None:
+    """The training core on the card.  (a) gemma-2b at full width and
+    depth (18 layers, d_model 2048, vocab 256,000, ~2.5 B parameters,
+    bf16 weights from a seeded init): ``make_train_step`` with exact
+    AdamW, ``cosine(3e-4, 8, 1)``, clip 1.0, ``n_micro=1``, for 4 steps
+    on one fixed batch of 4 x 512 synthetic tokens.  Plain torch: the
+    step must launch none of the port's kernels.  Checks: the loss and
+    the grad norm finite at every step, the loss lower at step 4 than at
+    step 1, every parameter leaf changed (against a host copy).  Prints
+    each step's ms (host clock around a synchronize), tokens/s and the
+    share of the card's dense bf16 peak that 6 N tokens a step reaches
+    (steps 2-4), ``max_memory_allocated``, and a fifth step profiled
+    (busy, idle, the largest kernels).  (b) The restart on the
+    card, the reference's ``test_trainer_restart_bit_exact``: reduced
+    gemma-2b, 8 steps straight against 5 steps with a checkpoint at step
+    5 resumed to 8, under ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+    ``torch.use_deterministic_algorithms(True)`` (this check only): the
+    final loss and every tensor of the state bit-equal."""
+    from repro_torch.configs import ShapeConfig, get_config, \
+        get_reduced_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.training import (Trainer, TrainerConfig,
+                                      init_train_state, make_train_step)
+
+    dev = torch.device("cuda")
+    arch, b, t, steps = TRAIN_CELL
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    opt = adamw(cosine(3e-4, 8, 1))
+    state = init_train_state(model, opt,
+                             torch.Generator(device=dev).manual_seed(0))
+    batch = make_pipeline(cfg, ShapeConfig("lm_train", t, b, "train"),
+                          seed=0).batch(0)
+    host = {n: p.detach().to("cpu", copy=True)
+            for n, p in state.params.named_parameters()}
+    step_fn = make_train_step(model, opt, n_micro=1)
+    rows = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, metrics), counts = counted(lambda: step_fn(state, batch))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if counts:
+            fail(f"lm_train step launched hand-written kernels: {counts}")
+        rows.append({"step": i + 1, "ms": ms,
+                     **{k: float(v) for k, v in metrics.items()}})
+    peak = torch.cuda.max_memory_allocated()
+    changed = {n: not torch.equal(p.detach().cpu(), host[n])
+               for n, p in state.params.named_parameters()}
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                 for r in rows)
+    if not finite or rows[-1]["loss"] >= rows[0]["loss"] or not all(
+            changed.values()):
+        fail(f"lm_train: steps {rows}, unchanged leaves "
+             f"{[n for n, c in changed.items() if not c]}")
+    steady = sorted(r["ms"] for r in rows[1:])[len(rows[1:]) // 2]
+    tokens = b * t
+    profiled = profile_call(torch, lambda: step_fn(state, batch))
+    emit({"phase": "lm_train", "arch": arch, "n_params": model.n_params,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "batch": b, "seq": t,
+          "optimizer": "adamw exact, cosine(3e-4, 8, 1), clip 1.0",
+          "steps": rows, "steady_step_ms": steady,
+          "tokens_per_s": tokens / steady * 1e3,
+          "model_flops_per_step": 6.0 * model.n_params * tokens,
+          "bf16_peak_share": 6.0 * model.n_params * tokens
+          / (steady * 1e-3) / PEAK_BF16_S,
+          "max_memory_allocated_gb": peak / 1e9,
+          "leaves_changed": f"{sum(changed.values())}/{len(changed)}",
+          "profiled_step_5": profiled, "nvidia_smi": nvidia_smi()})
+    del state, host, batch, metrics, model, step_fn
+    torch.cuda.empty_cache()
+
+    # (b) the restart, bit for bit, on the card
+    arch, b, t, total, ckpt_at = TRAIN_RESTART
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg)
+    pipe = make_pipeline(cfg, ShapeConfig("restart", t, b, "train"))
+    opt = adamw(cosine(3e-3, 10, 2))
+    quiet = dict(log_fn=lambda *_: None)
+    ckpt = ROOT / "build" / f"lm-train-ckpt-{os.getpid()}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    old_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        ref_state, ref = Trainer(model, opt, pipe, TrainerConfig(
+            total_steps=total, checkpoint_every=100, log_every=100),
+            **quiet).run()
+        Trainer(model, opt, pipe, TrainerConfig(
+            total_steps=ckpt_at, checkpoint_every=ckpt_at,
+            checkpoint_dir=str(ckpt), log_every=100), **quiet).run()
+        state, resumed = Trainer(model, opt, pipe, TrainerConfig(
+            total_steps=total, checkpoint_every=ckpt_at,
+            checkpoint_dir=str(ckpt), log_every=100), **quiet).run()
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_ws is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_ws
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ref_tree, tree = ref_state.tree(), state.tree()
+    unequal = [n for n, v in ref_tree.items() if not torch.equal(v, tree[n])]
+    if ref["loss"] != resumed["loss"] or unequal or state.step != total:
+        fail(f"lm_train restart: loss {ref['loss']} vs {resumed['loss']}, "
+             f"step {state.step}, unequal tensors {unequal[:8]}")
+    emit({"phase": "lm_train_restart", "arch": cfg.name, "batch": b,
+          "seq": t, "steps": total, "checkpoint_at": ckpt_at,
+          "final_loss": ref["loss"], "resumed_final_loss": resumed["loss"],
+          "tensors_bit_equal": len(ref_tree), "seconds": restart_s})
+
+
 SPECTRAL_CELL = ((4, 2048, 1024), 2048, (4096, 4, 6))
 SPECTRAL_MASK = (True, False, True, True, False, True)
 
@@ -1108,10 +1238,14 @@ def spectral_coded(torch, np, rng, counted, spin_rate) -> None:
 
     Checks: coded against the plain mixer (``torch.fft.rfft``) within
     max-abs 1e-3, the example's bound; the gradient of ``mean(y**2)``
-    with respect to the filter ``h`` through both within max-abs 1e-4.
-    Prints the ms of the
-    coded and plain mixers, medians of 7 windows (CUDA events), and one
-    profiled coded call (busy, idle, the largest kernels)."""
+    with respect to the filter ``h`` through both within max-abs 1e-4;
+    the gradient with respect to ``x`` (the plan run again on the
+    conjugated gradient) within 1e-4 of the plain mixer's largest entry,
+    its backward exactly ``cmatmul`` 2 and ``fourstep_fused`` 1 and no
+    ``torch.fft`` inside the plan.  Prints the ms of the coded and plain
+    mixers and of the x gradient's backward, medians of 7 windows (CUDA
+    events), and one profiled coded call (busy, idle, the largest
+    kernels)."""
     from repro_torch.core import CodedFFT
     from repro_torch.kernels import ops
     from repro_torch.models import spectral
@@ -1163,6 +1297,27 @@ def spectral_coded(torch, np, rng, counted, spin_rate) -> None:
         fail(f"spectral_coded: coded vs plain {err} (< 1e-3), filter "
              f"gradient {gerr} (< 1e-4)")
 
+    # the gradient with respect to x: the plan once more, on conj(g)
+    xg = x.clone().requires_grad_()
+    loss_x = (spectral.spectral_apply_coded(p, xg, plan, mask=mask)
+              ** 2).mean()
+    back = lambda: torch.autograd.grad(loss_x, xg, retain_graph=True)[0]
+    fft_calls.clear()
+    spectral._run_rows = run_rows
+    try:
+        gx, back_counts = counted(back)
+    finally:
+        spectral._run_rows = real_run
+    xp = x.clone().requires_grad_()
+    gx_plain = torch.autograd.grad((spectral.spectral_apply(p, xp) ** 2)
+                                   .mean(), xp)[0]
+    torch.cuda.synchronize()
+    xerr = float((gx - gx_plain).abs().max() / gx_plain.abs().max())
+    if back_counts != expect or fft_calls != [0] or not xerr < 1e-4:
+        fail(f"spectral_coded: x gradient launches {back_counts}, torch.fft "
+             f"calls inside the plan {fft_calls}, against the plain "
+             f"mixer's {xerr} (< 1e-4 of its largest entry)")
+
     def windows(fn):
         ts = sorted(time_ms(torch, fn, 5, spin_rate) for _ in range(7))
         return {"ms": ts[3], "ms_min": ts[0], "ms_max": ts[-1]}
@@ -1176,12 +1331,15 @@ def spectral_coded(torch, np, rng, counted, spin_rate) -> None:
           "torch_fft_calls_in_plan": sum(fft_calls),
           "coded_vs_plain_max_abs": err, "coded_vs_plain_tol": 1e-3,
           "filter_grad_max_abs": gerr, "filter_grad_tol": 1e-4,
+          "input_grad_launches": back_counts,
+          "input_grad_max_abs_rel": xerr, "input_grad_tol": 1e-4,
+          "input_grad_backward": windows(back),
           "coded": windows(lambda: coded(p)),
           "plain": windows(lambda: plain(p)),
           "profiled_coded": profile_call(torch, lambda: coded(p),
                                          track=FFT_KERNELS),
           "nvidia_smi": nvidia_smi()})
-    del x, y, y_plain, g_coded, g_plain, p
+    del x, y, y_plain, g_coded, g_plain, p, xg, loss_x, gx, gx_plain
     torch.cuda.empty_cache()
 
 
@@ -4294,6 +4452,12 @@ def main() -> int:
     spectral_coded(torch, np, rng, counted, spin_rate)
     emit({"phase": "encdec_spectral_done",
           "seconds": time.perf_counter() - t0})
+
+    # -- 14. the training core: gemma-2b at full width and depth, 4 steps
+    # of exact AdamW; then the bit-exact restart on reduced gemma-2b --
+    t0 = time.perf_counter()
+    lm_train(torch, counted)
+    emit({"phase": "lm_train_done", "seconds": time.perf_counter() - t0})
 
     for row in table:
         row["launches"] = (ms_launches.get((row["name"], row["mode"]), 0)

@@ -19,8 +19,12 @@ __all__ = [
     "MoESettings",
     "RWKVSettings",
     "RecurrentSettings",
+    "SHAPES",
+    "ShapeConfig",
+    "cell_runnable",
     "get_config",
     "get_reduced_config",
+    "iter_cells",
 ]
 
 
@@ -82,6 +86,7 @@ class ArchConfig:
     encoder_layers: int = 0        # enc-dec only
     num_prefix_tokens: int = 0     # vlm: SigLIP patch count (stub frontend)
     frontend: Optional[str] = None  # "audio_frames" | "vision_patches" | None
+    supports_long_context: bool = False
     kv_quant_decode: bool = False  # int8 KV for decode cells (memory fit)
     notes: str = ""
 
@@ -94,6 +99,21 @@ class ArchConfig:
         step = self.moe.interleave_step
         return tuple((i % step) == (step - 1) for i in range(self.n_layers))
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
@@ -124,3 +144,20 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def get_reduced_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).REDUCED
+
+
+def cell_runnable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is this (arch x shape) cell runnable, and why not if not."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full quadratic attention at 512k context "
+                       "(see DESIGN.md §4)")
+    return True, ""
+
+
+def iter_cells():
+    """All 40 (arch, shape) cells with runnability verdicts."""
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        for shape in SHAPES.values():
+            ok, reason = cell_runnable(cfg, shape)
+            yield arch_id, shape.name, ok, reason

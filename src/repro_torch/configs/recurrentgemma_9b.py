@@ -30,6 +30,7 @@ CONFIG = ArchConfig(
         conv_width=4,
         block_pattern=("rec", "rec", "attn"),
     ),
+    supports_long_context=True,
     notes="RG-LRU + local attn 1:2; window 2048",
 )
 

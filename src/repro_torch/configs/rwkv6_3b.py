@@ -18,6 +18,7 @@ CONFIG = ArchConfig(
     d_ff=8960,
     vocab_size=65536,
     rwkv=RWKVSettings(head_size=64, decay_lora=64, mix_lora=32),
+    supports_long_context=True,
 )
 
 REDUCED = dataclasses.replace(

@@ -27,6 +27,16 @@ measured input is the four-step's autotune table (``kernels/autotune.py``,
 one per device): ``fourstep_planar(variant=None)`` reads its variant and
 radix plan there, and routes by shape on a miss.
 
+No silent detachment: a kernel's output has no ``grad_fn``, so a loss
+that reached a kernel with an input that requires grad would train with
+a zero gradient and raise nothing.  Every entry here that launches a
+kernel raises ``RuntimeError`` on such an input while grad mode is on
+(the plain-torch glue and the direct executors differentiate as they
+are); a
+differentiable caller runs the kernels inside an
+``autograd.Function`` (whose forward and backward run without grad
+mode), as the coded spectral mixer does.
+
 Precision: ``fourstep_planar`` and the six bucket ops take
 ``precision="f32"`` or ``"bf16"`` (:func:`_plane_dtype`), as in the
 reference: bf16 builds the constant planes (DFT, twiddle, recombine,
@@ -42,6 +52,7 @@ error budget the service's probe holds bf16 to.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 
 import numpy as np
@@ -128,6 +139,24 @@ __all__ = [
     "irfft_message_planar",
     "irfft_unpack_planar",
 ]
+
+def _guarded(fn):
+    """``fn`` refusing a tensor input that requires grad while grad mode
+    is on (see the module docstring)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if torch.is_grad_enabled():
+            for a in itertools.chain(args, kwargs.values()):
+                if isinstance(a, torch.Tensor) and a.requires_grad:
+                    raise RuntimeError(
+                        f"ops.{fn.__name__}: an input requires grad, and a "
+                        f"kernel's output carries none; call it under "
+                        f"torch.no_grad() or inside an autograd.Function")
+        return fn(*args, **kwargs)
+
+    return wrapper
+
 
 # Largest dense DFT plane (elements) the two-factor four-step kernels
 # take.  A near-prime shard length factors as (1, L) and would need an
@@ -351,6 +380,7 @@ def fourstep_route(ell: int, *, variant: str | None = None,
     return variant, (a, b)
 
 
+@_guarded
 def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
                     variant: str | None = None, fused: bool | None = None,
                     factors=None, precision: str = "f32"):
@@ -414,6 +444,7 @@ def fourstep_planar(xr: torch.Tensor, xi: torch.Tensor, *,
             outi.transpose(-1, -2).reshape(batch, ell))
 
 
+@_guarded
 def fft_fourstep(x: torch.Tensor, *, fused: bool | None = None
                  ) -> torch.Tensor:
     """Batched FFT along the last axis via the four-step kernels.
@@ -432,6 +463,7 @@ def fft_fourstep(x: torch.Tensor, *, fused: bool | None = None
     return out[0] if squeeze else out
 
 
+@_guarded
 def mds_apply(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Kernel-backed ``G @ c`` for the MDS encode and decode apply.
 
@@ -489,6 +521,7 @@ def make_kernel_fftn_fn(nd: int):
 
 
 # -- stage route ---------------------------------------------------------
+@_guarded
 def encode_worker(cr: torch.Tensor, ci: torch.Tensor,
                   gr: torch.Tensor, gi: torch.Tensor):
     """Message planes -> coded worker spectra: ``B = fft(G @ c)``.
@@ -524,6 +557,7 @@ def encode_worker(cr: torch.Tensor, ci: torch.Tensor,
             bi_.transpose(-1, -2).reshape(q, n, ell))
 
 
+@_guarded
 def decode_apply(dr: torch.Tensor, di: torch.Tensor,
                  br: torch.Tensor, bi: torch.Tensor):
     """Per-request scatter decode matrices ``(q, m, N)`` applied to the
@@ -546,6 +580,7 @@ def lagrange_scatter_planes(subsets: torch.Tensor, n: int):
     return dr, di
 
 
+@_guarded
 def recombine_fused(c_hat: torch.Tensor, s: int) -> torch.Tensor:
     """Kernel-backed master recombination of one request: decoded
     ``(m, s/m)`` complex sub-transforms -> the ``(s,)`` spectrum, one
@@ -585,6 +620,7 @@ def check_stage_code(n: int, m: int, what: str, *,
             f"({err}) -- {item}") from None
 
 
+@_guarded
 def recombine_planar(cr: torch.Tensor, ci: torch.Tensor, s: int):
     """Batched master recombination on planes: (q, m, s/m) -> (q, s)."""
     q, m, ell = cr.shape
@@ -658,6 +694,7 @@ def _bucket_planes(s: int, m: int, device,
                         dtype))
 
 
+@_guarded
 def coded_bucket(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor,
                  di: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
                  s: int, *, precision: str = "f32"):
@@ -675,6 +712,7 @@ def coded_bucket(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor,
     return coded_fft_bucket(xr, xi, dr, di, gr, gi, *planes)
 
 
+@_guarded
 def coded_bucket_masked(xr: torch.Tensor, xi: torch.Tensor,
                         masks: torch.Tensor, gr: torch.Tensor,
                         gi: torch.Tensor, s: int, *,
@@ -761,6 +799,7 @@ def _irbucket_planes(s: int, m: int, device,
             *_on_device(_c2r_message_planes, (s, m), device, dtype))
 
 
+@_guarded
 def coded_rbucket_masked(xr: torch.Tensor, masks: torch.Tensor,
                          gr: torch.Tensor, gi: torch.Tensor, s: int, *,
                          precision: str = "f32"):
@@ -774,6 +813,7 @@ def coded_rbucket_masked(xr: torch.Tensor, masks: torch.Tensor,
                          _plane_dtype(precision)), s)
 
 
+@_guarded
 def coded_rbucket(xr: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
                   gr: torch.Tensor, gi: torch.Tensor, s: int, *,
                   precision: str = "f32"):
@@ -788,6 +828,7 @@ def coded_rbucket(xr: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
                          _plane_dtype(precision)), s)
 
 
+@_guarded
 def coded_irbucket_masked(yr: torch.Tensor, yi: torch.Tensor,
                           masks: torch.Tensor, gr: torch.Tensor,
                           gi: torch.Tensor, s: int, *,
@@ -802,6 +843,7 @@ def coded_irbucket_masked(yr: torch.Tensor, yi: torch.Tensor,
                           _plane_dtype(precision)), s)
 
 
+@_guarded
 def coded_irbucket(yr: torch.Tensor, yi: torch.Tensor, dr: torch.Tensor,
                    di: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
                    s: int, *, precision: str = "f32"):

@@ -1,5 +1,5 @@
-"""Whisper-style encoder-decoder (arXiv:2212.04356) for serving: family
-``encdec``.
+"""Whisper-style encoder-decoder (arXiv:2212.04356) for serving and
+training (:func:`encdec_loss`): family ``encdec``.
 
 The conv frontend is a stub, as in the JAX package: the encoder takes
 precomputed frame embeddings ``batch["frames"]`` (B, T, d_model).  Both
@@ -45,6 +45,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     sinusoidal_positions,
 )
+from repro_torch.models.losses import sharded_xent_loss
 from repro_torch.models.params import ParamModule, Spec
 
 __all__ = [
@@ -52,6 +53,7 @@ __all__ = [
     "ENC_CHUNK",
     "EncDec",
     "encdec_decode_step",
+    "encdec_loss",
     "encdec_prefill",
     "encdec_specs",
     "encode",
@@ -143,7 +145,7 @@ def _self_attn(p: ParamModule, xn: torch.Tensor, *, mode: str, cache=None,
     the new K/V, then stores them at slots 0..T-1; decode stores the one
     new token at ``step``, then attends over the whole cache."""
     q, (k, v) = _proj(xn, p.wq), _kv(p, xn)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         out = chunked_attention(q, k, v, causal=True, chunk=ENC_CHUNK)
         if cache is not None:
             t = xn.shape[1]
@@ -239,13 +241,17 @@ def _layer_cache(cache: dict, i: int) -> dict:
 def _decoder(params: EncDec, tokens: torch.Tensor, cache: dict, *, mode: str,
              enc_out=None, step=None):
     """The decoder stack on ``tokens`` (B, S) at positions 0..S-1
-    (prefill, cross K/V from ``enc_out``) or at ``step`` (decode, cross
+    (train, no cache, or prefill; cross K/V from ``enc_out``) or at
+    ``step`` (decode, cross
     K/V from the cache); ``dec_ln_post`` applied.  Returns the hidden
     states and, in prefill, the new cross K/V ``{"k", "v"}`` (layers, B,
     T_enc, KH, hd) in the cache's dtype."""
     x = params.embed[tokens.long()]
-    c_len = cache["self"]["k"].shape[2]
-    if mode == "prefill":
+    cross = None
+    if mode == "train":
+        pos = sinusoidal_positions(x.shape[1], x.shape[2], device=x.device)
+    elif mode == "prefill":
+        c_len = cache["self"]["k"].shape[2]
         t = x.shape[1]
         if t > c_len:
             raise ValueError(f"a prompt of {t} tokens does not fit the "
@@ -258,23 +264,24 @@ def _decoder(params: EncDec, tokens: torch.Tensor, cache: dict, *, mode: str,
                                  dtype=kc.dtype, device=kc.device)
                  for kv in ("k", "v")}
     elif mode == "decode":
-        if step >= c_len:
+        if step >= cache["self"]["k"].shape[2]:
             # the reference's dynamic_slice/dynamic_update_slice would
             # clamp the position and the write onto the last slot
-            raise ValueError(f"decode step {step} past the cache's {c_len} "
-                             f"slots")
+            raise ValueError(f"decode step {step} past the cache's "
+                             f"{cache['self']['k'].shape[2]} slots")
         pos = sinusoidal_positions(1, x.shape[2], start=step, device=x.device)
-        cross = None
     else:
-        raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
     x = x + pos.to(x.dtype)
     for i, layer in enumerate(params.dec_layers):
-        if mode == "prefill":
-            ck, cv = layer.cross_kv(enc_out)
-            cross["k"][i], cross["v"][i] = ck, cv
-        else:
+        if mode == "decode":
             ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
-        x = layer(x, ck, cv, mode=mode, cache=_layer_cache(cache, i),
+        else:
+            ck, cv = layer.cross_kv(enc_out)
+            if mode == "prefill":
+                cross["k"][i], cross["v"][i] = ck, cv
+        x = layer(x, ck, cv, mode=mode,
+                  cache=None if cache is None else _layer_cache(cache, i),
                   step=step)
     return _ln_apply(params.dec_ln_post, x), cross
 
@@ -299,6 +306,21 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, cache_len, *,
     return {part: {"k": zeros(), "v": zeros()} for part in ("self", "cross")}
 
 
+def encdec_loss(params: EncDec, batch: dict):
+    """Encode ``batch["frames"]`` (cast to the weights' dtype), then the
+    mean next-token cross-entropy of the decoder on ``batch["tokens"]``
+    against ``batch["labels"]`` through the tied head.  Returns (loss,
+    {"xent"})."""
+    enc_out = encode(params, batch["frames"])
+    x, _ = _decoder(params, batch["tokens"], None, mode="train",
+                    enc_out=enc_out)
+    loss_sum, count = sharded_xent_loss(x, params.embed.T, batch["labels"],
+                                        mask=batch.get("mask"))
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss, {"xent": loss}
+
+
+@torch.no_grad()
 def encdec_prefill(params: EncDec, batch: dict, cache: dict):
     """Encode ``batch["frames"]`` (B, T_enc, D), then prefill
     ``batch["tokens"]`` (B, T) into ``cache``'s self K/V (in place).
@@ -310,6 +332,7 @@ def encdec_prefill(params: EncDec, batch: dict, cache: dict):
     return _head(params, x[:, -1:]), dict(cache, cross=cross)
 
 
+@torch.no_grad()
 def encdec_decode_step(params: EncDec, cache: dict, batch: dict, step):
     """One decode step: ``batch["tokens"]`` (B, 1) at absolute position
     ``step`` (an int).  Returns (B, 1, V) f32 logits and the cache."""

@@ -9,9 +9,10 @@ named; an ``embed`` at scale 1), or zeros, or ones.  The draws are
 torch's, so a same-seed init differs from the JAX package's:
 ``convert.rwkv_params_from_reference`` carries its weights across.
 
-The port serves and does not train yet, so parameters are created with
-``requires_grad=False``.  One device needs no sharding: the reference's
-logical axes stay out.
+Parameters are created with ``requires_grad=False``, so serving builds
+no autograd graph; ``training.init_train_state`` turns them on.  One
+device needs no sharding: the reference's logical axes stay out, and
+with them ``param_pspecs`` (sharded training is another step).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["ParamModule", "Spec", "count_params", "init_params"]
+__all__ = ["ParamModule", "Spec", "abstract_params", "count_params",
+           "init_params", "tree_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,28 @@ def _leaves(tree):
 def count_params(tree) -> int:
     """Elements of every Spec in a tree of dicts and lists."""
     return sum(math.prod(s.shape) for s in _leaves(tree))
+
+
+def _map(tree, fn):
+    if isinstance(tree, Spec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return [_map(v, fn) for v in tree]
+
+
+def abstract_params(tree, dtype: torch.dtype = torch.bfloat16):
+    """The Spec tree as ``device="meta"`` tensors (shape and dtype, no
+    storage): the reference's ShapeDtypeStruct mirror.  ``dtype`` is the
+    model's, for Specs that name none."""
+    return _map(tree, lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                            device="meta"))
+
+
+def tree_bytes(tree, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of every Spec in the tree (``dtype`` for those naming none)."""
+    return sum(math.prod(s.shape) * (s.dtype or dtype).itemsize
+               for s in _leaves(tree))
 
 
 class ParamModule(nn.Module):

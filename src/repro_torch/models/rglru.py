@@ -1,5 +1,5 @@
-"""Griffin / RecurrentGemma hybrid (arXiv:2402.19427) for serving:
-family ``hybrid``.
+"""Griffin / RecurrentGemma hybrid (arXiv:2402.19427) for serving and
+training: family ``hybrid``.
 
 Temporal-mixing layers follow the config's ``block_pattern`` (rec, rec,
 attn), repeated, then a tail of the pattern's first kinds (38 layers of
@@ -8,7 +8,8 @@ recurrentgemma-9b = 12 x (rec, rec, attn) + 2 rec):
 * recurrent block: GeLU(x W_gate) * RG-LRU(conv1d(x W_in)) -> W_out
   - RG-LRU: a_t = exp(-c softplus(lam) r_t), r_t = sigmoid(x W_a + b_a),
     i_t = sigmoid(x W_x + b_x), h_t = a_t h_{t-1} + sqrt(1 - a_t^2)
-    (i_t x_t); in prefill a Hillis-Steele doubling scan over time
+    (i_t x_t); in prefill and training a Hillis-Steele doubling scan
+    over time
     (log2(T) elementwise passes), in decode one step;
   - causal depthwise conv1d (width 4) with a history of W-1 steps;
 * local-attention block: the transformer's ``attn_apply`` (sliding
@@ -37,6 +38,7 @@ from torch import nn
 from repro_torch.configs import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.layers import mlp_apply, rms_norm, rotary_cos_sin
+from repro_torch.models.losses import sharded_xent_loss
 from repro_torch.models.params import ParamModule, Spec
 
 __all__ = [
@@ -44,6 +46,7 @@ __all__ = [
     "TemporalLayer",
     "doubling_scan",
     "griffin_decode_step",
+    "griffin_loss",
     "griffin_prefill",
     "griffin_specs",
     "init_griffin_state",
@@ -254,6 +257,21 @@ def _stack(params: Griffin, x, state, mode, step):
     return x
 
 
+def griffin_loss(params: Griffin, batch: dict):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` through the stack without state (the RG-LRU's
+    doubling scan, attention in ``train`` mode) and the tied head.
+    Returns (loss, {"xent"})."""
+    x = transformer.embed_tokens(params, batch["tokens"])
+    x = _stack(params, x, None, "train", None)
+    x = rms_norm(x, params.final_norm.w)
+    loss_sum, count = sharded_xent_loss(x, params.embed.T, batch["labels"],
+                                        mask=batch.get("mask"))
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss, {"xent": loss}
+
+
+@torch.no_grad()
 def griffin_prefill(params: Griffin, batch: dict, state: list):
     """Prefill ``batch["tokens"]`` (B, T) into ``state``.  Returns the last
     position's logits (B, 1, V) f32 and the state."""
@@ -263,6 +281,7 @@ def griffin_prefill(params: Griffin, batch: dict, state: list):
     return transformer.bf16_logits(x, params.embed.T), state
 
 
+@torch.no_grad()
 def griffin_decode_step(params: Griffin, state: list, batch: dict, step):
     """One decode step: ``batch["tokens"]`` (B, 1) at absolute position
     ``step`` (an int).  Returns (B, 1, V) f32 logits and the state."""

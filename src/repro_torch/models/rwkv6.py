@@ -11,7 +11,10 @@ DDLerp token-shift mixing for the r/k/v/w/g projections.
 
 The prefill runs the WKV of every layer on one launch of the ``wkv``
 kernel (``kernels/wkv.py``): f32 r/k/v/logw, T padded to a multiple of 8
-with zeros.  Decode is the exact single-step recurrence in torch ops.
+with zeros.  Decode is the exact single-step recurrence in torch ops.  Training
+(:func:`rwkv_loss`) runs the WKV as the reference trains it, through the
+chunked parallel form ``wkv_chunked`` in torch ops, which autograd
+differentiates; the kernel has no backward.
 The projections and the head are plain matrix products in the model
 dtype (bf16 on the card) with the reference's f32 islands: the WKV
 inputs and the decay, the group norm, the head's f32 accumulation and
@@ -39,6 +42,7 @@ __all__ = [
     "TimeMix",
     "init_rwkv_state",
     "rwkv_decode_step",
+    "rwkv_loss",
     "rwkv_prefill",
     "rwkv_specs",
     "wkv_chunked",
@@ -244,8 +248,13 @@ class TimeMix(ParamModule):
                 "bhk,bhv->bhkv", kt, vt)
         elif mode == "prefill":
             o, new_state = _wkv_prefill(r, k, v, logw, u, state)
+        elif mode == "train":
+            # the kernel has no backward: training runs the reference's
+            # chunked form, as the reference trains
+            o, new_state = wkv_chunked(r, k, v, logw, u, state)
         else:
-            raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+            raise ValueError(f"unknown mode {mode!r} (train | prefill | "
+                             f"decode)")
 
         # per-head group norm == layer norm over each head's slice
         mu = o.mean(-1, keepdim=True)
@@ -349,6 +358,23 @@ def _head(params: RWKV6, x):
     return logits.reshape(*x.shape[:-1], -1)
 
 
+def rwkv_loss(params: RWKV6, batch: dict):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` from a zero state, the WKV through
+    ``wkv_chunked``.  Returns (loss, {"xent"})."""
+    from repro_torch.models.losses import sharded_xent_loss
+
+    x = _embed(params, batch["tokens"])
+    state = init_rwkv_state(params.cfg, x.shape[0], x.device)
+    x, _ = _stack_forward(params, x, state, "train")
+    x = layer_norm(x, params.final_norm.w, params.final_norm.b)
+    loss_sum, count = sharded_xent_loss(x, params.unembed, batch["labels"],
+                                        mask=batch.get("mask"))
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss, {"xent": loss}
+
+
+@torch.no_grad()
 def rwkv_prefill(params: RWKV6, batch: dict, state: dict):
     """Prefill ``batch["tokens"]`` (B, T) from ``state``.  Returns the last
     position's logits (B, 1, V) f32 and the new state."""
@@ -357,6 +383,7 @@ def rwkv_prefill(params: RWKV6, batch: dict, state: dict):
     return _head(params, x[:, -1:]), new_state
 
 
+@torch.no_grad()
 def rwkv_decode_step(params: RWKV6, state: dict, batch: dict):
     """One token (B, 1) through the exact recurrence (position-free).
     Returns (B, 1, V) logits and the new state."""

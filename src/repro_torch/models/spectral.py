@@ -10,12 +10,14 @@ the linearity of the DFT (paper §III-B).
 
 The JAX package's ``models/spectral.py``.  The filter's own transforms
 and the inverse transform are ``torch.fft``, outside any kernel, where
-the reference uses ``jnp.fft``.  Gradients flow to the filter (``h``,
-``decay``, ``skip``) through those platform FFTs only; a gradient with
-respect to ``x`` through the coded plan needs backward entries of its
-kernels, which the port does not have yet (ROADMAP.md, Queue 1, item 10):
-:func:`spectral_apply_coded` refuses an ``x`` that requires one.
-Parameters are a dict of tensors, as ``decaying_filter_init`` makes.
+the reference uses ``jnp.fft``; the filter's gradients (``h``,
+``decay``, ``skip``) flow through them.  The gradient with respect to
+``x`` runs the coded plan once more: the plan computes the length-s DFT
+F whatever the responders, F is symmetric, so its adjoint is ``F^H g =
+conj(F conj(g))`` -- the forward's kernels (the ``cmatmul`` encode and
+decode, one worker pass) on the conjugated gradient, with the same
+responders.  Parameters are a dict of tensors, as
+``decaying_filter_init`` makes.
 """
 
 from __future__ import annotations
@@ -115,19 +117,31 @@ def _run_rows(plan: CodedFFT, rows: torch.Tensor,
     return plan.postdecode(c_hat.transpose(0, 1))
 
 
+class _CodedRows(torch.autograd.Function):
+    """:func:`_run_rows` with its adjoint: the backward is the same plan
+    on ``conj(g)``, conjugated (``F^H g = conj(F conj(g))``)."""
+
+    @staticmethod
+    def forward(ctx, rows, plan, mask):
+        ctx.plan, ctx.mask = plan, mask
+        return _run_rows(plan, rows, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.no_grad():
+            out = _run_rows(ctx.plan, torch.conj_physical(g), ctx.mask)
+        return torch.conj_physical(out), None, None
+
+
 def spectral_apply_coded(p: dict, x: torch.Tensor, plan: CodedFFT,
                          mask: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """The same mixer with the forward sequence FFT under the coded plan:
     each (batch, channel) row, zero-padded to ``plan.s`` points, is one
     transform request, and all B * D of them go through the plan at once
-    (:func:`_run_rows`), responders picked by the shared ``mask`` (N,).
-    Returns (B, S, D) in ``x``'s dtype."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the gradient with respect to x through the coded plan needs "
-            "backward entries of its kernels (ROADMAP.md, Queue 1, item 10, "
-            "training)")
+    (:func:`_run_rows`), responders picked by the shared ``mask`` (N,);
+    the gradient with respect to ``x`` runs them through the plan again
+    (:class:`_CodedRows`).  Returns (B, S, D) in ``x``'s dtype."""
     b, s, d = x.shape
     h = _effective_filter(p, p["h"].shape[-1])
     n = plan.s
@@ -136,7 +150,7 @@ def spectral_apply_coded(p: dict, x: torch.Tensor, plan: CodedFFT,
                          f"{s + h.shape[-1]} points")
     rows = x.to(torch.complex64).movedim(1, -1).reshape(b * d, s)
     rows = F.pad(rows, (0, n - s))
-    xf = _run_rows(plan, rows, mask).reshape(b, d, n)    # coded FFT
+    xf = _CodedRows.apply(rows, plan, mask).reshape(b, d, n)   # coded FFT
     hf = torch.fft.fft(h, n=n, dim=-1)[None]             # (1, D, n)
     y = torch.fft.ifft(xf * hf, dim=-1).real[..., :s]    # (B, D, S)
     return (y.movedim(1, -1) + _skip(p, x)).to(x.dtype)

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM for serving: families ``dense``, ``moe``
+"""Decoder-only transformer LM for serving and training (:func:`lm_loss`):
+families ``dense``, ``moe``
 (the MoE FFN of ``models/moe.py`` on the layers ``moe_layer_flags``
 marks) and ``vlm`` (a prefix-LM over stub patch embeddings on the same
 stack).
@@ -42,6 +43,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rotary_cos_sin,
 )
+from repro_torch.models.losses import sharded_xent_loss
 from repro_torch.models.params import ParamModule, Spec
 
 __all__ = [
@@ -54,6 +56,7 @@ __all__ = [
     "embed_tokens",
     "init_kv_cache",
     "lm_decode_step",
+    "lm_loss",
     "lm_prefill",
     "norm_apply",
     "transformer_specs",
@@ -171,8 +174,8 @@ def attn_apply(p: ParamModule, cfg: ArchConfig, x: torch.Tensor,
     """Self-attention of (B, S, D) ``x`` (a sliding window where the
     config sets ``attn_window``).  ``cache``: this layer's
     ``{"k": ..., "v": ...}`` (each (B, C, KH, hd) or a QuantKV), written
-    in place; ``mode`` prefill (attend over the new K/V, then store them)
-    or decode (store the one new token at ``step``, then attend over the
+    in place; ``mode`` train (attend over the new K/V, no cache), prefill
+    (the same, then store them) or decode (store the one new token at ``step``, then attend over the
     whole cache)."""
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     k = torch.einsum("bsd,dhk->bshk", x, p.wk)
@@ -183,11 +186,11 @@ def attn_apply(p: ParamModule, cfg: ArchConfig, x: torch.Tensor,
     k = apply_rotary(k, cos, sin)
 
     s, window = x.shape[1], cfg.attn_window
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         out = chunked_attention(q, k, v, causal=True, window=window,
                                 prefix_len=prefix_len, chunk=ATTN_CHUNK,
                                 logit_cap=cfg.logit_cap)
-        if cache is not None:
+        if mode == "prefill" and cache is not None:
             c_len = _cache_len(cache)
             if c_len >= s:
                 _write(cache["k"], k, slice(0, s))
@@ -218,7 +221,8 @@ def attn_apply(p: ParamModule, cfg: ArchConfig, x: torch.Tensor,
             kv_positions=kv_pos, chunk=min(2048, c_len),
             logit_cap=cfg.logit_cap)
     else:
-        raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | "
+                         f"decode)")
     return torch.einsum("bshk,hkd->bsd", out, p.wo)
 
 
@@ -383,6 +387,29 @@ def init_kv_cache(cfg: ArchConfig, batch_size: int, cache_len, *,
     return {"k": one(), "v": one()}
 
 
+def lm_loss(params: Transformer, batch: dict):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (B, T) (``batch["mask"]`` where given; the vlm's
+    ``patches`` prefix attended but dropped before the loss), plus
+    ``0.01 * aux / n_layers`` for the MoE family.  Returns (loss, {"xent",
+    "aux"})."""
+    cfg = params.cfg
+    embeds, prefix_len = _prep_embeds(params, batch)
+    hidden, aux = decoder_hidden(params, embeds, mode="train",
+                                 prefix_len=prefix_len, with_aux=True)
+    if prefix_len:
+        hidden = hidden[:, prefix_len:]
+    loss_sum, count = sharded_xent_loss(
+        hidden, unembed_matrix(params), batch["labels"],
+        mask=batch.get("mask"), logit_divisor=cfg.logit_divisor)
+    xent = loss_sum / torch.clamp(count, min=1.0)
+    loss = xent
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"xent": xent, "aux": aux}
+
+
+@torch.no_grad()
 def lm_prefill(params: Transformer, batch: dict, cache: dict):
     """Prefill ``batch["tokens"]`` (B, T) (after ``batch["patches"]`` for
     the vlm) into ``cache``.  Returns the last position's logits (B, 1,
@@ -393,6 +420,7 @@ def lm_prefill(params: Transformer, batch: dict, cache: dict):
     return _head(params, hidden[:, -1:]), cache
 
 
+@torch.no_grad()
 def lm_decode_step(params: Transformer, cache: dict, batch: dict, step):
     """One decode step: ``batch["tokens"]`` (B, 1) at absolute position
     ``step`` (an int).  Returns (B, 1, V) f32 logits and the cache."""

@@ -16,6 +16,13 @@ with 8 taps and ``CodedFFT(s=64, m=4, n_workers=6)``:
 * the gradients of ``mean(y**2)`` with respect to ``h``, ``decay`` and
   ``skip``, through the port's plain and coded mixers, against
   ``jax.grad`` of the JAX mixer, within 1e-5;
+* the gradient with respect to ``x`` (and the filter) through the coded
+  mixer at (2, 16, 8), with workers 1 and 4 down and with no mask,
+  against ``jax.grad`` of the JAX coded mixer, within 1e-5; its
+  backward one more pass through the plan (two ``mds_apply``, one
+  worker call, no ``torch.fft``), equal to the plain mixer's gradient;
+* every kernel entry of ``kernels/ops.py`` refusing an input that
+  requires grad while grad mode is on;
 * the coded path's structure: one encode ``mds_apply``, one worker call
   and one decode ``mds_apply`` for all B * D rows, and no ``torch.fft``
   call inside the plan.
@@ -127,6 +134,90 @@ def test_filter_gradients_match_jax(jx, mixer):
             assert _rel(g, want[name]) < TOL, name
 
 
+@pytest.mark.parametrize("masked", [True, False])
+def test_input_gradient_matches_jax(jx, mixer, masked):
+    """d mean(y**2) / d (x, h, decay, skip) through the coded mixer at the
+    probe's (2, 16, 8) with 8 taps, workers 1 and 4 of 6 down or none,
+    against ``jax.grad`` of the JAX coded mixer (the Pallas kernels in
+    interpret mode), within 1e-5 of each gradient's largest entry."""
+    jax, jnp = jx["jax"], jx["jnp"]
+    x = np.random.default_rng(3).standard_normal((B, 16, D)).astype(
+        np.float32)
+    jplan = jx["CodedFFT"](s=PLAN_S, m=4, n_workers=6)
+    jmask = jnp.asarray(MASK) if masked else None
+    want = jax.grad(lambda xx, pp: (jx["spectral"].spectral_apply_coded(
+        pp, xx, jplan, mask=jmask) ** 2).mean(), argnums=(0, 1))(
+            jnp.asarray(x), mixer["jp"])
+    p = {k: v.clone().requires_grad_() for k, v in mixer["tp"].items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tsp.spectral_apply_coded(p, xt, _plan(),
+                                 mask=torch.tensor(MASK) if masked else None)
+    got = torch.autograd.grad((y ** 2).mean(),
+                              [xt, p["h"], p["decay"], p["skip"]])
+    assert _rel(got[0], want[0]) < TOL
+    for name, g in zip(("h", "decay", "skip"), got[1:]):
+        assert _rel(g, want[1][name]) < TOL, name
+
+
+def test_input_gradient_runs_the_plan_again(monkeypatch, mixer):
+    """The backward of the coded mixer is one more pass through the plan,
+    under the forward's stragglers: one encode and one decode
+    ``mds_apply``, one worker call, no ``torch.fft`` inside the plan; its
+    gradient equals the plain mixer's."""
+    calls = {"mds_apply": 0, "fft_fourstep": 0, "torch.fft": 0}
+    for name in ("mds_apply", "fft_fourstep"):
+        real = getattr(ops, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(ops, name, counted)
+    x = mixer["x"].clone().requires_grad_()
+    y = tsp.spectral_apply_coded(mixer["tp"], x, _plan(),
+                                 mask=torch.tensor(MASK))
+    loss = (y ** 2).mean()
+    forward = dict(calls)
+    real_fft = torch.fft.fft
+
+    def fft_in_plan(*a, **k):
+        calls["torch.fft"] += 1
+        return real_fft(*a, **k)
+
+    real_run = tsp._run_rows
+
+    def run_rows(*a):
+        monkeypatch.setattr(torch.fft, "fft", fft_in_plan)
+        try:
+            return real_run(*a)
+        finally:
+            monkeypatch.setattr(torch.fft, "fft", real_fft)
+
+    monkeypatch.setattr(tsp, "_run_rows", run_rows)
+    gx, = torch.autograd.grad(loss, x)
+    back = {k: calls[k] - forward[k] for k in calls}
+    assert forward == {"mds_apply": 2, "fft_fourstep": 1, "torch.fft": 0}
+    assert back == {"mds_apply": 2, "fft_fourstep": 1, "torch.fft": 0}
+    xp = mixer["x"].clone().requires_grad_()
+    gp, = torch.autograd.grad((tsp.spectral_apply(mixer["tp"], xp) ** 2)
+                              .mean(), xp)
+    assert _rel(gx, gp.numpy()) < TOL
+
+
+def test_kernel_entries_refuse_an_input_that_requires_grad():
+    """A kernel's output has no grad_fn: an ops entry given an input that
+    requires grad raises while grad mode is on, and runs without it."""
+    g = torch.randn(6, 4, dtype=torch.complex64)
+    c = torch.randn(4, 32, dtype=torch.complex64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.mds_apply(g, c)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.fft_fourstep(c)
+    with torch.no_grad():
+        out = ops.mds_apply(g, c)
+    assert torch.allclose(out, g @ c.detach(), rtol=1e-5, atol=1e-5)
+
+
 def test_coded_rows_go_through_the_plan_once(monkeypatch, mixer):
     """All B * D rows in one pass: the encode's and the decode's
     ``mds_apply`` (the ``cmatmul`` launches on the card) and one worker
@@ -182,8 +273,12 @@ def test_coded_mixer_refusals(mixer):
                                  CodedFFT(s=16, m=4, n_workers=6,
                                           device="cpu"))
     x = mixer["x"].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="training"):
-        tsp.spectral_apply_coded(mixer["tp"], x, _plan())
+    y = tsp.spectral_apply_coded(mixer["tp"], x, _plan())
+    gx, = torch.autograd.grad((y ** 2).mean(), x)
+    xp = mixer["x"].clone().requires_grad_()
+    gp, = torch.autograd.grad((tsp.spectral_apply(mixer["tp"], xp) ** 2)
+                              .mean(), xp)
+    assert _rel(gx, gp.numpy()) < TOL
     with torch.no_grad():
         tsp.spectral_apply_coded(mixer["tp"], x, _plan())
 

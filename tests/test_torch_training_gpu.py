@@ -1,0 +1,128 @@
+"""The port's training step and the coded mixer's input gradient on the
+card (marker ``gpu``, skipped without a CUDA device; no JAX import, so
+the file runs where only torch is installed).
+
+* One ``make_train_step`` step (exact AdamW) of every family's reduced
+  config with f32 weights and TF32 off, on the card against the same
+  weights and batch on the CPU (which ``tests/test_torch_training.py``
+  and ``tests/test_torch_losses.py`` hold against the JAX package),
+  with the loss head and RWKV-6's WKV streams in f32 as those tests
+  hold them: the loss and the grad norm within 1e-4, every gradient
+  within 1e-4 of its largest entry (RWKV-6 1e-3, its group norm, as
+  against JAX), and AdamW's update on the card from the CPU's
+  gradients within 1e-5 of the CPU's.  (The updated parameters are not
+  compared after each device's own gradients: AdamW's first step moves
+  a parameter by about lr * sign(g), so a gradient within the two
+  devices' rounding of zero moves it by 2 lr on one and not the other.)
+* the coded spectral mixer's gradient with respect to ``x`` on a CUDA
+  plan (``CodedFFT(s=256, m=4, n_workers=6)``, workers 1 and 4 down) at
+  (2, 96, 32), 32 taps: the backward launches exactly two ``cmatmul``
+  and one ``fourstep_fused``, and the gradient is within 1e-5 of the
+  plain ``torch.fft`` mixer's on the card.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ShapeConfig, get_reduced_config
+from repro_torch.core import CodedFFT
+from repro_torch.data import make_pipeline
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models import build_model
+from repro_torch.models import losses as tlosses
+from repro_torch.models import rwkv6 as trwkv
+from repro_torch.models import spectral as tsp
+from repro_torch.models.params import init_params
+from repro_torch.optim import adamw, cosine
+from repro_torch.optim.grad_utils import accumulate_grads
+from repro_torch.training import TrainState, make_train_step
+
+ARCHS = ("gemma-2b", "paligemma-3b", "dbrx-132b", "rwkv6-3b",
+         "recurrentgemma-9b", "whisper-medium")
+
+
+def _rel(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                1e-30))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gpu_train_step_matches_cpu(cuda, arch, monkeypatch):
+    # f32 head and WKV streams: bf16 rounding points would turn the two
+    # devices' last-bit differences into bf16 steps
+    monkeypatch.setattr(tlosses, "HEAD_DTYPE", torch.float32)
+    monkeypatch.setattr(trwkv, "wkv_chunked", functools.partial(
+        trwkv.wkv_chunked, stream_dtype=torch.float32))
+    cfg = get_reduced_config(arch)
+    if cfg.moe is not None:      # capacity for every token: nothing drops
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    opt = adamw(cosine(3e-3, 10, 2))
+    shape = ShapeConfig("t", 24, 4, "train")
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        model = build_model(cfg, dtype=torch.float32, device=dev)
+        params = model.make_params()
+        if not runs:
+            init_params(params, torch.Generator().manual_seed(0))
+            init = {k: v.clone() for k, v in params.state_dict().items()}
+        else:                        # the CPU's initial values, carried
+            params.load_state_dict(init)
+        params.requires_grad_(True)
+        batch = make_pipeline(cfg, shape, seed=2, device=dev).batch(0)
+        state = TrainState(step=0, params=params, opt_state=opt.init(params))
+        _, metrics = make_train_step(model, opt)(state, batch)
+        params.load_state_dict(init)
+        _, _, grads = accumulate_grads(model.loss, params, batch, 1)
+        runs.append((model, params, {k: float(v) for k, v in metrics.items()},
+                     grads))
+    (_, p_cpu, m_cpu, g_cpu), (_, p_gpu, m_gpu, g_gpu) = runs
+    for k in ("loss", "grad_norm"):
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]), k
+    tol = 1e-3 if arch == "rwkv6-3b" else 1e-4
+    for name, g in g_cpu.items():
+        assert _rel(g_gpu[name], g) < tol, name
+    # the AdamW update on the card from the CPU's gradients
+    for params, grads in ((p_cpu, g_cpu), (p_gpu, {
+            k: v.to(cuda) for k, v in g_cpu.items()})):
+        opt.update(params, grads, opt.init(params), 0)
+    for (name, want), got in zip(p_cpu.named_parameters(),
+                                 p_gpu.parameters()):
+        assert _rel(got.detach(), want.detach()) < 1e-5, name
+
+
+@pytest.mark.gpu
+def test_gpu_coded_mixer_input_gradient(cuda):
+    b, s, d, taps = 2, 96, 32, 32
+    p = tsp.decaying_filter_init(torch.Generator(device=cuda).manual_seed(0),
+                                 d, taps, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (b, s, d)).astype(np.float32)).to(cuda)
+    plan = CodedFFT(s=256, m=4, n_workers=6)
+    mask = torch.tensor([True, False, True, True, False, True], device=cuda)
+    xc = x.clone().requires_grad_()
+    loss = (tsp.spectral_apply_coded(p, xc, plan, mask=mask) ** 2).mean()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gx, = torch.autograd.grad(loss, xc)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"cmatmul": 2, "fourstep_fused": 1}
+    xp = x.clone().requires_grad_()
+    gp, = torch.autograd.grad((tsp.spectral_apply(p, xp) ** 2).mean(), xp)
+    assert _rel(gx, gp) < 1e-5
