@@ -72,14 +72,14 @@ F32 = torch.float32
 # --------------------------------------------------------------------------
 def _ln(cfg: ArchConfig) -> dict:
     d = cfg.d_model
-    return {"w": Spec((d,), init="ones", dtype=F32),
-            "b": Spec((d,), init="zeros", dtype=F32)}
+    return {"w": Spec((d,), (None,), init="ones", dtype=F32),
+            "b": Spec((d,), (None,), init="zeros", dtype=F32)}
 
 
 def _mlp_bias_specs(cfg: ArchConfig) -> dict:
     sp = transformer._mlp_specs(cfg)
-    sp["bi"] = Spec((cfg.d_ff,), init="zeros")
-    sp["bo"] = Spec((cfg.d_model,), init="zeros")
+    sp["bi"] = Spec((cfg.d_ff,), ("p_mlp",), init="zeros")
+    sp["bo"] = Spec((cfg.d_model,), (None,), init="zeros")
     return sp
 
 
@@ -101,7 +101,8 @@ def encdec_specs(cfg: ArchConfig) -> dict:
         raise ValueError(f"{cfg.name}: the encoder-decoder needs n_kv_heads "
                          f"and head_dim")
     return {
-        "embed": Spec((cfg.vocab_size, cfg.d_model), init="embed"),
+        "embed": Spec((cfg.vocab_size, cfg.d_model), ("p_vocab", "p_fsdp"),
+                      init="embed"),
         "enc_ln_post": _ln(cfg),
         "dec_ln_post": _ln(cfg),
         "enc_layers": [_enc_layer(cfg) for _ in range(cfg.encoder_layers)],

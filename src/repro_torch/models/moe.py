@@ -73,16 +73,18 @@ def moe_layer_specs(d_model: int, moe: MoESettings) -> dict:
     the always-on shared expert where ``num_shared_experts`` is set."""
     e, f = moe.num_experts, moe.d_ff_expert
     sp = {
-        "router": Spec((d_model, e), dtype=F32),
-        "wi": Spec((e, d_model, f)),
-        "wg": Spec((e, d_model, f)),
-        "wo": Spec((e, f, d_model)),
+        "router": Spec((d_model, e), ("p_fsdp", "p_none"), dtype=F32),
+        # expert parallelism over "model" (p_experts); the expert-internal
+        # ff axis must then stay off "model" (p_expert_mlp)
+        "wi": Spec((e, d_model, f), ("p_experts", "p_fsdp", "p_expert_mlp")),
+        "wg": Spec((e, d_model, f), ("p_experts", "p_fsdp", "p_expert_mlp")),
+        "wo": Spec((e, f, d_model), ("p_experts", "p_expert_mlp", "p_fsdp")),
     }
     if moe.num_shared_experts:
         fs = f * moe.num_shared_experts
-        sp["shared_wi"] = Spec((d_model, fs))
-        sp["shared_wg"] = Spec((d_model, fs))
-        sp["shared_wo"] = Spec((fs, d_model))
+        sp["shared_wi"] = Spec((d_model, fs), ("p_fsdp", "p_mlp"))
+        sp["shared_wg"] = Spec((d_model, fs), ("p_fsdp", "p_mlp"))
+        sp["shared_wo"] = Spec((fs, d_model), ("p_mlp", "p_fsdp"))
     return sp
 
 

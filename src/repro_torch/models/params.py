@@ -1,18 +1,24 @@
-"""Parameter descriptors: shape, init and dtype of every parameter.
+"""Parameter descriptors: shape, logical sharding axes, init and dtype
+of every parameter.
 
 A model lists its parameters as :class:`Spec` trees (nested dicts and
 lists); :class:`ParamModule` materialises one flat dict of them as the
-parameters of an ``nn.Module``, and :func:`init_params` fills every such
-module from one explicit ``torch.Generator``, by the JAX package's scheme:
+parameters of an ``nn.Module`` and keeps each Spec, so
+:func:`named_specs` gives a built model's Spec by parameter name.
+:func:`param_pspecs` maps a tree's logical axes through a rules table
+(``distributed.sharding``) to the port's PartitionSpec tuples, so the
+sharding plan derives from the same descriptors as the values.  A
+Spec's axes are the JAX package's for the same tensor, less the leading
+``"layers"`` axis where the reference stacks the layers: the port keeps
+one entry a layer.  :func:`init_params` fills every ParamModule
+from one explicit ``torch.Generator``, by the JAX package's scheme:
 a normal draw times 1/sqrt(fan_in) (``fan_in`` the first dimension unless
 named; an ``embed`` at scale 1), or zeros, or ones.  The draws are
 torch's, so a same-seed init differs from the JAX package's:
 ``convert.rwkv_params_from_reference`` carries its weights across.
 
 Parameters are created with ``requires_grad=False``, so serving builds
-no autograd graph; ``training.init_train_state`` turns them on.  One
-device needs no sharding: the reference's logical axes stay out, and
-with them ``param_pspecs`` (sharded training is another step).
+no autograd graph; ``training.init_train_state`` turns them on.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import AxisRules, logical_spec
+
 __all__ = ["ParamModule", "Spec", "abstract_params", "count_params",
-           "init_params", "tree_bytes"]
+           "init_params", "named_specs", "param_pspecs", "tree_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +41,13 @@ class Spec:
     """Descriptor for one parameter tensor (``dtype=None``: the model's)."""
 
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # logical axis names, len == len(shape)
     init: str = "normal"             # normal | zeros | ones | embed
     fan_in: Optional[int] = None     # for 1/sqrt(fan_in) scaling
     dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def _leaves(tree):
@@ -76,6 +88,13 @@ def tree_bytes(tree, dtype: torch.dtype = torch.bfloat16) -> int:
                for s in _leaves(tree))
 
 
+def param_pspecs(tree, rules: Optional[AxisRules] = None):
+    """The PartitionSpec tuple of every Spec, in the tree's structure (a
+    Spec tree, or :func:`named_specs`' flat dict), under ``rules`` (the
+    active rules when None; ``()`` without any)."""
+    return _map(tree, lambda s: logical_spec(s.axes, rules))
+
+
 class ParamModule(nn.Module):
     """An ``nn.Module`` whose own parameters are one flat dict of Specs,
     allocated (uninitialised) in ``dtype`` unless a Spec names its own."""
@@ -88,6 +107,15 @@ class ParamModule(nn.Module):
                                device=device)
             self.register_parameter(
                 name, nn.Parameter(data, requires_grad=False))
+
+
+def named_specs(module: nn.Module) -> dict:
+    """``{parameter name: Spec}`` of every :class:`ParamModule` under
+    ``module``, in ``named_parameters`` order."""
+    return {(f"{prefix}.{name}" if prefix else name): spec
+            for prefix, sub in module.named_modules()
+            if isinstance(sub, ParamModule)
+            for name, spec in sub.specs.items()}
 
 
 def _draw(spec: Spec, param: torch.Tensor, generator) -> torch.Tensor:

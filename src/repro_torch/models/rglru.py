@@ -65,22 +65,22 @@ def _rec_block_specs(cfg: ArchConfig) -> dict:
     d, dr = cfg.d_model, cfg.recurrent.d_rnn
     w = cfg.recurrent.conv_width
     return {
-        "w_gate": Spec((d, dr), fan_in=d),
-        "w_in": Spec((d, dr), fan_in=d),
-        "w_out": Spec((dr, d), fan_in=dr),
-        "conv_w": Spec((w, dr), dtype=F32),
-        "conv_b": Spec((dr,), init="zeros", dtype=F32),
-        "wa": Spec((dr, dr), fan_in=dr),
-        "ba": Spec((dr,), init="zeros", dtype=F32),
-        "wx": Spec((dr, dr), fan_in=dr),
-        "bx": Spec((dr,), init="zeros", dtype=F32),
-        "lam": Spec((dr,), init="ones", dtype=F32),
+        "w_gate": Spec((d, dr), ("p_fsdp", "p_mlp"), fan_in=d),
+        "w_in": Spec((d, dr), ("p_fsdp", "p_mlp"), fan_in=d),
+        "w_out": Spec((dr, d), ("p_mlp", "p_fsdp"), fan_in=dr),
+        "conv_w": Spec((w, dr), (None, "p_mlp"), dtype=F32),
+        "conv_b": Spec((dr,), ("p_mlp",), init="zeros", dtype=F32),
+        "wa": Spec((dr, dr), ("p_mlp", None), fan_in=dr),
+        "ba": Spec((dr,), (None,), init="zeros", dtype=F32),
+        "wx": Spec((dr, dr), ("p_mlp", None), fan_in=dr),
+        "bx": Spec((dr,), (None,), init="zeros", dtype=F32),
+        "lam": Spec((dr,), (None,), init="ones", dtype=F32),
     }
 
 
 def _norm(cfg: ArchConfig) -> dict:
     # zero-centred RMSNorm: the weight is stored as w - 1
-    return {"w": Spec((cfg.d_model,), init="zeros", dtype=F32)}
+    return {"w": Spec((cfg.d_model,), (None,), init="zeros", dtype=F32)}
 
 
 def _temporal_layer_specs(cfg: ArchConfig, kind: str) -> dict:
@@ -103,7 +103,8 @@ def griffin_specs(cfg: ArchConfig) -> dict:
     if cfg.recurrent is None:
         raise ValueError(f"{cfg.name}: the hybrid needs recurrent settings")
     return {
-        "embed": Spec((cfg.vocab_size, cfg.d_model), init="embed"),
+        "embed": Spec((cfg.vocab_size, cfg.d_model), ("p_vocab", "p_fsdp"),
+                      init="embed"),
         "final_norm": _norm(cfg),
         "layers": [_temporal_layer_specs(cfg, kind)
                    for kind in layer_kinds(cfg)],

@@ -57,8 +57,8 @@ F32 = torch.float32
 # specs
 # --------------------------------------------------------------------------
 def _norm_specs(d: int) -> dict:
-    return {"w": Spec((d,), init="ones", dtype=F32),
-            "b": Spec((d,), init="zeros", dtype=F32)}
+    return {"w": Spec((d,), (None,), init="ones", dtype=F32),
+            "b": Spec((d,), (None,), init="zeros", dtype=F32)}
 
 
 def _layer_specs(cfg: ArchConfig) -> dict:
@@ -67,31 +67,32 @@ def _layer_specs(cfg: ArchConfig) -> dict:
     lw, lm = cfg.rwkv.decay_lora, cfg.rwkv.mix_lora
     tm = {
         # DDLerp token-shift: base mixes + data-dependent delta LoRA
-        "maa_base": Spec((5, d), init="zeros", dtype=F32),
-        "maa_x": Spec((d,), init="zeros", dtype=F32),
-        "maa_w1": Spec((d, 5 * lm)),
-        "maa_w2": Spec((5, lm, d)),
-        "wr": Spec((d, h, hs), fan_in=d),
-        "wk": Spec((d, h, hs), fan_in=d),
-        "wv": Spec((d, h, hs), fan_in=d),
-        "wg": Spec((d, h, hs), fan_in=d),
-        "wo": Spec((h, hs, d), fan_in=d),
+        "maa_base": Spec((5, d), (None, None), init="zeros", dtype=F32),
+        "maa_x": Spec((d,), (None,), init="zeros", dtype=F32),
+        "maa_w1": Spec((d, 5 * lm), ("p_fsdp", None)),
+        "maa_w2": Spec((5, lm, d), (None, None, "p_fsdp")),
+        "wr": Spec((d, h, hs), ("p_fsdp", "p_heads", None), fan_in=d),
+        "wk": Spec((d, h, hs), ("p_fsdp", "p_heads", None), fan_in=d),
+        "wv": Spec((d, h, hs), ("p_fsdp", "p_heads", None), fan_in=d),
+        "wg": Spec((d, h, hs), ("p_fsdp", "p_heads", None), fan_in=d),
+        "wo": Spec((h, hs, d), ("p_heads", None, "p_fsdp"), fan_in=d),
         # data-dependent decay
-        "decay_base": Spec((h, hs), init="zeros", dtype=F32),
-        "decay_w1": Spec((d, lw)),
-        "decay_w2": Spec((lw, h, hs)),
+        "decay_base": Spec((h, hs), ("p_heads", None), init="zeros",
+                           dtype=F32),
+        "decay_w1": Spec((d, lw), ("p_fsdp", None)),
+        "decay_w2": Spec((lw, h, hs), (None, "p_heads", None)),
         # bonus
-        "u": Spec((h, hs), init="zeros", dtype=F32),
+        "u": Spec((h, hs), ("p_heads", None), init="zeros", dtype=F32),
         # per-head group norm
-        "gn_w": Spec((d,), init="ones", dtype=F32),
-        "gn_b": Spec((d,), init="zeros", dtype=F32),
+        "gn_w": Spec((d,), (None,), init="ones", dtype=F32),
+        "gn_b": Spec((d,), (None,), init="zeros", dtype=F32),
     }
     cm = {
-        "mix_k": Spec((d,), init="zeros", dtype=F32),
-        "mix_r": Spec((d,), init="zeros", dtype=F32),
-        "wk": Spec((d, f), fan_in=d),
-        "wv": Spec((f, d), fan_in=f),
-        "wr": Spec((d, d), fan_in=d),
+        "mix_k": Spec((d,), (None,), init="zeros", dtype=F32),
+        "mix_r": Spec((d,), (None,), init="zeros", dtype=F32),
+        "wk": Spec((d, f), ("p_fsdp", "p_mlp"), fan_in=d),
+        "wv": Spec((f, d), ("p_mlp", "p_fsdp"), fan_in=f),
+        "wr": Spec((d, d), ("p_fsdp", None), fan_in=d),
     }
     return {"ln1": _norm_specs(d), "ln2": _norm_specs(d), "time_mix": tm,
             "channel_mix": cm}
@@ -101,8 +102,9 @@ def rwkv_specs(cfg: ArchConfig) -> dict:
     """The model's Spec tree; ``layers`` is a list, one entry a layer."""
     d = cfg.d_model
     return {
-        "embed": Spec((cfg.vocab_size, d), init="embed"),
-        "unembed": Spec((d, cfg.vocab_size), fan_in=d),
+        "embed": Spec((cfg.vocab_size, d), ("p_vocab", "p_fsdp"),
+                      init="embed"),
+        "unembed": Spec((d, cfg.vocab_size), ("p_fsdp", "p_vocab"), fan_in=d),
         "ln_in": _norm_specs(d),
         "final_norm": _norm_specs(d),
         "layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)],

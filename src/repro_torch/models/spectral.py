@@ -41,9 +41,10 @@ def spectral_specs(d_model: int, filter_len: int,
     """Per-channel causal filters (d_model, filter_len), a decay rate and
     a skip gain a channel."""
     return {
-        "h": Spec((d_model, filter_len), init="zeros", dtype=dtype),
-        "decay": Spec((d_model,), init="zeros", dtype=dtype),
-        "skip": Spec((d_model,), init="ones", dtype=dtype),
+        "h": Spec((d_model, filter_len), ("p_fsdp", None), init="zeros",
+                  dtype=dtype),
+        "decay": Spec((d_model,), ("p_fsdp",), init="zeros", dtype=dtype),
+        "skip": Spec((d_model,), ("p_fsdp",), init="ones", dtype=dtype),
     }
 
 

@@ -73,33 +73,34 @@ F32 = torch.float32
 def _attn_specs(cfg: ArchConfig) -> dict:
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sp = {
-        "wq": Spec((d, h, hd), fan_in=d),
-        "wk": Spec((d, kh, hd), fan_in=d),
-        "wv": Spec((d, kh, hd), fan_in=d),
-        "wo": Spec((h, hd, d), fan_in=h * hd),
+        "wq": Spec((d, h, hd), ("p_fsdp", "p_heads", None), fan_in=d),
+        "wk": Spec((d, kh, hd), ("p_fsdp", "p_kv", None), fan_in=d),
+        "wv": Spec((d, kh, hd), ("p_fsdp", "p_kv", None), fan_in=d),
+        "wo": Spec((h, hd, d), ("p_heads", None, "p_fsdp"), fan_in=h * hd),
     }
     if cfg.qkv_bias:
-        sp["bq"] = Spec((h, hd), init="zeros")
-        sp["bk"] = Spec((kh, hd), init="zeros")
-        sp["bv"] = Spec((kh, hd), init="zeros")
+        sp["bq"] = Spec((h, hd), ("p_heads", None), init="zeros")
+        sp["bk"] = Spec((kh, hd), ("p_kv", None), init="zeros")
+        sp["bv"] = Spec((kh, hd), ("p_kv", None), init="zeros")
     return sp
 
 
 def _mlp_specs(cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
+    wi = Spec((d, f), ("p_fsdp", "p_mlp"), fan_in=d)
+    wo = Spec((f, d), ("p_mlp", "p_fsdp"), fan_in=f)
     if cfg.mlp_variant in ("swiglu", "geglu"):
-        return {"wi": Spec((d, f), fan_in=d), "wg": Spec((d, f), fan_in=d),
-                "wo": Spec((f, d), fan_in=f)}
-    return {"wi": Spec((d, f), fan_in=d), "wo": Spec((f, d), fan_in=f)}
+        return {"wi": wi, "wg": wi, "wo": wo}
+    return {"wi": wi, "wo": wo}
 
 
 def _norm_specs(cfg: ArchConfig) -> dict:
     d = cfg.d_model
     if cfg.norm == "ln":
-        return {"w": Spec((d,), init="ones", dtype=F32),
-                "b": Spec((d,), init="zeros", dtype=F32)}
+        return {"w": Spec((d,), (None,), init="ones", dtype=F32),
+                "b": Spec((d,), (None,), init="zeros", dtype=F32)}
     # zero-centred RMSNorm: the weight is stored as w - 1
-    return {"w": Spec((d,), init="zeros", dtype=F32)}
+    return {"w": Spec((d,), (None,), init="zeros", dtype=F32)}
 
 
 def _layer_specs(cfg: ArchConfig, is_moe: bool) -> dict:
@@ -130,14 +131,15 @@ def transformer_specs(cfg: ArchConfig) -> dict:
                          f"and head_dim")
     _check_periodic(cfg)
     sp = {
-        "embed": Spec((cfg.vocab_size, cfg.d_model), init="embed"),
+        "embed": Spec((cfg.vocab_size, cfg.d_model), ("p_vocab", "p_fsdp"),
+                      init="embed"),
         "final_norm": _norm_specs(cfg),
         "layers": [_layer_specs(cfg, is_moe)
                    for is_moe in cfg.moe_layer_flags],
     }
     if not cfg.tie_embeddings:
         sp["unembed"] = Spec((cfg.d_model, cfg.vocab_size),
-                             fan_in=cfg.d_model)
+                             ("p_fsdp", "p_vocab"), fan_in=cfg.d_model)
     return sp
 
 

@@ -4,7 +4,8 @@ checkpoint store and a ``device="meta"`` mirror that allocates nothing.
 
 The flat view's names: ``step``, ``params.<parameter name>``,
 ``opt_state.count`` and ``opt_state.mu.<parameter name>.<m|v>`` (int8
-moments as ``....<m|v>.q`` and ``.scale``).
+moments as ``....<m|v>.q`` and ``.scale``).  :func:`train_state_pspecs`
+gives the state's PartitionSpecs under the same names.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.models.params import Spec, named_specs, param_pspecs
 from repro_torch.optim.adamw import Optimizer, QuantMoment, moment_block
 
-__all__ = ["TrainState", "init_train_state", "abstract_train_state"]
+__all__ = ["TrainState", "init_train_state", "abstract_train_state",
+           "train_state_pspecs"]
 
 
 @dataclasses.dataclass
@@ -101,3 +104,30 @@ def abstract_train_state(model, optimizer: Optimizer) -> TrainState:
                                         device="meta"),
                    "mu": {n: _moment_abstract(p, quant)
                           for n, p in params.named_parameters()}})
+
+
+def _moment_pspec(spec: Spec, ps: tuple, quantized: bool) -> dict:
+    if not quantized:
+        return {"m": ps, "v": ps}
+    # the int8 payload has the parameter's shape: EXACTLY its spec; the
+    # scales the same lead axes, the block axis replicated
+    ndim = max(len(spec.shape), 1)
+    entries = list(ps) + [None] * (ndim - len(ps))
+    scale = (*entries[:-1], None)
+    return {"m": QuantMoment(q=ps, scale=scale),
+            "v": QuantMoment(q=ps, scale=scale)}
+
+
+def train_state_pspecs(model, optimizer: Optimizer,
+                       rules=None) -> TrainState:
+    """The state's PartitionSpec tuples, keyed as the state: ``step`` and
+    ``count`` replicated (``()``), each parameter's spec from its Spec's
+    axes under ``rules`` (the active rules when None), each moment its
+    parameter's (int8 moments: ``q`` the parameter's, ``scale`` its lead
+    entries with the last ``None``).  ``params`` is a dict by name."""
+    specs = named_specs(model.make_params("meta"))
+    quant = optimizer.config.quantized_state
+    params = param_pspecs(specs, rules)
+    mu = {n: _moment_pspec(specs[n], ps, quant) for n, ps in params.items()}
+    return TrainState(step=(), params=params,
+                      opt_state={"count": (), "mu": mu})

@@ -450,7 +450,9 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch.optim, repro_torch.training, "
             "repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.models.losses, repro_torch.launch.train, "
-            "repro_torch.convert; "
+            "repro_torch.launch.shardings, repro_torch.launch.mesh, "
+            "repro_torch.optim.gradient_coding, "
+            "repro_torch.optim.compression, repro_torch.convert; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'repro' or m.startswith('repro.') "
             "or m.startswith('ml_dtypes')]; "

@@ -1,11 +1,14 @@
 """A ``torch.distributed`` world for the port's mesh tests.
 
-``python tests/torch_mesh_worker.py OUTDIR WORLD`` starts WORLD ranks on
-the ``gloo`` backend (``file://`` rendezvous under OUTDIR, so concurrent
-test workers never share a port), runs every case of :func:`run_cases`
-on each rank and writes rank r's results to ``OUTDIR/rank{r}.npz``.  The
-test module compares them with the JAX package on a one-wide mesh and
-with ``numpy.fft``; :func:`case_inputs` makes the inputs both sides use.
+``python tests/torch_mesh_worker.py OUTDIR WORLD [CASES]`` starts WORLD
+ranks on the ``gloo`` backend (``file://`` rendezvous under OUTDIR, so
+concurrent test workers never share a port), runs every case of
+:func:`run_cases` (CASES ``coded``, the default) or of
+:func:`run_grad_cases` (``grad``) on each rank and writes rank r's
+results to ``OUTDIR/rank{r}.npz``.  The test modules compare them with
+the JAX package on a one-wide mesh and with ``numpy.fft``;
+:func:`case_inputs` and :func:`grad_inputs` make the inputs both sides
+use.
 :func:`world_of_one` is an in-process world of one rank for tests that
 need a mesh object and nothing more.
 
@@ -15,6 +18,7 @@ This module imports no JAX: four ranks import it.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import sys
 import traceback
@@ -263,13 +267,111 @@ def _reshard_cases(test_mesh, reshard, reshard_like):
     return out
 
 
-def _rank_main(rank: int, world: int, outdir: str) -> None:
+GRAD_SHAPE, GRAD_STEPS = (3, 700), 3     # 700 * 3: not whole blocks
+
+
+def grad_inputs(world: int) -> np.ndarray:
+    """(steps, world) + GRAD_SHAPE f32 gradients, rank r's at [:, r]."""
+    rng = np.random.default_rng(11)
+    return (rng.standard_normal((GRAD_STEPS, world) + GRAD_SHAPE)
+            * 0.01).astype(np.float32)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """This rank's shard shape of a tensor of ``shape`` under ``spec``:
+    each dimension split in ``torch.chunk`` pieces over the mesh
+    dimensions its entry names, in mesh order."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    out = []
+    for n, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        for i in sorted(names.index(a) for a in axes):
+            k = mesh.size(i)
+            chunk = -(-n // k)
+            n = len(range(n)[coord[i] * chunk:(coord[i] + 1) * chunk])
+        out.append(n)
+    return tuple(out)
+
+
+def run_grad_cases(world: int) -> dict:
+    """The compressed all-reduce over the world (GRAD_STEPS steps of
+    error feedback from zero residuals) and, in a world of 4, reduced
+    gemma-2b's exact-AdamW training state placed on a (data 2, model 2)
+    mesh by its sharding plan, then gathered back."""
+    from repro_torch.configs import SHAPES, get_reduced_config
+    from repro_torch.distributed import test_mesh
+    from repro_torch.distributed.sharding import global_tensor, place
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, compressed_psum, init_residual
+    from repro_torch.optim import compression
+    from repro_torch.training import init_train_state, train_state_pspecs
+
+    rank = dist.get_rank()
+    g = torch.from_numpy(grad_inputs(world))
+    out: dict = {}
+    res = init_residual(g[0, rank])
+    for t in range(GRAD_STEPS):
+        mean, res = compressed_psum(g[t, rank], res)
+        out[f"psum_mean_{t}"] = mean.numpy()
+        out[f"psum_res_{t}"] = res.numpy()
+    out["psum_coll"] = np.array([
+        [c["group_size"], c["send_bytes"], c["recv_bytes"]]
+        for c in compression.last_collectives])
+    if world != 4:
+        return out
+
+    mesh = test_mesh((2, 2), ("data", "model"))
+    # over the mesh's "data" dimension: ranks r and r ^ 2
+    mean, res = compressed_psum(g[0, rank], init_residual(g[0, rank]),
+                                mesh=mesh, axis="data")
+    out["psum_data_mean"] = mean.numpy()
+    out["psum_data_coll"] = np.array([c["group_size"]
+                                      for c in compression.last_collectives])
+    model = build_model(get_reduced_config("gemma-2b"), device="cpu")
+    opt = adamw(1e-3)
+    plan = make_plan(model.cfg, SHAPES["train_4k"], mesh)
+    state = init_train_state(model, opt, torch.Generator().manual_seed(0))
+    with torch.no_grad():               # moments that are not all zero
+        for st in state.opt_state["mu"].values():
+            st["m"].normal_(generator=torch.Generator().manual_seed(1))
+    specs = train_state_pspecs(model, opt, plan.rules)
+    named = plan.named(specs)
+    flat = {f"params.{n}": (s, named.params[n])
+            for n, s in specs.params.items()}
+    for n in specs.params:
+        for mv in ("m", "v"):
+            flat[f"opt_state.mu.{n}.{mv}"] = (specs.opt_state["mu"][n][mv],
+                                              named.opt_state["mu"][n][mv])
+    tree = state.tree()
+    wrong_shape, unequal, local_bytes, want_bytes = [], [], 0, 0
+    for name, (spec, placements) in flat.items():
+        x = tree[name].detach()
+        dt = place(x, mesh, placements)
+        want = local_shape(tuple(x.shape), spec, mesh)
+        if tuple(dt.to_local().shape) != want:
+            wrong_shape.append(name)
+        local_bytes += dt.to_local().numel() * x.element_size()
+        want_bytes += math.prod(want) * x.element_size()
+        if not torch.equal(global_tensor(dt), x):
+            unequal.append(name)
+    out["plan_fallbacks"] = np.array(plan.fallbacks)
+    out["plan_wrong_shape"] = np.array(wrong_shape, dtype=str)
+    out["plan_unequal"] = np.array(unequal, dtype=str)
+    out["plan_bytes"] = np.array([local_bytes, want_bytes, len(flat)])
+    return out
+
+
+def _rank_main(rank: int, world: int, outdir: str,
+               cases: str = "coded") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo",
                             init_method=f"file://{outdir}/rendezvous",
                             rank=rank, world_size=world)
     try:
-        res = run_cases(world)
+        res = (run_grad_cases if cases == "grad" else run_cases)(world)
     except Exception:
         with open(os.path.join(outdir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
@@ -283,4 +385,6 @@ if __name__ == "__main__":
     import torch.multiprocessing as mp
 
     outdir, world = sys.argv[1], int(sys.argv[2])
-    mp.spawn(_rank_main, args=(world, outdir), nprocs=world, join=True)
+    cases = sys.argv[3] if len(sys.argv) > 3 else "coded"
+    mp.spawn(_rank_main, args=(world, outdir, cases), nprocs=world,
+             join=True)
