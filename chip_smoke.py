@@ -98,7 +98,10 @@ partition gradients through ``CyclicGradientCode(4, 1)``, every 3-of-4
 decode against the f64 sum; ``compressed_psum`` on four ``gloo`` ranks
 sharing the card and over the whole gradient in an NCCL world of one;
 a training state placed by its sharding plan on a (data 2, model 2)
-mesh and gathered back bit for bit), on plain torch.
+mesh and gathered back bit for bit), on plain torch; then the launch
+tools (``launch_tools``: dry runs on meta tensors, gemma-2b's serving
+step through ``make_serve_fns`` and rwkv6-3b's prefill counted on CUDA
+and on meta alike, ``launch.fft_dryrun`` and the quickstart).
 Each FFT run's
 output is checked against ``torch.fft`` in float64/complex128, and its
 launch counters show which kernels it ran; one more call of each is
@@ -123,10 +126,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense, no sparsity): HBM3 bytes/s and FP32
-# (non-tensor) flop/s -- the rates the bounds below divide by
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
+# H100 SXM data-sheet peaks (dense, no sparsity), from the port's one
+# source: HBM3 bytes/s, FP32 (non-tensor) and bf16 (tensor core) flop/s --
+# the rates the bounds below divide by
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_S,
+    PEAK_FLOPS as PEAK_BF16_S,
+    PEAK_FP32 as PEAK_FP32_S,
+)
+
 F32 = 4
 # the FFT kernels' names: the profiled calls sum each one's device ms
 # multistep_fused's launch counters, f32 and bf16 entries: their rows
@@ -1103,7 +1111,6 @@ def lm_encdec(torch, np, rng, counted) -> None:
 # with the example's workers 1 and 4 down
 TRAIN_CELL = ("gemma-2b", 4, 512, 4)     # arch, batch, seq, steps
 TRAIN_RESTART = ("gemma-2b", 4, 32, 8, 5)  # reduced; batch, seq, total, ckpt
-PEAK_BF16_S = 989e12                      # H100 SXM dense bf16 flop/s
 
 
 def lm_train(torch, counted) -> None:
@@ -3005,6 +3012,199 @@ def mesh_runtime(torch, np, launches) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+LAUNCH_CELLS = (("gemma-2b", "prefill_32k", "single"),
+                ("gemma-2b", "decode_32k", "single"),
+                ("rwkv6-3b", "prefill_32k", "card"))
+LAUNCH_SERVE = ("gemma-2b", 4, 512, 1024)     # arch, batch, prompt, cache
+LAUNCH_RWKV = ("rwkv6-3b", 4, 512)            # arch, batch, prompt
+LAUNCH_MEM_RTOL = 0.02
+
+
+def launch_tools(torch, counted) -> None:
+    """The launch tools (``launch/{dryrun,fft_dryrun,cost_analysis,
+    roofline}.py``) and the serving and quickstart entry points on the
+    card.  (a) Dry runs on meta tensors of gemma-2b's ``prefill_32k`` and
+    ``decode_32k`` on the single-pod mesh and rwkv6-3b's ``prefill_32k``
+    on one card (``wkv``'s meta path): each record's bytes a rank, FLOPs
+    a chip, terms and fit verdict printed.  (b) gemma-2b at full width
+    and depth, bf16 seeded weights, 4 x 512 through ``make_serve_fns``'s
+    ``prefill_fn`` and one ``decode_fn`` step, counted by
+    ``cost_analysis`` on CUDA tensors and again on meta tensors: FLOPs
+    and bytes must be equal; the plan's bytes of the params and the
+    1024-slot cache (a world of one) within 2% of what
+    ``torch.cuda.memory_allocated`` grew by as they were made; the
+    prefill's ms (median of 5, host clock around a synchronize, once the
+    subprocesses of (d) and (e) have ended) printed beside
+    ``roofline.terms``' bound, as a share.  (c) rwkv6-3b whole,
+    4 x 512 prefill: the counter's ``wkv`` report equal on meta and on
+    CUDA, ``launch_counts()["wkv"]`` 32 on CUDA and nothing on meta.
+    (d) ``launch.fft_dryrun``'s two variants (a subprocess: a 256-rank
+    fake process group): wire bytes a chip and their ratio.  (e)
+    ``examples/quickstart_torch.py`` on the card, a subprocess."""
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.cost_analysis import analyze
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_serve_fns
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="launch-", dir=ROOT / "build")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # (d) and (e) run beside (a) and (b)'s counts, and end before (b)'s
+    # prefill is timed: the paper's cell as rank 0 of a 256-rank fake
+    # process group, and the quickstart on the card
+    subs = {
+        "fft_dryrun": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.fft_dryrun", "--out",
+             out_dir], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "quickstart": subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)}
+
+    # (a) dry runs on meta
+    cells = []
+    for arch, shape, mesh in LAUNCH_CELLS:
+        rec = dryrun.run_cell(arch, shape, mesh, out_dir)
+        if rec.get("skipped") or rec["terms"] is None:
+            fail(f"launch_tools: dry run {arch} x {shape} x {mesh}: {rec}")
+        cells.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "chips", "count_seconds", "memory",
+            "fits_hbm", "cost", "terms", "model_flops")})
+        if arch == "rwkv6-3b" and rec["global_cost"]["kernels"].get(
+                "wkv", {}).get("calls") != get_config(arch).n_layers:
+            fail(f"launch_tools: the rwkv6-3b dry run reported "
+                 f"{rec['global_cost']['kernels']}, not one wkv a layer")
+
+    # (b) gemma-2b through make_serve_fns, counted on CUDA and on meta
+    arch, b, t, cache_len = LAUNCH_SERVE
+    cfg = get_config(arch)
+    shape = ShapeConfig("launch_smoke", t, b, "prefill")
+
+    def serve(device, generator=None):
+        model = build_model(cfg, device=device)
+        params = (model.init(generator) if generator is not None
+                  else model.make_params())
+        cache = model.init_cache(b, cache_len)
+        toks = torch.zeros((b, t + 1), dtype=torch.int32, device=device)
+        if generator is not None:
+            toks = torch.randint(0, cfg.vocab_size, (b, t + 1),
+                                 generator=generator, device=device,
+                                 dtype=torch.int32)
+        return model, params, cache, toks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model, params, cache, toks = serve(
+        dev, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before - toks.numel() * 4
+    plan = make_plan(cfg, shape, card_mesh())
+    mem = dryrun.argument_bytes(cfg, shape, card_mesh(), plan.rules, model,
+                                params=params, cache=cache)
+    planned = mem["params_bytes"] + mem["cache_bytes"]
+    mem_rel = abs(grew - planned) / planned
+    prefill_fn, decode_fn = make_serve_fns(model)
+
+    def both(params, cache, toks):
+        (logits, cache), c_pre = analyze(
+            prefill_fn, params, {"tokens": toks[:, :t]}, cache)
+        _, c_dec = analyze(decode_fn, params, cache, toks[:, t:], t)
+        return logits, c_pre, c_dec
+
+    with torch.no_grad():
+        (logits, cu_pre, cu_dec), cu_launch = counted(
+            lambda: both(params, cache, toks))
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits).all()):
+            fail("launch_tools: gemma-2b prefill_fn logits not finite")
+        outs = {}
+        for name, proc in subs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"launch_tools: {name}: {stdout[-2000:]} "
+                     f"{stderr[-2000:]}")
+            outs[name] = stdout.strip().splitlines()
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill_fn(params, {"tokens": toks[:, :t]}, cache)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mparams = serve("meta")
+        _, me_pre, me_dec = both(*mparams[1:])
+    del model, params, cache, toks, logits, mparams
+    torch.cuda.empty_cache()
+    for what, cu, me in (("prefill", cu_pre, me_pre),
+                         ("decode", cu_dec, me_dec)):
+        if ((cu.flops, cu.flops_by_dtype, cu.bytes_accessed)
+                != (me.flops, me.flops_by_dtype, me.bytes_accessed)):
+            fail(f"launch_tools: gemma-2b {what} counted {cu.flops} flops, "
+                 f"{cu.bytes_accessed} bytes on CUDA, {me.flops}, "
+                 f"{me.bytes_accessed} on meta")
+    if cu_launch:
+        fail(f"launch_tools: gemma-2b serving launched {cu_launch}")
+    if not mem_rel < LAUNCH_MEM_RTOL:
+        fail(f"launch_tools: the plan's {planned} bytes of params and cache "
+             f"against {grew} allocated ({mem_rel:.4f})")
+    pre_terms = roofline.terms({"cost": cu_pre.as_dict(), "chips": 1})
+    prefill_ms = sorted(ms)[len(ms) // 2]
+    serve_row = {
+        "arch": arch, "batch": b, "prompt": t, "cache_len": cache_len,
+        "prefill_flops": cu_pre.flops, "prefill_bytes": cu_pre.bytes_accessed,
+        "decode_flops": cu_dec.flops, "decode_bytes": cu_dec.bytes_accessed,
+        "meta_equal": True, "planned_bytes": planned,
+        "allocated_bytes": grew, "memory_rel": mem_rel,
+        "prefill_ms": prefill_ms, "prefill_ms_all": ms,
+        "prefill_terms": pre_terms,
+        "prefill_bound_share": pre_terms["step_lower_bound_s"] * 1e3
+        / prefill_ms}
+
+    # (c) rwkv6-3b's prefill: the wkv report on meta and on CUDA
+    arch, b, t = LAUNCH_RWKV
+    cfg = get_config(arch)
+    rw = {}
+    for device in ("meta", "cuda"):
+        model = build_model(cfg, device=device)
+        params = (model.init(torch.Generator(device=dev).manual_seed(0))
+                  if device == "cuda" else model.make_params())
+        toks = torch.zeros((b, t), dtype=torch.int32, device=device)
+        with torch.no_grad():
+            (_, cost), launches = counted(lambda: analyze(
+                model.prefill, params, {"tokens": toks},
+                model.init_cache(b)))
+        torch.cuda.synchronize()
+        rw[device] = {"wkv": cost.kernels.get("wkv"), "launches": launches,
+                      "flops": cost.flops, "bytes": cost.bytes_accessed}
+        del model, params
+        torch.cuda.empty_cache()
+    if (rw["meta"]["wkv"] != rw["cuda"]["wkv"]
+            or rw["meta"]["launches"] != {}
+            or rw["cuda"]["launches"] != {"wkv": cfg.n_layers}
+            or rw["cuda"]["wkv"]["calls"] != cfg.n_layers):
+        fail(f"launch_tools: rwkv6-3b wkv reports {rw}")
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    fft = json.loads(outs["fft_dryrun"][-1])
+    fft["lines"] = outs["fft_dryrun"][:-1]
+    if "n-D real coded FFT service: OK" not in outs["quickstart"]:
+        fail(f"launch_tools: quickstart_torch.py: {outs['quickstart']}")
+    emit({"phase": "launch_tools", "device": roofline.DEVICE,
+          "dryrun": cells, "serve": serve_row, "rwkv_prefill": rw,
+          "fft_dryrun": fft, "quickstart": outs["quickstart"],
+          "seconds": time.perf_counter() - t_phase})
+    print(nvidia_smi(), flush=True)
+
+
 def bf16_twin_spills(ptxas: dict) -> list[dict]:
     """Each bf16-table instance of a library's ptxas report beside its f32
     twin (the same template instance with ``float`` tables): its spill
@@ -3545,7 +3745,7 @@ def main() -> int:
         recombine_twiddle_dft_batched,
     )
     from repro_torch.kernels.wkv import design as wkv_design
-    from repro_torch.kernels.wkv import wkv, wkv_body
+    from repro_torch.kernels.wkv import wkv, wkv_body, wkv_cost
     from repro_torch.serving import DecodeMatrixCache
 
     dev = torch.device("cuda")
@@ -4372,8 +4572,8 @@ def main() -> int:
     kernel_row(
         "wkv", csrc + "wkv.cu", "src/repro/kernels/wkv.py:84",
         lambda: wkv(*wargs), lambda: wkv_body(*wargs), None, 1e-5,
-        F32 * (5 * bh * t * kd + bh * kd + 2 * bh * kd * kd),
-        bh * t * (5 * kd * kd + 4 * kd), 20, [bh, t, kd], windows=7,
+        wkv_cost(bh, t, kd)[1], wkv_cost(bh, t, kd)[0], 20, [bh, t, kd],
+        windows=7,
         rel_err_o=wkv_rel["o"], rel_err_state=wkv_rel["state"],
         design=wkv_design())
     del wargs, got, want, wr_, wk_, wv_, wlw, wu, ws0
@@ -4835,6 +5035,10 @@ def main() -> int:
     # gradients at full width (8 layers), and the sharding plan on four
     # gloo ranks --
     grad_aggregation(torch, np, counted)
+
+    # -- 16. the launch tools: dry runs on meta, the counter on CUDA
+    # against meta, make_serve_fns, fft_dryrun and the quickstart --
+    launch_tools(torch, counted)
 
     for row in table:
         row["launches"] = (ms_launches.get((row["name"], row["mode"]), 0)

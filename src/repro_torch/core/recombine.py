@@ -9,7 +9,9 @@ axis.  ``sign=+1`` with a caller-applied ``1/m`` recombines inverse
 sub-transforms; :func:`recombine_half` computes only the non-redundant
 half spectrum of a real input; :func:`recombine_nd` is the n-D
 butterfly (paper eq. 31), master-side glue in plain PyTorch as in the
-reference.
+reference.  On ``device="meta"`` (the launch tools' counted runs) the
+planes are shaped, never computed: a 2^28-point plan's twiddles would
+take 4 GB of host numpy.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ __all__ = ["twiddle", "dft_matrix", "recombine", "recombine_half",
 def dft_matrix(m: int, dtype=torch.complex64, sign: float = -1.0,
                device=None) -> torch.Tensor:
     """Dense ``m x m`` DFT matrix ``F[j, k] = exp(sign*2j*pi*j*k/m)``."""
+    if torch.device(device or "cpu").type == "meta":
+        return torch.empty((m, m), dtype=dtype, device="meta")
     jk = np.outer(np.arange(m), np.arange(m))
     return torch.as_tensor(np.exp(sign * 2j * np.pi * jk / m),
                            device=device).to(dtype)
@@ -34,6 +38,8 @@ def dft_matrix(m: int, dtype=torch.complex64, sign: float = -1.0,
 def twiddle(s: int, m: int, dtype=torch.complex64, sign: float = -1.0,
             device=None) -> torch.Tensor:
     """Twiddle plane ``W[k, i] = omega_s^{ik}``, shape ``(m, s/m)``."""
+    if torch.device(device or "cpu").type == "meta":
+        return torch.empty((m, s // m), dtype=dtype, device="meta")
     ki = np.outer(np.arange(m), np.arange(s // m))
     return torch.as_tensor(np.exp(sign * 2j * np.pi * ki / s),
                            device=device).to(dtype)

@@ -32,8 +32,9 @@ import torch
 
 __all__ = ["MAX_GRID_YZ", "SMEM_PER_BLOCK_OPTIN", "SOURCES", "TABLE_DTYPES",
            "build", "build_dir", "check", "check_planes", "count_launch",
-           "entry", "is_bf16", "launch_counts", "launch_name", "load",
-           "log_path", "ptr", "reset_launch_counts", "stream_of"]
+           "cost_sink", "entry", "is_bf16", "launch_counts", "launch_name",
+           "load", "log_path", "ptr", "report_cost", "reset_launch_counts",
+           "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
@@ -168,6 +169,36 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     with _LAUNCHES_LOCK:
         _LAUNCHES.clear()
+
+
+# -- cost reports ----------------------------------------------------------
+# A ctypes kernel is invisible to PyTorch's dispatcher, so a wrapper that a
+# counted step reaches reports its work here -- a name, the flops and the
+# bytes (each input read once, each output written once) -- on CUDA
+# tensors where it launches and on meta tensors where it only shapes its
+# outputs.  launch.cost_analysis listens while it counts.
+_COST_SINKS: list = []
+
+
+def report_cost(name: str, flops: float, nbytes: float) -> None:
+    for sink in tuple(_COST_SINKS):
+        sink(name, float(flops), float(nbytes))
+
+
+class cost_sink:
+    """``with cost_sink(fn):`` -- ``fn(name, flops, nbytes)`` hears every
+    :func:`report_cost` inside the block."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        _COST_SINKS.append(self.fn)
+        return self.fn
+
+    def __exit__(self, *exc):
+        _COST_SINKS.remove(self.fn)
+        return False
 
 
 # -- wrapper helpers -------------------------------------------------------

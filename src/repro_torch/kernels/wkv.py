@@ -11,7 +11,9 @@ factorisation of the JAX package's ``kernels/wkv.py``: each decay factor's
 exponent stays within (CT/2 + 1) * 8 because the model clamps
 ``logw >= -8``, and the intra-chunk scores take the strict lower triangle
 by selection.  :func:`wkv_body` is the plain twin; :func:`wkv` the wrapper
-of ``csrc/wkv.cu``, one launch, counted under ``"wkv"``.
+of ``csrc/wkv.cu``, one launch, counted under ``"wkv"``.  On meta tensors
+(the launch tools' counted steps) the wrapper shapes its outputs, reports
+:func:`wkv_cost` and launches nothing.
 
 The kernel splits the value axis: one block per (row, slice of
 ``VALUE_BLOCK`` value columns), no block depending on another, each
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 __all__ = ["CT", "MAX_K", "SEGMENT_CHUNKS", "VALUE_BLOCK", "design", "wkv",
-           "wkv_body"]
+           "wkv_body", "wkv_cost"]
 
 CT = 8       # time chunk
 MAX_K = 64   # the kernel's head-size bound (the model's 64)
@@ -69,6 +71,16 @@ def wkv_body(r, k, v, logw, u, state):
         pe = p[:, -1:]
         s = s * torch.exp(pe).mT + (kc * torch.exp(pe - p)).mT @ vc
     return torch.cat(outs, dim=1), s
+
+
+def wkv_cost(bh: int, t: int, kd: int) -> tuple[float, float]:
+    """(flops, bytes) of one WKV call: the per-token recurrence, about
+    5 K^2 + 4 K flops a step and row (o = r.S plus the bonus; S = S*w +
+    k v^T), and r, k, v, logw, u and the state read once, o and the
+    state written once, in f32."""
+    flops = bh * t * (5 * kd * kd + 4 * kd)
+    nbytes = 4 * (5 * bh * t * kd + bh * kd + 2 * bh * kd * kd)
+    return float(flops), float(nbytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,11 +129,15 @@ def wkv(r, k, v, logw, u, state):
     """The WKV over (BH, T, K) planar rows.  Returns (o, final_state).
 
     CPU tensors run :func:`wkv_body`; CUDA tensors launch the kernel (one
-    launch, K <= ``MAX_K``) or raise.
+    launch, K <= ``MAX_K``) or raise; meta tensors compute nothing: empty
+    outputs of the kernel's shapes, its cost reported, no launch counted.
     """
     _check(r, k, v, logw, u, state)
     if r.device.type == "cpu":
         return wkv_body(r, k, v, logw, u, state)
+    if r.device.type == "meta":
+        _build.report_cost("wkv", *wkv_cost(*r.shape))
+        return torch.empty_like(r), torch.empty_like(state)
     dev = _build.check_planes("wkv", r=r, k=k, v=v, logw=logw, u=u,
                               state=state)
     bh, t, kd = r.shape
@@ -134,4 +150,5 @@ def wkv(r, k, v, logw, u, state):
     _build.check(_lib()(p(r), p(k), p(v), p(logw), p(u), p(state), p(o),
                         p(s_out), bh, t, kd, _build.stream_of(dev)), "wkv")
     _build.count_launch("wkv")
+    _build.report_cost("wkv", *wkv_cost(bh, t, kd))
     return o, s_out

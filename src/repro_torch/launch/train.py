@@ -1,7 +1,17 @@
-"""Training launcher: trains on one device, a reduced-family model
-(``--reduced``) or any full config the card can hold.  Fault-tolerant:
-checkpoints land in ``--ckpt-dir`` and a restarted process resumes from
-the newest complete one, bit for bit.
+"""Training launcher.
+
+Two modes:
+
+* default -- trains on one device, a reduced-family model (``--reduced``)
+  or any full config the card can hold.  Fault-tolerant: checkpoints land
+  in ``--ckpt-dir`` and a restarted process resumes from the newest
+  complete one, bit for bit.
+* ``--lower-only`` -- the dry run of one cell (``--mesh``, ``--shape``):
+  ``launch.dryrun.run_cell(..., variant="train-launcher")`` counts the
+  step on meta tensors against the mesh's plan, writes its record under
+  ``experiments/torch/dryrun`` and prints its verdict, without running
+  anything on a device.  The JAX package's launcher lowers and compiles
+  the step on the production mesh here; the port has no compiler to ask.
 
 Examples::
 
@@ -13,17 +23,19 @@ Examples::
     python -m repro_torch.launch.train --arch minicpm-2b --reduced \\
         --device cpu --steps 200
 
-The JAX package's launcher also lowers the train step on a production
-mesh (``--lower-only``, ``--mesh``, ``--shape``); that belongs to the
-dry-run tools, which the port does not have.  Runs on CUDA and raises
-without a device unless ``--device`` names another.
+    # the dry run of dbrx-132b's train step on the multi-pod mesh
+    python -m repro_torch.launch.train --arch dbrx-132b --lower-only \\
+        --mesh multi
+
+The default mode runs on CUDA and raises without a device unless
+``--device`` names another.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config, \
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeConfig, get_config, \
     get_reduced_config
 
 
@@ -44,7 +56,26 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, raising without one)")
+    ap.add_argument("--lower-only", action="store_true",
+                    help="dry run of one cell on meta tensors, no training")
+    ap.add_argument("--mesh", choices=("single", "multi", "card"),
+                    default="single")
+    ap.add_argument("--shape", choices=tuple(SHAPES), default="train_4k")
     args = ap.parse_args(argv)
+
+    if args.lower_only:
+        from repro_torch.launch.dryrun import run_cell, write_record
+        from repro_torch.launch.roofline import DRYRUN_DIR
+
+        rec = run_cell(args.arch, args.shape, args.mesh, DRYRUN_DIR,
+                       variant="train-launcher")
+        if rec.get("skipped"):
+            print(f"skipped: {rec['skipped']}")
+            return 0
+        write_record(DRYRUN_DIR, rec)
+        print(f"dry run OK: {rec['terms']['dominant']}-bound, "
+              f"{'fits' if rec['fits_hbm'] else 'does NOT fit'} one card")
+        return 0
 
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model

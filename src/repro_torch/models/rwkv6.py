@@ -352,7 +352,7 @@ def _head(params: RWKV6, x):
     x = layer_norm(x, params.final_norm.w, params.final_norm.b)
     xb = x.to(torch.bfloat16).reshape(-1, x.shape[-1])
     wb = params.unembed.to(torch.bfloat16)
-    if xb.is_cuda:
+    if xb.device.type != "cpu":    # the card, or meta tensors standing in
         logits = torch.mm(xb, wb, out_dtype=F32)
     else:
         # a product of two bf16 values is exact in f32: the same sums

@@ -18,7 +18,8 @@ Rounding points, as in the reference: q/k/v, the attention output
 projection, the MLP and the expert products in the weights' dtype (bf16
 on the card); the norms, RoPE, attention and the MoE router in f32,
 cast back; the cache in its own dtype; the head a bf16 product with f32
-logits (``torch.mm(..., out_dtype=torch.float32)`` on the card), then
+logits (``torch.mm(..., out_dtype=torch.float32)`` on the card and on
+meta tensors), then
 divided by ``logit_divisor``.  Attention is plain tensor code
 (``models/attention.py``).
 """
@@ -340,7 +341,7 @@ def bf16_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     bf16, in one product with f32 accumulation: f32 logits (..., V)."""
     xb = hidden.to(torch.bfloat16).reshape(-1, hidden.shape[-1])
     wb = w.to(torch.bfloat16)
-    if xb.is_cuda:
+    if xb.device.type != "cpu":    # the card, or meta tensors standing in
         logits = torch.mm(xb, wb, out_dtype=F32)
     else:
         # a product of two bf16 values is exact in f32: the same sums

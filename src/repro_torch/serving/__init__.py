@@ -19,7 +19,7 @@ from repro_torch.serving.fft_service import (
     ServiceError,
     ServiceStats,
 )
-from repro_torch.serving.serve_step import sample_token
+from repro_torch.serving.serve_step import make_serve_fns, sample_token
 from repro_torch.serving.streaming import (
     AdmissionError,
     StreamConfig,
@@ -42,5 +42,6 @@ __all__ = [
     "StreamingFFTService",
     "bucket_size",
     "pad_requests",
+    "make_serve_fns",
     "sample_token",
 ]

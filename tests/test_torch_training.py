@@ -26,7 +26,8 @@ bit-exact restart), and beside it:
 * ``SHAPES``, ``cell_runnable``/``iter_cells``, ``input_specs`` and
   ``abstract_train_state`` against the reference's shapes and dtypes;
 * the launcher and the example on the CPU; the entry points refuse to
-  run without a CUDA device; the modules import neither JAX nor the JAX
+  run without a CUDA device; the modules (the launch tools and
+  ``serving/serve_step`` among them) import neither JAX nor the JAX
   package.
 """
 
@@ -451,6 +452,10 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.models.losses, repro_torch.launch.train, "
             "repro_torch.launch.shardings, repro_torch.launch.mesh, "
+            "repro_torch.launch.serve, repro_torch.launch.dryrun, "
+            "repro_torch.launch.fft_dryrun, repro_torch.launch.roofline, "
+            "repro_torch.launch.report, repro_torch.launch.cost_analysis, "
+            "repro_torch.serving.serve_step, "
             "repro_torch.optim.gradient_coding, "
             "repro_torch.optim.compression, repro_torch.convert; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

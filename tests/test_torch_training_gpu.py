@@ -14,6 +14,11 @@ the file runs where only torch is installed).
   compared after each device's own gradients: AdamW's first step moves
   a parameter by about lr * sign(g), so a gradient within the two
   devices' rounding of zero moves it by 2 lr on one and not the other.)
+* two int8 AdamW steps (``quantized_state=True``) of reduced gemma-2b's
+  f32 parameters from the same seeded gradients on the card and on the
+  CPU: after each step every moment's int8 payload ``q`` and f32
+  ``scale`` are equal bit for bit (the scale divides by a tensor, as the
+  CPU and the reference do);
 * the coded spectral mixer's gradient with respect to ``x`` on a CUDA
   plan (``CodedFFT(s=256, m=4, n_workers=6)``, workers 1 and 4 down) at
   (2, 96, 32), 32 taps: the backward launches exactly two ``cmatmul``
@@ -37,7 +42,7 @@ from repro_torch.models import losses as tlosses
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models import spectral as tsp
 from repro_torch.models.params import init_params
-from repro_torch.optim import adamw, cosine
+from repro_torch.optim import AdamWConfig, adamw, cosine
 from repro_torch.optim.grad_utils import accumulate_grads
 from repro_torch.training import TrainState, make_train_step
 
@@ -105,6 +110,31 @@ def test_gpu_train_step_matches_cpu(cuda, arch, monkeypatch):
     for (name, want), got in zip(p_cpu.named_parameters(),
                                  p_gpu.parameters()):
         assert _rel(got.detach(), want.detach()) < 1e-5, name
+
+
+@pytest.mark.gpu
+def test_gpu_int8_adamw_moments_bit_equal_cpu(cuda):
+    cfg = get_reduced_config("gemma-2b")
+    opt = adamw(cosine(3e-3, 10, 2), AdamWConfig(quantized_state=True))
+    rng = np.random.default_rng(0)
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
+    p_cpu = model.make_params()
+    init_params(p_cpu, torch.Generator().manual_seed(0))
+    grads = [{n: torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                  .astype(np.float32) * 1e-2)
+              for n, p in p_cpu.named_parameters()} for _ in range(2)]
+    p_gpu = build_model(cfg, dtype=torch.float32, device=cuda).make_params()
+    p_gpu.load_state_dict(p_cpu.state_dict())
+    st_cpu, st_gpu = opt.init(p_cpu), opt.init(p_gpu)
+    for i, g in enumerate(grads):
+        _, st_cpu = opt.update(p_cpu, g, st_cpu, i)
+        _, st_gpu = opt.update(p_gpu, {k: v.to(cuda) for k, v in g.items()},
+                               st_gpu, i)
+        for name, mv in st_cpu["mu"].items():
+            for k in ("m", "v"):
+                want, got = mv[k], st_gpu["mu"][name][k]
+                assert torch.equal(got.q.cpu(), want.q), (i, name, k)
+                assert torch.equal(got.scale.cpu(), want.scale), (i, name, k)
 
 
 @pytest.mark.gpu
