@@ -78,12 +78,16 @@ The autotune cache lives under ``build/``.  Last, RWKV-6 generation:
 weights) serves 4 prompts of 512 tokens and 16 new tokens, its prefill
 running the ``wkv`` kernel once a layer (checks in ``lm_rwkv6_3b``);
 then the decoder-only transformer (``lm_dense``): gemma-2b at full width
-and depth and qwen2.5-14b at full width and 4 layers, on plain torch
+and depth on 4 x 512 and on 2 x 8,176 tokens (its 8,192-token context),
+qwen2.5-14b at full width and 4 layers, minicpm-2b whole, qwen1.5-32b
+whole (its decode on the int8 KV cache beside the bf16 one) and
+paligemma-3b whole behind 256 patch embeddings, on plain torch
 attention over a KV cache, launching none of the port's kernels; then
 the MoE family (``lm_moe``: llama4-maverick-400b-a17b at full width and
-2 layers, dbrx-132b at full width and 4, capacity-routed experts) and
-the hybrid (``lm_hybrid``: recurrentgemma-9b whole, the RG-LRU's
-doubling scan and local attention), likewise on plain torch; then the
+2 layers, dbrx-132b at full width and 10, capacity-routed experts) and
+the hybrid (``lm_hybrid``: recurrentgemma-9b whole on 4 x 512 and on
+2 x 4,096 past its 2,048-token window, the RG-LRU's doubling scan and
+local attention over a ring cache), likewise on plain torch; then the
 encoder-decoder (``lm_encdec``: whisper-medium whole on 4 x 1500 frames,
 prefill and 32 decode steps through the model API, plain torch) and the
 coded spectral mixer (``spectral_coded``: 4096 rows of 4096 points
@@ -122,6 +126,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -518,205 +523,118 @@ def lm_rwkv6_3b(torch, rng, counted) -> None:
           "nvidia_smi": nvidia_smi()})
 
 
-# the decoder-only transformer cells: (arch, layers kept or None for all,
-# prompts, prompt tokens, new tokens); the KV cache holds DENSE_CACHE_LEN
-DENSE_CELLS = (("gemma-2b", None, 4, 512, 16), ("qwen2.5-14b", 4, 2, 512, 8))
-DENSE_CACHE_LEN = 1024
+class LMCell(NamedTuple):
+    """One generation cell: ``arch`` at ``layers`` (None: all of them),
+    ``batch`` prompts of ``prompt`` tokens (after the vlm's patch prefix),
+    ``new`` tokens, a cache of ``cache`` slots; the f32 consistency model
+    at ``f32_layers`` (None: no f32 check) on the cell's own prompts, or
+    on one prompt of ``f32_tokens`` tokens where that is set."""
+
+    arch: str
+    layers: Optional[int]
+    batch: int
+    prompt: int
+    new: int
+    cache: int
+    f32_layers: Optional[int]
+    f32_tokens: Optional[int] = None
 
 
-def lm_dense(torch, rng, counted) -> None:
-    """The generation engine on the decoder-only transformer: gemma-2b at
-    full width and depth (18 layers, d_model 2048, MQA with head_dim 256,
-    vocab 256,000) on 4 prompts of 512 tokens and 16 new tokens, then
-    qwen2.5-14b at full width and 4 of its 48 layers (GQA 40/8, QKV
-    bias, rope_theta 1e6, an untied unembed) on 2 x 512 and 8 new; bf16
-    weights from a seeded init on the card, a KV cache of 1024 slots,
-    greedy.  Attention is plain torch (no hand-written kernel): the run
-    must launch none of the port's kernels.
+# the decoder-only transformer (dense and vlm): gemma-2b whole at 4 x 512
+# and at its published 8,192-token context (8 prefill KV chunks, 4
+# decode chunks), qwen2.5-14b at 4 of 48 layers, minicpm-2b whole,
+# qwen1.5-32b whole (its f32 consistency model at 4 layers: whole, it
+# would not fit) and paligemma-3b whole behind its 256 patches (1,280
+# positions: the bidirectional prefix in the first of two KV chunks)
+DENSE_CELLS = (
+    LMCell("gemma-2b", None, 4, 512, 16, 1024, 18),
+    LMCell("gemma-2b", None, 2, 8176, 16, 8192, 18),
+    LMCell("qwen2.5-14b", 4, 2, 512, 8, 1024, 4),
+    LMCell("minicpm-2b", None, 4, 512, 16, 1024, 40),
+    LMCell("qwen1.5-32b", None, 2, 512, 8, 1024, 4),
+    LMCell("paligemma-3b", None, 4, 1024, 16, 1296, 18),
+)
+# the MoE family: llama4-maverick at 2 of 48 layers (one dense + MoE
+# superblock: a second would not fit beside the init's f32 draw of an
+# expert stack), dbrx-132b at 10 of 40; the f32 check at 1 x 8, where
+# capacity drops nothing
+MOE_CELLS = (
+    LMCell("llama4-maverick-400b-a17b", 2, 2, 512, 8, 1024, None, 8),
+    LMCell("dbrx-132b", 10, 2, 512, 8, 1024, 1, 8),
+)
+# recurrentgemma-9b whole: a cache shorter than its 2,048-token window
+# (no ring), then 2 x 4,096 past it (a 2,048-slot ring: the prefill keeps
+# the last 2,048 tokens by slot, decode wraps step % 2048)
+HYBRID_CELLS = (
+    LMCell("recurrentgemma-9b", None, 4, 512, 16, 1024, 5, 8),
+    LMCell("recurrentgemma-9b", None, 2, 4096, 16, 4112, 5),
+)
+LONG_ATTENTION_ROWS = 64     # query rows held against a float64 softmax
 
-    Checks: the outputs in range and the logits finite; the engine's
-    first token the prefill's argmax; on f32 weights (the same seed)
-    prefill(T) against prefill(T-1) and one decode step, the same next
-    token and logits within 5% (the bf16 weights' figures are printed);
-    at the model's head shapes, standard-normal q/k/v, attention over the
-    int8 cache within the reference's max-abs 0.05 of the unquantized
-    one (``tests/test_attention.py``); a decode step on the int8 cache
-    finite; the head's bf16 product against the same product in f32
-    (1e-5, TF32 off).  Prints prefill tokens/s and decode ms a step (host
-    clock around a synchronize) beside the weights' bytes bound of a
-    decode step, generate seconds, peak memory, and the profiled busy
-    and idle shares of a prefill and of a decode step."""
+
+def _cell_config(cell: LMCell):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model, transformer
-    from repro_torch.models.attention import chunked_attention, quantize_kv
-    from repro_torch.serving import EngineConfig, GenerationEngine
 
-    dev = torch.device("cuda")
-    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
-    finite = lambda *xs: all(bool(torch.isfinite(x).all()) for x in xs)
-    for arch, layers, b, t, new in DENSE_CELLS:
-        cfg = get_config(arch)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model = build_model(cfg)
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        engine = GenerationEngine(model, params, EngineConfig(
-            batch_size=b, prompt_len=t, max_new_tokens=new,
-            cache_len=DENSE_CACHE_LEN))
-        prompts = [list(rng.integers(1, cfg.vocab_size, t))
-                   for _ in range(b)]
-        t0 = time.perf_counter()
-        outs, counts = counted(lambda: engine.generate(prompts))
-        first_s = time.perf_counter() - t0
-        if counts:
-            fail(f"{arch} generate launched hand-written kernels: {counts}")
-        if (len(outs) != b or any(len(o) != new for o in outs)
-                or not all(0 <= x < cfg.vocab_size for o in outs for x in o)):
-            fail(f"{arch} generate: outputs {[len(o) for o in outs]}")
-        tokens = torch.as_tensor(engine._pad_prompts(prompts), device=dev)
-
-        def prefill(mdl, prm, toks, quantized=False):
-            return transformer.lm_prefill(
-                prm, {"tokens": toks},
-                mdl.init_cache(b, DENSE_CACHE_LEN, quantized=quantized))
-
-        def consistency(mdl, prm):
-            """prefill(T) and prefill(T-1) + one decode step at T-1."""
-            full, _ = prefill(mdl, prm, tokens)
-            _, cache = prefill(mdl, prm, tokens[:, :-1])
-            dec, _ = transformer.lm_decode_step(
-                prm, cache, {"tokens": tokens[:, -1:]}, t - 1)
-            torch.cuda.synchronize()
-            return {"finite": finite(full, dec),
-                    "decode_logits_rel": rel(dec, full),
-                    "decode_same_token": bool(torch.equal(full.argmax(-1),
-                                                          dec.argmax(-1)))}
-
-        logits, cache = prefill(model, params, tokens)
-        greedy = logits.argmax(-1)
-        bf16 = {"finite": finite(logits),
-                "engine_first_token_is_prefill_argmax": (
-                    [o[0] for o in outs] == greedy.reshape(-1).tolist()),
-                "prefill_then_decode": consistency(model, params)}
-        # the head on the card against the same product in f32
-        x = torch.randn((b, 1, cfg.d_model), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(1)
-                        ).to(torch.bfloat16)
-        want = x.float() @ transformer.unembed_matrix(params).float()
-        bf16["head_vs_f32_product_rel"] = rel(
-            transformer._head(params, x), want / cfg.logit_divisor)
-        del want
-        # int8 cache: attention at the head shapes, then a decode step
-        g = torch.Generator(device=dev).manual_seed(2)
-        q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), device=dev,
-                        generator=g)
-        k, v = (torch.randn((b, DENSE_CACHE_LEN, cfg.n_kv_heads,
-                             cfg.head_dim), device=dev, generator=g)
-                for _ in range(2))
-        pos = dict(q_positions=torch.arange(DENSE_CACHE_LEN - 1,
-                                            DENSE_CACHE_LEN, device=dev),
-                   kv_positions=torch.arange(DENSE_CACHE_LEN, device=dev),
-                   chunk=min(2048, DENSE_CACHE_LEN))
-        bf16["int8_attention_max_abs_err"] = float(
-            (chunked_attention(q, quantize_kv(k), quantize_kv(v), **pos)
-             - chunked_attention(q, k, v, **pos)).abs().max())
-        _, qcache = prefill(model, params, tokens, quantized=True)
-        qlogits, _ = transformer.lm_decode_step(
-            params, qcache, {"tokens": greedy.to(torch.int32)}, t)
-        bf16["int8_cache_decode_finite"] = finite(qlogits)
-        del q, k, v, qcache
-        if not (bf16["finite"] and bf16["prefill_then_decode"]["finite"]
-                and bf16["engine_first_token_is_prefill_argmax"]
-                and bf16["head_vs_f32_product_rel"] < 1e-5
-                and bf16["int8_attention_max_abs_err"] < 0.05
-                and bf16["int8_cache_decode_finite"]):
-            fail(f"{arch} bf16 checks: {bf16}")
-
-        # rates: the prefill alone (3 calls) and the decode step alone
-        # (``new`` steps on the prefill's cache), host clock around a
-        # synchronize
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(3):
-            prefill(model, params, tokens)
-        torch.cuda.synchronize()
-        prefill_s = (time.perf_counter() - t1) / 3
-        tok = greedy.to(torch.int32)
-        t1 = time.perf_counter()
-        for i in range(new):
-            lg, cache = transformer.lm_decode_step(params, cache,
-                                                   {"tokens": tok}, t + i)
-            tok = lg.argmax(-1).to(torch.int32)
-        torch.cuda.synchronize()
-        decode_s = (time.perf_counter() - t1) / new
-        t1 = time.perf_counter()
-        engine.generate(prompts)
-        torch.cuda.synchronize()
-        generate_s = time.perf_counter() - t1
-        trace_prefill = profile_call(torch, lambda: prefill(model, params,
-                                                            tokens))
-        trace_decode = profile_call(torch, lambda: transformer.lm_decode_step(
-            params, cache, {"tokens": tok}, t + new))
-        max_gb = torch.cuda.max_memory_allocated() / 1e9
-        weight_bytes = sum(p.numel() * p.element_size()
-                           for p in params.parameters())
-        del params, engine, cache, logits, lg, qlogits, model
-        torch.cuda.empty_cache()
-
-        # f32 weights, the same seed: prefill(T) against prefill(T-1) +
-        # one decode step, gated
-        model32 = build_model(cfg, dtype=torch.float32)
-        params32 = model32.init(torch.Generator(device=dev).manual_seed(0))
-        f32 = consistency(model32, params32)
-        if not (f32["finite"] and f32["decode_same_token"]
-                and f32["decode_logits_rel"] < 0.05):
-            fail(f"{arch} f32 checks: {f32}")
-        n_params = model32.n_params
-        del params32, model32
-        torch.cuda.empty_cache()
-
-        emit({"phase": "lm_dense", "arch": cfg.name, "family": cfg.family,
-              "layers": cfg.n_layers,
-              "layers_published": get_config(arch).n_layers,
-              "d_model": cfg.d_model, "heads": cfg.n_heads,
-              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
-              "vocab": cfg.vocab_size, "dtype": "bfloat16",
-              "n_params": n_params, "batch": b, "prompt_len": t,
-              "new_tokens": new, "cache_len": DENSE_CACHE_LEN,
-              "launches": counts,
-              "tolerances": {"f32_decode_logits": 0.05,
-                             "head_vs_f32_product": 1e-5,
-                             "int8_attention_max_abs": 0.05},
-              "bf16": bf16, "f32": f32,
-              "init_s": init_s, "first_generate_s": first_s,
-              "generate_s": generate_s, "prefill_s": prefill_s,
-              "prefill_tokens_per_s": b * t / prefill_s,
-              "decode_ms_per_step": decode_s * 1e3,
-              "decode_tokens_per_s": b / decode_s,
-              "decode_weights_bytes_bound_ms": (weight_bytes / PEAK_BYTES_S
-                                                * 1e3),
-              "max_memory_gb": max_gb,
-              "profiled_prefill": trace_prefill,
-              "profiled_decode_step": trace_decode,
-              "nvidia_smi": nvidia_smi()})
+    cfg = get_config(cell.arch)
+    if cell.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=cell.layers)
+    return cfg
 
 
-# the MoE cells: (arch, layers kept, prompts, prompt tokens, new tokens,
-# layers of the f32 consistency model or None); the hybrid cell likewise.
-# The caches hold LM_CACHE_LEN slots.
-MOE_CELLS = (("llama4-maverick-400b-a17b", 2, 2, 512, 8, None),
-             ("dbrx-132b", 4, 2, 512, 8, 1))
-HYBRID_CELLS = (("recurrentgemma-9b", None, 4, 512, 16, 5),)
-LM_CACHE_LEN = 1024
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor in a cache or state (dicts, lists, QuantKV)."""
+    from repro_torch.models.attention import QuantKV
+
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, QuantKV):
+        return _tree_bytes([tree.q, tree.scale])
+    return tree.numel() * tree.element_size()
 
 
-def _moe_first_layer_drops(torch, model, params, tokens) -> dict:
+def lm_cell_bytes(cell: LMCell) -> dict:
+    """The cell's device bytes reckoned on meta tensors: its bf16
+    weights, the init's one f32 draw of the largest leaf, its caches (a
+    bf16 cache of the cell's batch and slots, and for the transformer an
+    int8 one beside it) and their sum; then the f32 consistency model's
+    weights, its draw and its two caches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+
+    cfg = _cell_config(cell)
+
+    def reckon(c, dtype, b, int8):
+        model = build_model(c, dtype=dtype, device="meta")
+        leaves = list(model.make_params().parameters())
+        weights = sum(p.numel() * p.element_size() for p in leaves)
+        draw = 4 * max(p.numel() for p in leaves)
+        caches = _tree_bytes(model.init_cache(b, cell.cache))
+        if int8:
+            caches += _tree_bytes(model.init_cache(b, cell.cache,
+                                                   quantized=True))
+        return weights, draw, caches
+
+    weights, draw, caches = reckon(cfg, torch.bfloat16, cell.batch,
+                                   cfg.family in ("dense", "vlm"))
+    out = {"weights": weights, "f32_draw": draw, "caches": caches,
+           "total": weights + draw + caches}
+    if cell.f32_layers is not None:
+        w32, d32, c32 = reckon(
+            dataclasses.replace(cfg, n_layers=cell.f32_layers),
+            torch.float32, cell.batch if cell.f32_tokens is None else 1,
+            False)
+        out["f32_total"] = w32 + d32 + 2 * c32
+    return out
+
+
+def _moe_first_layer_drops(torch, model, params, tokens, cache_len) -> dict:
     """One prefill of ``tokens`` with the first MoE layer's routing
     recorded (a wrapper around ``moe.moe_ffn`` for this call): its
     assignments, capacity, largest expert load and the share capacity
@@ -742,150 +660,347 @@ def _moe_first_layer_drops(torch, model, params, tokens) -> dict:
     moe.moe_ffn = first
     try:
         model.prefill(params, {"tokens": tokens},
-                      model.init_cache(tokens.shape[0], LM_CACHE_LEN))
+                      model.init_cache(tokens.shape[0], cache_len))
     finally:
         moe.moe_ffn = real
     return rec
 
 
-def _lm_serve_cell(torch, rng, counted, phase, arch, layers, b, t, new,
-                   f32_layers, extra=None) -> None:
-    """One model through the generation engine on the card: bf16 weights
-    from a seeded init, greedy, a cache of LM_CACHE_LEN slots; no
-    hand-written kernel may launch.  Checks the outputs in range and
-    finite, the engine's first token the prefill's argmax and, on f32
-    weights at ``f32_layers`` layers (the same seed), prefill(8) against
-    prefill(7) and one decode step at 1 x 8: the same next token, logits
-    within 5% (the bf16 model's figures printed).  Prints prefill
-    tokens/s, decode ms a step (host clock around a synchronize) beside
-    the bytes bound of the weights a step reads (every expert, as the
-    reference's batched product reads them; of an untied embedding only
-    its B rows), generate seconds, peak memory, the profiled busy and
-    idle shares of a prefill and a decode step, and ``extra(model,
-    params, tokens)``."""
+def _long_attention(torch, cfg, s: int, prefix_len) -> dict:
+    """At the model's head shapes, standard-normal f32 q/k/v over one
+    prompt of ``s`` positions with the model's mask (causal; its window;
+    the vlm's bidirectional prefix): ``chunked_attention`` at
+    ``ATTN_CHUNK`` against one chunk of ``s``, over every row, and the
+    last LONG_ATTENTION_ROWS query rows of both against a float64
+    softmax, each relative to the largest magnitude (TF32 off)."""
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.layers import softcap
+    from repro_torch.models.transformer import ATTN_CHUNK
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((1, s, h, d), device=dev, generator=g)
+    k, v = (torch.randn((1, s, kh, d), device=dev, generator=g)
+            for _ in range(2))
+    kw = dict(causal=True, window=cfg.attn_window, prefix_len=prefix_len,
+              logit_cap=cfg.logit_cap)
+    chunked = chunked_attention(q, k, v, chunk=ATTN_CHUNK, **kw)
+    one = chunked_attention(q, k, v, chunk=s, **kw)
+    rows = LONG_ATTENTION_ROWS
+    kv_head = torch.arange(h, device=dev) // (h // kh)
+    kd, vd = k[0].double()[:, kv_head], v[0].double()[:, kv_head]
+    scores = softcap(torch.einsum("rhd,shd->hrs",
+                                  q[0, -rows:].double() * d ** -0.5, kd),
+                     cfg.logit_cap)
+    qpos = torch.arange(s - rows, s, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    allowed = kpos <= qpos
+    if cfg.attn_window is not None:
+        allowed &= kpos > qpos - cfg.attn_window
+    if prefix_len is not None:
+        allowed |= kpos < prefix_len
+    p = torch.softmax(scores.masked_fill(~allowed, float("-inf")), -1)
+    want = torch.einsum("hrs,shd->rhd", p, vd)
+    rel = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+    return {"positions": s, "chunk": ATTN_CHUNK, "window": cfg.attn_window,
+            "prefix_len": prefix_len,
+            "chunked_vs_one_chunk_rel": rel(chunked, one.double()),
+            "chunked_vs_f64_rel": rel(chunked[0, -rows:], want),
+            "one_chunk_vs_f64_rel": rel(one[0, -rows:], want),
+            "f64_rows": rows}
+
+
+def _prefix_check(torch, params, batch) -> dict:
+    """The vlm's prefix-LM mask on the card (``tests/
+    test_torch_transformer.py``'s prefix test at full width): a change to
+    the last patch moves the first patch position's hidden state; a
+    change to the last text token leaves every earlier position
+    bit-equal and moves the last."""
+    from repro_torch.models import transformer
+
+    def hidden(b):
+        embeds, prefix = transformer._prep_embeds(params, b)
+        return transformer.decoder_hidden(params, embeds, mode="prefill",
+                                          prefix_len=prefix)
+
+    h0 = hidden(batch)
+    patches = batch["patches"].clone()
+    patches[:, -1] += 1.0
+    first_moved = not torch.allclose(
+        h0[:, 0], hidden(dict(batch, patches=patches))[:, 0])
+    tokens = batch["tokens"].clone()
+    tokens[:, -1] = tokens[:, -1] % (params.cfg.vocab_size - 1) + 1
+    h2 = hidden(dict(batch, tokens=tokens))
+    return {"last_patch_moves_first_position": first_moved,
+            "last_token_leaves_earlier_bit_equal": bool(
+                torch.equal(h0[:, :-1], h2[:, :-1])),
+            "earlier_max_abs_diff": float((h0[:, :-1] - h2[:, :-1])
+                                          .abs().max()),
+            "last_token_moves_last_position": not torch.allclose(
+                h0[:, -1], h2[:, -1])}
+
+
+def _lm_cell(torch, rng, counted, phase, cell: LMCell, extra=None) -> None:
+    """One generation cell on the card: bf16 weights from a seeded init,
+    greedy, through ``GenerationEngine`` (the vlm, whose prompts carry
+    patch embeddings the engine does not take, through the model's
+    ``prefill`` and ``decode_step``); no hand-written kernel may launch.
+
+    Checks, each gating the run: the outputs in range and the logits
+    finite; the first token the prefill's argmax; prefill(T) against
+    prefill(T-1) and one decode step at T-1 (the cell's prompts, or 1 x
+    ``f32_tokens``): finite, and on f32 weights at ``f32_layers`` (the
+    same seed) the same next token and logits within 5% (the bf16
+    model's figures printed).  The transformer (dense, vlm) also: the
+    head's bf16 product against the same product in f32 (1e-5, TF32 off);
+    at the head shapes, standard-normal q/k/v, attention over the int8
+    cache within the reference's max-abs 0.05 of the unquantized one
+    (``tests/test_attention.py``); the decode steps on the int8 cache
+    (the config's ``kv_quant_decode`` serving) fed the bf16 steps' tokens,
+    finite, their largest relative logits difference and argmax
+    agreement printed.  Past one attention chunk, ``_long_attention`` at
+    the model's head shapes (2e-5); the vlm, ``_prefix_check`` on the f32
+    weights.  Prints prefill tokens/s, decode ms a step (host clock
+    around a synchronize; bf16 and int8 caches) beside the bytes bound of
+    the weights a step reads (every expert, as the batched product reads
+    them; of an untied embedding only its B rows), generate seconds, the
+    meta reckoning beside the peak memory, the profiled busy and idle
+    shares of a prefill and a decode step, and ``extra(model, params,
+    tokens)``."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.attention import chunked_attention, quantize_kv
     from repro_torch.serving import EngineConfig, GenerationEngine
 
     dev = torch.device("cuda")
     rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
     finite = lambda *xs: all(bool(torch.isfinite(x).all()) for x in xs)
-    cfg = get_config(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    b, t, new, c_len = cell.batch, cell.prompt, cell.new, cell.cache
+    cfg = _cell_config(cell)
+    n_pre = cfg.num_prefix_tokens       # the vlm's patches ahead of the text
+    kv_cache = cfg.family in ("dense", "vlm")
+    reckoned = {k: v / 1e9 for k, v in lm_cell_bytes(cell).items()}
     torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.init(gen(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     # the init's peak holds one f32 draw of the largest weight beside
     # the model; serving's peak is read apart
     init_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    engine = GenerationEngine(model, params, EngineConfig(
-        batch_size=b, prompt_len=t, max_new_tokens=new,
-        cache_len=LM_CACHE_LEN))
-    prompts = [list(rng.integers(1, cfg.vocab_size, t)) for _ in range(b)]
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, t)),
+                             dtype=torch.int32, device=dev)
+    # the SigLIP stub: seeded bf16 patch embeddings
+    patches = (torch.randn((b, n_pre, cfg.d_model), device=dev,
+                           generator=gen(3)).to(torch.bfloat16)
+               if n_pre else None)
+
+    def inputs(toks):
+        return ({"tokens": toks} if patches is None else
+                {"tokens": toks, "patches": patches[:toks.shape[0]]})
+
+    def prefill(mdl, prm, toks, quantized=False):
+        return mdl.prefill(prm, inputs(toks), mdl.init_cache(
+            toks.shape[0], c_len, quantized=quantized))
+
+    engine = None
+    if n_pre:
+        def generate():
+            logits, cache = prefill(model, params, tokens)
+            tok = logits.argmax(-1).to(torch.int32)
+            out = [tok]
+            for i in range(new - 1):
+                logits, cache = model.decode_step(params, cache,
+                                                  {"tokens": tok},
+                                                  n_pre + t + i)
+                tok = logits.argmax(-1).to(torch.int32)
+                out.append(tok)
+            return torch.cat(out, 1).tolist()
+    else:
+        engine = GenerationEngine(model, params, EngineConfig(
+            batch_size=b, prompt_len=t, max_new_tokens=new,
+            cache_len=c_len))
+        generate = lambda: engine.generate(tokens.tolist())
     t0 = time.perf_counter()
-    outs, counts = counted(lambda: engine.generate(prompts))
+    outs, counts = counted(generate)
     first_s = time.perf_counter() - t0
     if counts:
-        fail(f"{arch} generate launched hand-written kernels: {counts}")
+        fail(f"{cfg.name} generate launched hand-written kernels: {counts}")
     if (len(outs) != b or any(len(o) != new for o in outs)
             or not all(0 <= x < cfg.vocab_size for o in outs for x in o)):
-        fail(f"{arch} generate: outputs {[len(o) for o in outs]}")
-    tokens = torch.as_tensor(engine._pad_prompts(prompts), device=dev)
-
-    def prefill(mdl, prm, toks):
-        return mdl.prefill(prm, {"tokens": toks},
-                           mdl.init_cache(toks.shape[0], LM_CACHE_LEN))
+        fail(f"{cfg.name} generate: outputs {[len(o) for o in outs]}")
 
     def consistency(mdl, prm):
-        """prefill(8) and prefill(7) + one decode step at 1 x 8."""
-        toks = tokens[:1, :8]
-        full, _ = prefill(mdl, prm, toks)
+        """prefill(T) and prefill(T-1) + one decode step at T-1, each
+        cache freed before the next is made."""
+        bb, tt = (b, t) if cell.f32_tokens is None else (1, cell.f32_tokens)
+        toks = tokens[:bb, :tt]
+        full, cache = prefill(mdl, prm, toks)
+        del cache
         _, cache = prefill(mdl, prm, toks[:, :-1])
-        dec, _ = mdl.decode_step(prm, cache, {"tokens": toks[:, -1:]}, 7)
+        dec, _ = mdl.decode_step(prm, cache, {"tokens": toks[:, -1:]},
+                                 n_pre + tt - 1)
+        del cache
         torch.cuda.synchronize()
-        return {"finite": finite(full, dec),
+        return {"batch": bb, "positions": n_pre + tt,
+                "finite": finite(full, dec),
                 "decode_logits_rel": rel(dec, full),
                 "decode_same_token": bool(torch.equal(full.argmax(-1),
                                                       dec.argmax(-1)))}
 
+    bf16 = {"prefill_then_decode": consistency(model, params)}
     logits, cache = prefill(model, params, tokens)
-    greedy = logits.argmax(-1)
-    bf16 = {"finite": finite(logits),
-            "engine_first_token_is_prefill_argmax": (
-                [o[0] for o in outs] == greedy.reshape(-1).tolist()),
-            "prefill_then_decode_1x8": consistency(model, params)}
+    greedy = logits.argmax(-1).to(torch.int32)
+    bf16["finite"] = finite(logits)
+    bf16["first_token_is_prefill_argmax"] = (
+        [o[0] for o in outs] == greedy.reshape(-1).tolist())
+    ok = (bf16["finite"] and bf16["first_token_is_prefill_argmax"]
+          and bf16["prefill_then_decode"]["finite"])
+    if kv_cache:
+        # the head on the card against the same product in f32
+        x = torch.randn((b, 1, cfg.d_model), device=dev,
+                        generator=gen(1)).to(torch.bfloat16)
+        want = x.float() @ transformer.unembed_matrix(params).float()
+        bf16["head_vs_f32_product_rel"] = rel(
+            transformer._head(params, x), want / cfg.logit_divisor)
+        del want
+        # int8 cache: attention at the head shapes
+        g = gen(2)
+        q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), device=dev,
+                        generator=g)
+        k, v = (torch.randn((b, c_len, cfg.n_kv_heads, cfg.head_dim),
+                            device=dev, generator=g) for _ in range(2))
+        pos = dict(q_positions=torch.arange(c_len - 1, c_len, device=dev),
+                   kv_positions=torch.arange(c_len, device=dev),
+                   chunk=min(2048, c_len))
+        bf16["int8_attention_max_abs_err"] = float(
+            (chunked_attention(q, quantize_kv(k), quantize_kv(v), **pos)
+             - chunked_attention(q, k, v, **pos)).abs().max())
+        del q, k, v
+        ok = (ok and bf16["head_vs_f32_product_rel"] < 1e-5
+              and bf16["int8_attention_max_abs_err"] < 0.05)
+    long = None
+    if n_pre + t > transformer.ATTN_CHUNK:
+        long = _long_attention(torch, cfg, n_pre + t, n_pre or None)
+        ok = ok and all(long[k] < 2e-5 for k in (
+            "chunked_vs_one_chunk_rel", "chunked_vs_f64_rel",
+            "one_chunk_vs_f64_rel"))
     if extra is not None:
         bf16.update(extra(model, params, tokens))
-    if not (bf16["finite"] and bf16["engine_first_token_is_prefill_argmax"]
-            and bf16["prefill_then_decode_1x8"]["finite"]):
-        fail(f"{arch} bf16 checks: {bf16}")
+    if not ok:
+        fail(f"{cfg.name} bf16 checks: {bf16}, long attention {long}")
 
     # rates: the prefill alone (3 calls) and the decode step alone (``new``
-    # steps on the prefill's cache), host clock around a synchronize
+    # steps on the prefill's cache), host clock around a synchronize; for
+    # the transformer the same steps again on the int8 cache, fed the bf16
+    # steps' tokens
+    step0 = n_pre + t
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(3):
         prefill(model, params, tokens)
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t1) / 3
-    tok = greedy.to(torch.int32)
+    tok, fed, steps = greedy, [], []
     t1 = time.perf_counter()
     for i in range(new):
-        lg, cache = model.decode_step(params, cache, {"tokens": tok}, t + i)
+        fed.append(tok)
+        lg, cache = model.decode_step(params, cache, {"tokens": tok},
+                                      step0 + i)
+        steps.append(lg)
         tok = lg.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     decode_s = (time.perf_counter() - t1) / new
-    if not finite(lg):
-        fail(f"{arch} decode logits not finite")
+    if not finite(*steps):
+        fail(f"{cfg.name} decode logits not finite")
+    int8 = None
+    if kv_cache:
+        _, qcache = prefill(model, params, tokens, quantized=True)
+        qsteps = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, tk in enumerate(fed):
+            qlg, qcache = model.decode_step(params, qcache, {"tokens": tk},
+                                            step0 + i)
+            qsteps.append(qlg)
+            qlg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        int8_s = (time.perf_counter() - t1) / new
+        int8 = {"decode_ms_per_step": int8_s * 1e3,
+                "decode_tokens_per_s": b / int8_s,
+                "finite": finite(*qsteps),
+                "logits_max_rel_vs_bf16": max(
+                    rel(a, w) for a, w in zip(qsteps, steps)),
+                "argmax_agreement": float(torch.mean(torch.stack(
+                    [(a.argmax(-1) == w.argmax(-1)).float().mean()
+                     for a, w in zip(qsteps, steps)])))}
+        del qcache, qsteps
+        if not int8["finite"]:
+            fail(f"{cfg.name} int8-cache decode: {int8}")
     t1 = time.perf_counter()
-    engine.generate(prompts)
+    generate()
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t1
     trace_prefill = profile_call(torch, lambda: prefill(model, params,
                                                         tokens))
+    # the last decode step again (the cache may hold no slot past it)
     trace_decode = profile_call(torch, lambda: model.decode_step(
-        params, cache, {"tokens": tok}, t + new))
+        params, cache, {"tokens": fed[-1]}, step0 + new - 1))
     max_gb = torch.cuda.max_memory_allocated() / 1e9
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
     if not cfg.tie_embeddings:
         weight_bytes -= params.embed.numel() * params.embed.element_size()
     n_params, n_active = model.n_params, model.n_active_params
-    del params, engine, cache, logits, lg, model
+    del params, cache, logits, lg, steps, fed, model, generate, engine
     torch.cuda.empty_cache()
 
     f32 = None
-    if f32_layers is not None:
-        cfg32 = dataclasses.replace(cfg, n_layers=f32_layers)
+    if cell.f32_layers is not None:
+        cfg32 = dataclasses.replace(cfg, n_layers=cell.f32_layers)
         model32 = build_model(cfg32, dtype=torch.float32)
-        params32 = model32.init(torch.Generator(device=dev).manual_seed(0))
+        params32 = model32.init(gen(0))
         f32 = consistency(model32, params32)
-        f32["layers"] = f32_layers
+        f32["layers"] = cell.f32_layers
+        ok = (f32["finite"] and f32["decode_same_token"]
+              and f32["decode_logits_rel"] < 0.05)
+        if n_pre:
+            f32["prefix"] = _prefix_check(torch, params32, {
+                "tokens": tokens, "patches": patches.float()})
+            ok = ok and all(f32["prefix"][k] for k in (
+                "last_patch_moves_first_position",
+                "last_token_leaves_earlier_bit_equal",
+                "last_token_moves_last_position"))
         del params32, model32
         torch.cuda.empty_cache()
-        if not (f32["finite"] and f32["decode_same_token"]
-                and f32["decode_logits_rel"] < 0.05):
-            fail(f"{arch} f32 checks: {f32}")
+        if not ok:
+            fail(f"{cfg.name} f32 checks: {f32}")
 
     emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
           "layers": cfg.n_layers,
-          "layers_published": get_config(arch).n_layers,
+          "layers_published": get_config(cell.arch).n_layers,
           "d_model": cfg.d_model, "heads": cfg.n_heads,
           "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
           "vocab": cfg.vocab_size, "dtype": "bfloat16",
           "n_params": n_params, "n_active_params": n_active,
-          "batch": b, "prompt_len": t, "new_tokens": new,
-          "cache_len": LM_CACHE_LEN, "launches": counts,
-          "tolerances": {"f32_decode_logits": 0.05},
-          "bf16": bf16, "f32": f32,
+          "batch": b, "prefix_positions": n_pre, "prompt_len": t,
+          "new_tokens": new, "cache_len": c_len,
+          "kv_quant_decode": cfg.kv_quant_decode, "launches": counts,
+          "tolerances": {"f32_decode_logits": 0.05,
+                         **({"head_vs_f32_product": 1e-5,
+                             "int8_attention_max_abs": 0.05}
+                            if kv_cache else {}),
+                         **({"long_attention": 2e-5} if long else {})},
+          "bf16": bf16, "int8_cache": int8, "long_attention": long,
+          "f32": f32,
           "init_s": init_s, "first_generate_s": first_s,
           "generate_s": generate_s, "prefill_s": prefill_s,
           "prefill_tokens_per_s": b * t / prefill_s,
@@ -894,57 +1009,71 @@ def _lm_serve_cell(torch, rng, counted, phase, arch, layers, b, t, new,
           "decode_weights_bytes": weight_bytes,
           "decode_weights_bytes_bound_ms": (weight_bytes / PEAK_BYTES_S
                                             * 1e3),
+          "reckoned_gb": reckoned, "resident_gb_before": resident_gb,
           "max_memory_gb": max_gb, "init_max_memory_gb": init_gb,
           "profiled_prefill": trace_prefill,
           "profiled_decode_step": trace_decode,
           "nvidia_smi": nvidia_smi()})
 
 
+def lm_dense(torch, rng, counted) -> None:
+    """The generation engine on the decoder-only transformer at full
+    width (``DENSE_CELLS``): gemma-2b whole (18 layers, d_model 2048, MQA
+    with head_dim 256, vocab 256,000) on 4 x 512 and on 2 x 8,176 (its
+    8,192-token context), qwen2.5-14b at 4 of 48 layers (GQA 40/8, QKV
+    bias), minicpm-2b whole (40 layers, its muP scalings), qwen1.5-32b
+    whole (64 layers, MHA 40 x 128, QKV bias, its decode on the int8
+    cache its config serves beside the bf16 one) and paligemma-3b whole
+    behind 256 patch embeddings (the prefix-LM mask), each freed before
+    the next.  Attention is plain torch (no hand-written kernel).  The
+    checks are ``_lm_cell``'s."""
+    for cell in DENSE_CELLS:
+        _lm_cell(torch, rng, counted, "lm_dense", cell)
+
+
 def lm_moe(torch, rng, counted) -> None:
-    """The generation engine on the MoE family at full width:
-    llama4-maverick-400b-a17b at 2 of its 48 layers (one dense + MoE
-    superblock: 128 experts of 5120 x 8192 top-1 with the shared expert,
-    the dense layer's d_ff 16384, vocab 202,048 untied; 37.4 GB of bf16
-    weights) and dbrx-132b at 4 of 40 (16 experts of 6144 x 10752,
-    top-4; 28.5 GB), each on 2 prompts of 512 tokens and 8 new, freed
-    before the next.  Capacity-routed experts on plain torch (a stable
-    argsort, the kept-only scatter, batched expert products over every
-    expert): no hand-written kernel launches.  Prints the share of the
-    prefill's assignments that capacity dropped in the first MoE layer;
-    the f32 consistency check runs dbrx at 1 layer (18 GB)."""
-    for arch, layers, b, t, new, f32_layers in MOE_CELLS:
-        _lm_serve_cell(torch, rng, counted, "lm_moe", arch, layers, b, t,
-                       new, f32_layers,
-                       extra=lambda m, p, toks: {
-                           "first_moe_layer_prefill": _moe_first_layer_drops(
-                               torch, m, p, toks)})
+    """The generation engine on the MoE family at full width
+    (``MOE_CELLS``): llama4-maverick-400b-a17b at 2 of its 48 layers (one
+    dense + MoE superblock: 128 experts of 5120 x 8192 top-1 with the
+    shared expert, vocab 202,048 untied; 37.4 GB of bf16 weights) and
+    dbrx-132b at 10 of 40 (16 experts of 6144 x 10752, top-4; 67.6 GB),
+    each on 2 prompts of 512 tokens and 8 new, freed before the next.
+    Capacity-routed experts on plain torch (a stable argsort, the
+    kept-only scatter, batched expert products over every expert): no
+    hand-written kernel launches.  Prints the share of the prefill's
+    assignments that capacity dropped in the first MoE layer; the f32
+    consistency check runs dbrx at 1 layer (18 GB)."""
+    for cell in MOE_CELLS:
+        _lm_cell(torch, rng, counted, "lm_moe", cell,
+                 extra=lambda m, p, toks: {
+                     "first_moe_layer_prefill": _moe_first_layer_drops(
+                         torch, m, p, toks, cell.cache)})
 
 
 def lm_hybrid(torch, rng, counted) -> None:
     """The generation engine on recurrentgemma-9b whole (38 layers: 26
     RG-LRU recurrent and 12 local-attention, d_model and d_rnn 4096, MQA
     with head_dim 256, window 2048, vocab 256,000 tied; 18.8 GB of bf16
-    weights) on 4 prompts of 512 tokens and 16 new: the doubling scan
-    in prefill, one recurrence step a decode step, the attention cache
-    of 1024 slots (shorter than the window: no ring); no hand-written
-    kernel launches.  The f32 consistency check runs 5 layers (one
-    superblock and the tail, 8.7 GB).  Prints the FP32 gate products'
+    weights), ``HYBRID_CELLS``: 4 x 512 on a cache of 1024 slots (shorter
+    than the window: no ring), then 2 x 4,096 on a 2,048-slot ring; the
+    doubling scan in prefill, one recurrence step a decode step; no
+    hand-written kernel launches.  The f32 consistency check runs 5
+    layers (one superblock and the tail).  Prints the FP32 gate products'
     operations (``wa`` and ``wx``: 2 x 2 x B x T x d_rnn^2 a recurrent
     layer, TF32 off)."""
-    from repro_torch.configs import get_config
     from repro_torch.models import rglru
 
-    for arch, layers, b, t, new, f32_layers in HYBRID_CELLS:
-        cfg = get_config(arch)
+    for cell in HYBRID_CELLS:
+        cfg = _cell_config(cell)
         n_rec = rglru.layer_kinds(cfg).count("rec")
-        flop = 2 * 2 * b * t * cfg.recurrent.d_rnn ** 2 * n_rec
-        _lm_serve_cell(torch, rng, counted, "lm_hybrid", arch, layers, b, t,
-                       new, f32_layers,
-                       extra=lambda m, p, toks: {
-                           "recurrent_layers": n_rec,
-                           "prefill_fp32_gate_products_tflop": flop / 1e12,
-                           "fp32_gate_products_bound_ms": (
-                               flop / PEAK_FP32_S * 1e3)})
+        flop = 2 * 2 * cell.batch * cell.prompt * cfg.recurrent.d_rnn ** 2 \
+            * n_rec
+        _lm_cell(torch, rng, counted, "lm_hybrid", cell,
+                 extra=lambda m, p, toks: {
+                     "recurrent_layers": n_rec,
+                     "prefill_fp32_gate_products_tflop": flop / 1e12,
+                     "fp32_gate_products_bound_ms": (
+                         flop / PEAK_FP32_S * 1e3)})
 
 
 # whisper-medium whole: (arch, prompts, frames, prompt tokens, new tokens,
@@ -5006,12 +5135,14 @@ def main() -> int:
     # -- 10. RWKV-6 generation: rwkv6-3b at full width and depth, bf16 --
     lm_rwkv6_3b(torch, rng, counted)
 
-    # -- 11. the decoder-only transformer: gemma-2b at full width and
-    # depth, qwen2.5-14b at full width and 4 layers, bf16 --
+    # -- 11. the decoder-only transformer at full width (DENSE_CELLS):
+    # gemma-2b at 512 and 8,176 tokens, qwen2.5-14b at 4 layers,
+    # minicpm-2b, qwen1.5-32b and paligemma-3b whole, bf16 --
     lm_dense(torch, rng, counted)
 
     # -- 12. the MoE family at full width (llama4-maverick at 2 layers,
-    # dbrx-132b at 4) and the hybrid recurrentgemma-9b whole, bf16 --
+    # dbrx-132b at 10) and the hybrid recurrentgemma-9b whole, within
+    # and past its window, bf16 --
     lm_moe(torch, rng, counted)
     lm_hybrid(torch, rng, counted)
 

@@ -2,10 +2,13 @@
 (marker ``gpu``, skipped without a CUDA device; no JAX import, so the
 file runs where only torch is installed).
 
-* Reduced gemma-2b and qwen2.5-14b with f32 weights and TF32 off, on
-  the card against the same weights on the CPU (which
+* Reduced gemma-2b, qwen2.5-14b, minicpm-2b, qwen1.5-32b and
+  paligemma-3b (behind its patch embeddings) with f32 weights and TF32
+  off, on the card against the same weights on the CPU (which
   ``tests/test_torch_transformer.py`` holds against the JAX package):
-  prefill and two decode steps, logits and caches within 1e-4; reduced
+  prefill and two decode steps, logits and caches within 1e-4, and
+  reduced gemma-2b the same way on 1,100 tokens and 2,100 slots (past
+  one attention chunk and one decode chunk); reduced
   dbrx-132b, llama4-maverick-400b-a17b and recurrentgemma-9b the same
   way (``test_torch_moe.py``, ``test_torch_rglru.py`` against JAX),
   with the head's f32 input in place of the logits and every cache or
@@ -53,30 +56,45 @@ def _leaves(cache):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2.5-14b"])
-def test_gpu_f32_model_matches_cpu(cuda, arch):
+@pytest.mark.parametrize("arch,t,cache", [
+    pytest.param("gemma-2b", 11, CACHE, id="gemma-2b"),
+    pytest.param("qwen2.5-14b", 11, CACHE, id="qwen2.5-14b"),
+    pytest.param("minicpm-2b", 11, CACHE, id="minicpm-2b"),
+    pytest.param("qwen1.5-32b", 11, CACHE, id="qwen1.5-32b"),
+    pytest.param("paligemma-3b", 11, CACHE, id="paligemma-3b"),
+    pytest.param("gemma-2b", 1100, 2100, id="gemma-2b-past-attn-chunk")])
+def test_gpu_f32_model_matches_cpu(cuda, arch, t, cache):
     """Reduced model, f32 weights, on the card against the CPU: prefill
-    and two decode steps, logits and caches within 1e-4."""
+    of ``t - 2`` tokens (after the vlm's seeded patch embeddings) and two
+    decode steps, logits and caches within 1e-4; at t = 1,100 the
+    prefill spans two attention chunks and the decode two 2,048-slot
+    chunks of its 2,100."""
     cfg = get_reduced_config(arch)
     cpu = build_model(cfg, dtype=torch.float32, device="cpu")
     params = cpu.init(torch.Generator().manual_seed(3))
     card = build_model(cfg, dtype=torch.float32, device=cuda)
     on_card = card.make_params()
     on_card.load_state_dict(params.state_dict())
-    toks = torch.from_numpy(np.random.default_rng(11).integers(
-        1, cfg.vocab_size, (B, 11)).astype(np.int32))
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (B, t)).astype(np.int32))
+    n_pre = cfg.num_prefix_tokens
+    patches = torch.from_numpy(rng.standard_normal(
+        (B, n_pre, cfg.d_model)).astype(np.float32))
     runs = []
     for mdl, prm, dev in ((cpu, params, torch.device("cpu")),
                           (card, on_card, cuda)):
-        cache = mdl.init_cache(B, CACHE)
-        logits, cache = mdl.prefill(prm, {"tokens": toks[:, :9].to(dev)},
-                                    cache)
+        kv = mdl.init_cache(B, cache)
+        batch = {"tokens": toks[:, :t - 2].to(dev)}
+        if n_pre:
+            batch["patches"] = patches.to(dev)
+        logits, kv = mdl.prefill(prm, batch, kv)
         seq = [logits]
-        for i in range(9, 11):
-            logits, cache = mdl.decode_step(
-                prm, cache, {"tokens": toks[:, i:i + 1].to(dev)}, i)
+        for i in range(t - 2, t):
+            logits, kv = mdl.decode_step(
+                prm, kv, {"tokens": toks[:, i:i + 1].to(dev)}, n_pre + i)
             seq.append(logits)
-        runs.append((seq, cache))
+        runs.append((seq, kv))
     (lc, cc), (lg, cg) = runs
     for a, b in zip(lg, lc):
         assert _rel(a, b) < 1e-4
