@@ -93,10 +93,18 @@ prefill and 32 decode steps through the model API, plain torch) and the
 coded spectral mixer (``spectral_coded``: 4096 rows of 4096 points
 through ``CodedFFT`` with two of six workers down, exactly two
 ``cmatmul`` launches and one ``fourstep_fused``, and again for its
-gradient with respect to the input); then training (``lm_train``:
-gemma-2b at full width and depth, 4 steps of exact AdamW on 4 x 512
-tokens, the loss falling, and the trainer's bit-exact restart from a
-checkpoint on reduced gemma-2b); last, gradient aggregation
+gradient with respect to the input); then training (``lm_train``, one
+``TrainCell`` row a family at its published width: gemma-2b whole at
+n_micro 1 and 2 against each other, minicpm-2b whole through the
+launcher's default mode with WSD, paligemma-3b, rwkv6-3b and
+whisper-medium whole, recurrentgemma-9b at 12 layers, dbrx-132b at 2
+layers with int8 AdamW moments held against the CPU's; 4 steps each
+(rwkv6-3b 3) on 4 x 512 tokens (whisper 4 x 1,500), the loss falling, every leaf
+changed, no port kernel launched, each step beside its count on meta
+and the roofline terms; the trainer's bit-exact restart from a
+checkpoint on reduced gemma-2b, exact and int8 at n_micro 2, and the
+training example run twice into one checkpoint directory); last,
+gradient aggregation
 (``grad_aggregation``: gemma-2b at full width and 8 layers, its 4
 partition gradients through ``CyclicGradientCode(4, 1)``, every 3-of-4
 decode against the f64 sum; ``compressed_psum`` on four ``gloo`` ranks
@@ -248,7 +256,9 @@ def profile_call(torch, fn, track=(), names=False,
     the summed device time of the kernels it ran (one stream, so the sum
     is the busy time), the idle share, and the kernels that took most;
     ``track``: name fragments whose kernels' device ms are summed apart;
-    ``names``: also every kernel's name and launch count."""
+    ``names``: also every kernel's name and launch count.  The kernels
+    are summed from the trace's raw events: ``key_averages``' parse
+    takes minutes over a training step's hundreds of thousands."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -260,11 +270,13 @@ def profile_call(torch, fn, track=(), names=False,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(margin_s)
-    kernels = sorted(
-        ((e.self_device_time_total / 1e3, e.key, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), reverse=True)
+    acc: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = sorted(((ms, name, n) for name, (ms, n) in acc.items()
+                      if ms > 0), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     tracked = {frag: sum(ms for ms, name, _ in kernels if frag in name)
                for frag in track}
@@ -1236,131 +1248,613 @@ def lm_encdec(torch, np, rng, counted) -> None:
           "nvidia_smi": nvidia_smi()})
 
 
-# the coded spectral mixer: (B, S, D), filter taps, and the plan (s, m, N)
-# with the example's workers 1 and 4 down
-TRAIN_CELL = ("gemma-2b", 4, 512, 4)     # arch, batch, seq, steps
-TRAIN_RESTART = ("gemma-2b", 4, 32, 8, 5)  # reduced; batch, seq, total, ckpt
+class TrainCell(NamedTuple):
+    """One training row: ``arch`` at ``layers`` (None: all of them),
+    ``batch`` x ``seq`` positions (the vlm's patches among them; the
+    encoder-decoder's frames and tokens each ``seq``), ``n_micro``
+    microbatches, int8 AdamW moments or exact, ``schedule`` ("cosine" or
+    "wsd"), whether the row runs through ``python -m
+    repro_torch.launch.train`` (the launcher's default mode) as a
+    subprocess, and its ``steps`` on one fixed batch (the steady step:
+    the median of steps 2 on, the upper of two)."""
+
+    arch: str
+    layers: Optional[int]
+    batch: int
+    seq: int
+    n_micro: int
+    int8: bool
+    schedule: str
+    launcher: bool = False
+    steps: int = 4
 
 
-def lm_train(torch, counted) -> None:
-    """The training core on the card.  (a) gemma-2b at full width and
-    depth (18 layers, d_model 2048, vocab 256,000, ~2.5 B parameters,
-    bf16 weights from a seeded init): ``make_train_step`` with exact
-    AdamW, ``cosine(3e-4, 8, 1)``, clip 1.0, ``n_micro=1``, for 4 steps
-    on one fixed batch of 4 x 512 synthetic tokens.  Plain torch: the
-    step must launch none of the port's kernels.  Checks: the loss and
-    the grad norm finite at every step, the loss lower at step 4 than at
-    step 1, every parameter leaf changed (against a host copy).  Prints
-    each step's ms (host clock around a synchronize), tokens/s and the
-    share of the card's dense bf16 peak that 6 N tokens a step reaches
-    (steps 2-4), ``max_memory_allocated``, and a fifth step profiled
-    (busy, idle, the largest kernels).  (b) The restart on the
-    card, the reference's ``test_trainer_restart_bit_exact``: reduced
-    gemma-2b, 8 steps straight against 5 steps with a checkpoint at step
-    5 resumed to 8, under ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
-    ``torch.use_deterministic_algorithms(True)`` (this check only): the
-    final loss and every tensor of the state bit-equal."""
-    from repro_torch.configs import ShapeConfig, get_config, \
-        get_reduced_config
+# Every family's train step at its published width, bf16 seeded weights,
+# depth cut only where the step's count on meta (``count_train_cell``:
+# the state's bytes and the step's peak live bytes) passes one card's
+# roofline.HBM_PER_CHIP: recurrentgemma-9b at 12 of 38 layers (a multiple
+# of its 3-layer pattern; 15 reckon 83.1 GB), dbrx-132b at 2 of 40 (3
+# pass 80 GB).  n_micro 2: the dry run's 2 rows a microbatch
+# (launch/dryrun.py); dbrx-132b's int8 moments: its full config's
+# train_4k cell selects them (131.6 B > _QUANT_OPT_THRESHOLD).  Row 3 is
+# minicpm-2b through the launcher with MiniCPM's own WSD schedule.
+# rwkv6-3b takes 3 steps: its ~340,000 kernels a step, host-bound, take
+# ~10 s each.
+TRAIN_CELLS = (
+    TrainCell("gemma-2b", None, 4, 512, 1, False, "cosine"),
+    TrainCell("gemma-2b", None, 4, 512, 2, False, "cosine"),
+    TrainCell("minicpm-2b", None, 4, 512, 2, False, "wsd", launcher=True),
+    TrainCell("paligemma-3b", None, 4, 512, 2, False, "cosine"),
+    TrainCell("rwkv6-3b", None, 4, 512, 2, False, "cosine", steps=3),
+    TrainCell("recurrentgemma-9b", 12, 4, 512, 2, False, "cosine"),
+    TrainCell("whisper-medium", None, 4, 1500, 2, False, "cosine"),
+    TrainCell("dbrx-132b", 2, 4, 512, 2, True, "cosine"),
+)
+TRAIN_LR = 3e-4
+TRAIN_COUNT_S = 60           # a row's count on meta past this: null
+TRAIN_GRAD_RTOL = 0.05       # n_micro 2 against 1, of a leaf's largest
+# the int8 rows' moments checked against the CPU on one expert's slice
+TRAIN_INT8_LEAF = "layers.0.moe.wi"
+# reduced gemma-2b restarts: (batch, seq, total, checkpoint at, int8,
+# n_micro), bit for bit
+TRAIN_RESTARTS = ((4, 32, 8, 5, False, 1), (4, 32, 8, 5, True, 2))
+TRAIN_EXAMPLE_STEPS = (20, 30)   # examples/train_lm_torch.py, then resumed
+
+
+def _train_config(cell: TrainCell, layers: Optional[int] = None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(cell.arch)
+    n = layers if layers is not None else cell.layers
+    return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+
+
+def _train_schedule(cell: TrainCell):
+    """``lm_train``'s schedule; the WSD row's is the launcher's
+    (``wsd(lr, steps, max(steps // 20, 1))``)."""
+    from repro_torch.optim import cosine, wsd
+
+    steps = cell.steps
+    if cell.schedule == "wsd":
+        return wsd(TRAIN_LR, steps, max(steps // 20, 1))
+    return cosine(TRAIN_LR, 2 * steps, 1)
+
+
+def _train_optimizer(cell: TrainCell):
+    from repro_torch.optim import AdamWConfig, adamw
+
+    return adamw(_train_schedule(cell),
+                 AdamWConfig(quantized_state=cell.int8))
+
+
+def train_cell_bytes(cell: TrainCell, layers: Optional[int] = None) -> dict:
+    """The row's device bytes reckoned on meta tensors before it runs:
+    its bf16 weights, AdamW's moments (exact f32, or int8 payloads and
+    f32 scales), the gradients (with microbatches the f32 sums and one
+    microbatch's gradients in the weights' dtype, else one tree in the
+    weights' dtype) and their sum (``total``); ``init``: the weights
+    and the init's f32 draw of the largest leaf, before any moment or
+    gradient exists.  Activations are not in it: ``count_train_cell``
+    counts them."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.training import abstract_train_state
+
+    model = build_model(_train_config(cell, layers), dtype=torch.bfloat16,
+                        device="meta")
+    state = abstract_train_state(model, _train_optimizer(cell))
+    leaves = list(state.params.parameters())
+    weights = sum(p.numel() * p.element_size() for p in leaves)
+    moments = _tree_bytes(list(state.opt_state["mu"].values()))
+    f32 = 4 * sum(p.numel() for p in leaves)
+    grads = weights + (f32 if cell.n_micro > 1 else 0)
+    return {"weights": weights, "moments": moments, "grads": grads,
+            "total": weights + moments + grads,
+            "init": weights + 4 * max(p.numel() for p in leaves)}
+
+
+def count_train_cell(cell: TrainCell, layers: Optional[int] = None) -> dict:
+    """The row's train step counted on meta tensors
+    (``launch.cost_analysis.analyze`` over ``make_train_step`` with the
+    row's cut, shape, ``n_micro`` and optimizer): the state's bytes
+    (``args``), the step's peak live bytes (``temp``), their sum, the
+    FLOPs by dtype, the eager bytes, the ops and the counting seconds,
+    and ``roofline.terms`` of the record on one card."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.cost_analysis import analyze
+    from repro_torch.launch.roofline import terms
+    from repro_torch.models import build_model
+    from repro_torch.training import abstract_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    model = build_model(_train_config(cell, layers), dtype=torch.bfloat16,
+                        device="meta")
+    opt = _train_optimizer(cell)
+    state = abstract_train_state(model, opt)
+    state.params.requires_grad_(True)
+    batch = model.input_specs(ShapeConfig("lm_train", cell.seq, cell.batch,
+                                          "train"))
+    _, cost = analyze(make_train_step(model, opt, n_micro=cell.n_micro),
+                      state, batch)
+    c = cost.as_dict()
+    args = sum(x.numel() * x.element_size() for x in state.tree().values())
+    record = {"chips": 1,
+              "cost": {"flops": c["flops"],
+                       "flops_by_dtype": c["flops_by_dtype"],
+                       "bytes_accessed": c["bytes_accessed"],
+                       "collective_wire_bytes": None},
+              "model_flops": {"total": 6.0 * model.n_active_params
+                              * cell.batch * cell.seq}}
+    return {"args_bytes": args, "temp_bytes": c["peak_live_bytes"],
+            "total_bytes": args + c["peak_live_bytes"], "ops": c["ops"],
+            "flops_by_dtype": c["flops_by_dtype"],
+            "bytes_accessed": c["bytes_accessed"],
+            "count_seconds": time.perf_counter() - t0,
+            "terms": terms(record)}
+
+
+def _count_train_cells_start() -> list:
+    """One process a row counting its step on meta (``count_train_cell``),
+    all started together, one thread each."""
+    procs = []
+    for i in range(len(TRAIN_CELLS)):
+        code = ("import json, sys; sys.path[:0] = [%r]; import chip_smoke as c;"
+                " print(json.dumps(c.count_train_cell(c.TRAIN_CELLS[%d])))"
+                % (str(ROOT), i))
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(ROOT / "src"))
+        procs.append((time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _count_train_cells_collect(procs) -> list:
+    """Each row's count, or None with the reason where it took more than
+    ``TRAIN_COUNT_S`` seconds (the process is killed) or failed."""
+    out = []
+    for t0, proc in procs:
+        left = max(TRAIN_COUNT_S - (time.perf_counter() - t0), 0.1)
+        try:
+            stdout, stderr = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            out.append((None, f"counting on meta took more than "
+                              f"{TRAIN_COUNT_S} s (killed)"))
+            continue
+        if proc.returncode:
+            fail(f"count_train_cell exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        out.append((json.loads(stdout.strip().splitlines()[-1]), None))
+    return out
+
+
+def _fingerprints(torch, params):
+    """Per leaf, the f64 sum and sum of squares of its values, on the
+    card a slice at a time: (leaves, 2) on the host."""
+    rows = []
+    for p in params.parameters():
+        flat = p.detach().reshape(-1)
+        acc = torch.zeros(2, dtype=torch.float64, device=p.device)
+        for i in range(0, flat.numel(), 1 << 26):
+            x = flat[i:i + (1 << 26)].double()
+            acc += torch.stack([x.sum(), (x * x).sum()])
+        rows.append(acc)
+    return torch.stack(rows).cpu()
+
+
+class _Int8Probe:
+    """An optimizer whose update keeps a copy, on the card, of
+    ``leaf``'s first expert's gradient before it runs ``opt``'s update.
+    ``before`` (outside a timed step) takes that slice's parameter and
+    moments to the host; ``check`` (after it) requires every moment to
+    be an int8 payload with finite scales, and the slice's ``q`` and
+    ``scale`` to equal the CPU's int8 update of the same slice from the
+    card's gradient, bit for bit."""
+
+    def __init__(self, torch, opt, sched, leaf):
+        import dataclasses
+
+        self.torch, self.opt, self.sched, self.leaf = torch, opt, sched, leaf
+        self.log, self.grad, self.host = [], None, None
+        self.optimizer = dataclasses.replace(opt, update=self._update)
+
+    def _update(self, params, grads, state, step=None):
+        self.grad = grads[self.leaf][0].clone()
+        return self.opt.update(params, grads, state, step)
+
+    def before(self, state) -> None:
+        from repro_torch.optim.adamw import QuantMoment
+
+        p = dict(state.params.named_parameters())[self.leaf]
+        st = state.opt_state["mu"][self.leaf]
+        self.host = {"p": p.detach()[0].cpu(), "step": state.step,
+                     "t": int(state.opt_state["count"]) + 1,
+                     "st": {k: QuantMoment(st[k].q[0].cpu(),
+                                           st[k].scale[0].cpu())
+                            for k in ("m", "v")}}
+
+    def check(self, state) -> None:
+        from repro_torch.optim.adamw import _leaf_update
+
+        torch, host = self.torch, self.host
+        mu = state.opt_state["mu"]
+        bad = [n for n, mv in mu.items() for k in ("m", "v")
+               if mv[k].q.dtype != torch.int8]
+        finite = bool(torch.stack([torch.isfinite(mv[k].scale).all()
+                                   for mv in mu.values()
+                                   for k in ("m", "v")]).all())
+        _leaf_update(host["p"], self.grad.cpu(), host["st"],
+                     self.sched(host["step"]), self.opt.config,
+                     torch.tensor(float(host["t"])))
+        unequal = [k for k in ("m", "v") for a, b in (
+            (host["st"][k].q, mu[self.leaf][k].q[0].cpu()),
+            (host["st"][k].scale, mu[self.leaf][k].scale[0].cpu()))
+            if not torch.equal(a, b)]
+        self.log.append({"t": host["t"], "int8_leaves": 2 * len(mu) - len(bad),
+                         "scales_finite": finite,
+                         "slice_bit_equal_cpu": not unequal})
+        self.grad = self.host = None
+        if bad or not finite or unequal:
+            fail(f"lm_train int8 moments at step {host['t']}: non-int8 "
+                 f"{bad[:4]}, scales finite {finite}, {self.leaf}[0] "
+                 f"unequal to the CPU's: {unequal}")
+
+
+def _train_row(torch, counted, idx: int, cell: TrainCell,
+               grads_against: Optional[int] = None) -> dict:
+    """One in-process row: the seeded state, ``cell.steps`` timed steps
+    of ``make_train_step`` on one fixed batch (launching none of the
+    port's kernels), its checks, one more step profiled.  With
+    ``grads_against`` (an ``n_micro``), first this row's gradients and
+    those at that count from the same state and batch, leaf by leaf."""
+    from repro_torch.configs import ShapeConfig
     from repro_torch.data import make_pipeline
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw, cosine
-    from repro_torch.training import (Trainer, TrainerConfig,
-                                      init_train_state, make_train_step)
+    from repro_torch.optim.grad_utils import accumulate_grads
+    from repro_torch.training import init_train_state, make_train_step
 
     dev = torch.device("cuda")
-    arch, b, t, steps = TRAIN_CELL
-    cfg = get_config(arch)
+    t_row = time.perf_counter()
+    cfg = _train_config(cell)
+    reckoned = train_cell_bytes(cell)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
-    opt = adamw(cosine(3e-4, 8, 1))
+    opt = _train_optimizer(cell)
     state = init_train_state(model, opt,
                              torch.Generator(device=dev).manual_seed(0))
-    batch = make_pipeline(cfg, ShapeConfig("lm_train", t, b, "train"),
-                          seed=0).batch(0)
-    host = {n: p.detach().to("cpu", copy=True)
-            for n, p in state.params.named_parameters()}
-    step_fn = make_train_step(model, opt, n_micro=1)
+    batch = make_pipeline(cfg, ShapeConfig("lm_train", cell.seq, cell.batch,
+                                           "train"), seed=0).batch(0)
+    grads_row = None
+    if grads_against is not None:
+        _, _, ga = accumulate_grads(model.loss, state.params, batch,
+                                    cell.n_micro)
+        _, _, gb = accumulate_grads(model.loss, state.params, batch,
+                                    grads_against)
+        errs = {n: float((ga[n].float() - gb[n].float()).abs().max()
+                         / gb[n].float().abs().max().clamp_min(1e-30))
+                for n in ga}
+        del ga, gb
+        worst = max(errs, key=errs.get)
+        grads_row = {"leaves": len(errs), "worst_leaf": worst,
+                     "worst_rel_of_largest": errs[worst],
+                     "rtol": TRAIN_GRAD_RTOL}
+        if not errs[worst] < TRAIN_GRAD_RTOL:
+            fail(f"lm_train {cell.arch} n_micro {cell.n_micro} against "
+                 f"{grads_against}: gradient {worst} off by "
+                 f"{errs[worst]} of its largest entry")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    probe = (_Int8Probe(torch, opt, _train_schedule(cell), TRAIN_INT8_LEAF)
+             if cell.int8 else None)
+    before = _fingerprints(torch, state.params)
+    step_fn = make_train_step(model, probe.optimizer if probe else opt,
+                              n_micro=cell.n_micro)
     rows = []
-    for i in range(steps):
+    for i in range(cell.steps):
+        if probe:
+            probe.before(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (state, metrics), counts = counted(lambda: step_fn(state, batch))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if counts:
-            fail(f"lm_train step launched hand-written kernels: {counts}")
+            fail(f"lm_train {cell.arch} step launched hand-written kernels: "
+                 f"{counts}")
         rows.append({"step": i + 1, "ms": ms,
                      **{k: float(v) for k, v in metrics.items()}})
+        if probe:
+            probe.check(state)
     peak = torch.cuda.max_memory_allocated()
-    changed = {n: not torch.equal(p.detach().cpu(), host[n])
-               for n, p in state.params.named_parameters()}
+    after = _fingerprints(torch, state.params)
+    names = [n for n, _ in state.params.named_parameters()]
+    unchanged = [n for n, a, b in zip(names, before, after)
+                 if torch.equal(a, b)]
     finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                  for r in rows)
-    if not finite or rows[-1]["loss"] >= rows[0]["loss"] or not all(
-            changed.values()):
-        fail(f"lm_train: steps {rows}, unchanged leaves "
-             f"{[n for n, c in changed.items() if not c]}")
+    if not finite or rows[-1]["loss"] >= rows[0]["loss"] or unchanged:
+        fail(f"lm_train {cell.arch}: steps {rows}, unchanged leaves "
+             f"{unchanged[:8]}")
     steady = sorted(r["ms"] for r in rows[1:])[len(rows[1:]) // 2]
-    tokens = b * t
-    profiled = profile_call(torch, lambda: step_fn(state, batch))
-    emit({"phase": "lm_train", "arch": arch, "n_params": model.n_params,
-          "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab_size, "batch": b, "seq": t,
-          "optimizer": "adamw exact, cosine(3e-4, 8, 1), clip 1.0",
-          "steps": rows, "steady_step_ms": steady,
-          "tokens_per_s": tokens / steady * 1e3,
-          "model_flops_per_step": 6.0 * model.n_params * tokens,
-          "bf16_peak_share": 6.0 * model.n_params * tokens
-          / (steady * 1e-3) / PEAK_BF16_S,
-          "max_memory_allocated_gb": peak / 1e9,
-          "leaves_changed": f"{sum(changed.values())}/{len(changed)}",
-          "profiled_step_5": profiled, "nvidia_smi": nvidia_smi()})
-    del state, host, batch, metrics, model, step_fn
+    tokens = cell.batch * cell.seq
+    plain_step = make_train_step(model, opt, n_micro=cell.n_micro)
+    t_prof = time.perf_counter()
+    profiled = profile_call(torch, lambda: plain_step(state, batch))
+    profiled["seconds"] = time.perf_counter() - t_prof
+    out = {"phase": "lm_train_row", "row": idx + 1, "arch": cell.arch,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "n_params": model.n_params,
+           "n_active_params": model.n_active_params, "batch": cell.batch,
+           "seq": cell.seq, "n_micro": cell.n_micro,
+           "optimizer": (f"adamw {'int8' if cell.int8 else 'exact'}, "
+                         f"{cell.schedule}, clip 1.0"),
+           "steps": rows, "steady_step_ms": steady,
+           "tokens_per_s": tokens / steady * 1e3,
+           "bf16_peak_share": 6.0 * model.n_active_params * tokens
+           / (steady * 1e-3) / PEAK_BF16_S,
+           "max_memory_allocated_gb": peak / 1e9,
+           "reckoned_gb": {k: v / 1e9 for k, v in reckoned.items()},
+           "leaves_changed": f"{len(names) - len(unchanged)}/{len(names)}",
+           "kernels_a_step": profiled["device_kernels"],
+           "profiled_step": profiled, "seconds": time.perf_counter() - t_row}
+    if grads_row is not None:
+        out["grads_against_n_micro_%d" % grads_against] = grads_row
+    if probe:
+        out["int8_moments"] = probe.log
+    emit(out)
+    del state, batch, metrics, model, step_fn, plain_step, probe, opt
     torch.cuda.empty_cache()
+    return out
 
-    # (b) the restart, bit for bit, on the card
-    arch, b, t, total, ckpt_at = TRAIN_RESTART
-    cfg = get_reduced_config(arch)
-    model = build_model(cfg)
-    pipe = make_pipeline(cfg, ShapeConfig("restart", t, b, "train"))
-    opt = adamw(cosine(3e-3, 10, 2))
-    quiet = dict(log_fn=lambda *_: None)
-    ckpt = ROOT / "build" / f"lm-train-ckpt-{os.getpid()}"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    old_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
-        t0 = time.perf_counter()
-        ref_state, ref = Trainer(model, opt, pipe, TrainerConfig(
-            total_steps=total, checkpoint_every=100, log_every=100),
-            **quiet).run()
-        Trainer(model, opt, pipe, TrainerConfig(
-            total_steps=ckpt_at, checkpoint_every=ckpt_at,
-            checkpoint_dir=str(ckpt), log_every=100), **quiet).run()
-        state, resumed = Trainer(model, opt, pipe, TrainerConfig(
-            total_steps=total, checkpoint_every=ckpt_at,
-            checkpoint_dir=str(ckpt), log_every=100), **quiet).run()
-        torch.cuda.synchronize()
-        restart_s = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if old_ws is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_ws
+
+def _train_launcher_row(idx: int, cell: TrainCell) -> dict:
+    """The row through ``python -m repro_torch.launch.train`` (its
+    default mode, no ``--ckpt-dir``) as a subprocess: it must exit 0 and
+    log a finite loss at every step; the steps' ms from its log."""
+    import re
+
+    steps = cell.steps
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", cell.arch, "--steps", str(steps),
+           "--global-batch", str(cell.batch), "--seq-len", str(cell.seq),
+           "--n-micro", str(cell.n_micro), "--lr", str(TRAIN_LR),
+           "--schedule", cell.schedule, "--log-every", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    seconds = time.perf_counter() - t0
+    logged = [{"step": int(m[1]), "loss": float(m[2]),
+               "grad_norm": float(m[3]), "ms": float(m[4])}
+              for m in re.finditer(
+                  r"\[trainer\] step (\d+)/\d+ loss (\S+) gnorm (\S+) "
+                  r"(\d+) ms", proc.stdout)]
+    peak = re.search(r"max_memory_allocated (\S+) GB", proc.stdout)
+    if proc.returncode or len(logged) != steps or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in logged):
+        fail(f"lm_train launcher row: exit {proc.returncode}, logged "
+             f"{logged}, stdout {proc.stdout[-1500:]}, stderr "
+             f"{proc.stderr[-1500:]}")
+    steady = sorted(r["ms"] for r in logged[1:])[len(logged[1:]) // 2]
+    cfg = _train_config(cell)
+    from repro_torch.models import build_model
+    n_active = build_model(cfg, device="meta").n_active_params
+    tokens = cell.batch * cell.seq
+    out = {"phase": "lm_train_row", "row": idx + 1, "arch": cell.arch,
+           "through": " ".join(cmd[1:]), "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": n_active,
+           "batch": cell.batch, "seq": cell.seq, "n_micro": cell.n_micro,
+           "optimizer": f"adamw exact, {cell.schedule}, clip 1.0",
+           "steps": logged, "steady_step_ms": steady,
+           "tokens_per_s": tokens / steady * 1e3,
+           "bf16_peak_share": 6.0 * n_active * tokens / (steady * 1e-3)
+           / PEAK_BF16_S,
+           "max_memory_allocated_gb": float(peak[1]) if peak else None,
+           "reckoned_gb": {k: v / 1e9
+                           for k, v in train_cell_bytes(cell).items()},
+           "kernels_a_step": None, "profiled_step": None,
+           "not_profiled": "a subprocess: its steps' ms are its log's, "
+                           "whole milliseconds of the trainer's clock",
+           "launcher_seconds": seconds}
+    emit(out)
+    return out
+
+
+def _train_restarts(torch) -> None:
+    """The trainer's bit-exact restart on the card, the reference's
+    ``test_trainer_restart_bit_exact``, for each of ``TRAIN_RESTARTS``:
+    reduced gemma-2b, ``total`` steps straight against ``ckpt_at`` steps
+    with a checkpoint resumed to ``total``, under
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+    ``torch.use_deterministic_algorithms(True)`` (this check only): the
+    final loss and every tensor of the state, int8 moments' payloads and
+    scales among them, bit-equal."""
+    from repro_torch.configs import ShapeConfig, get_reduced_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw, cosine
+    from repro_torch.training import Trainer, TrainerConfig
+
+    for b, t, total, ckpt_at, int8, n_micro in TRAIN_RESTARTS:
+        cfg = get_reduced_config("gemma-2b")
+        model = build_model(cfg)
+        pipe = make_pipeline(cfg, ShapeConfig("restart", t, b, "train"))
+        opt = adamw(cosine(3e-3, 10, 2), AdamWConfig(quantized_state=int8))
+        quiet = dict(log_fn=lambda *_: None)
+        ckpt = ROOT / "build" / f"lm-train-ckpt-{os.getpid()}"
         shutil.rmtree(ckpt, ignore_errors=True)
-    ref_tree, tree = ref_state.tree(), state.tree()
-    unequal = [n for n, v in ref_tree.items() if not torch.equal(v, tree[n])]
-    if ref["loss"] != resumed["loss"] or unequal or state.step != total:
-        fail(f"lm_train restart: loss {ref['loss']} vs {resumed['loss']}, "
-             f"step {state.step}, unequal tensors {unequal[:8]}")
-    emit({"phase": "lm_train_restart", "arch": cfg.name, "batch": b,
-          "seq": t, "steps": total, "checkpoint_at": ckpt_at,
-          "final_loss": ref["loss"], "resumed_final_loss": resumed["loss"],
-          "tensors_bit_equal": len(ref_tree), "seconds": restart_s})
+        old_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+        def tcfg(steps, every, ckpt_dir=None):
+            return TrainerConfig(total_steps=steps, checkpoint_every=every,
+                                 checkpoint_dir=ckpt_dir, log_every=100,
+                                 n_micro=n_micro)
+
+        try:
+            t0 = time.perf_counter()
+            ref_state, ref = Trainer(model, opt, pipe, tcfg(total, 100),
+                                     **quiet).run()
+            Trainer(model, opt, pipe, tcfg(ckpt_at, ckpt_at, str(ckpt)),
+                    **quiet).run()
+            state, resumed = Trainer(model, opt, pipe,
+                                     tcfg(total, ckpt_at, str(ckpt)),
+                                     **quiet).run()
+            torch.cuda.synchronize()
+            restart_s = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if old_ws is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_ws
+            shutil.rmtree(ckpt, ignore_errors=True)
+        ref_tree, tree = ref_state.tree(), state.tree()
+        unequal = [n for n, v in ref_tree.items()
+                   if not torch.equal(v, tree[n])]
+        quant = sum(n.endswith(".q") for n in tree)
+        if (ref["loss"] != resumed["loss"] or unequal or state.step != total
+                or (quant == 0) == int8):
+            fail(f"lm_train restart (int8 {int8}, n_micro {n_micro}): loss "
+                 f"{ref['loss']} vs {resumed['loss']}, step {state.step}, "
+                 f"int8 payloads {quant}, unequal tensors {unequal[:8]}")
+        emit({"phase": "lm_train_restart", "arch": cfg.name, "batch": b,
+              "seq": t, "steps": total, "checkpoint_at": ckpt_at,
+              "int8_moments": int8, "n_micro": n_micro,
+              "final_loss": ref["loss"],
+              "resumed_final_loss": resumed["loss"],
+              "tensors_bit_equal": len(ref_tree), "int8_payloads": quant,
+              "seconds": restart_s})
+
+
+def _train_example() -> None:
+    """``examples/train_lm_torch.py`` as a subprocess, twice into one
+    checkpoint directory under ``build/``: each run exits 0 with a finite
+    final loss, and the second logs that it resumed from the first run's
+    last step."""
+    import re
+
+    ckpt = ROOT / "build" / f"train-lm-example-{os.getpid()}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = []
+    try:
+        for steps in TRAIN_EXAMPLE_STEPS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"),
+                 "--steps", str(steps), "--ckpt-dir", str(ckpt)],
+                cwd=ROOT, capture_output=True, text=True,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            final = re.search(r"final loss (\S+)", proc.stdout)
+            resumed = re.search(r"resumed from checkpoint step (\d+)",
+                                proc.stdout)
+            runs.append({"steps": steps, "exit": proc.returncode,
+                         "final_loss": float(final[1]) if final else None,
+                         "resumed_from": int(resumed[1]) if resumed else None,
+                         "seconds": time.perf_counter() - t0})
+            if proc.returncode or not final or not math.isfinite(
+                    float(final[1])):
+                fail(f"examples/train_lm_torch.py --steps {steps}: exit "
+                     f"{proc.returncode}, {proc.stdout[-1500:]} "
+                     f"{proc.stderr[-1500:]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if runs[0]["resumed_from"] is not None or \
+            runs[1]["resumed_from"] != TRAIN_EXAMPLE_STEPS[0]:
+        fail(f"examples/train_lm_torch.py did not resume: {runs}")
+    emit({"phase": "lm_train_example", "runs": runs})
+
+
+def lm_train(torch, counted) -> None:
+    """Training on the card, every family at its published width
+    (``TRAIN_CELLS``): bf16 seeded weights, ``steps`` steps on one
+    fixed batch, each step timed on the host clock around a synchronize.
+    Rows 1 and 2 are gemma-2b at n_micro 1 and 2 from the same state and
+    batch (before row 1's steps, its gradients at both counts leaf by
+    leaf within ``TRAIN_GRAD_RTOL`` of the largest entry; the loss and
+    grad norm of their first steps within 1e-3 and 1e-2); the int8 row's
+    moments held after each step (``_Int8Probe``); the launcher row as
+    a subprocess.  Each row: the loss and grad norm finite, the loss
+    lower at the last step than at the first, every leaf changed (per-leaf
+    fingerprints), none of the port's kernels launched; it prints the
+    steady step ms (median of steps 2-4), tokens/s, the bf16 peak share
+    (6 N_active tokens), ``max_memory_allocated`` beside
+    ``train_cell_bytes``, kernels a step and a profiled step.  After the
+    timed rows the counts on meta start, one process a row, while the
+    restarts (``_train_restarts``) and the example (``_train_example``)
+    run; then each row's counted step: the roofline terms of one card
+    and the measured ms over the larger term."""
+    t0 = time.perf_counter()
+    measured = {}
+    for idx, cell in enumerate(TRAIN_CELLS):
+        if cell.launcher:
+            continue
+        measured[idx] = _train_row(torch, counted, idx, cell,
+                                   1 if idx == 1 else None)
+    one, two = measured[0]["steps"][0], measured[1]["steps"][0]
+    agree = {"loss_rel": abs(two["loss"] - one["loss"]) / abs(one["loss"]),
+             "grad_norm_rel": abs(two["grad_norm"] - one["grad_norm"])
+             / abs(one["grad_norm"])}
+    if not (agree["loss_rel"] < 1e-3 and agree["grad_norm_rel"] < 1e-2):
+        fail(f"lm_train n_micro 2 against 1: {agree}")
+    emit({"phase": "lm_train_n_micro", "arch": TRAIN_CELLS[0].arch,
+          "first_step": {"n_micro_1": one, "n_micro_2": two}, **agree,
+          "rtol": {"loss": 1e-3, "grad_norm": 1e-2},
+          "max_memory_allocated_gb": {
+              "n_micro_1": measured[0]["max_memory_allocated_gb"],
+              "n_micro_2": measured[1]["max_memory_allocated_gb"]}})
+    for idx, cell in enumerate(TRAIN_CELLS):
+        if cell.launcher:
+            measured[idx] = _train_launcher_row(idx, cell)
+    timed_s = time.perf_counter() - t0
+
+    # the counts on meta, after every timed step, beside the untimed checks
+    procs = _count_train_cells_start()
+    try:
+        t1 = time.perf_counter()
+        _train_restarts(torch)
+        _train_example()
+        checks_s = time.perf_counter() - t1
+    finally:
+        counts = _count_train_cells_collect(procs)
+    for idx, (cell, (count, reason)) in enumerate(zip(TRAIN_CELLS, counts)):
+        row = measured[idx]
+        out = {"phase": "lm_train_counted", "row": idx + 1,
+               "arch": cell.arch, "layers": row["layers"],
+               "batch": cell.batch, "seq": cell.seq,
+               "n_micro": cell.n_micro, "int8": cell.int8,
+               "measured_ms": row["steady_step_ms"],
+               "max_memory_allocated_gb": row["max_memory_allocated_gb"]}
+        if count is None:
+            out.update(counted=None, reason=reason)
+        else:
+            t = count["terms"]
+            larger = max(t["compute_s"], t["memory_s"]) * 1e3
+            out.update(
+                counted_reckoned_gb=count["total_bytes"] / 1e9,
+                args_gb=count["args_bytes"] / 1e9,
+                temp_gb=count["temp_bytes"] / 1e9,
+                flops_by_dtype=count["flops_by_dtype"],
+                bytes_accessed=count["bytes_accessed"], ops=count["ops"],
+                count_seconds=count["count_seconds"],
+                compute_ms=t["compute_s"] * 1e3,
+                compute_fp32_ms=t["compute_fp32_s"] * 1e3,
+                memory_ms=t["memory_s"] * 1e3, dominant=t["dominant"],
+                measured_over_larger_term=row["steady_step_ms"] / larger,
+                roofline_fraction=t["roofline_fraction"])
+        emit(out)
+    emit({"phase": "lm_train_timing", "timed_rows_s": timed_s,
+          "restarts_example_s": checks_s,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
 
 
 GRAD_CELL = ("gemma-2b", 8, 4, 512)       # arch, layers, batch, seq
@@ -1716,6 +2210,8 @@ def grad_aggregation(torch, np, counted) -> None:
     print(nvidia_smi(), flush=True)
 
 
+# the coded spectral mixer: (B, S, D), filter taps, and the plan (s, m, N)
+# with the example's workers 1 and 4 down
 SPECTRAL_CELL = ((4, 2048, 1024), 2048, (4096, 4, 6))
 SPECTRAL_MASK = (True, False, True, True, False, True)
 
@@ -5156,8 +5652,9 @@ def main() -> int:
     emit({"phase": "encdec_spectral_done",
           "seconds": time.perf_counter() - t0})
 
-    # -- 14. the training core: gemma-2b at full width and depth, 4 steps
-    # of exact AdamW; then the bit-exact restart on reduced gemma-2b --
+    # -- 14. training: every family's train step at its published width
+    # (TRAIN_CELLS), the launcher's default mode, int8 AdamW moments at
+    # dbrx-132b's width; the bit-exact restarts and the example --
     t0 = time.perf_counter()
     lm_train(torch, counted)
     emit({"phase": "lm_train_done", "seconds": time.perf_counter() - t0})

@@ -99,6 +99,11 @@ def main(argv=None) -> int:
         n_micro=args.n_micro, seed=args.seed))
     _, metrics = trainer.run()
     print(f"[train] done: {metrics}")
+    if model.device.type == "cuda":
+        import torch
+
+        print(f"[train] max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(model.device) / 1e9:.3f} GB")
     return 0
 
 

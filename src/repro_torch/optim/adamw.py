@@ -5,9 +5,16 @@ The optimizer is an (init, update) pair over an ``nn.Module``'s
 parameters; its state is ``{"count": int32 scalar, "mu": {name: {"m",
 "v"}}}`` keyed by parameter name.  ``update`` writes the new values into
 the parameters IN PLACE (under ``torch.no_grad()``, the counterpart of
-the reference's buffer donation) and returns (params, new state); exact
-moments are updated in place too, so one copy of them is alive.  The
-update runs in f32 and casts back to the parameter's dtype.
+the reference's buffer donation) and returns (params, new state); the
+moments, exact or int8, are updated in place too, so one copy of them is
+alive.  The update runs in f32 and casts back to the parameter's dtype.
+A large leaf is updated in slices of whole rows along its leading axes
+(``SLICE_VALUES`` values a slice): the update is elementwise and the
+int8 blocks lie along the last axis, so every value and every block is
+what the whole-leaf update gives, bit for bit, while the f32 and f64
+transients stay one slice's (XLA fuses the reference's whole-leaf
+formula; eager torch would hold each of its ten or so f32 intermediates
+for the whole leaf).
 
 The int8 mode stores both moments as int8 blocks with one f32 scale a
 block (the block the largest power-of-two divisor of the last axis up to
@@ -27,10 +34,15 @@ from torch import nn
 from repro_torch.optim.schedules import Schedule, constant
 
 __all__ = ["AdamWConfig", "Optimizer", "adamw", "QuantMoment",
-           "moment_block", "quantize_moment", "dequantize_moment"]
+           "moment_block", "quantize_moment", "dequantize_moment",
+           "SLICE_VALUES"]
 
 _BLOCK = 256
 F32 = torch.float32
+# values a slice of one leaf's update: 2^25 keeps each f32 transient at
+# 128 MiB (an H100 step's ~12 of them and the f64 root ~2 GB) and a
+# dbrx-132b expert stack (1.06e9 values) at 32 slices
+SLICE_VALUES = 1 << 25
 
 
 class QuantMoment(NamedTuple):
@@ -110,8 +122,31 @@ def _leaf_init(p: torch.Tensor, quantized: bool) -> dict:
 
 
 def _leaf_update(p, g, st, lr, cfg: AdamWConfig, t):
-    """One parameter's step, the reference's sums in f32; writes ``p``
-    in place and returns its new moments."""
+    """One parameter's step, the reference's sums in f32: writes ``p``
+    and its moments in place, a slice of at most ``SLICE_VALUES`` values
+    (whole rows of the last axis) at a time, and returns the moments."""
+    last = p.shape[-1] if p.dim() else 1
+    rows = p.numel() // last
+    step = max(1, SLICE_VALUES // last)
+
+    def by_rows(x):      # an int8 moment's scales: a column a block
+        return x.view(rows, -1)
+
+    pv, gv = by_rows(p), g.reshape(rows, last)
+    mv = {k: (QuantMoment(by_rows(x.q), by_rows(x.scale))
+              if isinstance(x, QuantMoment) else by_rows(x))
+          for k, x in st.items()}
+    for i in range(0, rows, step):
+        sl = slice(i, i + step)
+        _update_slice(pv[sl], gv[sl], {
+            k: (QuantMoment(x.q[sl], x.scale[sl])
+                if isinstance(x, QuantMoment) else x[sl])
+            for k, x in mv.items()}, lr, cfg, t)
+    return st
+
+
+def _update_slice(p, g, st, lr, cfg: AdamWConfig, t) -> None:
+    """The update of a slice of one leaf's rows, in place."""
     g = g.float()
     pf = p.float()
     if cfg.quantized_state:
@@ -120,17 +155,20 @@ def _leaf_update(p, g, st, lr, cfg: AdamWConfig, t):
         v = torch.square(dequantize_moment(st["v"], p.shape))
         m = cfg.b1 * m + (1.0 - cfg.b1) * g
         v = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
-    else:   # in place, the same roundings: one copy of the moments alive
+    else:   # in place, the same roundings
         m = st["m"].mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
         v = st["v"].mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
+    del g
     mhat = m / (1.0 - cfg.b1 ** t)
     vhat = v / (1.0 - cfg.b2 ** t)
     upd = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
     del mhat, vhat
     p.copy_((pf - lr * upd).to(p.dtype))
     if cfg.quantized_state:
-        return {"m": quantize_moment(m), "v": quantize_moment(_sqrt_rn(v))}
-    return {"m": m, "v": v}
+        for k, x in (("m", m), ("v", _sqrt_rn(v))):
+            qm = quantize_moment(x)
+            st[k].q.copy_(qm.q.reshape(st[k].q.shape))
+            st[k].scale.copy_(qm.scale.reshape(st[k].scale.shape))
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -24,12 +24,19 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 def clip_by_global_norm(tree: dict, max_norm: float
                         ) -> tuple[dict, torch.Tensor]:
-    """Scale every leaf so the global norm is at most ``max_norm`` (each
-    leaf scaled in f32 and cast back).  Returns (tree, the norm before)."""
+    """Scale every leaf so the global norm is at most ``max_norm``, IN
+    PLACE: each leaf scaled in f32 and written back in its dtype (the
+    reference's ``(g.float() * scale).astype(g.dtype)`` bit for bit, one
+    leaf's f32 transient alive instead of a second tree).  Returns
+    (``tree``, the norm before)."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return ({k: (g.float() * scale).to(g.dtype) for k, g in tree.items()},
-            norm)
+    for g in tree.values():
+        if g.dtype == F32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float() * scale)
+    return tree, norm
 
 
 def _grads(loss: torch.Tensor, params: nn.Module) -> dict:
@@ -65,12 +72,22 @@ def accumulate_grads(loss_fn: Callable, params: nn.Module, batch: dict,
         grads = _grads(loss, params)
         loss = loss.detach().float()
         loss_sum = loss if loss_sum is None else loss_sum + loss
+        # leaf by leaf, each microbatch gradient dropped once it is added:
+        # the f32 sums and one microbatch's gradients alive, no more
+        # (adding a bf16 leaf into f32 in place casts it exactly, as
+        # ``g.float()`` does)
         if grad_sum is None:
-            grad_sum = {k: g.float() for k, g in grads.items()}
+            grad_sum = {k: grads.pop(k).float() for k in list(grads)}
         else:
-            for k, g in grads.items():
-                grad_sum[k] += g.float()
+            for k in list(grads):
+                grad_sum[k].add_(grads.pop(k))
         del grads
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss_sum / n_micro, metrics,
-            {k: g / n_micro for k, g in grad_sum.items()})
+    # a tensor divisor on the sums' device: CUDA turns a division by a
+    # Python scalar into a product with its reciprocal, one rounding off
+    # the division for a count that is not a power of two; in place, so
+    # no second tree of f32 gradients is made
+    div = loss_sum.new_tensor(float(n_micro))
+    for g in grad_sum.values():
+        g.div_(div)
+    return loss_sum / div, metrics, grad_sum

@@ -12,7 +12,14 @@ reduced widths against the JAX package, and the cells' bytes.
 * every LM cell of ``chip_smoke.py``'s tables reckoned on meta tensors
   (bf16 weights at the cell's depth, the init's f32 draw of the largest
   leaf, its caches; the f32 consistency model's weights, draw and two
-  caches) within one card's ``roofline.HBM_PER_CHIP``.
+  caches) within one card's ``roofline.HBM_PER_CHIP``;
+* every training row (``TRAIN_CELLS``) built on meta at its cut: its
+  weights, moments and gradients (``train_cell_bytes``) within one card;
+  int8 moments exactly where the full config's dry run selects them
+  (``_QUANT_OPT_THRESHOLD``), microbatches of the dry run's 2 rows; a cut
+  row's depth the most its counted step on meta (``count_train_cell``:
+  the state and the step's peak live bytes) fits in one card, a
+  multiple of the hybrid's block pattern.
 """
 
 import importlib.util
@@ -69,3 +76,32 @@ def test_lm_cell_fits_one_card(phase, cell):
     assert r["total"] <= HBM_PER_CHIP, (phase, cell, r)
     if cell.f32_layers is not None:
         assert r["f32_total"] <= HBM_PER_CHIP, (phase, cell, r)
+
+
+TRAIN = list(enumerate(CS.TRAIN_CELLS))
+
+
+@pytest.mark.parametrize(
+    "idx,cell", TRAIN,
+    ids=[f"row{i + 1}-{c.arch}-n_micro{c.n_micro}" for i, c in TRAIN])
+def test_train_cell_depth_fits_one_card(idx, cell):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _QUANT_OPT_THRESHOLD
+    from repro_torch.models import build_model
+
+    r = CS.train_cell_bytes(cell)
+    assert r["total"] == r["weights"] + r["moments"] + r["grads"]
+    assert max(r["total"], r["init"]) <= HBM_PER_CHIP, (cell, r)
+    full = get_config(cell.arch)
+    assert cell.int8 == (build_model(full, device="meta").n_params
+                         > _QUANT_OPT_THRESHOLD)
+    if idx:                          # row 1 is the one-microbatch step
+        assert cell.n_micro == max(1, cell.batch // 2)
+    if cell.layers is None:
+        return
+    step = (len(full.recurrent.block_pattern) if full.family == "hybrid"
+            else 1)
+    assert cell.layers % step == 0 and cell.layers < full.n_layers
+    assert CS.count_train_cell(cell)["total_bytes"] <= HBM_PER_CHIP
+    assert CS.count_train_cell(cell, cell.layers + step)["total_bytes"] \
+        > HBM_PER_CHIP

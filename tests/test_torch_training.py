@@ -11,7 +11,13 @@ bit-exact restart), and beside it:
 * one whole training step (``make_train_step``: grads, clip, AdamW) on
   reduced gemma-2b in f32 from the same state, carried across by
   ``convert.train_state_to_reference``, against the reference's
-  ``make_train_step``, for exact and int8 AdamW and ``n_micro`` 1 and 2:
+  ``make_train_step``, for exact and int8 AdamW and ``n_micro`` 1 and 2,
+  and reduced dbrx-132b with int8 moments at ``n_micro`` 2 (capacity for
+  every token; its gradients held against the reference's
+  ``accumulate_grads`` and its parameters against the reference's AdamW
+  from the port's own clipped gradients, since AdamW's per-entry
+  normalisation lifts the MoE step's f32 rounding in a norm scale's
+  small entries past TOL of the leaf's largest):
   the loss, the grad norm, every parameter and every exact moment within
   1e-5 of its largest entry (the head in f32 on both sides, as in
   ``tests/test_torch_losses.py``); int8 moments with their scales within
@@ -20,6 +26,10 @@ bit-exact restart), and beside it:
   blocks whose values are subnormal in f32 (XLA on the CPU flushes them
   to zero, torch keeps them); and the port's
   state back through ``convert.train_state_from_reference``;
+* the repaired transients bit for bit against the formulas they
+  replaced: AdamW's leaf update in slices of rows (a 3-D expert leaf and
+  a 2-D leaf, exact and int8) against the whole-leaf formula, and the
+  in-place microbatch mean (n_micro 3) and clip against a second tree;
 * the synthetic pipeline's tokens, labels and bf16 stubs equal to the
   reference's bit for bit, and the reference's three pipeline tests
   (``tests/test_data_spectral.py``) ported;
@@ -32,6 +42,7 @@ bit-exact restart), and beside it:
 """
 
 import dataclasses
+import importlib
 import math
 import os
 import runpy
@@ -55,6 +66,7 @@ from repro_torch.data import make_pipeline
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
 from repro_torch.models import losses as tlosses
+from repro_torch.models.params import init_params
 from repro_torch.optim import adamw, clip_by_global_norm, cosine, global_norm
 from repro_torch.optim import constant, linear_warmup, wsd
 from repro_torch.optim.adamw import (
@@ -89,11 +101,13 @@ def jx():
 
     from repro import optim as joptim
     jadamw = importlib.import_module("repro.optim.adamw")
+    jgrad_utils = importlib.import_module("repro.optim.grad_utils")
     from repro.training import TrainState as JTrainState
     from repro.training import abstract_train_state as jabstract
     from repro.training import make_train_step as jstep
     return dict(jax=jax, jnp=jnp, configs=jconfigs, pipeline=jpipeline,
                 build=jbuild, losses=jlosses, optim=joptim, adamw=jadamw,
+                grad_utils=jgrad_utils,
                 TrainState=JTrainState, abstract=jabstract, step=jstep)
 
 
@@ -226,10 +240,128 @@ def test_accumulate_grads_matches_full_batch():
                                rtol=1e-4, atol=1e-6)
 
 
+# ---------------- the repaired transients: bit for bit ----------------------
+def _whole_leaf_update(p, g, st, lr, cfg, t):
+    """AdamW's leaf update as one whole-leaf formula (the form the sliced,
+    in-place update replaced): returns (new parameter, new moments)."""
+    g = g.float()
+    pf = p.float()
+    if cfg.quantized_state:
+        m = dequantize_moment(st["m"], p.shape)
+        v = torch.square(dequantize_moment(st["v"], p.shape))
+    else:
+        m, v = st["m"], st["v"]
+    m = cfg.b1 * m + (1.0 - cfg.b1) * g
+    v = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
+    mhat = m / (1.0 - cfg.b1 ** t)
+    vhat = v / (1.0 - cfg.b2 ** t)
+    upd = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
+    new_p = (pf - lr * upd).to(p.dtype)
+    if cfg.quantized_state:
+        return new_p, {"m": quantize_moment(m),
+                       "v": quantize_moment(torch.sqrt(v.double()).float())}
+    return new_p, {"m": m, "v": v}
+
+
+def _moments_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for k in ("m", "v")
+               for x, y in zip(*(((s[k].q, s[k].scale)
+                                  if hasattr(s[k], "q") else (s[k],))
+                                 for s in (a, b))))
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 512), (300, 96)],
+                         ids=["expert-3d", "2d"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["exact", "int8"])
+def test_sliced_leaf_update_bit_equal_whole(monkeypatch, shape, quantized):
+    """Three steps of ``_leaf_update`` in slices of whole rows (a last
+    slice shorter than the rest) against the whole-leaf formula: the
+    bf16 parameter and the moments (f32, or int8 ``q`` and ``scale``)
+    equal bit for bit."""
+    from repro_torch.optim.adamw import _leaf_init, _leaf_update
+
+    tadamw = importlib.import_module("repro_torch.optim.adamw")
+
+    cfg = AdamWConfig(quantized_state=quantized)
+    gen = torch.Generator().manual_seed(5)
+    p = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    p_ref, st, st_ref = p.clone(), _leaf_init(p, quantized), \
+        _leaf_init(p, quantized)
+    last = shape[-1]
+    monkeypatch.setattr(tadamw, "SLICE_VALUES", 7 * last)
+    assert (p.numel() // last) % 7   # rows not a multiple of 7
+    for i in range(3):
+        g = torch.randn(shape, generator=gen) * 10.0 ** -i
+        lr, t = torch.tensor(3e-3 / (i + 1)), torch.tensor(float(i + 1))
+        out = _leaf_update(p, g, st, lr, cfg, t)
+        assert out is st                 # the moments updated in place
+        p_ref, st_ref = _whole_leaf_update(p_ref, g, st_ref, lr, cfg, t)
+        assert torch.equal(p, p_ref), i
+        assert _moments_equal(st, st_ref), i
+
+
+def test_inplace_accumulate_and_clip_bit_equal():
+    """``accumulate_grads`` (f32 sums leaf by leaf, a tensor divisor in
+    place) and ``clip_by_global_norm`` (in place) against the formulas
+    they replaced -- a second tree of ``g / n_micro`` and a new tree of
+    ``(g.float() * scale).to(g.dtype)`` -- bit for bit, on bf16 weights
+    at n_micro = 3 (not a power of two) and on f32 and bf16 leaves."""
+    cfg = get_reduced_config("gemma-2b")
+    model = build_model(cfg, dtype=torch.bfloat16, device="cpu")
+    params = model.make_params()
+    init_params(params, torch.Generator().manual_seed(0))
+    params.requires_grad_(True)
+    batch = make_pipeline(cfg, ShapeConfig("t", 8, 6, "train"),
+                          device="cpu").batch(0)
+    loss, _, grads = accumulate_grads(model.loss, params, batch, 3)
+    # the replaced formula: f32 sums, then a new tree divided by the count
+    names = [n for n, _ in params.named_parameters()]
+    loss_sum, grad_sum = None, None
+    for i in range(3):
+        mb = {k: x.reshape((3, 2) + tuple(x.shape[1:]))[i]
+              for k, x in batch.items()}
+        lm, _ = model.loss(params, mb)
+        gs = torch.autograd.grad(lm, list(params.parameters()))
+        lm = lm.detach().float()
+        loss_sum = lm if loss_sum is None else loss_sum + lm
+        if grad_sum is None:
+            grad_sum = {n: g.float() for n, g in zip(names, gs)}
+        else:
+            for n, g in zip(names, gs):
+                grad_sum[n] += g.float()
+    assert torch.equal(loss, loss_sum / 3)
+    assert all(torch.equal(grads[n], grad_sum[n] / 3) for n in names)
+    # the clip, on the f32 sums and on bf16 copies, scale < 1
+    for tree in (grads, {n: g.to(torch.bfloat16) for n, g in grads.items()}):
+        wnorm = global_norm(tree)
+        scale = torch.clamp(0.5 / torch.clamp(wnorm, min=1e-12), max=1.0)
+        want = {n: (g.float() * scale).to(g.dtype) for n, g in tree.items()}
+        got, gnorm = clip_by_global_norm(tree, 0.5)
+        assert float(wnorm) > 0.5 and torch.equal(gnorm, wnorm)
+        assert got is tree
+        assert all(torch.equal(got[n], want[n]) for n in names)
+
+
 # ---------------- one train step against the reference's ---------------------
-@pytest.mark.parametrize("quantized,n_micro",
-                         [(False, 1), (True, 1), (False, 2), (True, 2)])
-def test_train_step_matches_reference(jx, monkeypatch, quantized, n_micro):
+def _no_drops(cfg):
+    """A MoE config with capacity for every token on both sides: the
+    port's kept-only capacity scatter is a deliberate difference."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+
+
+@pytest.mark.parametrize("quantized,n_micro,arch", [
+    pytest.param(False, 1, "gemma-2b", id="False-1"),
+    pytest.param(True, 1, "gemma-2b", id="True-1"),
+    pytest.param(False, 2, "gemma-2b", id="False-2"),
+    pytest.param(True, 2, "gemma-2b", id="True-2"),
+    # the MoE family's int8 moments and accumulation (the full dbrx-132b
+    # config's train_4k cell selects int8 moments)
+    pytest.param(True, 2, "dbrx-132b", id="dbrx-132b-True-2")])
+def test_train_step_matches_reference(jx, monkeypatch, quantized, n_micro,
+                                      arch):
     jax, jnp = jx["jax"], jx["jnp"]
 
     class F32Head:            # the reference's jnp with bf16 read as f32
@@ -238,7 +370,7 @@ def test_train_step_matches_reference(jx, monkeypatch, quantized, n_micro):
 
     monkeypatch.setattr(jx["losses"], "jnp", F32Head())
     monkeypatch.setattr(tlosses, "HEAD_DTYPE", torch.float32)
-    cfg = get_reduced_config("gemma-2b")
+    cfg = _no_drops(get_reduced_config(arch))
     model = build_model(cfg, dtype=torch.float32, device="cpu")
     opt = adamw(cosine(3e-3, 10, 2), AdamWConfig(quantized_state=quantized))
     state = init_train_state(model, opt, torch.Generator().manual_seed(0))
@@ -247,7 +379,7 @@ def test_train_step_matches_reference(jx, monkeypatch, quantized, n_micro):
                          device="cpu")
     step = make_train_step(model, opt, n_micro=n_micro)
     state, _ = step(state, pipe.batch(0))
-    jmodel = jx["build"](jx["configs"].get_reduced_config("gemma-2b"),
+    jmodel = jx["build"](_no_drops(jx["configs"].get_reduced_config(arch)),
                          jnp.float32)
     jopt = jx["optim"].adamw(jx["optim"].cosine(3e-3, 10, 2),
                              jx["adamw"].AdamWConfig(
@@ -256,6 +388,28 @@ def test_train_step_matches_reference(jx, monkeypatch, quantized, n_micro):
         jnp.asarray, convert.train_state_to_reference(state.tree(), cfg)))
     batch = pipe.batch(1)
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    from_port = None
+    if cfg.moe is not None:
+        # The MoE step's gradients agree with the reference's within 2e-6
+        # of each leaf's largest entry, but AdamW divides each entry by
+        # its own RMS: a norm scale's small entries (the leaf ~2 lr after
+        # two steps from zero) then carry that f32 rounding into the
+        # parameter at ~1.2e-5 of its largest entry.  So the step is held
+        # in its two halves at TOL: the gradients against the reference's
+        # accumulate_grads, and the parameters against the reference's
+        # AdamW from the port's own clipped gradients.
+        _, _, pg = accumulate_grads(model.loss, state.params, batch, n_micro)
+        _, _, jg = jx["grad_utils"].accumulate_grads(
+            jmodel.loss, jstate.params, jbatch, n_micro)
+        jg = convert.params_from_reference(jax.tree.map(np.asarray, jg), cfg)
+        for name, g in pg.items():
+            assert _rel(g, jg[name]) < TOL, name
+        pg, _ = clip_by_global_norm(pg, 1.0)
+        jparams, _ = jopt.update(jstate.params, jax.tree.map(
+            jnp.asarray, convert.params_to_reference(pg, cfg)),
+            jstate.opt_state, jstate.step)
+        from_port = convert.params_from_reference(
+            jax.tree.map(np.asarray, jparams), cfg)
     jnew, jmetrics = jax.jit(jx["step"](jmodel, jopt, n_micro=n_micro))(
         jstate, jbatch)
     new, metrics = step(state, batch)
@@ -268,6 +422,8 @@ def test_train_step_matches_reference(jx, monkeypatch, quantized, n_micro):
     assert set(got) == set(want)
     for name, g in got.items():
         w = want[name]
+        if from_port is not None and name.startswith("params."):
+            w = from_port[name[len("params."):]]
         if name.endswith(".q"):
             # blocks whose moments fell below f32's normal range: XLA on
             # the CPU flushes those subnormals to zero, torch keeps them
